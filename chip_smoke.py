@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``
+from the root of a checkout.
+
+Phases (every failure propagates and exits non-zero):
+
+1. environment: torch and CUDA versions, the card's name and power limit;
+   TF32 off for matmuls and cuDNN, so fp32 means fp32;
+2. build: the CUDA kernels from the checkout's sources with nvcc (one
+   process per source, all started together); Triton compiles at first
+   launch;
+3. each kernel against its plain PyTorch version on the card at the main
+   path's shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
+   16; RMSNorm over [N, 4096] and [N*32, 128]), in fp32 and bf16, with its
+   time, the plain version's, a PyTorch library call's and the least time
+   the card could take;
+4. the slice against itself across devices: the engine on reduced qwen3-8b
+   at fp32 on the card (kernels) and on the CPU (plain versions) gives equal
+   streams, and one step's logits agree within 1e-4;
+5. the main path: ``repro_torch.launch.serve.build_engine`` serving
+   qwen3-8b at full width in bf16 (random weights, generator seeded 0)
+   with the serve CLI's workload, 6 requests x 16 new tokens; both kernels'
+   launch counters must have grown by exactly their per-step counts and no
+   block may leak.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Without a card, or without the rest of
+the repository beside it, the script exits non-zero and prints no result.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"torch.bfloat16": 989e12,    # dense tensor cores
+              "torch.float32": 67e12}      # fp32 outside the tensor cores
+ATTN_TPU = "src/repro/kernels/paged_ragged_attention.py:124"
+RMS_TPU = "src/repro/kernels/rmsnorm.py:17"
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+class Timer:
+    """Device time of one call by CUDA events, median over ``iters``. Each
+    measured call runs cold in L2 (a 64 MB buffer is rewritten before it)
+    and behind a spin kernel, so the host's launch cost stays out of the
+    measured interval."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, iters=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            torch.cuda._sleep(2_000_000)
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def attention_case(torch, name, rows, dtype, timer, tol):
+    """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8, D 128, bs 16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_ragged_attention as PRA
+    Hq, Hkv, D, bs = 32, 8, 128, 16
+    g = Hq // Hkv
+    B = len(rows)
+    C = max(ql for _, ql in rows)
+    ctx = torch.tensor([c for c, _ in rows], dtype=torch.int32)
+    ql = torch.tensor([q for _, q in rows], dtype=torch.int32)
+    nbs = [-(-c // bs) for c, _ in rows]
+    nmax = max(nbs)
+    gen = torch.Generator(device="cuda").manual_seed(len(rows) * 1000 + C)
+    nblocks = sum(nbs) + 1
+    perm = torch.randperm(nblocks - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros((B, nmax), dtype=torch.int32)
+    i = 0
+    for b, nb in enumerate(nbs):
+        bt[b, :nb] = perm[i:i + nb].cpu()
+        i += nb
+    q = torch.randn((B, Hkv, g, C, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((nblocks, bs, Hkv, D), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((nblocks, bs, Hkv, D), generator=gen,
+                     device="cuda").to(dtype)
+    args = (q, kp, vp, bt.cuda(), ql.cuda(), ctx.cuda())
+
+    got = PRA.paged_ragged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    want = PRA.paged_ragged_attention_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got.float()).all(), f"attention {name}: non-finite")
+    err = 0.0
+    for b, (_, n) in enumerate(rows):      # real columns only
+        gb, wb = got[b, :, :, :n].float(), want[b, :, :, :n].float()
+        err = max(err, (gb - wb).abs().max().item())
+        check(torch.allclose(gb, wb, atol=tol, rtol=tol),
+              f"attention {name} row {b}: max abs err "
+              f"{(gb - wb).abs().max().item()} > tol {tol}")
+
+    # yardstick: SDPA over K/V already gathered dense (gather not timed)
+    kd = PRA._paged_gather(kp, args[3]).permute(0, 2, 1, 3)  # [B,Hkv,L,D]
+    vd = PRA._paged_gather(vp, args[3]).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(g, dim=1).contiguous()
+    vd = vd.repeat_interleave(g, dim=1).contiguous()
+    qd = q.reshape(B, Hq, C, D)
+    L = kd.shape[2]
+    qpos = (ctx - ql)[:, None] + torch.arange(C)[None]
+    kpos = torch.arange(L)
+    mask = ((kpos[None, None] <= qpos[:, :, None])
+            & (kpos[None, None] < ctx[:, None, None]))[:, None].cuda()
+
+    ms = timer(lambda: PRA.paged_ragged_attention_cuda(*args))
+    plain_ms = timer(lambda: PRA.paged_ragged_attention_plain(*args), iters=3)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+
+    elt = q.element_size()
+    kv_bytes = sum(nbs) * bs * Hkv * D * 2 * elt   # live blocks, K and V
+    io_bytes = 2 * q.numel() * elt + (bt.numel() + 2 * B) * 4
+    flops = sum(4 * D * Hq * min(c - n + j + 1, c)
+                for c, n in rows for j in range(n))
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"q": list(q.shape), "pool": list(kp.shape),
+                      "block_tables": list(bt.shape),
+                      "ctx_lens": [c for c, _ in rows],
+                      "q_lens": [n for _, n in rows]},
+            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rmsnorm_case(torch, name, N, D, dtype, timer, tol):
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RMS
+    gen = torch.Generator(device="cuda").manual_seed(N + D)
+    x = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+    s = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+    got = RMS.rmsnorm_cuda(x, s)
+    torch.cuda.synchronize()
+    want = RMS.rmsnorm_plain(x, s)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.isfinite(got.float()).all(), f"rmsnorm {name}: non-finite")
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"rmsnorm {name}: max abs err {err} > tol {tol}")
+    ms = timer(lambda: RMS.rmsnorm_cuda(x, s))
+    plain_ms = timer(lambda: RMS.rmsnorm_plain(x, s))
+    library_ms = timer(lambda: F.rms_norm(x, (D,), weight=s, eps=1e-6))
+    elt = x.element_size()
+    t_bytes = (2 * N * D + D) * elt / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * N * D / PEAK_FLOPS["torch.float32"] * 1e3
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"x": [N, D], "scale": [D]}, "tol": tol,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_phase(torch):
+    timer = Timer(torch)
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    # a mixed batch (C = 64 prefill chunks, one partial, and decode rows)
+    # and a pure-decode batch, contexts up to 2048
+    mixed = [(64, 64), (2048, 64), (576, 64), (1000, 40),
+             (2048, 1), (1024, 1), (17, 1), (1, 1)]
+    decode = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
+              (100, 1), (1, 1)]
+    attn, rms = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, rows in (("mixed", mixed), ("decode", decode)):
+            attn.append(attention_case(torch, name, rows, dtype, timer,
+                                       tols[dtype]))
+            print("attention", json.dumps(attn[-1]))
+        # N = 512: the first serving step's padded token rectangle (8 rows
+        # x 64 columns); q_norm/k_norm run over N x 32 head rows of 128
+        for name, N, D in (("hidden", 512, 4096), ("heads", 512 * 32, 128)):
+            rms.append(rmsnorm_case(torch, name, N, D, dtype, timer,
+                                    tols[dtype]))
+            print("rmsnorm", json.dumps(rms[-1]))
+        torch.cuda.synchronize()
+    return attn, rms
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the reduced engine on the card against the same on the CPU
+# ---------------------------------------------------------------------------
+def cross_device_phase(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch.serve import workload
+    from repro_torch.models import Model
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+
+    for kw in ({}, {"num_blocks": 9, "block_size": 8}):
+        runs = []
+        for model in (gpu, cpu):
+            eng = ShiftEngine(model, EngineConfig(**kw))
+            reqs = workload(6, 16)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            runs.append(([r.generated for r in reqs], eng.config_counts,
+                         eng.preemptions, eng.kv.num_free_blocks))
+        check(runs[0] == runs[1], f"reduced engine {kw or 'no pressure'}: "
+              f"cuda {runs[0]} != cpu {runs[1]}")
+        print(f"reduced engine {kw or 'no pressure'}: cuda == cpu, "
+              f"configs {runs[0][1]}, {runs[0][2]} preemptions")
+
+    # one mixed step's logits: a prefill row, a decode row, a padding row
+    # and a chunk whose padding overhangs the table
+    bt = np.array([[1, 2, 3], [4, 5, 6], [0, 0, 0], [7, 8, 0]], np.int32)
+    rng = np.random.default_rng(1)
+    err = 0.0
+    for model in (gpu, cpu):
+        model.init_paged_cache(9, 4)
+    for ql, off in (([8, 6, 0, 0], [0, 0, 0, 0]), ([1, 4, 0, 5], [8, 6, 0, 0])):
+        toks = rng.integers(1, cfg.vocab_size, (4, 8)).astype(np.int32)
+        lg = [m.forward_mixed(toks, ql, off, bt, sample=False)[0].cpu()
+              for m in (gpu, cpu)]
+        err = max(err, (lg[0] - lg[1]).abs().max().item())
+        check(torch.allclose(lg[0], lg[1], atol=1e-4, rtol=1e-4),
+              f"reduced logits cuda vs cpu: max abs err {err}")
+    torch.cuda.synchronize()
+    print(f"reduced mixed-step logits cuda vs cpu: max abs err {err} "
+          "(tol 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at full width
+# ---------------------------------------------------------------------------
+def serving_phase(torch):
+    import numpy as np
+    from repro_torch.kernels import paged_ragged_attention as PRA
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.launch import serve
+    t0 = time.monotonic()
+    eng = serve.build_engine("qwen3-8b", device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cfg = eng.mcfg
+    print(f"qwen3-8b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_params() / 1e9:.3f} B params "
+          f"({cfg.num_params() * 2 / 1e9:.2f} GB bf16), built in "
+          f"{time.monotonic() - t0:.1f} s")
+    pool = eng.model.pool
+    pool_bytes = 2 * pool.k.numel() * pool.k.element_size()
+    print(f"paged pool: {eng.kv.num_blocks} blocks x {eng.cfg.block_size} "
+          f"tokens x {cfg.num_layers} layers, {pool_bytes / 1e6:.1f} MB")
+
+    # warm-up run of the same workload (cuBLAS and Triton caches), then the
+    # measured run with every launch counter at 0
+    for r in serve.workload(6, 16):
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    eng.config_counts = {"base": 0, "shift": 0}
+    torch.cuda.reset_peak_memory_stats()
+    reqs = serve.workload(6, 16)
+    PRA.launches = 0
+    RMS.launches = 0
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"paged_ragged_attention": PRA.launches,
+                "rmsnorm": RMS.launches}
+    steps = sum(eng.config_counts.values())
+
+    for r in reqs:
+        check(len(r.generated) == 16 and r.finish_reason == "ok",
+              f"request {r.rid}: {len(r.generated)} tokens, "
+              f"{r.finish_reason}")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"request {r.rid}: token out of range")
+    check(eng.kv.num_free_blocks == eng.kv.num_blocks - 1,
+          f"leaked blocks: {eng.kv.num_free_blocks} free of {eng.kv.num_blocks}")
+    # per step: ln1, ln2, q_norm, k_norm per layer + the final norm; one
+    # attention per layer
+    check(launches["rmsnorm"] == steps * (4 * cfg.num_layers + 1)
+          and launches["paged_ragged_attention"] == steps * cfg.num_layers,
+          f"launches {launches} over {steps} steps")
+
+    ttft = [r.first_token_time - r.arrival for r in reqs]
+    t_first = max(r.first_token_time for r in reqs)
+    t_last = max(r.finish_time for r in reqs)
+    dec_tok = sum(len(r.generated) - 1 for r in reqs)
+    print(f"served 6 requests x 16 tokens in {wall:.3f} s over {steps} steps; "
+          f"configs {eng.config_counts}; {eng.preemptions} preemptions; "
+          f"{eng.kv.num_free_blocks} of {eng.kv.num_blocks} blocks free at exit")
+    print("TTFT ms: " + ", ".join(f"{t * 1e3:.1f}" for t in ttft))
+    print(f"decode: {dec_tok} tokens in {(t_last - t_first) * 1e3:.1f} ms, "
+          f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
+          f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
+    print(f"launches on the main path: {json.dumps(launches)}")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_decode(torch, eng)
+
+    # the served model's logits on a small mixed batch over free blocks:
+    # finite, of the expected shape
+    bt = np.array([[1, 2, 0], [3, 0, 0]], np.int32)
+    toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+    logits, _ = eng.model.forward_mixed(toks, [8, 3], [0, 0], bt,
+                                        sample=False)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"full-width logits {tuple(logits.shape)} not finite")
+    print(f"card: {card_line()}")
+    return launches
+
+
+def profile_decode(torch, eng, steps=4):
+    """Where a full-width decode step's time goes: ``torch.profiler`` over
+    ``steps`` decode steps of 6 rows (after their prefill step), kernel time
+    by name and the device's busy share of the host's wall time. The
+    profiler adds host time of its own, so the busy share is a floor."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    for r in serve.workload(6, steps + 1):
+        eng.submit(r)
+    eng.step()                                  # the prefill step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    eng.run_until_idle()
+    # device-side events only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows)
+    n = sum(c for _, _, c in rows)
+    check(busy > 0, "the profiler saw no device time")
+    print(f"profile of {steps} decode steps: wall {wall_us / steps / 1e3:.2f} "
+          f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
+          f"({busy / wall_us:.1%}), {n / steps:.0f} kernels/step")
+    for key, t, c in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {t / steps / 1e3:8.3f} ms/step {c // steps:5d}x  {key[:90]}")
+
+
+def summary(attn, rms, launches):
+    """One entry per kernel; its top-level numbers are the bf16 case at the
+    serving path's shapes, every case is listed under ``cases``."""
+    out = []
+    for name, route, source, replaces, cases in (
+            ("paged_ragged_attention", "cuda",
+             "src/repro_torch/kernels/csrc/paged_ragged_attention.cu",
+             ATTN_TPU, attn),
+            ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+             RMS_TPU, rms)):
+        top = cases[0]
+        out.append({"name": name, "route": route, "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": top["max_abs_err"], "ms": top["ms"],
+                    "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+                    "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                    "library_ms": top["library_ms"], "case": top["case"],
+                    "dtype": top["dtype"], "shape": top["shape"],
+                    "cases": cases})
+    return {"kernels": out}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from "
+              "a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)")
+    print(f"card: {card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+
+    t0 = time.monotonic()
+    logs = build.build_all()
+    print(f"built {sorted(logs) or 'nothing (up to date)'} in "
+          f"{time.monotonic() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    attn, rms = kernel_phase(torch)
+    cross_device_phase(torch)
+    launches = serving_phase(torch)
+    print(json.dumps(summary(attn, rms, launches)))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Config registry: ``get_config("qwen3-8b")`` / ``--arch qwen3-8b``."""
+from __future__ import annotations
+
+from .archs import DENSE_GQA
+from .base import ModelConfig
+
+_REGISTRY = {c.name: c for c in DENSE_GQA}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; the port serves "
+                       f"{sorted(_REGISTRY)}") from None
+
+
+__all__ = ["ModelConfig", "DENSE_GQA", "get_config"]

@@ -1,0 +1,28 @@
+"""The dense GQA architectures the port serves (same numbers as
+``repro.configs.archs``)."""
+from __future__ import annotations
+
+from .base import ModelConfig
+
+QWEN3_8B = ModelConfig(
+    name="qwen3-8b", family="dense",
+    num_layers=36, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=12288, vocab_size=151936, qk_norm=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B",
+)
+
+INTERNLM2_1_8B = ModelConfig(
+    name="internlm2-1.8b", family="dense",
+    num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab_size=92544, rope_theta=1e6,
+    source="arXiv:2403.17297",
+)
+
+QWEN2_1_5B = ModelConfig(
+    name="qwen2-1.5b", family="dense",
+    num_layers=28, d_model=1536, num_heads=12, num_kv_heads=2, head_dim=128,
+    d_ff=8960, vocab_size=151936, qkv_bias=True, rope_theta=1e6,
+    source="arXiv:2407.10671",
+)
+
+DENSE_GQA = (QWEN3_8B, QWEN2_1_5B, INTERNLM2_1_8B)

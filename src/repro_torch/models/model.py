@@ -1,0 +1,72 @@
+"""Public model API (counterpart of ``repro.models.model``): a ``Model``
+bundles the config, the (trivial) layout, the parameters on one device and
+the paged KV pool, and exposes the mixed paged step."""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.parallel import Layout
+from . import transformer as T
+
+
+class Model:
+    """A dense GQA decoder on one device. ``device`` defaults to ``"cuda"``
+    and raises without a card; the CPU runs only when asked for. The
+    parameters are allocated, not initialised: call ``init_params`` with a
+    ``torch.Generator`` or ``load_params`` with a converted state."""
+
+    def __init__(self, cfg, device="cuda", dtype=torch.bfloat16):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.lay = Layout()
+        self.dtype = dtype
+        self.params = T.Transformer(cfg, self.lay, dtype, self.device)
+        self.pool: Optional[T.PagedPool] = None
+
+    # ------------------------------------------------------------ params
+    def init_params(self, generator: torch.Generator):
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        T.init_params(self.params, generator)
+
+    @torch.no_grad()
+    def load_params(self, state: dict):
+        """Copy a state (name -> array, e.g. from ``convert.from_jax_params``)
+        into the parameters, casting to the model's type; every parameter
+        must be present."""
+        self.params.load_state_dict(
+            {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.array(v)) for k, v in state.items()}, strict=True)
+
+    # -------------------------------------------------------- paged cache
+    def init_paged_cache(self, num_blocks: int, block_size: int) -> T.PagedPool:
+        """Zeroed block pools of every layer (block 0 is the null block)."""
+        self.pool = T.init_paged_cache(self.cfg, self.lay, num_blocks,
+                                       block_size, self.dtype, self.device)
+        return self.pool
+
+    # ------------------------------------------------------------- step
+    def forward_mixed(self, tokens, q_lens, offsets, block_tables,
+                      sample: bool = True):
+        """Unified mixed-batch step over the paged pool: chunked-prefill rows
+        (q_len up to the chunk width) and decode rows (q_len == 1) in one
+        pass. ``tokens`` [B, C], ``q_lens``/``offsets`` [B] and
+        ``block_tables`` [B, nmax] (arrays or tensors) move to the model's
+        device as int32. Returns ``(next_tokens [B], pool)``, or the newest
+        token's fp32 logits [B, V] in place of the tokens with
+        ``sample=False``; the pool is updated in place."""
+        if self.pool is None:
+            raise RuntimeError("init_paged_cache() before forward_mixed()")
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
+
+        out = T.mixed_body(self.params, self.pool, dev(tokens), dev(q_lens),
+                           dev(offsets), dev(block_tables), self.cfg,
+                           sample=sample)
+        return out, self.pool

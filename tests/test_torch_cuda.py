@@ -1,0 +1,155 @@
+"""The port's hand-written kernels against their plain PyTorch versions, on
+the card. The CUDA and Triton kernels have no CPU mode, so every test here
+but the first is marked ``cuda`` and skips without a card. This file
+imports neither jax nor the reference package, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+It also holds the eight-case paged-attention grid that
+``test_torch_kernels.py`` runs against the reference on the CPU.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.engine import EngineConfig, ShiftEngine  # noqa: E402
+from repro_torch.kernels import paged_ragged_attention as PRA  # noqa: E402
+from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
+from repro_torch.launch.serve import workload  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+
+
+def paged_case(B, C, Hq, Hkv, D, bs, nmax, ctx, ql, seed=0):
+    """numpy twin of ``test_workprop_attention._setup``: q [B, C, Hq, D],
+    a pool and tables mapping ceil(ctx/bs) scattered blocks per row, capped
+    at the table width; unmapped entries are the null block."""
+    ctx = np.asarray(ctx, np.int32)
+    ql = np.asarray(ql, np.int32)
+    nbs = [min(-(-int(c) // bs), nmax) for c in ctx]
+    nblocks = sum(nbs) + 1
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, C, Hq, D), dtype=np.float32)
+    kp = rng.standard_normal((nblocks, bs, Hkv, D), dtype=np.float32)
+    vp = rng.standard_normal((nblocks, bs, Hkv, D), dtype=np.float32)
+    phys = rng.permutation(np.arange(1, nblocks))
+    bt = np.zeros((B, nmax), np.int32)
+    pi = 0
+    for b, nb in enumerate(nbs):
+        bt[b, :nb] = phys[pi:pi + nb]
+        pi += nb
+    return q, kp, vp, bt, ql, ctx
+
+
+CASES = [
+    # B, C, Hq, Hkv, D, bs, nmax, ctx, ql, window, soft_cap
+    (4, 8, 8, 2, 64, 16, 8, [40, 8, 33, 0], [8, 8, 1, 0], 0, 0.0),   # GQA 4:1
+    (3, 4, 4, 4, 32, 8, 6, [8, 9, 31], [4, 2, 3], 0, 0.0),           # MHA, tails
+    (3, 1, 8, 1, 64, 16, 16, [1, 17, 200], [1, 1, 1], 0, 0.0),       # MQA decode
+    (4, 8, 8, 2, 64, 16, 8, [40, 8, 33, 16], [8, 8, 1, 4], 12, 0.0),  # window
+    (3, 4, 4, 2, 32, 8, 8, [30, 64, 5], [4, 4, 2], 7, 0.0),          # window tails
+    (4, 8, 8, 2, 64, 16, 8, [40, 8, 33, 0], [8, 8, 1, 0], 0, 30.0),  # soft cap
+    (3, 4, 4, 2, 32, 8, 8, [30, 64, 5], [4, 4, 2], 9, 20.0),         # both
+    # ctx past the table (padding overhang): positions beyond nmax*bs absent
+    (2, 8, 4, 2, 32, 8, 4, [36, 20], [8, 8], 0, 0.0),
+]
+PARAMS = "B,C,Hq,Hkv,D,bs,nmax,ctx,ql,window,cap"
+
+# the plain versions and the kernels sum in another order: fp32 agrees to
+# ~1e-6 relative; bf16 outputs differ by at most an ulp or two (2^-7 rel.)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def test_cpu_tensors_never_reach_a_kernel():
+    """The kernels' entry points refuse CPU tensors instead of carrying on."""
+    q, kp, vp, bt, ql, ctx = paged_case(*CASES[0][:9])
+    with pytest.raises(ValueError, match="must lie on"):
+        PRA.paged_ragged_attention_cuda(
+            torch.from_numpy(q).reshape(4, 2, 4, 8, 64), torch.from_numpy(kp),
+            torch.from_numpy(vp), torch.from_numpy(bt), torch.from_numpy(ql),
+            torch.from_numpy(ctx))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have no "
+                    "CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(PARAMS, CASES)
+def test_cuda_attention_matches_plain(cuda, dtype, B, C, Hq, Hkv, D, bs,
+                                      nmax, ctx, ql, window, cap):
+    q, kp, vp, bt, qla, ctxa = paged_case(B, C, Hq, Hkv, D, bs, nmax, ctx, ql)
+    g = Hq // Hkv
+    args = [torch.from_numpy(q).transpose(1, 2).reshape(B, Hkv, g, C, D)
+            .contiguous().to(cuda, dtype),
+            torch.from_numpy(kp).to(cuda, dtype),
+            torch.from_numpy(vp).to(cuda, dtype),
+            *(torch.from_numpy(a).to(cuda) for a in (bt, qla, ctxa))]
+    before = PRA.launches
+    got = PRA.paged_ragged_attention_cuda(*args, window=window, soft_cap=cap)
+    torch.cuda.synchronize()
+    assert PRA.launches == before + 1
+    want = PRA.paged_ragged_attention_plain(*args, window=window,
+                                            soft_cap=cap)
+    assert torch.isfinite(got.float()).all()      # padding columns too
+    got = got.float().reshape(B, Hq, C, D).transpose(1, 2)
+    want = want.float().reshape(B, Hq, C, D).transpose(1, 2)
+    for b in range(B):
+        n = int(ql[b])
+        torch.testing.assert_close(got[b, :n], want[b, :n], atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        if int(ctx[b]) == 0:
+            assert not got[b].any()               # empty rows give zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (5, 100), (3, 16)])
+def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
+    g = torch.Generator(device=cuda).manual_seed(N + D)
+    x = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    s = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    before = RMS.launches
+    got = RMS.rmsnorm_cuda(x, s)
+    torch.cuda.synchronize()
+    assert RMS.launches == before + 1
+    torch.testing.assert_close(got.float(), RMS.rmsnorm_plain(x, s).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_matches_cpu_engine(cuda):
+    """Reduced qwen3-8b at fp32: the engine on the card (kernels) and on the
+    CPU (plain versions) give equal streams under pool pressure, and the
+    card's run went through both kernels."""
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs = []
+    for model in (gpu, cpu):
+        PRA.launches = RMS.launches = 0
+        eng = ShiftEngine(model, EngineConfig(num_blocks=9, block_size=8))
+        reqs = workload(6, 8)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     eng.preemptions, eng.kv.num_free_blocks,
+                     PRA.launches, RMS.launches))
+    steps = sum(runs[0][1].values())
+    assert runs[0][:4] == runs[1][:4]
+    assert runs[0][4:] == (steps * cfg.num_layers,
+                           steps * (4 * cfg.num_layers + 1))
+    assert runs[1][4:] == (0, 0)
