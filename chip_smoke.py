@@ -10,18 +10,24 @@ Phases (every failure propagates and exits non-zero):
    process per source, all started together); Triton compiles at first
    launch;
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
-   16; RMSNorm over [N, 4096] and [N*32, 128]), in fp32 and bf16, with its
-   time, the plain version's, a PyTorch library call's and the least time
-   the card could take;
-4. the slice against itself across devices: the engine on reduced qwen3-8b
-   at fp32 on the card (kernels) and on the CPU (plain versions) gives equal
-   streams, and one step's logits agree within 1e-4;
-5. the main path: ``repro_torch.launch.serve.build_engine`` serving
+   paths' shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
+   16; RMSNorm over [N, 4096] and [N*32, 128]; flash over a 64-token chunk
+   against a dense cache of 2048 and the TPU kernel's own case; decode over
+   contexts up to 2048), in fp32 and bf16, with its time, the plain
+   version's, a PyTorch library call's and the least time the card could
+   take; the padded paged decode also against the ragged kernel at C == 1;
+4. the slice against itself across devices: the engines on reduced
+   qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
+   dense cache) on the card (kernels) and on the CPU (plain versions) give
+   equal streams, config counts and preemptions, and one mixed step's and
+   one dense prefill + decode's logits agree within 1e-4;
+5. the main paths: ``repro_torch.launch.serve.build_engine`` serving
    qwen3-8b at full width in bf16 (random weights, generator seeded 0)
-   with the serve CLI's workload, 6 requests x 16 new tokens; both kernels'
-   launch counters must have grown by exactly their per-step counts and no
-   block may leak.
+   with the serve CLI's workload, 6 requests x 16 new tokens, through the
+   mixed paged engine, then on the same weights through the serialized
+   engine on the paged pool and on the dense cache. Every launch counter is
+   set to 0 before each path and must equal that path's per-step counts
+   times its steps of each kind; no block may leak.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -39,6 +45,13 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12,    # dense tensor cores
               "torch.float32": 67e12}      # fp32 outside the tensor cores
 ATTN_TPU = "src/repro/kernels/paged_ragged_attention.py:124"
 RMS_TPU = "src/repro/kernels/rmsnorm.py:17"
+FLASH_TPU = "src/repro/kernels/flash_attention.py:62"
+DECODE_TPU = "src/repro/kernels/decode_attention.py:57"
+PAGED_DECODE_TPU = "src/repro/kernels/paged_decode_attention.py:67"
+CSRC = "src/repro_torch/kernels/csrc/"
+# the decode rows of the ragged kernel's decode case: (context, q_len)
+DECODE_ROWS = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
+               (100, 1), (1, 1)]
 
 
 def check(cond, msg):
@@ -84,6 +97,24 @@ class Timer:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def compare(torch, what, got, want, tol):
+    """Max abs error of ``got`` against ``want``; fails unless finite and
+    within ``tol`` (allclose, absolute and relative)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    check(torch.isfinite(g).all(), f"{what}: non-finite output")
+    check(torch.allclose(g, w, atol=tol, rtol=tol),
+          f"{what}: max abs err {err} > tol {tol}")
+    return err
+
+
+def bound(nbytes, flops, dtype):
+    """The least time the card could take, ms, and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def attention_case(torch, name, rows, dtype, timer, tol):
     """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8, D 128, bs 16."""
     import torch.nn.functional as F
@@ -184,6 +215,163 @@ def rmsnorm_case(torch, name, N, D, dtype, timer, tol):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def flash_case(torch, name, B, Sq, Skv, offsets, causal, dtype, timer, tol,
+               Hq=32, Hkv=8, D=128):
+    """q [B, Sq, Hq, D] against k, v that are per-layer views [B, Skv, Hkv,
+    D] of one cache tensor, as the dense prefill hands them over."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    g = Hq // Hkv
+    gen = torch.Generator(device="cuda").manual_seed(B * Sq + Skv)
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dtype)
+    cache = torch.randn((2, B, Skv, Hkv, D), generator=gen,
+                        device="cuda").to(dtype)
+    k, v = cache[0], cache[1]
+    qo = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    got = FA.flash_attention_cuda(q, k, v, qo, causal=causal)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, qo, causal=causal)
+    err = compare(torch, f"flash {name} {dtype}", got, want, tol)
+
+    # yardstick: SDPA over K/V already expanded to Hq heads (not timed)
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    qpos = qo.long()[:, None] + torch.arange(Sq, device="cuda")[None]
+    if causal and not any(offsets) and Sq == Skv:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, is_causal=True)
+    elif causal:
+        mask = (torch.arange(Skv, device="cuda")[None, None]
+                <= qpos[:, :, None])[:, None]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=mask)
+    else:
+        library = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa
+    ms = timer(lambda: FA.flash_attention_cuda(q, k, v, qo, causal=causal))
+    plain_ms = timer(lambda: FA.flash_attention_plain(q, k, v, qo,
+                                                      causal=causal), iters=3)
+    library_ms = timer(library)
+
+    elt = q.element_size()
+    if causal:      # keys each row's last query sees; per query its own
+        live = [min(Skv, o + Sq) for o in offsets]
+        pairs = sum(min(Skv, o + i + 1) for o in offsets for i in range(Sq))
+    else:
+        live = [Skv] * B
+        pairs = B * Sq * Skv
+    nbytes = (2 * q.numel() * elt + sum(live) * Hkv * D * 2 * elt + 4 * B)
+    bound_ms, bound_by = bound(nbytes, pairs * Hq * 4 * D, dtype)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"q": list(q.shape), "kv": list(k.shape),
+                      "q_offsets": list(offsets), "causal": causal},
+            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
+                D=128):
+    """q [B, Hkv, g, D] against a dense cache [B, S, Hkv, D] read in
+    place, masked by lens."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    B, g = len(lens), Hq // Hkv
+    gen = torch.Generator(device="cuda").manual_seed(B * S)
+    q = torch.randn((B, Hkv, g, D), generator=gen, device="cuda").to(dtype)
+    cache = torch.randn((2, B, S, Hkv, D), generator=gen,
+                        device="cuda").to(dtype)
+    k, v = cache[0], cache[1]
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = DA.decode_attention_cuda(q, k, v, ln)
+    torch.cuda.synchronize()
+    want = DA.decode_attention_plain(q, k, v, ln)
+    err = compare(torch, f"decode {name} {dtype}", got, want, tol)
+
+    qs = q.reshape(B, Hq, 1, D)
+    ks = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    mask = (torch.arange(S, device="cuda")[None] < ln.long()[:, None])
+    mask = mask[:, None, None]
+    ms = timer(lambda: DA.decode_attention_cuda(q, k, v, ln))
+    plain_ms = timer(lambda: DA.decode_attention_plain(q, k, v, ln), iters=3)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
+    elt = q.element_size()
+    nbytes = 2 * q.numel() * elt + sum(lens) * Hkv * D * 2 * elt + 4 * B
+    bound_ms, bound_by = bound(nbytes, sum(lens) * Hq * 4 * D, dtype)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"q": list(q.shape), "kv": list(k.shape),
+                      "lens": list(lens)},
+            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
+                      D=128, bs=16):
+    """The padded walk over the ragged decode case's own rows and table;
+    also held against the ragged kernel at C == 1 on the same inputs
+    (fp32 within 1e-5), and both timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import paged_ragged_attention as PRA
+    B, g = len(rows), Hq // Hkv
+    ctx = [c for c, _ in rows]
+    nbs = [-(-c // bs) for c in ctx]
+    nmax, nblocks = max(nbs), sum(nbs) + 1
+    gen = torch.Generator(device="cuda").manual_seed(B * 1000 + 1)
+    perm = (torch.randperm(nblocks - 1, generator=gen, device="cuda") + 1).cpu()
+    bt = torch.zeros((B, nmax), dtype=torch.int32)
+    i = 0
+    for b, nb in enumerate(nbs):
+        bt[b, :nb] = perm[i:i + nb]
+        i += nb
+    q = torch.randn((B, Hkv, g, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((nblocks, bs, Hkv, D), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((nblocks, bs, Hkv, D), generator=gen,
+                     device="cuda").to(dtype)
+    bt, ln = bt.cuda(), torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, bt, ln)
+    got = PDA.paged_decode_attention_cuda(*args)
+    torch.cuda.synchronize()
+    want = PDA.paged_decode_attention_plain(*args)
+    err = compare(torch, f"paged decode {name} {dtype}", got, want, tol)
+    q5 = q[:, :, :, None].contiguous()
+    ones = torch.ones_like(ln)
+    rag = PRA.paged_ragged_attention_cuda(q5, kp, vp, bt, ones, ln)
+    torch.cuda.synchronize()
+    rag_tol = 1e-5 if dtype == torch.float32 else tol
+    rag_err = compare(torch, f"paged decode vs ragged {name} {dtype}", got,
+                      rag[:, :, :, 0], rag_tol)
+
+    kd = PRA._paged_gather(kp, bt).permute(0, 2, 1, 3)       # [B,Hkv,L,D]
+    vd = PRA._paged_gather(vp, bt).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(g, dim=1).contiguous()
+    vd = vd.repeat_interleave(g, dim=1).contiguous()
+    qd = q.reshape(B, Hq, 1, D)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None]
+            < ln.long()[:, None])[:, None, None]
+    ms = timer(lambda: PDA.paged_decode_attention_cuda(*args))
+    ragged_ms = timer(lambda: PRA.paged_ragged_attention_cuda(q5, kp, vp, bt,
+                                                              ones, ln))
+    plain_ms = timer(lambda: PDA.paged_decode_attention_plain(*args), iters=3)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    elt = q.element_size()
+    nbytes = (2 * q.numel() * elt + sum(ctx) * Hkv * D * 2 * elt
+              + (bt.numel() + B) * 4)
+    bound_ms, bound_by = bound(nbytes, sum(ctx) * Hq * 4 * D, dtype)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"q": list(q.shape), "pool": list(kp.shape),
+                      "block_tables": list(bt.shape), "lens": ctx},
+            "tol": tol, "max_abs_err": err, "ragged_max_abs_diff": rag_err,
+            "ms": ms, "ragged_ms": ragged_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def kernel_phase(torch):
     timer = Timer(torch)
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -191,22 +379,42 @@ def kernel_phase(torch):
     # and a pure-decode batch, contexts up to 2048
     mixed = [(64, 64), (2048, 64), (576, 64), (1000, 40),
              (2048, 1), (1024, 1), (17, 1), (1, 1)]
-    decode = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
-              (100, 1), (1, 1)]
-    attn, rms = [], []
+    # the serving chunk against a dense cache of 2048: 8 rows of C = 64 at
+    # offsets spread over [0, 1984], the last at the dummy offset s_max - C
+    chunk_offsets = [0, 256, 576, 832, 1088, 1344, 1664, 1984]
+    cases = {k: [] for k in ("paged_ragged_attention", "rmsnorm",
+                             "flash_attention", "decode_attention",
+                             "paged_decode_attention")}
+
+    def add(kernel, case):
+        cases[kernel].append(case)
+        print(kernel, json.dumps(case))
+
     for dtype in (torch.bfloat16, torch.float32):
-        for name, rows in (("mixed", mixed), ("decode", decode)):
-            attn.append(attention_case(torch, name, rows, dtype, timer,
-                                       tols[dtype]))
-            print("attention", json.dumps(attn[-1]))
+        tol = tols[dtype]
+        for name, rows in (("mixed", mixed), ("decode", DECODE_ROWS)):
+            add("paged_ragged_attention",
+                attention_case(torch, name, rows, dtype, timer, tol))
         # N = 512: the first serving step's padded token rectangle (8 rows
         # x 64 columns); q_norm/k_norm run over N x 32 head rows of 128
         for name, N, D in (("hidden", 512, 4096), ("heads", 512 * 32, 128)):
-            rms.append(rmsnorm_case(torch, name, N, D, dtype, timer,
-                                    tols[dtype]))
-            print("rmsnorm", json.dumps(rms[-1]))
+            add("rmsnorm", rmsnorm_case(torch, name, N, D, dtype, timer, tol))
+        add("flash_attention", flash_case(
+            torch, "serving chunk", 8, 64, 2048, chunk_offsets, True, dtype,
+            timer, tol))
+        add("flash_attention", flash_case(
+            torch, "TPU contract", 1, 2048, 2048, [0], True, dtype, timer,
+            tol))
+        add("flash_attention", flash_case(
+            torch, "non-causal", 2, 128, 256, [0, 0], False, dtype, timer,
+            tol, Hq=8, Hkv=2, D=64))
+        add("decode_attention", decode_case(
+            torch, "decode", [c for c, _ in DECODE_ROWS], 2048, dtype, timer,
+            tol))
+        add("paged_decode_attention", paged_decode_case(
+            torch, "decode", DECODE_ROWS, dtype, timer, tol))
         torch.cuda.synchronize()
-    return attn, rms
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +432,9 @@ def cross_device_phase(torch):
     gpu = Model(cfg, device="cuda", dtype=torch.float32)
     gpu.load_params(cpu.params.state_dict())
 
-    for kw in ({}, {"num_blocks": 9, "block_size": 8}):
+    tight = {"num_blocks": 9, "block_size": 8}
+    for kw in ({}, tight, {"mixed": False}, {"mixed": False, **tight},
+               {"paged": False, "mixed": False}):
         runs = []
         for model in (gpu, cpu):
             eng = ShiftEngine(model, EngineConfig(**kw))
@@ -233,7 +443,8 @@ def cross_device_phase(torch):
                 eng.submit(r)
             eng.run_until_idle()
             runs.append(([r.generated for r in reqs], eng.config_counts,
-                         eng.preemptions, eng.kv.num_free_blocks))
+                         eng.preemptions,
+                         eng.kv.num_free_blocks if eng.paged else None))
         check(runs[0] == runs[1], f"reduced engine {kw or 'no pressure'}: "
               f"cuda {runs[0]} != cpu {runs[1]}")
         print(f"reduced engine {kw or 'no pressure'}: cuda == cpu, "
@@ -257,14 +468,131 @@ def cross_device_phase(torch):
     print(f"reduced mixed-step logits cuda vs cpu: max abs err {err} "
           "(tol 1e-4)")
 
+    # one dense prefill (rows at offsets 0 and 5, a dummy row at
+    # s_max - C) and two decode steps' logits
+    err = 0.0
+    for model in (gpu, cpu):
+        model.init_cache(3, 32)
+    toks = rng.integers(1, cfg.vocab_size, (3, 8)).astype(np.int32)
+    lg = [m.prefill(toks, [0, 5, 24])[0].cpu() for m in (gpu, cpu)]
+    steps = [lg]
+    for lens in ([8, 13, 0], [9, 14, 0]):
+        tok = lg[1].argmax(-1).int().numpy() * (np.array(lens) > 0)
+        lg = [m.decode(tok, lens, sample=False)[0].cpu() for m in (gpu, cpu)]
+        steps.append(lg)
+    for a, b in steps:
+        err = max(err, (a - b).abs().max().item())
+        check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+              f"reduced dense logits cuda vs cpu: max abs err {err}")
+    print(f"reduced dense prefill + decode logits cuda vs cpu: max abs err "
+          f"{err} (tol 1e-4)")
+
 
 # ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
+def count_steps(eng):
+    """Count the engine's productive steps of each kind from here on:
+    {"mixed": n, "prefill": n, "decode": n}."""
+    kinds = {"mixed": 0, "prefill": 0, "decode": 0}
+
+    def counted(kind, run):
+        def wrapper():
+            did = run()
+            kinds[kind] += int(did)
+            return did
+        return wrapper
+
+    for kind in kinds:
+        name = f"_run_{kind}"
+        setattr(eng, name, counted(kind, getattr(eng, name)))
+    return kinds
+
+
+def serve_path(torch, eng, label):
+    """The main path through ``eng``: a warm-up run of the workload (cuBLAS
+    and Triton caches), then the measured run with every launch counter
+    set to 0 just before it and read just after. Checks the requests and
+    the counters against the per-step counts; returns the requests."""
+    from repro_torch.launch import serve
+    cfg = eng.mcfg
+    for r in serve.workload(6, 16):
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    eng.config_counts = {"base": 0, "shift": 0}
+    kinds = count_steps(eng)
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = serve.launch_counts()
+    steps = sum(eng.config_counts.values())
+
+    for r in reqs:
+        check(len(r.generated) == 16 and r.finish_reason == "ok",
+              f"{label}: request {r.rid}: {len(r.generated)} tokens, "
+              f"{r.finish_reason}")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"{label}: request {r.rid}: token out of range")
+    if eng.paged:
+        check(eng.kv.num_free_blocks == eng.kv.num_blocks - 1,
+              f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
+              f"{eng.kv.num_blocks}")
+    check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
+    # per step: ln1, ln2, q_norm, k_norm per layer + the final norm; one
+    # attention per layer, by the kernel of the step's kind and cache
+    L = cfg.num_layers
+    per_kind = {"mixed": "paged_ragged_attention",
+                "prefill": ("paged_ragged_attention" if eng.paged
+                            else "flash_attention"),
+                "decode": ("paged_ragged_attention" if eng.paged
+                           else "decode_attention")}
+    want = {name: 0 for name in launches}
+    want["rmsnorm"] = steps * (4 * L + 1)
+    for kind, n in kinds.items():
+        want[per_kind[kind]] += n * L
+    check(launches == want, f"{label}: launches {launches} over steps "
+          f"{kinds}, want {want}")
+
+    ttft = [r.first_token_time - r.arrival for r in reqs]
+    t_first = max(r.first_token_time for r in reqs)
+    t_last = max(r.finish_time for r in reqs)
+    dec_tok = sum(len(r.generated) - 1 for r in reqs)
+    print(f"{label}: served 6 requests x 16 tokens in {wall:.3f} s over "
+          f"{steps} steps {kinds}; configs {eng.config_counts}; "
+          f"{eng.preemptions} preemptions"
+          + (f"; {eng.kv.num_free_blocks} of {eng.kv.num_blocks} blocks "
+             "free at exit" if eng.paged else ""))
+    print(f"{label}: TTFT ms: " + ", ".join(f"{t * 1e3:.1f}" for t in ttft))
+    print(f"{label}: decode: {dec_tok} tokens in "
+          f"{(t_last - t_first) * 1e3:.1f} ms, "
+          f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
+          f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
+    print(f"{label}: launches: {json.dumps(launches)}")
+    return reqs, launches
+
+
+def shared_tokens(reqs, ref):
+    """Tokens of each request's stream that agree with ``ref``'s before
+    the first difference, summed."""
+    n = 0
+    for r, q in zip(reqs, ref):
+        for a, b in zip(r.generated, q.generated):
+            if a != b:
+                break
+            n += 1
+    return n
+
+
 def serving_phase(torch):
     import numpy as np
-    from repro_torch.kernels import paged_ragged_attention as PRA
-    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.engine import EngineConfig, ShiftEngine
     from repro_torch.launch import serve
     t0 = time.monotonic()
     eng = serve.build_engine("qwen3-8b", device="cuda", dtype=torch.bfloat16)
@@ -278,55 +606,9 @@ def serving_phase(torch):
     pool_bytes = 2 * pool.k.numel() * pool.k.element_size()
     print(f"paged pool: {eng.kv.num_blocks} blocks x {eng.cfg.block_size} "
           f"tokens x {cfg.num_layers} layers, {pool_bytes / 1e6:.1f} MB")
-
-    # warm-up run of the same workload (cuBLAS and Triton caches), then the
-    # measured run with every launch counter at 0
-    for r in serve.workload(6, 16):
-        eng.submit(r)
-    eng.run_until_idle()
-    torch.cuda.synchronize()
-    eng.config_counts = {"base": 0, "shift": 0}
     torch.cuda.reset_peak_memory_stats()
-    reqs = serve.workload(6, 16)
-    PRA.launches = 0
-    RMS.launches = 0
-    t0 = time.monotonic()
-    for r in reqs:
-        r.arrival = t0
-        eng.submit(r)
-    eng.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"paged_ragged_attention": PRA.launches,
-                "rmsnorm": RMS.launches}
-    steps = sum(eng.config_counts.values())
-
-    for r in reqs:
-        check(len(r.generated) == 16 and r.finish_reason == "ok",
-              f"request {r.rid}: {len(r.generated)} tokens, "
-              f"{r.finish_reason}")
-        check(all(0 <= t < cfg.vocab_size for t in r.generated),
-              f"request {r.rid}: token out of range")
-    check(eng.kv.num_free_blocks == eng.kv.num_blocks - 1,
-          f"leaked blocks: {eng.kv.num_free_blocks} free of {eng.kv.num_blocks}")
-    # per step: ln1, ln2, q_norm, k_norm per layer + the final norm; one
-    # attention per layer
-    check(launches["rmsnorm"] == steps * (4 * cfg.num_layers + 1)
-          and launches["paged_ragged_attention"] == steps * cfg.num_layers,
-          f"launches {launches} over {steps} steps")
-
-    ttft = [r.first_token_time - r.arrival for r in reqs]
-    t_first = max(r.first_token_time for r in reqs)
-    t_last = max(r.finish_time for r in reqs)
-    dec_tok = sum(len(r.generated) - 1 for r in reqs)
-    print(f"served 6 requests x 16 tokens in {wall:.3f} s over {steps} steps; "
-          f"configs {eng.config_counts}; {eng.preemptions} preemptions; "
-          f"{eng.kv.num_free_blocks} of {eng.kv.num_blocks} blocks free at exit")
-    print("TTFT ms: " + ", ".join(f"{t * 1e3:.1f}" for t in ttft))
-    print(f"decode: {dec_tok} tokens in {(t_last - t_first) * 1e3:.1f} ms, "
-          f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
-          f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
-    print(f"launches on the main path: {json.dumps(launches)}")
+    by_path = {}
+    mixed_reqs, by_path["mixed"] = serve_path(torch, eng, "mixed paged")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     profile_decode(torch, eng)
@@ -341,15 +623,43 @@ def serving_phase(torch):
     check(tuple(logits.shape) == (2, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"full-width logits {tuple(logits.shape)} not finite")
+
+    # the serialized iteration on the same weights: the paged pool, then
+    # the dense contiguous cache
+    for key, label, kw in (("serialized_paged", "serialized paged",
+                            {"mixed": False}),
+                           ("serialized_dense", "serialized dense",
+                            {"paged": False, "mixed": False})):
+        ser = ShiftEngine(eng.model, EngineConfig(**kw))
+        if not ser.paged:
+            c = ser.model.cache
+            print(f"dense cache: {ser.cfg.max_slots} slots x "
+                  f"{ser.cfg.s_max} positions x {cfg.num_layers} layers, "
+                  f"{2 * c.k.numel() * c.k.element_size() / 1e6:.1f} MB")
+        reqs, by_path[key] = serve_path(torch, ser, label)
+        print(f"{label}: {shared_tokens(reqs, mixed_reqs)} of "
+              f"{sum(len(r.generated) for r in reqs)} tokens agree with the "
+              "mixed stream before their first difference (bf16 through "
+              "other kernels; for information)")
+        if not ser.paged:
+            profile_decode(torch, ser)
+            toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+            ser.model.init_cache(2, 32)
+            logits, _ = ser.model.prefill(toks, [0, 24])
+            torch.cuda.synchronize()
+            check(tuple(logits.shape) == (2, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()),
+                  f"full-width dense logits {tuple(logits.shape)} not finite")
     print(f"card: {card_line()}")
-    return launches
+    return by_path
 
 
 def profile_decode(torch, eng, steps=4):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
-    ``steps`` decode steps of 6 rows (after their prefill step), kernel time
-    by name and the device's busy share of the host's wall time. The
-    profiler adds host time of its own, so the busy share is a floor."""
+    ``steps`` decode steps of 6 rows (after their one prefill step, mixed
+    or serialized), kernel time by name and the device's busy share of the
+    host's wall time. The profiler adds host time of its own, so the busy
+    share is a floor."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
@@ -372,32 +682,44 @@ def profile_decode(torch, eng, steps=4):
     busy = sum(t for _, t, _ in rows)
     n = sum(c for _, _, c in rows)
     check(busy > 0, "the profiler saw no device time")
-    print(f"profile of {steps} decode steps: wall {wall_us / steps / 1e3:.2f} "
+    it = "mixed" if eng.mixed else ("serialized paged" if eng.paged
+                                    else "serialized dense")
+    print(f"{it}: profile of {steps} decode steps: wall "
+          f"{wall_us / steps / 1e3:.2f} "
           f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
           f"({busy / wall_us:.1%}), {n / steps:.0f} kernels/step")
     for key, t, c in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {t / steps / 1e3:8.3f} ms/step {c // steps:5d}x  {key[:90]}")
 
 
-def summary(attn, rms, launches):
-    """One entry per kernel; its top-level numbers are the bf16 case at the
-    serving path's shapes, every case is listed under ``cases``."""
+def summary(cases, by_path):
+    """One entry per kernel; its top-level numbers are its first case (bf16
+    at a serving path's shapes), every case is listed under ``cases``.
+    ``launches`` sums the main paths' runs, each counted from 0."""
     out = []
-    for name, route, source, replaces, cases in (
+    for name, route, source, replaces in (
             ("paged_ragged_attention", "cuda",
-             "src/repro_torch/kernels/csrc/paged_ragged_attention.cu",
-             ATTN_TPU, attn),
+             CSRC + "paged_ragged_attention.cu", ATTN_TPU),
             ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-             RMS_TPU, rms)):
-        top = cases[0]
+             RMS_TPU),
+            ("flash_attention", "cuda", CSRC + "flash_attention.cu",
+             FLASH_TPU),
+            ("decode_attention", "cuda", CSRC + "decode_attention.cu",
+             DECODE_TPU),
+            ("paged_decode_attention", "cuda", CSRC + "decode_attention.cu",
+             PAGED_DECODE_TPU)):
+        top = cases[name][0]
         out.append({"name": name, "route": route, "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces,
+                    "launches": sum(p[name] for p in by_path.values()),
+                    "launches_by_path": {k: p[name]
+                                         for k, p in by_path.items()},
                     "max_abs_err": top["max_abs_err"], "ms": top["ms"],
                     "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                     "library_ms": top["library_ms"], "case": top["case"],
                     "dtype": top["dtype"], "shape": top["shape"],
-                    "cases": cases})
+                    "cases": cases[name]})
     return {"kernels": out}
 
 
@@ -431,10 +753,10 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    attn, rms = kernel_phase(torch)
+    cases = kernel_phase(torch)
     cross_device_phase(torch)
-    launches = serving_phase(torch)
-    print(json.dumps(summary(attn, rms, launches)))
+    by_path = serving_phase(torch)
+    print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

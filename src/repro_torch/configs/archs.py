@@ -18,6 +18,13 @@ INTERNLM2_1_8B = ModelConfig(
     source="arXiv:2403.17297",
 )
 
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b", family="dense",
+    num_layers=28, d_model=3584, num_heads=28, num_kv_heads=4, head_dim=128,
+    d_ff=18944, vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+    source="arXiv:2407.10671",
+)
+
 QWEN2_1_5B = ModelConfig(
     name="qwen2-1.5b", family="dense",
     num_layers=28, d_model=1536, num_heads=12, num_kv_heads=2, head_dim=128,
@@ -25,4 +32,4 @@ QWEN2_1_5B = ModelConfig(
     source="arXiv:2407.10671",
 )
 
-DENSE_GQA = (QWEN3_8B, QWEN2_1_5B, INTERNLM2_1_8B)
+DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)

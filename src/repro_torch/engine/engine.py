@@ -1,16 +1,24 @@
-"""Shift-parallelism serving engine, mixed paged path (counterpart of
+"""Shift-parallelism serving engine (counterpart of
 ``repro.engine.engine.ShiftEngine`` with one data-parallel row).
 
-Sequences map to fixed-size blocks of one shared physical pool through a
-block table (``repro_torch.cache``). Each iteration packs up to
-``prefill_chunk`` prompt tokens per prefilling row plus every ready decode
-row into ONE forward pass, after the shift policy has picked the config
-from the batched token count (paper Algorithm 2). On one card both
-configs are the trivial layout and run the same program; the engine still
-makes and counts the choice, as the reference does. Admission holds a
-request in the queue until its prompt fits in the free blocks, and block
-exhaustion preempts the least-recently scheduled request back to the queue
-(recompute), which bounds memory while guaranteeing progress.
+Two iterations, as in the reference. The **mixed** one (the default with
+the paged cache) packs up to ``prefill_chunk`` prompt tokens per
+prefilling row plus every ready decode row into ONE forward pass. The
+**serialized** one (``mixed=False``) runs a chunked-prefill step over the
+full ``max_slots`` batch while any row still swallows its prompt, and a
+decode step otherwise. The shift policy picks the config of each step from
+its batched token count (paper Algorithm 2); on one card both configs are
+the trivial layout and run the same program, but the engine still makes
+and counts the choice, as the reference does.
+
+KV lives in one of two caches. The paged pool (``paged``, the default)
+maps sequences to fixed-size blocks through a block table
+(``repro_torch.cache``): admission holds a request in the queue until its
+prompt fits in the free blocks, and block exhaustion preempts the
+least-recently scheduled request back to the queue (recompute), which
+bounds memory while guaranteeing progress. The dense contiguous cache
+(``paged=False``) gives each slot a ``[s_max]`` row; it serves only the
+serialized iteration and admits FCFS by free slot.
 
 Not in this slice: prefix caching, speculative decoding, fault injection,
 observability, dp rows and reshard.
@@ -35,7 +43,10 @@ class EngineConfig:
                  eos_id: int = -1, block_size: int = 16,
                  # physical blocks incl. the null block; 0 = auto-size so
                  # max_slots x s_max fits
-                 num_blocks: int = 0):
+                 num_blocks: int = 0,
+                 # None = auto: paged, and mixed when paged
+                 paged: Optional[bool] = None,
+                 mixed: Optional[bool] = None):
         self.max_slots = max_slots
         self.s_max = s_max
         self.prefill_chunk = prefill_chunk
@@ -43,6 +54,8 @@ class EngineConfig:
         self.eos_id = eos_id
         self.block_size = block_size
         self.num_blocks = num_blocks
+        self.paged = paged
+        self.mixed = mixed
 
 
 class ShiftEngine:
@@ -51,13 +64,32 @@ class ShiftEngine:
         self.mcfg = model.cfg
         self.cfg = cfg = cfg or EngineConfig()
         self.policy = ThresholdPolicy(cfg.threshold)
-        nmax = blocks_for_tokens(cfg.s_max, cfg.block_size)
-        num_blocks = cfg.num_blocks or cfg.max_slots * nmax + 1
-        self.kv = PagedKVCache(num_blocks, cfg.block_size, cfg.max_slots, nmax)
-        model.init_paged_cache(num_blocks, cfg.block_size)
-        # persistent host mirror of the block tables; only rows the
-        # PagedKVCache marks dirty are re-copied
-        self._bt_host = np.zeros((cfg.max_slots, nmax), np.int32)
+        # every architecture of the port is pageable and one card has one
+        # dp row, so paging is off only when asked; the reason is kept, as
+        # the reference keeps it, because the dense cache also rules out
+        # the mixed iteration
+        self.paged = True if cfg.paged is None else cfg.paged
+        self.paged_disabled_reason = None if self.paged \
+            else "paged=False in EngineConfig"
+        self.mixed = self.paged if cfg.mixed is None else cfg.mixed
+        if self.mixed and not self.paged:
+            raise ValueError(
+                "mixed-batch stepping requires the paged KV cache (ragged "
+                "rows scatter through the block table's null block)")
+        if self.paged:
+            nmax = blocks_for_tokens(cfg.s_max, cfg.block_size)
+            num_blocks = cfg.num_blocks or cfg.max_slots * nmax + 1
+            self.kv = PagedKVCache(num_blocks, cfg.block_size, cfg.max_slots,
+                                   nmax)
+            model.init_paged_cache(num_blocks, cfg.block_size)
+            # persistent host mirror of the block tables; only rows the
+            # PagedKVCache marks dirty are re-copied
+            self._bt_host = np.zeros((cfg.max_slots, nmax), np.int32)
+        else:
+            self.kv = None
+            model.init_cache(cfg.max_slots, cfg.s_max)
+        # per-slot cache length: positions already written
+        self.lens = np.zeros((cfg.max_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * cfg.max_slots
         # every unfinished request, admitted or not, in arrival order
         self.queue: List[Request] = []
@@ -72,7 +104,7 @@ class ShiftEngine:
         if worst > self.cfg.s_max:
             raise ValueError(f"request {req.rid} exceeds s_max={self.cfg.s_max}")
         need = blocks_for_tokens(worst, self.cfg.block_size)
-        if need > self.kv.num_blocks - 1:
+        if self.paged and need > self.kv.num_blocks - 1:
             raise ValueError(
                 f"request {req.rid} can never fit: needs {need} blocks, the "
                 f"pool has {self.kv.num_blocks - 1}")
@@ -84,19 +116,23 @@ class ShiftEngine:
         return [r for r in self.slot_req if r is not None]
 
     def _admit(self):
-        """Assign free slots FCFS. A request is admitted only when its whole
-        (re)prompt plus one decode token fits in the free blocks."""
+        """Assign free slots FCFS. Paged: a request is admitted only when
+        its whole (re)prompt plus one decode token fits in the free
+        blocks."""
         for req in list(self.queue):
             if req.slot is not None:
                 continue
             slot = next((s for s, owner in enumerate(self.slot_req)
                          if owner is None), None)
-            if slot is None or not self.kv.can_allocate(req.total_tokens + 1):
+            if slot is None:
                 break                       # FCFS
-            if not self.kv.ensure(slot, req.total_tokens + 1):
+            if self.paged and not (self.kv.can_allocate(req.total_tokens + 1)
+                                   and self.kv.ensure(slot,
+                                                      req.total_tokens + 1)):
                 break
             req.slot = slot
             self.slot_req[slot] = req
+            self.lens[slot] = req.prefilled
 
     # ----------------------------------------------------- memory pressure
     def _preempt(self, victim: Request):
@@ -104,6 +140,7 @@ class ShiftEngine:
         Recompute-style: its prompt+generated re-prefills on re-admission."""
         self.kv.free_seq(victim.slot)
         self.slot_req[victim.slot] = None
+        self.lens[victim.slot] = 0
         victim.slot = None
         victim.prefilled = 0
         victim.num_preemptions += 1
@@ -139,17 +176,30 @@ class ShiftEngine:
         r.prefilled = r.pos
         if r.first_token_time is None:
             r.first_token_time = t
+        self.lens[r.slot] = r.pos
         if r.done or (self.cfg.eos_id >= 0
                       and r.generated[-1] == self.cfg.eos_id):
             r.finish_time = t
             r.finish_reason = FinishReason.OK
-            self.kv.free_seq(r.slot)
+            if self.paged:
+                self.kv.free_seq(r.slot)
             self.slot_req[r.slot] = None
             self.queue = [q for q in self.queue if q is not r]
 
     def _refresh_block_tables(self):
         for s in self.kv.take_dirty():
             self._bt_host[s] = self.kv.table[s]
+
+    def _block_tables(self, rows: List[Request]) -> np.ndarray:
+        """Block-table batch of the serialized path: all ``max_slots`` rows
+        at the full ``nmax``; rows outside this batch stay all-null so their
+        (garbage) writes land in the null block."""
+        self._refresh_block_tables()
+        bt = np.zeros((self.cfg.max_slots, self.kv.max_blocks_per_seq),
+                      np.int32)
+        idx = [r.slot for r in rows]
+        bt[idx] = self._bt_host[idx]
+        return bt
 
     def _run_mixed(self) -> bool:
         """One fused iteration: every ready decode row PLUS a prefill chunk
@@ -218,10 +268,94 @@ class ShiftEngine:
                 self._finish_token(r, int(nxt[i]), t)
         return True
 
+    # --------------------------------------------------- serialized stepping
+    def _run_prefill(self) -> bool:
+        """One chunked-prefill step over the slots that still need their
+        (re)prompt, batched at the full ``max_slots``; the last known token
+        of each row is left for the decode step. Dummy rows sit at offset
+        ``s_max - C`` on the dense cache (their writes must not land on
+        live positions) and at 0 on the paged pool (their all-null tables
+        route the writes to the null block, and a zero context keeps the
+        ragged kernel from walking null blocks)."""
+        C = self.cfg.prefill_chunk
+        todo = [r for r in self.active if not self._prefill_done(r)]
+        if not todo:
+            return False
+        toks = np.zeros((self.cfg.max_slots, C), np.int32)
+        offs = np.full((self.cfg.max_slots,),
+                       0 if self.paged else max(self.cfg.s_max - C, 0),
+                       np.int32)
+        rows = []                          # (req, chunk length)
+        for r in todo:
+            if r.slot is None:
+                continue                   # preempted by an earlier reserve
+            off = r.prefilled
+            seq = r.all_tokens()
+            chunk = seq[off:min(off + C, len(seq) - 1)]
+            if not chunk:
+                continue
+            if self.paged and not self._reserve(
+                    r, off + len(chunk), protect={rr for rr, _ in rows}):
+                continue
+            toks[r.slot, :len(chunk)] = chunk
+            offs[r.slot] = off
+            rows.append((r, len(chunk)))
+        if not rows:
+            return False
+        n_tok = sum(n for _, n in rows)
+        mode = self._choose(n_tok, n_tok)
+        self.config_counts[mode] += 1
+        bt = self._block_tables([r for r, _ in rows]) if self.paged else None
+        self.model.prefill(toks, offs, block_tables=bt)
+        for r, n in rows:
+            r.prefilled += n
+            r.last_used = self.step_count
+            self.lens[r.slot] = r.prefilled
+        return True
+
+    def _run_decode(self) -> bool:
+        """One decode step over every ready row, batched at the full
+        ``max_slots``; each writes its last known token at ``r.pos``."""
+        ready = [r for r in self.active
+                 if self._prefill_done(r) and not r.done]
+        if self.paged:
+            kept = []
+            for r in ready:
+                if r.slot is None:
+                    continue               # preempted by an earlier reserve
+                # coverage for the token written this step (position r.pos)
+                if self._reserve(r, r.total_tokens, protect=set(kept)):
+                    kept.append(r)
+            ready = kept
+        if not ready:
+            return False
+        mode = self._choose(len(ready), 0)
+        self.config_counts[mode] += 1
+        toks = np.zeros((self.cfg.max_slots,), np.int32)
+        lens = np.zeros((self.cfg.max_slots,), np.int32)
+        for r in ready:
+            toks[r.slot] = r.generated[-1] if r.generated else r.prompt[-1]
+            lens[r.slot] = r.pos           # write position of this token
+        bt = self._block_tables(ready) if self.paged else None
+        nxt, _ = self.model.decode(toks, lens, block_tables=bt)
+        nxt = nxt.cpu().numpy()
+        t = time.monotonic()
+        for r in ready:
+            r.last_used = self.step_count
+            r.prefilled = r.pos + 1        # this step wrote position r.pos
+            self._finish_token(r, int(nxt[r.slot]), t)
+        return True
+
     def step(self) -> bool:
         """One engine iteration. Returns False when idle."""
         self._admit()
-        progressed = self._run_mixed()
+        if self.mixed:
+            # fused prefill+decode batch: no iteration-granularity
+            # interference between a prompt burst and in-flight decodes
+            progressed = self._run_mixed()
+        else:
+            # prefill first, chunk by chunk; decode otherwise
+            progressed = self._run_prefill() or self._run_decode()
         self.step_count += 1
         return progressed
 

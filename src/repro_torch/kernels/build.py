@@ -4,9 +4,9 @@ Each source under ``kernels/csrc/`` has a plain C interface and is compiled
 for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared library
 that ``ctypes`` loads; no PyTorch headers are involved, so a build takes
 seconds. Libraries go to ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by the hash of their source and flags, so
-an edited source rebuilds and an unchanged one loads the library already
-there. Only the sources in the checkout are built; a machine with a card
+(listed in ``.gitignore``), named by the hash of their source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source rebuilds and an
+unchanged one loads the library already there. Only the sources in the checkout are built; a machine with a card
 but no ``nvcc`` raises.
 """
 from __future__ import annotations
@@ -48,6 +48,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -8,6 +8,11 @@ no fallback: a run on the card either went through the kernels or failed.
 """
 from __future__ import annotations
 
+import torch
+
+from . import decode_attention as DA
+from . import flash_attention as FA
+from . import paged_decode_attention as PDA
 from . import paged_ragged_attention as PRA
 from . import rmsnorm as RMS
 
@@ -16,6 +21,42 @@ def _on_cuda(t) -> bool:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tensors on {t.device}: the port runs on cuda or cpu")
     return t.is_cuda
+
+
+def flash_attention(q, k, v, *, causal=True, q_offsets=None):
+    """Flash attention in the reference's public layout: q [B, Sq, Hq, D],
+    k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D]. ``q_offsets`` [B] int32 places
+    row b's first query at that global position (default 0, the TPU
+    kernel's alignment); the causal mask is ``kpos <= q_offsets[b] + i``.
+    Nothing is transposed or copied: the kernel reads the strides."""
+    if q_offsets is None:
+        q_offsets = torch.zeros((q.shape[0],), dtype=torch.int32,
+                                device=q.device)
+    fn = FA.flash_attention_cuda if _on_cuda(q) else FA.flash_attention_plain
+    return fn(q, k, v, q_offsets, causal=causal)
+
+
+def decode_attention(q, k, v, lens):
+    """Decode against a contiguous cache: q [B, 1, Hq, D], k/v [B, S, Hkv,
+    D] read in place, lens [B] int32 >= 1 (valid length including the new
+    token) -> [B, 1, Hq, D]."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
+    fn = DA.decode_attention_cuda if _on_cuda(q) else DA.decode_attention_plain
+    return fn(qf, k, v, lens).reshape(B, 1, Hq, D)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lens):
+    """Padded paged decode (every table block walked, masked by lens): q
+    [B, 1, Hq, D], pools [num_blocks, bs, Hkv, D], block_tables [B, nmax]
+    int32, lens [B] int32 >= 1 -> [B, 1, Hq, D]."""
+    B, _, Hq, D = q.shape
+    Hkv = k_pool.shape[2]
+    qf = q.reshape(B, Hkv, Hq // Hkv, D).contiguous()
+    fn = (PDA.paged_decode_attention_cuda if _on_cuda(q)
+          else PDA.paged_decode_attention_plain)
+    return fn(qf, k_pool, v_pool, block_tables, lens).reshape(B, 1, Hq, D)
 
 
 def paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens, ctx_lens, *,

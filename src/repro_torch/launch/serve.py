@@ -3,10 +3,13 @@
 
 Serves the architecture at full width in bf16 on the card by default
 (qwen3-8b: 36 layers, d_model 4096), with random weights drawn from a
-seeded ``torch.Generator``, through the mixed paged engine; the workload
-and engine defaults are those of ``repro.launch.serve``. ``--reduced`` and
-``--device cpu`` run the test-size model on the CPU with the kernels'
-plain versions.
+seeded ``torch.Generator``; the workload and engine defaults are those of
+``repro.launch.serve``. The CLI serves through the mixed paged iteration
+(the reference CLI's default). ``build_engine(..., paged=False,
+mixed=False)`` builds the serialized iteration (a prefill step, else a
+decode step) on the dense contiguous cache, and ``mixed=False`` alone the
+serialized iteration on the paged pool. ``--reduced`` and ``--device cpu``
+run the test-size model on the CPU with the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -17,20 +20,28 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import paged_decode_attention as PDA
 from repro_torch.kernels import paged_ragged_attention as PRA
 from repro_torch.kernels import rmsnorm as RMS
 from repro_torch.models import Model
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 WEIGHT_SEED = 0
+# every kernel's module, by the name its launch counter is reported under
+KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
+           "decode_attention": DA, "paged_decode_attention": PDA,
+           "rmsnorm": RMS}
 
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
-                 dtype=torch.bfloat16, block_size=16,
-                 num_blocks=0) -> ShiftEngine:
+                 dtype=torch.bfloat16, block_size=16, num_blocks=0,
+                 paged=None, mixed=None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
-    engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64.
-    The model checks the device before it allocates anything."""
+    engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
+    ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed). The
+    model checks the device before it allocates anything."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -38,7 +49,8 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
     model.init_params(
         torch.Generator(device=model.device).manual_seed(WEIGHT_SEED))
     return ShiftEngine(model, EngineConfig(block_size=block_size,
-                                           num_blocks=num_blocks))
+                                           num_blocks=num_blocks,
+                                           paged=paged, mixed=mixed))
 
 
 def workload(n_requests: int, max_new: int):
@@ -48,14 +60,29 @@ def workload(n_requests: int, max_new: int):
                     arrival=t) for i in range(n_requests)]
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
 def print_summary(eng: ShiftEngine):
     cc = eng.config_counts
+    print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
     print(f"configs used: base={cc['base']} shift={cc['shift']}")
-    print(f"paged cache: 1 dp row(s) x {eng.kv.num_blocks} blocks x "
-          f"{eng.cfg.block_size} tokens, {eng.preemptions} preemptions, "
-          f"{eng.kv.num_free_blocks} free at exit")
-    print(f"kernel launches: paged_ragged_attention={PRA.launches} "
-          f"rmsnorm={RMS.launches}")
+    if eng.paged:
+        print(f"paged cache: 1 dp row(s) x {eng.kv.num_blocks} blocks x "
+              f"{eng.cfg.block_size} tokens, {eng.preemptions} preemptions, "
+              f"{eng.kv.num_free_blocks} free at exit")
+    else:
+        print(f"dense cache: {eng.cfg.max_slots} slots x {eng.cfg.s_max} "
+              f"positions ({eng.paged_disabled_reason})")
+    print("kernel launches: " + " ".join(
+        f"{name}={n}" for name, n in launch_counts().items()))
 
 
 def main(argv=None):

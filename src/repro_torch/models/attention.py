@@ -1,7 +1,12 @@
-"""GQA attention against the paged KV pool (counterpart of
-``repro.models.attention``) on the trivial layout: the QKV projection, the
-per-head q/k norm and RoPE, the in-place KV scatter through the block
-table, the ragged paged attention kernel, and the O projection."""
+"""GQA attention (counterpart of ``repro.models.attention``) on the trivial
+layout: the QKV projection, the per-head q/k norm and RoPE, the in-place KV
+write into the dense contiguous cache or through the block table into the
+paged pool, the attention kernels, and the O projection.
+
+Only global causal attention with RoPE and no logit soft cap is ported:
+no config of the port has sliding windows, soft caps or rope-free layers
+(local, gemma and whisper layers bring them later), so the dense paths
+raise on them."""
 from __future__ import annotations
 
 import torch
@@ -61,6 +66,13 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm.fill_(1.0)
             self.k_norm.fill_(1.0)
+
+
+def cache_init(cfg, lay: Layout, batch: int, s_max: int):
+    """Shape of one layer's dense K (and V) cache, ``[batch, s_max,
+    kv_slots, Dh]``."""
+    plan = get_plan(cfg, lay)
+    return (batch, s_max, plan.kv_slots_total, cfg.head_dim)
 
 
 def paged_cache_init(cfg, lay: Layout, num_blocks: int, block_size: int):
@@ -131,3 +143,91 @@ def paged_attn_mixed(p: Attention, x, k_pool, v_pool, pos, offsets, q_lens,
                                 offsets + q_lens,
                                 soft_cap=cfg.logits_soft_cap)
     return _finish(p, out)
+
+
+def paged_attn_prefill(p: Attention, x, k_pool, v_pool, pos, offsets,
+                       block_tables, cfg):
+    """Chunked prefill against the paged pool: the degenerate mixed call
+    with ``q_lens == S`` for every row. All S columns are written (rows
+    outside the chunk batch carry all-null tables, so their writes land in
+    the null block); the padding past a short chunk is causally masked and
+    overwritten by the next chunk. x: [B, S, d] -> [B, S, d]."""
+    q_lens = torch.full_like(offsets, x.shape[1])
+    return paged_attn_mixed(p, x, k_pool, v_pool, pos, offsets, q_lens,
+                            block_tables, cfg)
+
+
+def paged_attn_decode(p: Attention, x, k_pool, v_pool, lens, block_tables,
+                      cfg):
+    """One-token decode against the paged pool, the ragged kernel at
+    C == 1. x: [B, d]; lens: [B] write positions; block_tables [B, nmax]
+    (all-null rows for inactive slots write into the null block). Writes
+    the new K/V in place. Returns [B, d]."""
+    q, k, v = _project_exchange(p, x[:, None], cfg)           # [B, 1, H, dh]
+    pos = lens[:, None].long()
+    q, k = _qk_post(p, q, k, pos, cfg)
+    bs = k_pool.shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)
+    ln = lens.long()
+    blk = block_tables.long()[rows, ln // bs]
+    k_pool[blk, ln % bs] = k[:, 0]
+    v_pool[blk, ln % bs] = v[:, 0]
+    out = K.paged_ragged_attend(q, k_pool, v_pool, block_tables,
+                                torch.ones_like(lens), lens + 1,
+                                soft_cap=cfg.logits_soft_cap)
+    return _finish(p, out)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# dense contiguous cache
+# ---------------------------------------------------------------------------
+def _dense_only(cfg, window, rope):
+    if window or not rope or cfg.logits_soft_cap:
+        raise NotImplementedError(
+            f"dense attention with window={window}, rope={rope}, "
+            f"soft_cap={cfg.logits_soft_cap}: only global causal attention "
+            "with RoPE and no soft cap is ported")
+
+
+def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
+                 window: int = 0, rope: bool = True):
+    """Chunked prefill against the dense cache. x: [B, S, d]; row b's
+    tokens sit at positions ``offsets[b] + arange(S)``. Writes their K/V
+    into ``k_cache``/``v_cache`` ([B, s_max, kv_slots, Dh]) IN PLACE at
+    ``offsets`` clamped so the chunk fits (the reference's
+    ``dynamic_update_slice``), padding columns included, then attends the
+    chunk against the whole cache row: the flash kernel's causal mask
+    ``kpos <= offsets[b] + i`` is the reference's ``attend`` with
+    ``kv_len = offsets + S``. Returns out [B, S, d]."""
+    _dense_only(cfg, window, rope)
+    q, k, v = _project_exchange(p, x, cfg)
+    B, S = q.shape[:2]
+    pos = offsets[:, None].long() + torch.arange(S, device=x.device)[None]
+    q, k = _qk_post(p, q, k, pos, cfg)
+    s_max = k_cache.shape[1]
+    start = offsets.long().clamp(0, s_max - S)
+    idx = start[:, None] + torch.arange(S, device=x.device)[None]   # [B, S]
+    rows = torch.arange(B, device=x.device)[:, None]
+    k_cache[rows, idx] = k
+    v_cache[rows, idx] = v
+    out = K.flash_attention(q, k_cache, v_cache, causal=True,
+                            q_offsets=offsets)
+    return _finish(p, out)
+
+
+def attn_decode(p: Attention, x, k_cache, v_cache, lens, cfg, *,
+                window: int = 0, rope: bool = True):
+    """One-token decode against the dense cache. x: [B, d]; lens: [B]
+    write positions (inactive slots pass 0 and write a garbage K/V at
+    position 0 of their free row, as the reference does). Writes in place,
+    then attends ``kpos < lens + 1`` with the decode kernel. Returns
+    [B, d]."""
+    _dense_only(cfg, window, rope)
+    q, k, v = _project_exchange(p, x[:, None], cfg)           # [B, 1, H, dh]
+    pos = lens[:, None].long()
+    q, k = _qk_post(p, q, k, pos, cfg)
+    rows = torch.arange(x.shape[0], device=x.device)
+    k_cache[rows, lens.long()] = k[:, 0]
+    v_cache[rows, lens.long()] = v[:, 0]
+    out = K.decode_attention(q, k_cache, v_cache, lens + 1)
+    return _finish(p, out)[:, 0]

@@ -1,6 +1,7 @@
 """Public model API (counterpart of ``repro.models.model``): a ``Model``
 bundles the config, the (trivial) layout, the parameters on one device and
-the paged KV pool, and exposes the mixed paged step."""
+its KV caches (the paged pool and the dense contiguous cache), and exposes
+the mixed paged step and the serialized prefill and decode steps."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +27,7 @@ class Model:
         self.dtype = dtype
         self.params = T.Transformer(cfg, self.lay, dtype, self.device)
         self.pool: Optional[T.PagedPool] = None
+        self.cache: Optional[T.DenseCache] = None
 
     # ------------------------------------------------------------ params
     def init_params(self, generator: torch.Generator):
@@ -50,7 +52,53 @@ class Model:
                                        block_size, self.dtype, self.device)
         return self.pool
 
+    # -------------------------------------------------------- dense cache
+    def init_cache(self, batch: int, s_max: int) -> T.DenseCache:
+        """Zeroed dense caches ``[L, batch, s_max, kv_slots, Dh]``."""
+        self.cache = T.init_cache(self.cfg, self.lay, batch, s_max,
+                                  self.dtype, self.device)
+        return self.cache
+
+    def _ints(self, a):
+        return torch.as_tensor(a, dtype=torch.int32, device=self.device)
+
+    def _step_cache(self, block_tables):
+        """The paged pool when a step carries block tables, else the dense
+        cache; raises if that cache was not initialised."""
+        cache = self.pool if block_tables is not None else self.cache
+        if cache is None:
+            raise RuntimeError(
+                "init_paged_cache() before a step with block tables"
+                if block_tables is not None
+                else "init_cache() before a dense prefill or decode")
+        return cache
+
     # ------------------------------------------------------------- step
+    def prefill(self, tokens, offsets, block_tables=None):
+        """One chunked-prefill step (counterpart of ``prefill_fn``):
+        ``tokens`` [B, S] written at positions ``offsets`` [B] .., into the
+        dense cache, or with ``block_tables`` [B, nmax] through the paged
+        pool. Returns ``(last-column logits [B, V] fp32, cache)``; the
+        cache is updated in place."""
+        cache = self._step_cache(block_tables)
+        bt = None if block_tables is None else self._ints(block_tables)
+        logits = T.prefill_body(self.params, cache, self._ints(tokens),
+                                self._ints(offsets), self.cfg,
+                                block_tables=bt)
+        return logits, cache
+
+    def decode(self, tokens, lens, block_tables=None, sample: bool = True):
+        """One decode step (counterpart of ``decode_fn``): ``tokens`` [B]
+        written at positions ``lens`` [B], into the dense cache or through
+        the paged pool with ``block_tables``. Returns ``(next_tokens [B],
+        cache)``, or the fp32 logits [B, V] in place of the tokens with
+        ``sample=False``."""
+        cache = self._step_cache(block_tables)
+        bt = None if block_tables is None else self._ints(block_tables)
+        logits = T.decode_body(self.params, cache, self._ints(tokens),
+                               self._ints(lens), self.cfg, block_tables=bt)
+        return (T.greedy_body(logits) if sample else logits), cache
+
     def forward_mixed(self, tokens, q_lens, offsets, block_tables,
                       sample: bool = True):
         """Unified mixed-batch step over the paged pool: chunked-prefill rows

@@ -1,6 +1,7 @@
 """Model assembly (counterpart of ``repro.models.transformer``): the layer
-stack as per-layer modules, its paged KV pools, and the mixed
-prefill+decode step body. The reference's ``lax.scan`` over the stacked
+stack as per-layer modules, its paged KV pools and dense contiguous cache,
+and the step bodies: the mixed prefill+decode step and the serialized
+prefill and decode steps. The reference's ``lax.scan`` over the stacked
 body layers becomes a loop over the per-layer modules."""
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from torch import nn
 
 from repro_torch.parallel import Layout
 from . import blocks as BK
-from .attention import paged_cache_init
+from .attention import cache_init, paged_cache_init
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
                      embed_apply, lmhead_apply)
 
@@ -60,6 +61,22 @@ def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+@dataclass
+class DenseCache:
+    """K and V caches of every layer, ``[L, B, s_max, kv_slots, Dh]``;
+    ``k[i]`` is layer i's. Updated in place by each step."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
+               device) -> DenseCache:
+    """Zeroed dense caches, one per layer."""
+    shape = (cfg.num_layers,) + cache_init(cfg, lay, batch, s_max)
+    return DenseCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                      v=torch.zeros(shape, dtype=dtype, device=device))
+
+
 def _embed_tokens(params: Transformer, tokens):
     """Token embedding (the reference's audio and vision frontends come
     with their model kinds)."""
@@ -100,3 +117,38 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     last = torch.where(here[:, None], take, torch.zeros_like(take))
     logits = lmhead_apply(params.lm_head, params.final_norm(last))
     return distributed_argmax(logits) if sample else logits
+
+
+@torch.no_grad()
+def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
+                 block_tables=None):
+    """One chunked-prefill step. tokens: [B, S] at cache positions
+    ``offsets[b] ..``; ``cache`` is the ``DenseCache``, or the ``PagedPool``
+    with ``block_tables`` [B, nmax]. Returns the last column's logits
+    [B, V] in fp32 (``x[:, -1]``, padding or not, as the reference takes
+    it); the cache is updated in place."""
+    x = _embed_tokens(params, tokens)
+    ctx = {"positions": _positions_prefill(tokens, offsets),
+           "offsets": offsets, "block_tables": block_tables}
+    for i, layer in enumerate(params.layers):
+        x = BK.block_prefill(layer, x, cache.k[i], cache.v[i], ctx, cfg)
+    # RMSNorm is per row, so the final norm runs on the last column only
+    return lmhead_apply(params.lm_head, params.final_norm(x[:, -1]))
+
+
+@torch.no_grad()
+def decode_body(params: Transformer, cache, tokens, lens, cfg,
+                block_tables=None):
+    """One decode step. tokens: [B], each written at position ``lens[b]``;
+    ``cache`` as in ``prefill_body``. Returns logits [B, V] in fp32; the
+    cache is updated in place."""
+    x = embed_apply(params.embed, tokens)
+    ctx = {"lens": lens, "block_tables": block_tables}
+    for i, layer in enumerate(params.layers):
+        x = BK.block_decode(layer, x, cache.k[i], cache.v[i], ctx, cfg)
+    return lmhead_apply(params.lm_head, params.final_norm(x))
+
+
+def greedy_body(logits):
+    """Greedy sampling on the trivial layout: [B, V] -> [B] token ids."""
+    return distributed_argmax(logits)

@@ -6,8 +6,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-It also holds the eight-case paged-attention grid that
-``test_torch_kernels.py`` runs against the reference on the CPU.
+It also holds the eight-case paged-attention grid and the flash and decode
+cases that ``test_torch_kernels.py`` runs against the reference on the CPU.
 """
 import numpy as np
 import pytest
@@ -17,6 +17,9 @@ torch.set_num_threads(2)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.engine import EngineConfig, ShiftEngine  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as PDA  # noqa: E402
 from repro_torch.kernels import paged_ragged_attention as PRA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
 from repro_torch.launch.serve import workload  # noqa: E402
@@ -127,6 +130,101 @@ def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def dense_case(B, Sq, Skv, Hq, Hkv, D, seed=0):
+    """q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D] from a seed."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s, dtype=np.float32)
+                 for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+
+
+FLASH_CASES = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, q_offsets: the four TPU-contract
+    # cases of tests/test_kernels.py, then chunks against a longer cache
+    (1, 128, 128, 4, 2, 64, True, None),
+    (2, 256, 256, 4, 1, 128, True, None),
+    (1, 128, 256, 2, 2, 64, False, None),
+    (1, 256, 256, 8, 2, 128, True, None),
+    (3, 64, 200, 32, 8, 128, True, [0, 70, 136]),
+    (2, 5, 33, 6, 1, 16, True, [3, 28]),
+]
+DECODE_CASES = [  # B, S, Hq, Hkv, D (S need not tile)
+    (4, 512, 8, 2, 64), (2, 1024, 4, 4, 128), (8, 512, 16, 1, 64),
+    (3, 100, 32, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,offs", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda, dtype, B, Sq, Skv, Hq, Hkv, D,
+                                  causal, offs):
+    """The kernel reads k and v through strides: they are handed in as a
+    slice of a larger cache, as the model's per-layer view is."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in dense_case(B, Sq, Skv, Hq, Hkv, D))
+    cache = torch.zeros((2, B, Skv, Hkv, D), dtype=dtype, device=cuda)
+    cache[0], cache[1] = k, v
+    qo = torch.tensor(offs or [0] * B, dtype=torch.int32, device=cuda)
+    before = FA.launches
+    got = FA.flash_attention_cuda(q, cache[0], cache[1], qo, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, qo, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", DECODE_CASES)
+def test_cuda_decode_matches_plain(cuda, dtype, B, S, Hq, Hkv, D):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in dense_case(B, 1, S, Hq, Hkv, D, seed=S))
+    q = q.reshape(B, Hkv, Hq // Hkv, D)
+    lens = torch.from_numpy(np.random.default_rng(S).integers(
+        1, S + 1, (B,)).astype(np.int32)).to(cuda)
+    before = DA.launches
+    got = DA.decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    want = DA.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,bs,nmax,ctx", [
+    (4, 8, 2, 64, 16, 8, [40, 8, 100, 128]),
+    (3, 16, 1, 64, 16, 16, [1, 17, 200]),
+    (2, 32, 8, 128, 16, 64, [1000, 33]),
+])
+def test_cuda_paged_decode_matches_plain_and_ragged(cuda, dtype, B, Hq, Hkv,
+                                                    D, bs, nmax, ctx):
+    """The padded walk against its plain version, and against the ragged
+    kernel at C == 1 on the same inputs (the reference's
+    ``test_ragged_kernel_decode_degenerates_to_padded``); poisoned null
+    block and table tails must not matter."""
+    q, kp, vp, bt, ql, lens = paged_case(B, 1, Hq, Hkv, D, bs, nmax, ctx,
+                                         [1] * B)
+    kp[0], vp[0] = 99.0, -99.0
+    g = Hq // Hkv
+    q4 = torch.from_numpy(q).reshape(B, Hkv, g, D).to(cuda, dtype)
+    kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in (kp, vp))
+    bt, ql, lens = (torch.from_numpy(a).to(cuda) for a in (bt, ql, lens))
+    before = PDA.launches
+    got = PDA.paged_decode_attention_cuda(q4, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert PDA.launches == before + 1
+    want = PDA.paged_decode_attention_plain(q4, kp, vp, bt, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    rag = PRA.paged_ragged_attention_cuda(q4[:, :, :, None].contiguous(), kp,
+                                          vp, bt, ql, lens)[:, :, :, 0]
+    tol = 1e-5 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), rag.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_cuda_engine_matches_cpu_engine(cuda):
     """Reduced qwen3-8b at fp32: the engine on the card (kernels) and on the
@@ -153,3 +251,45 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     assert runs[0][4:] == (steps * cfg.num_layers,
                            steps * (4 * cfg.num_layers + 1))
     assert runs[1][4:] == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"mixed": False},
+                                {"mixed": False, "num_blocks": 9,
+                                 "block_size": 8},
+                                {"paged": False, "mixed": False}],
+                         ids=["serialized", "serialized-tight-pool", "dense"])
+def test_cuda_serialized_engine_matches_cpu_engine(cuda, kw):
+    """The serialized iteration, on the paged pool and on the dense cache:
+    equal streams, config counts and preemptions on the card and the CPU,
+    and the card's run went through its kernels: per step one attention
+    launch per layer (ragged on the pool; flash for a dense prefill,
+    decode for a dense decode) and 4 * layers + 1 RMSNorm launches."""
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs, counts = [], []
+    for model in (gpu, cpu):
+        for mod in (PRA, RMS, FA, DA, PDA):
+            mod.launches = 0
+        eng = ShiftEngine(model, EngineConfig(**kw))
+        reqs = workload(6, 8)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     eng.preemptions))
+        counts.append((PRA.launches, FA.launches, DA.launches, PDA.launches,
+                       RMS.launches))
+    assert runs[0] == runs[1]
+    assert counts[1] == (0, 0, 0, 0, 0)
+    steps = sum(runs[0][1].values())
+    pra, fa, da, pda, rms = counts[0]
+    assert rms == steps * (4 * cfg.num_layers + 1) and pda == 0
+    if kw.get("paged", True):
+        assert (pra, fa, da) == (steps * cfg.num_layers, 0, 0)
+    else:
+        assert pra == 0 and fa > 0 and da > 0
+        assert fa + da == steps * cfg.num_layers

@@ -80,6 +80,20 @@ def test_entry_points_default_to_cuda(no_card):
         serve.main([])          # full width: must raise before allocating
 
 
+@pytest.mark.parametrize("kw", [{"mixed": False},
+                                {"paged": False, "mixed": False}],
+                         ids=["serialized", "dense"])
+def test_serialized_entry_points_default_to_cuda(no_card, kw):
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_engine(**kw)        # full width: raises before allocating
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShiftEngine(Model(get_config("qwen3-8b").reduced()),
+                    EngineConfig(**kw))
+
+
 def test_cpu_runs_when_asked():
     from repro_torch.launch import serve
     eng = serve.build_engine(reduced=True, device="cpu", dtype=torch.float32)
@@ -89,3 +103,25 @@ def test_cpu_runs_when_asked():
     eng.run_until_idle()
     assert [len(r.generated) for r in reqs] == [3, 3]
     assert eng.kv.num_free_blocks == eng.kv.num_blocks - 1
+
+
+@pytest.mark.parametrize("kw", [{"mixed": False},
+                                {"paged": False, "mixed": False}],
+                         ids=["serialized", "dense"])
+def test_cpu_runs_serialized_when_asked(kw, capsys):
+    from repro_torch.launch import serve
+    eng = serve.build_engine(reduced=True, device="cpu", dtype=torch.float32,
+                             **kw)
+    reqs = serve.workload(2, 3)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert [len(r.generated) for r in reqs] == [3, 3]
+    if eng.paged:
+        assert eng.kv.num_free_blocks == eng.kv.num_blocks - 1
+    else:
+        assert eng.kv is None and eng.model.cache is not None
+    serve.print_summary(eng)            # works with or without a pool
+    out = capsys.readouterr().out
+    assert ("paged cache" in out) == eng.paged
+    assert "flash_attention=0" in out and "decode_attention=0" in out

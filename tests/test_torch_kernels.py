@@ -6,6 +6,9 @@
 * the port's gather oracle against the reference's gather backend;
 * the plain RMSNorm against ``layers.rmsnorm`` and the Pallas
   ``rmsnorm_kernel`` (interpret mode);
+* the plain flash, decode and padded paged decode attention against the
+  reference's ``ops`` (the Pallas kernels in interpret mode), its oracles
+  and ``attention_math.attend``;
 * the dispatch: CPU tensors take the plain versions and count no launch.
 
 Each hand-written kernel is held to its plain version on the card in
@@ -22,11 +25,17 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
 from repro.kernels.ops import KernelConfig  # noqa: E402
+from repro.models.attention_math import attend  # noqa: E402
 from repro.models.layers import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as PDA  # noqa: E402
 from repro_torch.kernels import paged_ragged_attention as PRA  # noqa: E402
-from test_torch_cuda import CASES, PARAMS, paged_case  # noqa: E402
+from test_torch_cuda import (CASES, DECODE_CASES, FLASH_CASES,  # noqa: E402
+                             PARAMS, dense_case, paged_case)
 
 
 
@@ -129,6 +138,115 @@ def test_plain_rmsnorm_matches_reference_bf16(N, D):
         ulps = _bf16_ulps(got, want)
         assert int(ulps.max()) <= 1
         assert int((ulps > 0).sum()) <= max(1, got.numel() // 100)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,offs", FLASH_CASES[:4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_matches_pallas(B, Sq, Skv, Hq, Hkv, D, causal, offs,
+                                   dtype):
+    """The TPU-contract cases of ``tests/test_kernels.py`` (q_offsets 0):
+    the plain version vs ``repro.kernels.ops.flash_attention`` (the Pallas
+    kernel in interpret mode) at 2e-5 in fp32; in bf16 both round the same
+    bf16 inputs and p to bf16, and differ by the sum order, within 2e-2."""
+    q, k, v = dense_case(B, Sq, Skv, Hq, Hkv, D, seed=Sq + Hq + D)
+    tq = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    want = rops.flash_attention(
+        *(jnp.asarray(t.float().numpy()).astype(dtype) for t in tq),
+        causal=causal)
+    before = FA.launches
+    got = ops.flash_attention(*tq, causal=causal)
+    assert FA.launches == before
+    assert got.dtype == tq[0].dtype and got.shape == (B, Sq, Hq, D)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,offs", FLASH_CASES[4:])
+def test_plain_flash_offsets_match_attend(B, Sq, Skv, Hq, Hkv, D, causal,
+                                          offs):
+    """Chunks at per-row offsets against a whole cache row: the plain
+    version vs ``attention_math.attend`` with the dense prefill's
+    positions and ``kv_len = offsets + Sq``, fp32 at 1e-5 (``attend``
+    scales q before the dot, the kernel the scores after it)."""
+    q, k, v = dense_case(B, Sq, Skv, Hq, Hkv, D, seed=7)
+    off = np.asarray(offs, np.int32)
+    pos = off[:, None] + np.arange(Sq, dtype=np.int32)[None]
+    want = attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  jnp.asarray(pos), jnp.arange(Skv), causal=True,
+                  kv_len=jnp.asarray(off + Sq))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              q_offsets=torch.from_numpy(off))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# decode attention, contiguous and padded paged
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", DECODE_CASES[:3])
+def test_plain_decode_matches_pallas(B, S, Hq, Hkv, D):
+    """The cases of ``tests/test_kernels.py``: the plain version vs
+    ``repro.kernels.ops.decode_attention`` (interpret mode), fp32 at
+    2e-5."""
+    q, k, v = dense_case(B, 1, S, Hq, Hkv, D, seed=S + Hq)
+    lens = np.random.default_rng(S).integers(1, S, (B,)).astype(np.int32)
+    want = rops.decode_attention(*map(jnp.asarray, (q, k, v, lens)))
+    before = DA.launches
+    got = ops.decode_attention(*map(torch.from_numpy, (q, k, v, lens)))
+    assert DA.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("valid_len", [1, 37, 256, 511])
+def test_plain_decode_ignores_tokens_past_lens(valid_len):
+    """``tests/test_kernels.py``'s property: poisoning K/V past ``lens``
+    changes nothing (fp32, 1e-6)."""
+    q, k, v = dense_case(1, 1, 512, 2, 1, 64, seed=7)
+    lens = torch.tensor([valid_len], dtype=torch.int32)
+    out1 = ops.decode_attention(*map(torch.from_numpy, (q, k, v)), lens)
+    k[:, valid_len:], v[:, valid_len:] = 99.0, -99.0
+    out2 = ops.decode_attention(*map(torch.from_numpy, (q, k, v)), lens)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,bs,nmax,ctx", [
+    (4, 8, 2, 64, 16, 16, [200, 8, 256, 17]),
+    (2, 4, 4, 128, 32, 16, [511, 300]),
+    (3, 16, 1, 64, 16, 8, [1, 100, 128]),
+])
+def test_plain_paged_decode_matches_reference(B, Hq, Hkv, D, bs, nmax, ctx):
+    """The plain padded walk, with a poisoned null block behind the table
+    tails, vs ``repro.kernels.ops.paged_decode_attention`` (interpret mode)
+    and the reference's gather oracle ``paged_decode_attention_ref`` at
+    1e-4 (as ``tests/test_paged_cache.py`` holds them), and vs the port's
+    plain ragged attention at C == 1 within 1e-6."""
+    q, kp, vp, bt, ql, lens = paged_case(B, 1, Hq, Hkv, D, bs, nmax, ctx,
+                                         [1] * B, seed=B + D)
+    kp[0], vp[0] = 99.0, -99.0                     # the null block
+    g = Hq // Hkv
+    want = rops.paged_decode_attention(*map(jnp.asarray,
+                                            (q, kp, vp, bt, lens)))
+    oracle = rref.paged_decode_attention_ref(
+        jnp.asarray(q.reshape(B, Hkv, g, D)), *map(jnp.asarray,
+                                                    (kp, vp, bt, lens)))
+    before = PDA.launches
+    got = ops.paged_decode_attention(*map(torch.from_numpy,
+                                          (q, kp, vp, bt, lens)))
+    assert PDA.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got.numpy().reshape(B, Hkv, g, D),
+                               np.asarray(oracle), atol=1e-4, rtol=1e-4)
+    rag = ops.paged_ragged_attend(*map(torch.from_numpy,
+                                       (q, kp, vp, bt, ql, lens)))
+    np.testing.assert_allclose(got.numpy(), rag.numpy(), atol=1e-6,
+                               rtol=1e-6)
 
 
 def test_dispatch_rejects_other_devices():

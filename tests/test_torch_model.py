@@ -5,7 +5,9 @@ reference's parameters, with every norm scale replaced by random values
 (the reference initialises them to ones, which would hide a wrong scale),
 go through ``convert.from_jax_params`` into the port. Then both run the
 same mixed paged steps: a prefill row, a decode row, a padding row and a
-chunk whose padding overhangs the block table.
+chunk whose padding overhangs the block table; and the same serialized
+prefill and decode steps on the dense contiguous cache and on the paged
+pool.
 """
 import numpy as np
 import pytest
@@ -25,7 +27,7 @@ from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
-ARCHS = ["qwen3-8b", "qwen2-1.5b", "internlm2-1.8b"]
+ARCHS = ["qwen3-8b", "qwen2-7b", "qwen2-1.5b", "internlm2-1.8b"]
 NORM_LEAVES = ("scale", "q_norm", "k_norm")
 
 
@@ -106,6 +108,121 @@ def test_mixed_step_matches_reference(name):
             np.testing.assert_allclose(
                 jp[:, 1:].numpy(), np.asarray(pool["body"]["s0"][side])[:, 1:],
                 atol=1e-4, rtol=1e-4)
+
+
+# serialized steps at s_max 32 (bs 8, nmax 4) with chunk C = 8. Rows 0 and
+# 1 prefill two chunks, row 2 one chunk and then sits out, row 3 sits out
+# throughout (dummy rows: offset s_max - C on the dense cache, 0 with an
+# all-null table on the paged pool); then three decode steps, row 3
+# inactive (token 0 at lens 0, an all-null table).
+S_MAX, C, SBS = 32, 8, 8
+SER_BT = np.array([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12], [0, 0, 0, 0]],
+                  np.int32)
+SER_PREFILL = [([0, 0, 0, None], [0, 1, 2]), ([8, 8, None, None], [0, 1])]
+SER_LENS = [16, 16, 8, 0]
+
+
+def _serialized_steps(paged):
+    """(tokens, offsets, block tables) of each prefill step, then the
+    decode lens and block tables, for the dense or the paged cache."""
+    rng = np.random.default_rng(2)
+    dummy = 0 if paged else S_MAX - C
+    steps = []
+    for offs, live in SER_PREFILL:
+        toks = rng.integers(1, 256, (4, C)).astype(np.int32)
+        off = np.array([dummy if o is None else o for o in offs], np.int32)
+        bt = np.zeros_like(SER_BT)
+        bt[live] = SER_BT[live]
+        steps.append((toks, off, bt if paged else None))
+    dec_bt = SER_BT.copy() if paged else None
+    return steps, dec_bt
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_serialized_steps_match_reference(name, paged):
+    """``Model.prefill``/``decode`` against the reference's ``prefill_fn``/
+    ``decode_fn`` (``paged=True`` for the pool): last-column prefill logits
+    and decode logits at fp32 within 1e-4, and the greedy tokens of three
+    decode steps equal."""
+    jm, params, tm = build_pair(name)
+    pre = jax.jit(jm.prefill_fn(paged=paged))
+    dec = jax.jit(jm.decode_fn(sample=False, paged=paged))
+    if paged:
+        cache = jm.init_paged_cache(4 * (S_MAX // SBS) + 1, SBS)
+        tm.init_paged_cache(4 * (S_MAX // SBS) + 1, SBS)
+    else:
+        cache = jm.init_cache(4, S_MAX)
+        tm.init_cache(4, S_MAX)
+    steps, dec_bt = _serialized_steps(paged)
+    for toks, off, bt in steps:
+        extra = (jnp.asarray(bt),) if paged else ()
+        want, cache = pre(params, cache, jnp.asarray(toks), jnp.asarray(off),
+                          *extra)
+        got, _ = tm.prefill(toks, off, block_tables=bt)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    tok = np.array([5, 6, 7, 0], np.int32)
+    lens = np.array(SER_LENS, np.int32)
+    for _ in range(3):
+        extra = (jnp.asarray(dec_bt),) if paged else ()
+        want, cache = dec(params, cache, jnp.asarray(tok), jnp.asarray(lens),
+                          *extra)
+        got, _ = tm.decode(tok, lens, block_tables=dec_bt, sample=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+        want_tok = np.argmax(np.asarray(want), -1).astype(np.int32)
+        np.testing.assert_array_equal(TL.distributed_argmax(got).numpy(),
+                                      want_tok)
+        tok = want_tok * (lens > 0)
+        lens = lens + (lens > 0)
+
+
+def test_dense_matches_paged():
+    """The port's dense cache against its paged pool on reduced qwen3-8b
+    (the reference's ``test_paged_model_matches_dense_single_device``):
+    prefill logits within 1e-5, then three decode steps with equal greedy
+    tokens."""
+    _, _, tm = build_pair("qwen3-8b")
+    B, bs, nmax = 4, 8, 8
+    tm.init_cache(B, bs * nmax)
+    tm.init_paged_cache(B * nmax + 1, bs)
+    bt = 1 + np.arange(B * nmax, dtype=np.int32).reshape(B, nmax)
+    toks = np.random.default_rng(1).integers(0, 256, (B, 16)).astype(np.int32)
+    offs = np.zeros((B,), np.int32)
+    ld, _ = tm.prefill(toks, offs)
+    lp, _ = tm.prefill(toks, offs, block_tables=bt)
+    np.testing.assert_allclose(ld.numpy(), lp.numpy(), atol=1e-5)
+    t = TL.distributed_argmax(ld).int().numpy()
+    lens = np.full((B,), 16, np.int32)
+    for _ in range(3):
+        nd, _ = tm.decode(t, lens)
+        np_, _ = tm.decode(t, lens, block_tables=bt)
+        np.testing.assert_array_equal(nd.numpy(), np_.numpy())
+        t, lens = nd.int().numpy(), lens + 1
+
+
+def test_dense_attention_refuses_what_is_not_ported():
+    """Windows, rope-free layers and logit soft caps raise on the dense
+    path instead of computing something else."""
+    from repro_torch.models import attention as TA
+    cfg = get_config("qwen3-8b").reduced()
+    tm = Model(cfg, device="cpu", dtype=torch.float32)
+    tm.init_params(torch.Generator().manual_seed(0))
+    tm.init_cache(1, 8)
+    p = tm.params.layers[0].attn
+    x = torch.zeros((1, 2, cfg.d_model))
+    off = torch.zeros((1,), dtype=torch.int32)
+    for kw in ({"window": 4}, {"rope": False}):
+        with pytest.raises(NotImplementedError):
+            TA.attn_prefill(p, x, tm.cache.k[0], tm.cache.v[0], off, cfg, **kw)
+        with pytest.raises(NotImplementedError):
+            TA.attn_decode(p, x[:, 0], tm.cache.k[0], tm.cache.v[0], off,
+                           cfg, **kw)
+    import dataclasses
+    capped = dataclasses.replace(cfg, logits_soft_cap=30.0)
+    with pytest.raises(NotImplementedError):
+        TA.attn_prefill(p, x, tm.cache.k[0], tm.cache.v[0], off, capped)
 
 
 @pytest.mark.parametrize("name", ARCHS)
