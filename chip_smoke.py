@@ -11,28 +11,36 @@ Phases (every failure propagates and exits non-zero):
    launch;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
-   16; RMSNorm over [N, 4096] and [N*32, 128]; flash over a 64-token chunk
-   against a dense cache of 2048 and the TPU kernel's own case; decode over
-   contexts up to 2048), in fp32 and bf16, with its time, the plain
-   version's, a PyTorch library call's and the least time the card could
+   16; RMSNorm over [N, 4096] and [N*32, 128], and grouped over mamba2's 64
+   SSD heads of 64; flash over a 64-token chunk against a dense cache of
+   2048 and the TPU kernel's own case; decode over contexts up to 2048; the
+   SSD chunk at mamba2-1.3b's serving prefill step, a long prompt, a short
+   chunk and the TPU contract's per-(head, chunk) copies), in fp32 and
+   bf16, with its time, the plain version's, a PyTorch library call's
+   where one computes the same function, and the least time the card could
    take; the padded paged decode also against the ragged kernel at C == 1;
 4. the slice against itself across devices: the engines on reduced
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
-   dense cache) on the card (kernels) and on the CPU (plain versions) give
-   equal streams, config counts and preemptions, and one mixed step's and
-   one dense prefill + decode's logits agree within 1e-4;
+   dense cache) and on reduced mamba2 (the dense fallback, with two
+   requests in flight and more requests than slots) on the card (kernels)
+   and on the CPU (plain versions) give equal streams, config counts and
+   preemptions, and one mixed step's and one dense prefill + decode's
+   logits agree within 1e-4;
 5. the main paths: ``repro_torch.launch.serve.build_engine`` serving
    qwen3-8b at full width in bf16 (random weights, generator seeded 0)
    with the serve CLI's workload, 6 requests x 16 new tokens, through the
    mixed paged engine, then on the same weights through the serialized
-   engine on the paged pool and on the dense cache. Every launch counter is
-   set to 0 before each path and must equal that path's per-step counts
-   times its steps of each kind; no block may leak.
+   engine on the paged pool and on the dense cache; then mamba2-1.3b at
+   full width through its dense serialized fallback with the same
+   workload. Every launch counter is set to 0 before each path and must
+   equal that path's per-step counts times its steps of each kind; no
+   block may leak.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -48,6 +56,7 @@ RMS_TPU = "src/repro/kernels/rmsnorm.py:17"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:62"
 DECODE_TPU = "src/repro/kernels/decode_attention.py:57"
 PAGED_DECODE_TPU = "src/repro/kernels/paged_decode_attention.py:67"
+SSD_TPU = "src/repro/kernels/ssd_scan.py:47"
 CSRC = "src/repro_torch/kernels/csrc/"
 # the decode rows of the ragged kernel's decode case: (context, q_len)
 DECODE_ROWS = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
@@ -189,12 +198,18 @@ def attention_case(torch, name, rows, dtype, timer, tol):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def rmsnorm_case(torch, name, N, D, dtype, timer, tol):
+def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None):
+    """Rows [N, D] with scale [D]; with ``H``, grouped: x [N/H, H, D] with
+    scale [H, D] (no single PyTorch call computes that)."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as RMS
     gen = torch.Generator(device="cuda").manual_seed(N + D)
     x = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
-    s = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+    s = torch.randn((H or 1, D), generator=gen, device="cuda").to(dtype)
+    if H:
+        x = x.reshape(N // H, H, D)
+    else:
+        s = s[0]
     got = RMS.rmsnorm_cuda(x, s)
     torch.cuda.synchronize()
     want = RMS.rmsnorm_plain(x, s)
@@ -204,12 +219,13 @@ def rmsnorm_case(torch, name, N, D, dtype, timer, tol):
           f"rmsnorm {name}: max abs err {err} > tol {tol}")
     ms = timer(lambda: RMS.rmsnorm_cuda(x, s))
     plain_ms = timer(lambda: RMS.rmsnorm_plain(x, s))
-    library_ms = timer(lambda: F.rms_norm(x, (D,), weight=s, eps=1e-6))
+    library_ms = None if H else timer(
+        lambda: F.rms_norm(x, (D,), weight=s, eps=1e-6))
     elt = x.element_size()
-    t_bytes = (2 * N * D + D) * elt / HBM_BYTES_PER_S * 1e3
+    t_bytes = (2 * N * D + s.numel()) * elt / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * N * D / PEAK_FLOPS["torch.float32"] * 1e3
     return {"case": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"x": [N, D], "scale": [D]}, "tol": tol,
+            "shape": {"x": list(x.shape), "scale": list(s.shape)}, "tol": tol,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -372,6 +388,53 @@ def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
             "bound_by": bound_by}
 
 
+def ssd_chunk_case(torch, name, B, S, H, hd, ds, L, shared, dtype, timer,
+                   tol=1e-4):
+    """The SSD chunk step. Shared: x, b and c are views of one conv output
+    [B, S, H*hd + 2*ds], as ``_ssd_scan`` hands them over (b and c with a
+    head stride of 0). Per head: the TPU contract's copies, contiguous [B,
+    S, H, *]. Both versions compute in fp32 from the same inputs and return
+    fp32, so they agree within ``tol`` in either input type. No single
+    PyTorch call computes this function: library_ms is None."""
+    from repro_torch.kernels import ssd_scan as SSD
+    gen = torch.Generator(device="cuda").manual_seed(B * S + H)
+    if shared:
+        xc = torch.randn((B, S, H * hd + 2 * ds), generator=gen,
+                         device="cuda").to(dtype)
+        x = xc[..., :H * hd].reshape(B, S, H, hd)
+        b = xc[..., H * hd:H * hd + ds][:, :, None].expand(B, S, H, ds)
+        c = xc[..., H * hd + ds:][:, :, None].expand(B, S, H, ds)
+    else:
+        x = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((B, S, H, ds), generator=gen, device="cuda").to(dtype)
+        c = torch.randn((B, S, H, ds), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = torch.exp(torch.randn((H,), generator=gen, device="cuda") * 0.5)
+    cum = (-dt * A).reshape(B, S // L, L, H).cumsum(2).reshape(B, S, H)
+    args = (x, b, c, dt, cum, L)
+    got = SSD.ssd_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    want = SSD.ssd_chunk_plain(*args)
+    err = max(compare(torch, f"ssd_chunk {name} {dtype} {part}", g, w, tol)
+              for part, g, w in zip(("y", "state", "decay"), got, want))
+    ms = timer(lambda: SSD.ssd_chunk_cuda(*args))
+    plain_ms = timer(lambda: SSD.ssd_chunk_plain(*args), iters=3)
+    nc, elt = S // L, x.element_size()
+    bc_heads = 1 if shared else H
+    nbytes = (x.numel() * elt + 2 * B * S * bc_heads * ds * elt   # x, b, c
+              + 2 * B * S * H * 4                                 # dt, cum
+              + B * S * H * (hd + 1) * 4 + B * nc * H * hd * ds * 4)
+    tri = L * (L + 1) // 2                  # (t, s) pairs with s <= t
+    fmas = B * nc * (bc_heads * tri * ds + H * (tri * hd + L * hd * ds))
+    bound_ms, bound_by = bound(nbytes, 2 * fmas, torch.float32)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"x": list(x.shape), "bc": [B, S, bc_heads, ds],
+                      "chunk": L, "bc_shared": shared},
+            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def kernel_phase(torch):
     timer = Timer(torch)
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -384,7 +447,7 @@ def kernel_phase(torch):
     chunk_offsets = [0, 256, 576, 832, 1088, 1344, 1664, 1984]
     cases = {k: [] for k in ("paged_ragged_attention", "rmsnorm",
                              "flash_attention", "decode_attention",
-                             "paged_decode_attention")}
+                             "paged_decode_attention", "ssd_chunk")}
 
     def add(kernel, case):
         cases[kernel].append(case)
@@ -399,6 +462,21 @@ def kernel_phase(torch):
         # x 64 columns); q_norm/k_norm run over N x 32 head rows of 128
         for name, N, D in (("hidden", 512, 4096), ("heads", 512 * 32, 128)):
             add("rmsnorm", rmsnorm_case(torch, name, N, D, dtype, timer, tol))
+        # mamba2's grouped norm at its serving prefill step: 8 x 64 tokens,
+        # 64 heads of 64, one scale row per head
+        add("rmsnorm", rmsnorm_case(torch, "grouped", 8 * 64 * 64, 64, dtype,
+                                    timer, tol, H=64))
+        # mamba2-1.3b (64 heads of 64, d_state 128, chunk 64): the serving
+        # prefill step (8 rows of 64), a long prompt (32 chunks), a short
+        # chunk (S < 64), and the serving step as the TPU contract's
+        # per-(head, chunk) copies (no c.b^T shared across heads)
+        for name, B, S, H, L, shared in (
+                ("serving step", 8, 64, 64, 64, True),
+                ("long prompt", 1, 2048, 64, 64, True),
+                ("short chunk", 8, 19, 64, 19, True),
+                ("TPU contract copies", 8 * 64, 64, 1, 64, False)):
+            add("ssd_chunk", ssd_chunk_case(torch, name, B, S, H, 64, 128, L,
+                                            shared, dtype, timer))
         add("flash_attention", flash_case(
             torch, "serving chunk", 8, 64, 2048, chunk_offsets, True, dtype,
             timer, tol))
@@ -486,6 +564,63 @@ def cross_device_phase(torch):
               f"reduced dense logits cuda vs cpu: max abs err {err}")
     print(f"reduced dense prefill + decode logits cuda vs cpu: max abs err "
           f"{err} (tol 1e-4)")
+    mamba2_cross_device(torch)
+
+
+def mamba2_cross_device(torch):
+    """Reduced mamba2 at fp32 through the dense serialized fallback: one
+    request alone, two in flight on two slots (each step's dummy rows
+    advance the idle slot's SSD state, as in the reference), and the
+    workload's 6 requests on 4 slots; then one dense prefill + decode's
+    logits (tol 1e-4, fp32 on both sides)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, Request, ShiftEngine
+    from repro_torch.launch.serve import workload
+    from repro_torch.models import Model
+    cfg = get_config("mamba2-1.3b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    a, b = list(range(3, 14)), list(range(40, 60))
+    for label, slots, prompts in (("one request", 1, [a]),
+                                  ("two in flight", 2, [a, b]),
+                                  ("6 requests on 4 slots", 4, None)):
+        runs = []
+        for model in (gpu, cpu):
+            eng = ShiftEngine(model, EngineConfig(max_slots=slots, s_max=64,
+                                                  prefill_chunk=8))
+            check(not eng.paged and not eng.mixed,
+                  "mamba2 must fall back to the dense serialized engine")
+            reqs = (workload(6, 8) if prompts is None else
+                    [Request(i, p, max_new_tokens=6)
+                     for i, p in enumerate(prompts)])
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            runs.append(([r.generated for r in reqs], eng.config_counts))
+        check(runs[0] == runs[1], f"reduced mamba2 {label}: cuda {runs[0]} "
+              f"!= cpu {runs[1]}")
+        print(f"reduced mamba2 dense engine, {label}: cuda == cpu, configs "
+              f"{runs[0][1]}, streams {runs[0][0][:2]}")
+    err = 0.0
+    for model in (gpu, cpu):
+        model.init_cache(3, 32)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, cfg.vocab_size, (3, 16)).astype(np.int32)
+    lg = [m.prefill(toks, [0, 0, 16])[0].cpu() for m in (gpu, cpu)]
+    steps = [lg]
+    for lens in ([16, 16, 0], [17, 17, 0]):
+        tok = lg[1].argmax(-1).int().numpy() * (np.array(lens) > 0)
+        lg = [m.decode(tok, lens, sample=False)[0].cpu() for m in (gpu, cpu)]
+        steps.append(lg)
+    for g, c in steps:
+        err = max(err, (g - c).abs().max().item())
+        check(torch.allclose(g, c, atol=1e-4, rtol=1e-4),
+              f"reduced mamba2 logits cuda vs cpu: max abs err {err}")
+    print(f"reduced mamba2 dense prefill (2 SSD chunks) + decode logits cuda "
+          f"vs cpu: max abs err {err} (tol 1e-4)")
 
 
 # ---------------------------------------------------------------------------
@@ -545,18 +680,22 @@ def serve_path(torch, eng, label):
               f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
               f"{eng.kv.num_blocks}")
     check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
-    # per step: ln1, ln2, q_norm, k_norm per layer + the final norm; one
-    # attention per layer, by the kernel of the step's kind and cache
-    L = cfg.num_layers
+    # per step: ln1, ln2, q_norm, k_norm per attention layer, ln1 and the
+    # grouped norm per SSD layer, and the final norm; one attention per
+    # attention layer, by the kernel of the step's kind and cache; one SSD
+    # chunk launch per SSD layer in a prefill step, none in a decode step
+    n_attn = cfg.layer_kinds.count("attn")
+    n_ssd = cfg.layer_kinds.count("ssd")
     per_kind = {"mixed": "paged_ragged_attention",
                 "prefill": ("paged_ragged_attention" if eng.paged
                             else "flash_attention"),
                 "decode": ("paged_ragged_attention" if eng.paged
                            else "decode_attention")}
     want = {name: 0 for name in launches}
-    want["rmsnorm"] = steps * (4 * L + 1)
+    want["rmsnorm"] = steps * (4 * n_attn + 2 * n_ssd + 1)
     for kind, n in kinds.items():
-        want[per_kind[kind]] += n * L
+        want[per_kind[kind]] += n * n_attn
+    want["ssd_chunk"] = (kinds["prefill"] + kinds["mixed"]) * n_ssd
     check(launches == want, f"{label}: launches {launches} over steps "
           f"{kinds}, want {want}")
 
@@ -574,7 +713,9 @@ def serve_path(torch, eng, label):
           f"{(t_last - t_first) * 1e3:.1f} ms, "
           f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
           f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
-    print(f"{label}: launches: {json.dumps(launches)}")
+    print(f"{label}: launches: {json.dumps(launches)}; per step: "
+          f"{4 * n_attn + 2 * n_ssd + 1} rmsnorm, {n_attn} attention, "
+          f"{n_ssd} ssd_chunk per prefill step and 0 per decode step")
     return reqs, launches
 
 
@@ -654,7 +795,58 @@ def serving_phase(torch):
     return by_path
 
 
-def profile_decode(torch, eng, steps=4):
+def mamba2_serving_phase(torch):
+    """mamba2-1.3b at full width (48 SSD layers, d_model 2048, bf16, random
+    weights from a generator seeded 0) through the serve CLI's engine, which
+    falls back to the serialized iteration on the dense cache; the same 6 x
+    16 workload; then one small prefill + decode's logits, finite and of
+    the expected shape."""
+    import numpy as np
+    from repro_torch.launch import serve
+    # the qwen3-8b engines hold their model through reference cycles (the
+    # step counters wrap bound methods): collect them so that the peak
+    # below is mamba2's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    eng = serve.build_engine("mamba2-1.3b", device="cuda",
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cfg = eng.mcfg
+    check(not eng.paged and not eng.mixed and "non-pageable"
+          in eng.paged_disabled_reason, "mamba2: not the dense fallback")
+    c = eng.model.cache
+    state = sum(t.numel() * t.element_size()
+                for t in (c.ssm, c.conv_x, c.conv_bc))
+    print(f"mamba2-1.3b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSD heads of "
+          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, "
+          f"{cfg.num_params() / 1e9:.3f} B params "
+          f"({cfg.num_params() * 2 / 1e9:.2f} GB bf16), built in "
+          f"{time.monotonic() - t0:.1f} s; dense cache: "
+          f"{eng.cfg.max_slots} slots, SSD state {state / 1e6:.1f} MB "
+          f"({eng.paged_disabled_reason})")
+    reqs, launches = serve_path(torch, eng, "mamba2 serialized dense")
+    print(f"mamba2: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({before / 1e9:.2f} GB allocated before the model was built)")
+    profile_decode(torch, eng, label="mamba2 serialized dense")
+    toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+    eng.model.init_cache(2, 32)
+    logits, _ = eng.model.prefill(toks, [0, 24])
+    nxt, _ = eng.model.decode(logits.argmax(-1), [8, 0], sample=False)
+    torch.cuda.synchronize()
+    for lg in (logits, nxt):
+        check(tuple(lg.shape) == (2, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()),
+              f"mamba2 full-width logits {tuple(lg.shape)} not finite")
+    print(f"card: {card_line()}")
+    return launches
+
+
+def profile_decode(torch, eng, steps=4, label=None):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
     ``steps`` decode steps of 6 rows (after their one prefill step, mixed
     or serialized), kernel time by name and the device's busy share of the
@@ -682,8 +874,8 @@ def profile_decode(torch, eng, steps=4):
     busy = sum(t for _, t, _ in rows)
     n = sum(c for _, _, c in rows)
     check(busy > 0, "the profiler saw no device time")
-    it = "mixed" if eng.mixed else ("serialized paged" if eng.paged
-                                    else "serialized dense")
+    it = label or ("mixed" if eng.mixed else "serialized paged" if eng.paged
+                   else "serialized dense")
     print(f"{it}: profile of {steps} decode steps: wall "
           f"{wall_us / steps / 1e3:.2f} "
           f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
@@ -707,7 +899,8 @@ def summary(cases, by_path):
             ("decode_attention", "cuda", CSRC + "decode_attention.cu",
              DECODE_TPU),
             ("paged_decode_attention", "cuda", CSRC + "decode_attention.cu",
-             PAGED_DECODE_TPU)):
+             PAGED_DECODE_TPU),
+            ("ssd_chunk", "cuda", CSRC + "ssd_chunk.cu", SSD_TPU)):
         top = cases[name][0]
         out.append({"name": name, "route": route, "source": source,
                     "replaces": replaces,
@@ -756,6 +949,7 @@ def main():
     cases = kernel_phase(torch)
     cross_device_phase(torch)
     by_path = serving_phase(torch)
+    by_path["mamba2_dense"] = mamba2_serving_phase(torch)
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

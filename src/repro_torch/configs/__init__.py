@@ -1,10 +1,10 @@
 """Config registry: ``get_config("qwen3-8b")`` / ``--arch qwen3-8b``."""
 from __future__ import annotations
 
-from .archs import DENSE_GQA
-from .base import ModelConfig
+from .archs import ARCHS, DENSE_GQA
+from .base import ModelConfig, SSMConfig
 
-_REGISTRY = {c.name: c for c in DENSE_GQA}
+_REGISTRY = {c.name: c for c in ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -15,4 +15,4 @@ def get_config(name: str) -> ModelConfig:
                        f"{sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ModelConfig", "DENSE_GQA", "get_config"]
+__all__ = ["ModelConfig", "SSMConfig", "ARCHS", "DENSE_GQA", "get_config"]

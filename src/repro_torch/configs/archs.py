@@ -1,8 +1,8 @@
-"""The dense GQA architectures the port serves (same numbers as
-``repro.configs.archs``)."""
+"""The architectures the port serves (same numbers as
+``repro.configs.archs``): four dense GQA decoders and mamba2."""
 from __future__ import annotations
 
-from .base import ModelConfig
+from .base import ModelConfig, SSMConfig
 
 QWEN3_8B = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -32,4 +32,15 @@ QWEN2_1_5B = ModelConfig(
     source="arXiv:2407.10671",
 )
 
+MAMBA2_1_3B = ModelConfig(
+    name="mamba2-1.3b", family="ssm",
+    num_layers=48, d_model=2048, num_heads=1, num_kv_heads=1, head_dim=64,
+    d_ff=0, vocab_size=50280,
+    layer_pattern=("ssd",),
+    ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64, chunk=64),
+    tie_embeddings=True,
+    source="arXiv:2405.21060",
+)
+
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
+ARCHS = DENSE_GQA + (MAMBA2_1_3B,)

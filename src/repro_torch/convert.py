@@ -22,14 +22,21 @@ def _flatten(tree, prefix=""):
 
 
 def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
-    """* ``body.s0.*`` (stacked over layers on axis 0) -> ``layers.{i}.*``;
+    """* ``body.s0.*`` (stacked over layers on axis 0) -> ``layers.{i}.*``,
+      for an attention block (``ln1``, ``attn``, ``ln2``, ``ffn``) and for
+      an SSD block (``ln1``, ``mix``) alike;
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
-    * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc];
+    * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
+      the port's tied head reads the table);
     * everything else keeps its dotted name.
-    Only the dense single-pattern stack of the port's configs converts."""
+    Only a stack of one repeated block kind, without prefix or suffix
+    layers, converts. The SSD mixer's ``wbc`` must be the trivial layout's
+    single group, [d, 2·d_state]; a tree built for TP replicates it and
+    raises."""
     if tree.get("prefix") or tree.get("suffix") \
-            or set(tree.get("body", {})) != {"s0"}:
-        raise ValueError("only a stack of one repeated 'attn' block converts")
+            or set(tree.get("body", {})) != {"s0"} \
+            or len(cfg.layer_pattern) != 1:
+        raise ValueError("only a stack of one repeated block converts")
     out = {}
     for name, a in _flatten(tree):
         if name.startswith("body.s0."):
@@ -37,6 +44,11 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
                 raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
                                  f"config has {cfg.num_layers}")
             rest = name[len("body.s0."):]
+            if rest == "mix.wbc" and a.shape[1:] != (cfg.d_model,
+                                                     2 * cfg.ssm.d_state):
+                raise ValueError(
+                    f"{name}: shape {a.shape[1:]}, want the trivial layout's "
+                    f"[{cfg.d_model}, {2 * cfg.ssm.d_state}] (kexp 1)")
             for i in range(cfg.num_layers):
                 out[f"layers.{i}.{rest}"] = a[i]
         elif name == "embed.table":

@@ -11,14 +11,23 @@ its batched token count (paper Algorithm 2); on one card both configs are
 the trivial layout and run the same program, but the engine still makes
 and counts the choice, as the reference does.
 
-KV lives in one of two caches. The paged pool (``paged``, the default)
+KV lives in one of two caches. The paged pool (``paged``, the default
+for configs whose layers all page)
 maps sequences to fixed-size blocks through a block table
 (``repro_torch.cache``): admission holds a request in the queue until its
 prompt fits in the free blocks, and block exhaustion preempts the
 least-recently scheduled request back to the queue (recompute), which
 bounds memory while guaranteeing progress. The dense contiguous cache
-(``paged=False``) gives each slot a ``[s_max]`` row; it serves only the
-serialized iteration and admits FCFS by free slot.
+(``paged=False``, and the automatic fallback for mamba2, whose SSD layers
+keep recurrent state per slot) gives each slot a ``[s_max]`` row; it
+serves only the serialized iteration and admits FCFS by free slot.
+
+As in the reference, a serialized step always runs all ``max_slots``
+rows, and nothing resets a slot's SSD state on admission: the dummy rows
+of slots outside the step (zero tokens) and the zero padding after a
+short last chunk advance that state. Streams of an SSD model therefore
+depend on what else is in flight; the port copies this behaviour so that
+its streams equal the reference's.
 
 Not in this slice: prefix caching, speculative decoding, fault injection,
 observability, dp rows and reshard.
@@ -44,7 +53,8 @@ class EngineConfig:
                  # physical blocks incl. the null block; 0 = auto-size so
                  # max_slots x s_max fits
                  num_blocks: int = 0,
-                 # None = auto: paged, and mixed when paged
+                 # None = auto: paged when every layer pages, and mixed
+                 # when paged
                  paged: Optional[bool] = None,
                  mixed: Optional[bool] = None):
         self.max_slots = max_slots
@@ -64,13 +74,24 @@ class ShiftEngine:
         self.mcfg = model.cfg
         self.cfg = cfg = cfg or EngineConfig()
         self.policy = ThresholdPolicy(cfg.threshold)
-        # every architecture of the port is pageable and one card has one
-        # dp row, so paging is off only when asked; the reason is kept, as
-        # the reference keeps it, because the dense cache also rules out
-        # the mixed iteration
-        self.paged = True if cfg.paged is None else cfg.paged
-        self.paged_disabled_reason = None if self.paged \
-            else "paged=False in EngineConfig"
+        # paging needs every layer to page (an SSD layer keeps recurrent
+        # state per sequence); one card has one dp row, so that is the
+        # only architectural reason. Auto falls back to the dense cache,
+        # a forced paged=True raises; the reason is kept, as the reference
+        # keeps it, because the dense cache also rules out the mixed
+        # iteration
+        reason = None
+        if not model.supports_paged:
+            reason = (f"architecture {self.mcfg.name} has non-pageable layer "
+                      "kinds (MLA latents / ring buffers / recurrent state "
+                      "keep the contiguous cache)")
+        if cfg.paged and reason is not None:
+            raise ValueError(f"config {self.mcfg.name} cannot use a paged KV "
+                             f"cache: {reason}")
+        self.paged = reason is None if cfg.paged is None else cfg.paged
+        if not self.paged and reason is None:
+            reason = "paged=False in EngineConfig"
+        self.paged_disabled_reason = None if self.paged else reason
         self.mixed = self.paged if cfg.mixed is None else cfg.mixed
         if self.mixed and not self.paged:
             raise ValueError(

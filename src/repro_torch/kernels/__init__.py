@@ -4,7 +4,8 @@
 * ``flash_attention``: CUDA C++ (``csrc/flash_attention.cu``).
 * ``decode_attention`` and ``paged_decode_attention``: CUDA C++, one source
   (``csrc/decode_attention.cu``) templated on how a key is addressed.
-* ``rmsnorm``: Triton.
+* ``ssd_scan``: the SSD intra-chunk step, CUDA C++ (``csrc/ssd_chunk.cu``).
+* ``rmsnorm``: Triton (row-wise, or grouped with one scale row per head).
 
 The CUDA sources are built by ``build.py`` with nvcc for sm_90a and loaded
 with ctypes. ``ops`` dispatches by the device of the tensors.

@@ -15,6 +15,7 @@ from . import flash_attention as FA
 from . import paged_decode_attention as PDA
 from . import paged_ragged_attention as PRA
 from . import rmsnorm as RMS
+from . import ssd_scan as SSD
 
 
 def _on_cuda(t) -> bool:
@@ -78,6 +79,17 @@ def paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens, ctx_lens, *,
 
 
 def rmsnorm(x, scale, eps=1e-6):
-    """RMSNorm over the last axis of x ([..., D]) with scale [D]."""
+    """RMSNorm over the last axis of x ([..., D]) with scale [D], or
+    grouped: x [..., H, D] with one scale row per head, [H, D]."""
     fn = RMS.rmsnorm_cuda if _on_cuda(x) else RMS.rmsnorm_plain
     return fn(x, scale, eps)
+
+
+def ssd_chunk(x, b, c, dt, cum, chunk):
+    """The SSD intra-chunk step: x [B, S, H, hd] and b/c [B, S, H, ds] read
+    in place (b and c may share one group across heads with a head stride
+    of 0), dt/cum [B, S, H] fp32 with ``cum`` the within-chunk cumulative
+    log decay, S a multiple of ``chunk``. Returns fp32 ``(y_intra [B, S, H,
+    hd], state contribution [B, S/chunk, H, hd, ds], exp(cum) [B, S, H])``."""
+    fn = SSD.ssd_chunk_cuda if _on_cuda(x) else SSD.ssd_chunk_plain
+    return fn(x, b, c, dt, cum, chunk)

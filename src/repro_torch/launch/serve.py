@@ -5,11 +5,13 @@ Serves the architecture at full width in bf16 on the card by default
 (qwen3-8b: 36 layers, d_model 4096), with random weights drawn from a
 seeded ``torch.Generator``; the workload and engine defaults are those of
 ``repro.launch.serve``. The CLI serves through the mixed paged iteration
-(the reference CLI's default). ``build_engine(..., paged=False,
-mixed=False)`` builds the serialized iteration (a prefill step, else a
-decode step) on the dense contiguous cache, and ``mixed=False`` alone the
-serialized iteration on the paged pool. ``--reduced`` and ``--device cpu``
-run the test-size model on the CPU with the kernels' plain versions.
+(the reference CLI's default); ``--arch mamba2-1.3b``, whose SSD layers
+do not page, falls back to the serialized iteration (a prefill step, else
+a decode step) on the dense contiguous cache. ``build_engine(...,
+paged=False, mixed=False)`` builds that iteration for any arch, and
+``mixed=False`` alone the serialized iteration on the paged pool.
+``--reduced`` and ``--device cpu`` run the test-size model on the CPU with
+the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_decode_attention as PDA
 from repro_torch.kernels import paged_ragged_attention as PRA
 from repro_torch.kernels import rmsnorm as RMS
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models import Model
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -32,7 +35,7 @@ WEIGHT_SEED = 0
 # every kernel's module, by the name its launch counter is reported under
 KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
            "decode_attention": DA, "paged_decode_attention": PDA,
-           "rmsnorm": RMS}
+           "rmsnorm": RMS, "ssd_chunk": SSD}
 
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
@@ -40,7 +43,8 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  paged=None, mixed=None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
-    ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed). The
+    ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
+    every layer pages, else the serialized dense engine). The
     model checks the device before it allocates anything."""
     cfg = get_config(arch)
     if reduced:

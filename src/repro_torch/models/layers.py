@@ -129,6 +129,38 @@ def lmhead_apply(p: LMHead, x):
     return (x @ p.w).float()
 
 
+def tied_lmhead_apply(embed: Embedding, x):
+    """The LM head of a tied model, the embedding table itself: logits
+    ``x @ table.T`` [..., vocab] in fp32."""
+    return (x @ embed.table.T).float()
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise convolution (the SSD mixer's short conv)
+# ---------------------------------------------------------------------------
+def causal_depthwise_conv(x, w, state):
+    """Causal depthwise 1-D conv. x: [B, S, C], w: [cw, C], state: [B, cw-1,
+    C], the tail of the previous segment. Returns (y [B, S, C], new state
+    [B, cw-1, C]). The taps are summed in the reference's order (a Python
+    ``sum`` of the cw products), each product and partial sum rounded to
+    x's type, so bf16 agrees bit for bit."""
+    cw = w.shape[0]
+    S = x.shape[1]
+    xp = torch.cat([state, x], dim=1)                 # [B, S+cw-1, C]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(cw))
+    new_state = xp[:, -(cw - 1):] if cw > 1 else state
+    return y, new_state
+
+
+def conv_step(x, w, state):
+    """One decode step of the causal conv. x: [B, C]; state [B, cw-1, C].
+    The products are rounded to x's type and summed in fp32, then rounded
+    once, as the reference's reduction does."""
+    xp = torch.cat([state, x[:, None]], dim=1)        # [B, cw, C]
+    y = (xp * w[None]).float().sum(1).to(x.dtype)
+    return y, xp[:, 1:]
+
+
 def distributed_argmax(logits):
     """Greedy token id on the trivial layout; ties go to the first index."""
     return torch.argmax(logits, dim=-1)

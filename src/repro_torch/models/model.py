@@ -1,7 +1,8 @@
 """Public model API (counterpart of ``repro.models.model``): a ``Model``
 bundles the config, the (trivial) layout, the parameters on one device and
-its KV caches (the paged pool and the dense contiguous cache), and exposes
-the mixed paged step and the serialized prefill and decode steps."""
+its caches (the paged KV pool, for configs whose layers all page, and the
+dense contiguous cache with KV and SSD state), and exposes the mixed paged
+step and the serialized prefill and decode steps."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,10 +16,11 @@ from . import transformer as T
 
 
 class Model:
-    """A dense GQA decoder on one device. ``device`` defaults to ``"cuda"``
-    and raises without a card; the CPU runs only when asked for. The
-    parameters are allocated, not initialised: call ``init_params`` with a
-    ``torch.Generator`` or ``load_params`` with a converted state."""
+    """A decoder (dense GQA, or mamba2's SSD layers) on one device.
+    ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
+    runs only when asked for. The parameters are allocated, not
+    initialised: call ``init_params`` with a ``torch.Generator`` or
+    ``load_params`` with a converted state."""
 
     def __init__(self, cfg, device="cuda", dtype=torch.bfloat16):
         self.device = resolve_device(device)
@@ -46,15 +48,31 @@ class Model:
                 np.array(v)) for k, v in state.items()}, strict=True)
 
     # -------------------------------------------------------- paged cache
+    @property
+    def supports_paged(self) -> bool:
+        """True when every cached layer is GQA attention, whose [block_size,
+        kv_slots, Dh] block layout pages. SSD layers keep recurrent state
+        per sequence, so their configs keep the contiguous cache."""
+        return all(k == "attn" for k in self.cfg.layer_kinds)
+
+    def _require_paged(self):
+        if not self.supports_paged:
+            raise ValueError(
+                f"{self.cfg.name} has layer kinds {set(self.cfg.layer_kinds)}"
+                ": only attention layers page; use the dense cache")
+
     def init_paged_cache(self, num_blocks: int, block_size: int) -> T.PagedPool:
-        """Zeroed block pools of every layer (block 0 is the null block)."""
+        """Zeroed block pools of every layer (block 0 is the null block).
+        Raises for a config that does not page."""
+        self._require_paged()
         self.pool = T.init_paged_cache(self.cfg, self.lay, num_blocks,
                                        block_size, self.dtype, self.device)
         return self.pool
 
     # -------------------------------------------------------- dense cache
     def init_cache(self, batch: int, s_max: int) -> T.DenseCache:
-        """Zeroed dense caches ``[L, batch, s_max, kv_slots, Dh]``."""
+        """Zeroed dense caches: K and V ``[n_attn, batch, s_max, kv_slots,
+        Dh]`` for attention layers, recurrent state for SSD layers."""
         self.cache = T.init_cache(self.cfg, self.lay, batch, s_max,
                                   self.dtype, self.device)
         return self.cache
@@ -107,7 +125,9 @@ class Model:
         ``block_tables`` [B, nmax] (arrays or tensors) move to the model's
         device as int32. Returns ``(next_tokens [B], pool)``, or the newest
         token's fp32 logits [B, V] in place of the tokens with
-        ``sample=False``; the pool is updated in place."""
+        ``sample=False``; the pool is updated in place. Raises for a config
+        that does not page."""
+        self._require_paged()
         if self.pool is None:
             raise RuntimeError("init_paged_cache() before forward_mixed()")
 

@@ -1,34 +1,50 @@
 """Model assembly (counterpart of ``repro.models.transformer``): the layer
-stack as per-layer modules, its paged KV pools and dense contiguous cache,
-and the step bodies: the mixed prefill+decode step and the serialized
-prefill and decode steps. The reference's ``lax.scan`` over the stacked
-body layers becomes a loop over the per-layer modules."""
+stack as per-layer modules built from the config's layer kinds, its paged
+KV pools and dense contiguous cache, and the step bodies: the mixed
+prefill+decode step and the serialized prefill and decode steps. The
+reference's ``lax.scan`` over the stacked body layers becomes a loop over
+the per-layer modules."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.parallel import Layout
 from . import blocks as BK
-from .attention import cache_init, paged_cache_init
+from .attention import cache_init
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
-                     embed_apply, lmhead_apply)
+                     embed_apply, lmhead_apply, tied_lmhead_apply)
+from .ssd import SSDState, ssd_state_shapes
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense GQA decoder. State-dict names:
-    ``embed.table`` [V, d], ``final_norm.scale``, ``lm_head.w`` [d, V] and
-    ``layers.{i}.{ln1,attn,ln2,ffn}.*`` with the reference's leaf names."""
+    """The parameters of a decoder whose layers follow ``cfg.layer_kinds``.
+    State-dict names: ``embed.table`` [V, d], ``final_norm.scale``,
+    ``lm_head.w`` [d, V] unless the embedding is tied, and
+    ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention layer or
+    ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the reference's leaf
+    names."""
 
     def __init__(self, cfg, lay: Layout, dtype, device):
         super().__init__()
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
-        self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
-        self.layers = nn.ModuleList(BK.Block(cfg, lay, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
+        self.layers = nn.ModuleList(BK.BLOCKS[kind](cfg, lay, dtype, device)
+                                    for kind in cfg.layer_kinds)
+
+
+def _logits(params: Transformer, x):
+    """Final norm and LM head (the tied table when there is no lm_head):
+    [..., d] -> [..., V] fp32."""
+    x = params.final_norm(x)
+    if hasattr(params, "lm_head"):
+        return lmhead_apply(params.lm_head, x)
+    return tied_lmhead_apply(params.embed, x)
 
 
 @torch.no_grad()
@@ -38,7 +54,8 @@ def init_params(params: Transformer, generator: torch.Generator):
     and biases, ones for norm scales). The numbers differ from JAX's."""
     params.embed.reset_parameters(generator)
     params.final_norm.reset_parameters()
-    params.lm_head.reset_parameters(generator)
+    if hasattr(params, "lm_head"):
+        params.lm_head.reset_parameters(generator)
     for layer in params.layers:
         layer.reset_parameters(generator)
 
@@ -50,31 +67,65 @@ class PagedPool:
     k: torch.Tensor
     v: torch.Tensor
 
+    def layer(self, i):
+        return self.k[i], self.v[i]
+
 
 def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
                      dtype, device) -> PagedPool:
     """Zeroed pools, one per layer, sharing one block-table indirection (a
-    block maps the same token span in every layer)."""
-    shape = (cfg.num_layers,) + paged_cache_init(cfg, lay, num_blocks,
-                                                 block_size)
+    block maps the same token span in every layer). Raises for a config
+    with a layer kind that does not page."""
+    shapes = {BK.block_paged_cache_init(kind, cfg, lay, num_blocks,
+                                        block_size)
+              for kind in cfg.layer_kinds}
+    shape = (cfg.num_layers,) + shapes.pop()
     return PagedPool(k=torch.zeros(shape, dtype=dtype, device=device),
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 @dataclass
 class DenseCache:
-    """K and V caches of every layer, ``[L, B, s_max, kv_slots, Dh]``;
-    ``k[i]`` is layer i's. Updated in place by each step."""
-    k: torch.Tensor
-    v: torch.Tensor
+    """The contiguous cache of every layer, stacked by kind and updated in
+    place by each step. Attention layers: K and V ``[n_attn, B, s_max,
+    kv_slots, Dh]``. SSD layers: ``ssm`` [n_ssd, B, H, hd, ds] in fp32,
+    ``conv_x`` [n_ssd, B, cw-1, H·hd] and ``conv_bc`` [n_ssd, B, cw-1,
+    2·ds]. A kind the config lacks has None. ``kinds[i]`` and ``index[i]``
+    give layer i's kind and its index among the layers of that kind."""
+    kinds: tuple
+    index: tuple
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
+    conv_x: Optional[torch.Tensor] = None
+    conv_bc: Optional[torch.Tensor] = None
+
+    def layer(self, i):
+        """Layer i's cache: (K, V) views, or an ``SSDState`` of views."""
+        j = self.index[i]
+        if self.kinds[i] == "ssd":
+            return SSDState(self.ssm[j], self.conv_x[j], self.conv_bc[j])
+        return self.k[j], self.v[j]
 
 
 def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
                device) -> DenseCache:
-    """Zeroed dense caches, one per layer."""
-    shape = (cfg.num_layers,) + cache_init(cfg, lay, batch, s_max)
-    return DenseCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                      v=torch.zeros(shape, dtype=dtype, device=device))
+    """Zeroed dense caches of every layer."""
+    kinds = cfg.layer_kinds
+    index = tuple(kinds[:i].count(k) for i, k in enumerate(kinds))
+    c = DenseCache(kinds=kinds, index=index)
+    n_attn, n_ssd = kinds.count("attn"), kinds.count("ssd")
+    if n_attn:
+        shape = (n_attn,) + cache_init(cfg, lay, batch, s_max)
+        c.k = torch.zeros(shape, dtype=dtype, device=device)
+        c.v = torch.zeros(shape, dtype=dtype, device=device)
+    if n_ssd:
+        ssm, cx, cbc = ssd_state_shapes(cfg, lay, batch)
+        c.ssm = torch.zeros((n_ssd,) + ssm, dtype=torch.float32,
+                            device=device)
+        c.conv_x = torch.zeros((n_ssd,) + cx, dtype=dtype, device=device)
+        c.conv_bc = torch.zeros((n_ssd,) + cbc, dtype=dtype, device=device)
+    return c
 
 
 def _embed_tokens(params: Transformer, tokens):
@@ -99,14 +150,17 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     chunked-prefill rows up to the chunk width, padding rows 0. Returns the
     greedy next token [B] (or the newest token's logits [B, V] in fp32 with
     ``sample=False``); the pool is updated in place. Padding rows give zero
-    logits and token 0."""
+    logits and token 0. Only for configs whose every layer pages."""
+    if any(kind != "attn" for kind in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
+                         "which only attention layers have")
     x = _embed_tokens(params, tokens)
     # positions are computed once per step; every layer's RoPE and KV
     # scatter read them
     ctx = {"positions": _positions_prefill(tokens, offsets),
            "offsets": offsets, "q_lens": q_lens, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
-        x = BK.block_prefill(layer, x, pool.k[i], pool.v[i], ctx, cfg)
+        x = BK.block_prefill(layer, x, pool.layer(i), ctx, cfg)
     # ragged last-token extraction: row b's newest token sits at column
     # q_lens[b]-1. RMSNorm is per row, so the final norm runs on the
     # extracted rows only.
@@ -115,7 +169,7 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     here = (loc >= 0) & (loc < S)
     take = x[torch.arange(B, device=x.device), loc.clamp(0, S - 1)]
     last = torch.where(here[:, None], take, torch.zeros_like(take))
-    logits = lmhead_apply(params.lm_head, params.final_norm(last))
+    logits = _logits(params, last)
     return distributed_argmax(logits) if sample else logits
 
 
@@ -131,9 +185,9 @@ def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
     ctx = {"positions": _positions_prefill(tokens, offsets),
            "offsets": offsets, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
-        x = BK.block_prefill(layer, x, cache.k[i], cache.v[i], ctx, cfg)
+        x = BK.block_prefill(layer, x, cache.layer(i), ctx, cfg)
     # RMSNorm is per row, so the final norm runs on the last column only
-    return lmhead_apply(params.lm_head, params.final_norm(x[:, -1]))
+    return _logits(params, x[:, -1])
 
 
 @torch.no_grad()
@@ -145,8 +199,8 @@ def decode_body(params: Transformer, cache, tokens, lens, cfg,
     x = embed_apply(params.embed, tokens)
     ctx = {"lens": lens, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
-        x = BK.block_decode(layer, x, cache.k[i], cache.v[i], ctx, cfg)
-    return lmhead_apply(params.lm_head, params.final_norm(x))
+        x = BK.block_decode(layer, x, cache.layer(i), ctx, cfg)
+    return _logits(params, x)
 
 
 def greedy_body(logits):

@@ -7,7 +7,8 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 It also holds the eight-case paged-attention grid and the flash and decode
-cases that ``test_torch_kernels.py`` runs against the reference on the CPU.
+cases that ``test_torch_kernels.py`` runs against the reference on the CPU,
+and the SSD chunk cases of ``test_torch_ssd.py``.
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PDA  # noqa: E402
 from repro_torch.kernels import paged_ragged_attention as PRA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.launch.serve import workload  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
@@ -293,3 +295,127 @@ def test_cuda_serialized_engine_matches_cpu_engine(cuda, kw):
     else:
         assert pra == 0 and fa > 0 and da > 0
         assert fa + da == steps * cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,D", [(37, 8, 16), (64, 64, 64), (5, 3, 100)])
+def test_cuda_grouped_rmsnorm_matches_plain(cuda, dtype, N, H, D):
+    """The SSD mixer's per-head norm: x [N, H, D] with scale [H, D]."""
+    g = torch.Generator(device=cuda).manual_seed(N + H + D)
+    x = torch.randn((N, H, D), generator=g, device=cuda).to(dtype)
+    s = torch.randn((H, D), generator=g, device=cuda).to(dtype)
+    before = RMS.launches
+    got = RMS.rmsnorm_cuda(x, s)
+    torch.cuda.synchronize()
+    assert RMS.launches == before + 1
+    torch.testing.assert_close(got.float(), RMS.rmsnorm_plain(x, s).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def ssd_case(B, S, H, hd, ds, L, shared, dtype, device, seed=0):
+    """x [B, S, H, hd]; b, c [B, S, H, ds], shared by the heads through a
+    head stride of 0 (the model's layout) or per head (the TPU contract's
+    copies); dt = softplus(normal), cum its within-chunk cumsum of -dt·A."""
+    rng = np.random.default_rng(seed)
+    bh = 1 if shared else H
+    x = rng.standard_normal((B, S, H, hd), dtype=np.float32)
+    b = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3
+    c = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H), dtype=np.float32)))
+    A = np.exp(rng.standard_normal((H,), dtype=np.float32) * 0.5)
+    cum = np.cumsum((-dt * A).reshape(B, S // L, L, H), axis=2,
+                    dtype=np.float32).reshape(B, S, H)
+    x, b, c = (torch.from_numpy(a).to(device, dtype) for a in (x, b, c))
+    if shared:
+        b, c = b.expand(B, S, H, ds), c.expand(B, S, H, ds)
+    return (x, b, c, torch.from_numpy(dt).to(device),
+            torch.from_numpy(cum).to(device))
+
+
+SSD_CASES = [
+    # B, S, H, hd, ds, L, shared: the serving prefill step of mamba2-1.3b,
+    # a long prompt, a short prefill (S < chunk: one chunk of S), the
+    # reduced model, and the TPU contract's per-(head, chunk) copies
+    (8, 64, 64, 64, 128, 64, True),
+    (1, 2048, 64, 64, 128, 64, True),
+    (2, 19, 8, 64, 128, 19, True),
+    (2, 16, 8, 16, 16, 8, True),
+    (6, 64, 1, 32, 16, 64, False),
+    (2, 128, 1, 64, 32, 128, False),
+    (3, 64, 4, 64, 128, 32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,ds,L,shared", SSD_CASES)
+def test_cuda_ssd_chunk_matches_plain(cuda, dtype, B, S, H, hd, ds, L,
+                                      shared):
+    """The kernel against its plain version on the same inputs; both compute
+    in fp32 from the same (fp32 or bf16) inputs and differ only in the order
+    of their sums, so fp32 outputs agree within 1e-4 in either type. x is
+    handed in as a slice of a wider tensor, as the model's view of the conv
+    output is."""
+    x, b, c, dt, cum = ssd_case(B, S, H, hd, ds, L, shared, dtype, cuda)
+    wide = torch.zeros((B, S, H, hd + 8), dtype=dtype, device=cuda)
+    wide[..., :hd] = x
+    before = SSD.launches
+    got = SSD.ssd_chunk_cuda(wide[..., :hd], b, c, dt, cum, L)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    want = SSD.ssd_chunk_plain(x, b, c, dt, cum, L)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_refuses_what_it_does_not_take(cuda):
+    x, b, c, dt, cum = ssd_case(1, 16, 2, 16, 16, 8, True, torch.float32,
+                                cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        SSD.ssd_chunk_cuda(x, b, c, dt, cum, 5)          # does not divide S
+    with pytest.raises(ValueError, match="hd"):
+        SSD.ssd_chunk_cuda(x[..., :6], b, c, dt, cum, 8)
+    with pytest.raises(ValueError, match="must lie on"):
+        SSD.ssd_chunk_cuda(x, b.cpu(), c, dt, cum, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_engine_matches_cpu_engine(cuda):
+    """Reduced mamba2 at fp32 on the dense serialized engine (the automatic
+    fallback): equal streams and config counts on the card and the CPU,
+    with more requests than slots; the card's run went through its kernels,
+    one SSD chunk launch per layer per prefill step and none in a decode
+    step, and 2 * layers + 1 RMSNorm launches per step (ln1 and the grouped
+    norm of each layer, and the final norm)."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs, counts = [], []
+    for model in (gpu, cpu):
+        SSD.launches = RMS.launches = 0
+        eng = ShiftEngine(model, EngineConfig(max_slots=4))
+        assert not eng.paged
+        prefill_steps = [0]
+        run_prefill = eng._run_prefill
+
+        def counted():
+            did = run_prefill()
+            prefill_steps[0] += int(did)
+            return did
+        eng._run_prefill = counted
+        reqs = workload(6, 8)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts))
+        counts.append((SSD.launches, RMS.launches, prefill_steps[0]))
+    assert runs[0] == runs[1]
+    steps = sum(runs[0][1].values())
+    assert counts[0][:2] == (counts[0][2] * cfg.num_layers,
+                             steps * (2 * cfg.num_layers + 1))
+    assert counts[1][:2] == (0, 0)

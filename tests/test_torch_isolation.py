@@ -94,6 +94,33 @@ def test_serialized_entry_points_default_to_cuda(no_card, kw):
                     EngineConfig(**kw))
 
 
+def test_mamba2_entry_points_default_to_cuda(no_card):
+    """mamba2 through the same entry points: the dense fallback still runs
+    on the card unless asked for the CPU."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_engine("mamba2-1.3b")   # full width: raises at once
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "mamba2-1.3b"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShiftEngine(Model(get_config("mamba2-1.3b").reduced()),
+                    EngineConfig())
+
+
+def test_cpu_runs_mamba2_when_asked(capsys):
+    """The serve CLI's mamba2 on the CPU: the dense serialized fallback,
+    reported with its reason, and the SSD chunk counter listed."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
+                "--dtype", "fp32", "--requests", "2", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "iteration: serialized" in out
+    assert "dense cache: 8 slots" in out and "non-pageable" in out
+    assert "ssd_chunk=0" in out and "6 tokens in" in out
+
+
 def test_cpu_runs_when_asked():
     from repro_torch.launch import serve
     eng = serve.build_engine(reduced=True, device="cpu", dtype=torch.float32)

@@ -28,11 +28,15 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 ARCHS = ["qwen3-8b", "qwen2-7b", "qwen2-1.5b", "internlm2-1.8b"]
-NORM_LEAVES = ("scale", "q_norm", "k_norm")
+# norm scales, and the SSD mixer's per-head leaves that the reference
+# initialises to constants (dt_bias 0, A_log 0, D 1, norm ones), which would
+# hide a sign or scale error
+NORM_LEAVES = ("scale", "q_norm", "k_norm", "norm", "A_log", "dt_bias", "D")
 
 
 def randomize_norms(tree, rng):
-    """Replace every norm scale leaf of a numpy param tree."""
+    """Replace every norm scale leaf and every constant-initialised SSD
+    leaf of a numpy param tree."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
