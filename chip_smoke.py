@@ -18,7 +18,11 @@ Phases (every failure propagates and exits non-zero):
    chunk and the TPU contract's per-(head, chunk) copies), in fp32 and
    bf16, with its time, the plain version's, a PyTorch library call's
    where one computes the same function, and the least time the card could
-   take; the padded paged decode also against the ragged kernel at C == 1;
+   take; for attention also the achieved TFLOP/s and the bound's share of
+   the time, and in bf16 two wider cases for the tensor-core tiles (ragged
+   prefill chunks of 256 against contexts of 2048, a flash serving chunk
+   of 256); the padded paged decode also against the ragged kernel at C ==
+   1;
 4. the slice against itself across devices: the engines on reduced
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
    dense cache) and on reduced mamba2 (the dense fallback, with two
@@ -42,6 +46,7 @@ the repository beside it, the script exits non-zero and prints no result.
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +71,31 @@ DECODE_ROWS = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_report(name, log):
+    """Print ptxas' registers and spills of each kernel in one library's
+    build log, under a short name (kernel<template ints>, float/bf16)."""
+    kernel = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            end = mangled.find("_kernelI") + len("_kernel")
+            kernel = mangled[-60:]
+            # the identifier is prefixed by its length, after a hash
+            for j in range(end - 1, 0, -1):
+                digits = re.search(r"\d+$", mangled[:j])
+                if digits and any(int(digits.group()[-n:]) == end - j
+                                  for n in range(1, len(digits.group()) + 1)):
+                    args = mangled[end + 1:mangled.find("EEv", end)]
+                    kind = ("float, " if args.startswith("f") else
+                            "bf16, " if "bfloat16" in args else "")
+                    ints = ", ".join(re.findall(r"Li(\d+)E", args))
+                    kernel = f"{mangled[j:end]}<{kind}{ints}>"
+                    break
+        elif "registers" in line or "spill" in line:
+            print(f"  {name}: {kernel}: {line.strip()}")
 
 
 def card_line():
@@ -122,6 +152,15 @@ def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rates(case, flops):
+    """Add an attention case's achieved TFLOP/s (the flops its inputs need
+    over its measured time) and its bound share (bound over measured
+    time)."""
+    case["tflops"] = flops / (case["ms"] * 1e-3) / 1e12
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+    return case
 
 
 def attention_case(torch, name, rows, dtype, timer, tol):
@@ -188,14 +227,16 @@ def attention_case(torch, name, rows, dtype, timer, tol):
                 for c, n in rows for j in range(n))
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"q": list(q.shape), "pool": list(kp.shape),
-                      "block_tables": list(bt.shape),
-                      "ctx_lens": [c for c, _ in rows],
-                      "q_lens": [n for _, n in rows]},
-            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return rates({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                  "shape": {"q": list(q.shape), "pool": list(kp.shape),
+                            "block_tables": list(bt.shape),
+                            "ctx_lens": [c for c, _ in rows],
+                            "q_lens": [n for _, n in rows]},
+                  "tol": tol, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
+                 flops)
 
 
 def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None):
@@ -277,13 +318,14 @@ def flash_case(torch, name, B, Sq, Skv, offsets, causal, dtype, timer, tol,
         live = [Skv] * B
         pairs = B * Sq * Skv
     nbytes = (2 * q.numel() * elt + sum(live) * Hkv * D * 2 * elt + 4 * B)
-    bound_ms, bound_by = bound(nbytes, pairs * Hq * 4 * D, dtype)
-    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"q": list(q.shape), "kv": list(k.shape),
-                      "q_offsets": list(offsets), "causal": causal},
-            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    flops = pairs * Hq * 4 * D
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    return rates({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                  "shape": {"q": list(q.shape), "kv": list(k.shape),
+                            "q_offsets": list(offsets), "causal": causal},
+                  "tol": tol, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}, flops)
 
 
 def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
@@ -315,13 +357,14 @@ def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
         qs, ks, vs, attn_mask=mask))
     elt = q.element_size()
     nbytes = 2 * q.numel() * elt + sum(lens) * Hkv * D * 2 * elt + 4 * B
-    bound_ms, bound_by = bound(nbytes, sum(lens) * Hq * 4 * D, dtype)
-    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"q": list(q.shape), "kv": list(k.shape),
-                      "lens": list(lens)},
-            "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    flops = sum(lens) * Hq * 4 * D
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    return rates({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                  "shape": {"q": list(q.shape), "kv": list(k.shape),
+                            "lens": list(lens)},
+                  "tol": tol, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}, flops)
 
 
 def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
@@ -378,14 +421,17 @@ def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
     elt = q.element_size()
     nbytes = (2 * q.numel() * elt + sum(ctx) * Hkv * D * 2 * elt
               + (bt.numel() + B) * 4)
-    bound_ms, bound_by = bound(nbytes, sum(ctx) * Hq * 4 * D, dtype)
-    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"q": list(q.shape), "pool": list(kp.shape),
-                      "block_tables": list(bt.shape), "lens": ctx},
-            "tol": tol, "max_abs_err": err, "ragged_max_abs_diff": rag_err,
-            "ms": ms, "ragged_ms": ragged_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    flops = sum(ctx) * Hq * 4 * D
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    return rates({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                  "shape": {"q": list(q.shape), "pool": list(kp.shape),
+                            "block_tables": list(bt.shape), "lens": ctx},
+                  "tol": tol, "max_abs_err": err,
+                  "ragged_max_abs_diff": rag_err, "ms": ms,
+                  "ragged_ms": ragged_ms,
+                  "ragged_bound_share": bound_ms / ragged_ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}, flops)
 
 
 def ssd_chunk_case(torch, name, B, S, H, hd, ds, L, shared, dtype, timer,
@@ -458,6 +504,10 @@ def kernel_phase(torch):
         for name, rows in (("mixed", mixed), ("decode", DECODE_ROWS)):
             add("paged_ragged_attention",
                 attention_case(torch, name, rows, dtype, timer, tol))
+        if dtype == torch.bfloat16:
+            # long prefill chunks: the tensor-core tiles at a larger width
+            add("paged_ragged_attention", attention_case(
+                torch, "long prefill", [(2048, 256)] * 2, dtype, timer, tol))
         # N = 512: the first serving step's padded token rectangle (8 rows
         # x 64 columns); q_norm/k_norm run over N x 32 head rows of 128
         for name, N, D in (("hidden", 512, 4096), ("heads", 512 * 32, 128)):
@@ -486,6 +536,11 @@ def kernel_phase(torch):
         add("flash_attention", flash_case(
             torch, "non-causal", 2, 128, 256, [0, 0], False, dtype, timer,
             tol, Hq=8, Hkv=2, D=64))
+        if dtype == torch.bfloat16:
+            add("flash_attention", flash_case(
+                torch, "serving chunk C 256", 8, 256, 2048,
+                [0, 256, 512, 768, 1024, 1280, 1536, 1792], True, dtype,
+                timer, tol))
         add("decode_attention", decode_case(
             torch, "decode", [c for c, _ in DECODE_ROWS], 2048, dtype, timer,
             tol))
@@ -942,9 +997,7 @@ def main():
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        ptxas_report(name, log)
 
     cases = kernel_phase(torch)
     cross_device_phase(torch)

@@ -1,14 +1,18 @@
-// Pieces shared by the port's dense attention kernels (flash_attention.cu,
-// decode_attention.cu): a warp that carries the online-softmax state of up
-// to ROWS query rows and folds one shared-memory tile of keys into it.
+// The CUDA-core attention tile: the fp32 instances of flash_attention.cu
+// and paged_ragged_attention.cu, and both instances of decode_attention.cu
+// (dense and padded paged decode), fold keys with it. A warp carries the
+// online-softmax state of up to ROWS query rows and folds one shared-memory
+// tile of keys into it. (The bf16 flash and ragged instances use the
+// tensor-core tile of mma_attention_tile.cuh instead.)
 //
 // Scores are computed with lanes over keys (lane j owns keys j, j+32, ...
 // of the tile, a full dot product each, q broadcast from shared memory), so
 // a row pays two warp reductions (max and sum) per tile, not one per key.
-// The PV product runs with lanes over the head dim. Arithmetic is fp32; p
-// is rounded to the value type before the PV product and the sum l takes
-// the unrounded p, as the TPU kernels do. NEG_INF is their finite -1e30:
-// masked keys seen before a row's first live key vanish through the
+// The PV product runs with lanes over the head dim. Arithmetic is fp32
+// FMAs, so fp32 inputs keep the 1e-4 contract that TF32 tensor cores could
+// not; p is rounded to the value type before the PV product and the sum l
+// takes the unrounded p, as the TPU kernels do. NEG_INF is their finite
+// -1e30: masked keys seen before a row's first live key vanish through the
 // correction factor. Keys past the end of the tensor do not exist at all
 // (NO_KEY), so they never count, not even as masked keys.
 #pragma once
@@ -135,12 +139,14 @@ struct RowState {
 // Fold one tile of NK = 32 * KPL keys into the state. q_s: the warp's rows,
 // fp32 [R, D]; k_s, v_s: [NK, DP] tiles; p_s: the warp's fp32 [R, NK]
 // scratch. key_state(r, j) for key j < NK of the tile and row r returns 1
-// (live), 0 (masked: NEG_INF) or -1 (absent: NO_KEY). Every lane of the
-// warp must call it.
+// (live), 0 (masked: NEG_INF) or -1 (absent: NO_KEY). soft_cap > 0 caps the
+// scaled scores (soft_cap * tanh(s / soft_cap)). Every lane of the warp
+// must call it.
 template <typename T, int R, int EPL, int KPL, typename KeyState>
 __device__ __forceinline__ void fold_tile(RowState<R, EPL>& st, const float* q_s, const T* k_s,
                                           const T* v_s, float* p_s, int D, int DP,
-                                          float scale, KeyState key_state) {
+                                          float scale, KeyState key_state,
+                                          float soft_cap = 0.f) {
   constexpr int V = Vec<T>::N;
   constexpr int NK = 32 * KPL;
   const int lane = threadIdx.x & 31;
@@ -176,7 +182,9 @@ __device__ __forceinline__ void fold_tile(RowState<R, EPL>& st, const float* q_s
 #pragma unroll
     for (int t = 0; t < KPL; ++t) {
       const int ks = key_state(r, lane + 32 * t);
-      s[r][t] = ks > 0 ? s[r][t] * scale : (ks == 0 ? NEG_INF : NO_KEY);
+      float x = s[r][t] * scale;
+      if (soft_cap > 0.f) x = soft_cap * tanhf(x / soft_cap);
+      s[r][t] = ks > 0 ? x : (ks == 0 ? NEG_INF : NO_KEY);
       tmax = fmaxf(tmax, s[r][t]);
     }
     const float m_new = fmaxf(st.m[r], warp_max(tmax));

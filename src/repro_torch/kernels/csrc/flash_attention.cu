@@ -19,14 +19,24 @@
 //
 // What bounds it on the H100: operations for long sequences (4*Sq*Skv*D
 // flops per head, halved by causality, against 2 bytes per K/V element read
-// once per group); bytes for a short chunk against a long cache. The
-// design: one CTA per (b * Hkv + h, tile of query positions) carries the
-// tile's positions x the group's g heads (up to 64 rows, 8 per warp), so
-// each K/V tile of 64 keys is staged in shared memory once (16-byte loads,
-// several in flight per thread) and serves the whole group. Scores use lanes over keys (attention_tile.cuh).
-// CUDA cores only: no tensor cores, no TMA, no double buffering yet.
+// once per group); bytes for a short chunk against a long cache. Both
+// instances run one CTA per (b * Hkv + h, tile of query positions), whose
+// rows are the tile's positions x the group's g heads, so each K/V tile of
+// 64 keys is staged in shared memory once and serves the whole group.
+//
+// - bf16: on the tensor cores (mma_attention_tile.cuh). 4 or 8 warps of 16
+//   rows each (8 when there are CTAs enough to fill the card: twice the
+//   rows per staged tile halves the L2 traffic of a long causal prefill).
+//   K/V tiles come by cp.async into a two-stage ring, so the next tile
+//   loads while the current one is folded; Q's fragments stay in registers
+//   (D <= 128). Only the tiles that cross the diagonal or the end of the
+//   keys are masked.
+// - fp32: on the CUDA cores (attention_tile.cuh's fold_tile, lanes over
+//   keys, 8 rows per warp), which hold the fp32 contract of 1e-4 that TF32
+//   tensor cores cannot. Synchronous 16-byte loads, no double buffering.
 
 #include "attention_tile.cuh"
+#include "mma_attention_tile.cuh"
 
 namespace {
 
@@ -167,6 +177,175 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const int* 
   return static_cast<int>(e);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int MMA_STAGES = 2;  // K/V tiles in flight
+
+template <int DT, int NW>
+__global__ void __launch_bounds__(NW * 32)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                           const int* __restrict__ q_offsets, Strides qs, Strides ks,
+                           Strides os, int Sq, int Skv, int Hkv, int g, int D, int bq,
+                           int causal, float scale) {
+  using namespace mma;
+  constexpr int ROWS_CTA = NW * WARP_ROWS;
+  constexpr bool QREG = DT <= 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SP = mma::tile_stride(D);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kv_s = q_s + ROWS_CTA * SP;  // [stage][K, V][TILE_KEYS][SP]
+
+  // heads on x, query tiles on y from the last: the tiles with the most
+  // keys (causal) start first, so none of them is left for the tail
+  const int n = blockIdx.x;  // b * Hkv + h
+  const int b = n / Hkv, h = n - b * Hkv;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = min(bq, Sq - q0) * g;  // live rows of this CTA
+  const int off = q_offsets[b];
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * ks.b + h * ks.h;  // k and v share strides
+
+  // Q: row r of the CTA is position q0 + r / g, head h * g + r % g
+  stage_rows(q_s, ROWS_CTA, D, SP, [&](int r) -> const __nv_bfloat16* {
+    if (r >= rows) return nullptr;
+    return q + b * qs.b + static_cast<long long>(q0 + r / g) * qs.s +
+           static_cast<long long>(h * g + r % g) * qs.h;
+  }, q, threadIdx.x, NW * 32);
+
+  int ntiles = (Skv + TILE_KEYS - 1) / TILE_KEYS;
+  if (causal) {
+    const int last = off + min(q0 + bq, Sq) - 1;  // the CTA's last query
+    ntiles = last < 0 ? 0 : min(ntiles, last / TILE_KEYS + 1);
+  }
+  auto stage = [&](int kt) {
+    __nv_bfloat16* k_t = kv_s + (kt % MMA_STAGES) * 2 * TILE_KEYS * SP;
+    const int k0 = kt * TILE_KEYS;
+    stage_rows(k_t, TILE_KEYS, D, SP, [&](int j) -> const __nv_bfloat16* {
+      return k0 + j < Skv ? kb + static_cast<long long>(k0 + j) * ks.s : nullptr;
+    }, k, threadIdx.x, NW * 32);
+    stage_rows(k_t + TILE_KEYS * SP, TILE_KEYS, D, SP, [&](int j) -> const __nv_bfloat16* {
+      return k0 + j < Skv ? vb + static_cast<long long>(k0 + j) * ks.s : nullptr;
+    }, v, threadIdx.x, NW * 32);
+  };
+  // group 0: Q and tile 0; then one group per tile
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < ntiles) stage(s);
+    cp_async_commit();
+  }
+
+  const int row0 = warp * WARP_ROWS;
+  const bool live_warp = row0 < rows;
+  const int first_q = off + q0;  // the CTA's first query position
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qpos[r] = off + q0 + (row0 + (lane >> 2) + 8 * r) / g;
+  const uint32_t q_addr = q_lane_addr(smem_u32(q_s), row0, SP, lane);
+
+  WarpState<DT> st;
+  st.init();
+  QFrags<DT, QREG> qf;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    if (kt + MMA_STAGES - 1 < ntiles) stage(kt + MMA_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<MMA_STAGES - 1>();
+    __syncthreads();
+    if (kt == 0) qf.load(q_addr, D);
+    if (live_warp) {
+      const int k0 = kt * TILE_KEYS;
+      const bool masked = k0 + TILE_KEYS > Skv || (causal && k0 + TILE_KEYS - 1 > first_q);
+      const uint32_t k_t = smem_u32(kv_s + (kt % MMA_STAGES) * 2 * TILE_KEYS * SP);
+      auto key_state = [&](int r, int j) {
+        const int kpos = k0 + j;
+        if (kpos >= Skv) return -1;
+        return (!causal || kpos <= qpos[r]) ? 1 : 0;
+      };
+      const uint32_t v_t = k_t + TILE_KEYS * SP * 2;
+      if (masked)
+        fold<DT, TILE_KEYS, true>(st, qf, q_addr, k_t, v_t, SP, D, scale, 0.f, key_state);
+      else
+        fold<DT, TILE_KEYS, false>(st, qf, q_addr, k_t, v_t, SP, D, scale, 0.f, key_state);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+  if (!live_warp) return;
+  st.reduce_l();
+  store_rows(st, D, [&](int rr) -> __nv_bfloat16* {
+    const int r = row0 + (lane >> 2) + 8 * rr;
+    if (r >= rows) return nullptr;
+    return out + b * os.b + static_cast<long long>(q0 + r / g) * os.s +
+           static_cast<long long>(h * g + r % g) * os.h;
+  });
+}
+
+template <int DT, int NW>
+cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                       const __nv_bfloat16* v, __nv_bfloat16* out, const int* q_offsets,
+                       Strides qs, Strides ks, Strides os, int B, int Sq, int Skv, int Hkv,
+                       int g, int D, int causal, float scale, cudaStream_t stream) {
+  constexpr int ROWS_CTA = NW * mma::WARP_ROWS;
+  const int bq = max(1, min(ROWS_CTA / g, Sq));
+  const int SP = mma::tile_stride(D);
+  const size_t smem = static_cast<size_t>(ROWS_CTA + MMA_STAGES * 2 * mma::TILE_KEYS) * SP *
+                      sizeof(__nv_bfloat16);
+  auto kern = flash_attention_mma_kernel<DT, NW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * Hkv, (Sq + bq - 1) / bq);
+  kern<<<grid, NW * 32, smem, stream>>>(q, k, v, out, q_offsets, qs, ks, os, Sq, Skv, Hkv,
+                                        g, D, bq, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_mma_nw(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, __nv_bfloat16* out, const int* q_offsets,
+                          Strides qs, Strides ks, Strides os, int B, int Sq, int Skv,
+                          int Hkv, int g, int D, int causal, float scale,
+                          cudaStream_t stream) {
+  // 8 warps (128 rows) when that still gives two CTAs per SM of the card
+  // (132 SMs), else 4 (64 rows), so that short chunks spread wider
+  const int bq8 = max(1, min(128 / g, Sq));
+  const long long ctas8 = static_cast<long long>((Sq + bq8 - 1) / bq8) * B * Hkv;
+  if (DT <= 128 && ctas8 >= 264)
+    return launch_mma<DT, 8>(q, k, v, out, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D,
+                             causal, scale, stream);
+  return launch_mma<DT, 4>(q, k, v, out, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D, causal,
+                           scale, stream);
+}
+
+int dispatch_mma(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
+                 const long long* strides, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                 int causal, float scale, cudaStream_t stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_ROWS ||
+      D <= 0 || D % 16 != 0 || D > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{strides[0], strides[1], strides[2]};
+  const Strides ks{strides[3], strides[4], strides[5]};
+  const Strides os{strides[6], strides[7], strides[8]};
+  const int g = Hq / Hkv;
+  const auto* qt = static_cast<const __nv_bfloat16*>(q);
+  const auto* kt = static_cast<const __nv_bfloat16*>(k);
+  const auto* vt = static_cast<const __nv_bfloat16*>(v);
+  auto* ot = static_cast<__nv_bfloat16*>(out);
+#define FA_MMA(DT) \
+  launch_mma_nw<DT>(qt, kt, vt, ot, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D, causal, \
+                    scale, stream)
+  cudaError_t e;
+  if (D <= 32) e = FA_MMA(32);
+  else if (D <= 64) e = FA_MMA(64);
+  else if (D <= 128) e = FA_MMA(128);
+  else e = FA_MMA(256);
+#undef FA_MMA
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], each with element strides
@@ -185,6 +364,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     const int* q_offsets, const long long* strides, int B,
                                     int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                                     float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D,
-                                 causal, scale, static_cast<cudaStream_t>(stream));
+  return dispatch_mma(q, k, v, out, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D, causal, scale,
+                      static_cast<cudaStream_t>(stream));
 }

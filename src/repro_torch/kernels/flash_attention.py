@@ -8,7 +8,10 @@ queries against its whole cache row, read in place. Operations bound it
 for long sequences, bytes for a short chunk against a long cache. One CTA
 per (sequence·kv head, tile of query positions) carries the tile's
 positions times the group's heads, so each K/V tile is staged in shared
-memory once for the whole group; the source note says more.
+memory once for the whole group. Two instances: bf16 on the tensor cores
+(``mma.sync``, K/V staged by ``cp.async`` in a two-stage ring), fp32 on
+the CUDA cores (its 1e-4 contract rules out TF32); the source note says
+more.
 
 Shapes (both functions): q ``[B, Sq, Hq, D]``, k/v ``[B, Skv, Hkv, D]``,
 ``Hq % Hkv == 0`` (query head n reads kv head ``n // g``); q_offsets ``[B]``
@@ -88,9 +91,10 @@ def check_vectors(name, t):
 def flash_attention_cuda(q, k, v, q_offsets, *, causal=True):
     """Launch the CUDA kernel on PyTorch's current stream. q, k, v in fp32
     or bf16 on one CUDA device, any strides with a contiguous head dim
-    (``D % 8 == 0``, ``D <= 256``, ``Hq / Hkv <= 64``), k and v with equal
-    strides; q_offsets int32 ``[B]``. Raises on anything else and when the
-    launch fails."""
+    (``D <= 256``, a multiple of 8 in fp32 and of 16 in bf16, the tensor
+    cores' depth; ``Hq / Hkv <= 64``), k and v with equal strides;
+    q_offsets int32 ``[B]``. Raises on anything else and when the launch
+    fails."""
     global launches
     if q.dtype not in _C_FUNCS:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
@@ -101,9 +105,11 @@ def flash_attention_cuda(q, k, v, q_offsets, *, causal=True):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv or Hq // Hkv > 64 or D % 8 or D > 256:
+    step = 16 if q.dtype == torch.bfloat16 else 8
+    if Hq % Hkv or Hq // Hkv > 64 or D % step or D > 256:
         raise ValueError(f"Hq {Hq}, Hkv {Hkv}, D {D}: want Hq % Hkv == 0, "
-                         "Hq / Hkv <= 64, D % 8 == 0 and D <= 256")
+                         f"Hq / Hkv <= 64, D % {step} == 0 and D <= 256 "
+                         f"for {q.dtype}")
     if k.stride() != v.stride():
         raise ValueError(f"k and v strides differ: {k.stride()}, {v.stride()}")
     if q_offsets.shape != (B,) or q_offsets.dtype != torch.int32:

@@ -5,10 +5,13 @@ The kernel (``csrc/paged_ragged_attention.cu``, CUDA C++ for sm_90a)
 replaces the Pallas TPU kernel
 ``repro.kernels.paged_ragged_attention.paged_ragged_attention_kernel``. It is
 bound by bytes on the H100: the live K/V blocks, q and out. One CTA per
-(sequence·kv head, group of query rows) stages each live block once in
-shared memory and all its warps reuse it, so the query group is broadcast
-and KV is never expanded; skipped blocks are never read. The source note in
-the ``.cu`` file says more.
+(sequence·kv head, tile of up to 64 query rows, position-major) stages each
+64-key tile once in shared memory for all its rows, so the query group is
+broadcast and KV is never expanded; skipped blocks, key tiles past the
+tile's last query and tiles of padding columns are never read. Two
+instances: bf16 on the tensor cores (``mma.sync``, ``cp.async`` ring; the
+warps of a decode tile split the keys and merge), fp32 on the CUDA cores.
+The source note in the ``.cu`` file says more.
 
 Shapes (all three functions): q ``[B, Hkv, g, C, D]``, C ragged query
 columns per sequence (column c sits at global position
@@ -151,8 +154,11 @@ def _bind(dtype):
 def paged_ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_lens,
                                 ctx_lens, *, window=0, soft_cap=0.0):
     """Launch the CUDA kernel on PyTorch's current stream. Takes q and the
-    pools in fp32 or bf16, contiguous, on one CUDA device; the int inputs
-    as int32. Raises on anything else and when the launch fails."""
+    pools in fp32 or bf16, contiguous and 16-byte aligned, on one CUDA
+    device, with ``D <= 256`` a multiple of 4 in fp32 and of 16 in bf16
+    (the tensor cores' depth); the int inputs as int32. Raises on anything
+    else and when the launch fails. Padding columns (``c >= q_lens[b]``)
+    come back as zeros."""
     global launches
     if q.dtype not in _C_FUNCS:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
@@ -166,8 +172,10 @@ def paged_ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_lens,
     if k_pool.shape[2:] != (Hkv, D):
         raise ValueError(f"pool heads/dim {tuple(k_pool.shape[2:])} != "
                          f"q's {(Hkv, D)}")
-    if D > 256:
-        raise ValueError(f"head dim {D} > 256 is not supported")
+    step = 16 if q.dtype == torch.bfloat16 else 4
+    if D > 256 or D % step:
+        raise ValueError(f"head dim {D}: want D <= 256 and D % {step} == 0 "
+                         f"for {q.dtype}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or q_lens.shape != (B,) or ctx_lens.shape != (B,):
         raise ValueError("want block_tables [B, nmax], q_lens and ctx_lens "
@@ -183,6 +191,8 @@ def paged_ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_lens,
             raise ValueError(f"{name} must lie on {q.device}, not {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in ("q", "k_pool", "v_pool") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
         if name in ("block_tables", "q_lens", "ctx_lens") \
                 and t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")

@@ -117,6 +117,81 @@ def test_cuda_attention_matches_plain(cuda, dtype, B, C, Hq, Hkv, D, bs,
             assert not got[b].any()               # empty rows give zeros
 
 
+# The tiles of the ragged kernel: rows per (sequence, kv head) that are not
+# a multiple of 16 (g * q_len 5, 6, 12), padding columns, empty rows, bs 8,
+# 16 and 32, D 32 to 256, window and soft cap, long rows crossing many key
+# tiles, decode batches whose tiles split the keys across warps (at most 16
+# live rows: four ways; at most 32: two ways), small grids whose tiles split
+# the keys across a cluster of CTAs, and a grid large enough for no split
+RAGGED_TILE_CASES = [
+    (2, 1, 5, 1, 64, 16, 8, [100, 7], [1, 1], 0, 0.0),              # 5 rows
+    (3, 4, 6, 1, 128, 8, 16, [120, 5, 0], [1, 3, 0], 0, 0.0),       # 6, 18
+    (2, 3, 8, 2, 32, 32, 4, [97, 3], [3, 2], 0, 0.0),               # 12 rows
+    (2, 6, 4, 1, 64, 8, 20, [150, 40], [6, 5], 0, 0.0),             # 2-way
+    (2, 8, 4, 2, 256, 16, 8, [100, 30], [8, 5], 0, 0.0),            # D 256
+    (3, 16, 16, 4, 64, 32, 8, [250, 33, 16], [16, 16, 9], 50, 0.0),  # bs 32
+    (2, 64, 8, 2, 128, 16, 80, [1200, 640], [64, 50], 200, 30.0),   # both
+    (2, 64, 32, 8, 128, 16, 72, [1100, 1024], [64, 17], 0, 0.0),    # long
+    (8, 1, 32, 8, 128, 16, 128, [2000, 1500, 1, 0, 513, 64, 1024, 2048],
+     [1] * 8, 0, 0.0),                                              # decode
+    (4, 1, 16, 2, 256, 8, 40, [300, 17, 8, 1], [1] * 4, 0, 50.0),   # decode
+    (3, 128, 32, 8, 128, 16, 72, [300, 1100, 700], [128, 100, 60], 0,
+     0.0),                                                          # no split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(PARAMS, RAGGED_TILE_CASES)
+def test_cuda_ragged_tiles_match_plain(cuda, dtype, B, C, Hq, Hkv, D, bs,
+                                       nmax, ctx, ql, window, cap):
+    """One launch per call; real columns within TOL of the plain version;
+    padding columns and rows with ctx == 0 come back as zeros."""
+    q, kp, vp, bt, qla, ctxa = paged_case(B, C, Hq, Hkv, D, bs, nmax, ctx, ql,
+                                          seed=B + C + D)
+    g = Hq // Hkv
+    args = [torch.from_numpy(q).transpose(1, 2).reshape(B, Hkv, g, C, D)
+            .contiguous().to(cuda, dtype),
+            torch.from_numpy(kp).to(cuda, dtype),
+            torch.from_numpy(vp).to(cuda, dtype),
+            *(torch.from_numpy(a).to(cuda) for a in (bt, qla, ctxa))]
+    before = PRA.launches
+    got = PRA.paged_ragged_attention_cuda(*args, window=window, soft_cap=cap)
+    torch.cuda.synchronize()
+    assert PRA.launches == before + 1
+    want = PRA.paged_ragged_attention_plain(*args, window=window,
+                                            soft_cap=cap)
+    for b in range(B):
+        n = int(ql[b]) if int(ctx[b]) else 0
+        torch.testing.assert_close(got[b, :, :, :n].float(),
+                                   want[b, :, :, :n].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert not got[b, :, :, n:].any()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """Refused with a ValueError before any launch: a bf16 head dim that is
+    not a multiple of 16 (the tensor cores' depth), an fp32 one that is not
+    a multiple of 4, and a head dim over 256. Checked before the device, so
+    this runs without a card too."""
+    before = (PRA.launches, FA.launches)
+    for dtype, D in ((torch.bfloat16, 24), (torch.float32, 6),
+                     (torch.bfloat16, 272)):
+        q = torch.zeros((1, 1, 2, 3, D), dtype=dtype)
+        pool = torch.zeros((2, 8, 1, D), dtype=dtype)
+        i32 = torch.zeros((1, 2), dtype=torch.int32)
+        with pytest.raises(ValueError, match="head dim"):
+            PRA.paged_ragged_attention_cuda(q, pool, pool, i32, i32[0, :1],
+                                            i32[0, :1])
+    for dtype, D in ((torch.bfloat16, 24), (torch.float32, 12),
+                     (torch.float32, 264)):
+        q = torch.zeros((1, 3, 2, D), dtype=dtype)
+        kv = torch.zeros((1, 5, 1, D), dtype=dtype)
+        with pytest.raises(ValueError, match="D %"):
+            FA.flash_attention_cuda(q, kv, kv, torch.zeros(1, dtype=torch.int32))
+    assert (PRA.launches, FA.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (5, 100), (3, 16)])
@@ -149,6 +224,17 @@ FLASH_CASES = [
     (3, 64, 200, 32, 8, 128, True, [0, 70, 136]),
     (2, 5, 33, 6, 1, 16, True, [3, 28]),
 ]
+# The tiles of the flash kernel: query rows that do not fill the row tile,
+# g 1 and g 8, non-zero offsets, non-causal, D 16 to 256, and shapes with
+# CTAs enough for the 8-warp (128-row) tile
+FLASH_TILE_CASES = [
+    (2, 100, 300, 4, 4, 64, True, [0, 150]),
+    (2, 37, 500, 16, 2, 128, True, [0, 400]),
+    (1, 70, 190, 8, 2, 256, False, [0]),
+    (3, 33, 65, 2, 2, 16, False, [0, 5, 9]),
+    (4, 512, 512, 32, 4, 32, True, None),
+    (1, 1024, 1536, 32, 8, 128, True, [512]),
+]
 DECODE_CASES = [  # B, S, Hq, Hkv, D (S need not tile)
     (4, 512, 8, 2, 64), (2, 1024, 4, 4, 128), (8, 512, 16, 1, 64),
     (3, 100, 32, 8, 128),
@@ -157,7 +243,8 @@ DECODE_CASES = [  # B, S, Hq, Hkv, D (S need not tile)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,offs", FLASH_CASES)
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,offs",
+                         FLASH_CASES + FLASH_TILE_CASES)
 def test_cuda_flash_matches_plain(cuda, dtype, B, Sq, Skv, Hq, Hkv, D,
                                   causal, offs):
     """The kernel reads k and v through strides: they are handed in as a
