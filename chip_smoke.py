@@ -13,16 +13,18 @@ Phases (every failure propagates and exits non-zero):
    paths' shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
    16; RMSNorm over [N, 4096] and [N*32, 128], and grouped over mamba2's 64
    SSD heads of 64; flash over a 64-token chunk against a dense cache of
-   2048 and the TPU kernel's own case; decode over contexts up to 2048; the
+   2048 and the TPU kernel's own case; decode over contexts up to 2048 and
+   over one sequence of 2048, beside the ragged kernel on the same K/V; the
    SSD chunk at mamba2-1.3b's serving prefill step, a long prompt, a short
    chunk and the TPU contract's per-(head, chunk) copies), in fp32 and
    bf16, with its time, the plain version's, a PyTorch library call's
    where one computes the same function, and the least time the card could
    take; for attention also the achieved TFLOP/s and the bound's share of
-   the time, and in bf16 two wider cases for the tensor-core tiles (ragged
-   prefill chunks of 256 against contexts of 2048, a flash serving chunk
-   of 256); the padded paged decode also against the ragged kernel at C ==
-   1;
+   the time (for the SSD chunk the share, and the bound against the fp32
+   peak beside the one against its inputs' type), and in bf16 two wider
+   cases for the tensor-core tiles (ragged prefill chunks of 256 against
+   contexts of 2048, a flash serving chunk of 256); the padded paged decode
+   also against the ragged kernel at C == 1;
 4. the slice against itself across devices: the engines on reduced
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
    dense cache) and on reduced mamba2 (the dense fallback, with two
@@ -75,24 +77,25 @@ def check(cond, msg):
 
 def ptxas_report(name, log):
     """Print ptxas' registers and spills of each kernel in one library's
-    build log, under a short name (kernel<template ints>, float/bf16)."""
+    build log, under a short name (kernel<float/bf16, template ints>)."""
     kernel = "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             mangled = m.group(1)
-            end = mangled.find("_kernelI") + len("_kernel")
             kernel = mangled[-60:]
+            k = re.search(r"_kernel(?=[IE])", mangled)
             # the identifier is prefixed by its length, after a hash
-            for j in range(end - 1, 0, -1):
+            for j in range(k.end() - 1, 0, -1) if k else ():
                 digits = re.search(r"\d+$", mangled[:j])
-                if digits and any(int(digits.group()[-n:]) == end - j
+                if digits and any(int(digits.group()[-n:]) == k.end() - j
                                   for n in range(1, len(digits.group()) + 1)):
-                    args = mangled[end + 1:mangled.find("EEv", end)]
-                    kind = ("float, " if args.startswith("f") else
+                    args = mangled[k.end():]
+                    args = args[:args.find("EE") + 2] if args[0] == "I" else ""
+                    kind = ("float, " if args.startswith("If") else
                             "bf16, " if "bfloat16" in args else "")
                     ints = ", ".join(re.findall(r"Li(\d+)E", args))
-                    kernel = f"{mangled[j:end]}<{kind}{ints}>"
+                    kernel = f"{mangled[j:k.end()]}<{kind}{ints}>"
                     break
         elif "registers" in line or "spill" in line:
             print(f"  {name}: {kernel}: {line.strip()}")
@@ -331,7 +334,8 @@ def flash_case(torch, name, B, Sq, Skv, offsets, causal, dtype, timer, tol,
 def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
                 D=128):
     """q [B, Hkv, g, D] against a dense cache [B, S, Hkv, D] read in
-    place, masked by lens."""
+    place, masked by lens; also the ragged kernel on the same K/V through
+    a block table (``ragged_ms``), both timed in this run."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
     B, g = len(lens), Hq // Hkv
@@ -351,7 +355,24 @@ def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
     vs = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     mask = (torch.arange(S, device="cuda")[None] < ln.long()[:, None])
     mask = mask[:, None, None]
+    # the ragged kernel (C == 1) on the same K/V, read as a pool of
+    # contiguous blocks of 16 through a table: the same work through a table
+    from repro_torch.kernels import paged_ragged_attention as PRA
+    bs = 16
+    nb = S // bs
+    pools = [t.reshape(B * nb, bs, Hkv, D) for t in (k, v)]
+    bt = (torch.arange(B * nb, dtype=torch.int32, device="cuda")
+          .reshape(B, nb))
+    q5 = q[:, :, :, None].contiguous()
+    ones = torch.ones_like(ln)
+    rag = PRA.paged_ragged_attention_cuda(q5, *pools, bt, ones, ln)
+    torch.cuda.synchronize()
+    rag_err = compare(torch, f"decode vs ragged {name} {dtype}", got,
+                      rag[:, :, :, 0], tol)
+
     ms = timer(lambda: DA.decode_attention_cuda(q, k, v, ln))
+    ragged_ms = timer(lambda: PRA.paged_ragged_attention_cuda(
+        q5, *pools, bt, ones, ln))
     plain_ms = timer(lambda: DA.decode_attention_plain(q, k, v, ln), iters=3)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask))
@@ -363,6 +384,8 @@ def decode_case(torch, name, lens, S, dtype, timer, tol, Hq=32, Hkv=8,
                   "shape": {"q": list(q.shape), "kv": list(k.shape),
                             "lens": list(lens)},
                   "tol": tol, "max_abs_err": err, "ms": ms,
+                  "ragged_ms": ragged_ms, "ragged_max_abs_diff": rag_err,
+                  "ragged_bound_share": bound_ms / ragged_ms,
                   "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by}, flops)
 
@@ -473,12 +496,18 @@ def ssd_chunk_case(torch, name, B, S, H, hd, ds, L, shared, dtype, timer,
               + B * S * H * (hd + 1) * 4 + B * nc * H * hd * ds * 4)
     tri = L * (L + 1) // 2                  # (t, s) pairs with s <= t
     fmas = B * nc * (bc_heads * tri * ds + H * (tri * hd + L * hd * ds))
-    bound_ms, bound_by = bound(nbytes, 2 * fmas, torch.float32)
+    # the products' operations at the peak of the inputs' type (bf16 on
+    # the tensor cores, fp32 on the CUDA cores); beside it the bound
+    # against the fp32 peak, as stated before the tensor-core instance
+    bound_ms, bound_by = bound(nbytes, 2 * fmas, dtype)
+    fp32_peak_ms, _ = bound(nbytes, 2 * fmas, torch.float32)
     return {"case": name, "dtype": str(dtype).replace("torch.", ""),
             "shape": {"x": list(x.shape), "bc": [B, S, bc_heads, ds],
                       "chunk": L, "bc_shared": shared},
             "tol": tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "bound_at_fp32_peak_ms": fp32_peak_ms}
 
 
 def kernel_phase(torch):
@@ -544,6 +573,9 @@ def kernel_phase(torch):
         add("decode_attention", decode_case(
             torch, "decode", [c for c, _ in DECODE_ROWS], 2048, dtype, timer,
             tol))
+        # one sequence of 2048: 8 (sequence, kv head) pairs for 132 SMs
+        add("decode_attention", decode_case(
+            torch, "B 1", [2048], 2048, dtype, timer, tol))
         add("paged_decode_attention", paged_decode_case(
             torch, "decode", DECODE_ROWS, dtype, timer, tol))
         torch.cuda.synchronize()

@@ -1,7 +1,6 @@
 // GQA decode attention for Hopper (sm_90a), against a contiguous cache and
 // through a block table, with a plain C interface loaded through ctypes
-// (see repro_torch/kernels/build.py). One kernel, templated on how a key's
-// address is found.
+// (see repro_torch/kernels/build.py).
 //
 // Replaces two Pallas TPU kernels and computes their functions:
 // - src/repro/kernels/decode_attention.py::decode_attention_kernel: the g
@@ -14,21 +13,40 @@
 //   the same through block_tables[b] into pools [num_blocks, bs, Hkv, D],
 //   walking all nmax blocks, masked by lens, with no skip: the padded
 //   baseline against which the ragged kernel's skip is measured.
-// Both keep the TPU kernels' numerics: fp32 m/l/acc, the finite NEG_INF,
+// All keep the TPU kernels' numerics: fp32 m/l/acc, the finite NEG_INF,
 // p rounded to the value type before the PV product.
 //
 // What bounds it on the H100: bytes. Each live K/V element is read once per
 // (sequence, kv head), ~2*g flops per element read, far below the ~295
-// flop/byte ridge of bf16. The design: one CTA per (b * Hkv + h, group of
-// up to 8 query heads; 4 when g <= 4) keeps the group's queries in shared
-// memory, so KV is never expanded to Hq heads; its 8 warps (4 where shared
-// memory is short) split the key range (warp w takes tiles w, w + nwarps,
-// ...), each staging its own 32-key K and V tiles in shared memory with
-// 16-byte loads, several in flight per lane, and the warps' partial softmax
-// states merge at the end. No split across CTAs yet, so B * Hkv CTAs fill
-// the card only at large batch.
+// flop/byte ridge of bf16. A decode batch has few (sequence, kv head)
+// pairs (64 at B 8 for qwen3-8b) and rows of very different lengths, so
+// the time is set by how fast one pair's keys stream into the SMs that
+// walk them.
+//
+// - Dense cache, bf16: on the tensor cores (mma_attention_tile.cuh). A CTA
+//   of 4 warps takes the g <= 16 query rows of one (b, h) pair (one m16
+//   tile; g > 16 takes more CTAs along y) and stages 64-key K/V tiles by
+//   cp.async into a two-stage ring (the next tile loads while one is
+//   folded; three or four stages measured no faster at B 8, as fewer CTAs
+//   then fit on an SM); the 4 warps split each tile (16 keys each). The
+//   pair's key walk is also split across a thread-block cluster of
+//   NSPLIT CTAs (chosen from the grid: see launch_mma), CTA c taking tiles
+//   c, c + NSPLIT, ...; the warps' and CTAs' (m, l, acc) merge exactly
+//   through distributed shared memory (merge_partials). What still sets
+//   the time is the longest pair's walk: its NSPLIT CTAs each stream a
+//   tile at a time while most other SMs have finished.
+// - fp32 (dense cache) and the padded paged walk (both types): on the CUDA
+//   cores (attention_tile.cuh's fold_tile, lanes over keys). One CTA per
+//   (b * Hkv + h, group of up to 8 query heads; 4 when g <= 4) keeps the
+//   group's queries in shared memory; its 8 warps (4 where shared memory is
+//   short) split the key range (warp w takes tiles w, w + nwarps, ...),
+//   each staging its own 32-key K and V tiles in shared memory with
+//   16-byte loads, several in flight per lane, and the warps' partial
+//   softmax states merge at the end. fp32 keeps the 1e-4 contract that
+//   TF32 tensor cores could not.
 
 #include "attention_tile.cuh"
+#include "mma_attention_tile.cuh"
 
 namespace {
 
@@ -206,6 +224,159 @@ int paged(const void* q, const void* k_pool, const void* v_pool, void* out,
                      static_cast<cudaStream_t>(stream));
 }
 
+// ---------------------------------------------------------------------------
+// dense cache, bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_STAGES = 2;
+constexpr int NKW = mma::TILE_KEYS / MMA_WARPS;  // keys per warp per tile: 16
+
+template <int DT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                            const int* __restrict__ lens, int S, int Hkv, int g, int D,
+                            float scale) {
+  using namespace mma;
+  constexpr bool QREG = DT <= 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SP = mma::tile_stride(D);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [16][SP]
+  __nv_bfloat16* kv_s = q_s + WARP_ROWS * SP;  // [stage][K, V][TILE_KEYS][SP]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, nthreads = MMA_WARPS * 32;
+  const int nsplit = gridDim.z, rank = blockIdx.z;  // the cluster spans z
+
+  const int n = blockIdx.x;  // b * Hkv + h
+  const int b = n / Hkv, h = n - b * Hkv;
+  const int row0 = blockIdx.y * WARP_ROWS, rows = min(WARP_ROWS, g - row0);
+  const __nv_bfloat16* q_rows = q + (static_cast<long long>(n) * g + row0) * D;
+  stage_rows(q_s, WARP_ROWS, D, SP, [&](int r) -> const __nv_bfloat16* {
+    return r < rows ? q_rows + static_cast<long long>(r) * D : nullptr;
+  }, q, tid, nthreads);
+
+  const int limit = min(lens[b], S);
+  const int ntiles_all = (limit + TILE_KEYS - 1) / TILE_KEYS;
+  const int ntiles = ntiles_all > rank ? (ntiles_all - rank + nsplit - 1) / nsplit : 0;
+  // key p of (b, h) lies at (b * S + p) * Hkv * D + h * D
+  const long long row = static_cast<long long>(Hkv) * D;
+  const long long base = static_cast<long long>(b) * S * row + static_cast<long long>(h) * D;
+  auto k0_of = [&](int i) { return (rank + i * nsplit) * TILE_KEYS; };
+  auto stage = [&](int i) {
+    __nv_bfloat16* k_t = kv_s + (i % MMA_STAGES) * 2 * TILE_KEYS * SP;
+    const int k0 = k0_of(i);
+    const int cpr = D >> 3;
+    const uint32_t kd = smem_u32(k_t), vd = kd + TILE_KEYS * SP * 2;
+    auto copy = [&](int j, int c) {
+      const bool live = k0 + j < limit;
+      const long long o = live ? base + (k0 + j) * row + c * 8 : 0;
+      cp_async16(kd + (j * SP + c * 8) * 2, k + o, live);
+      cp_async16(vd + (j * SP + c * 8) * 2, v + o, live);
+    };
+    if (nthreads % cpr == 0) {
+      const int c = tid % cpr, step = nthreads / cpr;
+      for (int j = tid / cpr; j < TILE_KEYS; j += step) copy(j, c);
+    } else {
+      for (int e = tid; e < TILE_KEYS * cpr; e += nthreads) copy(e / cpr, e % cpr);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < ntiles) stage(s);
+    cp_async_commit();  // with q in the first group
+  }
+
+  const uint32_t q_addr = q_lane_addr(smem_u32(q_s), 0, SP, lane);
+  WarpState<DT> st;
+  st.init();
+  QFrags<DT, QREG> qf;
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + MMA_STAGES - 1 < ntiles) stage(i + MMA_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<MMA_STAGES - 1>();
+    __syncthreads();
+    if (i == 0) qf.load(q_addr, D);
+    const int k0 = k0_of(i) + warp * NKW;  // this warp's first key
+    if (k0 < limit) {
+      const uint32_t k_t =
+          smem_u32(kv_s + (i % MMA_STAGES) * 2 * TILE_KEYS * SP) + warp * NKW * SP * 2;
+      const uint32_t v_t = k_t + TILE_KEYS * SP * 2;
+      auto key_state = [&](int, int j) { return k0 + j < limit ? 1 : -1; };
+      if (k0 + NKW > limit)
+        fold<DT, NKW, true>(st, qf, q_addr, k_t, v_t, SP, D, scale, 0.f, key_state);
+      else
+        fold<DT, NKW, false>(st, qf, q_addr, k_t, v_t, SP, D, scale, 0.f, key_state);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+  st.reduce_l();
+
+  // the K/V ring is free now: the merge's buffers
+  float* ml_s = reinterpret_cast<float*>(kv_s);     // [warp][16][2]
+  float* acc_s = ml_s + MMA_WARPS * WARP_ROWS * 2;  // [warp][16][D]
+  float* cta_ml = acc_s + MMA_WARPS * WARP_ROWS * D;  // [16][2]
+  put_partial(st, ml_s, acc_s, warp, D);
+  __nv_bfloat16* out_rows = out + (static_cast<long long>(n) * g + row0) * D;
+  merge_partials<MMA_WARPS>(ml_s, acc_s, cta_ml, rows, D, rank, nsplit, [&](int r) {
+    return out_rows + static_cast<long long>(r) * D;
+  });
+}
+
+template <int DT>
+cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                       __nv_bfloat16* out, const int* lens, int B, int S, int Hkv, int g, int D,
+                       float scale, cudaStream_t stream) {
+  const int SP = mma::tile_stride(D);
+  const size_t ring = static_cast<size_t>(MMA_STAGES) * 2 * mma::TILE_KEYS * SP * 2;
+  const size_t merge =
+      (static_cast<size_t>(MMA_WARPS) * mma::WARP_ROWS * (2 + D) + 2 * mma::WARP_ROWS) * 4;
+  const size_t smem = static_cast<size_t>(mma::WARP_ROWS) * SP * 2 + (ring > merge ? ring : merge);
+  auto kern = decode_attention_mma_kernel<DT>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  // Split each (b, h) pair's key walk over a cluster of CTAs while the
+  // grid leaves SMs idle: the portable maximum of 8 while pairs fill fewer
+  // than a quarter of the card's 132 SMs (B 1), 4 below half of them (B 8
+  // of qwen3-8b: 64 pairs, 256 CTAs), 2 below all of them.
+  const int ty = (g + mma::WARP_ROWS - 1) / mma::WARP_ROWS, tiles = B * Hkv * ty;
+  const int nsplit = tiles < 33 ? 8 : tiles < 66 ? 4 : tiles < 132 ? 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv, ty, nsplit);
+  cfg.blockDim = dim3(MMA_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = nsplit;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, q, k, v, out, lens, S, Hkv, g, D, scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+int dense_bf16(const void* q, const void* k, const void* v, void* out, const int* lens, int B,
+               int S, int Hkv, int g, int D, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || g <= 0 || D <= 0 || D % 16 != 0 || D > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qt = static_cast<const __nv_bfloat16*>(q);
+  const auto* kt = static_cast<const __nv_bfloat16*>(k);
+  const auto* vt = static_cast<const __nv_bfloat16*>(v);
+  auto* ot = static_cast<__nv_bfloat16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (D <= 32) e = launch_mma<32>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
+  else if (D <= 64) e = launch_mma<64>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
+  else if (D <= 128) e = launch_mma<128>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
+  else e = launch_mma<256>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // q, out: [B, Hkv, g, D]; k, v: [B, S, Hkv, D]; lens: [B] int32 >= 1. All
@@ -217,10 +388,11 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
   return dense<float>(q, k, v, out, lens, B, S, Hkv, g, D, scale, stream);
 }
 
+// bf16 on the tensor cores: D a multiple of 16.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                      const int* lens, int B, int S, int Hkv, int g, int D,
                                      float scale, void* stream) {
-  return dense<__nv_bfloat16>(q, k, v, out, lens, B, S, Hkv, g, D, scale, stream);
+  return dense_bf16(q, k, v, out, lens, B, S, Hkv, g, D, scale, stream);
 }
 
 // q, out: [B, Hkv, g, D]; k_pool, v_pool: [num_blocks, bs, Hkv, D];

@@ -1,7 +1,10 @@
 // The tensor-core attention tile shared by the bf16 instances of
-// flash_attention.cu and paged_ragged_attention.cu: one warp carries the
-// online-softmax state of 16 query rows and folds into it a slice of a
-// shared-memory tile of keys, with mma.sync.m16n8k16 (bf16 in, fp32 out).
+// flash_attention.cu, paged_ragged_attention.cu and decode_attention.cu
+// (dense cache): one warp carries the online-softmax state of 16 query rows
+// and folds into it a slice of a shared-memory tile of keys, with
+// mma.sync.m16n8k16 (bf16 in, fp32 out). The exact merge of states whose
+// key walk was split across warps and the CTAs of a cluster is here too
+// (put_partial, merge_partials).
 //
 // - S = Q·Kᵀ: Q's fragments come by ldmatrix (kept in registers for the
 //   whole key loop when D <= 128, reloaded from shared memory per tile for
@@ -32,6 +35,7 @@
 // not exist, so 0 * garbage never makes a NaN.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +46,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr float NO_KEY = -3.0e38f;  // below NEG_INF: exp() of it is 0
 constexpr int TILE_KEYS = 64;       // keys staged per tile
 constexpr int WARP_ROWS = 16;       // query rows per warp (one m16 tile)
+constexpr int MAX_CLUSTER = 8;      // CTAs a key walk is split over, at most (portable)
 
 // Row stride of a bf16 tile in shared memory, in elements.
 __host__ __device__ __forceinline__ int tile_stride(int D) { return D + 8; }
@@ -362,6 +367,116 @@ __device__ __forceinline__ void store_rows(const WarpState<DT>& st, int D, OutRo
             pack_bf16(st.o[t][2 * r] / denom, st.o[t][2 * r + 1] / denom);
     }
   }
+}
+
+// Leave the warp's 16 rows of partial state (after reduce_l) in slot
+// `slot` of the merge buffers: (m, l) at ml_s[(slot * 16 + r) * 2] and acc
+// at acc_s[(slot * 16 + r) * D].
+template <int DT>
+__device__ __forceinline__ void put_partial(const WarpState<DT>& st, float* ml_s, float* acc_s,
+                                            int slot, int D) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = slot * WARP_ROWS + (lane >> 2) + 8 * rr;
+    if ((lane & 3) == 0) {
+      ml_s[i * 2] = st.m[rr];
+      ml_s[i * 2 + 1] = st.l[rr];
+    }
+#pragma unroll
+    for (int t = 0; t < DT / 8; ++t) {
+      const int d = t * 8 + 2 * (lane & 3);
+      if (d < D)
+        *reinterpret_cast<float2*>(acc_s + i * D + d) =
+            make_float2(st.o[t][2 * rr], st.o[t][2 * rr + 1]);
+    }
+  }
+}
+
+// The exact merge of split key walks, called by every thread of every CTA
+// of the cluster after each warp's put_partial: row r (< rows) has KS
+// partial states, in slots (r / 16) * KS + w (w < KS) of each of the nsplit
+// (<= MAX_CLUSTER) CTAs (rank `rank`). With M the largest m, out = sum(acc_i e^(m_i - M)) /
+// max(sum(l_i e^(m_i - M)), 1e-30), in two levels: each CTA merges its own
+// KS slots (acc in place, into the group's first slot; (m, l) into
+// cta_ml[r * 2]), then, after a cluster barrier, CTA c merges the nsplit
+// CTAs' states of its own 1/nsplit of the (row, two dims) items, reading
+// the others' shared memory, and writes them to out_row(r) + d. Ends with a
+// cluster barrier, so no CTA exits while its partials are read.
+template <int KS, typename OutRow>
+__device__ __forceinline__ void merge_partials(float* ml_s, float* acc_s, float* cta_ml,
+                                               int rows, int D, int rank, int nsplit,
+                                               OutRow out_row) {
+  namespace cg = cooperative_groups;
+  const int tid = threadIdx.x, nthreads = blockDim.x, half = D >> 1;
+  const int items = rows * half;
+  __syncthreads();  // every warp's partials are written
+  for (int e = tid; e < items; e += nthreads) {
+    const int r = e / half, d = 2 * (e - r * half);
+    const int i0 = (r / WARP_ROWS) * KS * WARP_ROWS + r % WARP_ROWS;
+    float mv[KS], lv[KS];
+    float2 av[KS];
+#pragma unroll
+    for (int w = 0; w < KS; ++w) {
+      const int i = i0 + w * WARP_ROWS;
+      mv[w] = ml_s[i * 2];
+      lv[w] = ml_s[i * 2 + 1];
+      av[w] = *reinterpret_cast<const float2*>(acc_s + i * D + d);
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < KS; ++w) mx = fmaxf(mx, mv[w]);
+    float l = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < KS; ++w) {
+      const float f = exp_ftz(mv[w] - mx);
+      l += lv[w] * f;
+      a0 += av[w].x * f;
+      a1 += av[w].y * f;
+    }
+    *reinterpret_cast<float2*>(acc_s + i0 * D + d) = make_float2(a0, a1);
+    if (d == 0) {
+      cta_ml[r * 2] = mx;
+      cta_ml[r * 2 + 1] = l;
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (nsplit > 1) cluster.sync();  // every CTA's merged partials are written
+  else __syncthreads();
+  const int lo = static_cast<int>(static_cast<long long>(items) * rank / nsplit);
+  const int hi = static_cast<int>(static_cast<long long>(items) * (rank + 1) / nsplit);
+  for (int e = lo + tid; e < hi; e += nthreads) {
+    const int r = e / half, d = 2 * (e - r * half);
+    const int i0 = (r / WARP_ROWS) * KS * WARP_ROWS + r % WARP_ROWS;
+    // every CTA's partial loaded before any is used: one round trip
+    float mv[MAX_CLUSTER], lv[MAX_CLUSTER];
+    float2 av[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c >= nsplit) break;
+      const float* ml = nsplit > 1 ? cluster.map_shared_rank(cta_ml, c) : cta_ml;
+      const float* acc = nsplit > 1 ? cluster.map_shared_rank(acc_s, c) : acc_s;
+      mv[c] = ml[r * 2];
+      lv[c] = ml[r * 2 + 1];
+      av[c] = *reinterpret_cast<const float2*>(acc + i0 * D + d);
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      if (c < nsplit) mx = fmaxf(mx, mv[c]);
+    float l = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      if (c < nsplit) {
+        const float f = exp_ftz(mv[c] - mx);
+        l += lv[c] * f;
+        a0 += av[c].x * f;
+        a1 += av[c].y * f;
+      }
+    const float denom = fmaxf(l, 1e-30f);
+    *reinterpret_cast<uint32_t*>(out_row(r) + d) = pack_bf16(a0 / denom, a1 / denom);
+  }
+  if (nsplit > 1) cluster.sync();  // the partials are read before any CTA exits
 }
 
 }  // namespace mma

@@ -37,8 +37,9 @@
 //   small grid (a decode batch: B * Hkv CTAs for 132 SMs) or a serving
 //   chunk is also split across a cluster of 2 or 4 CTAs, each walking
 //   every 2nd or 4th key tile. The warps' and CTAs' (m, l, acc) merge
-//   exactly at the end, through distributed shared memory, as
-//   decode_attention.cu's warps merge theirs.
+//   exactly at the end, through distributed shared memory
+//   (mma_attention_tile.cuh's merge_partials, shared with the dense decode;
+//   full tiles merge their register fragments here).
 // - fp32: on the CUDA cores (attention_tile.cuh's fold_tile: lanes over
 //   keys, 8 rows per warp, 8 warps), which holds the fp32 contract of 1e-4
 //   that TF32 tensor cores cannot. Synchronous 16-byte loads.
@@ -286,74 +287,13 @@ __device__ __forceinline__ void ragged_mma(const Tile& t, const __nv_bfloat16* q
     return;
   }
   // at most 32 live rows, their keys split across KS warps (and maybe
-  // CTAs): (m, l) and acc by row, then one thread per (row, two dims) of
-  // the first CTA loads all partials before it combines them
+  // CTAs): (m, l) and acc by row, merged by mma_attention_tile.cuh
   float* ml_s = reinterpret_cast<float*>(kv_s);     // [warp][16][2]
   float* acc_s = ml_s + MMA_WARPS * WARP_ROWS * 2;  // [warp][16][D]
-  {
-    const int d0 = 2 * (lane & 3);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = (lane >> 2) + 8 * rr;
-      if ((lane & 3) == 0) {
-        ml_s[(warp * WARP_ROWS + r) * 2] = st.m[rr];
-        ml_s[(warp * WARP_ROWS + r) * 2 + 1] = st.l[rr];
-      }
-#pragma unroll
-      for (int tt = 0; tt < DT / 8; ++tt) {
-        const int d = tt * 8 + d0;
-        if (d < D)
-          *reinterpret_cast<float2*>(acc_s + (warp * WARP_ROWS + r) * D + d) =
-              make_float2(st.o[tt][2 * rr], st.o[tt][2 * rr + 1]);
-      }
-    }
-  }
-  if (nsplit > 1) cluster.sync();  // every CTA's partials are written
-  else __syncthreads();
-  if (rank == 0) {
-    constexpr int MAX_SPLIT = 4;
-    const int half = D >> 1;
-    for (int e = tid; e < t.live * half; e += nthreads) {
-      const int r = e / half, d = 2 * (e - r * half);
-      const int w0 = (r / WARP_ROWS) * KS, rl = r % WARP_ROWS;
-      float mv[MAX_SPLIT][KS], lv[MAX_SPLIT][KS];
-      float2 av[MAX_SPLIT][KS];
-#pragma unroll
-      for (int c = 0; c < MAX_SPLIT; ++c) {
-        if (c >= nsplit) break;
-        const float* ml = nsplit > 1 ? cluster.map_shared_rank(ml_s, c) : ml_s;
-        const float* acc = nsplit > 1 ? cluster.map_shared_rank(acc_s, c) : acc_s;
-#pragma unroll
-        for (int w = 0; w < KS; ++w) {
-          const int i = (w0 + w) * WARP_ROWS + rl;
-          mv[c][w] = ml[i * 2];
-          lv[c][w] = ml[i * 2 + 1];
-          av[c][w] = *reinterpret_cast<const float2*>(acc + i * D + d);
-        }
-      }
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < MAX_SPLIT; ++c)
-#pragma unroll
-        for (int w = 0; w < KS; ++w)
-          if (c < nsplit) mx = fmaxf(mx, mv[c][w]);
-      float l = 0.f, a0 = 0.f, a1 = 0.f;
-#pragma unroll
-      for (int c = 0; c < MAX_SPLIT; ++c)
-#pragma unroll
-        for (int w = 0; w < KS; ++w)
-          if (c < nsplit) {
-            const float f = exp_ftz(mv[c][w] - mx);
-            l += lv[c][w] * f;
-            a0 += av[c][w].x * f;
-            a1 += av[c][w].y * f;
-          }
-      const float denom = fmaxf(l, 1e-30f);
-      *reinterpret_cast<uint32_t*>(out + t.row_off(r, a) + d) =
-          pack_bf16(a0 / denom, a1 / denom);
-    }
-  }
-  if (nsplit > 1) cluster.sync();  // the partials are read before any CTA exits
+  float* cta_ml = acc_s + MMA_WARPS * WARP_ROWS * D;  // [2 * 16][2]
+  put_partial(st, ml_s, acc_s, warp, D);
+  merge_partials<KS>(ml_s, acc_s, cta_ml, t.live, D, rank, nsplit,
+                     [&](int r) { return out + t.row_off(r, a); });
 }
 
 template <int DT>
@@ -379,7 +319,8 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k_pool,
   const size_t kv = static_cast<size_t>(MMA_STAGES) * 2 * TILE_KEYS * SP * 2;
   // the merge's buffers: fragments of full tiles, or rows of split-warp tiles
   const size_t frag = static_cast<size_t>(MMA_WARPS) * 32 * (DT / 8 + 1) * 16;
-  const size_t rows = static_cast<size_t>(MMA_WARPS) * mma::WARP_ROWS * (2 + a.D) * 4;
+  const size_t rows =
+      (static_cast<size_t>(MMA_WARPS) * mma::WARP_ROWS * (2 + a.D) + 4 * mma::WARP_ROWS) * 4;
   const size_t merge = frag > rows ? frag : rows;
   const size_t smem = static_cast<size_t>(TILE_ROWS) * SP * 2 + (kv > merge ? kv : merge);
   auto kern = paged_ragged_attention_mma_kernel<DT>;

@@ -6,8 +6,13 @@ the padded paged decode) replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.decode_attention_kernel`` and serves the
 dense decode (``models.attention.attn_decode``). It is bound by bytes: each
 live K/V element is read once per (sequence, kv head) while the group's g
-queries stay in shared memory; its warps split the key range and merge
-their softmax states. Tiles past ``lens`` are skipped.
+queries stay in shared memory. In bf16 it runs on the tensor cores
+(``mma.sync``): the 64-key tiles of one (sequence, kv head) come through a
+``cp.async`` ring, split across 4 warps and across a thread-block cluster
+of up to 8 CTAs when the batch is small, and the partial softmax states
+merge exactly through distributed shared memory. In fp32 it stays on the
+CUDA cores, its warps splitting the key range. Tiles past ``lens`` are
+skipped.
 
 Shapes (both functions): q ``[B, Hkv, g, D]``; k/v ``[B, S, Hkv, D]``, the
 model's cache layout, read in place; lens ``[B]`` int32, the valid length
@@ -71,11 +76,12 @@ def _bind(dtype):
     return fn
 
 
-def check_decode_inputs(q, kv, lens, extra=()):
+def check_decode_inputs(q, kv, lens, extra=(), d_multiple=8):
     """Checks shared by both decode wrappers: q [B, Hkv, g, D] and the
     key/value tensors of q's type (fp32 or bf16) on q's CUDA device,
-    contiguous, int32 tensors beside them; ``D % 8 == 0`` and ``D <= 256``
-    (``<= 128`` in fp32, for the tiles to fit in shared memory)."""
+    contiguous, int32 tensors beside them; ``D % d_multiple == 0`` and
+    ``D <= 256`` (``<= 128`` in fp32, for the tiles to fit in shared
+    memory)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         "bfloat16")
@@ -83,9 +89,9 @@ def check_decode_inputs(q, kv, lens, extra=()):
         raise ValueError(f"want q [B,Hkv,g,D] and lens [B], got "
                          f"{tuple(q.shape)}, {tuple(lens.shape)}")
     D = q.shape[3]
-    if D % 8 or D > (128 if q.dtype == torch.float32 else 256):
-        raise ValueError(f"head dim {D}: want D % 8 == 0 and D <= 256 "
-                         "(<= 128 in float32)")
+    if D % d_multiple or D > (128 if q.dtype == torch.float32 else 256):
+        raise ValueError(f"head dim {D}: want D % {d_multiple} == 0 and "
+                         "D <= 256 (<= 128 in float32)")
     for name, t in (("q", q), *kv, ("lens", lens), *extra):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}, not {t.device}")
@@ -103,9 +109,11 @@ def check_decode_inputs(q, kv, lens, extra=()):
 
 def decode_attention_cuda(q, k, v, lens):
     """Launch the CUDA kernel on PyTorch's current stream. Raises on inputs
-    it does not take (``check_decode_inputs``) and when the launch fails."""
+    it does not take (``check_decode_inputs``; in bf16 the tensor cores'
+    depth needs ``D % 16 == 0``) and when the launch fails."""
     global launches
-    check_decode_inputs(q, (("k", k), ("v", v)), lens)
+    check_decode_inputs(q, (("k", k), ("v", v)), lens,
+                        d_multiple=16 if q.dtype == torch.bfloat16 else 8)
     B, Hkv, g, D = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
             or k.shape[2:] != (Hkv, D):

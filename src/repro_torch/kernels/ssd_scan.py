@@ -12,13 +12,13 @@ head), in fp32:
   contribution
 * ``decay_in [L] = exp(cum)``
 
-Operations bound it on the H100: at mamba2-1.3b's serving prefill step
-(B 8, S 64, H 64, hd 64, ds 128) c·bᵀ once per row and chunk plus the two
-products per head are ~0.34 GFMA, ~10 µs at 67 TFLOP/s fp32, against ~30
-MB moved (~9 µs). One CTA per (row, chunk, group of heads) forms c·bᵀ once
-for the group in shared memory and runs both products with register tiles
-on CUDA cores (the source note says more); it takes 56 µs there on an
-NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``).
+Bytes bound it on the H100: at mamba2-1.3b's serving prefill step (B 8,
+S 64, H 64, hd 64, ds 128) it moves ~30 MB (~9 µs at 3.35 TB/s), mostly
+the fp32 y and S_c it writes. One CTA per (row, chunk, group of heads)
+forms c·bᵀ once for the group. With bf16 inputs all three products run on
+the tensor cores (``mma.sync``), the fp32 operands of the last two split
+into three bf16 parts so that the sums keep 1e-4; with fp32 inputs they
+run on the CUDA cores (the source note says more).
 
 Shapes (both functions): x ``[B, S, H, hd]``, b/c ``[B, S, H, ds]`` (a head
 stride of 0 shares one group's b and c across the heads), dt/cum ``[B, S,
@@ -81,20 +81,21 @@ def _bind(dtype):
     return fn
 
 
-def smem_bytes(L, hd, ds):
+def smem_bytes(L, hd, ds, dtype):
     """Dynamic shared memory of one CTA, in bytes (the kernel's own rule)."""
     fn = _lib().ssd_chunk_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
-    return fn(L, hd, ds)
+    return fn(L, hd, ds, int(dtype == torch.bfloat16))
 
 
 def ssd_chunk_cuda(x, b, c, dt, cum, chunk):
     """Launch the CUDA kernel on PyTorch's current stream. x, b, c in fp32
     or bf16 (one type) on one CUDA device, any strides with a contiguous
-    last dim, ``hd % 4 == 0`` (≤ 128), ``ds % 8 == 0`` (≤ 256); dt, cum fp32
-    contiguous; ``chunk`` ≤ 128 dividing S. Raises on anything else and when
-    the launch fails."""
+    last dim, hd ≤ 128 and ds ≤ 256, multiples of 16 in bf16 (the tensor
+    cores' depth) and of 4 and 8 in fp32; dt, cum fp32 contiguous;
+    ``chunk`` ≤ 128 dividing S. Raises on anything else and when the launch
+    fails."""
     global launches
     if x.dtype not in _C_FUNCS:
         raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
@@ -114,9 +115,11 @@ def ssd_chunk_cuda(x, b, c, dt, cum, chunk):
     if not 0 < chunk <= MAX_L or S % chunk:
         raise ValueError(f"chunk {chunk}: want 0 < chunk <= {MAX_L} dividing "
                          f"S = {S}")
-    if hd % 4 or hd > MAX_HD or ds % 8 or ds > MAX_DS:
-        raise ValueError(f"hd {hd}, ds {ds}: want hd % 4 == 0, hd <= "
-                         f"{MAX_HD}, ds % 8 == 0, ds <= {MAX_DS}")
+    hm, dm = (16, 16) if x.dtype == torch.bfloat16 else (4, 8)
+    if hd % hm or hd > MAX_HD or ds % dm or ds > MAX_DS:
+        raise ValueError(f"hd {hd}, ds {ds}: want hd % {hm} == 0, hd <= "
+                         f"{MAX_HD}, ds % {dm} == 0, ds <= {MAX_DS} in "
+                         f"{x.dtype}")
     if B > 65535 or S // chunk > 65535:
         raise ValueError(f"B {B}, {S // chunk} chunks: at most 65535 each")
     for name, t in (("x", x), ("b", b), ("c", c), ("dt", dt), ("cum", cum)):
@@ -133,10 +136,10 @@ def ssd_chunk_cuda(x, b, c, dt, cum, chunk):
     if y.numel() == 0:
         return y, st.zero_(), dec
     with torch.cuda.device(x.device):
-        if smem_bytes(chunk, hd, ds) > SMEM_LIMIT:
-            raise ValueError(f"chunk {chunk}, hd {hd}, ds {ds} need "
-                             f"{smem_bytes(chunk, hd, ds)} bytes of shared "
-                             f"memory, over {SMEM_LIMIT}")
+        need = smem_bytes(chunk, hd, ds, x.dtype)
+        if need > SMEM_LIMIT:
+            raise ValueError(f"chunk {chunk}, hd {hd}, ds {ds} need {need} "
+                             f"bytes of shared memory, over {SMEM_LIMIT}")
         strides = (ctypes.c_longlong * 9)(*(s for t in (x, b, c)
                                             for s in t.stride()[:3]))
         fn = _bind(x.dtype)

@@ -171,10 +171,10 @@ def test_cuda_ragged_tiles_match_plain(cuda, dtype, B, C, Hq, Hkv, D, bs,
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Refused with a ValueError before any launch: a bf16 head dim that is
-    not a multiple of 16 (the tensor cores' depth), an fp32 one that is not
-    a multiple of 4, and a head dim over 256. Checked before the device, so
-    this runs without a card too."""
-    before = (PRA.launches, FA.launches)
+    not a multiple of 16 (the tensor cores' depth; also the SSD chunk's hd
+    and ds), an fp32 one that is not a multiple of 4, and a head dim over
+    256. Checked before the device, so this runs without a card too."""
+    before = (PRA.launches, FA.launches, DA.launches, SSD.launches)
     for dtype, D in ((torch.bfloat16, 24), (torch.float32, 6),
                      (torch.bfloat16, 272)):
         q = torch.zeros((1, 1, 2, 3, D), dtype=dtype)
@@ -189,7 +189,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         kv = torch.zeros((1, 5, 1, D), dtype=dtype)
         with pytest.raises(ValueError, match="D %"):
             FA.flash_attention_cuda(q, kv, kv, torch.zeros(1, dtype=torch.int32))
-    assert (PRA.launches, FA.launches) == before
+    # the dense decode's bf16 tile: the tensor cores' depth of 16
+    q = torch.zeros((1, 1, 4, 24), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        DA.decode_attention_cuda(q, kv, kv, torch.ones(1, dtype=torch.int32))
+    # the SSD chunk's bf16 tiles: hd and ds multiples of 16
+    for hd, ds in ((24, 16), (16, 24)):
+        x = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
+        bc = torch.zeros((1, 8, 2, ds), dtype=torch.bfloat16)
+        f = torch.zeros((1, 8, 2))
+        with pytest.raises(ValueError, match="hd"):
+            SSD.ssd_chunk_cuda(x, bc, bc, f, f, 8)
+    assert (PRA.launches, FA.launches, DA.launches, SSD.launches) \
+        == before
 
 
 @pytest.mark.cuda
@@ -239,6 +252,20 @@ DECODE_CASES = [  # B, S, Hq, Hkv, D (S need not tile)
     (4, 512, 8, 2, 64), (2, 1024, 4, 4, 128), (8, 512, 16, 1, 64),
     (3, 100, 32, 8, 128),
 ]
+# The edges of the bf16 tensor-core tile, in both types where fp32 takes
+# them: one 2048-token row (B * Hkv = 8: the largest cluster split), lens
+# 1 and lens == S in one batch, S not a multiple of the 64-key tile, g 1, 8
+# and 20 (two row tiles), and bf16 head dims 16 to 256
+DECODE_TILE_CASES = [  # B, S, Hq, Hkv, D, lens, dtypes
+    (1, 2048, 32, 8, 128, [2048], "both"),
+    (3, 640, 16, 4, 128, [1, 640, 333], "both"),
+    (4, 200, 8, 8, 64, [200, 1, 77, 129], "both"),
+    (2, 1000, 64, 8, 128, [1000, 999], "both"),
+    (2, 130, 40, 2, 64, [130, 64], "both"),
+    (2, 300, 32, 8, 256, [300, 45], "bf16"),
+    (2, 96, 8, 2, 32, [96, 3], "both"),
+    (2, 70, 4, 2, 16, [70, 9], "both"),
+]
 
 
 @pytest.mark.cuda
@@ -277,6 +304,28 @@ def test_cuda_decode_matches_plain(cuda, dtype, B, S, Hq, Hkv, D):
     torch.cuda.synchronize()
     assert DA.launches == before + 1
     want = DA.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,S,Hq,Hkv,D,lens", [
+    (dtype, *case[:6]) for case in DECODE_TILE_CASES
+    for dtype in (torch.float32, torch.bfloat16)
+    if case[6] == "both" or dtype == torch.bfloat16])
+def test_cuda_decode_tiles_match_plain(cuda, dtype, B, S, Hq, Hkv, D, lens):
+    """The cache is handed in as per-layer views of one tensor, as the model
+    holds it."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in dense_case(B, 1, S, Hq, Hkv, D, seed=S + D))
+    q = q.reshape(B, Hkv, Hq // Hkv, D)
+    cache = torch.stack([k, v])
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = DA.launches
+    got = DA.decode_attention_cuda(q, cache[0], cache[1], ln)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    want = DA.decode_attention_plain(q, k, v, ln)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
 
@@ -400,15 +449,16 @@ def test_cuda_grouped_rmsnorm_matches_plain(cuda, dtype, N, H, D):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def ssd_case(B, S, H, hd, ds, L, shared, dtype, device, seed=0):
+def ssd_case(B, S, H, hd, ds, L, shared, dtype, device, seed=0, scale=1.0):
     """x [B, S, H, hd]; b, c [B, S, H, ds], shared by the heads through a
     head stride of 0 (the model's layout) or per head (the TPU contract's
-    copies); dt = softplus(normal), cum its within-chunk cumsum of -dt·A."""
+    copies), all three times ``scale``; dt = softplus(normal), cum its
+    within-chunk cumsum of -dt·A."""
     rng = np.random.default_rng(seed)
     bh = 1 if shared else H
-    x = rng.standard_normal((B, S, H, hd), dtype=np.float32)
-    b = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3
-    c = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3
+    x = rng.standard_normal((B, S, H, hd), dtype=np.float32) * scale
+    b = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3 * scale
+    c = rng.standard_normal((B, S, bh, ds), dtype=np.float32) * 0.3 * scale
     dt = np.log1p(np.exp(rng.standard_normal((B, S, H), dtype=np.float32)))
     A = np.exp(rng.standard_normal((H,), dtype=np.float32) * 0.5)
     cum = np.cumsum((-dt * A).reshape(B, S // L, L, H), axis=2,
@@ -421,30 +471,42 @@ def ssd_case(B, S, H, hd, ds, L, shared, dtype, device, seed=0):
 
 
 SSD_CASES = [
-    # B, S, H, hd, ds, L, shared: the serving prefill step of mamba2-1.3b,
-    # a long prompt, a short prefill (S < chunk: one chunk of S), the
-    # reduced model, and the TPU contract's per-(head, chunk) copies
-    (8, 64, 64, 64, 128, 64, True),
-    (1, 2048, 64, 64, 128, 64, True),
-    (2, 19, 8, 64, 128, 19, True),
-    (2, 16, 8, 16, 16, 8, True),
-    (6, 64, 1, 32, 16, 64, False),
-    (2, 128, 1, 64, 32, 128, False),
-    (3, 64, 4, 64, 128, 32, False),
+    # B, S, H, hd, ds, L, shared, scale: the serving prefill step of
+    # mamba2-1.3b, a long prompt, a short prefill (S < chunk: one chunk of
+    # S), the reduced model, and the TPU contract's per-(head, chunk)
+    # copies; chunks padded to the tensor cores' 16 rows (L 8, 19: two
+    # chunks), hd 16 / ds 16 per head; inputs at 8x their scale, where the
+    # bf16 instance's products would miss 1e-4 with a two-part split of
+    # their fp32 operands (tests/test_torch_ssd.py) and fp32 sums still
+    # hold it (at the serving width they do not: 8x is tested narrower)
+    (8, 64, 64, 64, 128, 64, True, 1.0),
+    (1, 2048, 64, 64, 128, 64, True, 1.0),
+    (2, 19, 8, 64, 128, 19, True, 1.0),
+    (2, 16, 8, 16, 16, 8, True, 1.0),
+    (6, 64, 1, 32, 16, 64, False, 1.0),
+    (2, 128, 1, 64, 32, 128, False, 1.0),
+    (3, 64, 4, 64, 128, 32, False, 1.0),
+    (1, 38, 8, 64, 128, 19, True, 1.0),
+    (4, 32, 2, 16, 16, 16, False, 1.0),
+    (2, 16, 8, 16, 16, 8, True, 8.0),
+    (3, 40, 4, 32, 32, 8, True, 8.0),
+    (2, 128, 1, 64, 32, 128, False, 8.0),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,hd,ds,L,shared", SSD_CASES)
+@pytest.mark.parametrize("B,S,H,hd,ds,L,shared,scale", SSD_CASES)
 def test_cuda_ssd_chunk_matches_plain(cuda, dtype, B, S, H, hd, ds, L,
-                                      shared):
+                                      shared, scale):
     """The kernel against its plain version on the same inputs; both compute
     in fp32 from the same (fp32 or bf16) inputs and differ only in the order
-    of their sums, so fp32 outputs agree within 1e-4 in either type. x is
-    handed in as a slice of a wider tensor, as the model's view of the conv
-    output is."""
-    x, b, c, dt, cum = ssd_case(B, S, H, hd, ds, L, shared, dtype, cuda)
+    of their sums (and, in bf16, by the three-part split of the fp32
+    operands, ~2^-27 of each), so fp32 outputs agree within 1e-4 in either
+    type. x is handed in as a slice of a wider tensor, as the model's view
+    of the conv output is."""
+    x, b, c, dt, cum = ssd_case(B, S, H, hd, ds, L, shared, dtype, cuda,
+                                scale=scale)
     wide = torch.zeros((B, S, H, hd + 8), dtype=dtype, device=cuda)
     wide[..., :hd] = x
     before = SSD.launches

@@ -6,6 +6,8 @@ unless noted:
 * the SSD chunk kernel's plain version against the Pallas kernel in
   interpret mode and its oracle, at the TPU contract's shapes and with b
   and c shared across heads through a head stride of 0;
+* the rounding of the CUDA kernel's bf16 (tensor-core) instance, emulated
+  here, against the Pallas kernel and the plain version;
 * the chunked scan, the causal conv (bit for bit in bf16), the grouped
   RMSNorm, and one SSD layer's prefill then decode with its state carried;
 * reduced mamba2's prefill and decode logits, with every norm scale and
@@ -121,6 +123,79 @@ def test_plain_ssd_chunk_shared_bc(B, S, H, hd, ds, L):
                                np.asarray(wst), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(per_head_chunk(dec.numpy()[..., None]),
                                np.asarray(wdec), atol=1e-5, rtol=1e-5)
+
+
+def _bf16_parts(a, parts):
+    """fp32 ``a`` as ``parts`` bf16 values (as fp32) whose sum is ``a`` up to
+    2^-9 of the last: each part is the rest, rounded to bf16."""
+    out = []
+    for _ in range(parts):
+        out.append(a.to(torch.bfloat16).float())
+        a = a - out[-1]
+    return out
+
+
+def _tensor_core_chunk(x, b, c, dt, cum, parts=3):
+    """The arithmetic of ``csrc/ssd_chunk.cu``'s bf16 instance at the TPU
+    contract (x [N, L, hd], b, c [N, L, ds] holding bf16 values; dt, cum
+    [N, L, 1]), in fp32: c·bᵀ of bf16 values (exact products); sc = c·bᵀ ·
+    exp(cum_t − cum_s) · dt_s on s ≤ t and x·w, each split into ``parts``
+    bf16 parts that multiply the bf16 operand separately, the products
+    summed in fp32."""
+    L = x.shape[1]
+    tri = torch.ones((L, L), dtype=torch.bool).tril()
+    cb = c @ b.transpose(1, 2)
+    dec = torch.where(tri, cum - cum.transpose(1, 2), 0.0)
+    sc = torch.where(tri, cb * torch.exp(dec) * dt.transpose(1, 2), 0.0)
+    y = sum(p @ x for p in _bf16_parts(sc, parts))
+    w = torch.exp(cum[:, -1:] - cum) * dt
+    st = sum(p.transpose(1, 2) @ b for p in _bf16_parts(x * w, parts))
+    return y, st
+
+
+def _bf16_inputs(N, L, hd, ds, scale=1.0):
+    """``_chunk_inputs`` with x, b and c times ``scale`` and rounded to
+    bf16 (kept as fp32 numpy arrays)."""
+    x, b, c, dt, cum = _chunk_inputs(N, L, hd, ds)
+    x, b, c = (_t(a * scale).to(torch.bfloat16).float().numpy()
+               for a in (x, b, c))
+    return x, b, c, dt, cum
+
+
+@pytest.mark.parametrize("N,L,hd,ds", [(4, 8, 16, 16), (6, 64, 32, 16),
+                                       (2, 64, 64, 128)],
+                         ids=["reduced", "tpu-test", "serving-head"])
+def test_tensor_core_rounding_matches_pallas_and_plain(N, L, hd, ds):
+    """The bf16 instance's rounding (three bf16 parts of each fp32
+    operand, fp32 sums) against the Pallas kernel in interpret mode and the
+    plain version on the same bf16 inputs, at 1e-4: on the reduced model's
+    chunk, the reference test's shapes and one serving-width head of
+    mamba2-1.3b (chunk 64, hd 64, d_state 128)."""
+    x, b, c, dt, cum = _bf16_inputs(N, L, hd, ds)
+    got = _tensor_core_chunk(*map(_t, (x, b, c, dt, cum)))
+    y, st, _ = SSD.ssd_chunk_plain(*(_t(a)[:, :, None] for a in (x, b, c)),
+                                   _t(dt), _t(cum), L)
+    want = rops.ssd_chunk(*map(jnp.asarray, (x, b, c, dt, cum)))
+    for g, w, p in zip(got, want, (y[:, :, 0], st[:, 0, 0])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_two_bf16_parts_miss_what_three_hold():
+    """Why the bf16 instance splits its fp32 operands in three: with inputs
+    at 8x their scale, two parts (up to 2^-18 of each operand left over)
+    take y_intra past 1e-4 of the plain version, three (up to 2^-27) keep
+    it."""
+    x, b, c, dt, cum = _bf16_inputs(16, 8, 16, 16, scale=8.0)
+    y, _, _ = SSD.ssd_chunk_plain(*(_t(a)[:, :, None] for a in (x, b, c)),
+                                  _t(dt), _t(cum), 8)
+    args = tuple(map(_t, (x, b, c, dt, cum)))
+    two, _ = _tensor_core_chunk(*args, parts=2)
+    three, _ = _tensor_core_chunk(*args, parts=3)
+    assert not torch.allclose(two, y[:, :, 0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(three, y[:, :, 0], atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
