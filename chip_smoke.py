@@ -7,24 +7,26 @@ Phases (every failure propagates and exits non-zero):
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
 2. build: the CUDA kernels from the checkout's sources with nvcc (one
-   process per source, all started together); Triton compiles at first
-   launch;
-3. each kernel against its plain PyTorch version on the card at the main
-   paths' shapes (qwen3-8b: 32 query heads, 8 KV heads, head_dim 128, block
-   16; RMSNorm over [N, 4096] and [N*32, 128], and grouped over mamba2's 64
-   SSD heads of 64; flash over a 64-token chunk against a dense cache of
-   2048 and the TPU kernel's own case; decode over contexts up to 2048 and
-   over one sequence of 2048, beside the ragged kernel on the same K/V; the
-   SSD chunk at mamba2-1.3b's serving prefill step, a long prompt, a short
-   chunk and the TPU contract's per-(head, chunk) copies), in fp32 and
-   bf16, with its time, the plain version's, a PyTorch library call's
-   where one computes the same function, and the least time the card could
-   take; for attention also the achieved TFLOP/s and the bound's share of
-   the time (for the SSD chunk the share, and the bound against the fp32
-   peak beside the one against its inputs' type), and in bf16 two wider
-   cases for the tensor-core tiles (ragged prefill chunks of 256 against
-   contexts of 2048, a flash serving chunk of 256); the padded paged decode
-   also against the ragged kernel at C == 1;
+   process per source, all started together);
+3. the timer's floor (an empty kernel's time), then each kernel against its
+   plain PyTorch version on the card at the main paths' shapes (qwen3-8b:
+   32 query heads, 8 KV heads, head_dim 128, block 16; RMSNorm at the
+   prefill and decode steps' shapes of both models, grouped over mamba2's
+   64 SSD heads of 64, and a layer's q and k norms in one launch, bitwise
+   equal to two single launches, with the host's µs per wrapper call; flash
+   over a 64-token chunk against a dense cache of 2048 and the TPU kernel's
+   own case; decode over contexts up to 2048 and over one sequence of 2048,
+   beside the ragged kernel on the same K/V; the SSD chunk at mamba2-1.3b's
+   serving prefill step, a long prompt, a short chunk and the TPU
+   contract's per-(head, chunk) copies), in fp32 and bf16, with its time,
+   the plain version's, a PyTorch library call's where one computes the
+   same function, and the least time the card could take; for attention
+   also the achieved TFLOP/s and the bound's share of the time (for the SSD
+   chunk the share, and the bound against the fp32 peak beside the one
+   against its inputs' type), and in bf16 two wider cases for the
+   tensor-core tiles (ragged prefill chunks of 256 against contexts of
+   2048, a flash serving chunk of 256); the padded paged decode also
+   against the ragged kernel at C == 1, with its host µs per call;
 4. the slice against itself across devices: the engines on reduced
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
    dense cache) and on reduced mamba2 (the dense fallback, with two
@@ -42,7 +44,8 @@ Phases (every failure propagates and exits non-zero):
    equal that path's per-step counts times its steps of each kind; no
    block may leak.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+With no arguments it needs one card. The line before the last is
+``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -242,6 +245,20 @@ def attention_case(torch, name, rows, dtype, timer, tol):
                  flops)
 
 
+def host_us(torch, fn, calls=1000):
+    """The host's µs per call of ``fn``: ``calls`` calls without a sync,
+    timed on the host clock, then one sync (after a few warm-up calls)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None):
     """Rows [N, D] with scale [D]; with ``H``, grouped: x [N/H, H, D] with
     scale [H, D] (no single PyTorch call computes that)."""
@@ -257,22 +274,57 @@ def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None):
     got = RMS.rmsnorm_cuda(x, s)
     torch.cuda.synchronize()
     want = RMS.rmsnorm_plain(x, s)
-    err = (got.float() - want.float()).abs().max().item()
-    check(torch.isfinite(got.float()).all(), f"rmsnorm {name}: non-finite")
-    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-          f"rmsnorm {name}: max abs err {err} > tol {tol}")
+    err = compare(torch, f"rmsnorm {name} {dtype}", got, want, tol)
     ms = timer(lambda: RMS.rmsnorm_cuda(x, s))
     plain_ms = timer(lambda: RMS.rmsnorm_plain(x, s))
     library_ms = None if H else timer(
         lambda: F.rms_norm(x, (D,), weight=s, eps=1e-6))
     elt = x.element_size()
-    t_bytes = (2 * N * D + s.numel()) * elt / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * N * D / PEAK_FLOPS["torch.float32"] * 1e3
+    bound_ms, bound_by = bound((2 * N * D + s.numel()) * elt, 4 * N * D,
+                               torch.float32)
     return {"case": name, "dtype": str(dtype).replace("torch.", ""),
             "shape": {"x": list(x.shape), "scale": list(s.shape)}, "tol": tol,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "host_us": host_us(torch, lambda: RMS.rmsnorm_cuda(x, s))}
+
+
+def rmsnorm_pair_case(torch, name, Nq, Nk, D, dtype, timer, tol):
+    """A layer's q_norm and k_norm in one launch: q [Nq, D] and k [Nk, D],
+    each with its own [D] scale. Must equal two single launches bitwise;
+    timed beside them (``singles_ms``)."""
+    from repro_torch.kernels import rmsnorm as RMS
+    gen = torch.Generator(device="cuda").manual_seed(Nq + Nk + D)
+    q = torch.randn((Nq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((Nk, D), generator=gen, device="cuda").to(dtype)
+    sq = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+    sk = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+    before = RMS.launches
+    got = RMS.rmsnorm_pair_cuda(q, sq, k, sk)
+    torch.cuda.synchronize()
+    check(RMS.launches == before + 1, f"rmsnorm pair {name}: "
+          f"{RMS.launches - before} launches, want 1")
+    singles = (RMS.rmsnorm_cuda(q, sq), RMS.rmsnorm_cuda(k, sk))
+    check(all(torch.equal(a, b) for a, b in zip(got, singles)),
+          f"rmsnorm pair {name} {dtype}: not bitwise equal to two launches")
+    want = RMS.rmsnorm_pair_plain(q, sq, k, sk)
+    err = max(compare(torch, f"rmsnorm pair {name} {dtype}", a, b, tol)
+              for a, b in zip(got, want))
+    pair = lambda: RMS.rmsnorm_pair_cuda(q, sq, k, sk)  # noqa: E731
+    ms = timer(pair)
+    singles_ms = timer(lambda: (RMS.rmsnorm_cuda(q, sq),
+                                RMS.rmsnorm_cuda(k, sk)))
+    plain_ms = timer(lambda: RMS.rmsnorm_pair_plain(q, sq, k, sk))
+    elt = q.element_size()
+    bound_ms, bound_by = bound((2 * (Nq + Nk) * D + 2 * D) * elt,
+                               4 * (Nq + Nk) * D, torch.float32)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"q": [Nq, D], "k": [Nk, D], "scales": [[D], [D]]},
+            "tol": tol, "max_abs_err": err, "bitwise_equal_to_singles": True,
+            "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "host_us": host_us(torch, pair)}
 
 
 def flash_case(torch, name, B, Sq, Skv, offsets, causal, dtype, timer, tol,
@@ -394,7 +446,7 @@ def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
                       D=128, bs=16):
     """The padded walk over the ragged decode case's own rows and table;
     also held against the ragged kernel at C == 1 on the same inputs
-    (fp32 within 1e-5), and both timed."""
+    (fp32 within 1e-5), and both timed, with the host's µs per call."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as PDA
     from repro_torch.kernels import paged_ragged_attention as PRA
@@ -454,7 +506,10 @@ def paged_decode_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
                   "ragged_ms": ragged_ms,
                   "ragged_bound_share": bound_ms / ragged_ms,
                   "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by}, flops)
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "host_us": host_us(
+                      torch, lambda: PDA.paged_decode_attention_cuda(*args))},
+                 flops)
 
 
 def ssd_chunk_case(torch, name, B, S, H, hd, ds, L, shared, dtype, timer,
@@ -512,6 +567,10 @@ def ssd_chunk_case(torch, name, B, S, H, hd, ds, L, shared, dtype, timer,
 
 def kernel_phase(torch):
     timer = Timer(torch)
+    # what the timer gives a kernel that does nothing: the floor under every
+    # small case below (launch and event latency after the L2 flush)
+    print(f"timer floor: an empty kernel (torch.cuda._sleep(0)) measures "
+          f"{timer(lambda: torch.cuda._sleep(0), iters=30)} ms")
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     # a mixed batch (C = 64 prefill chunks, one partial, and decode rows)
     # and a pure-decode batch, contexts up to 2048
@@ -538,13 +597,22 @@ def kernel_phase(torch):
             add("paged_ragged_attention", attention_case(
                 torch, "long prefill", [(2048, 256)] * 2, dtype, timer, tol))
         # N = 512: the first serving step's padded token rectangle (8 rows
-        # x 64 columns); q_norm/k_norm run over N x 32 head rows of 128
-        for name, N, D in (("hidden", 512, 4096), ("heads", 512 * 32, 128)):
-            add("rmsnorm", rmsnorm_case(torch, name, N, D, dtype, timer, tol))
-        # mamba2's grouped norm at its serving prefill step: 8 x 64 tokens,
-        # 64 heads of 64, one scale row per head
-        add("rmsnorm", rmsnorm_case(torch, "grouped", 8 * 64 * 64, 64, dtype,
-                                    timer, tol, H=64))
+        # x 64 columns); q_norm/k_norm run over N x 32 (x 8) head rows of
+        # 128. A decode step: 8 rows, 256 q and 64 k head rows; mamba2's
+        # d_model 2048 and its grouped norm over 64 heads of 64.
+        for name, N, D, H in (("hidden", 512, 4096, None),
+                              ("heads", 512 * 32, 128, None),
+                              ("grouped", 8 * 64 * 64, 64, 64),
+                              ("decode hidden", 8, 4096, None),
+                              ("decode q heads", 8 * 32, 128, None),
+                              ("decode k heads", 8 * 8, 128, None),
+                              ("mamba2 decode hidden", 8, 2048, None),
+                              ("mamba2 decode grouped", 8 * 64, 64, 64)):
+            add("rmsnorm", rmsnorm_case(torch, name, N, D, dtype, timer, tol,
+                                        H=H))
+        for name, T in (("pair, prefill", 512), ("pair, decode", 8)):
+            add("rmsnorm", rmsnorm_pair_case(torch, name, T * 32, T * 8, 128,
+                                             dtype, timer, tol))
         # mamba2-1.3b (64 heads of 64, d_state 128, chunk 64): the serving
         # prefill step (8 rows of 64), a long prompt (32 chunks), a short
         # chunk (S < 64), and the serving step as the TPU contract's
@@ -732,8 +800,8 @@ def count_steps(eng):
 
 
 def serve_path(torch, eng, label):
-    """The main path through ``eng``: a warm-up run of the workload (cuBLAS
-    and Triton caches), then the measured run with every launch counter
+    """The main path through ``eng``: a warm-up run of the workload (cuBLAS's
+    caches, the kernels' first launches), then the measured run with every launch counter
     set to 0 just before it and read just after. Checks the requests and
     the counters against the per-step counts; returns the requests."""
     from repro_torch.launch import serve
@@ -767,10 +835,11 @@ def serve_path(torch, eng, label):
               f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
               f"{eng.kv.num_blocks}")
     check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
-    # per step: ln1, ln2, q_norm, k_norm per attention layer, ln1 and the
-    # grouped norm per SSD layer, and the final norm; one attention per
-    # attention layer, by the kernel of the step's kind and cache; one SSD
-    # chunk launch per SSD layer in a prefill step, none in a decode step
+    # per step: ln1, ln2 and the q_norm + k_norm pair (one launch) per
+    # attention layer, ln1 and the grouped norm per SSD layer, and the final
+    # norm; one attention per attention layer, by the kernel of the step's
+    # kind and cache; one SSD chunk launch per SSD layer in a prefill step,
+    # none in a decode step
     n_attn = cfg.layer_kinds.count("attn")
     n_ssd = cfg.layer_kinds.count("ssd")
     per_kind = {"mixed": "paged_ragged_attention",
@@ -779,7 +848,7 @@ def serve_path(torch, eng, label):
                 "decode": ("paged_ragged_attention" if eng.paged
                            else "decode_attention")}
     want = {name: 0 for name in launches}
-    want["rmsnorm"] = steps * (4 * n_attn + 2 * n_ssd + 1)
+    want["rmsnorm"] = steps * (3 * n_attn + 2 * n_ssd + 1)
     for kind, n in kinds.items():
         want[per_kind[kind]] += n * n_attn
     want["ssd_chunk"] = (kinds["prefill"] + kinds["mixed"]) * n_ssd
@@ -801,7 +870,7 @@ def serve_path(torch, eng, label):
           f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
           f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
     print(f"{label}: launches: {json.dumps(launches)}; per step: "
-          f"{4 * n_attn + 2 * n_ssd + 1} rmsnorm, {n_attn} attention, "
+          f"{3 * n_attn + 2 * n_ssd + 1} rmsnorm, {n_attn} attention, "
           f"{n_ssd} ssd_chunk per prefill step and 0 per decode step")
     return reqs, launches
 
@@ -979,8 +1048,7 @@ def summary(cases, by_path):
     for name, route, source, replaces in (
             ("paged_ragged_attention", "cuda",
              CSRC + "paged_ragged_attention.cu", ATTN_TPU),
-            ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-             RMS_TPU),
+            ("rmsnorm", "cuda", CSRC + "rmsnorm.cu", RMS_TPU),
             ("flash_attention", "cuda", CSRC + "flash_attention.cu",
              FLASH_TPU),
             ("decode_attention", "cuda", CSRC + "decode_attention.cu",

@@ -5,7 +5,8 @@
 * ``decode_attention`` and ``paged_decode_attention``: CUDA C++, one source
   (``csrc/decode_attention.cu``) templated on how a key is addressed.
 * ``ssd_scan``: the SSD intra-chunk step, CUDA C++ (``csrc/ssd_chunk.cu``).
-* ``rmsnorm``: Triton (row-wise, or grouped with one scale row per head).
+* ``rmsnorm``: CUDA C++ (``csrc/rmsnorm.cu``; row-wise, grouped with one
+  scale row per head, or a layer's q and k norms in one launch).
 
 The CUDA sources are built by ``build.py`` with nvcc for sm_90a and loaded
 with ctypes. ``ops`` dispatches by the device of the tensors.

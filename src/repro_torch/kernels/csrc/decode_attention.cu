@@ -11,8 +11,11 @@
 //   returns the mean of all values at lens == 0, which no caller passes).
 // - src/repro/kernels/paged_decode_attention.py::paged_decode_attention_kernel:
 //   the same through block_tables[b] into pools [num_blocks, bs, Hkv, D],
-//   walking all nmax blocks, masked by lens, with no skip: the padded
-//   baseline against which the ragged kernel's skip is measured.
+//   over the table's nmax blocks masked by lens: the padded baseline against
+//   which the ragged kernel is held. In bf16, tiles past lens[b] are skipped
+//   as in the dense decode (exact for lens >= 1: a wholly masked tile adds
+//   exp(NEG_INF - m) = 0 and leaves m unchanged); the fp32 instance walks
+//   every block.
 // All keep the TPU kernels' numerics: fp32 m/l/acc, the finite NEG_INF,
 // p rounded to the value type before the PV product.
 //
@@ -23,7 +26,7 @@
 // the time is set by how fast one pair's keys stream into the SMs that
 // walk them.
 //
-// - Dense cache, bf16: on the tensor cores (mma_attention_tile.cuh). A CTA
+// - bf16, either cache: on the tensor cores (mma_attention_tile.cuh). A CTA
 //   of 4 warps takes the g <= 16 query rows of one (b, h) pair (one m16
 //   tile; g > 16 takes more CTAs along y) and stages 64-key K/V tiles by
 //   cp.async into a two-stage ring (the next tile loads while one is
@@ -34,16 +37,17 @@
 //   c, c + NSPLIT, ...; the warps' and CTAs' (m, l, acc) merge exactly
 //   through distributed shared memory (merge_partials). What still sets
 //   the time is the longest pair's walk: its NSPLIT CTAs each stream a
-//   tile at a time while most other SMs have finished.
-// - fp32 (dense cache) and the padded paged walk (both types): on the CUDA
-//   cores (attention_tile.cuh's fold_tile, lanes over keys). One CTA per
-//   (b * Hkv + h, group of up to 8 query heads; 4 when g <= 4) keeps the
-//   group's queries in shared memory; its 8 warps (4 where shared memory is
-//   short) split the key range (warp w takes tiles w, w + nwarps, ...),
-//   each staging its own 32-key K and V tiles in shared memory with
-//   16-byte loads, several in flight per lane, and the warps' partial
-//   softmax states merge at the end. fp32 keeps the 1e-4 contract that
-//   TF32 tensor cores could not.
+//   tile at a time while most other SMs have finished. The kernel is
+//   templated on how a key is addressed (DenseKeys, PagedKeys): the paged
+//   walk gathers each tile's K/V rows through the block table row by row.
+// - fp32, either cache: on the CUDA cores (attention_tile.cuh's fold_tile,
+//   lanes over keys). One CTA per (b * Hkv + h, group of up to 8 query
+//   heads; 4 when g <= 4) keeps the group's queries in shared memory; its 8
+//   warps (4 where shared memory is short) split the key range (warp w
+//   takes tiles w, w + nwarps, ...), each staging its own 32-key K and V
+//   tiles in shared memory with 16-byte loads, several in flight per lane,
+//   and the warps' partial softmax states merge at the end. fp32 keeps the
+//   1e-4 contract that TF32 tensor cores could not.
 
 #include "attention_tile.cuh"
 #include "mma_attention_tile.cuh"
@@ -67,10 +71,12 @@ struct DenseKeys {
   __device__ __forceinline__ long long offset(int b, int h, int Hkv, int D, int p) const {
     return (static_cast<long long>(b) * S + p) * row + static_cast<long long>(h) * D;
   }
+  __device__ __forceinline__ void prefetch(int, int, int, int) const {}
 };
 
-// Keys through a block table into pools [num_blocks, bs, Hkv, D]: every
-// position of every one of the nmax blocks is walked (the padded walk).
+// Keys through a block table into pools [num_blocks, bs, Hkv, D]: the
+// CUDA-core walk takes every position of every one of the nmax blocks (the
+// padded walk); the tensor-core walk stops at lens.
 template <typename T>
 struct PagedKeys {
   const T* k;
@@ -81,6 +87,14 @@ struct PagedKeys {
   __device__ __forceinline__ long long offset(int b, int h, int Hkv, int D, int p) const {
     const int blk = tables[static_cast<long long>(b) * nmax + p / bs];
     return ((static_cast<long long>(blk) * bs + p % bs) * Hkv + h) * D;
+  }
+  // Bring the table entries of keys [0, limit) into L1, one 128-byte line
+  // per thread, so that no tile's lookups wait on device memory.
+  __device__ __forceinline__ void prefetch(int b, int limit, int tid, int nthreads) const {
+    const int* row = tables + static_cast<long long>(b) * nmax;
+    const int n = (limit + bs - 1) / bs;
+    for (int e = tid * 32; e < n; e += nthreads * 32)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(row + e));
   }
 };
 
@@ -225,18 +239,16 @@ int paged(const void* q, const void* k_pool, const void* v_pool, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// dense cache, bf16: tensor cores
+// bf16, either cache: tensor cores
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_STAGES = 2;
 constexpr int NKW = mma::TILE_KEYS / MMA_WARPS;  // keys per warp per tile: 16
 
-template <int DT>
+template <int DT, typename Keys>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
-decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                            const int* __restrict__ lens, int S, int Hkv, int g, int D,
+decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+                            Keys keys, const int* __restrict__ lens, int Hkv, int g, int D,
                             float scale) {
   using namespace mma;
   constexpr bool QREG = DT <= 128;
@@ -256,13 +268,19 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     return r < rows ? q_rows + static_cast<long long>(r) * D : nullptr;
   }, q, tid, nthreads);
 
-  const int limit = min(lens[b], S);
+  // keys past lens are skipped, in the padded walk's table too: a tile
+  // that lies wholly past lens would add exp(NEG_INF - m) = 0 for lens >= 1
+  const int len = lens[b];
+  const int limit = min(len, keys.limit(len));
   const int ntiles_all = (limit + TILE_KEYS - 1) / TILE_KEYS;
   const int ntiles = ntiles_all > rank ? (ntiles_all - rank + nsplit - 1) / nsplit : 0;
-  // key p of (b, h) lies at (b * S + p) * Hkv * D + h * D
-  const long long row = static_cast<long long>(Hkv) * D;
-  const long long base = static_cast<long long>(b) * S * row + static_cast<long long>(h) * D;
+  keys.prefetch(b, limit, tid, nthreads);
   auto k0_of = [&](int i) { return (rank + i * nsplit) * TILE_KEYS; };
+  // K and V rows of tile i, each row's address from `keys`: through the
+  // block table for the padded walk, one lookup per key shared by its K and
+  // V rows, so any block size works. (Looking up all of a thread's keys
+  // before its first copy, as paged_ragged_attention.cu does, measured
+  // slower here once the table row is prefetched.)
   auto stage = [&](int i) {
     __nv_bfloat16* k_t = kv_s + (i % MMA_STAGES) * 2 * TILE_KEYS * SP;
     const int k0 = k0_of(i);
@@ -270,9 +288,9 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t kd = smem_u32(k_t), vd = kd + TILE_KEYS * SP * 2;
     auto copy = [&](int j, int c) {
       const bool live = k0 + j < limit;
-      const long long o = live ? base + (k0 + j) * row + c * 8 : 0;
-      cp_async16(kd + (j * SP + c * 8) * 2, k + o, live);
-      cp_async16(vd + (j * SP + c * 8) * 2, v + o, live);
+      const long long o = live ? keys.offset(b, h, Hkv, D, k0 + j) + c * 8 : 0;
+      cp_async16(kd + (j * SP + c * 8) * 2, keys.k + o, live);
+      cp_async16(vd + (j * SP + c * 8) * 2, keys.v + o, live);
     };
     if (nthreads % cpr == 0) {
       const int c = tid % cpr, step = nthreads / cpr;
@@ -324,16 +342,15 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   });
 }
 
-template <int DT>
-cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                       __nv_bfloat16* out, const int* lens, int B, int S, int Hkv, int g, int D,
-                       float scale, cudaStream_t stream) {
+template <int DT, typename Keys>
+cudaError_t launch_mma(const __nv_bfloat16* q, __nv_bfloat16* out, Keys keys, const int* lens,
+                       int B, int Hkv, int g, int D, float scale, cudaStream_t stream) {
   const int SP = mma::tile_stride(D);
   const size_t ring = static_cast<size_t>(MMA_STAGES) * 2 * mma::TILE_KEYS * SP * 2;
   const size_t merge =
       (static_cast<size_t>(MMA_WARPS) * mma::WARP_ROWS * (2 + D) + 2 * mma::WARP_ROWS) * 4;
   const size_t smem = static_cast<size_t>(mma::WARP_ROWS) * SP * 2 + (ring > merge ? ring : merge);
-  auto kern = decode_attention_mma_kernel<DT>;
+  auto kern = decode_attention_mma_kernel<DT, Keys>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -355,26 +372,45 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __n
   attr.val.clusterDim.z = nsplit;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, q, k, v, out, lens, S, Hkv, g, D, scale);
+  e = cudaLaunchKernelEx(&cfg, kern, q, out, keys, lens, Hkv, g, D, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-int dense_bf16(const void* q, const void* k, const void* v, void* out, const int* lens, int B,
-               int S, int Hkv, int g, int D, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || g <= 0 || D <= 0 || D % 16 != 0 || D > 256)
+// bf16 on the tensor cores, for either cache: D a multiple of 16, <= 256.
+template <typename Keys>
+int run_mma(const void* q, void* out, Keys keys, const int* lens, int B, int Hkv, int g, int D,
+            float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || g <= 0 || D <= 0 || D % 16 != 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
-  const auto* kt = static_cast<const __nv_bfloat16*>(k);
-  const auto* vt = static_cast<const __nv_bfloat16*>(v);
   auto* ot = static_cast<__nv_bfloat16*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (D <= 32) e = launch_mma<32>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
-  else if (D <= 64) e = launch_mma<64>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
-  else if (D <= 128) e = launch_mma<128>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
-  else e = launch_mma<256>(qt, kt, vt, ot, lens, B, S, Hkv, g, D, scale, s);
+  if (D <= 32) e = launch_mma<32>(qt, ot, keys, lens, B, Hkv, g, D, scale, s);
+  else if (D <= 64) e = launch_mma<64>(qt, ot, keys, lens, B, Hkv, g, D, scale, s);
+  else if (D <= 128) e = launch_mma<128>(qt, ot, keys, lens, B, Hkv, g, D, scale, s);
+  else e = launch_mma<256>(qt, ot, keys, lens, B, Hkv, g, D, scale, s);
   return static_cast<int>(e);
+}
+
+int dense_bf16(const void* q, const void* k, const void* v, void* out, const int* lens, int B,
+               int S, int Hkv, int g, int D, float scale, void* stream) {
+  if (S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const DenseKeys<__nv_bfloat16> keys{static_cast<const __nv_bfloat16*>(k),
+                                      static_cast<const __nv_bfloat16*>(v), S,
+                                      static_cast<long long>(Hkv) * D};
+  return run_mma(q, out, keys, lens, B, Hkv, g, D, scale, stream);
+}
+
+int paged_bf16(const void* q, const void* k_pool, const void* v_pool, void* out,
+               const int* block_tables, const int* lens, int B, int Hkv, int g, int D, int bs,
+               int nmax, float scale, void* stream) {
+  if (bs <= 0 || nmax <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const PagedKeys<__nv_bfloat16> keys{static_cast<const __nv_bfloat16*>(k_pool),
+                                      static_cast<const __nv_bfloat16*>(v_pool), block_tables,
+                                      nmax, bs};
+  return run_mma(q, out, keys, lens, B, Hkv, g, D, scale, stream);
 }
 
 }  // namespace
@@ -397,6 +433,7 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
 
 // q, out: [B, Hkv, g, D]; k_pool, v_pool: [num_blocks, bs, Hkv, D];
 // block_tables: [B, nmax] int32 (0 = null block); lens: [B] int32 >= 1.
+// bf16 runs on the tensor cores (D a multiple of 16), fp32 on the CUDA cores.
 extern "C" int paged_decode_attention_f32(const void* q, const void* k_pool,
                                           const void* v_pool, void* out,
                                           const int* block_tables, const int* lens, int B,
@@ -411,6 +448,6 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
                                            const int* block_tables, const int* lens, int B,
                                            int Hkv, int g, int D, int bs, int nmax,
                                            float scale, void* stream) {
-  return paged<__nv_bfloat16>(q, k_pool, v_pool, out, block_tables, lens, B, Hkv, g, D, bs,
-                              nmax, scale, stream);
+  return paged_bf16(q, k_pool, v_pool, out, block_tables, lens, B, Hkv, g, D, bs, nmax, scale,
+                    stream);
 }

@@ -76,12 +76,12 @@ def _bind(dtype):
     return fn
 
 
-def check_decode_inputs(q, kv, lens, extra=(), d_multiple=8):
+def check_decode_inputs(q, kv, lens, extra=()):
     """Checks shared by both decode wrappers: q [B, Hkv, g, D] and the
     key/value tensors of q's type (fp32 or bf16) on q's CUDA device,
-    contiguous, int32 tensors beside them; ``D % d_multiple == 0`` and
-    ``D <= 256`` (``<= 128`` in fp32, for the tiles to fit in shared
-    memory)."""
+    contiguous, int32 tensors beside them; ``D`` a multiple of 16 in bf16
+    (the tensor cores' depth) or of 8 in fp32, and ``D <= 256`` (``<= 128``
+    in fp32, for the tiles to fit in shared memory)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         "bfloat16")
@@ -89,6 +89,7 @@ def check_decode_inputs(q, kv, lens, extra=(), d_multiple=8):
         raise ValueError(f"want q [B,Hkv,g,D] and lens [B], got "
                          f"{tuple(q.shape)}, {tuple(lens.shape)}")
     D = q.shape[3]
+    d_multiple = 16 if q.dtype == torch.bfloat16 else 8
     if D % d_multiple or D > (128 if q.dtype == torch.float32 else 256):
         raise ValueError(f"head dim {D}: want D % {d_multiple} == 0 and "
                          "D <= 256 (<= 128 in float32)")
@@ -109,11 +110,9 @@ def check_decode_inputs(q, kv, lens, extra=(), d_multiple=8):
 
 def decode_attention_cuda(q, k, v, lens):
     """Launch the CUDA kernel on PyTorch's current stream. Raises on inputs
-    it does not take (``check_decode_inputs``; in bf16 the tensor cores'
-    depth needs ``D % 16 == 0``) and when the launch fails."""
+    it does not take (``check_decode_inputs``) and when the launch fails."""
     global launches
-    check_decode_inputs(q, (("k", k), ("v", v)), lens,
-                        d_multiple=16 if q.dtype == torch.bfloat16 else 8)
+    check_decode_inputs(q, (("k", k), ("v", v)), lens)
     B, Hkv, g, D = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
             or k.shape[2:] != (Hkv, D):

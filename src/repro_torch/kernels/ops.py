@@ -85,6 +85,14 @@ def rmsnorm(x, scale, eps=1e-6):
     return fn(x, scale, eps)
 
 
+def rmsnorm_pair(q, q_scale, k, k_scale, eps=1e-6):
+    """A layer's q_norm and k_norm: RMSNorm over the last axis of q and of
+    k (one D), each with its own [D] scale, in one kernel launch on the
+    card. Returns (q', k')."""
+    fn = RMS.rmsnorm_pair_cuda if _on_cuda(q) else RMS.rmsnorm_pair_plain
+    return fn(q, q_scale, k, k_scale, eps)
+
+
 def ssd_chunk(x, b, c, dt, cum, chunk):
     """The SSD intra-chunk step: x [B, S, H, hd] and b/c [B, S, H, ds] read
     in place (b and c may share one group across heads with a head stride

@@ -4,11 +4,17 @@ plain PyTorch version.
 The kernel (the paged instance of ``csrc/decode_attention.cu``) replaces
 the Pallas TPU kernel
 ``repro.kernels.paged_decode_attention.paged_decode_attention_kernel``: the
-decode recurrence streamed through the block table over ALL ``nmax`` blocks
-of every sequence, masked by ``lens``. That padded walk is what makes it the
-baseline against which the ragged kernel (``paged_ragged_attention``, which
-reads only a row's live blocks) is held at ``C == 1``; the serving path runs
-the ragged kernel.
+decode recurrence streamed through the block table, masked by ``lens``. The
+TPU kernel walks ALL ``nmax`` blocks of every sequence; that padded walk is
+what makes it the baseline against which the ragged kernel
+(``paged_ragged_attention``, which reads only a row's live blocks) is held
+at ``C == 1``, and the serving path runs the ragged kernel. The reference's
+benchmark of padded against ragged stays in ``repro``. Here, in bf16, the
+kernel is the dense decode's tensor-core tile (``mma.sync``, a ``cp.async``
+ring, the key walk split over a thread-block cluster) gathering each 64-key
+tile's rows through the table, and it skips tiles past ``lens``: exact for
+``lens >= 1``, since a wholly masked tile adds ``exp(NEG_INF - m) = 0``. In
+fp32 it stays on the CUDA cores and walks every block.
 
 Shapes (both functions): q ``[B, Hkv, g, D]``; k_pool/v_pool
 ``[num_blocks, bs, Hkv, D]``; block_tables ``[B, nmax]`` int32 (0 = the null
@@ -76,7 +82,7 @@ def _bind(dtype):
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lens):
     """Launch the CUDA kernel on PyTorch's current stream. Raises on inputs
-    it does not take and when the launch fails."""
+    it does not take (``check_decode_inputs``) and when the launch fails."""
     global launches
     check_decode_inputs(q, (("k_pool", k_pool), ("v_pool", v_pool)), lens,
                         (("block_tables", block_tables),))

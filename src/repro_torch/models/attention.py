@@ -14,7 +14,7 @@ from torch import nn
 
 from repro_torch.kernels import ops as K
 from repro_torch.parallel import HeadPlan, Layout, plan_heads
-from .layers import apply_rope, dense_init, empty_param, rmsnorm
+from .layers import apply_rope, dense_init, empty_param, rmsnorm_pair
 
 
 def get_plan(cfg, lay: Layout) -> HeadPlan:
@@ -105,8 +105,7 @@ def _finish(p: Attention, out):
 
 def _qk_post(p: Attention, q, k, positions, cfg, rope: bool = True):
     if cfg.qk_norm:
-        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
-        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+        q, k = rmsnorm_pair(q, p.q_norm, k, p.k_norm, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

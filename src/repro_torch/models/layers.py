@@ -41,6 +41,12 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return K.rmsnorm(x, scale, eps)
 
 
+def rmsnorm_pair(q, q_scale, k, k_scale, eps: float = 1e-6):
+    """``rmsnorm`` of q and of k, each with its own scale: one kernel
+    launch on the card, two plain calls on the CPU."""
+    return K.rmsnorm_pair(q, q_scale, k, k_scale, eps)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d, dtype, device, eps: float = 1e-6):
         super().__init__()

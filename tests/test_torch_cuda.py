@@ -1,6 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions, on
-the card. The CUDA and Triton kernels have no CPU mode, so every test here
-but the first is marked ``cuda`` and skips without a card. This file
+the card. The CUDA kernels have no CPU mode, so every test here but those
+that stop before a launch is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the reference package, so it also runs on a
 machine that has only PyTorch:
 
@@ -81,8 +81,7 @@ def test_cpu_tensors_never_reach_a_kernel():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have no "
-                    "CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -174,7 +173,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     not a multiple of 16 (the tensor cores' depth; also the SSD chunk's hd
     and ds), an fp32 one that is not a multiple of 4, and a head dim over
     256. Checked before the device, so this runs without a card too."""
-    before = (PRA.launches, FA.launches, DA.launches, SSD.launches)
+    before = (PRA.launches, FA.launches, DA.launches, PDA.launches,
+              SSD.launches)
     for dtype, D in ((torch.bfloat16, 24), (torch.float32, 6),
                      (torch.bfloat16, 272)):
         q = torch.zeros((1, 1, 2, 3, D), dtype=dtype)
@@ -194,6 +194,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     kv = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         DA.decode_attention_cuda(q, kv, kv, torch.ones(1, dtype=torch.int32))
+    # the padded paged decode's bf16 tile: the same depth of 16
+    pool = torch.zeros((2, 8, 1, 24), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        PDA.paged_decode_attention_cuda(q, pool, pool,
+                                        torch.ones((1, 2), dtype=torch.int32),
+                                        torch.ones(1, dtype=torch.int32))
     # the SSD chunk's bf16 tiles: hd and ds multiples of 16
     for hd, ds in ((24, 16), (16, 24)):
         x = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
@@ -201,13 +207,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         f = torch.zeros((1, 8, 2))
         with pytest.raises(ValueError, match="hd"):
             SSD.ssd_chunk_cuda(x, bc, bc, f, f, 8)
-    assert (PRA.launches, FA.launches, DA.launches, SSD.launches) \
-        == before
+    assert (PRA.launches, FA.launches, DA.launches, PDA.launches,
+            SSD.launches) == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (5, 100), (3, 16)])
+@pytest.mark.parametrize("N,D", [
+    (37, 4096), (200, 128), (5, 100), (3, 16),
+    # a decode step's rows: qwen3-8b's hidden, q and k heads; mamba2's hidden
+    (8, 4096), (256, 128), (64, 128), (8, 2048),
+])
 def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
     g = torch.Generator(device=cuda).manual_seed(N + D)
     x = torch.randn((N, D), generator=g, device=cuda).to(dtype)
@@ -218,6 +228,53 @@ def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
     assert RMS.launches == before + 1
     torch.testing.assert_close(got.float(), RMS.rmsnorm_plain(x, s).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (9, 64)])
+def test_cuda_rmsnorm_unaligned_rows_match_plain(cuda, dtype, N, D):
+    """Rows 2 elements apart from 16-byte alignment (a view into a wider
+    buffer, one element in) take the scalar instance."""
+    g = torch.Generator(device=cuda).manual_seed(N * D)
+    buf = torch.randn((N, D + 2), generator=g, device=cuda).to(dtype)
+    x = buf[:, 1:D + 1]
+    s = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    got = RMS.rmsnorm_cuda(x, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), RMS.rmsnorm_plain(x, s).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_shape,k_shape", [
+    ((8, 1, 32, 128), (8, 1, 8, 128)),       # qwen3-8b, a decode step
+    ((8, 64, 32, 128), (8, 64, 8, 128)),     # qwen3-8b, a prefill step
+    ((2, 8, 4, 16), (2, 8, 2, 16)),          # reduced, head_dim 16
+    ((3, 100), (0, 100)),                    # an empty k, D 100
+])
+def test_cuda_rmsnorm_pair_equals_two_launches(cuda, dtype, q_shape,
+                                               k_shape):
+    """q_norm and k_norm in one launch: bitwise equal to two single
+    launches (the same plan per row), the launch count rising by 1."""
+    g = torch.Generator(device=cuda).manual_seed(sum(q_shape) + sum(k_shape))
+    D = q_shape[-1]
+    q = torch.randn(q_shape, generator=g, device=cuda).to(dtype)
+    k = torch.randn(k_shape, generator=g, device=cuda).to(dtype)
+    sq = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    sk = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    before = RMS.launches
+    gq, gk = RMS.rmsnorm_pair_cuda(q, sq, k, sk)
+    torch.cuda.synchronize()
+    assert RMS.launches == before + 1
+    assert torch.equal(gq, RMS.rmsnorm_cuda(q, sq))
+    if k.numel():
+        assert torch.equal(gk, RMS.rmsnorm_cuda(k, sk))
+    assert gk.shape == k.shape
+    for got, want in zip((gq, gk), RMS.rmsnorm_pair_plain(q, sq, k, sk)):
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
 
 
 def dense_case(B, Sq, Skv, Hq, Hkv, D, seed=0):
@@ -364,6 +421,48 @@ def test_cuda_paged_decode_matches_plain_and_ragged(cuda, dtype, B, Hq, Hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,bs,nmax,ctx", [
+    (4, 32, 8, 128, 16, 64, [1, 70, 130, 300]),   # lens far short of nmax*bs
+    (3, 8, 2, 64, 24, 20, [5, 100, 200]),         # bs 24 does not divide 64
+    (2, 16, 4, 128, 40, 12, [1, 333]),            # bs 40, one key
+    (2, 4, 1, 32, 7, 30, [64, 129]),              # bs 7, D 32
+])
+def test_cuda_paged_decode_stops_at_lens(cuda, dtype, B, Hq, Hkv, D, bs,
+                                         nmax, ctx):
+    """Tables longer than their rows: the poisoned null block (the odd
+    rows' table tails) and one more poisoned block (every tail entry of the
+    even rows) must not matter, in the bf16 walk that stops at lens and the
+    fp32 walk over every block; against the plain version and the ragged
+    kernel at C == 1."""
+    q, kp, vp, bt, ql, lens = paged_case(B, 1, Hq, Hkv, D, bs, nmax, ctx,
+                                         [1] * B)
+    poison = kp.shape[0]
+    kp = np.concatenate([kp, np.full_like(kp[:1], 99.0)])
+    vp = np.concatenate([vp, np.full_like(vp[:1], -99.0)])
+    kp[0], vp[0] = 99.0, -99.0
+    for b, c in enumerate(ctx):   # even rows: tails at the poisoned block
+        if b % 2 == 0:
+            bt[b, -(-c // bs):] = poison
+    g = Hq // Hkv
+    q4 = torch.from_numpy(q).reshape(B, Hkv, g, D).to(cuda, dtype)
+    kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in (kp, vp))
+    bt, ql, lens = (torch.from_numpy(a).to(cuda) for a in (bt, ql, lens))
+    before = PDA.launches
+    got = PDA.paged_decode_attention_cuda(q4, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert PDA.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    want = PDA.paged_decode_attention_plain(q4, kp, vp, bt, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    rag = PRA.paged_ragged_attention_cuda(q4[:, :, :, None].contiguous(), kp,
+                                          vp, bt, ql, lens)[:, :, :, 0]
+    tol = 1e-5 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), rag.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_engine_matches_cpu_engine(cuda):
     """Reduced qwen3-8b at fp32: the engine on the card (kernels) and on the
     CPU (plain versions) give equal streams under pool pressure, and the
@@ -386,8 +485,9 @@ def test_cuda_engine_matches_cpu_engine(cuda):
                      PRA.launches, RMS.launches))
     steps = sum(runs[0][1].values())
     assert runs[0][:4] == runs[1][:4]
+    # RMSNorm per step: ln1, ln2 and the q/k pair per layer, the final norm
     assert runs[0][4:] == (steps * cfg.num_layers,
-                           steps * (4 * cfg.num_layers + 1))
+                           steps * (3 * cfg.num_layers + 1))
     assert runs[1][4:] == (0, 0)
 
 
@@ -402,7 +502,8 @@ def test_cuda_serialized_engine_matches_cpu_engine(cuda, kw):
     equal streams, config counts and preemptions on the card and the CPU,
     and the card's run went through its kernels: per step one attention
     launch per layer (ragged on the pool; flash for a dense prefill,
-    decode for a dense decode) and 4 * layers + 1 RMSNorm launches."""
+    decode for a dense decode) and 3 * layers + 1 RMSNorm launches (ln1,
+    ln2 and the q/k pair per layer, the final norm)."""
     cfg = get_config("qwen3-8b").reduced()
     cpu = Model(cfg, device="cpu", dtype=torch.float32)
     cpu.init_params(torch.Generator().manual_seed(0))
@@ -425,7 +526,7 @@ def test_cuda_serialized_engine_matches_cpu_engine(cuda, kw):
     assert counts[1] == (0, 0, 0, 0, 0)
     steps = sum(runs[0][1].values())
     pra, fa, da, pda, rms = counts[0]
-    assert rms == steps * (4 * cfg.num_layers + 1) and pda == 0
+    assert rms == steps * (3 * cfg.num_layers + 1) and pda == 0
     if kw.get("paged", True):
         assert (pra, fa, da) == (steps * cfg.num_layers, 0, 0)
     else:
@@ -435,7 +536,8 @@ def test_cuda_serialized_engine_matches_cpu_engine(cuda, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,H,D", [(37, 8, 16), (64, 64, 64), (5, 3, 100)])
+@pytest.mark.parametrize("N,H,D", [(37, 8, 16), (64, 64, 64), (5, 3, 100),
+                                   (8, 64, 64)])
 def test_cuda_grouped_rmsnorm_matches_plain(cuda, dtype, N, H, D):
     """The SSD mixer's per-head norm: x [N, H, D] with scale [H, D]."""
     g = torch.Generator(device=cuda).manual_seed(N + H + D)
