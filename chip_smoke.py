@@ -40,9 +40,21 @@ Phases (every failure propagates and exits non-zero):
    mixed paged engine, then on the same weights through the serialized
    engine on the paged pool and on the dense cache; then mamba2-1.3b at
    full width through its dense serialized fallback with the same
-   workload. Every launch counter is set to 0 before each path and must
-   equal that path's per-step counts times its steps of each kind; no
-   block may leak.
+   workload. Each path runs in turns on one model: the engine's eager step
+   tables (built here, explicitly), its graphed ones (every step captured
+   once per bucket as a CUDA graph and replayed, as the engine runs), the
+   graphed ones again and the eager ones again, each turn a warm-up run
+   and a measured run of the workload and a ``torch.profiler`` trace of
+   decode steps. Every launch counter is set to 0 before each measured
+   run and must equal that path's per-step counts times its steps of each
+   kind (a replay adds the launches its capture recorded); the profiler's
+   trace must hold each port kernel's launches of a decode step; no
+   capture may happen in a measured run or the profiled steps; the
+   streams and launch counts of all four turns must be equal; no block
+   may leak. Captured entries' full-width logits are held to the eager
+   steps' on small caches. Each turn prints its wall ms per decode step,
+   TTFT, decode tokens/s, device busy ms per step and busy share, graphs
+   captured and capture ms (also as one ``{"graph_turns": ...}`` line).
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -799,6 +811,42 @@ def count_steps(eng):
     return kinds
 
 
+def step_launches(eng, kind):
+    """Each kernel's launches in one full-width engine step of ``kind``
+    ("mixed", "prefill" or "decode"): ln1, ln2 and the q_norm + k_norm pair
+    (one launch) per attention layer, ln1 and the grouped norm per SSD
+    layer, and the final norm; one attention per attention layer, by the
+    kernel of the step's kind and cache; one SSD chunk launch per SSD layer
+    in a prefill step, none in a decode step."""
+    kinds = eng.mcfg.layer_kinds
+    n_attn, n_ssd = kinds.count("attn"), kinds.count("ssd")
+    attention = ("paged_ragged_attention" if eng.paged else
+                 "flash_attention" if kind == "prefill" else
+                 "decode_attention")
+    out = {"rmsnorm": 3 * n_attn + 2 * n_ssd + 1}
+    if n_attn:
+        out[attention] = n_attn
+    if n_ssd and kind != "decode":
+        out["ssd_chunk"] = n_ssd
+    return out
+
+
+def port_kernel(name):
+    """The port kernel whose launch counter a kernel name in the profiler's
+    trace belongs to, or None for any other kernel."""
+    for part, kernel in (("paged_ragged_attention", "paged_ragged_attention"),
+                         ("flash_attention", "flash_attention"),
+                         ("rmsnorm_kernel", "rmsnorm"),
+                         ("ssd_chunk", "ssd_chunk")):
+        if part in name:
+            return kernel
+    if "decode_attention" in name:
+        # one source, templated on how a key is addressed
+        return ("paged_decode_attention" if "PagedKeys" in name
+                else "decode_attention")
+    return None
+
+
 def serve_path(torch, eng, label):
     """The main path through ``eng``: a warm-up run of the workload (cuBLAS's
     caches, the kernels' first launches), then the measured run with every launch counter
@@ -813,6 +861,7 @@ def serve_path(torch, eng, label):
     eng.config_counts = {"base": 0, "shift": 0}
     kinds = count_steps(eng)
     reqs = serve.workload(6, 16)
+    captured = eng.deploy.captures
     serve.reset_launch_counts()
     t0 = time.monotonic()
     for r in reqs:
@@ -823,6 +872,11 @@ def serve_path(torch, eng, label):
     wall = time.monotonic() - t0
     launches = serve.launch_counts()
     steps = sum(eng.config_counts.values())
+    # the warm-up run stepped through every bucket of the workload, so the
+    # measured run only replays
+    check(eng.deploy.captures == captured,
+          f"{label}: {eng.deploy.captures - captured} captures in the "
+          "measured run")
 
     for r in reqs:
         check(len(r.generated) == 16 and r.finish_reason == "ok",
@@ -835,23 +889,12 @@ def serve_path(torch, eng, label):
               f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
               f"{eng.kv.num_blocks}")
     check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
-    # per step: ln1, ln2 and the q_norm + k_norm pair (one launch) per
-    # attention layer, ln1 and the grouped norm per SSD layer, and the final
-    # norm; one attention per attention layer, by the kernel of the step's
-    # kind and cache; one SSD chunk launch per SSD layer in a prefill step,
-    # none in a decode step
     n_attn = cfg.layer_kinds.count("attn")
     n_ssd = cfg.layer_kinds.count("ssd")
-    per_kind = {"mixed": "paged_ragged_attention",
-                "prefill": ("paged_ragged_attention" if eng.paged
-                            else "flash_attention"),
-                "decode": ("paged_ragged_attention" if eng.paged
-                           else "decode_attention")}
     want = {name: 0 for name in launches}
-    want["rmsnorm"] = steps * (3 * n_attn + 2 * n_ssd + 1)
     for kind, n in kinds.items():
-        want[per_kind[kind]] += n * n_attn
-    want["ssd_chunk"] = (kinds["prefill"] + kinds["mixed"]) * n_ssd
+        for name, k in step_launches(eng, kind).items():
+            want[name] += n * k
     check(launches == want, f"{label}: launches {launches} over steps "
           f"{kinds}, want {want}")
 
@@ -859,6 +902,9 @@ def serve_path(torch, eng, label):
     t_first = max(r.first_token_time for r in reqs)
     t_last = max(r.finish_time for r in reqs)
     dec_tok = sum(len(r.generated) - 1 for r in reqs)
+    stats = {"wall_ms_per_decode_step": (t_last - t_first) / 15 * 1e3,
+             "ttft_ms": [t * 1e3 for t in ttft],
+             "decode_tokens_per_s": dec_tok / (t_last - t_first)}
     print(f"{label}: served 6 requests x 16 tokens in {wall:.3f} s over "
           f"{steps} steps {kinds}; configs {eng.config_counts}; "
           f"{eng.preemptions} preemptions"
@@ -872,7 +918,7 @@ def serve_path(torch, eng, label):
     print(f"{label}: launches: {json.dumps(launches)}; per step: "
           f"{3 * n_attn + 2 * n_ssd + 1} rmsnorm, {n_attn} attention, "
           f"{n_ssd} ssd_chunk per prefill step and 0 per decode step")
-    return reqs, launches
+    return reqs, launches, stats
 
 
 def shared_tokens(reqs, ref):
@@ -885,6 +931,94 @@ def shared_tokens(reqs, ref):
                 break
             n += 1
     return n
+
+
+# eager tables first and last, graphed ones between: a drift of the host
+# over the run shows as a difference between the two eager turns
+TURNS = (False, True, True, False)
+
+
+def serve_turns(torch, model, kw, label):
+    """One serving path in turns on ``model``: eager, graphed, graphed and
+    eager step tables, each on a new engine (``EngineConfig(**kw)``, its
+    cache initialised anew) with the same workload. Each turn runs
+    ``serve_path`` and then ``profile_decode``. The eager tables are built
+    here, explicitly; the engine always builds the graphed ones. Checks
+    that the streams and the launch counts of every turn are equal and
+    that an eager turn captures nothing. Returns the first graphed turn's
+    requests and launches, and every turn's numbers."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.deployment import Deployment
+    turns = []
+    for graphed in TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ShiftEngine(model, EngineConfig(**kw))
+        if not graphed:
+            eng.deploy = Deployment.build(model, model, mixed=eng.mixed,
+                                          paged=eng.paged, graphed=False)
+        name = f"{label} [{'graphed' if graphed else 'eager'}]"
+        reqs, launches, stats = serve_path(torch, eng, name)
+        stats.update(profile_decode(torch, eng, label=name))
+        stats.update(graphed=graphed, graphs_captured=eng.deploy.captures,
+                     capture_ms=(eng.deploy.graphs.capture_s * 1e3
+                                 if graphed else 0.0))
+        check(graphed or eng.deploy.captures == 0,
+              f"{name}: the eager tables captured")
+        turns.append((reqs, launches, stats))
+        del eng
+    streams = [[r.generated for r in reqs] for reqs, _, _ in turns]
+    check(all(s == streams[0] for s in streams),
+          f"{label}: the graphed and eager streams differ: {streams}")
+    check(all(launches == turns[0][1] for _, launches, _ in turns),
+          f"{label}: launch counts differ between turns: "
+          f"{[launches for _, launches, _ in turns]}")
+    for _, _, st in turns:
+        print(f"{label} turn: " + json.dumps(st))
+    print(f"{label}: eager, graphed, graphed, eager: equal streams and "
+          "launch counts; per turn wall ms per decode step "
+          + ", ".join(f"{st['wall_ms_per_decode_step']:.2f}"
+                      for _, _, st in turns)
+          + "; device busy ms per profiled decode step "
+          + ", ".join(f"{st['busy_ms_per_step']:.2f} "
+                      f"({st['busy_share']:.1%})" for _, _, st in turns))
+    first = next(t for t in turns if t[2]["graphed"])
+    return first[0], first[1], [st for _, _, st in turns]
+
+
+def graph_logits_check(torch, model, paged, calls, label):
+    """Full-width logits of captured entries against the eager steps, each
+    side on a freshly initialised small cache: ``calls`` is a list of
+    (step, host arrays), with step "mixed", "prefill" or "decode"; the
+    first call of each bucket runs eagerly and captures, later ones
+    replay. Fails unless every output is finite and within the kernels'
+    bf16 tolerance of the eager one; prints the max abs difference."""
+    from repro_torch.engine.deployment import CapturedStep, GraphPool
+    steps = {"mixed": lambda *a: model.mixed_step(*a, sample=False),
+             "prefill": model.prefill_step,
+             "decode": lambda *a: model.decode_step(*a, sample=False)}
+    graphs, outs = GraphPool(), []
+    for pool in (None, graphs):
+        if paged:
+            model.init_paged_cache(9, 16)
+        else:
+            model.init_cache(2, 32)
+        entries = {k: CapturedStep(fn, model, paged, pool)
+                   for k, fn in steps.items()}
+        outs.append([entries[k](*args).clone() for k, args in calls])
+        torch.cuda.synchronize()
+    err = 0.0
+    for (kind, _), want, got in zip(calls, *outs):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{label}: graphed {kind} logits {tuple(got.shape)}")
+        err = max(err, (got - want).abs().max().item())
+    check(err <= 2e-2, f"{label}: graphed vs eager logits: max abs diff "
+          f"{err} > 2e-2")
+    print(f"{label}: graphed vs eager logits over {len(calls)} calls "
+          f"({graphs.captures} captured, {len(calls) - graphs.captures} "
+          f"replayed): max abs diff {err}"
+          + (" (bitwise equal)" if err == 0 else ""))
+    return err
 
 
 def serving_phase(torch):
@@ -904,22 +1038,28 @@ def serving_phase(torch):
     print(f"paged pool: {eng.kv.num_blocks} blocks x {eng.cfg.block_size} "
           f"tokens x {cfg.num_layers} layers, {pool_bytes / 1e6:.1f} MB")
     torch.cuda.reset_peak_memory_stats()
-    by_path = {}
-    mixed_reqs, by_path["mixed"] = serve_path(torch, eng, "mixed paged")
+    by_path, turns = {}, {}
+    model = eng.model
+    del eng
+    mixed_reqs, by_path["mixed"], turns["mixed"] = serve_turns(
+        torch, model, {}, "mixed paged")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    profile_decode(torch, eng)
 
     # the served model's logits on a small mixed batch over free blocks:
     # finite, of the expected shape
+    model.init_paged_cache(9, 16)
     bt = np.array([[1, 2, 0], [3, 0, 0]], np.int32)
     toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
-    logits, _ = eng.model.forward_mixed(toks, [8, 3], [0, 0], bt,
-                                        sample=False)
+    logits, _ = model.forward_mixed(toks, [8, 3], [0, 0], bt, sample=False)
     torch.cuda.synchronize()
     check(tuple(logits.shape) == (2, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"full-width logits {tuple(logits.shape)} not finite")
+    graph_logits_check(torch, model, True, [
+        ("mixed", (toks, [8, 3], [0, 0], bt)),
+        ("mixed", (toks[:, ::-1].copy(), [1, 1], [8, 3], bt)),
+        ("mixed", (toks, [1, 1], [9, 4], bt))], "qwen3-8b mixed")
 
     # the serialized iteration on the same weights: the paged pool, then
     # the dense contiguous cache
@@ -927,36 +1067,43 @@ def serving_phase(torch):
                             {"mixed": False}),
                            ("serialized_dense", "serialized dense",
                             {"paged": False, "mixed": False})):
-        ser = ShiftEngine(eng.model, EngineConfig(**kw))
-        if not ser.paged:
+        if not kw.get("paged", True):
+            ser = ShiftEngine(model, EngineConfig(**kw))
             c = ser.model.cache
             print(f"dense cache: {ser.cfg.max_slots} slots x "
                   f"{ser.cfg.s_max} positions x {cfg.num_layers} layers, "
                   f"{2 * c.k.numel() * c.k.element_size() / 1e6:.1f} MB")
-        reqs, by_path[key] = serve_path(torch, ser, label)
+            del ser
+        reqs, by_path[key], turns[key] = serve_turns(torch, model, kw, label)
         print(f"{label}: {shared_tokens(reqs, mixed_reqs)} of "
               f"{sum(len(r.generated) for r in reqs)} tokens agree with the "
               "mixed stream before their first difference (bf16 through "
               "other kernels; for information)")
-        if not ser.paged:
-            profile_decode(torch, ser)
+        if not kw.get("paged", True):
             toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
-            ser.model.init_cache(2, 32)
-            logits, _ = ser.model.prefill(toks, [0, 24])
+            model.init_cache(2, 32)
+            logits, _ = model.prefill(toks, [0, 24])
             torch.cuda.synchronize()
             check(tuple(logits.shape) == (2, cfg.vocab_size)
                   and bool(torch.isfinite(logits).all()),
                   f"full-width dense logits {tuple(logits.shape)} not finite")
+            graph_logits_check(torch, model, False, [
+                ("prefill", (toks, [0, 0], None)),
+                ("prefill", (toks[:, ::-1].copy(), [8, 8], None)),
+                ("decode", ([5, 7], [16, 16], None)),
+                ("decode", ([9, 3], [17, 17], None))],
+                "qwen3-8b dense prefill + decode")
     print(f"card: {card_line()}")
-    return by_path
+    return by_path, turns
 
 
 def mamba2_serving_phase(torch):
     """mamba2-1.3b at full width (48 SSD layers, d_model 2048, bf16, random
     weights from a generator seeded 0) through the serve CLI's engine, which
     falls back to the serialized iteration on the dense cache; the same 6 x
-    16 workload; then one small prefill + decode's logits, finite and of
-    the expected shape."""
+    16 workload in turns, eager and graphed; then one small prefill +
+    decode's logits, finite and of the expected shape, and the graphed
+    entries' logits against the eager steps'."""
     import numpy as np
     from repro_torch.launch import serve
     # the qwen3-8b engines hold their model through reference cycles (the
@@ -984,33 +1131,47 @@ def mamba2_serving_phase(torch):
           f"{time.monotonic() - t0:.1f} s; dense cache: "
           f"{eng.cfg.max_slots} slots, SSD state {state / 1e6:.1f} MB "
           f"({eng.paged_disabled_reason})")
-    reqs, launches = serve_path(torch, eng, "mamba2 serialized dense")
+    model = eng.model
+    del eng, c
+    _, launches, turns = serve_turns(torch, model, {},
+                                     "mamba2 serialized dense")
     print(f"mamba2: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"({before / 1e9:.2f} GB allocated before the model was built)")
-    profile_decode(torch, eng, label="mamba2 serialized dense")
     toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
-    eng.model.init_cache(2, 32)
-    logits, _ = eng.model.prefill(toks, [0, 24])
-    nxt, _ = eng.model.decode(logits.argmax(-1), [8, 0], sample=False)
+    model.init_cache(2, 32)
+    logits, _ = model.prefill(toks, [0, 24])
+    nxt, _ = model.decode(logits.argmax(-1), [8, 0], sample=False)
     torch.cuda.synchronize()
     for lg in (logits, nxt):
         check(tuple(lg.shape) == (2, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()),
               f"mamba2 full-width logits {tuple(lg.shape)} not finite")
+    graph_logits_check(torch, model, False, [
+        ("prefill", (toks, [0, 0], None)),
+        ("prefill", (toks[:, ::-1].copy(), [8, 8], None)),
+        ("decode", ([5, 7], [16, 16], None)),
+        ("decode", ([9, 3], [17, 17], None))], "mamba2 prefill + decode")
     print(f"card: {card_line()}")
-    return launches
+    return launches, turns
 
 
 def profile_decode(torch, eng, steps=4, label=None):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
     ``steps`` decode steps of 6 rows (after their one prefill step, mixed
     or serialized), kernel time by name and the device's busy share of the
-    host's wall time. The profiler adds host time of its own, so the busy
-    share is a floor."""
+    host's wall time. The workload runs once before, so that on graphed
+    tables the profiled steps are replays of graphs captured then; checks
+    that nothing is captured in the profiled run and that the trace holds
+    each port kernel's launches of a decode step, ``steps`` times. The
+    profiler adds host time of its own, so the busy share is a floor."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
+    for r in serve.workload(6, steps + 1):
+        eng.submit(r)
+    eng.run_until_idle()
+    captured = eng.deploy.captures
     for r in serve.workload(6, steps + 1):
         eng.submit(r)
     eng.step()                                  # the prefill step
@@ -1023,6 +1184,10 @@ def profile_decode(torch, eng, steps=4, label=None):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     eng.run_until_idle()
+    it = label or ("mixed" if eng.mixed else "serialized paged" if eng.paged
+                   else "serialized dense")
+    check(eng.deploy.captures == captured,
+          f"{it}: {eng.deploy.captures - captured} captures in the profile")
     # device-side events only: an operator's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -1030,14 +1195,30 @@ def profile_decode(torch, eng, steps=4, label=None):
     busy = sum(t for _, t, _ in rows)
     n = sum(c for _, _, c in rows)
     check(busy > 0, "the profiler saw no device time")
-    it = label or ("mixed" if eng.mixed else "serialized paged" if eng.paged
-                   else "serialized dense")
+    traced = {name: 0 for name in serve.launch_counts()}
+    for key, _, c in rows:
+        kernel = port_kernel(key)
+        if kernel:
+            traced[kernel] += c
+    want = {name: 0 for name in traced}
+    for name, k in step_launches(eng, "mixed" if eng.mixed
+                                 else "decode").items():
+        want[name] = k * steps
+    check(traced == want, f"{it}: the trace holds port kernel launches "
+          f"{traced} over {steps} decode steps, want {want}")
     print(f"{it}: profile of {steps} decode steps: wall "
           f"{wall_us / steps / 1e3:.2f} "
           f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
-          f"({busy / wall_us:.1%}), {n / steps:.0f} kernels/step")
+          f"({busy / wall_us:.1%}), {n / steps:.0f} kernels/step; port "
+          "kernels in the trace per step: " + ", ".join(
+              f"{k} {v // steps}" for k, v in traced.items() if v))
     for key, t, c in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {t / steps / 1e3:8.3f} ms/step {c // steps:5d}x  {key[:90]}")
+    return {"profile_wall_ms_per_step": wall_us / steps / 1e3,
+            "busy_ms_per_step": busy / steps / 1e3,
+            "busy_share": busy / wall_us, "kernels_per_step": n / steps,
+            "traced_port_launches_per_step": {k: v // steps for k, v
+                                              in traced.items() if v}}
 
 
 def summary(cases, by_path):
@@ -1101,8 +1282,10 @@ def main():
 
     cases = kernel_phase(torch)
     cross_device_phase(torch)
-    by_path = serving_phase(torch)
-    by_path["mamba2_dense"] = mamba2_serving_phase(torch)
+    by_path, turns = serving_phase(torch)
+    by_path["mamba2_dense"], turns["mamba2_dense"] = \
+        mamba2_serving_phase(torch)
+    print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ prefilling row plus every ready decode row into ONE forward pass. The
 **serialized** one (``mixed=False``) runs a chunked-prefill step over the
 full ``max_slots`` batch while any row still swallows its prompt, and a
 decode step otherwise. The shift policy picks the config of each step from
-its batched token count (paper Algorithm 2); on one card both configs are
-the trivial layout and run the same program, but the engine still makes
-and counts the choice, as the reference does.
+its batched token count (paper Algorithm 2), and that config's entry of
+the ``Deployment``'s step table runs the step: on the card a CUDA graph
+captured once per bucketed shape and replayed, on the CPU the eager step.
+On one card both configs are the trivial layout and share one program,
+but the engine still makes and counts the choice, as the reference does.
 
 KV lives in one of two caches. The paged pool (``paged``, the default
 for configs whose layers all page)
@@ -42,6 +44,7 @@ import numpy as np
 from repro_torch.cache import PagedKVCache, blocks_for_tokens, pow2_bucket
 from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
 from repro_torch.models.model import Model
+from .deployment import Deployment
 from .request import FinishReason, Request
 
 
@@ -117,6 +120,23 @@ class ShiftEngine:
         self.step_count = 0
         self.preemptions = 0
         self.config_counts = {"base": 0, "shift": 0}
+        # the base and shift views and their step tables, built over the
+        # caches initialised above
+        self.deploy = Deployment.build(model, model, mixed=self.mixed,
+                                       paged=self.paged)
+
+    # ------------------------------------------- deployment (read-through)
+    @property
+    def base(self) -> Model:
+        return self.deploy.base
+
+    @property
+    def shift(self) -> Model:
+        return self.deploy.shift
+
+    @property
+    def dp(self) -> int:
+        return self.deploy.dp
 
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request) -> int:
@@ -279,8 +299,7 @@ class ShiftEngine:
             qlen[i] = ql
             offs[i] = off
             bt[i] = self._bt_host[r.slot, :nbb]
-        nxt, _ = self.model.forward_mixed(toks, qlen, offs, bt)
-        nxt = nxt.cpu().numpy()
+        nxt = self.deploy.forward_at(mode)(toks, qlen, offs, bt).cpu().numpy()
         t = time.monotonic()
         for i, (r, off, ql, produces) in enumerate(rows):
             r.last_used = self.step_count
@@ -327,7 +346,7 @@ class ShiftEngine:
         mode = self._choose(n_tok, n_tok)
         self.config_counts[mode] += 1
         bt = self._block_tables([r for r, _ in rows]) if self.paged else None
-        self.model.prefill(toks, offs, block_tables=bt)
+        self.deploy.prefill[mode](toks, offs, bt)
         for r, n in rows:
             r.prefilled += n
             r.last_used = self.step_count
@@ -358,8 +377,7 @@ class ShiftEngine:
             toks[r.slot] = r.generated[-1] if r.generated else r.prompt[-1]
             lens[r.slot] = r.pos           # write position of this token
         bt = self._block_tables(ready) if self.paged else None
-        nxt, _ = self.model.decode(toks, lens, block_tables=bt)
-        nxt = nxt.cpu().numpy()
+        nxt = self.deploy.decode[mode](toks, lens, bt).cpu().numpy()
         t = time.monotonic()
         for r in ready:
             r.last_used = self.step_count

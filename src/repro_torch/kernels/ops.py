@@ -17,6 +17,28 @@ from . import paged_ragged_attention as PRA
 from . import rmsnorm as RMS
 from . import ssd_scan as SSD
 
+# every kernel's module, by the name its launch counter is reported under
+KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
+           "decode_attention": DA, "paged_decode_attention": PDA,
+           "rmsnorm": RMS, "ssd_chunk": SSD}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def add_launch_counts(delta: dict):
+    """Add ``delta`` (kernel name -> launches) to the counters: the launches
+    of a replayed CUDA graph, whose wrappers do not run."""
+    for name, n in delta.items():
+        KERNELS[name].launches += n
+
 
 def _on_cuda(t) -> bool:
     if t.device.type not in ("cpu", "cuda"):

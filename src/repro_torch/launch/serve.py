@@ -22,20 +22,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
-from repro_torch.kernels import decode_attention as DA
-from repro_torch.kernels import flash_attention as FA
-from repro_torch.kernels import paged_decode_attention as PDA
-from repro_torch.kernels import paged_ragged_attention as PRA
-from repro_torch.kernels import rmsnorm as RMS
-from repro_torch.kernels import ssd_scan as SSD
+# the launch counters, read and reset by callers of the entry point
+from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
+                                     reset_launch_counts)
 from repro_torch.models import Model
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 WEIGHT_SEED = 0
-# every kernel's module, by the name its launch counter is reported under
-KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
-           "decode_attention": DA, "paged_decode_attention": PDA,
-           "rmsnorm": RMS, "ssd_chunk": SSD}
 
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
@@ -64,16 +57,6 @@ def workload(n_requests: int, max_new: int):
                     arrival=t) for i in range(n_requests)]
 
 
-def launch_counts() -> dict:
-    """Every kernel's launch counter, by kernel name."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
-
-
-def reset_launch_counts():
-    for mod in KERNELS.values():
-        mod.launches = 0
-
-
 def print_summary(eng: ShiftEngine):
     cc = eng.config_counts
     print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
@@ -85,6 +68,11 @@ def print_summary(eng: ShiftEngine):
     else:
         print(f"dense cache: {eng.cfg.max_slots} slots x {eng.cfg.s_max} "
               f"positions ({eng.paged_disabled_reason})")
+    d = eng.deploy
+    print(f"deployment: {d.layout.describe()}, "
+          + (f"{d.captures} CUDA graphs captured in "
+             f"{d.graphs.capture_s * 1e3:.0f} ms"
+             if eng.model.device.type == "cuda" else "eager steps on the CPU"))
     print("kernel launches: " + " ".join(
         f"{name}={n}" for name, n in launch_counts().items()))
 

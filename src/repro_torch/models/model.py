@@ -78,7 +78,10 @@ class Model:
         return self.cache
 
     def _ints(self, a):
-        return torch.as_tensor(a, dtype=torch.int32, device=self.device)
+        """Host conversion: an array (or tensor) -> int32 on the model's
+        device; None stays None."""
+        return None if a is None else torch.as_tensor(
+            a, dtype=torch.int32, device=self.device)
 
     def _step_cache(self, block_tables):
         """The paged pool when a step carries block tables, else the dense
@@ -91,6 +94,35 @@ class Model:
                 else "init_cache() before a dense prefill or decode")
         return cache
 
+    # ------------------------------------------------- device-only steps
+    # The steps below take int32 tensors already on the model's device,
+    # make no host sync and branch only on shapes and the config, so that
+    # a step can be captured as a CUDA graph (``engine.deployment``); the
+    # cache they step is updated in place.
+    def prefill_step(self, tokens, offsets, block_tables=None):
+        """``prefill`` on device tensors; returns the last column's fp32
+        logits [B, V]."""
+        return T.prefill_body(self.params, self._step_cache(block_tables),
+                              tokens, offsets, self.cfg,
+                              block_tables=block_tables)
+
+    def decode_step(self, tokens, lens, block_tables=None, sample=True):
+        """``decode`` on device tensors; returns the next tokens [B], or
+        the fp32 logits [B, V] with ``sample=False``."""
+        logits = T.decode_body(self.params, self._step_cache(block_tables),
+                               tokens, lens, self.cfg,
+                               block_tables=block_tables)
+        return T.greedy_body(logits) if sample else logits
+
+    def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True):
+        """``forward_mixed`` on device tensors; returns the next tokens [B],
+        or the newest token's fp32 logits [B, V] with ``sample=False``."""
+        self._require_paged()
+        if self.pool is None:
+            raise RuntimeError("init_paged_cache() before forward_mixed()")
+        return T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
+                            block_tables, self.cfg, sample=sample)
+
     # ------------------------------------------------------------- step
     def prefill(self, tokens, offsets, block_tables=None):
         """One chunked-prefill step (counterpart of ``prefill_fn``):
@@ -98,12 +130,9 @@ class Model:
         dense cache, or with ``block_tables`` [B, nmax] through the paged
         pool. Returns ``(last-column logits [B, V] fp32, cache)``; the
         cache is updated in place."""
-        cache = self._step_cache(block_tables)
-        bt = None if block_tables is None else self._ints(block_tables)
-        logits = T.prefill_body(self.params, cache, self._ints(tokens),
-                                self._ints(offsets), self.cfg,
-                                block_tables=bt)
-        return logits, cache
+        logits = self.prefill_step(self._ints(tokens), self._ints(offsets),
+                                   self._ints(block_tables))
+        return logits, self._step_cache(block_tables)
 
     def decode(self, tokens, lens, block_tables=None, sample: bool = True):
         """One decode step (counterpart of ``decode_fn``): ``tokens`` [B]
@@ -111,11 +140,9 @@ class Model:
         the paged pool with ``block_tables``. Returns ``(next_tokens [B],
         cache)``, or the fp32 logits [B, V] in place of the tokens with
         ``sample=False``."""
-        cache = self._step_cache(block_tables)
-        bt = None if block_tables is None else self._ints(block_tables)
-        logits = T.decode_body(self.params, cache, self._ints(tokens),
-                               self._ints(lens), self.cfg, block_tables=bt)
-        return (T.greedy_body(logits) if sample else logits), cache
+        out = self.decode_step(self._ints(tokens), self._ints(lens),
+                               self._ints(block_tables), sample=sample)
+        return out, self._step_cache(block_tables)
 
     def forward_mixed(self, tokens, q_lens, offsets, block_tables,
                       sample: bool = True):
@@ -127,14 +154,7 @@ class Model:
         token's fp32 logits [B, V] in place of the tokens with
         ``sample=False``; the pool is updated in place. Raises for a config
         that does not page."""
-        self._require_paged()
-        if self.pool is None:
-            raise RuntimeError("init_paged_cache() before forward_mixed()")
-
-        def dev(a):
-            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
-
-        out = T.mixed_body(self.params, self.pool, dev(tokens), dev(q_lens),
-                           dev(offsets), dev(block_tables), self.cfg,
-                           sample=sample)
+        out = self.mixed_step(self._ints(tokens), self._ints(q_lens),
+                              self._ints(offsets), self._ints(block_tables),
+                              sample=sample)
         return out, self.pool

@@ -17,12 +17,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.engine import EngineConfig, ShiftEngine  # noqa: E402
+from repro_torch.engine import EngineConfig, Request, ShiftEngine  # noqa: E402
+from repro_torch.engine.deployment import (CapturedStep, Deployment,  # noqa: E402
+                                           GraphPool)
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as PDA  # noqa: E402
 from repro_torch.kernels import paged_ragged_attention as PRA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RMS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.launch.serve import workload  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -670,3 +673,189 @@ def test_cuda_mamba2_engine_matches_cpu_engine(cuda):
     assert counts[0][:2] == (counts[0][2] * cfg.num_layers,
                              steps * (2 * cfg.num_layers + 1))
     assert counts[1][:2] == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# the Deployment: each step captured once per bucket as a CUDA graph
+# ---------------------------------------------------------------------------
+def twin_models(cuda, arch, dtype):
+    """Two models on the card with the same weights (reduced config)."""
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    twins = []
+    for _ in range(2):
+        m = Model(cfg, device=cuda, dtype=dtype)
+        m.load_params(cpu.params.state_dict())
+        twins.append(m)
+    return twins
+
+
+def _tokens(shape, seed):
+    return np.random.default_rng(seed).integers(1, 256, shape).astype(np.int32)
+
+
+BT = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+# each entry kind: (arch, paged cache, the model's step, its calls). The
+# first three calls share a bucket; a fourth, where the step has another
+# shape, opens a second one. Prefill steps return logits, so the logits of
+# the mixed and decode steps are taken with sample=False.
+ENTRY_KINDS = {
+    "mixed": ("qwen3-8b", True, lambda m: (lambda *a: m.mixed_step(
+        *a, sample=False)), [
+        (_tokens((2, 8), 1), [8, 5], [0, 0], BT),
+        (_tokens((2, 8), 2), [1, 1], [8, 5], BT),
+        (_tokens((2, 8), 3), [3, 1], [9, 6], BT),
+        (_tokens((2, 1), 4), [1, 1], [12, 7], BT[:, :2])]),
+    "paged-prefill": ("qwen3-8b", True, lambda m: m.prefill_step, [
+        (_tokens((2, 8), 1), [0, 0], BT), (_tokens((2, 8), 2), [8, 8], BT),
+        (_tokens((2, 8), 3), [16, 16], BT),
+        (_tokens((2, 4), 4), [24, 24], BT)]),
+    "paged-decode": ("qwen3-8b", True, lambda m: (lambda *a: m.decode_step(
+        *a, sample=False)), [
+        (_tokens((2,), 1), [0, 3], BT), (_tokens((2,), 2), [1, 4], BT),
+        (_tokens((2,), 3), [2, 5], BT), (_tokens((2,), 4), [3, 6], BT[:, :2])]),
+    "dense-prefill": ("qwen3-8b", False, lambda m: m.prefill_step, [
+        (_tokens((2, 8), 1), [0, 0], None), (_tokens((2, 8), 2), [8, 8], None),
+        (_tokens((2, 8), 3), [16, 16], None),
+        (_tokens((2, 4), 4), [24, 24], None)]),
+    "dense-decode": ("qwen3-8b", False, lambda m: (lambda *a: m.decode_step(
+        *a, sample=False)), [
+        (_tokens((2,), 1), [0, 3], None), (_tokens((2,), 2), [1, 4], None),
+        (_tokens((2,), 3), [2, 5], None)]),
+    "mamba2-prefill": ("mamba2-1.3b", False, lambda m: m.prefill_step, [
+        (_tokens((2, 8), 1), [0, 0], None), (_tokens((2, 8), 2), [8, 8], None),
+        (_tokens((2, 8), 3), [16, 16], None),
+        (_tokens((2, 16), 4), [24, 24], None)]),
+    "mamba2-decode": ("mamba2-1.3b", False, lambda m: (
+        lambda *a: m.decode_step(*a, sample=False)), [
+        (_tokens((2,), 1), [0, 3], None), (_tokens((2,), 2), [1, 4], None),
+        (_tokens((2,), 3), [2, 5], None)]),
+}
+
+
+def _cache_tensors(model, paged):
+    if paged:
+        return {"k": model.pool.k, "v": model.pool.v}
+    c = model.cache
+    return {n: getattr(c, n) for n in ("k", "v", "ssm", "conv_x", "conv_bc")
+            if getattr(c, n) is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(ENTRY_KINDS))
+def test_cuda_graphed_entry_matches_eager(cuda, dtype, kind):
+    """A captured entry against the eager step on twin models, call by
+    call: equal outputs and caches (the first call of a bucket runs the
+    step once, eagerly, and its capture executes nothing: a prefill step
+    on a fresh mamba2 cache leaves the SSD and conv state of one eager
+    step), one capture per bucket, and the launch counters after the
+    replays equal to the eager steps' counts."""
+    arch, paged, step_of, calls = ENTRY_KINDS[kind]
+    twins = twin_models(cuda, arch, dtype)
+    for m in twins:
+        if paged:
+            m.init_paged_cache(17, 8)
+        else:
+            m.init_cache(2, 64)
+    eager, graphed = twins
+    entry = CapturedStep(step_of(graphed), graphed, paged, GraphPool())
+    tol = TOL[dtype]
+    counts = []
+    for model in twins:
+        ops.reset_launch_counts()
+        outs = []
+        for i, args in enumerate(calls):
+            if model is eager:
+                out = step_of(model)(*map(model._ints, args))
+            else:
+                out = entry(*args)
+                assert entry.graphs.captures == (1 if i < 3 else 2)
+                assert len(entry.buckets) == entry.graphs.captures
+            torch.cuda.synchronize()
+            outs.append((out.clone(), {n: t.clone() for n, t in
+                                       _cache_tensors(model, paged).items()}))
+        counts.append(ops.launch_counts())
+        if model is eager:
+            want = outs
+    for (got, got_cache), (exp, exp_cache) in zip(outs, want):
+        assert got.shape == exp.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(got, exp, atol=tol, rtol=tol)
+        assert got_cache.keys() == exp_cache.keys()
+        for n in got_cache:
+            torch.testing.assert_close(got_cache[n].float(),
+                                       exp_cache[n].float(), atol=tol,
+                                       rtol=tol)
+    assert counts[0] == counts[1]
+    assert sum(counts[0].values()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_entry_refuses_a_replaced_cache(cuda):
+    """The graphs hold the cache's addresses: after ``init_paged_cache``
+    the entry raises instead of replaying into freed memory."""
+    model = twin_models(cuda, "qwen3-8b", torch.float32)[0]
+    model.init_paged_cache(17, 8)
+    entry = CapturedStep(model.mixed_step, model, True, GraphPool())
+    args = ENTRY_KINDS["mixed"][3][0]
+    entry(*args)
+    entry(*args)
+    model.init_paged_cache(17, 8)
+    with pytest.raises(RuntimeError, match="re-initialised"):
+        entry(*args)
+
+
+def _serve(eng, prompts, n_new):
+    reqs = [Request(i, list(p), max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert all(len(r.generated) == n_new for r in reqs)
+    return [r.generated for r in reqs]
+
+
+A_PROMPT, B_PROMPT = list(range(3, 14)), list(range(40, 60))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,kw,prompts", [
+    ("qwen3-8b", {"num_blocks": 9, "block_size": 8}, None),
+    ("qwen3-8b", {"mixed": False}, None),
+    ("qwen3-8b", {"paged": False, "mixed": False}, None),
+    ("mamba2-1.3b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
+     [A_PROMPT, B_PROMPT]),
+    ("mamba2-1.3b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
+     [list(range(1, 10 + 3 * i)) for i in range(5)])],
+    ids=["mixed-tight-pool", "serialized-paged", "dense",
+         "mamba2-two-in-flight", "mamba2-more-than-slots"])
+def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
+                                                  prompts):
+    """The engine's graphed tables against the eager ones on twin models:
+    equal streams, config counts, preemptions and launch counts over two
+    runs of the workload, and the second run of the graphed engine captures
+    nothing (every bucket it steps through was captured in the first). The
+    mamba2 cases are ``test_torch_ssd.py``'s two-in-flight and
+    more-than-slots workloads: their streams depend on the dummy rows' SSD
+    state, so a step run twice would show."""
+    prompts = prompts or [list(range(1, 20 + 3 * i)) for i in range(6)]
+    results = []
+    for graphed, model in zip((False, True), twin_models(cuda, arch, dtype)):
+        eng = ShiftEngine(model, EngineConfig(**kw))
+        if not graphed:
+            eng.deploy = Deployment.build(model, model, mixed=eng.mixed,
+                                          paged=eng.paged, graphed=False)
+        ops.reset_launch_counts()
+        runs, captures = [], []
+        for _ in range(2):
+            runs.append(_serve(eng, prompts, 6))
+            captures.append(eng.deploy.captures)
+        results.append((runs, eng.config_counts, eng.preemptions,
+                        ops.launch_counts()))
+        if graphed:
+            assert captures[0] > 0 and captures[1] == captures[0]
+        else:
+            assert captures == [0, 0]
+    assert results[0] == results[1]

@@ -33,6 +33,7 @@ def _modules():
 
 
 def test_every_module_imports_without_jax_or_repro():
+    assert "repro_torch.engine.deployment" in _modules()
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -151,4 +152,5 @@ def test_cpu_runs_serialized_when_asked(kw, capsys):
     serve.print_summary(eng)            # works with or without a pool
     out = capsys.readouterr().out
     assert ("paged cache" in out) == eng.paged
+    assert "eager steps on the CPU" in out
     assert "flash_attention=0" in out and "decode_attention=0" in out
