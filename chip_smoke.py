@@ -54,7 +54,21 @@ Phases (every failure propagates and exits non-zero):
    may leak. Captured entries' full-width logits are held to the eager
    steps' on small caches. Each turn prints its wall ms per decode step,
    TTFT, decode tokens/s, device busy ms per step and busy share, graphs
-   captured and capture ms (also as one ``{"graph_turns": ...}`` line).
+   captured and capture ms (also as one ``{"graph_turns": ...}`` line);
+6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
+   the one card with the collectives over gloo (NCCL refuses two ranks on
+   one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
+   logits of the base and shift models at full width (2 layers) against
+   the single-rank model on the same weights (2e-3), then qwen3-8b at full
+   width and depth in bf16 through the SPMD engine (base on the grid, shift
+   on its ``to_shift()``, one pool per rank) with the serve workload:
+   equal streams on every rank, both configs used, no block leaked, 109
+   RMSNorm and 36 ragged launches per step and rank (counters, and rank
+   0's profiler trace of one base and three shift steps), the shared-block
+   invariance on the card's pools; it prints wall ms and collective bytes
+   per step by config, one all-reduce's ms on card and host tensors, and
+   peak memory per rank. Phase 3 also holds the ragged kernel and the q/k
+   pair at a rank's shapes (8 q and 2 kv heads).
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -62,6 +76,7 @@ With no arguments it needs one card. The line before the last is
 the repository beside it, the script exits non-zero and prints no result.
 """
 import gc
+import io
 import json
 import re
 import subprocess
@@ -181,11 +196,12 @@ def rates(case, flops):
     return case
 
 
-def attention_case(torch, name, rows, dtype, timer, tol):
-    """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8, D 128, bs 16."""
+def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8):
+    """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8 (a rank's 8 and 2
+    on the layout phase's grid), D 128, bs 16."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_ragged_attention as PRA
-    Hq, Hkv, D, bs = 32, 8, 128, 16
+    D, bs = 128, 16
     g = Hq // Hkv
     B = len(rows)
     C = max(ql for _, ql in rows)
@@ -608,6 +624,12 @@ def kernel_phase(torch):
             # long prefill chunks: the tensor-core tiles at a larger width
             add("paged_ragged_attention", attention_case(
                 torch, "long prefill", [(2048, 256)] * 2, dtype, timer, tol))
+        # one rank of the layout phase's grid (G = 4): 8 q heads and 2 kv
+        # heads, a 4x smaller grid, which plans its own cluster split
+        for name, rows in (("mixed, per rank", mixed),
+                           ("decode, per rank", DECODE_ROWS)):
+            add("paged_ragged_attention", attention_case(
+                torch, name, rows, dtype, timer, tol, Hq=32 // 4, Hkv=8 // 4))
         # N = 512: the first serving step's padded token rectangle (8 rows
         # x 64 columns); q_norm/k_norm run over N x 32 (x 8) head rows of
         # 128. A decode step: 8 rows, 256 q and 64 k head rows; mamba2's
@@ -625,6 +647,15 @@ def kernel_phase(torch):
         for name, T in (("pair, prefill", 512), ("pair, decode", 8)):
             add("rmsnorm", rmsnorm_pair_case(torch, name, T * 32, T * 8, 128,
                                              dtype, timer, tol))
+        # one rank of the layout phase's grid: the pair over 8 q and 2 k
+        # heads per token (the first step's 512 tokens, after the
+        # exchange; a decode step's 8), ln1/ln2 over its 256 columns
+        for name, T in (("pair, prefill, per rank", 512),
+                        ("pair, decode, per rank", 8)):
+            add("rmsnorm", rmsnorm_pair_case(torch, name, T * 8, T * 2, 128,
+                                             dtype, timer, tol))
+        add("rmsnorm", rmsnorm_case(torch, "hidden, per sp rank", 256, 4096,
+                                    dtype, timer, tol))
         # mamba2-1.3b (64 heads of 64, d_state 128, chunk 64): the serving
         # prefill step (8 rows of 64), a long prompt (32 chunks), a short
         # chunk (S < 64), and the serving step as the TPU contract's
@@ -1221,6 +1252,337 @@ def profile_decode(torch, eng, steps=4, label=None):
                                               in traced.items() if v}}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: Shift Parallelism's layouts, four ranks on one card over gloo
+# ---------------------------------------------------------------------------
+LAYOUT_GRID = (2, 2)            # (sp, tp), the reference's mesh122
+LAYOUT_CHECK_LAYERS = 2         # the fp32 check's depth (full width)
+LAYOUT_TIMEOUT_S = 600
+
+
+def layout_check_steps():
+    """The fp32 check's two mixed steps over 4 rows and blocks of 16:
+    prefill chunks (one row empty), then decode rows and a chunk. Returns
+    ([(tokens [4, 16], q_lens, offsets)], block tables [4, 2])."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    toks = [rng.integers(1, 151936, (4, 16)).astype(np.int32)
+            for _ in range(2)]
+    bt = np.arange(1, 9, dtype=np.int32).reshape(4, 2)
+    return [(toks[0], [16, 9, 16, 0], [0, 0, 0, 0]),
+            (toks[1], [1, 1, 4, 16], [16, 9, 16, 0])], bt
+
+
+def layout_single_rank_logits(torch, cfg):
+    """The single-rank port model's logits over ``layout_check_steps`` on
+    the same weights (generator seeded 0), fp32, on the card."""
+    from repro_torch.models import Model
+    steps, bt = layout_check_steps()
+    model = Model(cfg, device="cuda", dtype=torch.float32)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    model.init_paged_cache(9, 16)
+    out = [model.forward_mixed(t, ql, off, bt, sample=False)[0].cpu()
+           for t, ql, off in steps]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_rank(rank, groups, check_cfg):
+    """One rank of the layout phase (spawned by ``run_ranks``): the fp32
+    check's logits of both configs, then qwen3-8b at full width and depth
+    in bf16 served on the base and shift models over one pool. Returns
+    numpy results; only the parent prints."""
+    import contextlib
+    from collections import Counter
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import invariance as INV
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lay = Layout(sp=LAYOUT_GRID[0], tp=LAYOUT_GRID[1])
+    out = {"rank": rank, "device": torch.cuda.current_device()}
+
+    # fp32, full width, cut depth: each config's logits on a fresh pool
+    steps, bt = layout_check_steps()
+    base, shift = (Model(check_cfg, device="cuda", dtype=torch.float32,
+                         lay=layout, groups=groups)
+                   for layout in (lay, lay.to_shift()))
+    for m in (base, shift):
+        m.init_params(torch.Generator(device="cuda").manual_seed(0))
+    out["fp32"] = {}
+    for name, m in (("base", base), ("shift", shift)):
+        base.init_paged_cache(9, 16)
+        shift.adopt_paged_cache(base)
+        out["fp32"][name] = (m.shard.tp_rank, [
+            m.forward_mixed(t, ql, off, bt, sample=False)[0].cpu().numpy()
+            for t, ql, off in steps])
+    del base, shift, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16, full width and depth: the engine on both configs
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = serve.build_engine("qwen3-8b", device="cuda", dtype=torch.bfloat16,
+                             sp=lay.sp, tp=lay.tp, groups=groups)
+    torch.cuda.synchronize()
+    out["build_s"] = time.monotonic() - t0
+    out["param_bytes"] = {
+        name: sum(p.numel() * p.element_size()
+                  for p in m.params.parameters())
+        for name, m in (("base", eng.base), ("shift", eng.shift))}
+    pool = eng.base.pool
+    out["pool_bytes"] = 2 * pool.k.numel() * pool.k.element_size()
+    walls = {"base": [], "shift": []}
+    traffic = {"base": Counter(), "shift": Counter()}
+
+    def timed(entry, config):
+        def call(*arrays):
+            before = Counter(groups.traffic)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = entry(*arrays)
+            torch.cuda.synchronize()
+            walls[config].append(time.perf_counter() - t)
+            traffic[config].update(Counter(groups.traffic) - before)
+            return res
+        return call
+
+    for config in ("base", "shift"):
+        eng.deploy.forward[config] = timed(eng.deploy.forward[config], config)
+    for r in serve.workload(6, 16):            # warm-up
+        eng.submit(r)
+    eng.run_until_idle()
+    for config in walls:
+        walls[config].clear()
+        traffic[config].clear()
+    eng.config_counts = {"base": 0, "shift": 0}
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    out["serve_s"] = time.monotonic() - t0
+    out["launches"] = serve.launch_counts()
+    out["streams"] = [r.generated for r in reqs]
+    out["finish"] = [r.finish_reason for r in reqs]
+    out["counts"] = dict(eng.config_counts)
+    out["preemptions"] = eng.preemptions
+    out["free"], out["blocks"] = eng.kv.num_free_blocks, eng.kv.num_blocks
+    out["walls"] = {k: list(v) for k, v in walls.items()}
+    out["traffic"] = {k: dict(v) for k, v in traffic.items()}
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.print_summary(eng)
+    out["summary"] = text.getvalue()
+
+    # one prefill step (base) and three decode steps (shift) in rank 0's
+    # profiler trace
+    for r in serve.workload(6, 4):
+        eng.submit(r)
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if rank == 0 else contextlib.nullcontext())
+    before = dict(eng.config_counts)
+    with prof:
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+    out["profiled_configs"] = {k: eng.config_counts[k] - before[k]
+                               for k in before}
+    eng.run_until_idle()
+    if rank == 0:
+        traced = Counter()
+        busy = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+                busy += e.self_device_time_total
+                kernel = port_kernel(e.key)
+                if kernel:
+                    traced[kernel] += e.count
+        out["traced"] = dict(traced)
+        out["profiled_busy_ms"] = busy / 1e3
+
+    # §3.3.1 on the card's pools: base prefills row 0 into blocks 1 and 2,
+    # shift runs row 1, reading them and writing blocks 3 and 4
+    toks = np.arange(1, 65, dtype=np.int32).reshape(2, 32)
+    bt = np.zeros((2, 4), np.int32)
+    bt[0, :2] = (1, 2)
+    eng.base.forward_mixed(toks, [32, 0], [0, 0], bt)
+    before = INV.snapshot_blocks(eng.base.pool, [1, 2])
+    bt[1] = (1, 2, 3, 4)
+    eng.shift.forward_mixed(toks[::-1].copy(), [0, 32], [32, 32], bt)
+    torch.cuda.synchronize()
+    out["invariance"] = INV.verify_paged_invariance(
+        eng.base, eng.shift, rank, [1, 2], before)
+    out["kv_slots"] = list(INV.kv_slots(eng.base, rank))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # what one collective of the shift decode step costs here: its
+    # all-reduce ([8, 1, 4096] bf16) over the four ranks, on a tensor on
+    # the card (gloo stages it through the host) and on a host tensor
+    group = eng.shift.shard.tp_group.pg
+    out["all_reduce_ms"] = {}
+    for where in ("cuda", "cpu"):
+        x = torch.ones((8, 1, 4096), dtype=torch.bfloat16, device=where)
+        for _ in range(3):
+            torch.distributed.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            torch.distributed.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        out["all_reduce_ms"][where] = (time.perf_counter() - t) / 20 * 1e3
+    return out
+
+
+def layout_phase(torch):
+    """Shift Parallelism's layouts on four ranks of (sp, tp) = (2, 2), one
+    process each, all on the one card, with the collectives over gloo
+    (NCCL refuses two ranks on one card): the fp32 full-width logits of
+    both configs (2 layers) against the single-rank model's, then
+    qwen3-8b at full width and depth in bf16 through the SPMD engine with
+    the threshold policy. Returns rank 0's launch counts of the measured
+    run."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    sp, tp = LAYOUT_GRID
+    cfg = get_config("qwen3-8b")
+    check_cfg = replace(cfg, num_layers=LAYOUT_CHECK_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = layout_single_rank_logits(torch, check_cfg)
+    print(f"layout phase: sp={sp} x tp={tp} = {sp * tp} ranks, one process "
+          f"each, all on {torch.cuda.device_count()} card(s): backend "
+          "'gloo', because NCCL refuses two ranks of one communicator on "
+          "one card; gloo stages the collectives of CUDA tensors through "
+          "the host, so the times below are not NVLink times and not a "
+          "speed of Shift Parallelism")
+    full = cfg.num_params() * 2
+    print(f"layout phase: memory reckoned: qwen3-8b bf16 {full / 1e9:.2f} "
+          f"GB; per rank the base shard holds 1/{tp} ({full / tp / 1e9:.2f} "
+          f"GB) and the shift shard 1/{sp * tp} ({full / (sp * tp) / 1e9:.2f}"
+          f" GB): {full * (sp * tp) * (1 / tp + 1 / (sp * tp)) / 1e9:.1f} GB "
+          "over the four processes, plus the pool and four CUDA contexts")
+    t0 = time.monotonic()
+    res = run_ranks(layout_rank, sp, tp, device="cuda", backend="gloo",
+                    timeout_s=LAYOUT_TIMEOUT_S, args=(check_cfg,))
+    print(f"layout phase: {sp * tp} ranks ran in "
+          f"{time.monotonic() - t0:.1f} s")
+
+    # fp32 logits of both configs, assembled by tp rank
+    err = 0.0
+    for config in ("base", "shift"):
+        by_tp = {}
+        for r in res:
+            tpr, lg = r["fp32"][config]
+            if tpr in by_tp:
+                check(all(np.array_equal(a, b) for a, b in zip(by_tp[tpr], lg)),
+                      f"layout {config}: replicas of tp rank {tpr} differ")
+            by_tp[tpr] = lg
+        for s, w in enumerate(want):
+            got = torch.from_numpy(np.concatenate(
+                [by_tp[t][s] for t in range(len(by_tp))], axis=-1))
+            err = max(err, compare(torch, f"layout {config} fp32 logits "
+                                   f"step {s}", got, w, 2e-3))
+    print(f"layout phase: fp32 full-width ({LAYOUT_CHECK_LAYERS} layers) "
+          f"logits of base and shift against the single-rank model: max "
+          f"abs err {err} (tol 2e-3)")
+
+    r0 = res[0]
+    for r in res:
+        check(r["streams"] == r0["streams"] and r["counts"] == r0["counts"],
+              f"layout: rank {r['rank']}'s streams or configs differ from "
+              "rank 0's")
+        check(all(f == "ok" for f in r["finish"]) and
+              all(len(s) == 16 for s in r["streams"]),
+              f"layout: rank {r['rank']}: {r['finish']}")
+        check(r["free"] == r["blocks"] - 1,
+              f"layout: rank {r['rank']}: {r['free']} of {r['blocks']} "
+              "blocks free at exit")
+        check(r["invariance"], f"layout: rank {r['rank']}: the shared "
+              "blocks changed or the pools differ")
+    check(r0["counts"]["base"] > 0 and r0["counts"]["shift"] > 0,
+          f"layout: configs used {r0['counts']}")
+    steps = sum(r0["counts"].values())
+    per_step = {"rmsnorm": 109, "paged_ragged_attention": 36}
+    want_launches = {k: per_step.get(k, 0) * steps for k in r0["launches"]}
+    for r in res:
+        check(r["launches"] == want_launches,
+              f"layout: rank {r['rank']}: launches {r['launches']} over "
+              f"{steps} steps, want {want_launches}")
+    check(r0["profiled_configs"] == {"base": 1, "shift": 3},
+          f"layout: profiled steps {r0['profiled_configs']}")
+    traced = {k: v for k, v in r0["traced"].items() if v}
+    check(traced == {k: 4 * v for k, v in per_step.items()},
+          f"layout: rank 0's trace holds {traced} over 4 steps")
+    print("layout phase: " + r0["summary"].replace("\n", "; "))
+    print(f"layout phase: served 6 requests x 16 tokens on every rank in "
+          f"{r0['serve_s']:.2f} s, {steps} steps {r0['counts']}, "
+          f"{r0['preemptions']} preemptions, {r0['free']} of {r0['blocks']} "
+          f"blocks free at exit; all ranks' streams equal; per rank and step "
+          f"{per_step['rmsnorm']} rmsnorm and {per_step['paged_ragged_attention']}"
+          f" ragged launches (counters, and rank 0's profiler trace over 1 "
+          f"base and 3 shift steps: {traced}; device busy "
+          f"{r0['profiled_busy_ms'] / 4:.2f} ms per step)")
+    stats = {}
+    for config in ("base", "shift"):
+        w = r0["walls"][config]
+        n = len(w)
+        tr = r0["traffic"][config]
+        stats[config] = {
+            "steps": n, "wall_ms_per_step": sum(w) / n * 1e3,
+            "wall_ms": sorted(x * 1e3 for x in w),
+            "all_to_all_bytes_per_step":
+                tr.get("all_to_all_bytes", 0) / n,
+            "all_reduce_bytes_per_step":
+                tr.get("all_reduce_bytes", 0) / n,
+            "all_gather_bytes_per_step":
+                tr.get("all_gather_bytes", 0) / n,
+            "collective_calls_per_step": {
+                k[:-6]: v / n for k, v in tr.items() if k.endswith("_calls")}}
+        print(f"layout phase: {config} steps on rank 0: {n}, wall "
+              f"{stats[config]['wall_ms_per_step']:.2f} ms per step; per "
+              f"step {stats[config]['all_to_all_bytes_per_step'] / 1e6:.3f} "
+              f"MB all-to-all, "
+              f"{stats[config]['all_reduce_bytes_per_step'] / 1e6:.3f} MB "
+              f"all-reduce, "
+              f"{stats[config]['all_gather_bytes_per_step'] / 1e3:.3f} kB "
+              f"all-gather (payload handed over by the rank)")
+    print("layout phase: one all-reduce of [8, 1, 4096] bf16 over the four "
+          "ranks (a shift decode step makes 73), ms per call on ranks 0-3: "
+          "card tensors " + ", ".join(f"{r['all_reduce_ms']['cuda']:.3f}"
+                                      for r in res)
+          + "; host tensors " + ", ".join(f"{r['all_reduce_ms']['cpu']:.3f}"
+                                          for r in res))
+    for r in res:
+        print(f"layout phase: rank {r['rank']} (card {r['device']}): kv "
+              f"slots {r['kv_slots']}, params base "
+              f"{r['param_bytes']['base'] / 1e9:.2f} GB + shift "
+              f"{r['param_bytes']['shift'] / 1e9:.2f} GB, pool "
+              f"{r['pool_bytes'] / 1e6:.1f} MB, built in {r['build_s']:.1f} "
+              f"s, peak device memory {r['peak_bytes'] / 1e9:.2f} GB")
+    print(json.dumps({"layout": {
+        "grid": {"sp": sp, "tp": tp}, "backend": "gloo",
+        "fp32_max_abs_err": err, "configs": r0["counts"],
+        "per_config": stats,
+        "all_reduce_ms": [r["all_reduce_ms"] for r in res],
+        "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}}))
+    print(f"card: {card_line()}")
+    return r0["launches"]
+
+
 def summary(cases, by_path):
     """One entry per kernel; its top-level numbers are its first case (bf16
     at a serving path's shapes), every case is listed under ``cases``.
@@ -1285,6 +1647,7 @@ def main():
     by_path, turns = serving_phase(torch)
     by_path["mamba2_dense"], turns["mamba2_dense"] = \
         mamba2_serving_phase(torch)
+    by_path["layout_sp2_tp2_rank0"] = layout_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,14 @@ from then on, so one replay launches the ~2000 kernels of a full-width
 step that Python would otherwise launch one by one. On the CPU an entry
 runs its step eagerly.
 
-On one card the layout is trivial, base and shift are one ``Model`` and one
-program, and the two entries of a table are one object that shares its
-graphs. The tables stay keyed by config so that wider layouts can split
-them; ``reshard`` comes with them.
+On the trivial layout base and shift are one ``Model`` and one program,
+and the two entries of a table are one object that shares its graphs.
+Above world size 1 they are two models, the base on the SP×TP layout and
+the shift on its ``to_shift()``, over one pool, and each has its entry.
+There every entry runs eagerly: its steps call collectives, and a gloo
+collective cannot be captured in a CUDA graph (capturing NCCL across cards
+is ROADMAP Queue 1 item 2). Asking for graphs there raises. ``reshard``
+comes later.
 """
 from __future__ import annotations
 
@@ -171,8 +175,9 @@ class Deployment:
     ``forward`` is the mixed-batch table ({config -> entry}) and is ``None``
     when the engine runs the serialized iteration, in which case
     ``prefill``/``decode`` carry the 2×2 table instead. ``graphs`` is what
-    the entries' CUDA graphs share; None builds the eager tables that tests
-    compare the graphed ones against."""
+    the entries' CUDA graphs share; None builds eager tables (those that
+    tests compare the graphed ones against, and every table above world
+    size 1)."""
 
     base: Model
     shift: Model
@@ -205,6 +210,11 @@ class Deployment:
         return self.base.lay.signature
 
     @property
+    def world(self) -> int:
+        """Ranks of the deployment (one process each)."""
+        return self.base.lay.world
+
+    @property
     def captures(self) -> int:
         """CUDA graphs captured so far (0 on the CPU and when eager)."""
         return self.graphs.captures if self.graphs else 0
@@ -212,7 +222,25 @@ class Deployment:
     # ------------------------------------------------------------ factory
     @classmethod
     def build(cls, model_base: Model, model_shift: Model, *, mixed: bool,
-              paged: bool, graphed: bool = True) -> "Deployment":
+              paged: bool, graphed: Optional[bool] = None) -> "Deployment":
+        """The step tables of ``model_base`` and ``model_shift`` (one model
+        on the trivial layout; above it the base and its ``to_shift()``).
+        ``graphed``: None captures CUDA graphs on the card at world size 1
+        and runs eagerly above it; True above world size 1 raises."""
+        world = model_base.lay.world
+        if model_shift is not model_base and (
+                model_shift.lay != model_base.lay.to_shift()
+                or model_shift.shard.rank != model_base.shard.rank):
+            raise ValueError(
+                f"shift model on {model_shift.lay.describe()}, want "
+                f"{model_base.lay.to_shift().describe()} on the base's rank")
+        if graphed and world > 1:
+            raise ValueError(
+                f"graphed=True at world size {world}: the steps call "
+                "collectives, which a CUDA graph cannot capture over gloo "
+                "(NCCL capture across cards is ROADMAP Queue 1 item 2)")
+        if graphed is None:
+            graphed = world == 1
         d = cls(base=model_base, shift=model_shift, mixed=mixed, paged=paged,
                 graphs=GraphPool() if graphed else None)
         d._compile()

@@ -9,9 +9,17 @@ full ``max_slots`` batch while any row still swallows its prompt, and a
 decode step otherwise. The shift policy picks the config of each step from
 its batched token count (paper Algorithm 2), and that config's entry of
 the ``Deployment``'s step table runs the step: on the card a CUDA graph
-captured once per bucketed shape and replayed, on the CPU the eager step.
-On one card both configs are the trivial layout and share one program,
-but the engine still makes and counts the choice, as the reference does.
+captured once per bucketed shape and replayed, on the CPU (and above world
+size 1) the eager step. On the trivial layout both configs share one
+program, but the engine still makes and counts the choice, as the
+reference does. Given a ``shift`` model (the base model's layout
+``to_shift()``), the configs are two programs over one paged pool: the
+shift model adopts the base model's pool.
+
+Above world size 1 the engine is SPMD: every rank runs the same engine on
+the same requests, one process per rank, and the greedy token is
+all-gathered over TP, so every rank takes the same scheduling decisions.
+Such an engine runs the mixed paged iteration only.
 
 KV lives in one of two caches. The paged pool (``paged``, the default
 for configs whose layers all page)
@@ -72,7 +80,8 @@ class EngineConfig:
 
 
 class ShiftEngine:
-    def __init__(self, model: Model, cfg: Optional[EngineConfig] = None):
+    def __init__(self, model: Model, cfg: Optional[EngineConfig] = None,
+                 shift: Optional[Model] = None):
         self.model = model
         self.mcfg = model.cfg
         self.cfg = cfg = cfg or EngineConfig()
@@ -100,12 +109,18 @@ class ShiftEngine:
             raise ValueError(
                 "mixed-batch stepping requires the paged KV cache (ragged "
                 "rows scatter through the block table's null block)")
+        if model.lay.world > 1 and not self.mixed:
+            raise NotImplementedError(
+                f"{model.lay.describe()}: above world size 1 the engine runs "
+                "the mixed paged iteration only (ROADMAP Queue 1 item 2)")
         if self.paged:
             nmax = blocks_for_tokens(cfg.s_max, cfg.block_size)
             num_blocks = cfg.num_blocks or cfg.max_slots * nmax + 1
             self.kv = PagedKVCache(num_blocks, cfg.block_size, cfg.max_slots,
                                    nmax)
             model.init_paged_cache(num_blocks, cfg.block_size)
+            if shift is not None:
+                shift.adopt_paged_cache(model)
             # persistent host mirror of the block tables; only rows the
             # PagedKVCache marks dirty are re-copied
             self._bt_host = np.zeros((cfg.max_slots, nmax), np.int32)
@@ -122,8 +137,8 @@ class ShiftEngine:
         self.config_counts = {"base": 0, "shift": 0}
         # the base and shift views and their step tables, built over the
         # caches initialised above
-        self.deploy = Deployment.build(model, model, mixed=self.mixed,
-                                       paged=self.paged)
+        self.deploy = Deployment.build(model, shift or model,
+                                       mixed=self.mixed, paged=self.paged)
 
     # ------------------------------------------- deployment (read-through)
     @property
@@ -279,9 +294,12 @@ class ShiftEngine:
         mode = self._choose(n_prefill_tok + n_decode, n_prefill_tok)
         self.config_counts[mode] += 1
         # compact to active rows and bucket every axis to a power of two,
-        # as the reference does for its compiled-shape reuse
+        # as the reference does for its compiled-shape reuse; the chunk
+        # axis splits over the chosen config's SP degree (a decode-only
+        # batch on the base config is [R, sp])
         Rb = pow2_bucket(len(rows))
-        Cb = pow2_bucket(max(ql for _, _, ql, _ in rows))
+        Cb = max(pow2_bucket(max(ql for _, _, ql, _ in rows)),
+                 (self.base if mode == "base" else self.shift).lay.sp)
         self._refresh_block_tables()
         # slice the table batch to the occupied prefix: attention work
         # scales with actual cache occupancy, not s_max

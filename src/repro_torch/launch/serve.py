@@ -12,6 +12,12 @@ paged=False, mixed=False)`` builds that iteration for any arch, and
 ``mixed=False`` alone the serialized iteration on the paged pool.
 ``--reduced`` and ``--device cpu`` run the test-size model on the CPU with
 the kernels' plain versions.
+
+``build_engine(..., sp=, tp=, groups=)`` builds one rank of the Shift
+Parallelism deployment: the base model on ``Layout(sp=sp, tp=tp)`` and the
+shift model on its ``to_shift()``, over one paged pool, inside a rank of
+``launch.mesh.run_ranks`` (which builds the ``groups``). As in the
+reference, the CLI has no flag for them.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
@@ -26,6 +33,7 @@ from repro_torch.engine import EngineConfig, Request, ShiftEngine
 from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
                                      reset_launch_counts)
 from repro_torch.models import Model
+from repro_torch.parallel import Groups, Layout
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 WEIGHT_SEED = 0
@@ -33,21 +41,32 @@ WEIGHT_SEED = 0
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  dtype=torch.bfloat16, block_size=16, num_blocks=0,
-                 paged=None, mixed=None) -> ShiftEngine:
+                 paged=None, mixed=None, sp=1, tp=1,
+                 groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
-    every layer pages, else the serialized dense engine). The
-    model checks the device before it allocates anything."""
+    every layer pages, else the serialized dense engine). With ``sp·tp`` >
+    1 (the counterpart of the reference's ``_build_stack(sp=, tp=,
+    mesh=)``): this rank's base model on ``Layout(sp=sp, tp=tp)`` and shift
+    model on its ``to_shift()``, both drawn from the same seed, over the
+    grid's ``groups``. The model checks the device before it allocates
+    anything."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = Model(cfg, device=device, dtype=dtype)
-    model.init_params(
-        torch.Generator(device=model.device).manual_seed(WEIGHT_SEED))
-    return ShiftEngine(model, EngineConfig(block_size=block_size,
-                                           num_blocks=num_blocks,
-                                           paged=paged, mixed=mixed))
+    lay = Layout(sp=sp, tp=tp)
+    models = []
+    for layout in ((lay, lay.to_shift()) if lay.world > 1 else (lay,)):
+        model = Model(cfg, device=device, dtype=dtype, lay=layout,
+                      groups=groups)
+        model.init_params(
+            torch.Generator(device=model.device).manual_seed(WEIGHT_SEED))
+        models.append(model)
+    return ShiftEngine(models[0], EngineConfig(block_size=block_size,
+                                               num_blocks=num_blocks,
+                                               paged=paged, mixed=mixed),
+                       shift=models[1] if len(models) > 1 else None)
 
 
 def workload(n_requests: int, max_new: int):
@@ -69,10 +88,16 @@ def print_summary(eng: ShiftEngine):
         print(f"dense cache: {eng.cfg.max_slots} slots x {eng.cfg.s_max} "
               f"positions ({eng.paged_disabled_reason})")
     d = eng.deploy
-    print(f"deployment: {d.layout.describe()}, "
-          + (f"{d.captures} CUDA graphs captured in "
-             f"{d.graphs.capture_s * 1e3:.0f} ms"
-             if eng.model.device.type == "cuda" else "eager steps on the CPU"))
+    if d.world > 1:
+        how = (f"shift {d.shift.lay.describe()}, {d.world} ranks over "
+               f"{dist.get_backend()}, eager steps (a collective "
+               "is not captured in a CUDA graph)")
+    elif eng.model.device.type == "cuda":
+        how = (f"{d.captures} CUDA graphs captured in "
+               f"{d.graphs.capture_s * 1e3:.0f} ms")
+    else:
+        how = "eager steps on the CPU"
+    print(f"deployment: {d.layout.describe()}, {how}")
     print("kernel launches: " + " ".join(
         f"{name}={n}" for name, n in launch_counts().items()))
 

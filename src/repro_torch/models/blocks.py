@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.parallel import Layout
+from repro_torch.parallel import Layout, Shard
 from . import attention as A
 from . import ssd as S
 from .layers import MLP, RMSNorm, mlp_apply
@@ -14,13 +14,14 @@ from .layers import MLP, RMSNorm, mlp_apply
 class Block(nn.Module):
     kind = "attn"
 
-    def __init__(self, cfg, lay: Layout, dtype, device):
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
         d = cfg.d_model
+        shard = shard or Shard(lay)
         self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.attn = A.Attention(cfg, lay, dtype, device)
+        self.attn = A.Attention(cfg, lay, dtype, device, shard)
         self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.ffn = MLP(d, cfg.d_ff, dtype, device)
+        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard)
 
     def reset_parameters(self, generator):
         self.ln1.reset_parameters()
@@ -32,7 +33,9 @@ class Block(nn.Module):
 class SSDBlock(nn.Module):
     kind = "ssd"
 
-    def __init__(self, cfg, lay: Layout, dtype, device):
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
+        # the SSD mixer runs only the trivial layout (``Model`` refuses an
+        # SSD config above world size 1), so ``shard`` is that layout's
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
         self.mix = S.SSD(cfg, lay, dtype, device)

@@ -12,7 +12,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.parallel import Layout
+from repro_torch.parallel import Layout, Shard
+from repro_torch.parallel.collectives import psum_if
 from . import blocks as BK
 from .attention import cache_init
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
@@ -26,21 +27,26 @@ class Transformer(nn.Module):
     ``lm_head.w`` [d, V] unless the embedding is tied, and
     ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention layer or
     ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the reference's leaf
-    names."""
+    names. Each holds this rank's shard (``shard``; the whole tensors on
+    the trivial layout)."""
 
-    def __init__(self, cfg, lay: Layout, dtype, device):
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.shard = shard = shard or Shard(lay)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device,
+                               shard)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
         if not cfg.tie_embeddings:
-            self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
-        self.layers = nn.ModuleList(BK.BLOCKS[kind](cfg, lay, dtype, device)
-                                    for kind in cfg.layer_kinds)
+            self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device,
+                                  shard)
+        self.layers = nn.ModuleList(
+            BK.BLOCKS[kind](cfg, lay, dtype, device, shard)
+            for kind in cfg.layer_kinds)
 
 
 def _logits(params: Transformer, x):
     """Final norm and LM head (the tied table when there is no lm_head):
-    [..., d] -> [..., V] fp32."""
+    [..., d] -> this tp rank's vocabulary columns [..., v_blk] in fp32."""
     x = params.final_norm(x)
     if hasattr(params, "lm_head"):
         return lmhead_apply(params.lm_head, x)
@@ -134,10 +140,9 @@ def _embed_tokens(params: Transformer, tokens):
     return embed_apply(params.embed, tokens)
 
 
-def _positions_prefill(tokens, offsets):
-    """Global cache position of every column, [B, S]."""
-    S = tokens.shape[1]
-    return offsets[:, None].long() + torch.arange(S, device=tokens.device)[None]
+def _positions_prefill(offsets, S: int):
+    """Global cache positions of a chunk's S columns, [B, S]."""
+    return offsets[:, None].long() + torch.arange(S, device=offsets.device)[None]
 
 
 @torch.no_grad()
@@ -145,32 +150,37 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
                block_tables, cfg, sample: bool = True):
     """Unified mixed prefill+decode step against the paged pool.
 
-    tokens: [B, S]: row b carries ``q_lens[b]`` fresh tokens written at
-    cache positions ``offsets[b] ..``; decode rows have q_len == 1,
-    chunked-prefill rows up to the chunk width, padding rows 0. Returns the
-    greedy next token [B] (or the newest token's logits [B, V] in fp32 with
+    tokens: [B, S_loc], this sp rank's contiguous columns of a chunk of
+    S_loc·sp (all of it without SP): row b carries ``q_lens[b]`` fresh
+    tokens written at cache positions ``offsets[b] ..``; decode rows have
+    q_len == 1, chunked-prefill rows up to the chunk width, padding rows 0.
+    Returns the greedy next token [B] (or the newest token's logits, this
+    tp rank's vocabulary columns [B, v_blk] in fp32, with
     ``sample=False``); the pool is updated in place. Padding rows give zero
     logits and token 0. Only for configs whose every layer pages."""
     if any(kind != "attn" for kind in cfg.layer_kinds):
         raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
                          "which only attention layers have")
+    sh = params.shard
+    B, S_loc = tokens.shape
     x = _embed_tokens(params, tokens)
-    # positions are computed once per step; every layer's RoPE and KV
+    # every attention layer sees the whole chunk after its exchange: its
+    # positions are computed once per step, and each layer's RoPE and KV
     # scatter read them
-    ctx = {"positions": _positions_prefill(tokens, offsets),
+    ctx = {"positions": _positions_prefill(offsets, S_loc * sh.lay.sp),
            "offsets": offsets, "q_lens": q_lens, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
         x = BK.block_prefill(layer, x, pool.layer(i), ctx, cfg)
-    # ragged last-token extraction: row b's newest token sits at column
-    # q_lens[b]-1. RMSNorm is per row, so the final norm runs on the
-    # extracted rows only.
-    B, S = x.shape[:2]
-    loc = q_lens.long() - 1
-    here = (loc >= 0) & (loc < S)
-    take = x[torch.arange(B, device=x.device), loc.clamp(0, S - 1)]
+    # ragged last-token extraction: row b's newest token sits at chunk
+    # column q_lens[b]-1, which lives on exactly one sp rank; the others
+    # give zeros and the SP sum collects it. RMSNorm is per row, so the
+    # final norm runs on the extracted rows only.
+    loc = q_lens.long() - 1 - sh.sp_rank * S_loc
+    here = (loc >= 0) & (loc < S_loc)
+    take = x[torch.arange(B, device=x.device), loc.clamp(0, S_loc - 1)]
     last = torch.where(here[:, None], take, torch.zeros_like(take))
-    logits = _logits(params, last)
-    return distributed_argmax(logits) if sample else logits
+    logits = _logits(params, psum_if(last, sh.sp_group))
+    return distributed_argmax(logits, sh) if sample else logits
 
 
 @torch.no_grad()
@@ -182,7 +192,7 @@ def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
     [B, V] in fp32 (``x[:, -1]``, padding or not, as the reference takes
     it); the cache is updated in place."""
     x = _embed_tokens(params, tokens)
-    ctx = {"positions": _positions_prefill(tokens, offsets),
+    ctx = {"positions": _positions_prefill(offsets, tokens.shape[1]),
            "offsets": offsets, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
         x = BK.block_prefill(layer, x, cache.layer(i), ctx, cfg)

@@ -48,9 +48,48 @@ class HeadPlan:
         KV pool."""
         return self.G * self.kv_per_rank
 
+    @property
+    def h_kv_exp_base(self) -> int:
+        """KV slots materialized in the base config's weights: replication
+        is applied only at the TP (weight) level; the SP-level replication
+        happens in the all-to-all's send buffer."""
+        return max(self.h_kv_pad, self.tp)
+
+    @property
+    def h_kv_exp_shift(self) -> int:
+        """KV slots materialized in the shift config's weights (TP = G)."""
+        return self.kv_slots_total
+
     def q_mask(self) -> np.ndarray:
         """[h_q_pad] 1.0 for real head slots, 0.0 for padding."""
         return (np.asarray(self.q_slot_to_orig) >= 0).astype(np.float32)
+
+    def kv_expand_map(self, n_slots: int) -> np.ndarray:
+        """Map from ``n_slots`` expanded slots back to padded kv slots
+        (``slot // (n_slots // h_kv_pad)``)."""
+        r = n_slots // self.h_kv_pad
+        return np.arange(n_slots) // r
+
+    def a2a_send_map(self, sp: int) -> np.ndarray:
+        """[tp, sp * kv_per_rank]: for base-config tp rank j, the local
+        indices (into its ``h_kv_exp_base / tp`` weight slots) of the kv
+        slots to place in the all-to-all's send buffer, so that sp rank i
+        receives the kv slots aligned with its q slots (the paper's
+        replication within the send buffers)."""
+        tp = self.G // sp
+        exp = max(self.h_kv_pad, tp)          # slots materialized in weights
+        per_tp = exp // tp                    # local kv slots per tp rank
+        w2p = self.kv_expand_map(exp)         # expanded slot -> padded slot
+        out = np.zeros((tp, sp * self.kv_per_rank), dtype=np.int32)
+        for j in range(tp):
+            local = [w2p[j * per_tp + c] for c in range(per_tp)]
+            for i in range(sp):
+                g = j * sp + i                # model rank (tp-major)
+                for c in range(self.kv_per_rank):
+                    want = ((g * self.kv_per_rank + c) * self.h_kv_pad
+                            // self.kv_slots_total)
+                    out[j, i * self.kv_per_rank + c] = local.index(want)
+        return out
 
 
 def plan_heads(h_q: int, h_kv: int, G: int, tp: int = 1) -> HeadPlan:

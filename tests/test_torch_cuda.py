@@ -859,3 +859,62 @@ def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
         else:
             assert captures == [0, 0]
     assert results[0] == results[1]
+
+
+# ---------------------------------------------------------------------------
+# the layouts: four ranks on the one card, collectives over gloo
+# ---------------------------------------------------------------------------
+def _layout_engine_rank(rank, groups, state, kw):
+    """One rank of the SPMD engine on reduced qwen3-8b at fp32 on the card:
+    base on (sp, tp) = (2, 2), shift on its ``to_shift()``, one pool."""
+    from repro_torch.convert import shard_state
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-8b").reduced()
+    lay = Layout(sp=2, tp=2)
+    base, shift = (Model(cfg, device="cuda", dtype=torch.float32, lay=layout,
+                         groups=groups) for layout in (lay, lay.to_shift()))
+    for m in (base, shift):
+        m.load_params(shard_state(state, cfg, m.lay, rank))
+    eng = ShiftEngine(base, EngineConfig(**kw), shift=shift)
+    ops.reset_launch_counts()
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return ([r.generated for r in reqs], dict(eng.config_counts),
+            eng.preemptions, eng.kv.num_free_blocks, ops.launch_counts())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"num_blocks": 9, "block_size": 8}],
+                         ids=["no-pressure", "tight-pool"])
+def test_cuda_layout_engine_matches_cpu_engine(cuda, kw):
+    """The SPMD engine on four ranks sharing the card (gloo; NCCL refuses
+    two ranks on one card): every rank's streams, config counts,
+    preemptions and free blocks equal the one-rank engine's on the CPU with
+    the same weights, and every rank launched 3 * layers + 1 RMSNorm and
+    one ragged attention per layer per step."""
+    from repro_torch.launch.mesh import run_ranks
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    state = {k: v.numpy() for k, v in cpu.params.state_dict().items()}
+    eng = ShiftEngine(cpu, EngineConfig(**kw))
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    want = ([r.generated for r in reqs], eng.config_counts, eng.preemptions,
+            eng.kv.num_free_blocks)
+    ranks = run_ranks(_layout_engine_rank, 2, 2, device="cuda",
+                      backend="gloo", timeout_s=300, args=(state, kw))
+    steps = sum(want[1].values())
+    for streams, counts, preempt, free, launches in ranks:
+        assert (streams, counts, preempt, free) == want
+        assert launches["rmsnorm"] == steps * (3 * cfg.num_layers + 1)
+        assert launches["paged_ragged_attention"] == steps * cfg.num_layers
+    assert want[1]["base"] > 0 and want[1]["shift"] > 0
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        run_ranks(_layout_engine_rank, 2, 2, device="cuda", backend="nccl",
+                  timeout_s=60, args=(state, kw))
