@@ -15,7 +15,9 @@ Phases (every failure propagates and exits non-zero):
    64 SSD heads of 64, and a layer's q and k norms in one launch, bitwise
    equal to two single launches, with the host's µs per wrapper call; flash
    over a 64-token chunk against a dense cache of 2048 and the TPU kernel's
-   own case; decode over contexts up to 2048 and over one sequence of 2048,
+   own case; the ragged kernel also at speculative verify rows (q_len 1-5
+   in a C = 8 bucket, contexts up to 2048) and at the prefix path's
+   prefill rows past a 48-token cached prefix (C = 32); decode over contexts up to 2048 and over one sequence of 2048,
    beside the ragged kernel on the same K/V; the SSD chunk at mamba2-1.3b's
    serving prefill step, a long prompt, a short chunk and the TPU
    contract's per-(head, chunk) copies), in fp32 and bf16, with its time,
@@ -33,7 +35,11 @@ Phases (every failure propagates and exits non-zero):
    requests in flight and more requests than slots) on the card (kernels)
    and on the CPU (plain versions) give equal streams, config counts and
    preemptions, and one mixed step's and one dense prefill + decode's
-   logits agree within 1e-4;
+   logits agree within 1e-4; the mixed engine with the prefix cache and
+   k=4 speculation, after a 16-token shared prefix, with and without pool
+   pressure, gives equal streams, cached tokens, prefix stats, spec counts,
+   preemptions and config counts; and the fork + COW case (a forked tail
+   block copied in place, two continuations decoded) equal streams;
 5. the main paths: ``repro_torch.launch.serve.build_engine`` serving
    qwen3-8b at full width in bf16 (random weights, generator seeded 0)
    with the serve CLI's workload, 6 requests x 16 new tokens, through the
@@ -54,7 +60,17 @@ Phases (every failure propagates and exits non-zero):
    may leak. Captured entries' full-width logits are held to the eager
    steps' on small caches. Each turn prints its wall ms per decode step,
    TTFT, decode tokens/s, device busy ms per step and busy share, graphs
-   captured and capture ms (also as one ``{"graph_turns": ...}`` line);
+   captured and capture ms (also as one ``{"graph_turns": ...}`` line).
+   The ``mixed_prefix_spec`` path serves the same weights with the prefix
+   cache and k=4 drafts, the workload after a 32-token shared prefix (all
+   six requests arrive together, so five wait for the first one's
+   in-flight prefix and then hit it), on the eager tables, the graphed
+   ones and the graphed ones without drafts; each turn a warm-up run, the
+   cache emptied, and a measured run: eager and graphed streams and
+   launches equal, a prefix hit and an in-flight wait, drafts, no block
+   held at exit, launches exact per step, no capture in the measured run;
+   it prints the hits, tokens saved, COW copies, drafts, steps saved, wall
+   ms per step, TTFT, tokens/s and the graphs by verify width;
 6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
    the one card with the collectives over gloo (NCCL refuses two ranks on
    one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
@@ -65,9 +81,12 @@ Phases (every failure propagates and exits non-zero):
    equal streams on every rank, both configs used, no block leaked, 109
    RMSNorm and 36 ragged launches per step and rank (counters, and rank
    0's profiler trace of one base and three shift steps), the shared-block
-   invariance on the card's pools; it prints wall ms and collective bytes
-   per step by config, one all-reduce's ms on card and host tensors, and
-   peak memory per rank. Phase 3 also holds the ragged kernel and the q/k
+   invariance on the card's pools; then the prefix cache and k=4 on the
+   same models with the 32-token shared prefix: every rank's streams,
+   cached tokens, prefix stats and spec counts equal, a hit and drafts, no
+   block held at exit, 109 and 36 launches per step; it prints wall ms and
+   collective bytes per step by config, one all-reduce's ms on card and
+   host tensors, and peak memory per rank. Phase 3 also holds the ragged kernel and the q/k
    pair at a rank's shapes (8 q and 2 kv heads).
 
 With no arguments it needs one card. The line before the last is
@@ -196,15 +215,17 @@ def rates(case, flops):
     return case
 
 
-def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8):
+def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
+                   C=None):
     """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8 (a rank's 8 and 2
-    on the layout phase's grid), D 128, bs 16."""
+    on the layout phase's grid), D 128, bs 16; C query columns per row
+    (the longest q_len unless given: the engine pads to a power of two)."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_ragged_attention as PRA
     D, bs = 128, 16
     g = Hq // Hkv
     B = len(rows)
-    C = max(ql for _, ql in rows)
+    C = C or max(ql for _, ql in rows)
     ctx = torch.tensor([c for c, _ in rows], dtype=torch.int32)
     ql = torch.tensor([q for _, q in rows], dtype=torch.int32)
     nbs = [-(-c // bs) for c, _ in rows]
@@ -604,6 +625,14 @@ def kernel_phase(torch):
     # and a pure-decode batch, contexts up to 2048
     mixed = [(64, 64), (2048, 64), (576, 64), (1000, 40),
              (2048, 1), (1024, 1), (17, 1), (1, 1)]
+    # speculative verify rows (1 + a draft of up to 4) at decode rows'
+    # contexts, in the engine's C = 8 bucket: the tile path, not the C == 1
+    # decode split
+    verify = [(2048, 5), (1536, 4), (1024, 3), (777, 2), (512, 5), (256, 1),
+              (100, 4), (49, 2)]
+    # the mixed_prefix_spec path's second step: five prefill rows past a
+    # 48-token cached prefix (C = 32) beside the first request's decode row
+    prefix_hit = [(52, 1), (54, 6), (57, 9), (60, 12), (63, 15), (66, 18)]
     # the serving chunk against a dense cache of 2048: 8 rows of C = 64 at
     # offsets spread over [0, 1984], the last at the dummy offset s_max - C
     chunk_offsets = [0, 256, 576, 832, 1088, 1344, 1664, 1984]
@@ -620,6 +649,11 @@ def kernel_phase(torch):
         for name, rows in (("mixed", mixed), ("decode", DECODE_ROWS)):
             add("paged_ragged_attention",
                 attention_case(torch, name, rows, dtype, timer, tol))
+        add("paged_ragged_attention", attention_case(
+            torch, "verify, C 8", verify, dtype, timer, tol, C=8))
+        add("paged_ragged_attention", attention_case(
+            torch, "prefix-hit prefill, C 32", prefix_hit, dtype, timer, tol,
+            C=32))
         if dtype == torch.bfloat16:
             # long prefill chunks: the tensor-core tiles at a larger width
             add("paged_ragged_attention", attention_case(
@@ -762,7 +796,89 @@ def cross_device_phase(torch):
               f"reduced dense logits cuda vs cpu: max abs err {err}")
     print(f"reduced dense prefill + decode logits cuda vs cpu: max abs err "
           f"{err} (tol 1e-4)")
+    prefix_spec_cross_device(torch, gpu, cpu)
     mamba2_cross_device(torch)
+
+
+def prefix_spec_cross_device(torch, gpu, cpu):
+    """The prefix cache and speculation on reduced qwen3-8b at fp32: the
+    mixed engine with ``PrefixConfig(enabled=True)`` and ``SpecConfig(k=4)``
+    on the workload after a 16-token shared prefix, with and without pool
+    pressure, on the card and on the CPU: equal streams, cached tokens,
+    prefix stats, spec counts, preemptions and config counts. Then the
+    fork + COW case on both devices: a 12-token sequence forked, its
+    half-full tail block copied in place for the fork (the copy equal to
+    its source bitwise, the pool's addresses kept), and three decode steps
+    of different continuations on both rows, with equal streams."""
+    import numpy as np
+    from repro_torch.cache import PagedKVCache
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.launch.serve import workload
+    from repro_torch.spec import SpecConfig
+    for kw in ({}, {"num_blocks": 13, "block_size": 8}):
+        runs = []
+        for model in (gpu, cpu):
+            eng = ShiftEngine(model, EngineConfig(
+                prefix=PrefixConfig(enabled=True), spec=SpecConfig(k=4), **kw))
+            reqs = workload(6, 16, shared_prefix=16)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            led = eng.block_accounting()
+            check(led.used == led.pinned == eng.prefix_stats.entries,
+                  f"reduced prefix + spec {kw}: blocks held at exit {led}")
+            runs.append(([r.generated for r in reqs],
+                         [r.cached_tokens for r in reqs],
+                         eng.prefix_stats.as_dict(),
+                         (eng.spec_proposed, eng.spec_accepted,
+                          eng.spec_rollback_blocks),
+                         eng.preemptions, eng.config_counts))
+        check(runs[0] == runs[1], f"reduced prefix + spec {kw}: cuda "
+              f"{runs[0][1:]} != cpu {runs[1][1:]}")
+        _, cached, stats, spec, pre, counts = runs[0]
+        check(stats["hits"] > 0 and spec[0] > 0,
+              f"reduced prefix + spec {kw}: no hit or no draft")
+        print(f"reduced prefix + spec engine {kw or 'no pressure'}: cuda == "
+              f"cpu; cached tokens {cached}; prefix {stats}; drafted "
+              f"{spec[0]}, accepted {spec[1]}, rollback blocks {spec[2]}; "
+              f"{pre} preemptions; configs {counts}")
+
+    prompt = np.random.default_rng(1).integers(
+        1, gpu.cfg.vocab_size, 12).tolist()
+    streams = []
+    for model in (gpu, cpu):
+        model.init_paged_cache(8, 8)
+        kv = PagedKVCache(8, 8, 2, 4)
+        kv.ensure(0, 12)
+        bt = np.zeros((2, 4), np.int32)
+        bt[0, :2] = kv.seq_blocks(0)
+        toks = np.zeros((2, 12), np.int32)
+        toks[0] = prompt
+        model.prefill(toks, [0, 0], bt)
+        kv.fork(0, 1)
+        ok, copies = kv.copy_on_write(1, 12, 13)
+        check(ok and len(copies) == 1, f"fork + COW: copies {copies}")
+        (src, dst), = copies
+        addr = model.pool.k.data_ptr()
+        model.copy_blocks([src], [dst])
+        check(model.pool.k.data_ptr() == addr and all(
+            torch.equal(p[:, dst], p[:, src])
+            for p in (model.pool.k, model.pool.v)),
+            f"fork + COW on {model.device}: the copy is not in place or "
+            "differs from its source")
+        bt[1, :2] = kv.seq_blocks(1)
+        t, lens, out = np.array([7, 11], np.int32), np.array([12, 12]), []
+        for _ in range(3):
+            t, _ = model.decode(t, lens, bt)
+            t = t.cpu().numpy().astype(np.int32)
+            out.append(t.tolist())
+            lens = lens + 1
+        streams.append(out)
+    check(streams[0] == streams[1],
+          f"fork + COW: cuda {streams[0]} != cpu {streams[1]}")
+    print(f"reduced fork + COW (12 tokens, the tail block copied in place): "
+          f"cuda == cpu, decode steps of both rows {streams[0]}")
 
 
 def mamba2_cross_device(torch):
@@ -1052,6 +1168,168 @@ def graph_logits_check(torch, model, paged, calls, label):
     return err
 
 
+# the prefix + spec path: the serve workload after a 32-token shared prefix
+# (two blocks), with the prefix cache and k=4 drafts
+PS_SHARED, PS_K = 32, 4
+
+
+def count_waits(eng):
+    """Count the admissions that wait for an in-flight same-prefix prefill
+    from here on: {"waits": n}."""
+    n = {"waits": 0}
+    wait = eng._wait_for_inflight
+
+    def counted(req, matched):
+        did = wait(req, matched)
+        n["waits"] += int(did)
+        return did
+    eng._wait_for_inflight = counted
+    return n
+
+
+def graphs_by_width(d):
+    """CUDA graphs captured so far by verify width, over the deployment's
+    distinct entries (on one rank base and shift share each entry)."""
+    out, seen = {}, set()
+    for (_, n), e in ([(("plain", 1), e) for e in d.forward.values()]
+                      + list(d.spec_forward.items())):
+        if id(e) not in seen:
+            seen.add(id(e))
+            out[f"n_last={n}"] = out.get(f"n_last={n}", 0) + len(e.buckets)
+    return out
+
+
+def prefix_spec_path(torch, eng, label):
+    """One turn of the prefix + spec path on ``eng``: a warm-up run of the
+    workload, then every cached entry evicted, so that the measured run
+    starts from a cold cache as the warm-up did and steps through the same
+    buckets; the measured run with every launch counter set to 0 just
+    before it and read just after. Checks the requests, a prefix hit and an
+    in-flight wait in the measured run, drafts when speculating, the blocks
+    at exit (none held by a request, the index's pins its entries), no
+    capture, and the launches against the per-step counts."""
+    from repro_torch.launch import serve
+    cfg = eng.mcfg
+    waits = count_waits(eng)
+    for r in serve.workload(6, 16, shared_prefix=PS_SHARED):
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    eng.prefix.evict(len(eng.prefix))
+    check(len(eng.prefix) == 0 and eng.block_accounting().used == 0,
+          f"{label}: the cache did not empty: {eng.block_accounting()}")
+    before = eng.prefix_stats.as_dict()
+    spec0 = (eng.spec_proposed, eng.spec_accepted, eng.spec_rollback_blocks)
+    waits["waits"] = 0
+    eng.config_counts = {"base": 0, "shift": 0}
+    kinds = count_steps(eng)
+    reqs = serve.workload(6, 16, shared_prefix=PS_SHARED)
+    captured = eng.deploy.captures
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = serve.launch_counts()
+    steps = sum(eng.config_counts.values())
+    check(eng.deploy.captures == captured,
+          f"{label}: {eng.deploy.captures - captured} captures in the "
+          "measured run")
+    for r in reqs:
+        check(len(r.generated) == 16 and r.finish_reason == "ok"
+              and all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"{label}: request {r.rid}: {len(r.generated)} tokens, "
+              f"{r.finish_reason}")
+    after = eng.prefix_stats.as_dict()
+    stats = {k: after[k] - before[k] for k in
+             ("hits", "misses", "tokens_saved", "evictions", "cow_copies")}
+    spec = tuple(a - b for a, b in zip(
+        (eng.spec_proposed, eng.spec_accepted, eng.spec_rollback_blocks),
+        spec0))
+    check(stats["hits"] > 0 and waits["waits"] > 0,
+          f"{label}: prefix {stats}, {waits['waits']} in-flight waits")
+    check(spec[0] > 0 or not eng.cfg.spec.k, f"{label}: no draft")
+    led = eng.block_accounting()
+    check(led.used == led.pinned == after["entries"],
+          f"{label}: blocks at exit {led}, {after['entries']} entries")
+    check(steps == kinds["mixed"], f"{label}: {steps} steps, {kinds}")
+    want = {name: 0 for name in launches}
+    for name, k in step_launches(eng, "mixed").items():
+        want[name] += steps * k
+    check(launches == want, f"{label}: launches {launches} over {steps} "
+          f"steps, want {want}")
+    ttft = [r.first_token_time - r.arrival for r in reqs]
+    t_first = max(r.first_token_time for r in reqs)
+    t_last = max(r.finish_time for r in reqs)
+    dec_tok = sum(len(r.generated) - 1 for r in reqs)
+    out = {"steps": steps, "configs": dict(eng.config_counts),
+           "wall_ms_per_step": wall / steps * 1e3,
+           "ttft_ms": [t * 1e3 for t in ttft],
+           "decode_tokens_per_s": dec_tok / (t_last - t_first),
+           "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+           "prefix": stats, "inflight_waits": waits["waits"],
+           "cached_tokens": [r.cached_tokens for r in reqs],
+           "spec_proposed": spec[0], "spec_accepted": spec[1],
+           "spec_rollback_blocks": spec[2],
+           "graphs_by_width": graphs_by_width(eng.deploy)}
+    print(f"{label}: served 6 requests x 16 tokens after a {PS_SHARED}-token "
+          f"shared prefix in {wall:.3f} s over {steps} steps "
+          f"{eng.config_counts}; prefix {stats}, {waits['waits']} in-flight "
+          f"waits, cached tokens {out['cached_tokens']}; drafted {spec[0]}, "
+          f"accepted {spec[1]}, rollback blocks {spec[2]}; "
+          f"{out['wall_ms_per_step']:.2f} ms per step, TTFT ms "
+          + ", ".join(f"{t:.1f}" for t in out["ttft_ms"])
+          + f", {out['decode_tokens_per_s']:.1f} decode tokens/s; graphs "
+          f"{out['graphs_by_width']}")
+    return reqs, launches, out
+
+
+def prefix_spec_phase(torch, model):
+    """The ``mixed_prefix_spec`` path on the served model: the mixed engine
+    with the prefix cache and ``k=4`` over the eager tables, then the
+    graphed ones (streams and launches equal), then the graphed tables
+    without speculation (how many steps the drafts saved, and how far the
+    streams agree: bf16 goes through other tile shapes, so for
+    information)."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.engine.deployment import Deployment
+    from repro_torch.spec import SpecConfig
+    turns = []
+    for graphed, k in ((False, PS_K), (True, PS_K), (True, 0)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ShiftEngine(model, EngineConfig(
+            prefix=PrefixConfig(enabled=True), spec=SpecConfig(k=k)))
+        if not graphed:
+            eng.deploy = Deployment.build(model, model, mixed=True,
+                                          paged=True, graphed=False)
+        name = (f"mixed prefix + spec k={k} "
+                f"[{'graphed' if graphed else 'eager'}]")
+        reqs, launches, st = prefix_spec_path(torch, eng, name)
+        check(graphed or eng.deploy.captures == 0,
+              f"{name}: the eager tables captured")
+        st.update(graphed=graphed, spec_k=k,
+                  graphs_captured=eng.deploy.captures)
+        turns.append((reqs, launches, st))
+        del eng
+    (e_reqs, e_l, e_st), (g_reqs, g_l, g_st), (o_reqs, _, o_st) = turns
+    check([r.generated for r in e_reqs] == [r.generated for r in g_reqs]
+          and e_l == g_l and e_st["steps"] == g_st["steps"],
+          "mixed prefix + spec: the eager and graphed turns differ")
+    print(f"mixed prefix + spec: eager == graphed (streams, launches, "
+          f"{g_st['steps']} steps); without drafts {o_st['steps']} steps: "
+          f"{o_st['steps'] - g_st['steps']} steps saved; "
+          f"{shared_tokens(g_reqs, o_reqs)} of 96 tokens agree with the "
+          "spec-off stream before their first difference (for information)")
+    for _, _, st in turns:
+        print("mixed prefix + spec turn: " + json.dumps(st))
+    return g_l, [st for _, _, st in turns]
+
+
 def serving_phase(torch):
     import numpy as np
     from repro_torch.engine import EngineConfig, ShiftEngine
@@ -1091,6 +1369,8 @@ def serving_phase(torch):
         ("mixed", (toks, [8, 3], [0, 0], bt)),
         ("mixed", (toks[:, ::-1].copy(), [1, 1], [8, 3], bt)),
         ("mixed", (toks, [1, 1], [9, 4], bt))], "qwen3-8b mixed")
+    by_path["mixed_prefix_spec"], turns["mixed_prefix_spec"] = \
+        prefix_spec_phase(torch, model)
 
     # the serialized iteration on the same weights: the paged pool, then
     # the dense contiguous cache
@@ -1442,6 +1722,33 @@ def layout_rank(rank, groups, check_cfg):
             torch.distributed.all_reduce(x, group=group)
         torch.cuda.synchronize()
         out["all_reduce_ms"][where] = (time.perf_counter() - t) / 20 * 1e3
+
+    # the prefix cache and speculation on the same models (a new engine, a
+    # new pool): the serve workload after a 32-token shared prefix, k=4
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.spec import SpecConfig
+    base, shift = eng.base, eng.shift
+    del eng
+    gc.collect()
+    ps = ShiftEngine(base, EngineConfig(prefix=PrefixConfig(enabled=True),
+                                        spec=SpecConfig(k=PS_K)), shift=shift)
+    reqs = serve.workload(6, 16, shared_prefix=PS_SHARED)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        ps.submit(r)
+    ps.run_until_idle()
+    torch.cuda.synchronize()
+    out["prefix_spec"] = {
+        "serve_s": time.monotonic() - t0, "launches": serve.launch_counts(),
+        "streams": [r.generated for r in reqs],
+        "finish": [r.finish_reason for r in reqs],
+        "cached": [r.cached_tokens for r in reqs],
+        "counts": dict(ps.config_counts), "stats": ps.prefix_stats.as_dict(),
+        "spec": (ps.spec_proposed, ps.spec_accepted, ps.spec_rollback_blocks),
+        "ledger": ps.block_accounting().as_dict()}
     return out
 
 
@@ -1573,6 +1880,31 @@ def layout_phase(torch):
               f"{r['param_bytes']['shift'] / 1e9:.2f} GB, pool "
               f"{r['pool_bytes'] / 1e6:.1f} MB, built in {r['build_s']:.1f} "
               f"s, peak device memory {r['peak_bytes'] / 1e9:.2f} GB")
+    ps0 = r0["prefix_spec"]
+    for r in res:
+        ps = r["prefix_spec"]
+        check(all(ps[k] == ps0[k] for k in
+                  ("streams", "cached", "counts", "stats", "spec")),
+              f"layout prefix + spec: rank {r['rank']} differs from rank 0")
+        check(all(f == "ok" for f in ps["finish"])
+              and all(len(t) == 16 for t in ps["streams"]),
+              f"layout prefix + spec: rank {r['rank']}: {ps['finish']}")
+        led = ps["ledger"]
+        check(led["used"] == led["pinned"] == ps["stats"]["entries"],
+              f"layout prefix + spec: rank {r['rank']}: blocks {led}")
+        ps_steps = sum(ps["counts"].values())
+        check(ps["launches"] == {k: per_step.get(k, 0) * ps_steps
+                                 for k in ps["launches"]},
+              f"layout prefix + spec: rank {r['rank']}: launches "
+              f"{ps['launches']} over {ps_steps} steps")
+    check(ps0["stats"]["hits"] > 0 and ps0["spec"][0] > 0,
+          f"layout prefix + spec: prefix {ps0['stats']}, spec {ps0['spec']}")
+    print(f"layout phase: prefix + spec (a {PS_SHARED}-token shared prefix, "
+          f"k={PS_K}): equal on every rank; {sum(ps0['counts'].values())} "
+          f"steps {ps0['counts']} in {ps0['serve_s']:.2f} s; cached tokens "
+          f"{ps0['cached']}; prefix {ps0['stats']}; drafted {ps0['spec'][0]}"
+          f", accepted {ps0['spec'][1]}, rollback blocks {ps0['spec'][2]}; "
+          f"no block held at exit ({ps0['ledger']})")
     print(json.dumps({"layout": {
         "grid": {"sp": sp, "tp": tp}, "backend": "gloo",
         "fp32_max_abs_err": err, "configs": r0["counts"],
@@ -1580,7 +1912,7 @@ def layout_phase(torch):
         "all_reduce_ms": [r["all_reduce_ms"] for r in res],
         "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}}))
     print(f"card: {card_line()}")
-    return r0["launches"]
+    return r0["launches"], ps0["launches"]
 
 
 def summary(cases, by_path):
@@ -1647,7 +1979,8 @@ def main():
     by_path, turns = serving_phase(torch)
     by_path["mamba2_dense"], turns["mamba2_dense"] = \
         mamba2_serving_phase(torch)
-    by_path["layout_sp2_tp2_rank0"] = layout_phase(torch)
+    by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"] = \
+        layout_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {

@@ -12,5 +12,13 @@ DEFAULT_SHIFT_THRESHOLD = 32
 class ThresholdPolicy:
     threshold: int = DEFAULT_SHIFT_THRESHOLD   # batched tokens per iteration
 
-    def use_base(self, n_tokens: int, n_prefill_tokens: int = 0) -> bool:
+    def use_base(self, n_tokens: int, n_prefill_tokens: int = 0,
+                 ctx_tokens: int = 0, n_rows: int = 0,
+                 ctx_max: int = 0, spec_tokens: int = 0) -> bool:
+        """The paper's rule ignores context; ``ctx_tokens`` (sum of the
+        batch rows' context lengths), ``n_rows``, ``ctx_max`` (the largest
+        row context) and ``spec_tokens`` (speculative draft queries inside
+        ``n_tokens``) are accepted so that the engine feeds every policy the
+        same iteration facts. Draft queries count toward the threshold like
+        any batched token."""
         return n_tokens > self.threshold

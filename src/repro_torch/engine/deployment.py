@@ -4,8 +4,9 @@
 A :class:`Deployment` owns what depends on the parallel layout: the base
 (SP×TP) and shift (pure TP) ``Model`` views and the step tables, ``forward``
 for the mixed iteration, or ``prefill`` and ``decode`` for the serialized
-one, each keyed ``"base"``/``"shift"``. ``ShiftEngine`` holds one and runs
-every step through it.
+one, each keyed ``"base"``/``"shift"``, and the speculative verify entries
+``spec_forward``, built lazily per ``(config, n_last)``. ``ShiftEngine``
+holds one and runs every step through it.
 
 The reference compiles each entry with ``jax.jit`` once per config and
 bucketed shape. The port's counterpart is :class:`CapturedStep`: on the
@@ -25,6 +26,7 @@ comes later.
 """
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 from dataclasses import dataclass
@@ -174,10 +176,11 @@ class Deployment:
 
     ``forward`` is the mixed-batch table ({config -> entry}) and is ``None``
     when the engine runs the serialized iteration, in which case
-    ``prefill``/``decode`` carry the 2×2 table instead. ``graphs`` is what
-    the entries' CUDA graphs share; None builds eager tables (those that
-    tests compare the graphed ones against, and every table above world
-    size 1)."""
+    ``prefill``/``decode`` carry the 2×2 table instead. ``spec_forward``
+    ({(config, n_last) -> entry}) holds the verify widths stepped so far.
+    ``graphs`` is what the entries' CUDA graphs share; None builds eager
+    tables (those that tests compare the graphed ones against, and every
+    table above world size 1)."""
 
     base: Model
     shift: Model
@@ -187,6 +190,7 @@ class Deployment:
     forward: Optional[dict] = None
     prefill: Optional[dict] = None
     decode: Optional[dict] = None
+    spec_forward: Optional[dict] = None
 
     # ------------------------------------------------------------ identity
     @property
@@ -246,31 +250,44 @@ class Deployment:
         d._compile()
         return d
 
-    def _compile(self):
-        def entry(model, step):
-            return CapturedStep(getattr(model, step), model, self.paged,
-                                self.graphs)
+    def _entry(self, model, step):
+        return CapturedStep(step, model, self.paged, self.graphs)
 
+    def _compile(self):
         def table(step):
-            base = entry(self.base, step)
+            base = self._entry(self.base, getattr(self.base, step))
             # one model, one program: base and shift share the entry
             return {"base": base, "shift": base if self.shift is self.base
-                    else entry(self.shift, step)}
+                    else self._entry(self.shift, getattr(self.shift, step))}
 
         if self.mixed:
             # one program per config covers prefill chunks and decode rows
             self.forward = table("mixed_step")
+            self.spec_forward = {}
         else:
             self.prefill = table("prefill_step")
             self.decode = table("decode_step")
 
     # -------------------------------------------------------- spec verify
     def forward_at(self, config: str, n_last: int = 1):
-        """The mixed forward entry for ``config`` ("base" | "shift")."""
+        """The mixed forward entry for ``config`` ("base" | "shift") at
+        speculative verify width ``n_last``. Width 1 is the plain
+        ``forward`` entry itself. A wider one is built at its first use: a
+        ``CapturedStep`` over ``mixed_step(n_last=n_last)`` that shares the
+        deployment's ``GraphPool``, so on the card each width captures once
+        per bucket. On the trivial layout base and shift share it."""
         if self.forward is None:
             raise ValueError("forward_at requires the mixed step table")
-        if n_last > 1:
-            raise NotImplementedError(
-                f"n_last={n_last}: the speculative verify forward is not "
-                "ported yet (ROADMAP Queue 1 item 3)")
-        return self.forward[config]
+        if n_last <= 1:
+            return self.forward[config]
+        key = (config, n_last)
+        entry = self.spec_forward.get(key)
+        if entry is None:
+            model = self.base if config == "base" else self.shift
+            entry = self._entry(model, functools.partial(model.mixed_step,
+                                                         n_last=n_last))
+            self.spec_forward[key] = entry
+            if self.shift is self.base:
+                other = "shift" if config == "base" else "base"
+                self.spec_forward[(other, n_last)] = entry
+        return entry

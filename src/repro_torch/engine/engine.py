@@ -39,21 +39,49 @@ short last chunk advance that state. Streams of an SSD model therefore
 depend on what else is in flight; the port copies this behaviour so that
 its streams equal the reference's.
 
-Not in this slice: prefix caching, speculative decoding, fault injection,
-observability, dp rows and reshard.
+With ``EngineConfig(prefix=PrefixConfig(enabled=True))`` the paged pool
+gains automatic prefix reuse, as in the reference: prefill indexes every
+full block of token ids by chained hash (``repro_torch.cache.PrefixIndex``)
+as it completes, and admission maps the longest indexed prefix of a new
+prompt into the request's block table, so prefill starts at the first
+uncached token and the policy prices only the uncached work. Cached blocks
+are pinned by the index's own reference; a write into a shared block goes
+through copy-on-write (the manager remaps the block, and the engine copies
+it in the pool, in place, before the forward pass). A request whose next
+prompt block another request is writing waits in the queue for that commit
+(the in-flight registry).
+
+With ``EngineConfig(spec=SpecConfig(k=K))`` the mixed paged iteration
+verifies up to K draft tokens per decode row in the same forward pass
+(``repro_torch.spec.SuffixDrafter``: n-grams of the request's own tokens):
+a row becomes ``[last token] + draft``, the step returns its last
+``n_last = pow2(1 + max draft)`` columns' greedy tokens, the longest
+matching prefix is accepted and the rejected tail's blocks are unmapped
+(``truncate``). Streams equal those without speculation. The serialized
+iteration decodes one token per pass: there speculation is off, with its
+reason in ``spec_disabled_reason``.
+
+Not in this slice: fault injection, observability, dp rows and reshard.
 """
 from __future__ import annotations
 
+import inspect
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.cache import PagedKVCache, blocks_for_tokens, pow2_bucket
+from repro_torch.cache import (PagedKVCache, PrefixIndex, blocks_for_tokens,
+                               pow2_bucket)
 from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
 from repro_torch.models.model import Model
+from repro_torch.spec import SpecConfig, SuffixDrafter
+from .api import BlockLedger, PrefixConfig, PrefixStats
 from .deployment import Deployment
 from .request import FinishReason, Request
+
+# steps whose prefill token counts ``ShiftEngine.prefill_tokens`` keeps
+TRACE_WINDOW = 1024
 
 
 class EngineConfig:
@@ -67,7 +95,11 @@ class EngineConfig:
                  # None = auto: paged when every layer pages, and mixed
                  # when paged
                  paged: Optional[bool] = None,
-                 mixed: Optional[bool] = None):
+                 mixed: Optional[bool] = None,
+                 # nested groups, as in the reference (None = defaults)
+                 prefix: Optional[PrefixConfig] = None,
+                 # speculative decoding: k == 0 disables
+                 spec: Optional[SpecConfig] = None):
         self.max_slots = max_slots
         self.s_max = s_max
         self.prefill_chunk = prefill_chunk
@@ -77,21 +109,38 @@ class EngineConfig:
         self.num_blocks = num_blocks
         self.paged = paged
         self.mixed = mixed
+        self.prefix = prefix if prefix is not None else PrefixConfig()
+        self.spec = spec if spec is not None else SpecConfig()
 
 
 class ShiftEngine:
     def __init__(self, model: Model, cfg: Optional[EngineConfig] = None,
-                 shift: Optional[Model] = None):
+                 shift: Optional[Model] = None, policy=None):
         self.model = model
         self.mcfg = model.cfg
         self.cfg = cfg = cfg or EngineConfig()
-        self.policy = ThresholdPolicy(cfg.threshold)
+        self.policy = policy or ThresholdPolicy(cfg.threshold)
+        # which of the per-iteration context facts the policy's use_base
+        # accepts, found once: a two-argument policy gets none, a partial
+        # signature exactly what it declares (a per-call try/except
+        # TypeError would swallow a TypeError raised inside the policy)
+        facts = ("ctx_tokens", "n_rows", "ctx_max", "spec_tokens")
+        try:
+            params = inspect.signature(self.policy.use_base).parameters
+            if any(p.kind is inspect.Parameter.VAR_KEYWORD
+                   for p in params.values()):
+                self._policy_ctx_kwargs = facts
+            else:
+                self._policy_ctx_kwargs = tuple(k for k in facts
+                                                if k in params)
+        except (TypeError, ValueError):      # callables without a signature
+            self._policy_ctx_kwargs = ()
         # paging needs every layer to page (an SSD layer keeps recurrent
         # state per sequence); one card has one dp row, so that is the
         # only architectural reason. Auto falls back to the dense cache,
         # a forced paged=True raises; the reason is kept, as the reference
         # keeps it, because the dense cache also rules out the mixed
-        # iteration
+        # iteration and the prefix cache
         reason = None
         if not model.supports_paged:
             reason = (f"architecture {self.mcfg.name} has non-pageable layer "
@@ -109,10 +158,26 @@ class ShiftEngine:
             raise ValueError(
                 "mixed-batch stepping requires the paged KV cache (ragged "
                 "rows scatter through the block table's null block)")
+        if cfg.prefix.enabled and not self.paged:
+            raise ValueError(
+                "prefix caching requires the paged KV cache (cached blocks "
+                "are shared through ref-counted block tables)")
         if model.lay.world > 1 and not self.mixed:
             raise NotImplementedError(
                 f"{model.lay.describe()}: above world size 1 the engine runs "
                 "the mixed paged iteration only (ROADMAP Queue 1 item 2)")
+        # speculation rides the mixed paged iteration (verify rows are
+        # ragged 1+k rows through the paged attention); elsewhere it is
+        # off, and says why
+        self.spec = cfg.spec
+        self.spec_disabled_reason = None
+        if self.spec.k and not (self.paged and self.mixed):
+            self.spec_disabled_reason = (
+                "speculative decoding requires the paged mixed-batch path "
+                f"(paged={self.paged}, mixed={self.mixed})")
+        self._spec_on = bool(self.spec.k) and self.spec_disabled_reason is None
+        self.drafter = SuffixDrafter(self.spec)
+        self.prefix: Optional[PrefixIndex] = None
         if self.paged:
             nmax = blocks_for_tokens(cfg.s_max, cfg.block_size)
             num_blocks = cfg.num_blocks or cfg.max_slots * nmax + 1
@@ -124,6 +189,16 @@ class ShiftEngine:
             # persistent host mirror of the block tables; only rows the
             # PagedKVCache marks dirty are re-copied
             self._bt_host = np.zeros((cfg.max_slots, nmax), np.int32)
+            if cfg.prefix.enabled:
+                self.prefix = PrefixIndex(cfg.block_size, self.kv.allocator)
+                self.kv.prefix_index = self.prefix
+            # in-flight prefix registry: chain hash of every full prompt
+            # block an admitted request will write -> its rid
+            self._inflight: Dict[int, int] = {}
+            # pending (src, dst) block copies from copy-on-write, applied
+            # to the pool in one gather and one scatter before the next
+            # forward pass
+            self._step_copies: List[tuple] = []
         else:
             self.kv = None
             model.init_cache(cfg.max_slots, cfg.s_max)
@@ -135,6 +210,16 @@ class ShiftEngine:
         self.step_count = 0
         self.preemptions = 0
         self.config_counts = {"base": 0, "shift": 0}
+        # counters, named as the reference's obs counters (the obs package
+        # itself comes later): block copies made by copy-on-write, draft
+        # tokens verified and accepted, blocks unmapped by a rejected
+        # tail, and each step's prefill tokens (the last TRACE_WINDOW)
+        self.cow_copies = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollback_blocks = 0
+        self.prefill_tokens: List[int] = []
+        self._step_prefill = 0
         # the base and shift views and their step tables, built over the
         # caches initialised above
         self.deploy = Deployment.build(model, shift or model,
@@ -171,10 +256,61 @@ class ShiftEngine:
     def active(self) -> List[Request]:
         return [r for r in self.slot_req if r is not None]
 
+    # ------------------------------------------------ in-flight prefixes
+    def _register_inflight(self, req: Request, n_matched: int):
+        """Publish the chain hash of every full prompt block this admission
+        will write (depths past its prefix match), so that a same-prefix
+        request admitted behind it waits for the commit instead of
+        prefilling the span again."""
+        bs = self.cfg.block_size
+        keys = []
+        for i, key in enumerate(PrefixIndex.chain_keys(
+                req.all_tokens(), bs, (req.total_tokens - 1) // bs)):
+            if i >= n_matched:
+                self._inflight[key] = req.rid
+                keys.append(key)
+        req.inflight_keys = keys
+
+    def _unregister_inflight(self, req: Request):
+        if not req.inflight_keys:
+            return
+        for k in req.inflight_keys:
+            if self._inflight.get(k) == req.rid:
+                del self._inflight[k]
+        req.inflight_keys = []
+
+    def _wait_for_inflight(self, req: Request, matched) -> bool:
+        """True when another active request is mid-prefill over the next
+        full block of ``req``'s prompt: that block's chain hash is in the
+        in-flight registry and its writer has not written it yet. ``req``
+        stays queued; once the block commits, the match maps it."""
+        if self.prefix is None:
+            return False
+        bs = self.cfg.block_size
+        i = len(matched)
+        if (i + 1) * bs > req.total_tokens - 1:
+            return False                 # no further full block to share
+        *_, key = PrefixIndex.chain_keys(req.all_tokens(), bs, i + 1)
+        wrid = self._inflight.get(key)
+        if wrid is None:
+            return False
+        w = next((a for a in self.active if a.rid == wrid), None)
+        if w is None or w is req or w.done:
+            self._inflight.pop(key, None)          # stale entry
+            return False
+        # the writer wrote the block but the match did not extend (its
+        # commit stopped at a hash collision): do not wait for it
+        return w.prefilled < (i + 1) * bs
+
     def _admit(self):
         """Assign free slots FCFS. Paged: a request is admitted only when
-        its whole (re)prompt plus one decode token fits in the free
-        blocks."""
+        its whole (re)prompt plus one decode token fits in the free blocks,
+        counting the blocks a prefix match covers and those the prefix
+        index's eviction could reclaim. On admission the longest indexed
+        prefix of the (re)prompt is mapped into the slot's table, so
+        prefill starts at the first uncached token. One exception to FCFS:
+        a request waiting for an in-flight same-prefix prefill is skipped,
+        not blocking (its wait is bounded by the writer's progress)."""
         for req in list(self.queue):
             if req.slot is not None:
                 continue
@@ -182,44 +318,154 @@ class ShiftEngine:
                          if owner is None), None)
             if slot is None:
                 break                       # FCFS
-            if self.paged and not (self.kv.can_allocate(req.total_tokens + 1)
-                                   and self.kv.ensure(slot,
-                                                      req.total_tokens + 1)):
-                break
+            if not self.paged:
+                req.slot = slot
+                self.slot_req[slot] = req
+                self.lens[slot] = req.prefilled
+                continue
+            idx = self.prefix
+            matched = []
+            if idx is not None:
+                # probe without the LRU bump (a queue head that fails
+                # admission must not refresh its entries' recency), capped
+                # at total-1: the last known token always runs through the
+                # forward pass
+                matched = idx.match(req.all_tokens(),
+                                    max_tokens=req.total_tokens - 1,
+                                    bump=False)
+                if self._wait_for_inflight(req, matched):
+                    continue
+            if not self.kv.can_allocate(req.total_tokens + 1,
+                                        cached_blocks=matched):
+                break                       # FCFS
             req.slot = slot
             self.slot_req[slot] = req
+            if idx is not None:
+                idx.record(len(matched))
+                if matched:
+                    idx.bump(req.all_tokens(), len(matched))
+                    self.kv.assign_prefix(slot, matched)
+                    req.prefilled = len(matched) * self.cfg.block_size
+                    req.cached_tokens = req.prefilled
+                self._register_inflight(req, len(matched))
+            if not self.kv.ensure(slot, req.total_tokens + 1):
+                # eviction reclaimed less than the probe reckoned: roll the
+                # admission back (assign_prefix's refs go with free_seq)
+                # and keep the request queued
+                self._unregister_inflight(req)
+                if self.kv.n_mapped[slot]:
+                    self.kv.free_seq(slot)
+                self.slot_req[slot] = None
+                req.slot = None
+                req.prefilled = 0
+                req.cached_tokens = 0
+                break
             self.lens[slot] = req.prefilled
+
+    # ---------------------------------------------------------------- stats
+    @property
+    def prefix_stats(self) -> PrefixStats:
+        """Prefix-cache counters (zeros when caching is off), the COW copy
+        count and the reason paging is off (None when paged)."""
+        s = (self.prefix.stats() if self.prefix is not None else
+             {"entries": 0, "hits": 0, "misses": 0, "tokens_saved": 0,
+              "evictions": 0})
+        return PrefixStats(cow_copies=self.cow_copies,
+                           paged_disabled_reason=self.paged_disabled_reason,
+                           **s)
+
+    def block_accounting(self) -> BlockLedger:
+        """Paged-block ledger for leak checks: ``used`` counts every held
+        block (sequence mappings and prefix pins), ``pinned`` the index's
+        pins. With nothing in flight, ``used == pinned``."""
+        if not self.paged:
+            return BlockLedger()
+        return BlockLedger(
+            used=self.kv.num_used_blocks,
+            pinned=len(self.prefix.blocks()) if self.prefix else 0,
+            free=self.kv.num_free_blocks,
+            free_per_row=(self.kv.num_free_blocks,))
 
     # ----------------------------------------------------- memory pressure
     def _preempt(self, victim: Request):
-        """Evict a running request back to the queue, freeing its blocks.
-        Recompute-style: its prompt+generated re-prefills on re-admission."""
+        """Evict a running request back to the queue, freeing its blocks
+        (shared ones are decremented). Recompute-style: its prompt +
+        generated re-prefills on re-admission, where it re-matches its own
+        committed prefix."""
+        self._unregister_inflight(victim)
         self.kv.free_seq(victim.slot)
         self.slot_req[victim.slot] = None
         self.lens[victim.slot] = 0
         victim.slot = None
         victim.prefilled = 0
+        victim.cached_tokens = 0
+        victim.pc_blocks, victim.pc_parent = 0, None   # recommit from root
         victim.num_preemptions += 1
         self.preemptions += 1
 
-    def _reserve(self, req: Request, n_tokens: int, protect) -> bool:
-        """Grow req's block table to cover n_tokens, LRU-preempting other
-        active requests outside ``protect`` while the free list runs dry.
-        Returns False when nothing can be evicted."""
-        while not self.kv.ensure(req.slot, n_tokens):
+    def _reserve(self, req: Request, n_tokens: int, protect,
+                 write_from: Optional[int] = None) -> bool:
+        """Grow req's block table to cover n_tokens and, with
+        ``write_from``, copy-on-write every shared block in the write range
+        ``[write_from, n_tokens)``, LRU-preempting other active requests
+        outside ``protect`` while the free list (and the prefix index's
+        eviction) runs dry. Returns False when nothing can be evicted. COW
+        copies are queued for ``_apply_copies``."""
+        while True:
+            if self.kv.ensure(req.slot, n_tokens):
+                if write_from is None:
+                    return True
+                ok, copies = self.kv.copy_on_write(req.slot, write_from,
+                                                   n_tokens)
+                if ok:
+                    self._step_copies.extend(copies)
+                    return True
             victims = [a for a in self.active
                        if a is not req and a not in protect]
             if not victims:
                 return False
             self._preempt(min(victims,
                               key=lambda a: (a.last_used, -a.arrival)))
-        return True
+
+    def _apply_copies(self):
+        """Make the queued COW copies in the pool (one gather of every
+        source, then one scatter, in place) before the forward pass that
+        writes the copied blocks. Every rank copies the same block ids in
+        its own pool slice."""
+        if not self._step_copies:
+            return
+        pairs, self._step_copies = self._step_copies, []
+        self.cow_copies += len(pairs)
+        self.model.copy_blocks([s for s, _ in pairs], [d for _, d in pairs])
+
+    def _commit_prefix(self, req: Request):
+        """Index every fully written block of ``req`` (positions
+        ``0..prefilled-1`` are in the cache), incrementally from the
+        request's ``(pc_blocks, pc_parent)`` cursor. Called before a finish
+        could free the slot."""
+        if self.prefix is None or req.slot is None:
+            return
+        full = min(req.prefilled // self.cfg.block_size,
+                   int(self.kv.n_mapped[req.slot]))
+        if full > req.pc_blocks:
+            req.pc_blocks, req.pc_parent, _ = self.prefix.commit_incremental(
+                req.all_tokens(), req.pc_blocks, full, req.pc_parent,
+                self.kv.seq_blocks(req.slot))
 
     # ---------------------------------------------------------------- steps
-    def _choose(self, n_tokens: int, n_prefill: int) -> str:
-        """The config of this iteration (Algorithm 2)."""
-        return "base" if self.policy.use_base(n_tokens, n_prefill) \
-            else "shift"
+    def _choose(self, n_tokens: int, n_prefill: int, ctx_tokens: int = 0,
+                n_rows: int = 0, ctx_max: int = 0,
+                spec_tokens: int = 0) -> str:
+        """The config of this iteration (Algorithm 2). The policy gets the
+        context facts its ``use_base`` declares: ``ctx_tokens`` (the rows'
+        summed context), ``n_rows``, ``ctx_max`` and ``spec_tokens`` (the
+        draft queries inside ``n_tokens``)."""
+        facts = {"ctx_tokens": ctx_tokens, "n_rows": n_rows,
+                 "ctx_max": ctx_max, "spec_tokens": spec_tokens}
+        use_base = self.policy.use_base(
+            n_tokens, n_prefill,
+            **{k: facts[k] for k in self._policy_ctx_kwargs})
+        return "base" if use_base else "shift"
 
     def _prefill_done(self, r: Request) -> bool:
         return r.prefilled >= r.pos
@@ -237,7 +483,9 @@ class ShiftEngine:
                       and r.generated[-1] == self.cfg.eos_id):
             r.finish_time = t
             r.finish_reason = FinishReason.OK
+            self.drafter.drop(r.rid)
             if self.paged:
+                self._unregister_inflight(r)
                 self.kv.free_seq(r.slot)
             self.slot_req[r.slot] = None
             self.queue = [q for q in self.queue if q is not r]
@@ -258,32 +506,51 @@ class ShiftEngine:
         return bt
 
     def _run_mixed(self) -> bool:
-        """One fused iteration: every ready decode row PLUS a prefill chunk
-        for every row still swallowing its (re)prompt, in a single forward
-        pass. Decode rows reserve blocks first, so a prompt burst can
-        shrink the prefill side but never starve in-flight decodes. A
-        prefill row whose chunk reaches its last known token samples its
-        next token in the same pass."""
+        """One fused iteration: every ready decode row (with its draft, when
+        speculating) PLUS a prefill chunk for every row still swallowing
+        its (re)prompt, in a single forward pass. Decode rows reserve
+        blocks first, so a prompt burst can shrink the prefill side but
+        never starve in-flight decodes. A prefill row whose chunk reaches
+        its last known token samples its next token in the same pass."""
         C = self.cfg.prefill_chunk
         ready = [r for r in self.active if self._prefill_done(r)
                  and not r.done]
         rows = []                          # (req, off, q_len, produces)
+        drafts: Dict[int, List[int]] = {}  # rid -> draft tokens
+        decode_rows = set()
         protect = set()
         for r in ready:
             if r.slot is None:
                 continue                   # preempted by an earlier reserve
             # coverage for the token written this step (position r.pos)
-            if self._reserve(r, r.total_tokens, protect):
-                rows.append((r, r.pos, 1, True))
+            if self._reserve(r, r.total_tokens, protect, write_from=r.pos):
+                d: List[int] = []
+                if self._spec_on:
+                    # at most the tokens the request may still emit beyond
+                    # the one it samples anyway
+                    d = self.drafter.propose(
+                        r.rid, r.all_tokens(),
+                        r.max_new_tokens - len(r.generated) - 1)
+                    # the draft's blocks never preempt anyone or evict a
+                    # cached prefix: shrink it until the free list covers it
+                    while d and not self.kv.ensure(r.slot,
+                                                   r.total_tokens + len(d)):
+                        d.pop()
+                if d:
+                    drafts[r.rid] = d
+                rows.append((r, r.pos, 1 + len(d), True))
+                decode_rows.add(r)
                 protect.add(r)
-        n_decode = len(rows)
+        n_decode = len(decode_rows)
+        n_spec = sum(len(d) for d in drafts.values())
         n_prefill_tok = 0
         for r in list(self.active):
             if r.slot is None or r.done or self._prefill_done(r):
                 continue
             off = r.prefilled
             end = min(off + C, r.total_tokens)
-            if end <= off or not self._reserve(r, end, protect):
+            if end <= off or not self._reserve(r, end, protect,
+                                               write_from=off):
                 continue
             rows.append((r, off, end - off, end == r.total_tokens))
             protect.add(r)
@@ -291,8 +558,13 @@ class ShiftEngine:
         if not rows:
             return False
 
-        mode = self._choose(n_prefill_tok + n_decode, n_prefill_tok)
+        mode = self._choose(n_prefill_tok + n_decode + n_spec, n_prefill_tok,
+                            sum(off + ql for _, off, ql, _ in rows),
+                            len(rows),
+                            max(off + ql for _, off, ql, _ in rows),
+                            spec_tokens=n_spec)
         self.config_counts[mode] += 1
+        self._step_prefill = n_prefill_tok
         # compact to active rows and bucket every axis to a power of two,
         # as the reference does for its compiled-shape reuse; the chunk
         # axis splits over the chosen config's SP degree (a decode-only
@@ -310,20 +582,62 @@ class ShiftEngine:
         offs = np.zeros((Rb,), np.int32)
         bt = np.zeros((Rb, nbb), np.int32)
         for i, (r, off, ql, _) in enumerate(rows):
-            if ql == 1 and off == r.pos:       # decode row: the last token
+            if off == r.pos:                   # decode row: the last token
                 toks[i, 0] = r.generated[-1] if r.generated else r.prompt[-1]
+                toks[i, 1:ql] = drafts.get(r.rid, [])
             else:
                 toks[i, :ql] = r.all_tokens()[off:off + ql]
             qlen[i] = ql
             offs[i] = off
             bt[i] = self._bt_host[r.slot, :nbb]
-        nxt = self.deploy.forward_at(mode)(toks, qlen, offs, bt).cpu().numpy()
+        self._apply_copies()               # COW copies land before the write
+        # the verify width: each row's last n_last columns come back; with
+        # no draft, n_last == 1 is the plain step
+        n_last = (pow2_bucket(1 + max(len(d) for d in drafts.values()))
+                  if drafts else 1)
+        nxt = self.deploy.forward_at(mode, n_last)(toks, qlen, offs,
+                                                   bt).cpu().numpy()
         t = time.monotonic()
+        n_accepted = 0
+        rollback = 0
         for i, (r, off, ql, produces) in enumerate(rows):
             r.last_used = self.step_count
-            r.prefilled = off + ql
-            if produces:
-                self._finish_token(r, int(nxt[i]), t)
+            d = drafts.get(r.rid) if r in decode_rows else None
+            if d is None:
+                r.prefilled = off + ql
+                self.lens[r.slot] = r.prefilled
+                self._commit_prefix(r)     # before a finish frees the slot
+                if produces:
+                    self._finish_token(r, int(nxt[i, n_last - 1] if n_last > 1
+                                              else nxt[i]), t)
+                continue
+            # the verify row's outputs o_0..o_m sit in its last m+1
+            # columns; accept the longest prefix where draft j matched
+            # output j-1 and emit o_0..o_accepted, exactly the tokens
+            # sequential greedy decoding would give
+            m = len(d)
+            out = [int(nxt[i, n_last - 1 - m + j]) for j in range(m + 1)]
+            n_acc = 0
+            while n_acc < m and d[n_acc] == out[n_acc]:
+                n_acc += 1
+            emitted = out[:n_acc + 1]
+            # unmap the rejected tail's blocks while the slot is alive
+            rollback += self.kv.truncate(r.slot, off + len(emitted))
+            delivered = 0
+            for j, tok in enumerate(emitted):
+                # commit before each append with the coverage a sequential
+                # step would have had (the index hashes no draft)
+                r.prefilled = off + j + 1
+                self.lens[r.slot] = r.prefilled
+                self._commit_prefix(r)
+                self._finish_token(r, tok, t)
+                delivered = j + 1
+                if r.finish_reason is not None:
+                    break                  # finished mid-accept
+            n_accepted += delivered - 1
+        self.spec_proposed += n_spec
+        self.spec_accepted += n_accepted
+        self.spec_rollback_blocks += rollback
         return True
 
     # --------------------------------------------------- serialized stepping
@@ -353,7 +667,8 @@ class ShiftEngine:
             if not chunk:
                 continue
             if self.paged and not self._reserve(
-                    r, off + len(chunk), protect={rr for rr, _ in rows}):
+                    r, off + len(chunk), protect={rr for rr, _ in rows},
+                    write_from=off):
                 continue
             toks[r.slot, :len(chunk)] = chunk
             offs[r.slot] = off
@@ -361,14 +676,28 @@ class ShiftEngine:
         if not rows:
             return False
         n_tok = sum(n for _, n in rows)
-        mode = self._choose(n_tok, n_tok)
+        # what the attention reads: on the paged pool every batch row
+        # attends offset + C (padding columns and dummy rows included)
+        if self.paged:
+            ctx = sum(r.prefilled + C for r, _ in rows) \
+                + (self.cfg.max_slots - len(rows)) * C
+            ctx_max = max(r.prefilled + C for r, _ in rows)
+        else:
+            ctx = sum(r.prefilled + n for r, n in rows)
+            ctx_max = max(r.prefilled + n for r, n in rows)
+        mode = self._choose(n_tok, n_tok, ctx, len(rows), ctx_max)
         self.config_counts[mode] += 1
-        bt = self._block_tables([r for r, _ in rows]) if self.paged else None
+        self._step_prefill = n_tok
+        bt = None
+        if self.paged:
+            bt = self._block_tables([r for r, _ in rows])
+            self._apply_copies()
         self.deploy.prefill[mode](toks, offs, bt)
         for r, n in rows:
             r.prefilled += n
             r.last_used = self.step_count
             self.lens[r.slot] = r.prefilled
+            self._commit_prefix(r)
         return True
 
     def _run_decode(self) -> bool:
@@ -382,29 +711,39 @@ class ShiftEngine:
                 if r.slot is None:
                     continue               # preempted by an earlier reserve
                 # coverage for the token written this step (position r.pos)
-                if self._reserve(r, r.total_tokens, protect=set(kept)):
+                if self._reserve(r, r.total_tokens, protect=set(kept),
+                                 write_from=r.pos):
                     kept.append(r)
             ready = kept
         if not ready:
             return False
-        mode = self._choose(len(ready), 0)
+        # inactive slots of the paged batch each read one null position
+        ctx = sum(r.pos + 1 for r in ready) \
+            + (self.cfg.max_slots - len(ready) if self.paged else 0)
+        mode = self._choose(len(ready), 0, ctx, len(ready),
+                            max(r.pos + 1 for r in ready))
         self.config_counts[mode] += 1
         toks = np.zeros((self.cfg.max_slots,), np.int32)
         lens = np.zeros((self.cfg.max_slots,), np.int32)
         for r in ready:
             toks[r.slot] = r.generated[-1] if r.generated else r.prompt[-1]
             lens[r.slot] = r.pos           # write position of this token
-        bt = self._block_tables(ready) if self.paged else None
+        bt = None
+        if self.paged:
+            bt = self._block_tables(ready)
+            self._apply_copies()
         nxt = self.deploy.decode[mode](toks, lens, bt).cpu().numpy()
         t = time.monotonic()
         for r in ready:
             r.last_used = self.step_count
             r.prefilled = r.pos + 1        # this step wrote position r.pos
+            self._commit_prefix(r)
             self._finish_token(r, int(nxt[r.slot]), t)
         return True
 
     def step(self) -> bool:
         """One engine iteration. Returns False when idle."""
+        self._step_prefill = 0
         self._admit()
         if self.mixed:
             # fused prefill+decode batch: no iteration-granularity
@@ -413,6 +752,8 @@ class ShiftEngine:
         else:
             # prefill first, chunk by chunk; decode otherwise
             progressed = self._run_prefill() or self._run_decode()
+        self.prefill_tokens.append(self._step_prefill)
+        del self.prefill_tokens[:-TRACE_WINDOW]
         self.step_count += 1
         return progressed
 

@@ -1,5 +1,5 @@
 """Request lifecycle for the serving engine (the port's copy of
-``repro.engine.request`` without the prefix-cache and fault-tolerance
+``repro.engine.request`` without the dp row and the fault-tolerance
 fields)."""
 from __future__ import annotations
 
@@ -27,6 +27,18 @@ class Request:
     # engine state -----------------------------------------------------------
     slot: Optional[int] = None
     prefilled: int = 0                # tokens already written to the cache
+    cached_tokens: int = 0            # prefill tokens served by a prefix hit
+    #                                   at the current admission (reset on
+    #                                   preemption; observability only)
+    # prefix-index commit cursor: blocks already committed this residency
+    # and the chain hash at that depth (None = root); reset on preemption
+    pc_blocks: int = 0
+    pc_parent: Optional[int] = None
+    # chain hashes of the full prompt blocks this admission will write,
+    # published in the engine's in-flight registry so that a same-prefix
+    # request admitted behind it waits for the commit instead of prefilling
+    # the span again; cleared on preemption and finish
+    inflight_keys: List[int] = field(default_factory=list)
     generated: List[int] = field(default_factory=list)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None

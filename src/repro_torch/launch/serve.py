@@ -13,6 +13,12 @@ paged=False, mixed=False)`` builds that iteration for any arch, and
 ``--reduced`` and ``--device cpu`` run the test-size model on the CPU with
 the kernels' plain versions.
 
+``--prefix-cache`` turns on the prefix cache (with copy-on-write),
+``--shared-prefix N`` prepends the same N tokens ``1000 .. 1000+N-1`` to
+every prompt (a system prompt), and ``--spec-k K`` verifies up to K draft
+tokens per decode row (``--spec-ngram``: the longest n-gram the drafter
+matches), as the reference CLI's flags do.
+
 ``build_engine(..., sp=, tp=, groups=)`` builds one rank of the Shift
 Parallelism deployment: the base model on ``Layout(sp=sp, tp=tp)`` and the
 shift model on its ``to_shift()``, over one paged pool, inside a rank of
@@ -29,11 +35,13 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
+from repro_torch.engine.api import PrefixConfig
 # the launch counters, read and reset by callers of the entry point
 from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
                                      reset_launch_counts)
 from repro_torch.models import Model
 from repro_torch.parallel import Groups, Layout
+from repro_torch.spec import SpecConfig
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 WEIGHT_SEED = 0
@@ -41,12 +49,15 @@ WEIGHT_SEED = 0
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  dtype=torch.bfloat16, block_size=16, num_blocks=0,
-                 paged=None, mixed=None, sp=1, tp=1,
+                 paged=None, mixed=None, prefix_cache=False, spec_k=0,
+                 spec_ngram=3, sp=1, tp=1,
                  groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
-    every layer pages, else the serialized dense engine). With ``sp·tp`` >
+    every layer pages, else the serialized dense engine), and so do
+    ``prefix_cache`` (``PrefixConfig``) and ``spec_k``/``spec_ngram``
+    (``SpecConfig(k, ngram_max)``). With ``sp·tp`` >
     1 (the counterpart of the reference's ``_build_stack(sp=, tp=,
     mesh=)``): this rank's base model on ``Layout(sp=sp, tp=tp)`` and shift
     model on its ``to_shift()``, both drawn from the same seed, over the
@@ -63,17 +74,22 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
         model.init_params(
             torch.Generator(device=model.device).manual_seed(WEIGHT_SEED))
         models.append(model)
-    return ShiftEngine(models[0], EngineConfig(block_size=block_size,
-                                               num_blocks=num_blocks,
-                                               paged=paged, mixed=mixed),
+    ecfg = EngineConfig(block_size=block_size, num_blocks=num_blocks,
+                        paged=paged, mixed=mixed,
+                        prefix=PrefixConfig(enabled=prefix_cache),
+                        spec=SpecConfig(k=spec_k, ngram_max=spec_ngram))
+    return ShiftEngine(models[0], ecfg,
                        shift=models[1] if len(models) > 1 else None)
 
 
-def workload(n_requests: int, max_new: int):
-    """The reference CLI's requests: prompt i is ``range(1, 20 + 3i)``."""
+def workload(n_requests: int, max_new: int, shared_prefix: int = 0):
+    """The reference CLI's requests: prompt i is ``range(1, 20 + 3i)``,
+    after the ``shared_prefix`` tokens ``1000 .. 1000+shared_prefix-1``."""
     t = time.monotonic()
-    return [Request(i, list(range(1, 20 + 3 * i)), max_new_tokens=max_new,
-                    arrival=t) for i in range(n_requests)]
+    system = list(range(1000, 1000 + shared_prefix))
+    return [Request(i, system + list(range(1, 20 + 3 * i)),
+                    max_new_tokens=max_new, arrival=t)
+            for i in range(n_requests)]
 
 
 def print_summary(eng: ShiftEngine):
@@ -84,9 +100,23 @@ def print_summary(eng: ShiftEngine):
         print(f"paged cache: 1 dp row(s) x {eng.kv.num_blocks} blocks x "
               f"{eng.cfg.block_size} tokens, {eng.preemptions} preemptions, "
               f"{eng.kv.num_free_blocks} free at exit")
+        if eng.cfg.prefix.enabled:
+            p = eng.prefix_stats
+            print(f"prefix cache: {p.entries} cached blocks, "
+                  f"{p.hits} hits / {p.misses} misses, "
+                  f"{p.tokens_saved} prefill tokens saved, "
+                  f"{p.evictions} evictions, {p.cow_copies} COW copies")
     else:
         print(f"dense cache: {eng.cfg.max_slots} slots x {eng.cfg.s_max} "
               f"positions ({eng.paged_disabled_reason})")
+    if eng.cfg.spec.k:
+        if eng.spec_disabled_reason:
+            print(f"spec decode DISABLED: {eng.spec_disabled_reason}")
+        else:
+            prop, acc = eng.spec_proposed, eng.spec_accepted
+            rate = f" ({acc / prop:.0%} acceptance)" if prop else ""
+            print(f"spec decode: k={eng.cfg.spec.k}, {prop} drafted, "
+                  f"{acc} accepted{rate}")
     d = eng.deploy
     if d.world > 1:
         how = (f"shift {d.shift.lay.describe()}, {d.world} ranks over "
@@ -114,14 +144,26 @@ def main(argv=None):
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="physical KV blocks; 0 = no memory pressure. Small "
                          "values force admission control + preemption")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="hash-indexed prefix reuse with copy-on-write")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend the same N tokens to every prompt (a "
+                         "system prompt), to exercise --prefix-cache")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: max draft tokens verified "
+                         "per decode row (0 = off)")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="longest suffix n-gram the drafter matches")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
                        dtype=DTYPES[args.dtype], block_size=args.block_size,
-                       num_blocks=args.num_blocks)
-    reqs = workload(args.requests, args.max_new)
+                       num_blocks=args.num_blocks,
+                       prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                       spec_ngram=args.spec_ngram)
+    reqs = workload(args.requests, args.max_new, args.shared_prefix)
     for r in reqs:
         eng.submit(r)
     t0 = time.monotonic()

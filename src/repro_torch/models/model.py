@@ -162,12 +162,15 @@ class Model:
                                block_tables=block_tables)
         return T.greedy_body(logits) if sample else logits
 
-    def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True):
+    def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True,
+                   n_last: int = 1):
         """``forward_mixed`` on device tensors; returns the next tokens [B],
         or the newest token's fp32 logits (this tp rank's vocabulary
-        columns, [B, v_blk]) with ``sample=False``. ``tokens`` [B, C] is the
-        whole chunk, the same on every rank; an sp rank steps its contiguous
-        C/sp columns, as the reference's ``shard_map`` hands them over."""
+        columns, [B, v_blk]) with ``sample=False``; with ``n_last`` > 1
+        each row's last ``n_last`` columns' ([B, n_last], [B, n_last,
+        v_blk]). ``tokens`` [B, C] is the whole chunk, the same on every
+        rank; an sp rank steps its contiguous C/sp columns, as the
+        reference's ``shard_map`` hands them over."""
         self._require_paged()
         if self.pool is None:
             raise RuntimeError("init_paged_cache() before forward_mixed()")
@@ -179,7 +182,8 @@ class Model:
             c = tokens.shape[1] // sp
             tokens = tokens[:, self.shard.sp_rank * c:][:, :c]
         return T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
-                            block_tables, self.cfg, sample=sample)
+                            block_tables, self.cfg, sample=sample,
+                            n_last=n_last)
 
     # ------------------------------------------------------------- step
     def prefill(self, tokens, offsets, block_tables=None):
@@ -203,7 +207,7 @@ class Model:
         return out, self._step_cache(block_tables)
 
     def forward_mixed(self, tokens, q_lens, offsets, block_tables,
-                      sample: bool = True):
+                      sample: bool = True, n_last: int = 1):
         """Unified mixed-batch step over the paged pool: chunked-prefill rows
         (q_len up to the chunk width) and decode rows (q_len == 1) in one
         pass. ``tokens`` [B, C], ``q_lens``/``offsets`` [B] and
@@ -211,8 +215,23 @@ class Model:
         device as int32. Returns ``(next_tokens [B], pool)``, or the newest
         token's fp32 logits [B, V] (this tp rank's columns [B, v_blk] above
         world size 1) in place of the tokens with ``sample=False``; the pool
-        is updated in place. Raises for a config that does not page."""
+        is updated in place. ``n_last`` > 1 is the speculative verify width:
+        each row's last ``n_last`` columns' tokens [B, n_last] (logits [B,
+        n_last, V]). Raises for a config that does not page."""
         out = self.mixed_step(self._ints(tokens), self._ints(q_lens),
                               self._ints(offsets), self._ints(block_tables),
-                              sample=sample)
+                              sample=sample, n_last=n_last)
         return out, self.pool
+
+    @torch.no_grad()
+    def copy_blocks(self, src, dst):
+        """The copy-on-write data plane: ``pool[dst[i]] = pool[src[i]]`` for
+        K and V of every layer, in place (a CUDA graph that steps the pool
+        keeps its addresses). One gather of every source, then one scatter,
+        so a block that is one pair's destination and another's source
+        gives the latter its bytes from before the copy."""
+        if self.pool is None:
+            raise RuntimeError("init_paged_cache() before copy_blocks()")
+        src, dst = self._ints(src).long(), self._ints(dst).long()
+        for pool in (self.pool.k, self.pool.v):
+            pool.index_copy_(1, dst, pool.index_select(1, src))

@@ -147,17 +147,25 @@ def _positions_prefill(offsets, S: int):
 
 @torch.no_grad()
 def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
-               block_tables, cfg, sample: bool = True):
+               block_tables, cfg, sample: bool = True, n_last: int = 1):
     """Unified mixed prefill+decode step against the paged pool.
 
     tokens: [B, S_loc], this sp rank's contiguous columns of a chunk of
     S_loc·sp (all of it without SP): row b carries ``q_lens[b]`` fresh
     tokens written at cache positions ``offsets[b] ..``; decode rows have
-    q_len == 1, chunked-prefill rows up to the chunk width, padding rows 0.
-    Returns the greedy next token [B] (or the newest token's logits, this
-    tp rank's vocabulary columns [B, v_blk] in fp32, with
+    q_len == 1 (plus up to k draft tokens when the engine verifies a
+    speculation), chunked-prefill rows up to the chunk width, padding rows
+    0. Returns the greedy next token [B] (or the newest token's logits,
+    this tp rank's vocabulary columns [B, v_blk] in fp32, with
     ``sample=False``); the pool is updated in place. Padding rows give zero
-    logits and token 0. Only for configs whose every layer pages."""
+    logits and token 0. Only for configs whose every layer pages.
+
+    ``n_last`` (static) is the speculative verify width: with n_last > 1
+    the extraction takes each row's last ``n_last`` global columns
+    ``q_lens[b] - n_last .. q_lens[b] - 1`` and returns [B, n_last] tokens
+    (or [B, n_last, v_blk] logits); columns before the row's start give
+    zero logits and a token the engine ignores. n_last == 1 is the
+    single-token path, unchanged."""
     if any(kind != "attn" for kind in cfg.layer_kinds):
         raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
                          "which only attention layers have")
@@ -175,10 +183,21 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     # column q_lens[b]-1, which lives on exactly one sp rank; the others
     # give zeros and the SP sum collects it. RMSNorm is per row, so the
     # final norm runs on the extracted rows only.
-    loc = q_lens.long() - 1 - sh.sp_rank * S_loc
-    here = (loc >= 0) & (loc < S_loc)
-    take = x[torch.arange(B, device=x.device), loc.clamp(0, S_loc - 1)]
-    last = torch.where(here[:, None], take, torch.zeros_like(take))
+    if n_last == 1:
+        loc = q_lens.long() - 1 - sh.sp_rank * S_loc
+        here = (loc >= 0) & (loc < S_loc)
+        take = x[torch.arange(B, device=x.device), loc.clamp(0, S_loc - 1)]
+        last = torch.where(here[:, None], take, torch.zeros_like(take))
+    else:
+        # the last n_last global columns of each row, each on exactly one
+        # sp rank; columns before the row's start are masked too
+        cols = (q_lens.long()[:, None] - n_last
+                + torch.arange(n_last, device=x.device)[None])
+        loc = cols - sh.sp_rank * S_loc                       # [B, n_last]
+        here = (loc >= 0) & (loc < S_loc) & (cols >= 0)
+        take = x[torch.arange(B, device=x.device)[:, None],
+                 loc.clamp(0, S_loc - 1)]
+        last = torch.where(here[..., None], take, torch.zeros_like(take))
     logits = _logits(params, psum_if(last, sh.sp_group))
     return distributed_argmax(logits, sh) if sample else logits
 

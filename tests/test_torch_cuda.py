@@ -862,6 +862,118 @@ def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
 
 
 # ---------------------------------------------------------------------------
+# the prefix cache, copy-on-write and the speculative verify
+# ---------------------------------------------------------------------------
+# verify-sized rows in one bucket (C 8): prefill chunks, then rows of 1 to
+# 5 columns at a decode row's offset
+VERIFY_CALLS = [(_tokens((2, 8), 1), [8, 5], [0, 0], BT),
+                (_tokens((2, 8), 2), [3, 1], [8, 5], BT),
+                (_tokens((2, 8), 3), [5, 2], [11, 6], BT)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_last", [2, 4, 8])
+def test_cuda_graphed_verify_entry_matches_eager(cuda, dtype, n_last):
+    """A verify step of width ``n_last`` captured once and replayed,
+    against the eager ``mixed_step(n_last=...)`` on a twin model: logits
+    [B, n_last, V] and pools bitwise equal, call by call; and the
+    deployment's lazily built entry of that width gives the logits'
+    argmax."""
+    import functools
+    twins = twin_models(cuda, "qwen3-8b", dtype)
+    for m in twins:
+        m.init_paged_cache(17, 8)
+    eager, graphed = twins
+    entry = CapturedStep(functools.partial(graphed.mixed_step, sample=False,
+                                           n_last=n_last),
+                         graphed, True, GraphPool())
+    for args in VERIFY_CALLS:
+        want = eager.mixed_step(*map(eager._ints, args), sample=False,
+                                n_last=n_last)
+        got = entry(*args)
+        torch.cuda.synchronize()
+        assert entry.graphs.captures == 1
+        assert got.shape == want.shape == (2, n_last, eager.cfg.vocab_size)
+        assert torch.equal(got, want)
+        for a, b in ((eager.pool.k, graphed.pool.k),
+                     (eager.pool.v, graphed.pool.v)):
+            assert torch.equal(a, b)
+    for m in twins:
+        m.init_paged_cache(17, 8)
+    d = Deployment.build(graphed, graphed, mixed=True, paged=True)
+    tok_entry = d.forward_at("shift", n_last)
+    assert d.forward_at("base", n_last) is tok_entry
+    for args in VERIFY_CALLS:
+        want = eager.mixed_step(*map(eager._ints, args), sample=False,
+                                n_last=n_last)
+        assert torch.equal(tok_entry(*args), want.argmax(-1))
+    assert d.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_copy_blocks_matches_cpu(cuda, dtype):
+    """The COW copy in place on the card equals the CPU's bitwise, with a
+    pair whose destination is another pair's source."""
+    cfg = get_config("qwen3-8b").reduced()
+    pools = []
+    for dev in ("cpu", cuda):
+        m = Model(cfg, device=dev, dtype=dtype)
+        pool = m.init_paged_cache(8, 8)
+        g = torch.Generator().manual_seed(3)
+        for t in (pool.k, pool.v):
+            t.copy_(torch.randn(t.shape, generator=g).to(dtype))
+        before = pool.k.cpu()
+        addr = (pool.k.data_ptr(), pool.v.data_ptr())
+        m.copy_blocks([3, 5, 1], [5, 6, 2])
+        assert (pool.k.data_ptr(), pool.v.data_ptr()) == addr
+        pools.append((pool.k.cpu(), pool.v.cpu()))
+    for a, b in zip(*pools):
+        assert torch.equal(a, b)
+    # block 6 got block 5's bytes from before block 5 was overwritten
+    assert torch.equal(pools[1][0][:, 6], before[:, 5])
+    assert torch.equal(pools[1][0][:, 5], before[:, 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefix_spec_engine_graphed_matches_eager(cuda, dtype):
+    """The engine with the prefix cache and k=4 on the serve workload after
+    a 16-token shared prefix: the graphed tables (every verify width
+    captured per bucket) against the eager ones on twin models, over two
+    runs: equal streams, cached tokens, prefix stats, spec counts, config
+    counts and launch counts."""
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.spec import SpecConfig
+    results = []
+    for graphed, model in zip((False, True),
+                              twin_models(cuda, "qwen3-8b", dtype)):
+        eng = ShiftEngine(model, EngineConfig(
+            prefix=PrefixConfig(enabled=True), spec=SpecConfig(k=4)))
+        if not graphed:
+            eng.deploy = Deployment.build(model, model, mixed=True,
+                                          paged=True, graphed=False)
+        ops.reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            reqs = workload(6, 8, shared_prefix=16)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            runs.append(([r.generated for r in reqs],
+                         [r.cached_tokens for r in reqs]))
+        results.append((runs, eng.prefix_stats.as_dict(),
+                        (eng.spec_proposed, eng.spec_accepted),
+                        eng.config_counts, ops.launch_counts()))
+        assert (eng.deploy.captures > 0) == graphed
+        if graphed:
+            assert any(n > 1 for _, n in eng.deploy.spec_forward)
+    assert results[0] == results[1]
+    assert results[0][1]["hits"] > 0 and results[0][2][0] > 0
+
+
+# ---------------------------------------------------------------------------
 # the layouts: four ranks on the one card, collectives over gloo
 # ---------------------------------------------------------------------------
 def _layout_engine_rank(rank, groups, state, kw):

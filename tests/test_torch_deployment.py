@@ -98,8 +98,16 @@ def test_forward_at_errors(reference):
     d = _port_engine({}).deploy
     assert d.forward_at("shift") is d.forward["shift"]
     assert d.forward_at("base", n_last=1) is d.forward["base"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        d.forward_at("base", n_last=3)
+    # a verify width is built once, lazily, and on the trivial layout base
+    # and shift share it, as they share the plain entry
+    assert d.spec_forward == {}
+    e4 = d.forward_at("base", n_last=4)
+    assert e4 is not d.forward["base"] and e4.graphs is d.graphs
+    assert d.forward_at("shift", n_last=4) is e4
+    assert set(d.spec_forward) == {("base", 4), ("shift", 4)}
+    toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+    out = e4(toks, [8, 3], [0, 0], np.array([[1, 2], [3, 0]], np.int32))
+    assert tuple(out.shape) == (2, 4)
 
 
 @pytest.mark.parametrize("arch,kw", [

@@ -27,6 +27,10 @@ canonical weights.
   pressure: streams, config counts, preemptions and free blocks equal the
   reference's ``ShiftEngine`` on ``mesh122`` and the port's one-rank
   engine, and all four ranks' streams are equal.
+* The SPMD engine with the prefix cache and speculation (``k=4``) on a
+  shared 16-token prefix and repetitive prompts: streams, config counts,
+  prefix stats and spec counts equal the reference's on ``mesh122`` and
+  the one-rank port engine's, on every rank.
 * ``Layout`` against the reference's; dp and ep above 1 raise, and so does
   ``graphed=True`` above world size 1.
 
@@ -195,6 +199,46 @@ def _engine(rank, groups, state, cfg, kw):
             "traffic": dict(groups.traffic), "summary": text.getvalue()}
 
 
+# the prefix + spec engine: 4 slots, chunk 8, blocks of 8, threshold 4, a
+# shared 16-token prefix before repetitive prompts, 10 new tokens
+PS_KW = dict(max_slots=4, s_max=64, prefill_chunk=8, block_size=8)
+PS_PROMPTS = [list(range(1000, 1016)) + ([2, 3, 4] * 4)[:9 + i]
+              for i in range(4)]
+PS_NEW = 10
+
+
+def _prefix_spec_port(eng, make=Request):
+    """Serve the prefix + spec workload on ``eng`` (the port's, or the
+    reference's with its ``Request``; its spec counts are read by the
+    caller, from its obs counters)."""
+    reqs = [make(i, list(p), max_new_tokens=PS_NEW)
+            for i, p in enumerate(PS_PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return {"streams": [r.generated for r in reqs],
+            "cached": [r.cached_tokens for r in reqs],
+            "counts": dict(eng.config_counts),
+            "stats": eng.prefix_stats.as_dict(),
+            "spec": (getattr(eng, "spec_proposed", None),
+                     getattr(eng, "spec_accepted", None)),
+            "used": eng.block_accounting().used,
+            "pinned": eng.block_accounting().pinned}
+
+
+def _prefix_spec_config():
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.spec import SpecConfig
+    return EngineConfig(prefix=PrefixConfig(enabled=True),
+                        spec=SpecConfig(k=4), threshold=4, **PS_KW)
+
+
+def _engine_prefix_spec(rank, groups, state, cfg):
+    base, shift = _models(cfg, state, Layout(sp=SP, tp=TP), groups)
+    return _prefix_spec_port(ShiftEngine(base, _prefix_spec_config(),
+                                         shift=shift))
+
+
 def _graphed_refused(groups, cfg, state):
     base, shift = _models(cfg, state, Layout(sp=SP, tp=TP), groups)
     _fresh_pool(base, shift, 9, 8)
@@ -243,6 +287,7 @@ def _job(rank, groups, inputs):
                                     inputs["inv_toks"])
     out["engine"] = {name: _engine(rank, groups, state, cfg, kw)
                      for name, kw in (("free", {}), ("tight", TIGHT))}
+    out["prefix_spec"] = _engine_prefix_spec(rank, groups, state, cfg)
     out["graphed"] = _graphed_refused(groups, cfg, state)
     return out
 
@@ -397,6 +442,27 @@ def _ref_engine(ref, kw):
     eng.run_until_idle()
     return ([r.generated for r in reqs], eng.config_counts, eng.preemptions,
             eng.kv.num_free_blocks)
+
+
+def _ref_prefix_spec(ref):
+    import jax
+    import jax.numpy as jnp
+    from repro.core.policy import ThresholdPolicy as JaxPolicy
+    from repro.engine import EngineConfig as JaxEngineConfig
+    from repro.engine import PrefixConfig as JaxPrefixConfig
+    from repro.engine import Request as JaxRequest
+    from repro.engine import ShiftEngine as JaxEngine
+    from repro.spec import SpecConfig as JaxSpecConfig
+    eng = JaxEngine(ref.mb, ref.ms, jax.tree.map(jnp.asarray, ref.pb),
+                    jax.tree.map(jnp.asarray, ref.ps),
+                    JaxEngineConfig(prefix=JaxPrefixConfig(enabled=True),
+                                    spec=JaxSpecConfig(k=4), **PS_KW),
+                    policy=JaxPolicy(4))
+    out = _prefix_spec_port(eng, JaxRequest)
+    reg = eng.obs.registry
+    out["spec"] = (reg.counter_total("spec_proposed_total"),
+                   reg.counter_total("spec_accepted_total"))
+    return out
 
 
 def _one_rank_engine(state, kw):
@@ -601,6 +667,23 @@ def test_engine_matches_reference(ranks, ref22, inputs, name, kw):
     assert e["traffic"]["all_reduce_calls"] > 0
     assert "dp1·sp2·tp2" in e["summary"] and "gloo" in e["summary"]
     assert "eager steps" in e["summary"] and "dp1·sp1·tp4" in e["summary"]
+
+
+def test_prefix_spec_engine_matches_reference(ranks, ref22, inputs):
+    """The SPMD engine with the prefix cache and k=4 on (2, 2): every
+    rank's streams, cached tokens, config counts, prefix stats and spec
+    counts equal the reference's on mesh122 and the one-rank engine's."""
+    want = _ref_prefix_spec(ref22)
+    model = Model(_cfg(), device="cpu", dtype=torch.float32)
+    model.load_params(inputs["state"])
+    one = _prefix_spec_port(ShiftEngine(model, _prefix_spec_config()))
+    assert one == want
+    for r, res in enumerate(ranks):
+        assert res["prefix_spec"] == want, f"rank {r}"
+    assert want["stats"]["hits"] > 0 and want["cached"][-1] >= 16
+    assert 0 < want["spec"][1] < want["spec"][0]
+    assert want["counts"]["base"] > 0 and want["counts"]["shift"] > 0
+    assert want["used"] == want["pinned"] == want["stats"]["entries"]
 
 
 def test_graphed_above_world_size_one_raises(ranks):
