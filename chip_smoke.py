@@ -87,13 +87,34 @@ Phases (every failure propagates and exits non-zero):
    block held at exit, 109 and 36 launches per step; it prints wall ms and
    collective bytes per step by config, one all-reduce's ms on card and
    host tensors, and peak memory per rank. Phase 3 also holds the ragged kernel and the q/k
-   pair at a rank's shapes (8 q and 2 kv heads).
+   pair at a rank's shapes (8 q and 2 kv heads);
+7. data parallelism, all on the one card over gloo, after a reckoning of
+   the card's memory (the parent holds no model): (dp, sp, tp) = (2, 1, 1),
+   two processes each with the whole qwen3-8b at full width and depth in
+   bf16 and its row's pool of 65 blocks, serving the serve workload and
+   then the prefix + spec workload; every rank's streams equal, both rows
+   used, the streams equal to a dp=1 engine's in each rank's process over
+   the same weights fed that rank's row's requests, its every step fitted
+   to the row's segment of the dp batch (the same inputs after zero
+   padding, run at the dp step's shapes), no block held at exit
+   (``used == pinned == entries`` per row), 109 and 36 launches per step
+   and rank; it prints per row the requests, hits, tokens saved, drafts
+   accepted and free blocks, the TTFT, the wall per step by config, the
+   decode tokens/s and the ``dp_all_gather`` bytes and calls per step.
+   Then (2, 2, 2), eight processes at full width with the depth cut to
+   the most layers (at least 8) that fit with 20 % of the free memory
+   spare: every rank's streams equal; each row's segment of every step,
+   replayed through (1, 2, 2) models, gives the same tokens bitwise; and
+   the streams equal a (1, 2, 2) engine's fed each row's routed requests,
+   pinned as above to the row's segments and the dp step's config; it
+   prints the wall per step by config and the collective bytes by kind.
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
+import contextlib
 import gc
 import io
 import json
@@ -1179,8 +1200,8 @@ def count_waits(eng):
     n = {"waits": 0}
     wait = eng._wait_for_inflight
 
-    def counted(req, matched):
-        did = wait(req, matched)
+    def counted(req, row, matched):
+        did = wait(req, row, matched)
         n["waits"] += int(did)
         return did
     eng._wait_for_inflight = counted
@@ -1620,23 +1641,7 @@ def layout_rank(rank, groups, check_cfg):
         for name, m in (("base", eng.base), ("shift", eng.shift))}
     pool = eng.base.pool
     out["pool_bytes"] = 2 * pool.k.numel() * pool.k.element_size()
-    walls = {"base": [], "shift": []}
-    traffic = {"base": Counter(), "shift": Counter()}
-
-    def timed(entry, config):
-        def call(*arrays):
-            before = Counter(groups.traffic)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = entry(*arrays)
-            torch.cuda.synchronize()
-            walls[config].append(time.perf_counter() - t)
-            traffic[config].update(Counter(groups.traffic) - before)
-            return res
-        return call
-
-    for config in ("base", "shift"):
-        eng.deploy.forward[config] = timed(eng.deploy.forward[config], config)
+    walls, traffic = timed_forward(torch, eng, groups)
     for r in serve.workload(6, 16):            # warm-up
         eng.submit(r)
     eng.run_until_idle()
@@ -1912,7 +1917,624 @@ def layout_phase(torch):
         "all_reduce_ms": [r["all_reduce_ms"] for r in res],
         "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}}))
     print(f"card: {card_line()}")
-    return r0["launches"], ps0["launches"]
+    overhead = max(r["peak_bytes"] - sum(r["param_bytes"].values())
+                   for r in res)
+    return r0["launches"], ps0["launches"], overhead
+
+
+DP_TIMEOUT_S = 600
+DP_GRID = (2, 2, 2)             # (dp, sp, tp), the reference's mesh222
+DP_GRID_MIN_LAYERS = 8
+DP_HEADROOM = 0.2               # of the card's free memory, kept free
+
+
+def one_row_view(model):
+    """``model`` (a rank of dp rows with a model group of one, which holds
+    the whole model) as the trivial layout's model over the same parameter
+    tensors: the layers' computation is the same, only the dp row slicing
+    and the DP gather go. A new engine gives it its own pool."""
+    import copy
+    from repro_torch.parallel import Layout, Shard
+    view = copy.copy(model)
+    view.lay, view.shard = Layout(), Shard()
+    view.pool = view.cache = None
+    return view
+
+
+def timed_forward(torch, eng, groups):
+    """Wrap the engine's mixed entries so that each call's wall (after a
+    device sync) and the collective traffic it made are kept by config."""
+    from collections import Counter
+    walls = {"base": [], "shift": []}
+    traffic = {"base": Counter(), "shift": Counter()}
+
+    def timed(entry, config):
+        def call(*arrays):
+            before = Counter(groups.traffic)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = entry(*arrays)
+            torch.cuda.synchronize()
+            walls[config].append(time.perf_counter() - t)
+            traffic[config].update(Counter(groups.traffic) - before)
+            return res
+        return call
+
+    for config in ("base", "shift"):
+        eng.deploy.forward[config] = timed(eng.deploy.forward[config], config)
+    return walls, traffic
+
+
+def dp_measured_run(torch, eng, reqs):
+    """Serve ``reqs`` on ``eng`` with every launch counter set to 0 just
+    before and read just after. Returns the numbers of the run."""
+    from repro_torch.launch import serve
+    eng.config_counts = {"base": 0, "shift": 0}
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    t_first = max(r.first_token_time for r in reqs)
+    t_last = max(r.finish_time for r in reqs)
+    dec_tok = sum(len(r.generated) - 1 for r in reqs)
+    kv = eng.kv
+    return {"wall_s": wall, "launches": serve.launch_counts(),
+            "streams": [r.generated for r in reqs],
+            "rows": [r.row for r in reqs],
+            "finish": [str(r.finish_reason) for r in reqs],
+            "cached": [r.cached_tokens for r in reqs],
+            "counts": dict(eng.config_counts),
+            "ttft_ms": [(r.first_token_time - r.arrival) * 1e3 for r in reqs],
+            "decode_tokens_per_s": dec_tok / (t_last - t_first),
+            "stats": eng.prefix_stats.as_dict(),
+            "spec": (eng.spec_proposed, eng.spec_accepted),
+            "per_row": [{
+                "requests": sum(1 for r in reqs if r.row == row),
+                "hits": (eng.prefix_rows[row].stats()["hits"]
+                         if eng.prefix_rows else 0),
+                "tokens_saved": (eng.prefix_rows[row].stats()["tokens_saved"]
+                                 if eng.prefix_rows else 0),
+                "drafts_accepted": eng.spec_accepted_rows[row],
+                "free_blocks": kv.row_free_blocks(row),
+                "used": kv.allocators[row].num_used,
+                "pinned": (len(eng.prefix_rows[row].blocks())
+                           if eng.prefix_rows else 0),
+                "entries": (len(eng.prefix_rows[row]) if eng.prefix_rows
+                            else 0)} for row in range(kv.dp)]}
+
+
+def fit(a, shape):
+    """``a`` zero-padded or cut to ``shape``; None when the cut drops a
+    nonzero entry."""
+    import numpy as np
+    out = np.zeros(shape, a.dtype)
+    both = tuple(slice(0, min(n, m)) for n, m in zip(a.shape, shape))
+    out[both] = a[both]
+    if np.count_nonzero(a) != np.count_nonzero(out):
+        return None
+    return out
+
+
+def renamed(a, b):
+    """True when block tables ``a`` are ``b`` with the block ids renamed
+    one to one (0, the null block, to itself): two pools that served other
+    work before hold their free lists in other orders."""
+    pairs = set(zip(a.ravel().tolist(), b.ravel().tolist()))
+    return (all((x == 0) == (y == 0) for x, y in pairs)
+            and len(pairs) == len({x for x, _ in pairs})
+            == len({y for _, y in pairs}))
+
+
+def pin_to_dp_steps(eng, steps, row, dp):
+    """Pin a dp=1 engine fed the requests routed to dp row ``row`` to that
+    row's segment of a recorded dp run (``recorded_forward``'s steps), so
+    that it steps the dp batch's shapes: its k-th mixed step is fitted to
+    the k-th recorded step that gave the row work (that step's segment
+    width, chunk bucket and table width; only zero padding may be added or
+    cut) and runs at that step's config and verify width, and the engine
+    reads its own columns of the result. Raises when the fitted inputs
+    differ from the segment's (block tables up to a renaming of block ids,
+    ``renamed``), i.e. when the dp=1 engine scheduled, placed or mapped
+    otherwise than the dp row did. Returns the list of the
+    steps it ran and the number of the row's segments, to be compared once
+    the engine is idle."""
+    import numpy as np
+    segs = []
+    for config, n_last, arrays, _ in steps:
+        seg = arrays[0].shape[0] // dp
+        part = [a[row * seg:(row + 1) * seg] for a in arrays]
+        if part[1].any():                  # q_lens: the row had work
+            segs.append((config, n_last, part))
+    ran = []
+    forward_at = eng.deploy.forward_at
+
+    def pinned(config, n_last=1):
+        def call(*arrays):
+            k = len(ran)
+            if k >= len(segs):
+                raise RuntimeError(f"row {row}'s dp=1 engine takes step {k}; "
+                                   f"the dp row took {len(segs)}")
+            rec_config, rec_n, want = segs[k]
+            got = [fit(a, w.shape) for a, w in zip(arrays, want)]
+            if (n_last > rec_n or any(g is None for g in got)
+                    or not all(np.array_equal(g, w)
+                               for g, w in zip(got[:3], want[:3]))
+                    or not renamed(got[3], want[3])):
+                raise RuntimeError(
+                    f"row {row}'s dp=1 engine, step {k}: inputs "
+                    f"{[a.tolist() for a in arrays]} (verify width {n_last}) "
+                    f"do not fit the dp row's segment "
+                    f"{[w.tolist() for w in want]} (width {rec_n})")
+            ran.append(k)
+            res = forward_at(rec_config, rec_n)(*got)
+            if rec_n > 1:
+                res = res[:, rec_n - n_last:]
+                if n_last == 1:
+                    res = res[:, 0]
+            return res
+        return call
+
+    eng.deploy.forward_at = pinned
+    return ran, len(segs)
+
+
+def one_row_streams(torch, model, reqs, row, kw, steps):
+    """The streams of a dp=1 engine (half the slots, eager tables) over
+    ``model``'s weights, fed the requests of ``reqs`` routed to ``row`` and
+    pinned to the dp run's ``steps`` (``pin_to_dp_steps``): {rid:
+    tokens}."""
+    from repro_torch.engine import EngineConfig, Request, ShiftEngine
+    from repro_torch.engine.deployment import Deployment
+    view = one_row_view(model)
+    eng = ShiftEngine(view, EngineConfig(max_slots=4, **kw))
+    eng.deploy = Deployment.build(view, view, mixed=True, paged=True,
+                                  graphed=False)
+    ran, n = pin_to_dp_steps(eng, steps, row, model.lay.dp)
+    sub = [Request(r.rid, list(r.prompt), max_new_tokens=r.max_new_tokens)
+           for r in reqs if r.row == row]
+    for r in sub:
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    if len(ran) != n:
+        raise RuntimeError(f"row {row}'s dp=1 engine took {len(ran)} steps; "
+                           f"the dp row took {n}")
+    return {r.rid: r.generated for r in sub}
+
+
+def dp_rank(rank, groups):
+    """One rank of the (dp, sp, tp) = (2, 1, 1) run (spawned by
+    ``run_ranks``): qwen3-8b at full width and depth in bf16, the whole
+    model and its row's pool, serving the serve workload and then the
+    prefix + spec workload; each beside a dp=1 engine over the same
+    weights fed this rank's row's requests at the dp batch's shapes
+    (``pin_to_dp_steps``). Returns numpy results; only
+    the parent prints."""
+    import torch
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.launch import serve
+    from repro_torch.spec import SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "device": torch.cuda.current_device()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = serve.build_engine("qwen3-8b", device="cuda", dtype=torch.bfloat16,
+                             dp=2, groups=groups)
+    torch.cuda.synchronize()
+    row = eng.model.shard.dp_rank
+    out["row"], out["build_s"] = row, time.monotonic() - t0
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in eng.model.params.parameters())
+    pool = eng.model.pool
+    out["pool_bytes"] = 2 * pool.k.numel() * pool.k.element_size()
+    out["pool_blocks"] = pool.k.shape[1]
+    walls, traffic = timed_forward(torch, eng, groups)
+    for r in serve.workload(6, 16):            # warm-up
+        eng.submit(r)
+    eng.run_until_idle()
+    for config in walls:
+        walls[config].clear()
+        traffic[config].clear()
+    steps = recorded_forward(eng)
+    reqs = serve.workload(6, 16)
+    out["plain"] = dp_measured_run(torch, eng, reqs)
+    out["plain"]["walls"] = {k: list(v) for k, v in walls.items()}
+    out["plain"]["traffic"] = {k: dict(v) for k, v in traffic.items()}
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.print_summary(eng)
+    out["summary"] = text.getvalue()
+    model = eng.model
+    del eng
+    gc.collect()
+    out["plain"]["one_row"] = one_row_streams(torch, model, reqs, row, {},
+                                              steps)
+
+    # the prefix cache and k=4 drafts on the same model, a new engine
+    ps_kw = {"prefix": PrefixConfig(enabled=True), "spec": SpecConfig(k=PS_K)}
+    ps = ShiftEngine(model, EngineConfig(**ps_kw))
+    steps = recorded_forward(ps)
+    reqs = serve.workload(6, 16, shared_prefix=PS_SHARED)
+    out["prefix_spec"] = dp_measured_run(torch, ps, reqs)
+    out["prefix_spec"]["traffic"] = dict(groups.traffic)
+    del ps
+    gc.collect()
+    out["prefix_spec"]["one_row"] = one_row_streams(torch, model, reqs, row,
+                                                    ps_kw, steps)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def grid_cfg(layers):
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    return replace(get_config("qwen3-8b"), num_layers=layers)
+
+
+def grid_models(torch, lay, groups, layers):
+    """This rank's base model on ``lay`` and shift model on its
+    ``to_shift()``, bf16, drawn from the generator seeded 0."""
+    from repro_torch.models import Model
+    out = []
+    for layout in (lay, lay.to_shift()):
+        m = Model(grid_cfg(layers), device="cuda", dtype=torch.bfloat16,
+                  lay=layout, groups=groups)
+        m.init_params(torch.Generator(device="cuda").manual_seed(0))
+        out.append(m)
+    return out
+
+
+def recorded_forward(eng):
+    """Wrap the engine's ``forward_at`` so that each mixed step's config,
+    verify width, host inputs and the (gathered) tokens it returned are
+    kept, in order."""
+    steps = []
+    forward_at = eng.deploy.forward_at
+
+    def recorded(config, n_last=1):
+        entry = forward_at(config, n_last)
+
+        def call(*arrays):
+            res = entry(*arrays)
+            steps.append((config, n_last, [a.copy() for a in arrays],
+                          res.cpu().numpy()))
+            return res
+        return call
+
+    eng.deploy.forward_at = recorded
+    return steps
+
+
+def dp_grid_rank(rank, groups, layers):
+    """One rank of the (2, 2, 2) run: the cut-depth qwen3-8b at full width
+    in bf16, base on the grid and shift on its ``to_shift()`` over this
+    rank's row's pool, serving the serve workload; the measured run's
+    steps (config, inputs, gathered tokens) are kept for the replay."""
+    import torch
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    dp, sp, tp = DP_GRID
+    base, shift = grid_models(torch, Layout(dp=dp, sp=sp, tp=tp), groups,
+                              layers)
+    eng = ShiftEngine(base, EngineConfig(), shift=shift)
+    walls, traffic = timed_forward(torch, eng, groups)
+    for r in serve.workload(6, 16):            # warm-up
+        eng.submit(r)
+    eng.run_until_idle()
+    for config in walls:
+        walls[config].clear()
+        traffic[config].clear()
+    steps = recorded_forward(eng)
+    out = dp_measured_run(torch, eng, serve.workload(6, 16))
+    out.update(rank=rank, row=base.shard.dp_rank, steps=steps,
+               walls={k: list(v) for k, v in walls.items()},
+               traffic={k: dict(v) for k, v in traffic.items()},
+               param_bytes=sum(p.numel() * p.element_size()
+                               for m in (base, shift)
+                               for p in m.params.parameters()),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def grid_split_rank(rank, groups, layers, steps, split):
+    """One rank of (1, 2, 2) on the same weights. First the replay: each
+    dp row's segment of every recorded (2, 2, 2) step, in order, through
+    the (1, 2, 2) model of the step's config on a fresh pool of one row's
+    65 blocks; returns per row whether every step's tokens equal the
+    segment's gathered tokens bitwise. Then the (1, 2, 2) engine (half the
+    slots, a new engine each) fed each row's routed requests, pinned to
+    that row's segments (``pin_to_dp_steps``); returns its streams by
+    rid."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.parallel import Layout
+    dp, sp, tp = DP_GRID
+    base, shift = grid_models(torch, Layout(sp=sp, tp=tp), groups, layers)
+    replay = []
+    for d in range(dp):
+        base.init_paged_cache(65, 16)
+        shift.adopt_paged_cache(base)
+        equal = []
+        for config, n_last, (toks, qlen, offs, bt), want in steps:
+            seg = toks.shape[0] // dp
+            rows = slice(d * seg, (d + 1) * seg)
+            m = base if config == "base" else shift
+            got, _ = m.forward_mixed(toks[rows], qlen[rows], offs[rows],
+                                     bt[rows], n_last=n_last)
+            equal.append(bool(np.array_equal(got.cpu().numpy(), want[rows])))
+        replay.append(equal)
+    streams = {}
+    for d, rids in enumerate(split):
+        eng = ShiftEngine(base, EngineConfig(max_slots=4), shift=shift)
+        ran, n = pin_to_dp_steps(eng, steps, d, dp)
+        reqs = [r for r in serve.workload(6, 16) if r.rid in rids]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        if len(ran) != n:
+            raise RuntimeError(f"row {d}'s (1, 2, 2) engine took {len(ran)} "
+                               f"steps; the dp row took {n}")
+        streams.update({r.rid: r.generated for r in reqs})
+        del eng
+        gc.collect()
+    torch.cuda.synchronize()
+    return {"replay": replay, "streams": streams}
+
+
+def per_config(walls, traffic):
+    out = {}
+    for config, w in walls.items():
+        n = len(w)
+        if not n:
+            continue
+        out[config] = {"steps": n, "wall_ms_per_step": sum(w) / n * 1e3,
+                       "bytes_per_step": {
+                           k[:-6]: v / n for k, v in traffic[config].items()
+                           if k.endswith("_bytes")},
+                       "calls_per_step": {
+                           k[:-6]: v / n for k, v in traffic[config].items()
+                           if k.endswith("_calls")}}
+    return out
+
+
+def dp_phase(torch, overhead_bytes):
+    """Data parallelism on the one card, every rank its own process and the
+    collectives over gloo: (dp, sp, tp) = (2, 1, 1) at full width and
+    depth, then (2, 2, 2) at full width with the depth cut to fit.
+    ``overhead_bytes`` is a rank's measured peak beyond its parameters in
+    the layout phase (its pool, activations and staging). Returns rank 0's
+    launch counts of each measured run."""
+    import numpy as np
+    from repro_torch.launch.mesh import run_ranks
+    per_step = {"rmsnorm": 109, "paged_ragged_attention": 36}
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"dp phase: the parent still holds {held / 1e9:.2f} "
+          "GB on the card")
+    free, total = torch.cuda.mem_get_info()
+    # what this process holds outside the allocator: its CUDA context
+    ctx = total - free - torch.cuda.memory_reserved()
+    full = grid_cfg(36).num_params() * 2
+    print(f"dp phase: card {total / 1e9:.2f} GB, {free / 1e9:.2f} GB free "
+          f"with the parent's context ({ctx / 1e9:.2f} GB) and "
+          f"{held / 1e6:.1f} MB allocated by the parent; gloo stages the "
+          "collectives through the host, so the walls below are not a speed "
+          "of data parallelism")
+    print(f"dp phase (2, 1, 1): memory reckoned: 2 ranks x (qwen3-8b bf16 "
+          f"{full / 1e9:.2f} GB + a row pool of 65 blocks x 16 tokens x 36 "
+          f"layers, {2 * 65 * 16 * 36 * 8 * 128 * 2 / 1e6:.1f} MB, + its "
+          f"dp=1 twin's pool, + ~{(overhead_bytes + ctx) / 1e9:.2f} GB "
+          f"overhead) = "
+          f"{2 * (full + 2 * 2 * 65 * 16 * 36 * 8 * 128 * 2 + overhead_bytes + ctx) / 1e9:.1f}"
+          " GB")
+    t0 = time.monotonic()
+    res = run_ranks(dp_rank, 1, 1, dp=2, device="cuda", backend="gloo",
+                    timeout_s=DP_TIMEOUT_S)
+    print(f"dp phase (2, 1, 1): 2 ranks ran in {time.monotonic() - t0:.1f} s")
+    r0 = res[0]
+    for key, label in (("plain", "serve workload"),
+                       ("prefix_spec", f"prefix + spec (a {PS_SHARED}-token "
+                                       f"shared prefix, k={PS_K})")):
+        a = r0[key]
+        for r in res:
+            b = r[key]
+            check(all(b[k] == a[k] for k in ("streams", "rows", "counts",
+                                             "stats", "spec", "cached")),
+                  f"dp (2, 1, 1) {label}: rank {r['rank']} differs from rank "
+                  "0")
+            check(all(f == "ok" for f in b["finish"])
+                  and all(len(t) == 16 for t in b["streams"]),
+                  f"dp (2, 1, 1) {label}: rank {r['rank']}: {b['finish']}")
+            for rid, toks in b["one_row"].items():
+                check(toks == a["streams"][rid],
+                      f"dp (2, 1, 1) {label}: request {rid} of row "
+                      f"{r['row']}: {a['streams'][rid]} against the dp=1 "
+                      f"engine's {toks}")
+            check(sorted(b["one_row"]) == [i for i, row in
+                                           enumerate(a["rows"])
+                                           if row == r["row"]],
+                  f"dp (2, 1, 1) {label}: rank {r['rank']}'s dp=1 engine "
+                  "served other requests")
+            steps = sum(b["counts"].values())
+            check(b["launches"] == {k: per_step.get(k, 0) * steps
+                                    for k in b["launches"]},
+                  f"dp (2, 1, 1) {label}: rank {r['rank']}: launches "
+                  f"{b['launches']} over {steps} steps")
+        check(set(a["rows"]) == {0, 1}, f"dp (2, 1, 1) {label}: rows "
+              f"{a['rows']}")
+        for row, pr in enumerate(a["per_row"]):
+            check(pr["used"] == pr["pinned"] == pr["entries"],
+                  f"dp (2, 1, 1) {label}: row {row} holds blocks: {pr}")
+        steps = sum(a["counts"].values())
+        print(f"dp phase (2, 1, 1) {label}: equal on both ranks and equal to "
+              f"each rank's dp=1 engine fed its row's requests at the dp "
+              f"batch's shapes (every step's inputs equal the row's "
+              f"segment); rows "
+              f"{a['rows']}; {steps} steps {a['counts']} in "
+              f"{a['wall_s']:.2f} s; TTFT ms "
+              + ", ".join(f"{t:.1f}" for t in a["ttft_ms"])
+              + f"; decode {a['decode_tokens_per_s']:.1f} tokens/s; "
+              f"launches per step and rank {per_step} (counters)")
+        for row, pr in enumerate(a["per_row"]):
+            print(f"dp phase (2, 1, 1) {label}: row {row}: "
+                  f"{pr['requests']} requests, {pr['hits']} hits, "
+                  f"{pr['tokens_saved']} tokens saved, "
+                  f"{pr['drafts_accepted']} drafts accepted, "
+                  f"{pr['free_blocks']} free blocks at exit")
+    ps = r0["prefix_spec"]
+    check(ps["stats"]["hits"] > 0 and ps["spec"][0] > 0,
+          f"dp (2, 1, 1) prefix + spec: prefix {ps['stats']}, spec "
+          f"{ps['spec']}")
+    plain = r0["plain"]
+    stats = per_config(plain["walls"], plain["traffic"])
+    for config, st in stats.items():
+        print(f"dp phase (2, 1, 1): {config} steps on rank 0: {st['steps']}, "
+              f"wall {st['wall_ms_per_step']:.2f} ms per step; per step "
+              f"{st['bytes_per_step'].get('dp_all_gather', 0):.0f} bytes in "
+              f"{st['calls_per_step'].get('dp_all_gather', 0):.0f} "
+              "dp_all_gather call(s) (payload handed over by the rank)")
+    print("dp phase (2, 1, 1): " + r0["summary"].replace("\n", "; "))
+    for r in res:
+        print(f"dp phase (2, 1, 1): rank {r['rank']} (card {r['device']}, row "
+              f"{r['row']}): params {r['param_bytes'] / 1e9:.2f} GB, pool "
+              f"{r['pool_blocks']} blocks {r['pool_bytes'] / 1e6:.1f} MB, "
+              f"built in {r['build_s']:.1f} s, peak device memory "
+              f"{r['peak_bytes'] / 1e9:.2f} GB")
+    dp211 = {"per_config": stats, "ttft_ms": plain["ttft_ms"],
+             "decode_tokens_per_s": plain["decode_tokens_per_s"],
+             "wall_s": plain["wall_s"], "rows": plain["rows"],
+             "per_row": plain["per_row"],
+             "prefix_spec": {k: ps[k] for k in (
+                 "wall_s", "counts", "stats", "spec", "per_row", "ttft_ms",
+                 "decode_tokens_per_s")},
+             "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}
+    del res
+    gc.collect()
+
+    # (2, 2, 2): the depth that fits eight ranks with the headroom
+    dp, sp, tp = DP_GRID
+    c1, c2 = grid_cfg(1).num_params(), grid_cfg(2).num_params()
+    per_layer, fixed = (c2 - c1) * 2, (c1 - (c2 - c1)) * 2
+    share = 1 / tp + 1 / (sp * tp)             # base shard + shift shard
+    free, _ = torch.cuda.mem_get_info()
+    room = (1 - DP_HEADROOM) * free
+    n = dp * sp * tp
+
+    def need(layers):
+        return n * (share * (fixed + layers * per_layer) + overhead_bytes
+                    + ctx)
+
+    layers = max((L for L in range(1, 37) if need(L) <= room), default=0)
+    print(f"dp phase (2, 2, 2): memory reckoned: per rank the base shard "
+          f"(1/{tp}) and the shift shard (1/{sp * tp}) of "
+          f"{fixed / 1e9:.2f} GB (embedding and head) + L x "
+          f"{per_layer / 1e9:.3f} GB, + {overhead_bytes / 1e9:.2f} GB "
+          f"overhead (measured in the layout phase) + {ctx / 1e9:.2f} GB "
+          f"context; {n} ranks need {need(36) / 1e9:.1f} GB at the full 36 "
+          f"layers against {room / 1e9:.1f} GB ({1 - DP_HEADROOM:.0%} of "
+          f"{free / 1e9:.1f} GB free): depth cut to {layers} layers "
+          f"({need(layers) / 1e9:.1f} GB); width kept (d_model 4096, 32 q "
+          "and 8 kv heads, vocabulary 151936)")
+    check(layers >= DP_GRID_MIN_LAYERS, f"dp (2, 2, 2): {layers} layers fit, "
+          f"fewer than {DP_GRID_MIN_LAYERS}")
+    t0 = time.monotonic()
+    grid = run_ranks(dp_grid_rank, sp, tp, dp=dp, device="cuda",
+                     backend="gloo", timeout_s=DP_TIMEOUT_S, args=(layers,))
+    t_grid = time.monotonic() - t0
+    g0 = grid[0]
+    split = [[i for i, row in enumerate(g0["rows"]) if row == d]
+             for d in range(dp)]
+    t0 = time.monotonic()
+    ref = run_ranks(grid_split_rank, sp, tp, device="cuda", backend="gloo",
+                    timeout_s=DP_TIMEOUT_S, args=(layers, g0["steps"], split))
+    t_ref = time.monotonic() - t0
+    per_step_grid = {"rmsnorm": 3 * layers + 1,
+                     "paged_ragged_attention": layers}
+    for g in grid:
+        check(all(g[k] == g0[k] for k in ("streams", "rows", "counts")),
+              f"dp (2, 2, 2): rank {g['rank']} differs from rank 0")
+        check(len(g["steps"]) == len(g0["steps"]) and all(
+            a[:2] == b[:2] and all(np.array_equal(x, y)
+                                   for x, y in zip(a[2], b[2]))
+            and np.array_equal(a[3], b[3])
+            for a, b in zip(g["steps"], g0["steps"])),
+            f"dp (2, 2, 2): rank {g['rank']}'s steps differ from rank 0's")
+        check(all(f == "ok" for f in g["finish"])
+              and all(len(t) == 16 for t in g["streams"]),
+              f"dp (2, 2, 2): rank {g['rank']}: {g['finish']}")
+        steps = sum(g["counts"].values())
+        check(g["launches"] == {k: per_step_grid.get(k, 0) * steps
+                                for k in g["launches"]},
+              f"dp (2, 2, 2): rank {g['rank']}: launches {g['launches']} "
+              f"over {steps} steps")
+        check(all(pr["used"] == 0 for pr in g["per_row"]),
+              f"dp (2, 2, 2): rank {g['rank']}: blocks held {g['per_row']}")
+    for r in ref:
+        for d, equal in enumerate(r["replay"]):
+            check(len(equal) == len(g0["steps"]) and all(equal),
+                  f"dp (2, 2, 2): row {d}'s segments replayed on (1, 2, 2) "
+                  f"give other tokens at steps "
+                  f"{[i for i, e in enumerate(equal) if not e]}")
+        check(r["streams"] == ref[0]["streams"],
+              "dp (2, 2, 2): the (1, 2, 2) ranks' streams differ")
+    check(sorted(ref[0]["streams"]) == list(range(len(g0["streams"]))),
+          f"dp (2, 2, 2): the (1, 2, 2) engines served "
+          f"{sorted(ref[0]['streams'])}")
+    for rid, toks in ref[0]["streams"].items():
+        check(toks == g0["streams"][rid],
+              f"dp (2, 2, 2): request {rid} of row {g0['rows'][rid]}: "
+              f"{g0['streams'][rid]} against the (1, 2, 2) engine's {toks}")
+    check(set(g0["rows"]) == {0, 1} and g0["counts"]["base"] >= 1
+          and g0["counts"]["shift"] > 0,
+          f"dp (2, 2, 2): rows {g0['rows']}, configs {g0['counts']}")
+    gstats = per_config(g0["walls"], g0["traffic"])
+    print(f"dp phase (2, 2, 2): {n} ranks ({layers} layers) ran in "
+          f"{t_grid:.1f} s, the (1, 2, 2) replay and engines in "
+          f"{t_ref:.1f} s; every rank's streams and steps equal; each row's "
+          f"segment of all {len(g0['steps'])} steps, replayed through the "
+          "(1, 2, 2) models on one row's pool, gives the same tokens "
+          f"bitwise; rows {g0['rows']}; {sum(g0['counts'].values())} steps "
+          f"{g0['counts']}; launches per step and rank {per_step_grid} "
+          "(counters)")
+    print("dp phase (2, 2, 2): the streams equal the (1, 2, 2) engine's fed "
+          "each row's routed requests at the dp batch's shapes and configs "
+          "(every step's inputs equal the row's segment)")
+    for config, st in gstats.items():
+        print(f"dp phase (2, 2, 2): {config} steps on rank 0: "
+              f"{st['steps']}, wall {st['wall_ms_per_step']:.2f} ms per "
+              "step; bytes per step by kind "
+              + json.dumps({k: round(v) for k, v in
+                            st["bytes_per_step"].items()}))
+    print(f"dp phase (2, 2, 2): per rank params "
+          f"{g0['param_bytes'] / 1e9:.2f} GB, peak device memory "
+          + ", ".join(f"{g['peak_bytes'] / 1e9:.2f}" for g in grid) + " GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"dp": {
+        "backend": "gloo", "dp211": dp211,
+        "dp222": {"layers": layers, "per_config": gstats,
+                  "ttft_ms": g0["ttft_ms"],
+                  "decode_tokens_per_s": g0["decode_tokens_per_s"],
+                  "wall_s": g0["wall_s"], "rows": g0["rows"],
+                  "counts": g0["counts"],
+                  "peak_gb_per_rank": [g["peak_bytes"] / 1e9 for g in grid]},
+        "phase_wall_s": wall}}))
+    print(f"dp phase: {wall:.1f} s in all")
+    print(f"card: {card_line()}")
+    return (r0["plain"]["launches"], r0["prefix_spec"]["launches"],
+            g0["launches"])
 
 
 def summary(cases, by_path):
@@ -1979,8 +2601,10 @@ def main():
     by_path, turns = serving_phase(torch)
     by_path["mamba2_dense"], turns["mamba2_dense"] = \
         mamba2_serving_phase(torch)
-    by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"] = \
-        layout_phase(torch)
+    by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
+        overhead = layout_phase(torch)
+    by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
+        by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {

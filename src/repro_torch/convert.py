@@ -73,8 +73,10 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     (``attn_specs``), the MLP's ``wi``/``wg`` columns and ``wo`` rows over
     TP, the embedding's rows and the LM head's columns over TP, ``G/tp``
     shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), and
-    the norm scales whole. Attention and MLP weights only: SSD layers run
-    only the trivial layout."""
+    the norm scales whole. On a layout with dp rows the rank gets the
+    shard of its grid position ``(i, j)``, the same in every row (the
+    reference replicates the parameters over ``"data"``). Attention and MLP
+    weights only: SSD layers run only the trivial layout."""
     k, tp = lay.tp_rank(rank), max(lay.tp, 1)
     d, dh = cfg.d_model, cfg.head_dim
     heads = {"wq": cfg.num_heads, "bq": cfg.num_heads, "wo": cfg.num_heads,

@@ -8,6 +8,11 @@ that same order, so every rank owns the same KV head slots in both and a
 switch moves no byte. The reference proves it on the shardings of its
 global arrays; in the port each rank holds its own pool, and
 ``verify_paged_invariance`` checks it on that rank's tensors.
+
+With dp rows the check also runs per row (the reference's ``dp_axes``
+form, ``dp_rows_aligned``): each rank holds one row's pool, and every
+table entry of a row's slots must be a row-local id of that pool, so no
+row's table reaches another row's blocks.
 """
 from __future__ import annotations
 
@@ -49,22 +54,40 @@ def snapshot_blocks(pool, blocks: Sequence[int]):
     return pool.k[:, idx].clone(), pool.v[:, idx].clone()
 
 
+def dp_rows_aligned(kv, pool) -> bool:
+    """Per-row alignment of tables and pools: ``pool`` (this rank's) is
+    one row's pool of ``kv.num_blocks_per_row`` blocks, and every table
+    entry of every row's slots (``kv.table3``) is a row-local id below
+    that count, so each row's table indexes exactly its own pool and never
+    another row's blocks (a pool-global id, ``row * num_blocks + local``,
+    fails this)."""
+    nb = kv.num_blocks_per_row
+    return (pool.k.shape[1] == pool.v.shape[1] == nb
+            and bool(((kv.table3 >= 0) & (kv.table3 < nb)).all()))
+
+
 def verify_paged_invariance(base, shift, rank: int,
                             shared_blocks: Sequence[int] = (),
-                            before=None) -> bool:
+                            before=None, kv=None) -> bool:
     """The paged §3.3.1 check on one rank, for its ``base`` and ``shift``
     models:
 
     1. both step the same pool tensors (equal ``data_ptr`` of K and V), so
        a switch moves no byte and follows one block table;
     2. the rank owns the same KV head slots in both configs;
-    3. with ``before`` (``snapshot_blocks`` of ``shared_blocks``), those
-       blocks are bitwise unchanged in the pool."""
+    3. with ``kv`` (the engine's ``PagedKVCache``), its rows are the
+       layout's dp rows and ``dp_rows_aligned`` holds for this rank's pool;
+    4. with ``before`` (``snapshot_blocks`` of ``shared_blocks``, row-local
+       ids of this rank's row), those blocks are bitwise unchanged in the
+       pool."""
     a, b = base.pool, shift.pool
     if a is None or b is None or a.k.data_ptr() != b.k.data_ptr() \
             or a.v.data_ptr() != b.v.data_ptr():
         return False
     if kv_slots(base, rank) != kv_slots(shift, rank):
+        return False
+    if kv is not None and (kv.dp != base.lay.dp
+                           or not dp_rows_aligned(kv, a)):
         return False
     if before is not None:
         now = snapshot_blocks(a, shared_blocks)

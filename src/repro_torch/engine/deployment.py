@@ -15,11 +15,13 @@ from then on, so one replay launches the ~2000 kernels of a full-width
 step that Python would otherwise launch one by one. On the CPU an entry
 runs its step eagerly.
 
-On the trivial layout base and shift are one ``Model`` and one program,
-and the two entries of a table are one object that shares its graphs.
-Above world size 1 they are two models, the base on the SP×TP layout and
-the shift on its ``to_shift()``, over one pool, and each has its entry.
-There every entry runs eagerly: its steps call collectives, and a gloo
+On the trivial layout, and with dp rows alone (a model group of one),
+base and shift are one ``Model`` and one program, and the two entries of
+a table are one object. Above a model group of one they are two models,
+the base on the SP×TP layout and the shift on its ``to_shift()``, over one
+pool, and each has its entry. ``dp`` is the layout's: each rank's entries
+step its row's segment of the batch. Above world size 1 every entry runs
+eagerly: its steps call collectives, and a gloo
 collective cannot be captured in a CUDA graph (capturing NCCL across cards
 is ROADMAP Queue 1 item 2). Asking for graphs there raises. ``reshard``
 comes later.

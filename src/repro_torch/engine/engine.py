@@ -1,5 +1,5 @@
 """Shift-parallelism serving engine (counterpart of
-``repro.engine.engine.ShiftEngine`` with one data-parallel row).
+``repro.engine.engine.ShiftEngine``).
 
 Two iterations, as in the reference. The **mixed** one (the default with
 the paged cache) packs up to ``prefill_chunk`` prompt tokens per
@@ -18,8 +18,25 @@ shift model adopts the base model's pool.
 
 Above world size 1 the engine is SPMD: every rank runs the same engine on
 the same requests, one process per rank, and the greedy token is
-all-gathered over TP, so every rank takes the same scheduling decisions.
-Such an engine runs the mixed paged iteration only.
+all-gathered over TP and then over DP, so every rank sees the whole
+batch's tokens and takes the same routing, admission and scheduling
+decisions. Above a model group of one (sp·tp > 1) the engine runs the
+mixed paged iteration only; with dp rows alone it also runs the
+serialized one on the paged pool. The dense cache runs only the trivial
+layout.
+
+Data parallelism pages per row, as in the reference: the slots partition
+into ``dp`` contiguous ranges, each row owns a private block pool of
+``num_blocks`` blocks and its own prefix index, and each rank holds only
+its row's pool and steps only its row's segment of the batch. A queued
+request is routed once to the row that minimises its routed-but-unadmitted
+demand less its allocatable blocks (ties to the lowest row) and keeps that
+row across preemptions; admission is FCFS within a row, and block
+exhaustion preempts only requests of the same row, so pressure in one row
+never preempts or evicts another row's work. With ``max_slots`` not
+divisible by dp a forced ``paged=True`` raises; the reference's automatic
+fallback to the dense cache raises ``NotImplementedError`` here, since the
+dense cache on a layout is not ported.
 
 KV lives in one of two caches. The paged pool (``paged``, the default
 for configs whose layers all page)
@@ -61,7 +78,8 @@ matching prefix is accepted and the rejected tail's blocks are unmapped
 iteration decodes one token per pass: there speculation is off, with its
 reason in ``spec_disabled_reason``.
 
-Not in this slice: fault injection, observability, dp rows and reshard.
+Not in this slice: fault injection, observability, snapshots and
+reshard.
 """
 from __future__ import annotations
 
@@ -136,22 +154,31 @@ class ShiftEngine:
         except (TypeError, ValueError):      # callables without a signature
             self._policy_ctx_kwargs = ()
         # paging needs every layer to page (an SSD layer keeps recurrent
-        # state per sequence); one card has one dp row, so that is the
-        # only architectural reason. Auto falls back to the dense cache,
-        # a forced paged=True raises; the reason is kept, as the reference
-        # keeps it, because the dense cache also rules out the mixed
-        # iteration and the prefix cache
+        # state per sequence) and the slots to split into the dp rows. Auto
+        # falls back to the dense cache, a forced paged=True raises; the
+        # reason is kept, as the reference keeps it, because the dense
+        # cache also rules out the mixed iteration and the prefix cache
+        lay = model.lay
+        dp = lay.dp
         reason = None
         if not model.supports_paged:
             reason = (f"architecture {self.mcfg.name} has non-pageable layer "
                       "kinds (MLA latents / ring buffers / recurrent state "
                       "keep the contiguous cache)")
+        elif cfg.max_slots % dp:
+            reason = (f"max_slots={cfg.max_slots} not divisible by dp={dp}: "
+                      "slots partition into dp rows")
         if cfg.paged and reason is not None:
             raise ValueError(f"config {self.mcfg.name} cannot use a paged KV "
                              f"cache: {reason}")
         self.paged = reason is None if cfg.paged is None else cfg.paged
         if not self.paged and reason is None:
             reason = "paged=False in EngineConfig"
+        if not self.paged and lay.world > 1:
+            raise NotImplementedError(
+                f"{lay.describe()}: the dense cache runs only the trivial "
+                f"layout (ROADMAP Queue 1 item 2), and paging is off: "
+                f"{reason}")
         self.paged_disabled_reason = None if self.paged else reason
         self.mixed = self.paged if cfg.mixed is None else cfg.mixed
         if self.mixed and not self.paged:
@@ -162,10 +189,11 @@ class ShiftEngine:
             raise ValueError(
                 "prefix caching requires the paged KV cache (cached blocks "
                 "are shared through ref-counted block tables)")
-        if model.lay.world > 1 and not self.mixed:
+        if lay.G > 1 and not self.mixed:
             raise NotImplementedError(
-                f"{model.lay.describe()}: above world size 1 the engine runs "
-                "the mixed paged iteration only (ROADMAP Queue 1 item 2)")
+                f"{lay.describe()}: above a model group of one the engine "
+                "runs the mixed paged iteration only (ROADMAP Queue 1 item "
+                "2)")
         # speculation rides the mixed paged iteration (verify rows are
         # ragged 1+k rows through the paged attention); elsewhere it is
         # off, and says why
@@ -177,27 +205,35 @@ class ShiftEngine:
                 f"(paged={self.paged}, mixed={self.mixed})")
         self._spec_on = bool(self.spec.k) and self.spec_disabled_reason is None
         self.drafter = SuffixDrafter(self.spec)
-        self.prefix: Optional[PrefixIndex] = None
+        self.prefix_rows: Optional[List[PrefixIndex]] = None
+        self.slots_per_row = cfg.max_slots // dp if self.paged \
+            else cfg.max_slots
         if self.paged:
             nmax = blocks_for_tokens(cfg.s_max, cfg.block_size)
-            num_blocks = cfg.num_blocks or cfg.max_slots * nmax + 1
-            self.kv = PagedKVCache(num_blocks, cfg.block_size, cfg.max_slots,
-                                   nmax)
-            model.init_paged_cache(num_blocks, cfg.block_size)
+            # cfg.num_blocks is per dp row: each row owns a private pool
+            # (and null block), and this rank holds its own row's
+            row_blocks = cfg.num_blocks or self.slots_per_row * nmax + 1
+            self.kv = PagedKVCache(row_blocks, cfg.block_size, cfg.max_slots,
+                                   nmax, dp=dp)
+            model.init_paged_cache(row_blocks, cfg.block_size)
             if shift is not None:
                 shift.adopt_paged_cache(model)
             # persistent host mirror of the block tables; only rows the
             # PagedKVCache marks dirty are re-copied
             self._bt_host = np.zeros((cfg.max_slots, nmax), np.int32)
             if cfg.prefix.enabled:
-                self.prefix = PrefixIndex(cfg.block_size, self.kv.allocator)
-                self.kv.prefix_index = self.prefix
-            # in-flight prefix registry: chain hash of every full prompt
-            # block an admitted request will write -> its rid
-            self._inflight: Dict[int, int] = {}
-            # pending (src, dst) block copies from copy-on-write, applied
-            # to the pool in one gather and one scatter before the next
-            # forward pass
+                # one index per row: blocks never cross rows, so neither do
+                # cached prefixes
+                self.prefix_rows = [
+                    PrefixIndex(cfg.block_size, self.kv.allocators[r])
+                    for r in range(dp)]
+                self.kv.prefix_indices = list(self.prefix_rows)
+            # in-flight prefix registry per row: chain hash of every full
+            # prompt block an admitted request will write -> its rid
+            self._inflight: List[Dict[int, int]] = [{} for _ in range(dp)]
+            # pending (row, src, dst) row-local block copies from
+            # copy-on-write; each rank applies its own row's in one gather
+            # and one scatter before the next forward pass
             self._step_copies: List[tuple] = []
         else:
             self.kv = None
@@ -218,6 +254,8 @@ class ShiftEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_rollback_blocks = 0
+        # the draft tokens accepted in each dp row
+        self.spec_accepted_rows = [0] * dp
         self.prefill_tokens: List[int] = []
         self._step_prefill = 0
         # the base and shift views and their step tables, built over the
@@ -238,17 +276,24 @@ class ShiftEngine:
     def dp(self) -> int:
         return self.deploy.dp
 
+    @property
+    def prefix(self) -> Optional[PrefixIndex]:
+        """Row 0's prefix index, the only one at dp 1; under dp > 1 use
+        ``prefix_rows``."""
+        return self.prefix_rows[0] if self.prefix_rows else None
+
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request) -> int:
-        """Queue ``req``; raises if it can never be served."""
+        """Queue ``req``; raises if it can never be served (its worst case
+        must fit in one row's pool)."""
         worst = len(req.prompt) + req.max_new_tokens
         if worst > self.cfg.s_max:
             raise ValueError(f"request {req.rid} exceeds s_max={self.cfg.s_max}")
         need = blocks_for_tokens(worst, self.cfg.block_size)
-        if self.paged and need > self.kv.num_blocks - 1:
+        if self.paged and need > self.kv.num_blocks_per_row - 1:
             raise ValueError(
-                f"request {req.rid} can never fit: needs {need} blocks, the "
-                f"pool has {self.kv.num_blocks - 1}")
+                f"request {req.rid} can never fit: needs {need} blocks, each "
+                f"dp row's pool has {self.kv.num_blocks_per_row - 1}")
         self.queue.append(req)
         return req.rid
 
@@ -256,8 +301,34 @@ class ShiftEngine:
     def active(self) -> List[Request]:
         return [r for r in self.slot_req if r is not None]
 
+    # ----------------------------------------------------------- dp routing
+    def _route(self, req: Request):
+        """Assign a queued request to a dp row: the row that minimises its
+        routed-but-unadmitted demand less its allocatable blocks (free plus
+        the row's prefix ``reclaimable()``), ties to the lowest row. A
+        whole burst is routed before any admission changes the free lists,
+        so pending demand is part of the score: on free blocks alone the
+        burst would all go to one row. Sticky: a preempted request keeps
+        its row, whose pool holds its committed prefix blocks."""
+        if req.row is not None:
+            return
+        pend = [0] * self.kv.dp
+        for q in self.queue:
+            if q.slot is None and q.row is not None:
+                pend[q.row] += blocks_for_tokens(q.total_tokens + 1,
+                                                 self.cfg.block_size)
+
+        def score(row):
+            free = self.kv.allocators[row].num_free
+            idx = self.kv.prefix_indices[row]
+            if idx is not None:
+                free += idx.reclaimable()
+            return (pend[row] - free, row)
+
+        req.row = min(range(self.kv.dp), key=score)
+
     # ------------------------------------------------ in-flight prefixes
-    def _register_inflight(self, req: Request, n_matched: int):
+    def _register_inflight(self, req: Request, row: int, n_matched: int):
         """Publish the chain hash of every full prompt block this admission
         will write (depths past its prefix match), so that a same-prefix
         request admitted behind it waits for the commit instead of
@@ -267,131 +338,153 @@ class ShiftEngine:
         for i, key in enumerate(PrefixIndex.chain_keys(
                 req.all_tokens(), bs, (req.total_tokens - 1) // bs)):
             if i >= n_matched:
-                self._inflight[key] = req.rid
+                self._inflight[row][key] = req.rid
                 keys.append(key)
         req.inflight_keys = keys
 
     def _unregister_inflight(self, req: Request):
-        if not req.inflight_keys:
+        if req.row is None or not req.inflight_keys:
             return
+        m = self._inflight[req.row]
         for k in req.inflight_keys:
-            if self._inflight.get(k) == req.rid:
-                del self._inflight[k]
+            if m.get(k) == req.rid:
+                del m[k]
         req.inflight_keys = []
 
-    def _wait_for_inflight(self, req: Request, matched) -> bool:
-        """True when another active request is mid-prefill over the next
-        full block of ``req``'s prompt: that block's chain hash is in the
-        in-flight registry and its writer has not written it yet. ``req``
-        stays queued; once the block commits, the match maps it."""
-        if self.prefix is None:
+    def _wait_for_inflight(self, req: Request, row: int, matched) -> bool:
+        """True when another active request of ``row`` is mid-prefill over
+        the next full block of ``req``'s prompt: that block's chain hash is
+        in the row's in-flight registry and its writer has not written it
+        yet. ``req`` stays queued; once the block commits, the match maps
+        it."""
+        if self.prefix_rows is None:
             return False
         bs = self.cfg.block_size
         i = len(matched)
         if (i + 1) * bs > req.total_tokens - 1:
             return False                 # no further full block to share
         *_, key = PrefixIndex.chain_keys(req.all_tokens(), bs, i + 1)
-        wrid = self._inflight.get(key)
+        wrid = self._inflight[row].get(key)
         if wrid is None:
             return False
         w = next((a for a in self.active if a.rid == wrid), None)
         if w is None or w is req or w.done:
-            self._inflight.pop(key, None)          # stale entry
+            self._inflight[row].pop(key, None)     # stale entry
             return False
         # the writer wrote the block but the match did not extend (its
         # commit stopped at a hash collision): do not wait for it
         return w.prefilled < (i + 1) * bs
 
     def _admit(self):
-        """Assign free slots FCFS. Paged: a request is admitted only when
-        its whole (re)prompt plus one decode token fits in the free blocks,
-        counting the blocks a prefix match covers and those the prefix
-        index's eviction could reclaim. On admission the longest indexed
-        prefix of the (re)prompt is mapped into the slot's table, so
-        prefill starts at the first uncached token. One exception to FCFS:
-        a request waiting for an in-flight same-prefix prefill is skipped,
-        not blocking (its wait is bounded by the writer's progress)."""
-        for req in list(self.queue):
-            if req.slot is not None:
-                continue
-            slot = next((s for s, owner in enumerate(self.slot_req)
-                         if owner is None), None)
-            if slot is None:
-                break                       # FCFS
-            if not self.paged:
+        """Assign free slots FCFS per dp row. Dense: FCFS by free slot.
+        Paged: every unrouted request is first routed (``_route``); the
+        slots of row r are the range [r*slots_per_row, (r+1)*slots_per_row),
+        and a request is admitted only when its whole (re)prompt plus one
+        decode token fits in its row's free blocks, counting the blocks a
+        prefix match covers and those the row's prefix index could
+        reclaim. On admission the longest indexed prefix of the (re)prompt
+        is mapped into the slot's table, so prefill starts at the first
+        uncached token. One exception to FCFS: a request waiting for an
+        in-flight same-prefix prefill is skipped, not blocking (its wait is
+        bounded by the writer's progress)."""
+        if not self.paged:
+            for req in list(self.queue):
+                if req.slot is not None:
+                    continue
+                slot = next((s for s, owner in enumerate(self.slot_req)
+                             if owner is None), None)
+                if slot is None:
+                    break                   # FCFS
                 req.slot = slot
                 self.slot_req[slot] = req
                 self.lens[slot] = req.prefilled
-                continue
-            idx = self.prefix
-            matched = []
-            if idx is not None:
-                # probe without the LRU bump (a queue head that fails
-                # admission must not refresh its entries' recency), capped
-                # at total-1: the last known token always runs through the
-                # forward pass
-                matched = idx.match(req.all_tokens(),
-                                    max_tokens=req.total_tokens - 1,
-                                    bump=False)
-                if self._wait_for_inflight(req, matched):
+            return
+        for req in self.queue:
+            if req.slot is None:
+                self._route(req)
+        spr = self.slots_per_row
+        for row in range(self.kv.dp):
+            for req in list(self.queue):
+                if req.slot is not None or req.row != row:
                     continue
-            if not self.kv.can_allocate(req.total_tokens + 1,
-                                        cached_blocks=matched):
-                break                       # FCFS
-            req.slot = slot
-            self.slot_req[slot] = req
-            if idx is not None:
-                idx.record(len(matched))
-                if matched:
-                    idx.bump(req.all_tokens(), len(matched))
-                    self.kv.assign_prefix(slot, matched)
-                    req.prefilled = len(matched) * self.cfg.block_size
-                    req.cached_tokens = req.prefilled
-                self._register_inflight(req, len(matched))
-            if not self.kv.ensure(slot, req.total_tokens + 1):
-                # eviction reclaimed less than the probe reckoned: roll the
-                # admission back (assign_prefix's refs go with free_seq)
-                # and keep the request queued
-                self._unregister_inflight(req)
-                if self.kv.n_mapped[slot]:
-                    self.kv.free_seq(slot)
-                self.slot_req[slot] = None
-                req.slot = None
-                req.prefilled = 0
-                req.cached_tokens = 0
-                break
-            self.lens[slot] = req.prefilled
+                slot = next((s for s in range(row * spr, (row + 1) * spr)
+                             if self.slot_req[s] is None), None)
+                if slot is None:
+                    break                   # FCFS within the row
+                idx = self.kv.prefix_indices[row]
+                matched = []
+                if idx is not None:
+                    # probe without the LRU bump (a queue head that fails
+                    # admission must not refresh its entries' recency),
+                    # capped at total-1: the last known token always runs
+                    # through the forward pass
+                    matched = idx.match(req.all_tokens(),
+                                        max_tokens=req.total_tokens - 1,
+                                        bump=False)
+                    if self._wait_for_inflight(req, row, matched):
+                        continue
+                if not self.kv.can_allocate(req.total_tokens + 1,
+                                            cached_blocks=matched, row=row):
+                    break                   # FCFS within the row
+                req.slot = slot
+                self.slot_req[slot] = req
+                if idx is not None:
+                    idx.record(len(matched))
+                    if matched:
+                        idx.bump(req.all_tokens(), len(matched))
+                        self.kv.assign_prefix(slot, matched)
+                        req.prefilled = len(matched) * self.cfg.block_size
+                        req.cached_tokens = req.prefilled
+                    self._register_inflight(req, row, len(matched))
+                if not self.kv.ensure(slot, req.total_tokens + 1):
+                    # eviction reclaimed less than the probe reckoned: roll
+                    # the admission back (assign_prefix's refs go with
+                    # free_seq) and keep the request queued
+                    self._unregister_inflight(req)
+                    if self.kv.n_mapped[slot]:
+                        self.kv.free_seq(slot)
+                    self.slot_req[slot] = None
+                    req.slot = None
+                    req.prefilled = 0
+                    req.cached_tokens = 0
+                    break
+                self.lens[slot] = req.prefilled
 
     # ---------------------------------------------------------------- stats
     @property
     def prefix_stats(self) -> PrefixStats:
-        """Prefix-cache counters (zeros when caching is off), the COW copy
-        count and the reason paging is off (None when paged)."""
-        s = (self.prefix.stats() if self.prefix is not None else
-             {"entries": 0, "hits": 0, "misses": 0, "tokens_saved": 0,
-              "evictions": 0})
+        """Prefix-cache counters summed over the dp rows (zeros when
+        caching is off), the COW copy count and the reason paging is off
+        (None when paged)."""
+        s = {"entries": 0, "hits": 0, "misses": 0, "tokens_saved": 0,
+             "evictions": 0}
+        for idx in self.prefix_rows or []:
+            for k, v in idx.stats().items():
+                s[k] += v
         return PrefixStats(cow_copies=self.cow_copies,
                            paged_disabled_reason=self.paged_disabled_reason,
                            **s)
 
     def block_accounting(self) -> BlockLedger:
-        """Paged-block ledger for leak checks: ``used`` counts every held
-        block (sequence mappings and prefix pins), ``pinned`` the index's
-        pins. With nothing in flight, ``used == pinned``."""
+        """Paged-block ledger for leak checks, summed over the dp rows:
+        ``used`` counts every held block (sequence mappings and prefix
+        pins), ``pinned`` the indexes' pins, ``free_per_row`` each row's
+        free blocks. With nothing in flight, ``used == pinned``."""
         if not self.paged:
             return BlockLedger()
         return BlockLedger(
             used=self.kv.num_used_blocks,
-            pinned=len(self.prefix.blocks()) if self.prefix else 0,
+            pinned=sum(len(idx.blocks()) for idx in self.prefix_rows or []),
             free=self.kv.num_free_blocks,
-            free_per_row=(self.kv.num_free_blocks,))
+            free_per_row=tuple(self.kv.row_free_blocks(r)
+                               for r in range(self.kv.dp)))
 
     # ----------------------------------------------------- memory pressure
     def _preempt(self, victim: Request):
         """Evict a running request back to the queue, freeing its blocks
         (shared ones are decremented). Recompute-style: its prompt +
-        generated re-prefills on re-admission, where it re-matches its own
-        committed prefix."""
+        generated re-prefills on re-admission into the same dp row (``row``
+        is sticky), where it re-matches its own committed prefix."""
         self._unregister_inflight(victim)
         self.kv.free_seq(victim.slot)
         self.slot_req[victim.slot] = None
@@ -407,10 +500,13 @@ class ShiftEngine:
                  write_from: Optional[int] = None) -> bool:
         """Grow req's block table to cover n_tokens and, with
         ``write_from``, copy-on-write every shared block in the write range
-        ``[write_from, n_tokens)``, LRU-preempting other active requests
-        outside ``protect`` while the free list (and the prefix index's
-        eviction) runs dry. Returns False when nothing can be evicted. COW
-        copies are queued for ``_apply_copies``."""
+        ``[write_from, n_tokens)``, LRU-preempting other active requests of
+        the same dp row outside ``protect`` while the row's free list (and
+        its prefix index's eviction) runs dry: blocks never cross rows, so
+        pressure in one row never preempts another row's requests. Returns
+        False when nothing can be evicted. COW copies are queued for
+        ``_apply_copies``."""
+        row = self.kv.row_of(req.slot)
         while True:
             if self.kv.ensure(req.slot, n_tokens):
                 if write_from is None:
@@ -418,10 +514,11 @@ class ShiftEngine:
                 ok, copies = self.kv.copy_on_write(req.slot, write_from,
                                                    n_tokens)
                 if ok:
-                    self._step_copies.extend(copies)
+                    self._step_copies.extend((row, s, d) for s, d in copies)
                     return True
             victims = [a for a in self.active
-                       if a is not req and a not in protect]
+                       if a is not req and a not in protect
+                       and self.kv.row_of(a.slot) == row]
             if not victims:
                 return False
             self._preempt(min(victims,
@@ -430,25 +527,31 @@ class ShiftEngine:
     def _apply_copies(self):
         """Make the queued COW copies in the pool (one gather of every
         source, then one scatter, in place) before the forward pass that
-        writes the copied blocks. Every rank copies the same block ids in
-        its own pool slice."""
+        writes the copied blocks. Each rank copies its own row's blocks,
+        in row-local ids, in its row's pool (every rank of a row holds its
+        own kv slots of the same blocks)."""
         if not self._step_copies:
             return
-        pairs, self._step_copies = self._step_copies, []
-        self.cow_copies += len(pairs)
-        self.model.copy_blocks([s for s, _ in pairs], [d for _, d in pairs])
+        copies, self._step_copies = self._step_copies, []
+        self.cow_copies += len(copies)
+        mine = self.model.shard.dp_rank
+        pairs = [(s, d) for row, s, d in copies if row == mine]
+        if pairs:
+            self.model.copy_blocks([s for s, _ in pairs],
+                                   [d for _, d in pairs])
 
     def _commit_prefix(self, req: Request):
         """Index every fully written block of ``req`` (positions
         ``0..prefilled-1`` are in the cache), incrementally from the
         request's ``(pc_blocks, pc_parent)`` cursor. Called before a finish
         could free the slot."""
-        if self.prefix is None or req.slot is None:
+        if self.prefix_rows is None or req.slot is None:
             return
+        idx = self.prefix_rows[self.kv.row_of(req.slot)]
         full = min(req.prefilled // self.cfg.block_size,
                    int(self.kv.n_mapped[req.slot]))
         if full > req.pc_blocks:
-            req.pc_blocks, req.pc_parent, _ = self.prefix.commit_incremental(
+            req.pc_blocks, req.pc_parent, _ = idx.commit_incremental(
                 req.all_tokens(), req.pc_blocks, full, req.pc_parent,
                 self.kv.seq_blocks(req.slot))
 
@@ -568,8 +671,19 @@ class ShiftEngine:
         # compact to active rows and bucket every axis to a power of two,
         # as the reference does for its compiled-shape reuse; the chunk
         # axis splits over the chosen config's SP degree (a decode-only
-        # batch on the base config is [R, sp])
-        Rb = pow2_bucket(len(rows))
+        # batch on the base config is [R, sp]). Each dp row's requests
+        # land in that row's contiguous segment (the whole batch at dp 1),
+        # every segment of the same width (a row without work gives an
+        # all-padding segment whose writes land in its null block), and
+        # each rank steps its own. Every width is computed over the whole batch, so all ranks
+        # step the same shapes and their collectives line up.
+        per = [[] for _ in range(self.kv.dp)]
+        for e in rows:
+            per[self.kv.row_of(e[0].slot)].append(e)
+        seg = pow2_bucket(max(len(p) for p in per))
+        placed = [(ri * seg + j, e) for ri, p in enumerate(per)
+                  for j, e in enumerate(p)]
+        Rb = self.kv.dp * seg
         Cb = max(pow2_bucket(max(ql for _, _, ql, _ in rows)),
                  (self.base if mode == "base" else self.shift).lay.sp)
         self._refresh_block_tables()
@@ -581,7 +695,7 @@ class ShiftEngine:
         qlen = np.zeros((Rb,), np.int32)
         offs = np.zeros((Rb,), np.int32)
         bt = np.zeros((Rb, nbb), np.int32)
-        for i, (r, off, ql, _) in enumerate(rows):
+        for i, (r, off, ql, _) in placed:
             if off == r.pos:                   # decode row: the last token
                 toks[i, 0] = r.generated[-1] if r.generated else r.prompt[-1]
                 toks[i, 1:ql] = drafts.get(r.rid, [])
@@ -600,7 +714,7 @@ class ShiftEngine:
         t = time.monotonic()
         n_accepted = 0
         rollback = 0
-        for i, (r, off, ql, produces) in enumerate(rows):
+        for i, (r, off, ql, produces) in placed:
             r.last_used = self.step_count
             d = drafts.get(r.rid) if r in decode_rows else None
             if d is None:
@@ -635,6 +749,7 @@ class ShiftEngine:
                 if r.finish_reason is not None:
                     break                  # finished mid-accept
             n_accepted += delivered - 1
+            self.spec_accepted_rows[r.row] += delivered - 1
         self.spec_proposed += n_spec
         self.spec_accepted += n_accepted
         self.spec_rollback_blocks += rollback
@@ -643,8 +758,9 @@ class ShiftEngine:
     # --------------------------------------------------- serialized stepping
     def _run_prefill(self) -> bool:
         """One chunked-prefill step over the slots that still need their
-        (re)prompt, batched at the full ``max_slots``; the last known token
-        of each row is left for the decode step. Dummy rows sit at offset
+        (re)prompt, batched at the full ``max_slots`` (under dp each rank
+        steps its row's slot range); the last known token of each row is
+        left for the decode step. Dummy rows sit at offset
         ``s_max - C`` on the dense cache (their writes must not land on
         live positions) and at 0 on the paged pool (their all-null tables
         route the writes to the null block, and a zero context keeps the
@@ -702,7 +818,9 @@ class ShiftEngine:
 
     def _run_decode(self) -> bool:
         """One decode step over every ready row, batched at the full
-        ``max_slots``; each writes its last known token at ``r.pos``."""
+        ``max_slots`` (under dp each rank steps its row's slot range and
+        the tokens are gathered over DP); each writes its last known token
+        at ``r.pos``."""
         ready = [r for r in self.active
                  if self._prefill_done(r) and not r.done]
         if self.paged:

@@ -1,6 +1,5 @@
 """Request lifecycle for the serving engine (the port's copy of
-``repro.engine.request`` without the dp row and the fault-tolerance
-fields)."""
+``repro.engine.request`` without the fault-tolerance fields)."""
 from __future__ import annotations
 
 import enum
@@ -26,6 +25,10 @@ class Request:
 
     # engine state -----------------------------------------------------------
     slot: Optional[int] = None
+    row: Optional[int] = None         # dp row this request is routed to
+    #                                   (free-block-aware, assigned once and
+    #                                   sticky across preemptions, so that
+    #                                   the row's prefix cache stays warm)
     prefilled: int = 0                # tokens already written to the cache
     cached_tokens: int = 0            # prefill tokens served by a prefix hit
     #                                   at the current admission (reset on

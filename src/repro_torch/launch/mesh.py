@@ -1,7 +1,7 @@
 """Process meshes of the port (counterpart of ``repro.launch.mesh``'s
-``make_test_mesh``): ``run_ranks`` runs one process per rank of an (sp, tp)
-grid, as ``shard_map`` runs one program per device of the reference's
-``make_mesh((1, sp, tp), ("data", "sp", "tp"))``.
+``make_test_mesh``): ``run_ranks`` runs one process per rank of ``dp``
+rows of an (sp, tp) grid, as ``shard_map`` runs one program per device of
+the reference's ``make_mesh((dp, sp, tp), ("data", "sp", "tp"))``.
 
 The backend is an argument, never a default or a fallback: ``"gloo"``
 runs on the CPU, and also with CUDA tensors, which it stages through the
@@ -24,7 +24,7 @@ import torch.multiprocessing as mp
 from repro_torch.parallel import Groups
 
 
-def _rank_main(rank, sp, tp, device, backend, timeout_s, store_path, fn,
+def _rank_main(rank, dp, sp, tp, device, backend, timeout_s, store_path, fn,
                args, results):
     """One rank: join the group, build the grid's process groups, run
     ``fn(rank, groups, *args)`` and post its result (or its traceback)."""
@@ -32,12 +32,12 @@ def _rank_main(rank, sp, tp, device, backend, timeout_s, store_path, fn,
         torch.set_num_threads(1)
         if device == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
-        world = sp * tp
+        world = dp * sp * tp
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, world), rank=rank,
             world_size=world, timeout=timedelta(seconds=timeout_s))
         try:
-            out = fn(rank, Groups(sp, tp), *args)
+            out = fn(rank, Groups(sp, tp, dp=dp), *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -45,17 +45,17 @@ def _rank_main(rank, sp, tp, device, backend, timeout_s, store_path, fn,
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, sp: int, tp: int, *, device: str, backend: str,
-              timeout_s: float, args=()) -> list:
-    """Run ``fn(rank, groups, *args)`` in ``sp*tp`` spawned processes, one
-    per rank ``r = i*tp + j``, over a ``FileStore`` in a temporary
-    directory, and return every rank's result in rank order. ``fn`` and its
-    arguments and results must pickle (``fn`` by import path). ``device``
-    ("cpu" or "cuda") sets each rank's card, ``rank % device_count()``;
-    ``timeout_s`` bounds each collective and the whole job. Raises the
-    first rank's failure (with its traceback) or a timeout, after stopping
-    every process."""
-    world = sp * tp
+def run_ranks(fn, sp: int, tp: int, *, dp: int = 1, device: str,
+              backend: str, timeout_s: float, args=()) -> list:
+    """Run ``fn(rank, groups, *args)`` in ``dp*sp*tp`` spawned processes,
+    one per rank ``r = d*sp*tp + i*tp + j``, over a ``FileStore`` in a
+    temporary directory, and return every rank's result in rank order.
+    ``fn`` and its arguments and results must pickle (``fn`` by import
+    path). ``device`` ("cpu" or "cuda") sets each rank's card, ``rank %
+    device_count()``; ``timeout_s`` bounds each collective and the whole
+    job. Raises the first rank's failure (with its traceback) or a timeout,
+    after stopping every process."""
+    world = dp * sp * tp
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend {backend!r}: use 'gloo' or 'nccl'")
     if device not in ("cpu", "cuda"):
@@ -76,7 +76,7 @@ def run_ranks(fn, sp: int, tp: int, *, device: str, backend: str,
     with tempfile.TemporaryDirectory() as tmp:
         procs = [ctx.Process(
             target=_rank_main, daemon=True,
-            args=(rank, sp, tp, device, backend, timeout_s,
+            args=(rank, dp, sp, tp, device, backend, timeout_s,
                   os.path.join(tmp, "store"), fn, args, results))
             for rank in range(world)]
         try:

@@ -19,15 +19,22 @@ every prompt (a system prompt), and ``--spec-k K`` verifies up to K draft
 tokens per decode row (``--spec-ngram``: the longest n-gram the drafter
 matches), as the reference CLI's flags do.
 
-``build_engine(..., sp=, tp=, groups=)`` builds one rank of the Shift
-Parallelism deployment: the base model on ``Layout(sp=sp, tp=tp)`` and the
-shift model on its ``to_shift()``, over one paged pool, inside a rank of
-``launch.mesh.run_ranks`` (which builds the ``groups``). As in the
-reference, the CLI has no flag for them.
+``build_engine(..., dp=, sp=, tp=, groups=)`` builds one rank of the Shift
+Parallelism deployment: the base model on ``Layout(dp, sp, tp)`` and the
+shift model on its ``to_shift()`` (one model while sp·tp is 1), over this
+rank's row's paged pool, inside a rank of ``launch.mesh.run_ranks`` (which
+builds the ``groups``). As in the reference, the CLI has a flag for dp
+only: ``--dp N`` serves with N data-parallel rows, one process per row
+spawned through ``run_ranks`` over ``--backend`` (``gloo`` or ``nccl``; no
+default above one process). Every rank serves the same requests; the
+parent prints rank 0's report, with the row each request was routed to,
+after checking that every rank's streams are equal.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import torch
@@ -39,36 +46,39 @@ from repro_torch.engine.api import PrefixConfig
 # the launch counters, read and reset by callers of the entry point
 from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
                                      reset_launch_counts)
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import Model
 from repro_torch.parallel import Groups, Layout
 from repro_torch.spec import SpecConfig
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 WEIGHT_SEED = 0
+DP_TIMEOUT_S = 1800                # bounds a --dp job's collectives and wall
 
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  dtype=torch.bfloat16, block_size=16, num_blocks=0,
                  paged=None, mixed=None, prefix_cache=False, spec_k=0,
-                 spec_ngram=3, sp=1, tp=1,
+                 spec_ngram=3, dp=1, sp=1, tp=1,
                  groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
     every layer pages, else the serialized dense engine), and so do
     ``prefix_cache`` (``PrefixConfig``) and ``spec_k``/``spec_ngram``
-    (``SpecConfig(k, ngram_max)``). With ``sp·tp`` >
-    1 (the counterpart of the reference's ``_build_stack(sp=, tp=,
-    mesh=)``): this rank's base model on ``Layout(sp=sp, tp=tp)`` and shift
-    model on its ``to_shift()``, both drawn from the same seed, over the
-    grid's ``groups``. The model checks the device before it allocates
-    anything."""
+    (``SpecConfig(k, ngram_max)``). With ``dp·sp·tp`` > 1 (the
+    counterpart of the reference's ``_build_stack(dp=, sp=, tp=,
+    mesh=)``): this rank's base model on ``Layout(dp, sp, tp)`` and, with
+    ``sp·tp`` > 1, a shift model on its ``to_shift()``, both drawn from the
+    same seed (every dp row the same shards), over the ranks' ``groups``;
+    ``num_blocks`` is then per dp row. The model checks the device before
+    it allocates anything."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    lay = Layout(sp=sp, tp=tp)
+    lay = Layout(dp=dp, sp=sp, tp=tp)
     models = []
-    for layout in ((lay, lay.to_shift()) if lay.world > 1 else (lay,)):
+    for layout in ((lay, lay.to_shift()) if lay.G > 1 else (lay,)):
         model = Model(cfg, device=device, dtype=dtype, lay=layout,
                       groups=groups)
         model.init_params(
@@ -97,9 +107,13 @@ def print_summary(eng: ShiftEngine):
     print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
     print(f"configs used: base={cc['base']} shift={cc['shift']}")
     if eng.paged:
-        print(f"paged cache: 1 dp row(s) x {eng.kv.num_blocks} blocks x "
-              f"{eng.cfg.block_size} tokens, {eng.preemptions} preemptions, "
+        print(f"paged cache: {eng.kv.dp} dp row(s) x "
+              f"{eng.kv.num_blocks_per_row} blocks x {eng.cfg.block_size} "
+              f"tokens, {eng.preemptions} preemptions, "
               f"{eng.kv.num_free_blocks} free at exit")
+        if eng.kv.dp > 1:
+            for r, free in enumerate(eng.block_accounting().free_per_row):
+                print(f"  row {r}: {free} free blocks")
         if eng.cfg.prefix.enabled:
             p = eng.prefix_stats
             print(f"prefix cache: {p.entries} cached blocks, "
@@ -132,6 +146,47 @@ def print_summary(eng: ShiftEngine):
         f"{name}={n}" for name, n in launch_counts().items()))
 
 
+def serve(eng: ShiftEngine, args):
+    """Serve the CLI's workload on ``eng`` and print its report: each
+    request's tokens, TTFT and dp row, then ``print_summary``. Returns the
+    requests."""
+    reqs = workload(args.requests, args.max_new, args.shared_prefix)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.monotonic()
+    eng.run_until_idle()
+    dt = time.monotonic() - t0
+    for r in reqs:
+        ttft = (r.first_token_time - r.arrival) if r.first_token_time else -1
+        print(f"req {r.rid}: {len(r.generated)} tokens, "
+              f"reason={r.finish_reason}, ttft={ttft*1e3:.0f}ms, "
+              f"row={r.row}, out={r.generated[:8]}...")
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"{n_tok} tokens in {dt:.2f}s")
+    print_summary(eng)
+    return reqs
+
+
+def _engine_of(args, groups=None) -> ShiftEngine:
+    return build_engine(args.arch, reduced=args.reduced, device=args.device,
+                        dtype=DTYPES[args.dtype], block_size=args.block_size,
+                        num_blocks=args.num_blocks,
+                        prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                        spec_ngram=args.spec_ngram, dp=args.dp,
+                        groups=groups)
+
+
+def serve_rank(rank, groups, args) -> dict:
+    """One rank of ``--dp``: build this rank's engine, serve, and return
+    the printed report, the streams and the rows the requests went to."""
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        reqs = serve(_engine_of(args, groups), args)
+    return {"rank": rank, "report": text.getvalue(),
+            "streams": [r.generated for r in reqs],
+            "rows": [r.row for r in reqs]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
@@ -156,27 +211,32 @@ def main(argv=None):
                     help="longest suffix n-gram the drafter matches")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel rows: one process per row, each "
+                         "with its own paged pool, requests routed by free "
+                         "blocks (needs --backend)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="torch.distributed backend of the --dp processes "
+                         "(no default: gloo on the CPU or several rows on "
+                         "one card, nccl with a card per row)")
     args = ap.parse_args(argv)
 
-    eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       dtype=DTYPES[args.dtype], block_size=args.block_size,
-                       num_blocks=args.num_blocks,
-                       prefix_cache=args.prefix_cache, spec_k=args.spec_k,
-                       spec_ngram=args.spec_ngram)
-    reqs = workload(args.requests, args.max_new, args.shared_prefix)
-    for r in reqs:
-        eng.submit(r)
-    t0 = time.monotonic()
-    eng.run_until_idle()
-    dt = time.monotonic() - t0
-    for r in reqs:
-        ttft = (r.first_token_time - r.arrival) if r.first_token_time else -1
-        print(f"req {r.rid}: {len(r.generated)} tokens, "
-              f"reason={r.finish_reason}, ttft={ttft*1e3:.0f}ms, "
-              f"out={r.generated[:8]}...")
-    n_tok = sum(len(r.generated) for r in reqs)
-    print(f"{n_tok} tokens in {dt:.2f}s")
-    print_summary(eng)
+    if args.dp == 1:
+        serve(_engine_of(args), args)
+        return
+    if args.backend is None:
+        ap.error(f"--dp {args.dp} runs {args.dp} processes: pass --backend "
+                 "gloo or --backend nccl")
+    res = run_ranks(serve_rank, 1, 1, dp=args.dp, device=args.device,
+                    backend=args.backend, timeout_s=DP_TIMEOUT_S,
+                    args=(args,))
+    for r in res:
+        if r["streams"] != res[0]["streams"] or r["rows"] != res[0]["rows"]:
+            raise RuntimeError(f"rank {r['rank']}'s streams or rows differ "
+                               "from rank 0's")
+    print(res[0]["report"], end="")
+    print(f"{args.dp} ranks (one per dp row) over {args.backend}: every "
+          "rank's streams are equal")
 
 
 if __name__ == "__main__":

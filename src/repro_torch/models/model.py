@@ -7,9 +7,13 @@ the mixed paged step and the serialized prefill and decode steps.
 Above world size 1 a ``Model`` is one rank of an SPMD program, one process
 per rank as ``shard_map`` runs one program per device: its steps take the
 same host inputs on every rank and run the layout's collectives over the
-process groups it was given. There the mixed paged step runs; the
-serialized steps, the dense cache and SSD layers raise (ROADMAP Queue 1
-item 2)."""
+process groups it was given. With dp rows a step takes the whole batch,
+steps its dp rank's contiguous segment of rows through its row's own
+paged pool, and all-gathers the sampled tokens over the DP group, so that
+every rank returns the whole batch's tokens. The mixed paged step runs on
+every layout; the serialized steps on the paged pool run while the model
+group is one rank (dp rows alone); the dense cache and SSD layers run only
+the trivial layout (ROADMAP Queue 1 item 2)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.parallel import Groups, Layout, Shard
+from repro_torch.parallel.collectives import all_gather_if
 from .attention import get_plan
 from . import transformer as T
 
@@ -50,12 +55,32 @@ class Model:
         self.pool: Optional[T.PagedPool] = None
         self.cache: Optional[T.DenseCache] = None
 
-    def _trivial_only(self, what: str):
-        if self.lay.world > 1:
+    def _trivial_only(self, what: str, paged: bool = False):
+        """Raise for a serialized step or the dense cache on a layout they
+        do not run: the dense cache needs world size 1, a serialized step
+        on the paged pool a model group of one."""
+        if (self.lay.G if paged else self.lay.world) > 1:
             raise NotImplementedError(
-                f"{what} on {self.lay.describe()}: the serialized steps and "
-                "the dense cache run only the trivial layout (ROADMAP Queue "
-                "1 item 2); the mixed paged step runs every layout")
+                f"{what} on {self.lay.describe()}: the serialized steps run "
+                "on the paged pool with a model group of one, the dense "
+                "cache only on the trivial layout (ROADMAP Queue 1 item 2); "
+                "the mixed paged step runs every layout")
+
+    def _dp_rows(self, n: int) -> slice:
+        """This rank's contiguous segment of an ``n``-row batch: dp row d
+        steps rows ``[d*n/dp, (d+1)*n/dp)``."""
+        dp = self.lay.dp
+        if n % dp:
+            raise ValueError(f"batch of {n} rows does not split over "
+                             f"dp={dp}")
+        seg = n // dp
+        d = self.shard.dp_rank
+        return slice(d * seg, (d + 1) * seg)
+
+    def _dp_gather(self, tokens):
+        """The rows' sampled tokens of every dp rank, in row order (the
+        tokens themselves for one row)."""
+        return all_gather_if(tokens, self.shard.dp_group, "dp_all_gather")
 
     # ------------------------------------------------------------ params
     def init_params(self, generator: torch.Generator):
@@ -88,8 +113,9 @@ class Model:
                 ": only attention layers page; use the dense cache")
 
     def init_paged_cache(self, num_blocks: int, block_size: int) -> T.PagedPool:
-        """Zeroed block pools of every layer (block 0 is the null block).
-        Raises for a config that does not page."""
+        """Zeroed block pools of every layer (block 0 is the null block):
+        this rank's own dp row's pool of ``num_blocks`` blocks. Raises for
+        a config that does not page."""
         self._require_paged()
         self.pool = T.init_paged_cache(self.cfg, self.lay, num_blocks,
                                        block_size, self.dtype, self.device)
@@ -146,21 +172,34 @@ class Model:
     # cache they step is updated in place.
     def prefill_step(self, tokens, offsets, block_tables=None):
         """``prefill`` on device tensors; returns the last column's fp32
-        logits [B, V]. The trivial layout only."""
-        self._trivial_only("prefill_step")
+        logits [B, V] (under dp this rank's rows' only). The paged pool
+        with a model group of one, or the dense cache on the trivial
+        layout."""
+        paged = block_tables is not None
+        self._trivial_only("prefill_step", paged)
+        if paged:
+            rows = self._dp_rows(tokens.shape[0])
+            tokens, offsets = tokens[rows], offsets[rows]
+            block_tables = block_tables[rows]
         return T.prefill_body(self.params, self._step_cache(block_tables),
                               tokens, offsets, self.cfg,
                               block_tables=block_tables)
 
     def decode_step(self, tokens, lens, block_tables=None, sample=True):
-        """``decode`` on device tensors; returns the next tokens [B], or
-        the fp32 logits [B, V] with ``sample=False``. The trivial layout
-        only."""
-        self._trivial_only("decode_step")
+        """``decode`` on device tensors; returns the next tokens [B] (under
+        dp gathered from every row), or the fp32 logits with
+        ``sample=False`` ([B, V]; under dp this rank's rows' only). Where
+        ``prefill_step`` runs."""
+        paged = block_tables is not None
+        self._trivial_only("decode_step", paged)
+        if paged:
+            rows = self._dp_rows(tokens.shape[0])
+            tokens, lens = tokens[rows], lens[rows]
+            block_tables = block_tables[rows]
         logits = T.decode_body(self.params, self._step_cache(block_tables),
                                tokens, lens, self.cfg,
                                block_tables=block_tables)
-        return T.greedy_body(logits) if sample else logits
+        return self._dp_gather(T.greedy_body(logits)) if sample else logits
 
     def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True,
                    n_last: int = 1):
@@ -168,9 +207,11 @@ class Model:
         or the newest token's fp32 logits (this tp rank's vocabulary
         columns, [B, v_blk]) with ``sample=False``; with ``n_last`` > 1
         each row's last ``n_last`` columns' ([B, n_last], [B, n_last,
-        v_blk]). ``tokens`` [B, C] is the whole chunk, the same on every
-        rank; an sp rank steps its contiguous C/sp columns, as the
-        reference's ``shard_map`` hands them over."""
+        v_blk]). ``tokens`` [B, C] is the whole batch, the same on every
+        rank; a dp rank steps its contiguous B/dp rows and an sp rank its
+        contiguous C/sp columns, as the reference's ``shard_map`` hands
+        them over. The tokens are gathered over DP, so every rank returns
+        all B rows'; the logits are this rank's B/dp rows' only."""
         self._require_paged()
         if self.pool is None:
             raise RuntimeError("init_paged_cache() before forward_mixed()")
@@ -178,12 +219,16 @@ class Model:
         if tokens.shape[1] % sp:
             raise ValueError(f"chunk of {tokens.shape[1]} columns does not "
                              f"split over sp={sp}")
+        rows = self._dp_rows(tokens.shape[0])
+        tokens, q_lens = tokens[rows], q_lens[rows]
+        offsets, block_tables = offsets[rows], block_tables[rows]
         if sp > 1:
             c = tokens.shape[1] // sp
             tokens = tokens[:, self.shard.sp_rank * c:][:, :c]
-        return T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
-                            block_tables, self.cfg, sample=sample,
-                            n_last=n_last)
+        out = T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
+                           block_tables, self.cfg, sample=sample,
+                           n_last=n_last)
+        return self._dp_gather(out) if sample else out
 
     # ------------------------------------------------------------- step
     def prefill(self, tokens, offsets, block_tables=None):
@@ -210,7 +255,8 @@ class Model:
                       sample: bool = True, n_last: int = 1):
         """Unified mixed-batch step over the paged pool: chunked-prefill rows
         (q_len up to the chunk width) and decode rows (q_len == 1) in one
-        pass. ``tokens`` [B, C], ``q_lens``/``offsets`` [B] and
+        pass (under dp each rank steps its segment of rows, as
+        ``mixed_step``). ``tokens`` [B, C], ``q_lens``/``offsets`` [B] and
         ``block_tables`` [B, nmax] (arrays or tensors) move to the model's
         device as int32. Returns ``(next_tokens [B], pool)``, or the newest
         token's fp32 logits [B, V] (this tp rank's columns [B, v_blk] above
@@ -226,7 +272,8 @@ class Model:
     @torch.no_grad()
     def copy_blocks(self, src, dst):
         """The copy-on-write data plane: ``pool[dst[i]] = pool[src[i]]`` for
-        K and V of every layer, in place (a CUDA graph that steps the pool
+        K and V of every layer, in row-local ids of this rank's pool, in
+        place (a CUDA graph that steps the pool
         keeps its addresses). One gather of every source, then one scatter,
         so a block that is one pair's destination and another's source
         gives the latter its bytes from before the copy."""

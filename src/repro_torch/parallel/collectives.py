@@ -4,11 +4,15 @@
 ``shard_map``).
 
 The port runs one process per rank, as ``shard_map`` runs one program per
-device. ``Groups`` builds a grid's process groups once, in the same order
-on every rank: one SP group per tp rank ``j`` (the ranks ``i*tp + j``), one
-TP group per sp rank ``i`` (the ranks ``i*tp + j``), and the whole world,
-which is the shift config's TP group. A group of one is ``None``, and the
-collectives below are no-ops on it, as the reference's are on empty axes.
+device. ``Groups`` builds the process groups of ``dp`` rows of an (sp, tp)
+grid once, in the same order on every rank (``dist.new_group`` must be
+called by every rank for every group): for each row ``d``, one SP group
+per tp rank ``j`` (the ranks ``d*G + i*tp + j`` over ``i``), one TP group
+per sp rank ``i`` (over ``j``) and the row's model group, which is the
+shift config's TP group; then one DP group per grid position ``(i, j)``
+(the ranks ``d*G + i*tp + j`` over ``d``). A group of one is ``None``, and
+the collectives below are no-ops on it, as the reference's are on empty
+axes.
 
 The backend is whatever ``init_process_group`` was given (``launch.mesh``
 passes it explicitly). Each ``Group`` counts the payload bytes this rank
@@ -51,30 +55,47 @@ class Group:
 
 
 class Groups:
-    """The process groups of an (sp, tp) grid, for the calling rank. Every
-    rank of the world must build them, in the same order."""
+    """The process groups of ``dp`` rows of an (sp, tp) grid, for the
+    calling rank. Every rank of the world must build them, in the same
+    order. ``world_group`` is the calling rank's row (its model group)."""
 
-    def __init__(self, sp: int, tp: int):
-        self.sp, self.tp = sp, tp
+    def __init__(self, sp: int, tp: int, *, dp: int = 1):
+        self.sp, self.tp, self.dp = sp, tp, dp
         self.world = dist.get_world_size()
         self.rank = dist.get_rank()
-        if sp * tp != self.world:
-            raise ValueError(f"grid sp={sp} x tp={tp} on a world of "
-                             f"{self.world}")
+        if dp * sp * tp != self.world:
+            raise ValueError(f"dp={dp} rows of grid sp={sp} x tp={tp} on a "
+                             f"world of {self.world}")
         self.backend = dist.get_backend()
         self.traffic: Counter = Counter()
-        i, j = divmod(self.rank, tp)
-        self.sp_group = self.tp_group = None
-        for jj in range(tp):
-            g = self._new([ii * tp + jj for ii in range(sp)])
-            if jj == j:
-                self.sp_group = g
+        G = sp * tp
+        d = self.rank // G
+        i, j = divmod(self.rank % G, tp)
+        self.sp_group = self.tp_group = self.world_group = None
+        for dd in range(dp):
+            row = dd * G
+            for jj in range(tp):
+                g = self._new([row + ii * tp + jj for ii in range(sp)])
+                if (dd, jj) == (d, j):
+                    self.sp_group = g
+            for ii in range(sp):
+                g = self._new([row + ii * tp + jj for jj in range(tp)])
+                if (dd, ii) == (d, i):
+                    self.tp_group = g
+            if dp == 1:
+                # one row: the model group is the world itself
+                self.world_group = (Group(dist.group.WORLD, G, self.rank,
+                                          self.traffic) if G > 1 else None)
+            else:
+                g = self._new(list(range(row, row + G)))
+                if dd == d:
+                    self.world_group = g
+        self.dp_group = None
         for ii in range(sp):
-            g = self._new([ii * tp + jj for jj in range(tp)])
-            if ii == i:
-                self.tp_group = g
-        self.world_group = (Group(dist.group.WORLD, self.world, self.rank,
-                                  self.traffic) if self.world > 1 else None)
+            for jj in range(tp):
+                g = self._new([dd * G + ii * tp + jj for dd in range(dp)])
+                if (ii, jj) == (i, j):
+                    self.dp_group = g
 
     def _new(self, ranks) -> Optional[Group]:
         if len(ranks) == 1:
@@ -84,8 +105,9 @@ class Groups:
                 if self.rank in ranks else None)
 
     def _check(self, lay: "Layout"):
-        if lay.grid != (self.sp, self.tp):
-            raise ValueError(f"layout on grid {lay.grid}, groups of grid "
+        if lay.grid != (self.sp, self.tp) or lay.dp != self.dp:
+            raise ValueError(f"layout of dp={lay.dp} on grid {lay.grid}, "
+                             f"groups of dp={self.dp} on grid "
                              f"{(self.sp, self.tp)}")
 
     def sp_of(self, lay: "Layout") -> Optional[Group]:
@@ -95,11 +117,16 @@ class Groups:
 
     def tp_of(self, lay: "Layout") -> Optional[Group]:
         """The layout's TP group for this rank: the grid's TP group in the
-        base config, the whole world in the shift config."""
+        base config, the rank's whole row in the shift config."""
         self._check(lay)
         if lay.tp == 1:
             return None
         return self.tp_group if lay.sp > 1 else self.world_group
+
+    def dp_of(self, lay: "Layout") -> Optional[Group]:
+        """The layout's DP group for this rank (None for one row)."""
+        self._check(lay)
+        return self.dp_group
 
 
 def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
@@ -111,12 +138,15 @@ def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     return x
 
 
-def all_gather_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+def all_gather_if(x: torch.Tensor, group: Optional[Group],
+                  kind: str = "all_gather") -> torch.Tensor:
     """``x`` of every rank of ``group``, concatenated along axis 0 in the
-    group's rank order (tiled); ``x`` itself for no group."""
+    group's rank order (tiled); ``x`` itself for no group. ``kind`` names
+    the call in the traffic counter (``"dp_all_gather"`` for the DP
+    group's token gather)."""
     if group is None:
         return x
-    group.count("all_gather", x)
+    group.count(kind, x)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(group.size)]
     dist.all_gather(parts, x, group=group.pg)

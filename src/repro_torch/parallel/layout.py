@@ -1,16 +1,18 @@
 """Parallel layout of the port (counterpart of ``repro.parallel.layout``).
 
 A ``Layout`` gives the degrees of the data (dp), Ulysses sequence (sp),
-tensor (tp) and expert (ep) axes, and the (sp, tp) grid of processes it
-runs on. Process rank ``r = i*tp + j`` sits at sp rank ``i`` and tp rank
-``j`` of the grid: the position of device ``mesh.devices[0, i, j]`` in the
-reference's ``make_mesh((1, sp, tp), ("data", "sp", "tp"))``. The model
-group is tp-major (the paper's SP_TP order, §3.3.1): rank ``r`` owns head
+tensor (tp) and expert (ep) axes, and the (sp, tp) grid of one model
+group. The world is ``dp`` such grids, one per data-parallel row: process
+rank ``r = d*(sp*tp) + i*tp + j`` sits in dp row ``d`` at sp rank ``i``
+and tp rank ``j`` of its row's grid, the position of device
+``mesh.devices[d, i, j]`` in the reference's ``make_mesh((dp, sp, tp),
+("data", "sp", "tp"))``. Every row holds the same shards: the reference
+replicates the parameters over ``"data"``. The model group is tp-major (the paper's SP_TP order, §3.3.1): rank ``r`` owns head
 sub-block ``g = j*sp + i`` in the base config, and in the shift config
 ``to_shift()`` (sp 1, tp = SP·TP on the same grid) its tp rank is that same
 ``g``, so it holds the same KV head slots in both configs.
 
-Data and expert parallelism are not ported: dp and ep above 1 raise.
+Expert parallelism is not ported: ep above 1 raises.
 """
 from __future__ import annotations
 
@@ -31,14 +33,13 @@ class Layout:
     grid: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
-        for axis in ("dp", "ep"):
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"{axis}={getattr(self, axis)}: the port's layouts run "
-                    "dp = ep = 1 (per-row pools with dp, ROADMAP Queue 1 "
-                    "item 3)")
-        if self.sp < 1 or self.tp < 1:
-            raise ValueError(f"sp={self.sp}, tp={self.tp}: degrees are >= 1")
+        if self.ep != 1:
+            raise NotImplementedError(
+                f"ep={self.ep}: the port's layouts run ep = 1 (expert "
+                "parallelism comes with the MoE models, ROADMAP Queue 1)")
+        if self.dp < 1 or self.sp < 1 or self.tp < 1:
+            raise ValueError(f"dp={self.dp}, sp={self.sp}, tp={self.tp}: "
+                             "degrees are >= 1")
         grid = self.grid or (self.sp, self.tp)
         object.__setattr__(self, "grid", tuple(grid))
         if grid != (self.sp, self.tp) and not (
@@ -54,24 +55,35 @@ class Layout:
 
     @property
     def world(self) -> int:
-        """Processes the layout runs on (one per model rank)."""
-        return self.G
+        """Processes the layout runs on: one per model rank of each dp
+        row."""
+        return self.dp * self.G
 
     def to_shift(self) -> "Layout":
         """The paper's shift configuration, Algorithm 1[1, SP×TP]: the SP
         degree folds into TP on the same grid, so the model group, and with
-        it the KV pool's sharding, is unchanged."""
+        it the KV pool's sharding, is unchanged; dp is kept, as the
+        reference's ``to_shift`` keeps its ``dp_axes``."""
         return replace(self, sp=1, tp=self.G)
 
     # ------------------------------------------------------------ ranks
-    def _coords(self, rank: int) -> Tuple[int, int]:
+    def _check_rank(self, rank: int):
         if not 0 <= rank < self.world:
             raise ValueError(f"rank {rank} outside a world of {self.world}")
-        return divmod(rank, self.grid[1])
+
+    def _coords(self, rank: int) -> Tuple[int, int]:
+        """(sp rank, tp rank) of ``rank`` on its row's grid."""
+        self._check_rank(rank)
+        return divmod(rank % self.G, self.grid[1])
+
+    def dp_rank(self, rank: int) -> int:
+        """The data-parallel row of process ``rank``."""
+        self._check_rank(rank)
+        return rank // self.G
 
     def model_rank(self, rank: int) -> int:
-        """Head sub-block of process ``rank``, ``j*sp + i`` on the grid;
-        the same in the base and shift configs."""
+        """Head sub-block of process ``rank``, ``j*sp + i`` on its row's
+        grid; the same in the base and shift configs and in every row."""
         i, j = self._coords(rank)
         return joint_axis_index((j, i), (self.grid[1], self.grid[0]))
 
@@ -100,12 +112,14 @@ class Layout:
 @dataclass(frozen=True, eq=False)
 class Shard:
     """Where one model runs in this process: its layout, the process rank,
-    and the layout's SP and TP groups for that rank (None for a group of
-    one). The default is the trivial layout's single rank."""
+    the layout's SP and TP groups for that rank, and its DP group, the
+    ``dp`` ranks at the same grid position of every row (each None for a
+    group of one). The default is the trivial layout's single rank."""
     lay: Layout = field(default_factory=Layout)
     rank: int = 0
     sp_group: Optional[Group] = None
     tp_group: Optional[Group] = None
+    dp_group: Optional[Group] = None
 
     @classmethod
     def of(cls, lay: Layout, groups: Optional[Groups]) -> "Shard":
@@ -116,7 +130,12 @@ class Shard:
                 raise ValueError(f"{lay.describe()} runs on {lay.world} "
                                  "ranks: pass the grid's Groups")
             return cls(lay)
-        return cls(lay, groups.rank, groups.sp_of(lay), groups.tp_of(lay))
+        return cls(lay, groups.rank, groups.sp_of(lay), groups.tp_of(lay),
+                   groups.dp_of(lay))
+
+    @property
+    def dp_rank(self) -> int:
+        return self.lay.dp_rank(self.rank)
 
     @property
     def sp_rank(self) -> int:

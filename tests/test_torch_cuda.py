@@ -1030,3 +1030,57 @@ def test_cuda_layout_engine_matches_cpu_engine(cuda, kw):
     with pytest.raises(RuntimeError, match="one card per rank"):
         run_ranks(_layout_engine_rank, 2, 2, device="cuda", backend="nccl",
                   timeout_s=60, args=(state, kw))
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: two rows, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+def _dp_engine_rank(rank, groups, device, state, kw):
+    """One rank of the dp=2 engine on reduced qwen3-8b at fp32 with the
+    weights ``state``: its own row's pool, the serve workload with the
+    prefix cache."""
+    from repro_torch.engine.api import PrefixConfig
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config("qwen3-8b").reduced(), device=device,
+                  dtype=torch.float32, lay=Layout(dp=2), groups=groups)
+    model.load_params(state)
+    eng = ShiftEngine(model, EngineConfig(prefix=PrefixConfig(enabled=True),
+                                          **kw))
+    ops.reset_launch_counts()
+    reqs = workload(6, 8, shared_prefix=16)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return ([r.generated for r in reqs], [r.row for r in reqs],
+            dict(eng.config_counts), eng.prefix_stats.as_dict(),
+            eng.block_accounting().as_dict(), ops.launch_counts())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"mixed": False}],
+                         ids=["mixed", "serialized"])
+def test_cuda_dp_engine_matches_cpu_engine(cuda, kw):
+    """The dp=2 engine with two ranks sharing the card (gloo) against the
+    same engine's two ranks on the CPU: equal streams, rows, config counts,
+    prefix stats and block ledgers on every rank, both rows used, and each
+    card rank launched 3 * layers + 1 RMSNorm and one ragged attention per
+    layer per step."""
+    from repro_torch.launch.mesh import run_ranks
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    state = {k: v.numpy() for k, v in cpu.params.state_dict().items()}
+    got = run_ranks(_dp_engine_rank, 1, 1, dp=2, device="cuda",
+                    backend="gloo", timeout_s=300, args=("cuda", state, kw))
+    want = run_ranks(_dp_engine_rank, 1, 1, dp=2, device="cpu",
+                     backend="gloo", timeout_s=300, args=("cpu", state, kw))
+    for g, w in zip(got, want):
+        assert g[:5] == w[:5] == want[0][:5]
+    streams, rows, counts, _, ledger, launches = got[0]
+    assert set(rows) == {0, 1} and all(len(s) == 8 for s in streams)
+    assert ledger["used"] == ledger["pinned"]
+    steps = sum(counts.values())
+    for g in got:
+        assert g[5]["rmsnorm"] == steps * (3 * cfg.num_layers + 1)
+        assert g[5]["paged_ragged_attention"] == steps * cfg.num_layers

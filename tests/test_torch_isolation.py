@@ -97,6 +97,24 @@ def test_serialized_entry_points_default_to_cuda(no_card, kw):
                     EngineConfig(**kw))
 
 
+def test_dp_entry_points_default_to_cuda(no_card):
+    """Data-parallel rows through the same entry points: ``--dp`` and
+    ``build_engine(dp=)`` run on the card unless asked for the CPU, and
+    ``run_ranks`` refuses the card without one before it spawns a rank."""
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_engine(dp=2)            # full width: raises at once
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--dp", "2", "--backend", "gloo"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(get_config("qwen3-8b").reduced(), lay=Layout(dp=2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.run_ranks(print, 1, 1, dp=2, device="cuda", backend="gloo",
+                       timeout_s=10)
+
+
 def test_mamba2_entry_points_default_to_cuda(no_card):
     """mamba2 through the same entry points: the dense fallback still runs
     on the card unless asked for the CPU."""
