@@ -33,8 +33,9 @@ Phases (every failure propagates and exits non-zero):
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
    dense cache) and on reduced mamba2 (the dense fallback, with two
    requests in flight and more requests than slots) on the card (kernels)
-   and on the CPU (plain versions) give equal streams, config counts and
-   preemptions, and one mixed step's and one dense prefill + decode's
+   and on the CPU (plain versions) give equal streams, config counts,
+   preemptions and observability dumps (less their time fields and the
+   watchdog's flags), and one mixed step's and one dense prefill + decode's
    logits agree within 1e-4; the mixed engine with the prefix cache and
    k=4 speculation, after a 16-token shared prefix, with and without pool
    pressure, gives equal streams, cached tokens, prefix stats, spec counts,
@@ -70,7 +71,28 @@ Phases (every failure propagates and exits non-zero):
    launches equal, a prefix hit and an in-flight wait, drafts, no block
    held at exit, launches exact per step, no capture in the measured run;
    it prints the hits, tokens saved, COW copies, drafts, steps saved, wall
-   ms per step, TTFT, tokens/s and the graphs by verify width;
+   ms per step, TTFT, tokens/s and the graphs by verify width. Counts of
+   the engine's registry (configs, drafts) are read as deltas over the
+   measured run;
+5b. observability and the request lifecycle on the same model: the
+   graphed mixed paged engine over the serve workload with obs on, off,
+   on and off (``NullObs`` swapped in): equal streams, steps and launches,
+   the wall per decode step of each turn and the ratio of on to off
+   (``obs.overhead_ratio``); each on-turn's dump must hold together
+   (``steps_total{config}`` equal to the configs the policy chose, the
+   records' token sums equal to the token counters and the requests'
+   tokens, 6 TTFT and E2E observations, each ``finish`` event's ``ttft_s``
+   the request's, the records' durations 0.95-1.0 of the run's wall, one
+   Chrome-trace "X" event per record), and its report and the median
+   ``dur_s`` by config and by kind of step are printed; the graphed
+   serialized paged engine the same, in turns with and without its
+   prefill step's wait for the device (median prefill and decode
+   ``dur_s``, run walls); then the lifecycle drill by hand on a cut pool
+   under both shed policies (two requests, a step, four more, a deadline
+   moved into the past and a cancel after step 3, ``drain()``, a request
+   after it): every request ends with one reason, the reason counters
+   match, no block is held and the late request is shed. One
+   ``{"obs": ...}`` line;
 6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
    the one card with the collectives over gloo (NCCL refuses two ranks on
    one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
@@ -98,9 +120,11 @@ Phases (every failure propagates and exits non-zero):
    to the row's segment of the dp batch (the same inputs after zero
    padding, run at the dp step's shapes), no block held at exit
    (``used == pinned == entries`` per row), 109 and 36 launches per step
-   and rank; it prints per row the requests, hits, tokens saved, drafts
-   accepted and free blocks, the TTFT, the wall per step by config, the
-   decode tokens/s and the ``dp_all_gather`` bytes and calls per step.
+   and rank, both ranks' observability dumps equal once the time fields
+   are dropped, with a trace lane per dp row; it prints per row the
+   requests, hits, tokens saved and free blocks, the TTFT, the wall per
+   step by config, the decode tokens/s, the ``dp_all_gather`` bytes and
+   calls per step, and rank 0's observability report.
    Then (2, 2, 2), eight processes at full width with the depth cut to
    the most layers (at least 8) that fit with 20 % of the free memory
    spare: every rank's streams equal; each row's segment of every step,
@@ -775,11 +799,18 @@ def cross_device_phase(torch):
             eng.run_until_idle()
             runs.append(([r.generated for r in reqs], eng.config_counts,
                          eng.preemptions,
-                         eng.kv.num_free_blocks if eng.paged else None))
-        check(runs[0] == runs[1], f"reduced engine {kw or 'no pressure'}: "
-              f"cuda {runs[0]} != cpu {runs[1]}")
-        print(f"reduced engine {kw or 'no pressure'}: cuda == cpu, "
-              f"configs {runs[0][1]}, {runs[0][2]} preemptions")
+                         eng.kv.num_free_blocks if eng.paged else None,
+                         timeless(eng.obs.dump())))
+        check(runs[0][:4] == runs[1][:4], f"reduced engine "
+              f"{kw or 'no pressure'}: cuda {runs[0][:4]} != cpu "
+              f"{runs[1][:4]}")
+        check(runs[0][4] == runs[1][4], f"reduced engine "
+              f"{kw or 'no pressure'}: the cuda and cpu obs dumps differ "
+              "(time fields dropped)")
+        print(f"reduced engine {kw or 'no pressure'}: cuda == cpu (streams, "
+              f"obs dumps less time fields), configs {runs[0][1]}, "
+              f"{runs[0][2]} preemptions, {len(runs[0][4]['events'])} "
+              "events")
 
     # one mixed step's logits: a prefill row, a decode row, a padding row
     # and a chunk whose padding overhangs the table
@@ -852,9 +883,8 @@ def prefix_spec_cross_device(torch, gpu, cpu):
             runs.append(([r.generated for r in reqs],
                          [r.cached_tokens for r in reqs],
                          eng.prefix_stats.as_dict(),
-                         (eng.spec_proposed, eng.spec_accepted,
-                          eng.spec_rollback_blocks),
-                         eng.preemptions, eng.config_counts))
+                         spec_counts(eng), eng.preemptions,
+                         eng.config_counts))
         check(runs[0] == runs[1], f"reduced prefix + spec {kw}: cuda "
               f"{runs[0][1:]} != cpu {runs[1][1:]}")
         _, cached, stats, spec, pre, counts = runs[0]
@@ -961,6 +991,57 @@ def mamba2_cross_device(torch):
 # ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
+def delta(after, before):
+    """``after`` less ``before``, key by key (registry totals read before
+    and after a measured run)."""
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def spec_counts(eng):
+    """Draft tokens verified, accepted and blocks rolled back: the
+    engine's registry totals."""
+    reg = eng.obs.registry
+    return tuple(int(reg.counter_total(name)) for name in (
+        "spec_proposed_total", "spec_accepted_total",
+        "spec_rollback_blocks_total"))
+
+
+def fresh_obs(eng, enabled=True):
+    """Give ``eng`` a new, empty observability surface (``NullObs`` when
+    not ``enabled``), so that a dump covers the run after this call."""
+    from repro_torch.obs import NullObs, Observability
+    eng.obs = (Observability("engine", window=eng.cfg.obs.window,
+                             now=eng.now, event_cap=eng.cfg.obs.event_cap)
+               if enabled else NullObs(now=eng.now))
+    return eng.obs
+
+
+def timeless(dump):
+    """``dump`` without what reads the wall clock: the records' and
+    events' time fields (``ts``, ``t_start``, ``dur_s``, ``arrival`` and
+    every ``*_s`` attribute), the sums and buckets of the ``*_seconds``
+    histograms, and the watchdog's ``straggler`` events and counter (it
+    flags by wall time); the events keep their order, not their ``seq``."""
+    def keep(k):
+        return k not in ("ts", "t_start", "dur_s", "arrival", "seq") \
+            and not k.endswith("_s")
+
+    m = dump["metrics"]
+    return {
+        "source": dump["source"], "events_dropped": dump["events_dropped"],
+        "steps": [{k: v for k, v in r.items() if keep(k)}
+                  for r in dump["steps"]],
+        "events": [{k: v for k, v in e.items() if keep(k)}
+                   for e in dump["events"] if e["kind"] != "straggler"],
+        "metrics": {
+            "counters": [c for c in m["counters"]
+                         if c["name"] != "straggler_steps_total"],
+            "gauges": m["gauges"],
+            "histograms": [dict(h, sum=None, buckets=None)
+                           if h["name"].endswith("_seconds") else h
+                           for h in m["histograms"]]}}
+
+
 def count_steps(eng):
     """Count the engine's productive steps of each kind from here on:
     {"mixed": n, "prefill": n, "decode": n}."""
@@ -1026,7 +1107,7 @@ def serve_path(torch, eng, label):
         eng.submit(r)
     eng.run_until_idle()
     torch.cuda.synchronize()
-    eng.config_counts = {"base": 0, "shift": 0}
+    counts0 = dict(eng.config_counts)
     kinds = count_steps(eng)
     reqs = serve.workload(6, 16)
     captured = eng.deploy.captures
@@ -1039,7 +1120,8 @@ def serve_path(torch, eng, label):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = serve.launch_counts()
-    steps = sum(eng.config_counts.values())
+    counts = delta(eng.config_counts, counts0)
+    steps = sum(counts.values())
     # the warm-up run stepped through every bucket of the workload, so the
     # measured run only replays
     check(eng.deploy.captures == captured,
@@ -1074,7 +1156,7 @@ def serve_path(torch, eng, label):
              "ttft_ms": [t * 1e3 for t in ttft],
              "decode_tokens_per_s": dec_tok / (t_last - t_first)}
     print(f"{label}: served 6 requests x 16 tokens in {wall:.3f} s over "
-          f"{steps} steps {kinds}; configs {eng.config_counts}; "
+          f"{steps} steps {kinds}; configs {counts}; "
           f"{eng.preemptions} preemptions"
           + (f"; {eng.kv.num_free_blocks} of {eng.kv.num_blocks} blocks "
              "free at exit" if eng.paged else ""))
@@ -1240,9 +1322,9 @@ def prefix_spec_path(torch, eng, label):
     check(len(eng.prefix) == 0 and eng.block_accounting().used == 0,
           f"{label}: the cache did not empty: {eng.block_accounting()}")
     before = eng.prefix_stats.as_dict()
-    spec0 = (eng.spec_proposed, eng.spec_accepted, eng.spec_rollback_blocks)
+    spec0 = spec_counts(eng)
+    counts0 = dict(eng.config_counts)
     waits["waits"] = 0
-    eng.config_counts = {"base": 0, "shift": 0}
     kinds = count_steps(eng)
     reqs = serve.workload(6, 16, shared_prefix=PS_SHARED)
     captured = eng.deploy.captures
@@ -1255,7 +1337,8 @@ def prefix_spec_path(torch, eng, label):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = serve.launch_counts()
-    steps = sum(eng.config_counts.values())
+    counts = delta(eng.config_counts, counts0)
+    steps = sum(counts.values())
     check(eng.deploy.captures == captured,
           f"{label}: {eng.deploy.captures - captured} captures in the "
           "measured run")
@@ -1267,9 +1350,7 @@ def prefix_spec_path(torch, eng, label):
     after = eng.prefix_stats.as_dict()
     stats = {k: after[k] - before[k] for k in
              ("hits", "misses", "tokens_saved", "evictions", "cow_copies")}
-    spec = tuple(a - b for a, b in zip(
-        (eng.spec_proposed, eng.spec_accepted, eng.spec_rollback_blocks),
-        spec0))
+    spec = tuple(a - b for a, b in zip(spec_counts(eng), spec0))
     check(stats["hits"] > 0 and waits["waits"] > 0,
           f"{label}: prefix {stats}, {waits['waits']} in-flight waits")
     check(spec[0] > 0 or not eng.cfg.spec.k, f"{label}: no draft")
@@ -1286,7 +1367,7 @@ def prefix_spec_path(torch, eng, label):
     t_first = max(r.first_token_time for r in reqs)
     t_last = max(r.finish_time for r in reqs)
     dec_tok = sum(len(r.generated) - 1 for r in reqs)
-    out = {"steps": steps, "configs": dict(eng.config_counts),
+    out = {"steps": steps, "configs": counts,
            "wall_ms_per_step": wall / steps * 1e3,
            "ttft_ms": [t * 1e3 for t in ttft],
            "decode_tokens_per_s": dec_tok / (t_last - t_first),
@@ -1298,7 +1379,7 @@ def prefix_spec_path(torch, eng, label):
            "graphs_by_width": graphs_by_width(eng.deploy)}
     print(f"{label}: served 6 requests x 16 tokens after a {PS_SHARED}-token "
           f"shared prefix in {wall:.3f} s over {steps} steps "
-          f"{eng.config_counts}; prefix {stats}, {waits['waits']} in-flight "
+          f"{counts}; prefix {stats}, {waits['waits']} in-flight "
           f"waits, cached tokens {out['cached_tokens']}; drafted {spec[0]}, "
           f"accepted {spec[1]}, rollback blocks {spec[2]}; "
           f"{out['wall_ms_per_step']:.2f} ms per step, TTFT ms "
@@ -1425,8 +1506,330 @@ def serving_phase(torch):
                 ("decode", ([5, 7], [16, 16], None)),
                 ("decode", ([9, 3], [17, 17], None))],
                 "qwen3-8b dense prefill + decode")
+    by_path["mixed_obs"], by_path["serialized_paged_obs"] = \
+        obs_phase(torch, model)
     print(f"card: {card_line()}")
     return by_path, turns
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: observability and the request lifecycle on the served model
+# ---------------------------------------------------------------------------
+OBS_TURNS = (True, False, True, False)     # obs on, off, on, off
+
+
+def count_configs(eng):
+    """Count the configs ``eng``'s policy chooses from here on, apart from
+    the registry: {"base": n, "shift": n}."""
+    from collections import Counter
+    chosen = Counter()
+    choose = eng._choose
+
+    def counted(*args, **kw):
+        name = choose(*args, **kw)
+        chosen[name] += 1
+        return name
+
+    eng._choose = counted
+    return chosen
+
+
+def obs_run(torch, eng, chosen):
+    """One measured run of the serve workload on ``eng`` (warm, so only
+    replays), every launch counter set to 0 just before and read just
+    after. Returns the requests, the run's wall (the engine's clock), its
+    steps and launches, the configs chosen and the wall per decode step."""
+    from repro_torch.launch import serve
+    reqs = serve.workload(6, 16)
+    chosen.clear()
+    captured, step0 = eng.deploy.captures, eng.step_count
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = serve.launch_counts()
+    check(eng.deploy.captures == captured, "obs phase: a capture in a "
+          "measured run")
+    check(all(len(r.generated) == 16 and r.finish_reason == "ok"
+              for r in reqs), "obs phase: a request did not finish")
+    t_first = max(r.first_token_time for r in reqs)
+    t_last = max(r.finish_time for r in reqs)
+    return {"reqs": reqs, "wall_s": wall, "steps": eng.step_count - step0,
+            "launches": launches, "chosen": dict(chosen),
+            "wall_ms_per_decode_step": (t_last - t_first) / 15 * 1e3}
+
+
+def step_kind(rec):
+    if rec["prefill_tokens"] and rec["decode_tokens"]:
+        return "mixed"
+    return ("prefill" if rec["prefill_tokens"] else
+            "decode" if rec["decode_tokens"] else "idle")
+
+
+def check_dump(run, dump, label, mixed):
+    """The dump of a measured run holds together: ``steps_total{config}``
+    equals the configs chosen; the records' token sums equal the token
+    counters, and these the prompts and the tokens the requests hold (the
+    mixed iteration prefills a whole prompt and samples the first token in
+    its last chunk; the serialized one leaves each prompt's last token to
+    its first decode step); TTFT and E2E counted
+    once per request; every ``finish`` event's ``ttft_s`` the request's own;
+    the records' durations 0.95-1.0 of the run's wall; the Chrome trace
+    round-trips through JSON with one "X" event per record. Returns the
+    medians of ``dur_s`` by config and by kind of step, in ms."""
+    from statistics import median
+    from repro_torch.obs import chrome_trace
+    reqs, steps = run["reqs"], dump["steps"]
+    counters = {(c["name"], tuple(sorted(c["labels"].items()))): c["value"]
+                for c in dump["metrics"]["counters"]}
+    hists = {h["name"]: h for h in dump["metrics"]["histograms"]}
+    by_config = {k: counters.get(("steps_total", (("config", k),)), 0)
+                 for k in ("base", "shift")}
+    check(by_config == {k: run["chosen"].get(k, 0) for k in by_config},
+          f"{label}: steps_total {by_config}, chosen {run['chosen']}")
+    pre = sum(r["prefill_tokens"] for r in steps)
+    dec = sum(r["decode_tokens"] for r in steps)
+    prompts = sum(len(r.prompt) for r in reqs)
+    held = sum(len(r.generated) for r in reqs)
+    want = (prompts, held - len(reqs)) if mixed \
+        else (prompts - len(reqs), held)
+    check((pre, dec) == want
+          and pre == counters[("tokens_prefill_total", ())]
+          and dec == counters[("tokens_decode_total", ())],
+          f"{label}: records {pre} prefill + {dec} decode tokens, counters "
+          f"{counters.get(('tokens_prefill_total', ()))} + "
+          f"{counters.get(('tokens_decode_total', ()))}, want {want}")
+    check(hists["ttft_seconds"]["count"] == hists["e2e_seconds"]["count"]
+          == len(reqs), f"{label}: TTFT/E2E counts")
+    by_rid = {r.rid: r for r in reqs}
+    fins = [e for e in dump["events"] if e["kind"] == "finish"]
+    check(len(fins) == len(reqs) and all(
+        e["ttft_s"] == by_rid[e["rid"]].first_token_time
+        - by_rid[e["rid"]].arrival for e in fins),
+        f"{label}: finish events' ttft_s differ from the requests'")
+    dur = sum(r["dur_s"] for r in steps)
+    check(0.95 * run["wall_s"] <= dur <= run["wall_s"],
+          f"{label}: records' durations {dur:.4f} s against the run's wall "
+          f"{run['wall_s']:.4f} s")
+    tr = chrome_trace(dump)
+    check(json.loads(json.dumps(tr)) == tr and sum(
+        e["ph"] == "X" for e in tr["traceEvents"]) == len(steps),
+        f"{label}: the Chrome trace")
+    med = {}
+    for key, fn in (("config", lambda r: r["config"] or "idle"),
+                    ("kind", step_kind)):
+        groups = {}
+        for r in steps:
+            groups.setdefault(fn(r), []).append(r["dur_s"] * 1e3)
+        med[key] = {k: {"median_ms": median(v), "steps": len(v)}
+                    for k, v in sorted(groups.items())}
+    med["records_share_of_wall"] = dur / run["wall_s"]
+    return med
+
+
+def obs_turns(torch, model):
+    """The graphed mixed paged engine over the serve workload with obs on,
+    off, on and off (the engine's ``obs`` swapped between runs): equal
+    streams, steps and launches; the wall per decode step of each turn and
+    the ratio of on to off (``obs.overhead_ratio``); each on-turn's dump
+    checked (``check_dump``) and its report printed."""
+    from statistics import mean
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.obs import build_report, format_report
+    eng = ShiftEngine(model, EngineConfig())
+    for r in serve.workload(6, 16):             # warm-up: every capture
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    chosen = count_configs(eng)
+    runs = []
+    for on in OBS_TURNS:
+        obs = fresh_obs(eng, on)
+        run = obs_run(torch, eng, chosen)
+        if on:
+            dump = obs.dump()
+            run["medians"] = check_dump(run, dump, "obs on", True)
+            run["report"] = format_report(build_report(dump))
+        runs.append(run)
+    first = runs[0]
+    for run in runs[1:]:
+        check([r.generated for r in run["reqs"]]
+              == [r.generated for r in first["reqs"]]
+              and run["steps"] == first["steps"]
+              and run["launches"] == first["launches"],
+              "obs on/off: the turns' streams, steps or launches differ")
+    on = [r["wall_ms_per_decode_step"] for r, o in zip(runs, OBS_TURNS) if o]
+    off = [r["wall_ms_per_decode_step"] for r, o in zip(runs, OBS_TURNS)
+           if not o]
+    ratio = mean(on) / mean(off)
+    print("obs phase, mixed paged [graphed]: obs on, off, on, off: equal "
+          f"streams, {first['steps']} steps and launches each; wall ms per "
+          "decode step " + ", ".join(
+              f"{r['wall_ms_per_decode_step']:.3f}" for r in runs)
+          + f"; on / off (obs.overhead_ratio) {ratio:.4f}; run walls s "
+          + ", ".join(f"{r['wall_s']:.4f}" for r in runs))
+    print("obs phase, mixed paged: the dump holds together (steps by "
+          "config, token sums, 6 TTFT and E2E, ttft_s per finish, records "
+          f"{first['medians']['records_share_of_wall']:.4f} of the wall, "
+          "one trace event per record); report of the first on-turn:")
+    print(first["report"])
+    print("obs phase, mixed paged: median dur_s ms by config "
+          + json.dumps(first["medians"]["config"]) + "; by kind "
+          + json.dumps(first["medians"]["kind"]))
+    return eng, {"wall_ms_per_decode_step": [
+        r["wall_ms_per_decode_step"] for r in runs],
+        "wall_s": [r["wall_s"] for r in runs], "overhead_ratio": ratio,
+        "medians": first["medians"], "steps": first["steps"]}, \
+        first["launches"]
+
+
+def serialized_obs_turns(torch, model):
+    """The graphed serialized paged engine with obs on, in turns with the
+    prefill step's device wait and without it (``_wait_for_device``
+    replaced by a no-op): equal streams; each turn's dump checked; the
+    median ``dur_s`` of prefill and decode records and the run's wall."""
+    from statistics import mean
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.obs import build_report, format_report
+    eng = ShiftEngine(model, EngineConfig(mixed=False))
+    for r in serve.workload(6, 16):
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    chosen = count_configs(eng)
+    runs = []
+    for wait in (True, False, True, False):
+        if wait:
+            eng.__dict__.pop("_wait_for_device", None)
+        else:
+            eng._wait_for_device = lambda: None
+        obs = fresh_obs(eng)
+        run = obs_run(torch, eng, chosen)
+        dump = obs.dump()
+        run["medians"] = check_dump(run, dump, "serialized paged", False)
+        run["wait"] = wait
+        if not runs:
+            run["report"] = format_report(build_report(dump))
+        runs.append(run)
+    eng.__dict__.pop("_wait_for_device", None)
+    check(all([r.generated for r in run["reqs"]]
+              == [r.generated for r in runs[0]["reqs"]]
+              and run["launches"] == runs[0]["launches"] for run in runs),
+          "serialized paged obs turns: streams or launches differ")
+    kinds = [r["medians"]["kind"] for r in runs]
+    with_wait = mean(r["wall_s"] for r in runs if r["wait"])
+    without = mean(r["wall_s"] for r in runs if not r["wait"])
+    print("obs phase, serialized paged [graphed]: the dump holds together "
+          "in every turn; report of the first turn:")
+    print(runs[0]["report"])
+    print("obs phase, serialized paged: prefill step waits for the device "
+          "on, off, on, off: median prefill dur_s ms "
+          + ", ".join(f"{k['prefill']['median_ms']:.3f}" for k in kinds)
+          + "; median decode dur_s ms "
+          + ", ".join(f"{k['decode']['median_ms']:.3f}" for k in kinds)
+          + "; run walls s " + ", ".join(f"{r['wall_s']:.4f}" for r in runs)
+          + f"; wall with / without the wait {with_wait / without:.4f}")
+    return {"prefill_median_ms": [k["prefill"]["median_ms"] for k in kinds],
+            "decode_median_ms": [k["decode"]["median_ms"] for k in kinds],
+            "wall_s": [r["wall_s"] for r in runs],
+            "wait": [r["wait"] for r in runs],
+            "wall_ratio_wait": with_wait / without}, runs[0]["launches"]
+
+
+LIFECYCLE_BLOCKS = 7        # 6 usable blocks of 16: two prompts and a third
+
+
+def lifecycle_drill(torch, model, policy):
+    """Drive ``step()`` by hand on a graphed mixed paged engine with
+    ``FaultConfig(max_queue=2, shed_policy=policy)`` on a pool cut to
+    ``LIFECYCLE_BLOCKS``: two requests, one step, four more (they wait for
+    blocks; the bound sheds two by the policy); after step 3 a running
+    request's deadline is set in the past and another running request is
+    cancelled; two more steps, then ``drain()`` and one request after it.
+    Every request must end with one reason, the reason counters must
+    match, no block may be held, and the late request is shed at once."""
+    from repro_torch.engine import (EngineConfig, FaultConfig, Request,
+                                    ShiftEngine)
+    eng = ShiftEngine(model, EngineConfig(
+        num_blocks=LIFECYCLE_BLOCKS,
+        fault=FaultConfig(max_queue=2, shed_policy=policy)))
+    t = time.monotonic()
+    reqs = [Request(i, list(range(1, 20 + 3 * i)), max_new_tokens=16,
+                    arrival=t) for i in range(6)]
+    for r in reqs[:2]:
+        eng.submit(r)
+    eng.step()
+    for r in reqs[2:]:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    running = [r for r in reqs if r.slot is not None]
+    check(len(running) >= 2, f"lifecycle {policy}: {len(running)} running "
+          "after step 3")
+    running[0].deadline = eng.now() - 1.0
+    check(eng.cancel(running[1].rid), f"lifecycle {policy}: cancel refused")
+    eng.step()
+    eng.step()
+    eng.drain()
+    eng.submit(Request(99, [1, 2, 3], max_new_tokens=2))
+    late = eng.request(99)
+    reqs.append(late)
+    torch.cuda.synchronize()
+    reasons = [str(r.finish_reason) for r in reqs]
+    reg = eng.obs.registry
+    counted = {reason: int(reg.counter_total(name)) for reason, name in (
+        ("timeout", "requests_timeout_total"),
+        ("cancelled", "requests_cancelled_total"),
+        ("shed", "requests_shed_total"), ("ok", "requests_finished_total"))}
+    check(all(r.finish_reason is not None for r in reqs)
+          and counted == {k: reasons.count(k) for k in counted}
+          and sum(counted.values()) == len(reqs),
+          f"lifecycle {policy}: reasons {reasons}, counters {counted}")
+    check({"timeout", "cancelled", "shed", "ok"} <= set(reasons)
+          and late.finish_reason == "shed",
+          f"lifecycle {policy}: reasons {reasons}")
+    check(all(len(r.generated) == 16 for r in reqs if r.finish_reason == "ok"),
+          f"lifecycle {policy}: an OK request is short")
+    led = eng.block_accounting()
+    check(led.used == led.pinned == 0, f"lifecycle {policy}: blocks held "
+          f"after drain {led}")
+    print(f"obs phase, lifecycle {policy}: reasons {reasons} (tokens "
+          f"{[len(r.generated) for r in reqs]}), counters {counted}, "
+          f"{eng.preemptions} preemptions, {eng.step_count} steps, "
+          f"{eng.deploy.captures} graphs; after drain used {led.used} "
+          f"pinned {led.pinned}; a request after drain: "
+          f"{late.finish_reason}")
+    return {"reasons": reasons, "counters": counted,
+            "preemptions": eng.preemptions, "steps": eng.step_count}
+
+
+def obs_phase(torch, model):
+    """Observability and the request lifecycle on the served model
+    (full-width qwen3-8b, bf16): ``obs_turns``, ``serialized_obs_turns``
+    and ``lifecycle_drill`` under both shed policies. Prints one
+    ``{"obs": ...}`` line; returns the launches of the first measured run
+    of each path."""
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, mixed, mixed_launches = obs_turns(torch, model)
+    del eng
+    gc.collect()
+    ser, ser_launches = serialized_obs_turns(torch, model)
+    gc.collect()
+    drills = {policy: lifecycle_drill(torch, model, policy)
+              for policy in ("reject-newest", "evict-longest-queued")}
+    wall = time.monotonic() - t0
+    print(json.dumps({"obs": {"mixed": mixed, "serialized_paged": ser,
+                              "lifecycle": drills, "phase_wall_s": wall}}))
+    print(f"obs phase: {wall:.1f} s in all; card: {card_line()}")
+    return mixed_launches, ser_launches
 
 
 def mamba2_serving_phase(torch):
@@ -1488,6 +1891,36 @@ def mamba2_serving_phase(torch):
     return launches, turns
 
 
+@contextlib.contextmanager
+def profiled(torch):
+    """``torch.profiler`` over the CPU and the card for the body of the
+    ``with``, after a warm-up cycle that runs one small kernel and that the
+    results leave out: a window's first launches can be missing from the
+    trace while the profiler starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
+
+
+def device_kernels(prof):
+    """(name, device µs, launches) of each kernel in ``prof``'s trace: the
+    events on the card, less the span of the profiler's own step
+    annotation (``ProfilerStep#n``)."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
 def profile_decode(torch, eng, steps=4, label=None):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
     ``steps`` decode steps of 6 rows (after their one prefill step, mixed
@@ -1497,8 +1930,6 @@ def profile_decode(torch, eng, steps=4, label=None):
     that nothing is captured in the profiled run and that the trace holds
     each port kernel's launches of a decode step, ``steps`` times. The
     profiler adds host time of its own, so the busy share is a floor."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     for r in serve.workload(6, steps + 1):
         eng.submit(r)
@@ -1508,8 +1939,7 @@ def profile_decode(torch, eng, steps=4, label=None):
         eng.submit(r)
     eng.step()                                  # the prefill step
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
             eng.step()
@@ -1521,9 +1951,7 @@ def profile_decode(torch, eng, steps=4, label=None):
     check(eng.deploy.captures == captured,
           f"{it}: {eng.deploy.captures - captured} captures in the profile")
     # device-side events only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_kernels(prof)
     busy = sum(t for _, t, _ in rows)
     n = sum(c for _, _, c in rows)
     check(busy > 0, "the profiler saw no device time")
@@ -1599,8 +2027,6 @@ def layout_rank(rank, groups, check_cfg):
     from collections import Counter
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import invariance as INV
     from repro_torch.launch import serve
     from repro_torch.models import Model
@@ -1648,7 +2074,7 @@ def layout_rank(rank, groups, check_cfg):
     for config in walls:
         walls[config].clear()
         traffic[config].clear()
-    eng.config_counts = {"base": 0, "shift": 0}
+    counts0 = dict(eng.config_counts)
     reqs = serve.workload(6, 16)
     serve.reset_launch_counts()
     t0 = time.monotonic()
@@ -1661,7 +2087,7 @@ def layout_rank(rank, groups, check_cfg):
     out["launches"] = serve.launch_counts()
     out["streams"] = [r.generated for r in reqs]
     out["finish"] = [r.finish_reason for r in reqs]
-    out["counts"] = dict(eng.config_counts)
+    out["counts"] = delta(eng.config_counts, counts0)
     out["preemptions"] = eng.preemptions
     out["free"], out["blocks"] = eng.kv.num_free_blocks, eng.kv.num_blocks
     out["walls"] = {k: list(v) for k, v in walls.items()}
@@ -1675,10 +2101,9 @@ def layout_rank(rank, groups, check_cfg):
     # profiler trace
     for r in serve.workload(6, 4):
         eng.submit(r)
-    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            if rank == 0 else contextlib.nullcontext())
     before = dict(eng.config_counts)
-    with prof:
+    with (profiled(torch) if rank == 0
+          else contextlib.nullcontext()) as prof:
         for _ in range(4):
             eng.step()
         torch.cuda.synchronize()
@@ -1688,12 +2113,11 @@ def layout_rank(rank, groups, check_cfg):
     if rank == 0:
         traced = Counter()
         busy = 0.0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total:
-                busy += e.self_device_time_total
-                kernel = port_kernel(e.key)
-                if kernel:
-                    traced[kernel] += e.count
+        for key, t, c in device_kernels(prof):
+            busy += t
+            kernel = port_kernel(key)
+            if kernel:
+                traced[kernel] += c
         out["traced"] = dict(traced)
         out["profiled_busy_ms"] = busy / 1e3
 
@@ -1752,7 +2176,7 @@ def layout_rank(rank, groups, check_cfg):
         "finish": [r.finish_reason for r in reqs],
         "cached": [r.cached_tokens for r in reqs],
         "counts": dict(ps.config_counts), "stats": ps.prefix_stats.as_dict(),
-        "spec": (ps.spec_proposed, ps.spec_accepted, ps.spec_rollback_blocks),
+        "spec": spec_counts(ps),
         "ledger": ps.block_accounting().as_dict()}
     return out
 
@@ -1969,7 +2393,7 @@ def dp_measured_run(torch, eng, reqs):
     """Serve ``reqs`` on ``eng`` with every launch counter set to 0 just
     before and read just after. Returns the numbers of the run."""
     from repro_torch.launch import serve
-    eng.config_counts = {"base": 0, "shift": 0}
+    fresh_obs(eng)              # the dump and the counts cover this run
     serve.reset_launch_counts()
     t0 = time.monotonic()
     for r in reqs:
@@ -1991,14 +2415,14 @@ def dp_measured_run(torch, eng, reqs):
             "ttft_ms": [(r.first_token_time - r.arrival) * 1e3 for r in reqs],
             "decode_tokens_per_s": dec_tok / (t_last - t_first),
             "stats": eng.prefix_stats.as_dict(),
-            "spec": (eng.spec_proposed, eng.spec_accepted),
+            "spec": spec_counts(eng),
+            "dump": eng.obs.dump(),
             "per_row": [{
                 "requests": sum(1 for r in reqs if r.row == row),
                 "hits": (eng.prefix_rows[row].stats()["hits"]
                          if eng.prefix_rows else 0),
                 "tokens_saved": (eng.prefix_rows[row].stats()["tokens_saved"]
                                  if eng.prefix_rows else 0),
-                "drafts_accepted": eng.spec_accepted_rows[row],
                 "free_blocks": kv.row_free_blocks(row),
                 "used": kv.allocators[row].num_used,
                 "pinned": (len(eng.prefix_rows[row].blocks())
@@ -2317,6 +2741,7 @@ def dp_phase(torch, overhead_bytes):
     launch counts of each measured run."""
     import numpy as np
     from repro_torch.launch.mesh import run_ranks
+    from repro_torch.obs import build_report, chrome_trace, format_report
     per_step = {"rmsnorm": 109, "paged_ragged_attention": 36}
     t_phase = time.monotonic()
     gc.collect()
@@ -2375,6 +2800,14 @@ def dp_phase(torch, overhead_bytes):
                   f"{b['launches']} over {steps} steps")
         check(set(a["rows"]) == {0, 1}, f"dp (2, 1, 1) {label}: rows "
               f"{a['rows']}")
+        for r in res:
+            check(timeless(r[key]["dump"]) == timeless(a["dump"]),
+                  f"dp (2, 1, 1) {label}: rank {r['rank']}'s obs dump "
+                  "differs from rank 0's (time fields dropped)")
+        lanes = {e["args"]["name"] for e in chrome_trace(a["dump"])[
+            "traceEvents"] if e["name"] == "thread_name"}
+        check({"requests:row0", "requests:row1"} <= lanes,
+              f"dp (2, 1, 1) {label}: trace lanes {lanes}")
         for row, pr in enumerate(a["per_row"]):
             check(pr["used"] == pr["pinned"] == pr["entries"],
                   f"dp (2, 1, 1) {label}: row {row} holds blocks: {pr}")
@@ -2392,7 +2825,6 @@ def dp_phase(torch, overhead_bytes):
             print(f"dp phase (2, 1, 1) {label}: row {row}: "
                   f"{pr['requests']} requests, {pr['hits']} hits, "
                   f"{pr['tokens_saved']} tokens saved, "
-                  f"{pr['drafts_accepted']} drafts accepted, "
                   f"{pr['free_blocks']} free blocks at exit")
     ps = r0["prefix_spec"]
     check(ps["stats"]["hits"] > 0 and ps["spec"][0] > 0,
@@ -2407,6 +2839,10 @@ def dp_phase(torch, overhead_bytes):
               f"{st['calls_per_step'].get('dp_all_gather', 0):.0f} "
               "dp_all_gather call(s) (payload handed over by the rank)")
     print("dp phase (2, 1, 1): " + r0["summary"].replace("\n", "; "))
+    print("dp phase (2, 1, 1): both ranks' obs dumps equal once the time "
+          "fields are dropped, a trace lane per dp row; rank 0's report "
+          "of the serve workload:")
+    print(format_report(build_report(plain["dump"])))
     for r in res:
         print(f"dp phase (2, 1, 1): rank {r['rank']} (card {r['device']}, row "
               f"{r['row']}): params {r['param_bytes'] / 1e9:.2f} GB, pool "

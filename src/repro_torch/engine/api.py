@@ -1,9 +1,9 @@
 """Typed engine config groups and results (the port's subset of
-``repro.engine.api``): :class:`PrefixConfig`, the nested prefix-cache group
-of ``EngineConfig``, and the frozen results :class:`PrefixStats` and
-:class:`BlockLedger`. The results carry ``.as_dict()`` and support
-``stats["hits"]`` and ``== {...}`` against plain dicts, as the
-reference's do."""
+``repro.engine.api``): the nested groups of ``EngineConfig``
+(:class:`PrefixConfig`, :class:`FaultConfig`, :class:`ObsConfig`) and the
+frozen results :class:`PrefixStats` and :class:`BlockLedger`. The results
+carry ``.as_dict()`` and support ``stats["hits"]`` and ``== {...}``
+against plain dicts, as the reference's do."""
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, fields
@@ -18,6 +18,37 @@ class PrefixConfig:
     #                           reused blocks make warm prefills shape-
     #                           differently from cold ones, so A/B
     #                           comparisons should enable it on both sides)
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Fault-tolerance knobs (queue bounds, deadlines, retry, snapshots).
+    Retries and quarantine need a fault plan, which the port does not have
+    yet, so ``quarantine_after`` and ``retry_backoff`` have no effect (as
+    in the reference without one); ``auto_snapshot_every`` above 0 raises
+    in the engine."""
+    max_queue: int = 0               # bound on UNADMITTED queued requests;
+    #                                  0 = unbounded
+    shed_policy: str = "reject-newest"   # or "evict-longest-queued"
+    deadline_s: Optional[float] = None   # default per-request deadline
+    quarantine_after: int = 3        # failed steps before FinishReason.FAILED
+    retry_backoff: int = 2           # extra idle steps per accumulated failure
+    auto_snapshot_every: int = 0     # snapshot every N steps (0 = off)
+    snapshot_keep: int = 2           # retained snapshots in the ring
+    straggler_factor: float = 2.5    # watchdog: flag steps slower than
+    #                                  factor x the rolling median
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability knobs (``repro_torch.obs``)."""
+    enabled: bool = True      # False swaps in the no-op NullObs (the
+    #                           uninstrumented side of obs.overhead_ratio)
+    window: int = 1024        # rolling per-step audit-record window
+    event_cap: int = 65536    # bounded lifecycle-event log capacity
+
+    def __bool__(self):       # `if cfg.obs:` keeps meaning "is obs on"
+        return self.enabled
 
 
 class _MappingCompat:

@@ -78,7 +78,23 @@ matching prefix is accepted and the rejected tail's blocks are unmapped
 iteration decodes one token per pass: there speculation is off, with its
 reason in ``spec_disabled_reason``.
 
-Not in this slice: fault injection, observability, snapshots and
+Every step leaves one audit record and the engine's counters, gauges,
+histograms and lifecycle events in ``self.obs`` (``repro_torch.obs``,
+``EngineConfig(obs=ObsConfig(...))``), at the reference's points and with
+the reference's clock calls, so that under one injected clock (``now=``)
+the dump equals the reference's; ``step_log``, ``config_counts`` and the
+other views read it. With ``ObsConfig(enabled=False)`` a ``NullObs``
+records nothing and the views read empty. On the card a serialized prefill
+step reads nothing back, so the step waits for the device before its
+duration is taken: otherwise the next step would book its device time.
+
+Every request ends with one typed ``FinishReason``: OK, or TIMEOUT (its
+``deadline`` passed, checked at the start of every step), CANCELLED
+(``cancel``), SHED (the bounded queue's shed policy, or ``drain``). A
+straggler watchdog flags steps slower than ``straggler_factor`` times the
+rolling median.
+
+Not in this slice: fault injection (FAILED, retries), snapshots and
 reshard.
 """
 from __future__ import annotations
@@ -88,18 +104,22 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.cache import (PagedKVCache, PrefixIndex, blocks_for_tokens,
                                pow2_bucket)
 from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
+from repro_torch.ft import StragglerWatchdog
 from repro_torch.models.model import Model
+from repro_torch.obs import NullObs, Observability
 from repro_torch.spec import SpecConfig, SuffixDrafter
-from .api import BlockLedger, PrefixConfig, PrefixStats
+from .api import (BlockLedger, FaultConfig, ObsConfig, PrefixConfig,
+                  PrefixStats)
 from .deployment import Deployment
 from .request import FinishReason, Request
 
-# steps whose prefill token counts ``ShiftEngine.prefill_tokens`` keeps
-TRACE_WINDOW = 1024
+_EMPTY_STEP = {"prefill_tokens": 0, "decode_tokens": 0, "ready_decodes": 0,
+               "attn_ctx_tokens": 0}
 
 
 class EngineConfig:
@@ -116,6 +136,8 @@ class EngineConfig:
                  mixed: Optional[bool] = None,
                  # nested groups, as in the reference (None = defaults)
                  prefix: Optional[PrefixConfig] = None,
+                 fault: Optional[FaultConfig] = None,
+                 obs: Optional[ObsConfig] = None,
                  # speculative decoding: k == 0 disables
                  spec: Optional[SpecConfig] = None):
         self.max_slots = max_slots
@@ -127,17 +149,48 @@ class EngineConfig:
         self.num_blocks = num_blocks
         self.paged = paged
         self.mixed = mixed
+        if isinstance(obs, bool):
+            raise TypeError("obs=bool was removed with the flat-kwarg "
+                            "shim — pass obs=ObsConfig(enabled=...)")
         self.prefix = prefix if prefix is not None else PrefixConfig()
+        self.fault = fault if fault is not None else FaultConfig()
+        self.obs = obs if obs is not None else ObsConfig()
         self.spec = spec if spec is not None else SpecConfig()
+
+    # flat read properties, as the reference's
+    @property
+    def max_queue(self) -> int:
+        return self.fault.max_queue
+
+    @property
+    def shed_policy(self) -> str:
+        return self.fault.shed_policy
+
+    @property
+    def deadline_s(self) -> Optional[float]:
+        return self.fault.deadline_s
+
+    @property
+    def straggler_factor(self) -> float:
+        return self.fault.straggler_factor
 
 
 class ShiftEngine:
     def __init__(self, model: Model, cfg: Optional[EngineConfig] = None,
-                 shift: Optional[Model] = None, policy=None):
+                 shift: Optional[Model] = None, policy=None,
+                 now=time.monotonic):
+        cfg = cfg or EngineConfig()
+        if cfg.shed_policy not in ("reject-newest", "evict-longest-queued"):
+            raise ValueError(f"unknown shed_policy {cfg.shed_policy!r}")
+        if cfg.fault.auto_snapshot_every:
+            raise NotImplementedError(
+                "auto_snapshot_every: snapshots are not ported yet (ROADMAP "
+                "Queue 1 item 3)")
         self.model = model
         self.mcfg = model.cfg
-        self.cfg = cfg = cfg or EngineConfig()
+        self.cfg = cfg
         self.policy = policy or ThresholdPolicy(cfg.threshold)
+        self.now = now
         # which of the per-iteration context facts the policy's use_base
         # accepts, found once: a two-argument policy gets none, a partial
         # signature exactly what it declares (a per-call try/except
@@ -245,19 +298,22 @@ class ShiftEngine:
         self.queue: List[Request] = []
         self.step_count = 0
         self.preemptions = 0
-        self.config_counts = {"base": 0, "shift": 0}
-        # counters, named as the reference's obs counters (the obs package
-        # itself comes later): block copies made by copy-on-write, draft
-        # tokens verified and accepted, blocks unmapped by a rejected
-        # tail, and each step's prefill tokens (the last TRACE_WINDOW)
-        self.cow_copies = 0
-        self.spec_proposed = 0
-        self.spec_accepted = 0
-        self.spec_rollback_blocks = 0
-        # the draft tokens accepted in each dp row
-        self.spec_accepted_rows = [0] * dp
-        self.prefill_tokens: List[int] = []
-        self._step_prefill = 0
+        # every submitted request by rid, so that stream(rid) and
+        # request(rid) resolve after it ends
+        self._requests: Dict[int, Request] = {}
+        self.watchdog = StragglerWatchdog(factor=cfg.straggler_factor)
+        self.draining = False           # drain(): no fresh admissions
+        # the one observability surface: metrics registry, lifecycle event
+        # log and the rolling per-step audit records the views read
+        self.obs = (Observability("engine", window=cfg.obs.window, now=now,
+                                  event_cap=cfg.obs.event_cap)
+                    if cfg.obs.enabled else NullObs(now=now))
+        for r, idx in enumerate(self.prefix_rows or []):
+            idx.on_evict = self._make_evict_observer(r)
+        # the composition and shift audit of the step in flight, stashed by
+        # _log_step and _choose and folded into one record in step()
+        self._step_stats: Optional[dict] = None
+        self._step_audit: Optional[dict] = None
         # the base and shift views and their step tables, built over the
         # caches initialised above
         self.deploy = Deployment.build(model, shift or model,
@@ -282,10 +338,57 @@ class ShiftEngine:
         ``prefix_rows``."""
         return self.prefix_rows[0] if self.prefix_rows else None
 
+    # ---------------------------------------------------- observability
+    def _make_evict_observer(self, row: int):
+        def observer(n_blocks: int):
+            self.obs.inc("prefix_evictions_total", n_blocks)
+            self.obs.emit("prefix_evict", step=self.step_count,
+                          blocks=n_blocks, row=row)
+        return observer
+
+    # views of the one rolling store of per-step records (each carries its
+    # step index and duration, so any two views join on "step") and of the
+    # registry's totals; under NullObs they read empty
+    @property
+    def step_log(self) -> List[dict]:
+        return list(self.obs.step_records)
+
+    @property
+    def step_times(self) -> List[float]:
+        return [r["dur_s"] for r in self.obs.step_records]
+
+    @property
+    def config_trace(self) -> List[str]:
+        return [r["config"] for r in self.obs.step_records
+                if r["config"] is not None]
+
+    @property
+    def config_counts(self) -> dict:
+        reg = self.obs.registry
+        return {"base": int(reg.counter_value("steps_total", config="base")),
+                "shift": int(reg.counter_value("steps_total",
+                                               config="shift"))}
+
+    @property
+    def total_step_time(self) -> float:
+        return self.obs.registry.histogram_sum("step_seconds")
+
+    @property
+    def trace_window(self) -> int:
+        return self.obs.window
+
+    @trace_window.setter
+    def trace_window(self, window: int):
+        self.obs.window = window
+        if len(self.obs.step_records) > window:
+            del self.obs.step_records[:len(self.obs.step_records) - window]
+
     # ---------------------------------------------------------------- admin
-    def submit(self, req: Request) -> int:
+    def add_request(self, req: Request):
         """Queue ``req``; raises if it can never be served (its worst case
-        must fit in one row's pool)."""
+        must fit in one row's pool). The engine's default deadline applies
+        to a request without one; a draining engine sheds it at once, and
+        the bounded queue may shed it or an older waiter."""
         worst = len(req.prompt) + req.max_new_tokens
         if worst > self.cfg.s_max:
             raise ValueError(f"request {req.rid} exceeds s_max={self.cfg.s_max}")
@@ -294,12 +397,114 @@ class ShiftEngine:
             raise ValueError(
                 f"request {req.rid} can never fit: needs {need} blocks, each "
                 f"dp row's pool has {self.kv.num_blocks_per_row - 1}")
+        if req.deadline is None and self.cfg.deadline_s is not None:
+            req.deadline = req.arrival + self.cfg.deadline_s
         self.queue.append(req)
+        self._requests[req.rid] = req
+        self.obs.inc("requests_arrived_total")
+        self.obs.emit("queued", step=self.step_count, rid=req.rid,
+                      prompt_tokens=len(req.prompt),
+                      max_new_tokens=req.max_new_tokens,
+                      arrival=req.arrival)
+        if self.draining:
+            self._retire(req, FinishReason.SHED)
+            return
+        self._enforce_queue_bound(req)
+
+    def submit(self, req: Request) -> int:
+        """``add_request``; returns the rid."""
+        self.add_request(req)
         return req.rid
+
+    def stream(self, rid: int) -> List[int]:
+        """Tokens generated so far for ``rid`` (empty for an unknown
+        rid)."""
+        req = self._requests.get(rid)
+        return list(req.generated) if req is not None else []
+
+    def request(self, rid: int) -> Optional[Request]:
+        return self._requests.get(rid)
+
+    def _enforce_queue_bound(self, newest: Request):
+        """Bounded admission queue: while more than ``max_queue`` requests
+        wait for a slot, the shed policy picks who ends SHED (the newest,
+        or the longest queued)."""
+        if not self.cfg.max_queue:
+            return
+        waiting = [q for q in self.queue if q.slot is None]
+        while len(waiting) > self.cfg.max_queue:
+            if self.cfg.shed_policy == "reject-newest":
+                victim = newest
+            else:                      # evict-longest-queued
+                victim = min(waiting, key=lambda q: (q.arrival, q.rid))
+            self._retire(victim, FinishReason.SHED)
+            waiting.remove(victim)
+            if victim is newest:
+                break
 
     @property
     def active(self) -> List[Request]:
         return [r for r in self.slot_req if r is not None]
+
+    # ------------------------------------------------------ typed outcomes
+    _REASON_EVENT = {FinishReason.TIMEOUT: "timeout",
+                     FinishReason.CANCELLED: "cancelled",
+                     FinishReason.SHED: "shed",
+                     FinishReason.FAILED: "quarantined"}
+    _REASON_COUNTER = {FinishReason.TIMEOUT: "requests_timeout_total",
+                       FinishReason.CANCELLED: "requests_cancelled_total",
+                       FinishReason.SHED: "requests_shed_total",
+                       FinishReason.FAILED: "requests_failed_total"}
+
+    def _release_slot(self, req: Request):
+        """Return ``req``'s slot and blocks (shared ones decremented, the
+        index's pins kept) without touching its tokens."""
+        self._unregister_inflight(req)
+        if self.paged:
+            self.kv.free_seq(req.slot)
+        self.slot_req[req.slot] = None
+        self.lens[req.slot] = 0
+        req.slot = None
+
+    def _retire(self, req: Request, reason: FinishReason,
+                t: Optional[float] = None):
+        """End ``req`` with a reason other than OK (OK goes through
+        ``_finish_token``)."""
+        assert reason is not FinishReason.OK
+        t = self.now() if t is None else t
+        if req.slot is not None:
+            self._release_slot(req)
+        self.queue = [q for q in self.queue if q.rid != req.rid]
+        req.finish_time = t
+        req.finish_reason = reason
+        self.drafter.drop(req.rid)
+        self.obs.inc(self._REASON_COUNTER[reason])
+        self.obs.emit(self._REASON_EVENT[reason], step=self.step_count,
+                      ts=t, rid=req.rid, row=req.row,
+                      n_out=len(req.generated), fail_count=req.fail_count)
+
+    def cancel(self, rid: int) -> bool:
+        """End a queued or running request CANCELLED, freeing its slot and
+        blocks; False when ``rid`` is not live."""
+        req = next((q for q in self.queue if q.rid == rid), None)
+        if req is None:
+            return False
+        self._retire(req, FinishReason.CANCELLED)
+        return True
+
+    def _expire_deadlines(self):
+        """End every request whose deadline has passed TIMEOUT, queued or
+        running (checked at the start of every step)."""
+        t = self.now()
+        for req in list(self.queue):
+            if req.deadline is not None and t > req.deadline:
+                self._retire(req, FinishReason.TIMEOUT, t=t)
+
+    def _admissible(self, r: Request) -> bool:
+        """A draining engine re-admits only requests that held a slot
+        before (preempted work finishes; fresh work is shed)."""
+        return not (self.draining and r.num_preemptions == 0
+                    and not r.generated)
 
     # ----------------------------------------------------------- dp routing
     def _route(self, req: Request):
@@ -326,6 +531,8 @@ class ShiftEngine:
             return (pend[row] - free, row)
 
         req.row = min(range(self.kv.dp), key=score)
+        self.obs.emit("routed", step=self.step_count, rid=req.rid,
+                      row=req.row)
 
     # ------------------------------------------------ in-flight prefixes
     def _register_inflight(self, req: Request, row: int, n_matched: int):
@@ -389,7 +596,7 @@ class ShiftEngine:
         bounded by the writer's progress)."""
         if not self.paged:
             for req in list(self.queue):
-                if req.slot is not None:
+                if req.slot is not None or not self._admissible(req):
                     continue
                 slot = next((s for s, owner in enumerate(self.slot_req)
                              if owner is None), None)
@@ -398,6 +605,7 @@ class ShiftEngine:
                 req.slot = slot
                 self.slot_req[slot] = req
                 self.lens[slot] = req.prefilled
+                self._on_admit(req)
             return
         for req in self.queue:
             if req.slot is None:
@@ -405,7 +613,8 @@ class ShiftEngine:
         spr = self.slots_per_row
         for row in range(self.kv.dp):
             for req in list(self.queue):
-                if req.slot is not None or req.row != row:
+                if req.slot is not None or req.row != row \
+                        or not self._admissible(req):
                     continue
                 slot = next((s for s in range(row * spr, (row + 1) * spr)
                              if self.slot_req[s] is None), None)
@@ -430,11 +639,19 @@ class ShiftEngine:
                 self.slot_req[slot] = req
                 if idx is not None:
                     idx.record(len(matched))
+                    self.obs.inc("prefix_hits_total" if matched
+                                 else "prefix_misses_total")
                     if matched:
                         idx.bump(req.all_tokens(), len(matched))
                         self.kv.assign_prefix(slot, matched)
                         req.prefilled = len(matched) * self.cfg.block_size
                         req.cached_tokens = req.prefilled
+                        self.obs.inc("prefix_tokens_saved_total",
+                                     req.prefilled)
+                        self.obs.emit("prefix_hit", step=self.step_count,
+                                      rid=req.rid, row=row,
+                                      blocks=len(matched),
+                                      tokens=req.prefilled)
                     self._register_inflight(req, row, len(matched))
                 if not self.kv.ensure(slot, req.total_tokens + 1):
                     # eviction reclaimed less than the probe reckoned: roll
@@ -449,19 +666,33 @@ class ShiftEngine:
                     req.cached_tokens = 0
                     break
                 self.lens[slot] = req.prefilled
+                self._on_admit(req)
+
+    def _on_admit(self, req: Request):
+        """One (re)admission: its counter, queue time and event (a
+        re-admission after a preemption counts again)."""
+        self.obs.inc("requests_admitted_total")
+        ts = self.now()
+        queue_s = max(ts - req.arrival, 0.0)
+        self.obs.observe("queue_seconds", queue_s)
+        self.obs.emit("admitted", step=self.step_count, ts=ts, rid=req.rid,
+                      row=req.row, slot=req.slot, queue_s=queue_s,
+                      cached_tokens=req.cached_tokens,
+                      preemptions=req.num_preemptions)
 
     # ---------------------------------------------------------------- stats
     @property
     def prefix_stats(self) -> PrefixStats:
         """Prefix-cache counters summed over the dp rows (zeros when
-        caching is off), the COW copy count and the reason paging is off
-        (None when paged)."""
+        caching is off), the COW copy count (the registry's, 0 under
+        NullObs) and the reason paging is off (None when paged)."""
         s = {"entries": 0, "hits": 0, "misses": 0, "tokens_saved": 0,
              "evictions": 0}
         for idx in self.prefix_rows or []:
             for k, v in idx.stats().items():
                 s[k] += v
-        return PrefixStats(cow_copies=self.cow_copies,
+        cow = int(self.obs.registry.counter_value("cow_copies_total"))
+        return PrefixStats(cow_copies=cow,
                            paged_disabled_reason=self.paged_disabled_reason,
                            **s)
 
@@ -485,16 +716,17 @@ class ShiftEngine:
         (shared ones are decremented). Recompute-style: its prompt +
         generated re-prefills on re-admission into the same dp row (``row``
         is sticky), where it re-matches its own committed prefix."""
-        self._unregister_inflight(victim)
-        self.kv.free_seq(victim.slot)
-        self.slot_req[victim.slot] = None
-        self.lens[victim.slot] = 0
-        victim.slot = None
+        row, slot = self.kv.row_of(victim.slot), victim.slot
+        self._release_slot(victim)
         victim.prefilled = 0
         victim.cached_tokens = 0
         victim.pc_blocks, victim.pc_parent = 0, None   # recommit from root
         victim.num_preemptions += 1
         self.preemptions += 1
+        self.obs.inc("requests_preempted_total")
+        self.obs.emit("preempted", step=self.step_count, rid=victim.rid,
+                      row=row, slot=slot,
+                      tokens_generated=len(victim.generated))
 
     def _reserve(self, req: Request, n_tokens: int, protect,
                  write_from: Optional[int] = None) -> bool:
@@ -533,7 +765,8 @@ class ShiftEngine:
         if not self._step_copies:
             return
         copies, self._step_copies = self._step_copies, []
-        self.cow_copies += len(copies)
+        self.obs.inc("cow_copies_total", len(copies))
+        self.obs.emit("cow_flush", step=self.step_count, copies=len(copies))
         mine = self.model.shard.dp_rank
         pairs = [(s, d) for row, s, d in copies if row == mine]
         if pairs:
@@ -568,7 +801,27 @@ class ShiftEngine:
         use_base = self.policy.use_base(
             n_tokens, n_prefill,
             **{k: facts[k] for k in self._policy_ctx_kwargs})
-        return "base" if use_base else "shift"
+        name = "base" if use_base else "shift"
+        # the shift audit: the chosen config and exactly the facts the
+        # policy saw, folded into this step's record by step()
+        self._step_audit = {"config": name, "n_tokens": n_tokens,
+                            "ctx_tokens": ctx_tokens, "n_rows": n_rows,
+                            "ctx_max": ctx_max,
+                            "threshold": getattr(self.policy, "threshold",
+                                                 None)}
+        if spec_tokens:
+            self._step_audit["spec_tokens"] = spec_tokens
+        return name
+
+    def _log_step(self, n_prefill: int, n_decode: int, n_ready: int,
+                  attn_ctx: int = 0):
+        """Stash this step's composition for its record: ``n_decode``
+        counts the tokens delivered, ``attn_ctx`` the context the forward
+        really attended."""
+        self._step_stats = {"prefill_tokens": n_prefill,
+                            "decode_tokens": n_decode,
+                            "ready_decodes": n_ready,
+                            "attn_ctx_tokens": attn_ctx}
 
     def _prefill_done(self, r: Request) -> bool:
         return r.prefilled >= r.pos
@@ -581,6 +834,10 @@ class ShiftEngine:
         r.prefilled = r.pos
         if r.first_token_time is None:
             r.first_token_time = t
+            ttft = max(t - r.arrival, 0.0)
+            self.obs.observe("ttft_seconds", ttft)
+            self.obs.emit("first_token", step=self.step_count, ts=t,
+                          rid=r.rid, ttft_s=ttft)
         self.lens[r.slot] = r.pos
         if r.done or (self.cfg.eos_id >= 0
                       and r.generated[-1] == self.cfg.eos_id):
@@ -592,6 +849,20 @@ class ShiftEngine:
                 self.kv.free_seq(r.slot)
             self.slot_req[r.slot] = None
             self.queue = [q for q in self.queue if q is not r]
+            n_out = len(r.generated)
+            e2e = max(t - r.arrival, 0.0)
+            tpot = ((t - r.first_token_time) / (n_out - 1)
+                    if n_out > 1 else None)
+            self.obs.inc("requests_finished_total")
+            self.obs.observe("e2e_seconds", e2e)
+            if tpot is not None:
+                self.obs.observe("tpot_seconds", tpot)
+            self.obs.emit("finish", step=self.step_count, ts=t, rid=r.rid,
+                          row=r.row, n_out=n_out, n_prompt=len(r.prompt),
+                          ttft_s=max(r.first_token_time - r.arrival, 0.0),
+                          tpot_s=tpot, e2e_s=e2e,
+                          cached_tokens=r.cached_tokens,
+                          preemptions=r.num_preemptions)
 
     def _refresh_block_tables(self):
         for s in self.kv.take_dirty():
@@ -618,6 +889,7 @@ class ShiftEngine:
         C = self.cfg.prefill_chunk
         ready = [r for r in self.active if self._prefill_done(r)
                  and not r.done]
+        n_ready = len(ready)
         rows = []                          # (req, off, q_len, produces)
         drafts: Dict[int, List[int]] = {}  # rid -> draft tokens
         decode_rows = set()
@@ -658,16 +930,17 @@ class ShiftEngine:
             rows.append((r, off, end - off, end == r.total_tokens))
             protect.add(r)
             n_prefill_tok += end - off
+            self.obs.emit("prefill_chunk", step=self.step_count, rid=r.rid,
+                          off=off, tokens=end - off)
         if not rows:
+            self._log_step(0, 0, n_ready)
             return False
 
+        attn_ctx = sum(off + ql for _, off, ql, _ in rows)
         mode = self._choose(n_prefill_tok + n_decode + n_spec, n_prefill_tok,
-                            sum(off + ql for _, off, ql, _ in rows),
-                            len(rows),
+                            attn_ctx, len(rows),
                             max(off + ql for _, off, ql, _ in rows),
                             spec_tokens=n_spec)
-        self.config_counts[mode] += 1
-        self._step_prefill = n_prefill_tok
         # compact to active rows and bucket every axis to a power of two,
         # as the reference does for its compiled-shape reuse; the chunk
         # axis splits over the chosen config's SP degree (a decode-only
@@ -711,7 +984,8 @@ class ShiftEngine:
                   if drafts else 1)
         nxt = self.deploy.forward_at(mode, n_last)(toks, qlen, offs,
                                                    bt).cpu().numpy()
-        t = time.monotonic()
+        t = self.now()
+        n_dec_emit = 0                     # decode-side tokens delivered
         n_accepted = 0
         rollback = 0
         for i, (r, off, ql, produces) in placed:
@@ -724,6 +998,8 @@ class ShiftEngine:
                 if produces:
                     self._finish_token(r, int(nxt[i, n_last - 1] if n_last > 1
                                               else nxt[i]), t)
+                    if r in decode_rows:
+                        n_dec_emit += 1
                 continue
             # the verify row's outputs o_0..o_m sit in its last m+1
             # columns; accept the longest prefix where draft j matched
@@ -748,11 +1024,18 @@ class ShiftEngine:
                 delivered = j + 1
                 if r.finish_reason is not None:
                     break                  # finished mid-accept
+            n_dec_emit += delivered
             n_accepted += delivered - 1
-            self.spec_accepted_rows[r.row] += delivered - 1
-        self.spec_proposed += n_spec
-        self.spec_accepted += n_accepted
-        self.spec_rollback_blocks += rollback
+            self.obs.observe("spec_accepted_per_row", delivered - 1)
+        self._log_step(n_prefill_tok, n_dec_emit, n_ready, attn_ctx)
+        if n_spec:
+            self._step_stats["spec_proposed"] = n_spec
+            self._step_stats["spec_accepted"] = n_accepted
+            self.obs.inc("spec_proposed_total", n_spec)
+            if n_accepted:
+                self.obs.inc("spec_accepted_total", n_accepted)
+            if rollback:
+                self.obs.inc("spec_rollback_blocks_total", rollback)
         return True
 
     # --------------------------------------------------- serialized stepping
@@ -789,6 +1072,8 @@ class ShiftEngine:
             toks[r.slot, :len(chunk)] = chunk
             offs[r.slot] = off
             rows.append((r, len(chunk)))
+            self.obs.emit("prefill_chunk", step=self.step_count, rid=r.rid,
+                          off=off, tokens=len(chunk))
         if not rows:
             return False
         n_tok = sum(n for _, n in rows)
@@ -802,19 +1087,28 @@ class ShiftEngine:
             ctx = sum(r.prefilled + n for r, n in rows)
             ctx_max = max(r.prefilled + n for r, n in rows)
         mode = self._choose(n_tok, n_tok, ctx, len(rows), ctx_max)
-        self.config_counts[mode] += 1
-        self._step_prefill = n_tok
         bt = None
         if self.paged:
             bt = self._block_tables([r for r, _ in rows])
             self._apply_copies()
         self.deploy.prefill[mode](toks, offs, bt)
+        self._wait_for_device()
         for r, n in rows:
             r.prefilled += n
             r.last_used = self.step_count
             self.lens[r.slot] = r.prefilled
             self._commit_prefix(r)
+        self._log_step(n_tok, 0,
+                       sum(1 for r in self.active
+                           if self._prefill_done(r) and not r.done), ctx)
         return True
+
+    def _wait_for_device(self):
+        """A serialized prefill step reads nothing back: on the card, wait
+        for the device, so that the step's duration holds its device time
+        (the next step's read-back would book it otherwise)."""
+        if self.model.device.type == "cuda":
+            torch.cuda.current_stream(self.model.device).synchronize()
 
     def _run_decode(self) -> bool:
         """One decode step over every ready row, batched at the full
@@ -823,6 +1117,7 @@ class ShiftEngine:
         at ``r.pos``."""
         ready = [r for r in self.active
                  if self._prefill_done(r) and not r.done]
+        n_ready = len(ready)
         if self.paged:
             kept = []
             for r in ready:
@@ -840,7 +1135,6 @@ class ShiftEngine:
             + (self.cfg.max_slots - len(ready) if self.paged else 0)
         mode = self._choose(len(ready), 0, ctx, len(ready),
                             max(r.pos + 1 for r in ready))
-        self.config_counts[mode] += 1
         toks = np.zeros((self.cfg.max_slots,), np.int32)
         lens = np.zeros((self.cfg.max_slots,), np.int32)
         for r in ready:
@@ -851,17 +1145,24 @@ class ShiftEngine:
             bt = self._block_tables(ready)
             self._apply_copies()
         nxt = self.deploy.decode[mode](toks, lens, bt).cpu().numpy()
-        t = time.monotonic()
+        t = self.now()
         for r in ready:
             r.last_used = self.step_count
             r.prefilled = r.pos + 1        # this step wrote position r.pos
             self._commit_prefix(r)
             self._finish_token(r, int(nxt[r.slot]), t)
+        self._log_step(0, len(ready), n_ready, ctx)
         return True
 
     def step(self) -> bool:
-        """One engine iteration. Returns False when idle."""
-        self._step_prefill = 0
+        """One engine iteration: deadlines first (an expired request must
+        not take this step's batch space), admission, the iteration, then
+        one audit record, the watchdog and the gauges. Returns False when
+        idle."""
+        t0 = self.now()
+        self._step_stats = None
+        self._step_audit = None
+        self._expire_deadlines()
         self._admit()
         if self.mixed:
             # fused prefill+decode batch: no iteration-granularity
@@ -870,8 +1171,25 @@ class ShiftEngine:
         else:
             # prefill first, chunk by chunk; decode otherwise
             progressed = self._run_prefill() or self._run_decode()
-        self.prefill_tokens.append(self._step_prefill)
-        del self.prefill_tokens[:-TRACE_WINDOW]
+        dt = self.now() - t0
+        # one record per iteration: step index, duration, composition and
+        # the shift audit (config None for a step that launched nothing)
+        rec = {"step": self.step_count, "t_start": t0, "dur_s": dt,
+               "config": None, **(self._step_stats or _EMPTY_STEP)}
+        if self._step_audit is not None:
+            rec.update(self._step_audit)
+        if self.paged_disabled_reason is not None:
+            rec["paged_disabled_reason"] = self.paged_disabled_reason
+        self.obs.record_step(rec)
+        if self.watchdog.observe(dt):
+            self.obs.inc("straggler_steps_total")
+            self.obs.emit("straggler", step=self.step_count, dur_s=dt,
+                          flagged=self.watchdog.flagged)
+        self.obs.set_gauge("queue_depth",
+                           sum(1 for q in self.queue if q.slot is None))
+        self.obs.set_gauge("active_requests", len(self.active))
+        if self.paged:
+            self.obs.set_gauge("free_blocks", self.kv.num_free_blocks)
         self.step_count += 1
         return progressed
 
@@ -880,4 +1198,24 @@ class ShiftEngine:
             if not self.step():
                 if not self.queue and not self.active:
                     break
+        return self
+
+    def drain(self, max_steps: int = 10000, release_cache: bool = True):
+        """Graceful shutdown: shed the requests that never held a slot,
+        finish the in-flight ones, accept nothing new (a later request is
+        shed at once), and shed whatever the step budget leaves queued.
+        With ``release_cache`` the prefix pins go too, so afterwards
+        ``block_accounting()`` reads ``used == pinned == 0``."""
+        self.draining = True
+        for r in [q for q in self.queue if q.slot is None
+                  and q.num_preemptions == 0 and not q.generated]:
+            self._retire(r, FinishReason.SHED)
+        for _ in range(max_steps):
+            if not self.step() and not self.queue:
+                break
+        for r in list(self.queue):
+            self._retire(r, FinishReason.SHED)
+        if release_cache and self.prefix_rows is not None:
+            for idx in self.prefix_rows:
+                idx.evict(len(idx))
         return self

@@ -1,5 +1,5 @@
 """Request lifecycle for the serving engine (the port's copy of
-``repro.engine.request`` without the fault-tolerance fields)."""
+``repro.engine.request``)."""
 from __future__ import annotations
 
 import enum
@@ -8,9 +8,14 @@ from typing import List, Optional
 
 
 class FinishReason(str, enum.Enum):
-    """Typed terminal outcome. Without fault tolerance (deadlines, shedding,
-    cancellation, quarantine: a later slice) every request ends OK."""
+    """Typed terminal outcome: every request the engine accepts ends in
+    exactly one of these (no request is ever silently dropped, even under
+    shutdown)."""
     OK = "ok"                 # produced its final token
+    TIMEOUT = "timeout"       # deadline passed before completion
+    CANCELLED = "cancelled"   # explicit cancel(rid)
+    SHED = "shed"             # bounded-queue shed policy / shutdown drain
+    FAILED = "failed"         # quarantined: killed the step too many times
 
     def __str__(self):
         return self.value
@@ -22,6 +27,10 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 16
     arrival: float = 0.0
+    deadline: Optional[float] = None  # absolute (engine-clock) time after
+    #                                   which the request times out; None =
+    #                                   engine default (cfg.deadline_s past
+    #                                   arrival) or no deadline
 
     # engine state -----------------------------------------------------------
     slot: Optional[int] = None
@@ -48,6 +57,11 @@ class Request:
     finish_reason: Optional[FinishReason] = None
     last_used: int = 0                # engine step that last batched this
     num_preemptions: int = 0
+    # fault-tolerance state: failed steps this request was part of, and
+    # the step before which it must not be batched again. Both stay 0
+    # until fault injection is ported.
+    fail_count: int = 0
+    retry_at: int = 0
 
     def all_tokens(self) -> List[int]:
         """Prompt plus generated: after a preemption the whole thing is the

@@ -29,12 +29,25 @@ spawned through ``run_ranks`` over ``--backend`` (``gloo`` or ``nccl``; no
 default above one process). Every rank serves the same requests; the
 parent prints rank 0's report, with the row each request was routed to,
 after checking that every rank's streams are equal.
+
+At exit the CLI prints the observability report (TTFT, TPOT, queue and
+end-to-end percentiles, tokens/s, steps by config) of the engine's dump;
+``--metrics-out PATH`` writes the dump as JSON and the Prometheus text
+beside it (``PATH`` with ``.prom``), ``--trace-out PATH`` a Chrome trace
+(load it in ui.perfetto.dev); under ``--dp`` rank 0 writes them.
+``--deadline-s``, ``--max-queue`` and ``--shed-policy`` set the engine's
+``FaultConfig``: a request past its deadline ends ``timeout``, and the
+queue beyond ``--max-queue`` waiting requests is shed by the policy. The
+workload is queued before the first step, so ``--max-queue 2`` keeps two
+requests and sheds the rest: the newest under ``reject-newest``, the
+oldest under ``evict-longest-queued``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import io
+import os
 import time
 
 import torch
@@ -42,12 +55,13 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
-from repro_torch.engine.api import PrefixConfig
+from repro_torch.engine.api import FaultConfig, PrefixConfig
 # the launch counters, read and reset by callers of the entry point
 from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
                                      reset_launch_counts)
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import Model
+from repro_torch.obs import build_report, format_report, write_chrome_trace
 from repro_torch.parallel import Groups, Layout
 from repro_torch.spec import SpecConfig
 
@@ -59,14 +73,16 @@ DP_TIMEOUT_S = 1800                # bounds a --dp job's collectives and wall
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  dtype=torch.bfloat16, block_size=16, num_blocks=0,
                  paged=None, mixed=None, prefix_cache=False, spec_k=0,
-                 spec_ngram=3, dp=1, sp=1, tp=1,
+                 spec_ngram=3, deadline_s=None, max_queue=0,
+                 shed_policy="reject-newest", dp=1, sp=1, tp=1,
                  groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
     every layer pages, else the serialized dense engine), and so do
-    ``prefix_cache`` (``PrefixConfig``) and ``spec_k``/``spec_ngram``
-    (``SpecConfig(k, ngram_max)``). With ``dp·sp·tp`` > 1 (the
+    ``prefix_cache`` (``PrefixConfig``), ``spec_k``/``spec_ngram``
+    (``SpecConfig(k, ngram_max)``) and ``deadline_s``/``max_queue``/
+    ``shed_policy`` (``FaultConfig``). With ``dp·sp·tp`` > 1 (the
     counterpart of the reference's ``_build_stack(dp=, sp=, tp=,
     mesh=)``): this rank's base model on ``Layout(dp, sp, tp)`` and, with
     ``sp·tp`` > 1, a shift model on its ``to_shift()``, both drawn from the
@@ -87,6 +103,9 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
     ecfg = EngineConfig(block_size=block_size, num_blocks=num_blocks,
                         paged=paged, mixed=mixed,
                         prefix=PrefixConfig(enabled=prefix_cache),
+                        fault=FaultConfig(deadline_s=deadline_s,
+                                          max_queue=max_queue,
+                                          shed_policy=shed_policy),
                         spec=SpecConfig(k=spec_k, ngram_max=spec_ngram))
     return ShiftEngine(models[0], ecfg,
                        shift=models[1] if len(models) > 1 else None)
@@ -127,7 +146,9 @@ def print_summary(eng: ShiftEngine):
         if eng.spec_disabled_reason:
             print(f"spec decode DISABLED: {eng.spec_disabled_reason}")
         else:
-            prop, acc = eng.spec_proposed, eng.spec_accepted
+            reg = eng.obs.registry
+            prop = int(reg.counter_total("spec_proposed_total"))
+            acc = int(reg.counter_total("spec_accepted_total"))
             rate = f" ({acc / prop:.0%} acceptance)" if prop else ""
             print(f"spec decode: k={eng.cfg.spec.k}, {prop} drafted, "
                   f"{acc} accepted{rate}")
@@ -146,10 +167,11 @@ def print_summary(eng: ShiftEngine):
         f"{name}={n}" for name, n in launch_counts().items()))
 
 
-def serve(eng: ShiftEngine, args):
+def serve(eng: ShiftEngine, args, write=True):
     """Serve the CLI's workload on ``eng`` and print its report: each
-    request's tokens, TTFT and dp row, then ``print_summary``. Returns the
-    requests."""
+    request's tokens, outcome, TTFT and dp row, ``print_summary``, and the
+    observability report; with ``write``, the ``--metrics-out`` and
+    ``--trace-out`` files. Returns the requests."""
     reqs = workload(args.requests, args.max_new, args.shared_prefix)
     for r in reqs:
         eng.submit(r)
@@ -164,6 +186,18 @@ def serve(eng: ShiftEngine, args):
     n_tok = sum(len(r.generated) for r in reqs)
     print(f"{n_tok} tokens in {dt:.2f}s")
     print_summary(eng)
+    dump = eng.obs.dump()
+    print(format_report(build_report(dump)))
+    if write and args.metrics_out:
+        prom = os.path.splitext(args.metrics_out)[0] + ".prom"
+        eng.obs.write_json(args.metrics_out)
+        eng.obs.write_prometheus(prom)
+        print(f"metrics written: {args.metrics_out} (JSON), {prom} "
+              "(Prometheus text)")
+    if write and args.trace_out:
+        write_chrome_trace(args.trace_out, dump)
+        print(f"chrome trace written: {args.trace_out} "
+              f"({len(dump['events'])} events, {len(dump['steps'])} steps)")
     return reqs
 
 
@@ -172,16 +206,19 @@ def _engine_of(args, groups=None) -> ShiftEngine:
                         dtype=DTYPES[args.dtype], block_size=args.block_size,
                         num_blocks=args.num_blocks,
                         prefix_cache=args.prefix_cache, spec_k=args.spec_k,
-                        spec_ngram=args.spec_ngram, dp=args.dp,
+                        spec_ngram=args.spec_ngram, deadline_s=args.deadline_s,
+                        max_queue=args.max_queue,
+                        shed_policy=args.shed_policy, dp=args.dp,
                         groups=groups)
 
 
 def serve_rank(rank, groups, args) -> dict:
-    """One rank of ``--dp``: build this rank's engine, serve, and return
-    the printed report, the streams and the rows the requests went to."""
+    """One rank of ``--dp``: build this rank's engine, serve (rank 0
+    writes the metrics and trace files), and return the printed report,
+    the streams and the rows the requests went to."""
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
-        reqs = serve(_engine_of(args, groups), args)
+        reqs = serve(_engine_of(args, groups), args, write=rank == 0)
     return {"rank": rank, "report": text.getvalue(),
             "streams": [r.generated for r in reqs],
             "rows": [r.row for r in reqs]}
@@ -209,6 +246,21 @@ def main(argv=None):
                          "per decode row (0 = off)")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest suffix n-gram the drafter matches")
+    ap.add_argument("--metrics-out", metavar="PATH",
+                    help="write the observability dump as JSON to PATH and "
+                         "the Prometheus text exposition next to it "
+                         "(PATH with a .prom extension)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write a Chrome trace-event file (load in "
+                         "chrome://tracing or ui.perfetto.dev) to PATH")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline (seconds past arrival); "
+                         "expired requests finish with reason=timeout")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound on requests waiting for a slot; 0 = "
+                         "unbounded. Overflow is shed per --shed-policy")
+    ap.add_argument("--shed-policy", default="reject-newest",
+                    choices=["reject-newest", "evict-longest-queued"])
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dp", type=int, default=1,

@@ -964,7 +964,8 @@ def test_cuda_prefix_spec_engine_graphed_matches_eager(cuda, dtype):
             runs.append(([r.generated for r in reqs],
                          [r.cached_tokens for r in reqs]))
         results.append((runs, eng.prefix_stats.as_dict(),
-                        (eng.spec_proposed, eng.spec_accepted),
+                        (eng.obs.registry.counter_total("spec_proposed_total"),
+                         eng.obs.registry.counter_total("spec_accepted_total")),
                         eng.config_counts, ops.launch_counts()))
         assert (eng.deploy.captures > 0) == graphed
         if graphed:

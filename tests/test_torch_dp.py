@@ -20,7 +20,11 @@ fixture) runs every engine scenario and returns numpy results:
 * one mixed step's logits (each rank its rows') within 1e-4 of the
   reference's;
 * ``max_slots`` not divisible by dp, forced and automatic;
-* the serve CLI's report of one rank of ``--dp 2``.
+* the serve CLI's report of one rank of ``--dp 2``, with rank 0's metrics
+  and trace files;
+* under one fake clock (each engine its own), every rank's observability
+  dump, report and Chrome trace JSON-equal to the reference's dp=2
+  engine's.
 
 Weights: the reference's ``init_params(key(0))`` with random norm scales,
 converted and cut per rank, as in ``tests/test_torch_layout.py``. JAX is
@@ -29,7 +33,10 @@ imported only in this process, inside fixtures and tests.
 import argparse
 import contextlib
 import io
+import itertools
+import json
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,6 +84,13 @@ def _isolation_reqs(make=Request):
                  max_new_tokens=12 if i % 2 == 0 else 2) for i in range(4)]
 
 
+# the engine scenarios the reference runs too: name -> (kw, requests)
+CASES = {"mixed": (dict(KW, prefix=PrefixConfig(True)), _mixed_reqs),
+         "serialized": (dict(KW, mixed=False),
+                        lambda make=Request: _mixed_reqs(make, mixed=False)),
+         "isolation": (TIGHT, _isolation_reqs)}
+
+
 def _spec_reqs(make=Request):
     return [make(i, ([2, 3, 4] * 4)[:9 + i], max_new_tokens=10)
             for i in range(4)]
@@ -87,6 +101,11 @@ def _run(eng, reqs):
         eng.submit(r)
     eng.run_until_idle()
     return [r.generated for r in reqs]
+
+
+def _fake_clock():
+    c = itertools.count()
+    return lambda: next(c) * 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +120,7 @@ def _model(state, groups, rank):
 
 
 def _engine_case(m, kw, reqs):
-    eng = ShiftEngine(m, EngineConfig(**kw))
+    eng = ShiftEngine(m, EngineConfig(**kw), now=_fake_clock())
     streams = _run(eng, reqs)
     return {"streams": streams, "rows": [r.row for r in reqs],
             "counts": dict(eng.config_counts), "preempt": eng.preemptions,
@@ -110,7 +129,9 @@ def _engine_case(m, kw, reqs):
             "ledger": eng.block_accounting().as_dict(),
             "inflight": [dict(reg) for reg in eng._inflight] if eng.paged
             else None,
-            "spec": (eng.spec_proposed, eng.spec_accepted)}
+            "spec": (eng.obs.registry.counter_total("spec_proposed_total"),
+                     eng.obs.registry.counter_total("spec_accepted_total")),
+            "dump": eng.obs.dump()}
 
 
 def _route_case(m):
@@ -149,15 +170,18 @@ def _indivisible(m):
     return out
 
 
-def _serve_report(rank, groups):
+def _serve_report(rank, groups, out_dir):
     args = argparse.Namespace(
         arch="qwen3-8b", reduced=True, device="cpu", dtype="fp32",
         block_size=16, num_blocks=0, prefix_cache=False, spec_k=0,
-        spec_ngram=3, dp=DP, requests=4, max_new=4, shared_prefix=0)
+        spec_ngram=3, dp=DP, requests=4, max_new=4, shared_prefix=0,
+        deadline_s=None, max_queue=0, shed_policy="reject-newest",
+        metrics_out=str(Path(out_dir) / "m.json"),
+        trace_out=str(Path(out_dir) / "t.json"))
     return serve.serve_rank(rank, groups, args)
 
 
-def _job(rank, groups, state):
+def _job(rank, groups, state, out_dir):
     m = _model(state, groups, rank)
     out = {"rank": rank, "dp_rank": m.shard.dp_rank}
     m.init_paged_cache(5, 8)
@@ -165,18 +189,16 @@ def _job(rank, groups, state):
                                     sample=False)[0].numpy()
     out["tokens"] = m.forward_mixed(STEP_TOKS, *STEP, STEP_BT)[0].numpy()
     groups.traffic.clear()
-    out["mixed"] = _engine_case(m, dict(KW, prefix=PrefixConfig(True)),
-                                _mixed_reqs())
-    out["traffic"] = dict(groups.traffic)
-    out["serialized"] = _engine_case(m, dict(KW, mixed=False),
-                                     _mixed_reqs(mixed=False))
-    out["isolation"] = _engine_case(m, TIGHT, _isolation_reqs())
+    for name, (kw, reqs) in CASES.items():
+        out[name] = _engine_case(m, kw, reqs())
+        if name == "mixed":
+            out["traffic"] = dict(groups.traffic)
     out["spec_off"] = _engine_case(m, KW, _spec_reqs())
     out["spec_on"] = _engine_case(m, dict(KW, spec=SpecConfig(k=4)),
                                   _spec_reqs())
     out["route"] = _route_case(m)
     out["indivisible"] = _indivisible(m)
-    out["serve"] = _serve_report(rank, groups)
+    out["serve"] = _serve_report(rank, groups, out_dir)
     return out
 
 
@@ -214,8 +236,9 @@ class Reference:
         self.ms = JaxModel(cfg=cfg, lay=self.lay.to_shift(), mesh=self.mesh,
                            dtype=jnp.float32)
         self.pb, self.ps = _ref_params(self.mb), _ref_params(self.ms)
+        self._cases = {}
 
-    def engine(self, kw):
+    def engine(self, kw, now=None):
         import jax
         import jax.numpy as jnp
         from repro.core.policy import ThresholdPolicy as JaxPolicy
@@ -229,18 +252,27 @@ class Reference:
         return JaxEngine(self.mb, self.ms, jax.tree.map(jnp.asarray, self.pb),
                          jax.tree.map(jnp.asarray, self.ps),
                          JaxEngineConfig(threshold=threshold, **kw),
-                         policy=JaxPolicy(threshold))
+                         policy=JaxPolicy(threshold),
+                         **({"now": now} if now is not None else {}))
 
-    def case(self, kw, reqs_fn):
+    def case(self, name):
+        """The scenario ``name`` of ``CASES`` under a fake clock, run once
+        and kept."""
+        if name not in self._cases:
+            self._cases[name] = self._case(*CASES[name])
+        return self._cases[name]
+
+    def _case(self, kw, reqs_fn):
         from repro.engine import Request as JaxRequest
-        eng = self.engine(kw)
+        eng = self.engine(kw, now=_fake_clock())
         reqs = reqs_fn(JaxRequest)
         streams = _run(eng, reqs)
         return {"streams": streams, "rows": [r.row for r in reqs],
                 "counts": dict(eng.config_counts), "preempt": eng.preemptions,
                 "req_preempt": [r.num_preemptions for r in reqs],
                 "stats": eng.prefix_stats.as_dict(),
-                "ledger": eng.block_accounting().as_dict()}
+                "ledger": eng.block_accounting().as_dict(),
+                "dump": eng.obs.dump()}
 
 
 @pytest.fixture(scope="module")
@@ -253,10 +285,16 @@ def state():
 
 
 @pytest.fixture(scope="module")
-def ranks(state):
+def out_dir(tmp_path_factory):
+    """Where rank 0 of the serve CLI writes its metrics and trace."""
+    return tmp_path_factory.mktemp("dp_serve")
+
+
+@pytest.fixture(scope="module")
+def ranks(state, out_dir):
     """The one two-rank job of this module."""
     return mesh.run_ranks(_job, 1, 1, dp=DP, device="cpu", backend="gloo",
-                          timeout_s=300, args=(state,))
+                          timeout_s=300, args=(state, str(out_dir)))
 
 
 @pytest.fixture(scope="module")
@@ -435,10 +473,10 @@ def test_ranks_agree_and_gather_over_dp(ranks):
 @pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "serialized"])
 def test_dp2_engine_matches_reference_and_routed_dp1(ranks, ref, state,
                                                      mixed):
-    kw = dict(KW, prefix=PrefixConfig(True)) if mixed \
-        else dict(KW, mixed=False)
-    got = ranks[0]["mixed" if mixed else "serialized"]
-    want = ref.case(kw, lambda make: _mixed_reqs(make, mixed))
+    name = "mixed" if mixed else "serialized"
+    kw = CASES[name][0]
+    got = ranks[0][name]
+    want = ref.case(name)
     assert got["streams"] == want["streams"]
     assert got["rows"] == want["rows"]
     assert got["counts"] == want["counts"]
@@ -460,7 +498,7 @@ def test_dp2_engine_matches_reference_and_routed_dp1(ranks, ref, state,
 
 def test_dp_row_preemption_isolation(ranks, ref):
     got = ranks[0]["isolation"]
-    want = ref.case(TIGHT, _isolation_reqs)
+    want = ref.case("isolation")
     assert got["rows"] == want["rows"] == [0, 1, 0, 1]
     assert got["preempt"] == want["preempt"] > 0
     assert got["req_preempt"] == want["req_preempt"]
@@ -560,3 +598,41 @@ def test_serve_dp_report(ranks, state):
     with contextlib.redirect_stdout(out):
         serve.print_summary(eng)
     assert "paged cache: 1 dp row(s)" in out.getvalue()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_dp2_dump_matches_reference(ranks, ref, name):
+    """Under one fake clock every rank's dump, report and Chrome trace equal
+    the reference's dp=2 engine's, string for string; ``routed`` events
+    and ``finish`` events carry each request's row."""
+    from repro import obs as jobs
+    from repro_torch.obs import build_report, chrome_trace
+    want = ref.case(name)["dump"]
+    for r in ranks:
+        got = r[name]["dump"]
+        assert json.dumps(got, sort_keys=True) == \
+            json.dumps(want, sort_keys=True), (r["rank"], name)
+        assert json.dumps(build_report(got), sort_keys=True) == \
+            json.dumps(jobs.build_report(want), sort_keys=True)
+        assert json.dumps(chrome_trace(got), sort_keys=True) == \
+            json.dumps(jobs.chrome_trace(want), sort_keys=True)
+    rows = {e["rid"]: e["row"] for e in want["events"]
+            if e["kind"] == "routed"}
+    assert set(rows.values()) == {0, 1}
+    assert rows == dict(enumerate(ranks[0][name]["rows"]))
+
+
+def test_serve_dp_writes_rank0_metrics(ranks, out_dir):
+    """``--dp 2`` with ``--metrics-out``/``--trace-out``: rank 0 writes the
+    dump, the Prometheus text and the trace; every rank prints the
+    report."""
+    from repro_torch.obs import build_report, format_report
+    dump = json.loads((out_dir / "m.json").read_text())
+    assert "repro_requests_finished_total 4" in \
+        (out_dir / "m.prom").read_text()
+    trace = json.loads((out_dir / "t.json").read_text())
+    assert sum(e["ph"] == "X" for e in trace["traceEvents"]) == \
+        len(dump["steps"])
+    assert format_report(build_report(dump)) in ranks[0]["serve"]["report"]
+    for r in ranks:
+        assert "== observability report (engine) ==" in r["serve"]["report"]

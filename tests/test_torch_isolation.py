@@ -35,7 +35,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.engine.deployment" in _modules()
     assert {"repro_torch.core.ulysses", "repro_torch.parallel.collectives",
-            "repro_torch.launch.mesh"} <= set(_modules())
+            "repro_torch.launch.mesh", "repro_torch.obs.observer",
+            "repro_torch.ft.watchdog"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"

@@ -209,8 +209,8 @@ PS_NEW = 10
 
 def _prefix_spec_port(eng, make=Request):
     """Serve the prefix + spec workload on ``eng`` (the port's, or the
-    reference's with its ``Request``; its spec counts are read by the
-    caller, from its obs counters)."""
+    reference's with its ``Request``); the spec counts come from either
+    engine's obs counters."""
     reqs = [make(i, list(p), max_new_tokens=PS_NEW)
             for i, p in enumerate(PS_PROMPTS)]
     for r in reqs:
@@ -220,8 +220,8 @@ def _prefix_spec_port(eng, make=Request):
             "cached": [r.cached_tokens for r in reqs],
             "counts": dict(eng.config_counts),
             "stats": eng.prefix_stats.as_dict(),
-            "spec": (getattr(eng, "spec_proposed", None),
-                     getattr(eng, "spec_accepted", None)),
+            "spec": (eng.obs.registry.counter_total("spec_proposed_total"),
+                     eng.obs.registry.counter_total("spec_accepted_total")),
             "used": eng.block_accounting().used,
             "pinned": eng.block_accounting().pinned}
 
@@ -458,11 +458,7 @@ def _ref_prefix_spec(ref):
                     JaxEngineConfig(prefix=JaxPrefixConfig(enabled=True),
                                     spec=JaxSpecConfig(k=4), **PS_KW),
                     policy=JaxPolicy(4))
-    out = _prefix_spec_port(eng, JaxRequest)
-    reg = eng.obs.registry
-    out["spec"] = (reg.counter_total("spec_proposed_total"),
-                   reg.counter_total("spec_accepted_total"))
-    return out
+    return _prefix_spec_port(eng, JaxRequest)
 
 
 def _one_rank_engine(state, kw):

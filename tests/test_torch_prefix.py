@@ -345,7 +345,7 @@ def test_engine_shared_prefix_prefills_only_uncached_tokens(runs):
     assert facts["stats"]["tokens_saved"] == 16
     cold_steps = runs["shared-prefix"]["cold"][1]["steps"]
     assert facts["steps"] < cold_steps
-    pre = [n for n in eng.prefill_tokens if n]
+    pre = [r["prefill_tokens"] for r in eng.step_log if r["prefill_tokens"]]
     assert pre[-1] <= 3
 
 

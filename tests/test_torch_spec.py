@@ -260,6 +260,11 @@ def _run(side, weights, port_model, spec_k, mixed=None, policy=None):
     return {r.rid: tuple(r.generated) for r in reqs}, eng
 
 
+def _count(eng, name):
+    """A counter's total in ``eng``'s obs registry."""
+    return eng.obs.registry.counter_total(name)
+
+
 @pytest.fixture(scope="module")
 def engines(weights, port_model):
     pol = _Recorder(4)
@@ -277,12 +282,12 @@ def test_spec_engine_matches_reference(engines):
     assert got == ref
     assert eng.spec_disabled_reason is None
     reg = reng.obs.registry
-    assert eng.spec_proposed == reg.counter_total("spec_proposed_total")
-    assert eng.spec_accepted == reg.counter_total("spec_accepted_total")
-    assert eng.spec_rollback_blocks == \
-        reg.counter_total("spec_rollback_blocks_total")
-    assert eng.spec_proposed > 0
-    assert 0 < eng.spec_accepted < eng.spec_proposed
+    for name in ("spec_proposed_total", "spec_accepted_total",
+                 "spec_rollback_blocks_total"):
+        assert _count(eng, name) == reg.counter_total(name), name
+    assert _count(eng, "spec_proposed_total") > 0
+    assert 0 < _count(eng, "spec_accepted_total") \
+        < _count(eng, "spec_proposed_total")
     assert eng.step_count == reng.step_count
     assert dict(eng.config_counts) == reng.config_counts
 
@@ -291,7 +296,7 @@ def test_spec_streams_equal_spec_off(engines):
     got, eng = engines["port4"]
     off, eng0 = engines["port0"]
     assert got == off
-    assert eng0.spec_proposed == 0
+    assert _count(eng0, "spec_proposed_total") == 0
     # each accepted draft saves a decode step
     assert eng.step_count < eng0.step_count
     led = eng.block_accounting()
@@ -307,11 +312,11 @@ def test_policy_receives_spec_token_fact(engines):
     eng = engines["port4"][1]
     assert any(s > 0 for s in pol.seen)
     assert max(pol.seen) <= 4 * eng.cfg.max_slots
-    assert sum(pol.seen) == eng.spec_proposed
+    assert sum(pol.seen) == _count(eng, "spec_proposed_total")
 
 
 def test_spec_serialized_fallback_disables_loudly(engines):
     got, eng = engines["ser4"]
     assert got == engines["ser0"][0] == engines["port0"][0]
     assert "mixed" in eng.spec_disabled_reason
-    assert eng.spec_proposed == 0 and not eng._spec_on
+    assert _count(eng, "spec_proposed_total") == 0 and not eng._spec_on
