@@ -39,8 +39,12 @@ Phases (every failure propagates and exits non-zero):
    logits agree within 1e-4; the mixed engine with the prefix cache and
    k=4 speculation, after a 16-token shared prefix, with and without pool
    pressure, gives equal streams, cached tokens, prefix stats, spec counts,
-   preemptions and config counts; and the fork + COW case (a forked tail
-   block copied in place, two continuations decoded) equal streams;
+   preemptions and config counts; the fork + COW case (a forked tail
+   block copied in place, two continuations decoded) equal streams; and
+   the mixed engine under a fixed fault plan (an alloc fault, a ``nan``
+   and a ``raise`` forward fault, a route fault; ``quarantine_after`` 10)
+   gives the clean run's streams on both devices, with equal outcomes,
+   fail counts, failed steps, retries, preemptions, ledgers and dumps;
 5. the main paths: ``repro_torch.launch.serve.build_engine`` serving
    qwen3-8b at full width in bf16 (random weights, generator seeded 0)
    with the serve CLI's workload, 6 requests x 16 new tokens, through the
@@ -93,6 +97,21 @@ Phases (every failure propagates and exits non-zero):
    after it): every request ends with one reason, the reason counters
    match, no block is held and the late request is shed. One
    ``{"obs": ...}`` line;
+5c. faults, snapshots and crash recovery on the same model: the graphed
+   mixed paged engine under the seeded storm ``random_plan(13, 48,
+   p_alloc=p_forward=p_route=0.1)`` with snapshots every 4 steps; the
+   uninterrupted run (launches counted from 0: 109 RMSNorm and 36 ragged
+   per step whose forward ran), an in-place restore of its step-4
+   snapshot (no graph captured, the rest of the run equal bitwise), the
+   crash drill (dropped after step 14, a new engine recovers from the
+   ring under a ``DeliveryLog``: no divergence, the uninterrupted
+   streams bitwise, typed outcomes, no block held) and a corrupted newest
+   snapshot (``recover`` falls back to step 8; a direct restore raises
+   ``SnapshotError`` and changes nothing). It prints the ms per snapshot
+   and restore, the bytes per snapshot, the walls, the failed steps,
+   retries, preemptions and steps by config, and how many faulted bf16
+   streams equal the clean ones (reported only). One ``{"faults": ...}``
+   line;
 6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
    the one card with the collectives over gloo (NCCL refuses two ranks on
    one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
@@ -124,7 +143,10 @@ Phases (every failure propagates and exits non-zero):
    are dropped, with a trace lane per dp row; it prints per row the
    requests, hits, tokens saved and free blocks, the TTFT, the wall per
    step by config, the decode tokens/s, the ``dp_all_gather`` bytes and
-   calls per step, and rank 0's observability report.
+   calls per step, and rank 0's observability report. Each rank then
+   snapshots its shard after step 4 of the serve workload and a new
+   engine on the rank restores it: the rest of the run equals the
+   uninterrupted run bitwise on both ranks.
    Then (2, 2, 2), eight processes at full width with the depth cut to
    the most layers (at least 8) that fit with 20 % of the free memory
    spare: every rank's streams equal; each row's segment of every step,
@@ -849,6 +871,7 @@ def cross_device_phase(torch):
     print(f"reduced dense prefill + decode logits cuda vs cpu: max abs err "
           f"{err} (tol 1e-4)")
     prefix_spec_cross_device(torch, gpu, cpu)
+    fault_cross_device(torch, gpu, cpu)
     mamba2_cross_device(torch)
 
 
@@ -930,6 +953,62 @@ def prefix_spec_cross_device(torch, gpu, cpu):
           f"fork + COW: cuda {streams[0]} != cpu {streams[1]}")
     print(f"reduced fork + COW (12 tokens, the tail block copied in place): "
           f"cuda == cpu, decode steps of both rows {streams[0]}")
+
+
+# the reduced fault run's plan: (step, seam, kind); an alloc fault, both
+# kinds of forward fault and a route fault on the serve workload
+FAULT_PLAN = [(0, "alloc", ""), (3, "forward", "nan"),
+              (6, "forward", "raise"), (9, "route", "")]
+
+
+def fault_cross_device(torch, gpu, cpu):
+    """The mixed paged engine on reduced qwen3-8b at fp32 under
+    ``FAULT_PLAN`` with ``quarantine_after`` 10 (every request ends OK), on
+    the card and on the CPU, beside a clean run on each: the faulted
+    streams equal the clean ones on both devices and the card's equal the
+    CPU's, with equal outcomes, fail counts, failed steps, retries,
+    preemptions, block ledgers and observability dumps (less their time
+    fields); two steps failed, every block is free at exit."""
+    from repro_torch.engine import EngineConfig, FaultConfig, ShiftEngine
+    from repro_torch.ft import Fault, FaultPlan
+    from repro_torch.launch.serve import workload
+    runs = []
+    for model in (gpu, cpu):
+        streams = []
+        for plan in (None, FaultPlan([Fault(step, seam, kind=kind)
+                                      for step, seam, kind in FAULT_PLAN])):
+            eng = ShiftEngine(model, EngineConfig(
+                fault=FaultConfig(quarantine_after=10)), faults=plan)
+            reqs = workload(6, 16)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            streams.append([r.generated for r in reqs])
+        reg = eng.obs.registry
+        runs.append((streams, [str(r.finish_reason) for r in reqs],
+                     [r.fail_count for r in reqs],
+                     {name: int(reg.counter_total(name)) for name in (
+                         "faults_injected_total", "failed_steps_total",
+                         "retries_total")},
+                     eng.preemptions, eng.block_accounting().as_dict(),
+                     eng.kv.num_blocks, timeless(eng.obs.dump())))
+    check(runs[0][:7] == runs[1][:7], f"reduced fault run: cuda "
+          f"{runs[0][1:7]} != cpu {runs[1][1:7]}")
+    check(runs[0][7] == runs[1][7], "reduced fault run: the cuda and cpu "
+          "obs dumps differ (time fields dropped)")
+    (clean, faulted), reasons, fails, counters, pre, led, nb, _ = runs[0]
+    check(faulted == clean and set(reasons) == {"ok"},
+          f"reduced fault run: faulted streams differ from the clean ones "
+          f"or a request failed: {reasons}")
+    check(counters["faults_injected_total"] == len(FAULT_PLAN)
+          and counters["failed_steps_total"] == 2
+          and counters["retries_total"] > 0 and pre > 0,
+          f"reduced fault run: counters {counters}, {pre} preemptions")
+    check(led["used"] == led["pinned"] == 0 and led["free"] == nb - 1,
+          f"reduced fault run: blocks held at exit {led}")
+    print(f"reduced fault run {FAULT_PLAN}: cuda == cpu == the clean run "
+          f"(streams), equal obs dumps less time fields; fail counts "
+          f"{fails}; {counters}; {pre} preemptions; ledger {led}")
 
 
 def mamba2_cross_device(torch):
@@ -1508,6 +1587,7 @@ def serving_phase(torch):
                 "qwen3-8b dense prefill + decode")
     by_path["mixed_obs"], by_path["serialized_paged_obs"] = \
         obs_phase(torch, model)
+    by_path["mixed_faults"] = recovery_phase(torch, model)
     print(f"card: {card_line()}")
     return by_path, turns
 
@@ -1832,6 +1912,244 @@ def obs_phase(torch, model):
     return mixed_launches, ser_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: faults, snapshots and crash recovery on the served model
+# ---------------------------------------------------------------------------
+# the storm: random_plan(RECOVERY_SEED, RECOVERY_STEPS, p = 0.1 at the
+# alloc, forward and route seams). Scheduling does not depend on the
+# tokens, so the schedule is the reduced model's: 21 steps, with a nan
+# forward fault at step 2, alloc faults at 11 and 16, a raise at 19 and a
+# route fault at 20; one request reaches quarantine_after (3) failures
+RECOVERY_SEED, RECOVERY_STEPS, RECOVERY_P = 13, 48, 0.1
+SNAPSHOT_EVERY = 4
+CRASH_STEP = 14              # the ring then holds the snapshots of 8 and 12
+
+
+def storm(extra=()):
+    from repro_torch.ft import FaultPlan, random_plan
+    plan = random_plan(RECOVERY_SEED, RECOVERY_STEPS, p_alloc=RECOVERY_P,
+                       p_forward=RECOVERY_P, p_route=RECOVERY_P)
+    return FaultPlan(plan.faults + list(extra))
+
+
+def storm_engine(torch, model, faults):
+    from repro_torch.engine import EngineConfig, FaultConfig, ShiftEngine
+    gc.collect()
+    return ShiftEngine(model, EngineConfig(
+        fault=FaultConfig(auto_snapshot_every=SNAPSHOT_EVERY)),
+        faults=faults)
+
+
+def submit_workload(eng):
+    from repro_torch.launch import serve
+    reqs = serve.workload(6, 16)
+    for r in reqs:
+        eng.submit(r)
+    return reqs
+
+
+def timed_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def engine_state(torch, eng):
+    """What a refused restore must leave as it was."""
+    return (eng.step_count, eng.lens.tolist(), [r.rid for r in eng.queue],
+            eng.kv.state_dict()["allocators"], eng.model.pool.k[:, 1:].sum(
+                dtype=torch.float64).item())
+
+
+def recovery_phase(torch, model):
+    """Faults, snapshots and crash recovery on the graphed mixed paged
+    engine over the served model (qwen3-8b, full width, bf16), under the
+    seeded storm ``storm()`` with auto-snapshots every
+    ``SNAPSHOT_EVERY`` steps, on the serve workload:
+
+    * a clean run and the uninterrupted run under the storm, each on a new
+      engine; the latter with every launch counter set to 0 just before it
+      and read just after (the 109 RMSNorm and 36 ragged launches of every
+      step whose forward ran), three snapshots timed at step 4;
+    * restore in place: that engine restores its step-4 snapshot and runs
+      to idle again: no graph is captured, and the streams equal its
+      uninterrupted ones bitwise;
+    * the crash drill: a new engine under the storm, a ``DeliveryLog``
+      polled after every step, dropped after ``CRASH_STEP`` steps; a new
+      engine ``recover``s from the dropped one's ring and runs to idle:
+      no ``ReplayDivergence``, streams equal to the uninterrupted run's
+      bitwise, every request with a typed outcome, no block held;
+    * a corrupted snapshot: the storm plus a ``snapshot`` fault at step
+      12 corrupts the newest capture; ``recover`` falls back to step 8, a
+      direct ``restore`` of the corrupt one raises ``SnapshotError`` and
+      leaves the engine as it was, and the run ends with the
+      uninterrupted streams.
+
+    Prints the ms per snapshot and restore, the bytes per snapshot, the
+    walls, the failed steps, retries, preemptions and steps by config, and
+    how many faulted streams equal the clean ones (reported only: in bf16
+    a stream depends on the batch's bucketed shapes, which the faults
+    change). Returns the launches of the uninterrupted run."""
+    from repro_torch.ft import DeliveryLog, Fault, SnapshotError
+    from repro_torch.launch import serve
+    t_phase = time.monotonic()
+    out = {}
+
+    eng = storm_engine(torch, model, None)
+    t0 = time.monotonic()
+    reqs = submit_workload(eng)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    out["clean_wall_s"] = time.monotonic() - t0
+    clean = [r.generated for r in reqs]
+    del eng
+
+    # the uninterrupted run under the storm
+    eng = storm_engine(torch, model, storm())
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    reqs = submit_workload(eng)
+    snap_ms, snap = [], None
+    while eng.queue or eng.active:
+        eng.step()
+        if eng.step_count == SNAPSHOT_EVERY and snap is None:
+            for _ in range(3):
+                snap, ms = timed_ms(torch, eng.snapshot)
+                snap_ms.append(ms)
+    torch.cuda.synchronize()
+    out["faulted_wall_s"] = time.monotonic() - t0
+    launches = serve.launch_counts()
+    whole = [r.generated for r in reqs]
+    reg = eng.obs.registry
+    counters = {name: int(reg.counter_total(name)) for name in (
+        "faults_injected_total", "failed_steps_total", "retries_total",
+        "requests_failed_total", "snapshots_total")}
+    recs = eng.step_log
+    ran = sum(1 for rec in recs if rec["config"] is not None
+              and rec["attn_ctx_tokens"] > 0)
+    check(launches == {k: {"rmsnorm": 109, "paged_ragged_attention": 36
+                           }.get(k, 0) * ran for k in launches},
+          f"faults phase: launches {launches} over {ran} forward steps")
+    check(all(r.finish_reason is not None for r in reqs),
+          "faults phase: a request has no outcome")
+    check(counters["failed_steps_total"] == 2
+          and counters["requests_failed_total"] == 1,
+          f"faults phase: counters {counters}, want the reduced schedule's "
+          "2 failed steps and 1 quarantined request")
+    out.update(counters=counters, steps=eng.step_count,
+               configs=dict(eng.config_counts), preemptions=eng.preemptions,
+               outcomes=[str(r.finish_reason) for r in reqs],
+               snapshot_ms=snap_ms,
+               snapshot_bytes=sum(t.numel() * t.element_size()
+                                  for t in snap["cache"].values()),
+               equal_to_clean=sum(a == b for a, b in zip(whole, clean)))
+
+    # restore in place: the graphs replay, nothing is captured
+    captures = eng.deploy.captures
+    pool = (model.pool.k.data_ptr(), model.pool.v.data_ptr())
+    _, out["restore_ms"] = timed_ms(torch, lambda: eng.restore(snap))
+    eng.run_until_idle()
+    check([eng.stream(r.rid) for r in reqs] == whole,
+          "faults phase: the run after an in-place restore differs from "
+          "the uninterrupted run")
+    check(eng.deploy.captures == captures
+          and (model.pool.k.data_ptr(), model.pool.v.data_ptr()) == pool,
+          f"faults phase: the in-place restore captured "
+          f"{eng.deploy.captures - captures} graphs or moved the pool")
+    out["graphs"] = captures
+    del eng, snap
+
+    # the crash drill
+    eng = storm_engine(torch, model, storm())
+    log = DeliveryLog()
+    reqs = submit_workload(eng)
+    for _ in range(CRASH_STEP):
+        eng.step()
+        log.poll(reqs)
+    ring = eng.retained_snapshots()
+    pre = sum(len(log.delivered(r.rid)) for r in reqs)
+    del eng
+    t0 = time.monotonic()
+    eng = storm_engine(torch, model, storm())
+    _, out["recover_ms"] = timed_ms(torch, lambda: eng.recover(ring))
+    live = list(eng.queue)
+    while eng.queue or eng.active:
+        eng.step()
+        log.poll(live)                 # raises ReplayDivergence
+    torch.cuda.synchronize()
+    out["recovered_wall_s"] = time.monotonic() - t0
+    check([eng.stream(r.rid) for r in reqs] == whole
+          and [log.delivered(r.rid) for r in reqs] == whole,
+          "faults phase: the recovered streams differ from the "
+          "uninterrupted run's")
+    check(all(eng.request(r.rid).finish_reason is not None for r in reqs),
+          "faults phase: a recovered request has no outcome")
+    led = eng.block_accounting()
+    check(led.used == led.pinned == 0, f"faults phase: blocks held {led}")
+    out.update(ring=[s["step_count"] for s in ring],
+               delivered_before_crash=pre,
+               recovered_from=ring[-1]["step_count"],
+               recovered_graphs=eng.deploy.captures)
+    del eng, ring
+
+    # a corrupted newest snapshot
+    eng = storm_engine(torch, model, storm([Fault(12, "snapshot")]))
+    reqs = submit_workload(eng)
+    for _ in range(CRASH_STEP):
+        eng.step()
+    ring = eng.retained_snapshots()
+    check(ring[-1].get("corrupted") and not ring[0].get("corrupted"),
+          "faults phase: the step-12 snapshot was not corrupted")
+    del eng
+    eng = storm_engine(torch, model, storm())
+    eng.recover(ring)
+    check(eng.step_count == 8, f"faults phase: recovered to step "
+          f"{eng.step_count}, want the older snapshot's 8")
+    before = engine_state(torch, eng)
+    try:
+        eng.restore(ring[-1])
+        refused = False
+    except SnapshotError as e:
+        refused = str(e)
+    check(refused and engine_state(torch, eng) == before,
+          "faults phase: a corrupt snapshot restored or changed the engine")
+    eng.run_until_idle()
+    check([eng.stream(r.rid) for r in reqs] == whole,
+          "faults phase: the run recovered past the corrupt snapshot "
+          "differs from the uninterrupted one")
+    out["corrupt_refused"] = refused
+    del eng, ring
+    out["phase_wall_s"] = time.monotonic() - t_phase
+
+    card = card_line()
+    print(f"faults phase: seed {RECOVERY_SEED}, p {RECOVERY_P} at the alloc, "
+          f"forward and route seams, snapshots every {SNAPSHOT_EVERY} steps; "
+          f"{out['steps']} steps, configs {out['configs']}, counters "
+          f"{counters}, {out['preemptions']} preemptions, outcomes "
+          f"{out['outcomes']}; card: {card}")
+    print(f"faults phase: snapshot of the pool {out['snapshot_bytes']} "
+          f"bytes, ms per snapshot "
+          + ", ".join(f"{ms:.2f}" for ms in snap_ms)
+          + f"; restore in place {out['restore_ms']:.2f} ms (no graph "
+          f"captured, streams equal); recover {out['recover_ms']:.2f} ms; "
+          f"card: {card}")
+    print(f"faults phase: crash after step {CRASH_STEP} ({pre} tokens "
+          f"delivered), recovered from step {out['recovered_from']} of ring "
+          f"{out['ring']}: streams equal the uninterrupted run's bitwise, "
+          f"no replay divergence; walls s, each a new engine with "
+          f"snapshots: clean {out['clean_wall_s']:.3f}, "
+          f"under the storm {out['faulted_wall_s']:.3f}, recovered engine "
+          f"(build, recover, run) {out['recovered_wall_s']:.3f}; "
+          f"{out['equal_to_clean']} of 6 faulted streams equal the clean "
+          f"ones (bf16, reported only); corrupt newest snapshot refused: "
+          f"{refused}; card: {card}")
+    print(json.dumps({"faults": out}))
+    print(f"faults phase: {out['phase_wall_s']:.1f} s in all; card: {card}")
+    return launches
+
+
 def mamba2_serving_phase(torch):
     """mamba2-1.3b at full width (48 SSD layers, d_model 2048, bf16, random
     weights from a generator seeded 0) through the serve CLI's engine, which
@@ -1896,7 +2214,11 @@ def profiled(torch):
     """``torch.profiler`` over the CPU and the card for the body of the
     ``with``, after a warm-up cycle that runs one small kernel and that the
     results leave out: a window's first launches can be missing from the
-    trace while the profiler starts."""
+    trace while the profiler starts. The recording window itself opens
+    with three such kernels and 20 ms of idle before the body runs (the
+    warm-up cycle alone still let an eager window's first RMSNorm launch
+    go missing); they are no port kernel, and the body's wall starts
+    after them."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -1904,6 +2226,10 @@ def profiled(torch):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
+        for _ in range(3):
+            torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
         yield prof
         torch.cuda.synchronize()
         prof.step()
@@ -2591,8 +2917,37 @@ def dp_rank(rank, groups):
     gc.collect()
     out["prefix_spec"]["one_row"] = one_row_streams(torch, model, reqs, row,
                                                     ps_kw, steps)
+    out["snapshot"] = dp_snapshot_run(torch, model)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def dp_snapshot_run(torch, model):
+    """One dp rank's snapshot drill: the serve workload on a new engine,
+    a snapshot of this rank's shard after step 4, the run to idle; then a
+    new engine on this rank restores the snapshot and runs to idle."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    gc.collect()
+    eng = ShiftEngine(model, EngineConfig())
+    reqs = serve.workload(6, 16)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    snap, snap_ms = timed_ms(torch, eng.snapshot)
+    eng.run_until_idle()
+    whole = [r.generated for r in reqs]
+    del eng
+    gc.collect()
+    eng = ShiftEngine(model, EngineConfig())
+    _, restore_ms = timed_ms(torch, lambda: eng.restore(snap))
+    eng.run_until_idle()
+    return {"whole": whole, "restored": [eng.stream(r.rid) for r in reqs],
+            "rank": snap["rank"], "step": snap["step_count"],
+            "bytes": sum(t.numel() * t.element_size()
+                         for t in snap["cache"].values()),
+            "snapshot_ms": snap_ms, "restore_ms": restore_ms}
 
 
 def grid_cfg(layers):
@@ -2826,6 +3181,18 @@ def dp_phase(torch, overhead_bytes):
                   f"{pr['requests']} requests, {pr['hits']} hits, "
                   f"{pr['tokens_saved']} tokens saved, "
                   f"{pr['free_blocks']} free blocks at exit")
+    for r in res:
+        sn = r["snapshot"]
+        check(sn["restored"] == sn["whole"] == r0["snapshot"]["whole"]
+              and sn["rank"] == r["rank"] and sn["step"] == 4,
+              f"dp (2, 1, 1) snapshot: rank {r['rank']}: the run restored "
+              "from step 4 differs from the uninterrupted one")
+        print(f"dp phase (2, 1, 1) snapshot: rank {r['rank']} (row "
+              f"{r['row']}) snapshot of its shard after step 4, "
+              f"{sn['bytes']} bytes in {sn['snapshot_ms']:.2f} ms, restored "
+              f"into a new engine in {sn['restore_ms']:.2f} ms: the rest of "
+              f"the run equals the uninterrupted one bitwise; card: "
+              f"{card_line()}")
     ps = r0["prefix_spec"]
     check(ps["stats"]["hits"] > 0 and ps["spec"][0] > 0,
           f"dp (2, 1, 1) prefix + spec: prefix {ps['stats']}, spec "

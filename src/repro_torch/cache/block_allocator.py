@@ -68,3 +68,17 @@ class BlockAllocator:
     def free(self, blocks: List[int]):
         for b in blocks:
             self.decref(b)
+
+    # ----------------------------------------------------------- snapshot
+    def state_dict(self) -> dict:
+        return {"num_blocks": self.num_blocks, "free": list(self._free),
+                "refs": dict(self._refs)}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "BlockAllocator":
+        """The allocator of ``state_dict()``; also of its JSON round trip
+        (whose ``refs`` keys are strings)."""
+        a = cls(state["num_blocks"])
+        a._free = deque(int(b) for b in state["free"])
+        a._refs = {int(b): int(n) for b, n in state["refs"].items()}
+        return a

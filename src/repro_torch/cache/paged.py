@@ -291,3 +291,33 @@ class PagedKVCache:
         self.table[dst, :n] = self.table[src, :n]
         self.n_mapped[dst] = n
         self._dirty.add(dst)
+
+    # ----------------------------------------------------------- snapshot
+    def state_dict(self) -> dict:
+        """The control plane as the reference snapshots it: the block
+        tables and every row's allocator (the indexes snapshot
+        themselves)."""
+        return {"block_size": self.block_size,
+                "max_blocks_per_seq": self.max_blocks_per_seq,
+                "dp": self.dp,
+                "table": self.table.copy(),
+                "n_mapped": self.n_mapped.copy(),
+                "allocators": [a.state_dict() for a in self.allocators]}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "PagedKVCache":
+        """The manager of ``state_dict()`` (tables as arrays or, after a
+        JSON round trip, lists), with every slot marked dirty so that the
+        engine's host mirror of the tables is rebuilt. A state without
+        ``dp`` and with a single ``allocator`` loads as one row, as the
+        reference's pre-dp snapshots do."""
+        alloc_states = state.get("allocators") or [state["allocator"]]
+        table = np.array(state["table"], np.int32)
+        kv = cls(alloc_states[0]["num_blocks"], state["block_size"],
+                 table.shape[0], state["max_blocks_per_seq"],
+                 dp=state.get("dp", 1))
+        kv.table = table
+        kv.n_mapped = np.array(state["n_mapped"], np.int32)
+        kv.allocators = [BlockAllocator.from_state(s) for s in alloc_states]
+        kv._dirty = set(range(kv.table.shape[0]))
+        return kv

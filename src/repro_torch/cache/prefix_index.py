@@ -230,3 +230,27 @@ class PrefixIndex:
         return {"entries": len(self._entries), "hits": self.hits,
                 "misses": self.misses, "tokens_saved": self.tokens_saved,
                 "evictions": self.evictions}
+
+    # ----------------------------------------------------------- snapshot
+    # The allocator's snapshot already holds the index's pins (one ref per
+    # entry), so a restore must rebuild the entries with it, or those refs
+    # would leak as blocks pinned for good. The hit, miss, saved-token and
+    # eviction tallies are not part of it, as in the reference.
+    def state_dict(self) -> dict:
+        return {"block_size": self.block_size,
+                "entries": [(e.key, e.parent, list(e.tokens), e.block,
+                             e.last_used) for e in self._entries.values()],
+                "clock": self._clock}
+
+    @classmethod
+    def from_state(cls, state: dict,
+                   allocator: BlockAllocator) -> "PrefixIndex":
+        idx = cls(state["block_size"], allocator)
+        idx._clock = state["clock"]
+        for key, parent, tokens, block, last_used in state["entries"]:
+            idx._entries[key] = PrefixEntry(key, parent, tuple(tokens),
+                                            block, last_used)
+        for e in idx._entries.values():
+            if e.parent in idx._entries:
+                idx._entries[e.parent].children += 1
+        return idx

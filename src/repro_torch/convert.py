@@ -4,7 +4,11 @@
 trivial ``Layout()``, as nested dicts of numpy arrays (``jax.tree.map(
 np.asarray, params)``, done by the caller), and returns ``{name: array}``
 for ``Model.load_params``; ``shard_state`` cuts that state into one rank's
-shard of a wider layout. It imports neither jax nor repro.
+shard of a wider layout. ``from_jax_cache`` is the state counterpart: it
+turns the reference's cache tree (the ``cache`` of its engine's
+snapshot) into the port's cache tensors, as ``ShiftEngine.snapshot``
+holds them, so that a snapshot the reference took restores into the
+port. It imports neither jax nor repro.
 """
 from __future__ import annotations
 
@@ -102,4 +106,48 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
             raise NotImplementedError(f"{name}: SSD layers run only the "
                                       "trivial layout")
         out[name] = t.contiguous().numpy()
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; bfloat16 (a numpy extension type)
+    goes through its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def from_jax_cache(tree, cfg, paged: bool) -> Dict[str, torch.Tensor]:
+    """The reference's cache tree of a ``Model`` on the trivial layout, as
+    nested dicts of numpy arrays, as the port's cache tensors by name (the
+    ``cache`` entry of ``ShiftEngine.snapshot``):
+
+    * paged (``init_paged_cache``): ``body.s0.k``/``v`` ``[L, num_blocks,
+      bs, kv_slots, Dh]``, the layers stacked on axis 0 as the port's
+      ``PagedPool`` stacks them, -> ``k``/``v``;
+    * dense (``init_cache``): attention ``body.s0.k``/``v`` ``[L, B,
+      s_max, kv_slots, Dh]`` -> ``k``/``v``, SSD ``body.s0.ssm``/
+      ``conv_x``/``conv_bc`` -> the ``DenseCache`` fields of those names.
+
+    Only a stack of one repeated block kind converts, as for the
+    parameters."""
+    if tree.get("prefix") or tree.get("suffix") \
+            or set(tree.get("body", {})) != {"s0"} \
+            or len(cfg.layer_pattern) != 1:
+        raise ValueError("only a stack of one repeated block converts")
+    body = tree["body"]["s0"]
+    want = (("k", "v") if paged or cfg.layer_pattern[0] == "attn"
+            else ("ssm", "conv_x", "conv_bc"))
+    if set(body) != set(want):
+        raise ValueError(f"cache leaves {sorted(body)}, want {list(want)} "
+                         f"for a {'paged' if paged else 'dense'} "
+                         f"{cfg.layer_pattern[0]} stack")
+    out = {}
+    for name in want:
+        a = body[name]
+        if a.shape[0] != cfg.num_layers:
+            raise ValueError(f"body.s0.{name}: {a.shape[0]} stacked layers, "
+                             f"config has {cfg.num_layers}")
+        out[name] = _tensor(a)
     return out

@@ -1,6 +1,8 @@
-from .api import FaultConfig, ObsConfig, PrefixConfig
+from .api import (BlockLedger, ClusterStats, EngineStats, FaultConfig,
+                  ObsConfig, PrefixConfig, PrefixStats, ServingClient)
 from .engine import EngineConfig, ShiftEngine
 from .request import FinishReason, Request
 
-__all__ = ["EngineConfig", "FaultConfig", "FinishReason", "ObsConfig",
-           "PrefixConfig", "Request", "ShiftEngine"]
+__all__ = ["BlockLedger", "ClusterStats", "EngineConfig", "EngineStats",
+           "FaultConfig", "FinishReason", "ObsConfig", "PrefixConfig",
+           "PrefixStats", "Request", "ServingClient", "ShiftEngine"]

@@ -1,13 +1,38 @@
-"""Typed engine config groups and results (the port's subset of
-``repro.engine.api``): the nested groups of ``EngineConfig``
-(:class:`PrefixConfig`, :class:`FaultConfig`, :class:`ObsConfig`) and the
-frozen results :class:`PrefixStats` and :class:`BlockLedger`. The results
-carry ``.as_dict()`` and support ``stats["hits"]`` and ``== {...}``
-against plain dicts, as the reference's do."""
+"""Typed serving API (the port's copy of ``repro.engine.api``): the
+:class:`ServingClient` protocol that ``ShiftEngine`` implements
+(``submit``/``cancel``/``step``/``stream``/``stats``), the nested groups
+of ``EngineConfig`` (:class:`PrefixConfig`, :class:`FaultConfig`,
+:class:`ObsConfig`) and the frozen results :class:`PrefixStats`,
+:class:`BlockLedger`, :class:`EngineStats` and :class:`ClusterStats`. The
+results carry ``.as_dict()`` and support ``stats["hits"]`` and
+``== {...}`` against plain dicts, as the reference's do. ``ClusterStats``
+is the record only: the cluster ``Router`` that fills it is not ported
+yet."""
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass, fields
-from typing import Optional, Tuple
+from dataclasses import asdict, dataclass, field, fields
+from typing import List, Optional, Protocol, Tuple, runtime_checkable
+
+
+@runtime_checkable
+class ServingClient(Protocol):
+    """What a serving backend looks like from the outside: ``submit``
+    enqueues a request and returns its rid; ``cancel`` ends a live request
+    (False when the rid is unknown or already ended); ``step`` runs one
+    scheduling iteration and returns False when idle; ``stream`` returns
+    the tokens generated so far for a rid (exactly-once incremental
+    delivery is the caller's :class:`~repro_torch.ft.DeliveryLog`'s job);
+    ``stats`` returns a typed, frozen summary with ``.as_dict()``."""
+
+    def submit(self, request) -> int: ...
+
+    def cancel(self, rid: int) -> bool: ...
+
+    def step(self) -> bool: ...
+
+    def stream(self, rid: int) -> List[int]: ...
+
+    def stats(self): ...
 
 
 @dataclass(frozen=True)
@@ -23,10 +48,10 @@ class PrefixConfig:
 @dataclass(frozen=True)
 class FaultConfig:
     """Fault-tolerance knobs (queue bounds, deadlines, retry, snapshots).
-    Retries and quarantine need a fault plan, which the port does not have
-    yet, so ``quarantine_after`` and ``retry_backoff`` have no effect (as
-    in the reference without one); ``auto_snapshot_every`` above 0 raises
-    in the engine."""
+    ``quarantine_after`` and ``retry_backoff`` act on the requests of a
+    failed step (a ``FaultPlan`` given to the engine injects the
+    failures); ``auto_snapshot_every`` above 0 keeps the newest
+    ``snapshot_keep`` snapshots in the engine's ring."""
     max_queue: int = 0               # bound on UNADMITTED queued requests;
     #                                  0 = unbounded
     shed_policy: str = "reject-newest"   # or "evict-longest-queued"
@@ -101,3 +126,45 @@ class BlockLedger(_MappingCompat):
     pinned: int = 0
     free: int = 0
     free_per_row: Tuple[int, ...] = ()
+
+
+@dataclass(frozen=True, eq=False)
+class EngineStats(_MappingCompat):
+    """One engine's serving state, frozen at a step boundary: everything
+    the serve CLI prints comes from here."""
+    steps: int = 0
+    queue_depth: int = 0              # requests waiting for a slot
+    active: int = 0                   # requests holding a slot
+    preemptions: int = 0
+    config_counts: dict = field(default_factory=dict)   # {"base": n, ...}
+    paged: bool = False
+    paged_disabled_reason: Optional[str] = None
+    dp: int = 1
+    block_size: int = 0
+    blocks_per_row: int = 0
+    free_blocks: int = 0
+    queued_block_demand: int = 0      # blocks the unadmitted queue will need
+    prefix: PrefixStats = field(default_factory=PrefixStats)
+    blocks: BlockLedger = field(default_factory=BlockLedger)
+    replica: Optional[int] = None     # set when owned by a cluster router
+
+
+@dataclass(frozen=True, eq=False)
+class ClusterStats(_MappingCompat):
+    """A cluster router's view: per-replica :class:`EngineStats` plus the
+    cluster-level routing and migration counters."""
+    replicas: Tuple[EngineStats, ...] = ()
+    routing: str = "affinity"
+    steps: int = 0
+    migrations: int = 0
+    migrated_blocks: int = 0
+    affinity_evictions: int = 0       # LRU evictions from the bounded
+    #                                   first-chain-key affinity memo
+
+    @property
+    def queue_depth(self) -> int:
+        return sum(r.queue_depth for r in self.replicas)
+
+    @property
+    def active(self) -> int:
+        return sum(r.active for r in self.replicas)

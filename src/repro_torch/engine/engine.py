@@ -90,12 +90,32 @@ duration is taken: otherwise the next step would book its device time.
 
 Every request ends with one typed ``FinishReason``: OK, or TIMEOUT (its
 ``deadline`` passed, checked at the start of every step), CANCELLED
-(``cancel``), SHED (the bounded queue's shed policy, or ``drain``). A
-straggler watchdog flags steps slower than ``straggler_factor`` times the
-rolling median.
+(``cancel``), SHED (the bounded queue's shed policy, or ``drain``) or
+FAILED (``quarantine_after`` failed steps). A straggler watchdog flags
+steps slower than ``straggler_factor`` times the rolling median.
 
-Not in this slice: fault injection (FAILED, retries), snapshots and
-reshard.
+Faults are injected from a deterministic ``FaultPlan``
+(``repro_torch.ft``) at the reference's seams: an ``alloc`` fault fails
+the step's first block allocation like an OOM (admission rolls back, a
+reserve preempts), a ``forward`` fault poisons the step's tokens
+(``"nan"``: the step runs, its tokens are dropped) or skips the step
+(``"raise"``), a ``route`` fault fails one dp row (its requests are
+preempted for recompute), and a ``snapshot`` fault corrupts a capture.
+Every request of a failed step backs off ``retry_backoff`` steps per
+failure, and ends FAILED after ``quarantine_after`` failures. Above world
+size 1 every rank holds the same plan and consults it at the same step,
+so a skipped step is skipped on every rank and the collectives stay
+matched.
+
+``snapshot()`` captures the engine's state: the cache (this rank's shard,
+copied to the host, with the rank beside it), the slot lengths, the step
+index, the layout's signature, the observability state, every unfinished
+request and, on the paged pool, the block tables, allocators and prefix
+indexes. ``restore()`` validates first (a snapshot that does not fit
+leaves the engine untouched) and then copies the cache back in place, so
+that the captured CUDA graphs keep their addresses; ``recover()`` restores
+the newest valid snapshot of the ``auto_snapshot_every`` ring. Not in
+this slice: reshard.
 """
 from __future__ import annotations
 
@@ -109,12 +129,13 @@ import torch
 from repro_torch.cache import (PagedKVCache, PrefixIndex, blocks_for_tokens,
                                pow2_bucket)
 from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
-from repro_torch.ft import StragglerWatchdog
+from repro_torch.ft import (FaultPlan, SnapshotError, StragglerWatchdog,
+                            corrupt_snapshot)
 from repro_torch.models.model import Model
 from repro_torch.obs import NullObs, Observability
 from repro_torch.spec import SpecConfig, SuffixDrafter
-from .api import (BlockLedger, FaultConfig, ObsConfig, PrefixConfig,
-                  PrefixStats)
+from .api import (BlockLedger, EngineStats, FaultConfig, ObsConfig,
+                  PrefixConfig, PrefixStats)
 from .deployment import Deployment
 from .request import FinishReason, Request
 
@@ -159,6 +180,14 @@ class EngineConfig:
 
     # flat read properties, as the reference's
     @property
+    def spec_k(self) -> int:
+        return self.spec.k
+
+    @property
+    def prefix_cache(self) -> bool:
+        return self.prefix.enabled
+
+    @property
     def max_queue(self) -> int:
         return self.fault.max_queue
 
@@ -171,6 +200,22 @@ class EngineConfig:
         return self.fault.deadline_s
 
     @property
+    def quarantine_after(self) -> int:
+        return self.fault.quarantine_after
+
+    @property
+    def retry_backoff(self) -> int:
+        return self.fault.retry_backoff
+
+    @property
+    def auto_snapshot_every(self) -> int:
+        return self.fault.auto_snapshot_every
+
+    @property
+    def snapshot_keep(self) -> int:
+        return self.fault.snapshot_keep
+
+    @property
     def straggler_factor(self) -> float:
         return self.fault.straggler_factor
 
@@ -178,14 +223,10 @@ class EngineConfig:
 class ShiftEngine:
     def __init__(self, model: Model, cfg: Optional[EngineConfig] = None,
                  shift: Optional[Model] = None, policy=None,
-                 now=time.monotonic):
+                 now=time.monotonic, faults: Optional[FaultPlan] = None):
         cfg = cfg or EngineConfig()
         if cfg.shed_policy not in ("reject-newest", "evict-longest-queued"):
             raise ValueError(f"unknown shed_policy {cfg.shed_policy!r}")
-        if cfg.fault.auto_snapshot_every:
-            raise NotImplementedError(
-                "auto_snapshot_every: snapshots are not ported yet (ROADMAP "
-                "Queue 1 item 3)")
         self.model = model
         self.mcfg = model.cfg
         self.cfg = cfg
@@ -268,7 +309,9 @@ class ShiftEngine:
             row_blocks = cfg.num_blocks or self.slots_per_row * nmax + 1
             self.kv = PagedKVCache(row_blocks, cfg.block_size, cfg.max_slots,
                                    nmax, dp=dp)
-            model.init_paged_cache(row_blocks, cfg.block_size)
+            # the cache this engine steps, kept for its snapshots (a later
+            # engine on the same model initialises another)
+            self._cache = model.init_paged_cache(row_blocks, cfg.block_size)
             if shift is not None:
                 shift.adopt_paged_cache(model)
             # persistent host mirror of the block tables; only rows the
@@ -290,7 +333,7 @@ class ShiftEngine:
             self._step_copies: List[tuple] = []
         else:
             self.kv = None
-            model.init_cache(cfg.max_slots, cfg.s_max)
+            self._cache = model.init_cache(cfg.max_slots, cfg.s_max)
         # per-slot cache length: positions already written
         self.lens = np.zeros((cfg.max_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * cfg.max_slots
@@ -301,15 +344,23 @@ class ShiftEngine:
         # every submitted request by rid, so that stream(rid) and
         # request(rid) resolve after it ends
         self._requests: Dict[int, Request] = {}
+        # replica id under a cluster router (None standalone), stamped on
+        # every record and event through the obs surface
+        self.replica: Optional[int] = None
+        # fault tolerance: the optional fault schedule, the straggler
+        # watchdog and the retained snapshots (newest last)
+        self.faults = faults
         self.watchdog = StragglerWatchdog(factor=cfg.straggler_factor)
+        self._snap_ring: List[dict] = []
+        self._alloc_fault_armed = False
+        self._step_fail_flag = False
         self.draining = False           # drain(): no fresh admissions
         # the one observability surface: metrics registry, lifecycle event
         # log and the rolling per-step audit records the views read
         self.obs = (Observability("engine", window=cfg.obs.window, now=now,
                                   event_cap=cfg.obs.event_cap)
                     if cfg.obs.enabled else NullObs(now=now))
-        for r, idx in enumerate(self.prefix_rows or []):
-            idx.on_evict = self._make_evict_observer(r)
+        self._attach_prefix_observers()
         # the composition and shift audit of the step in flight, stashed by
         # _log_step and _choose and folded into one record in step()
         self._step_stats: Optional[dict] = None
@@ -339,6 +390,10 @@ class ShiftEngine:
         return self.prefix_rows[0] if self.prefix_rows else None
 
     # ---------------------------------------------------- observability
+    def _attach_prefix_observers(self):
+        for r, idx in enumerate(self.prefix_rows or []):
+            idx.on_evict = self._make_evict_observer(r)
+
     def _make_evict_observer(self, row: int):
         def observer(n_blocks: int):
             self.obs.inc("prefix_evictions_total", n_blocks)
@@ -500,9 +555,88 @@ class ShiftEngine:
             if req.deadline is not None and t > req.deadline:
                 self._retire(req, FinishReason.TIMEOUT, t=t)
 
+    # ---------------------------------------------------- fault injection
+    def _fault_fired(self, fault):
+        self.obs.inc("faults_injected_total", seam=fault.seam)
+        self.obs.emit("fault_injected", step=self.step_count,
+                      seam=fault.seam, fault_kind=fault.kind, row=fault.row)
+
+    def _arm_step_faults(self):
+        """Consult the fault plan once per step for the seams injected at
+        step granularity: an ``alloc`` fault makes the step's first
+        ensure/COW attempt fail like an OOM; a ``route`` fault fails one dp
+        row, whose active requests are preempted back to the queue
+        (recompute) and back off. Every rank does this at the same step."""
+        self._alloc_fault_armed = False
+        if self.faults is None:
+            return
+        f = self.faults.at(self.step_count, "alloc")
+        if f is not None:
+            self._alloc_fault_armed = True
+            self._fault_fired(f)
+        f = self.faults.at(self.step_count, "route")
+        if f is not None:
+            self._fault_fired(f)
+            victims = [r for r in self.active
+                       if self.kv.row_of(r.slot) == f.row] if self.paged \
+                else list(self.active)
+            # recompute exists on the paged pool only (preemption frees
+            # blocks); the dense cache backs off in place
+            self._fail_requests(victims, preempt=self.paged)
+
+    def _take_alloc_fault(self) -> bool:
+        """True exactly once per armed step: the injected OOM."""
+        if self._alloc_fault_armed:
+            self._alloc_fault_armed = False
+            return True
+        return False
+
+    def _fail_requests(self, reqs, preempt: bool = False):
+        """Charge each request one failed step. At ``quarantine_after``
+        failures it ends FAILED; below, it backs off ``retry_backoff *
+        fail_count`` steps before it may be batched or admitted again,
+        losing its slot with ``preempt`` (recompute for a failed dp
+        row)."""
+        for r in reqs:
+            r.fail_count += 1
+            if r.fail_count >= self.cfg.quarantine_after:
+                self._retire(r, FinishReason.FAILED)
+                continue
+            r.retry_at = self.step_count + 1 \
+                + self.cfg.retry_backoff * r.fail_count
+            if preempt and r.slot is not None:
+                self._preempt(r)
+            self.obs.inc("retries_total")
+            self.obs.emit("retry", step=self.step_count, rid=r.rid,
+                          fail_count=r.fail_count, retry_at=r.retry_at,
+                          recompute=preempt)
+
+    def _fail_step(self, reqs, n_ready: int, attn_ctx: int):
+        """One failed forward step: its requests retry or quarantine, and
+        its record carries ``failed`` with no tokens (``attn_ctx`` stays
+        for a poisoned step that ran: its attention did read)."""
+        self._step_fail_flag = True
+        self._fail_requests(reqs)
+        self._log_step(0, 0, n_ready, attn_ctx)
+
+    def _forward_fault(self):
+        """The plan's ``forward`` fault of this step, or None."""
+        fault = (self.faults.at(self.step_count, "forward")
+                 if self.faults is not None else None)
+        if fault is not None:
+            self._fault_fired(fault)
+        return fault
+
+    def _retryable(self, r: Request) -> bool:
+        """False while a failed request serves its backoff."""
+        return r.retry_at <= self.step_count
+
     def _admissible(self, r: Request) -> bool:
-        """A draining engine re-admits only requests that held a slot
-        before (preempted work finishes; fresh work is shed)."""
+        """The backoff holds admission too, and a draining engine
+        re-admits only requests that held a slot before (preempted work
+        finishes; fresh work is shed)."""
+        if not self._retryable(r):
+            return False
         return not (self.draining and r.num_preemptions == 0
                     and not r.generated)
 
@@ -653,10 +787,12 @@ class ShiftEngine:
                                       blocks=len(matched),
                                       tokens=req.prefilled)
                     self._register_inflight(req, row, len(matched))
-                if not self.kv.ensure(slot, req.total_tokens + 1):
-                    # eviction reclaimed less than the probe reckoned: roll
-                    # the admission back (assign_prefix's refs go with
-                    # free_seq) and keep the request queued
+                if self._take_alloc_fault() \
+                        or not self.kv.ensure(slot, req.total_tokens + 1):
+                    # an injected OOM, or eviction reclaimed less than the
+                    # probe reckoned: roll the admission back
+                    # (assign_prefix's refs go with free_seq) and keep the
+                    # request queued
                     self._unregister_inflight(req)
                     if self.kv.n_mapped[slot]:
                         self.kv.free_seq(slot)
@@ -740,7 +876,10 @@ class ShiftEngine:
         ``_apply_copies``."""
         row = self.kv.row_of(req.slot)
         while True:
-            if self.kv.ensure(req.slot, n_tokens):
+            # an armed alloc fault fails this step's first ensure/COW like
+            # an OOM: the preemption below is the path under test
+            if not self._take_alloc_fault() \
+                    and self.kv.ensure(req.slot, n_tokens):
                 if write_from is None:
                     return True
                 ok, copies = self.kv.copy_on_write(req.slot, write_from,
@@ -888,7 +1027,7 @@ class ShiftEngine:
         its last known token samples its next token in the same pass."""
         C = self.cfg.prefill_chunk
         ready = [r for r in self.active if self._prefill_done(r)
-                 and not r.done]
+                 and not r.done and self._retryable(r)]
         n_ready = len(ready)
         rows = []                          # (req, off, q_len, produces)
         drafts: Dict[int, List[int]] = {}  # rid -> draft tokens
@@ -920,7 +1059,8 @@ class ShiftEngine:
         n_spec = sum(len(d) for d in drafts.values())
         n_prefill_tok = 0
         for r in list(self.active):
-            if r.slot is None or r.done or self._prefill_done(r):
+            if r.slot is None or r.done or self._prefill_done(r) \
+                    or not self._retryable(r):
                 continue
             off = r.prefilled
             end = min(off + C, r.total_tokens)
@@ -982,8 +1122,23 @@ class ShiftEngine:
         # no draft, n_last == 1 is the plain step
         n_last = (pow2_bucket(1 + max(len(d) for d in drafts.values()))
                   if drafts else 1)
-        nxt = self.deploy.forward_at(mode, n_last)(toks, qlen, offs,
-                                                   bt).cpu().numpy()
+        fwd = self.deploy.forward_at(mode, n_last)
+        fault = self._forward_fault()
+        if fault is None or fault.kind == "nan":
+            # "nan": the step runs (and writes the KV bytes a retry writes
+            # again), but its tokens are garbage
+            nxt = fwd(toks, qlen, offs, bt).cpu().numpy()
+        if fault is not None:
+            # no token is applied: every batched request retries or
+            # quarantines, and a retry recomputes the same chunk. The
+            # drafts' blocks are unmapped, so the ledger reads as after a
+            # failure without drafts
+            for r in decode_rows:
+                if r.rid in drafts and r.slot is not None:
+                    self.kv.truncate(r.slot, r.total_tokens)
+            self._fail_step([e[0] for _, e in placed], n_ready,
+                            attn_ctx if fault.kind == "nan" else 0)
+            return True
         t = self.now()
         n_dec_emit = 0                     # decode-side tokens delivered
         n_accepted = 0
@@ -1049,7 +1204,8 @@ class ShiftEngine:
         route the writes to the null block, and a zero context keeps the
         ragged kernel from walking null blocks)."""
         C = self.cfg.prefill_chunk
-        todo = [r for r in self.active if not self._prefill_done(r)]
+        todo = [r for r in self.active
+                if not self._prefill_done(r) and self._retryable(r)]
         if not todo:
             return False
         toks = np.zeros((self.cfg.max_slots, C), np.int32)
@@ -1091,8 +1247,16 @@ class ShiftEngine:
         if self.paged:
             bt = self._block_tables([r for r, _ in rows])
             self._apply_copies()
-        self.deploy.prefill[mode](toks, offs, bt)
-        self._wait_for_device()
+        fault = self._forward_fault()
+        if fault is None or fault.kind == "nan":
+            self.deploy.prefill[mode](toks, offs, bt)
+            self._wait_for_device()
+        if fault is not None:
+            self._fail_step([r for r, _ in rows],
+                            sum(1 for r in self.active
+                                if self._prefill_done(r) and not r.done),
+                            ctx if fault.kind == "nan" else 0)
+            return True
         for r, n in rows:
             r.prefilled += n
             r.last_used = self.step_count
@@ -1116,7 +1280,8 @@ class ShiftEngine:
         the tokens are gathered over DP); each writes its last known token
         at ``r.pos``."""
         ready = [r for r in self.active
-                 if self._prefill_done(r) and not r.done]
+                 if self._prefill_done(r) and not r.done
+                 and self._retryable(r)]
         n_ready = len(ready)
         if self.paged:
             kept = []
@@ -1144,7 +1309,13 @@ class ShiftEngine:
         if self.paged:
             bt = self._block_tables(ready)
             self._apply_copies()
-        nxt = self.deploy.decode[mode](toks, lens, bt).cpu().numpy()
+        fault = self._forward_fault()
+        if fault is None or fault.kind == "nan":
+            nxt = self.deploy.decode[mode](toks, lens, bt).cpu().numpy()
+        if fault is not None:
+            self._fail_step(list(ready), n_ready,
+                            ctx if fault.kind == "nan" else 0)
+            return True
         t = self.now()
         for r in ready:
             r.last_used = self.step_count
@@ -1162,7 +1333,11 @@ class ShiftEngine:
         t0 = self.now()
         self._step_stats = None
         self._step_audit = None
+        self._step_fail_flag = False
+        # deadlines first, then this step's scheduled faults (a route
+        # fault preempts before admission refills the failed row's slots)
         self._expire_deadlines()
+        self._arm_step_faults()
         self._admit()
         if self.mixed:
             # fused prefill+decode batch: no iteration-granularity
@@ -1178,6 +1353,9 @@ class ShiftEngine:
                "config": None, **(self._step_stats or _EMPTY_STEP)}
         if self._step_audit is not None:
             rec.update(self._step_audit)
+        if self._step_fail_flag:
+            rec["failed"] = True
+            self.obs.inc("failed_steps_total")
         if self.paged_disabled_reason is not None:
             rec["paged_disabled_reason"] = self.paged_disabled_reason
         self.obs.record_step(rec)
@@ -1191,6 +1369,9 @@ class ShiftEngine:
         if self.paged:
             self.obs.set_gauge("free_blocks", self.kv.num_free_blocks)
         self.step_count += 1
+        if self.cfg.auto_snapshot_every \
+                and self.step_count % self.cfg.auto_snapshot_every == 0:
+            self._auto_snapshot()
         return progressed
 
     def run_until_idle(self, max_steps: int = 10000):
@@ -1199,6 +1380,290 @@ class ShiftEngine:
                 if not self.queue and not self.active:
                     break
         return self
+
+    # ------------------------------------------------------ fault tolerance
+    def _cache_tensors(self) -> Dict[str, torch.Tensor]:
+        """The cache this engine initialised on its rank, by name: the
+        paged pool's ``k`` and ``v``, or the dense cache's tensors (``k``,
+        ``v``, ``ssm``, ``conv_x``, ``conv_bc``; those of kinds the config
+        lacks are absent). The shift model adopts the base model's pool,
+        so these are all there is."""
+        names = ("k", "v") if self.paged \
+            else ("k", "v", "ssm", "conv_x", "conv_bc")
+        return {name: t for name in names
+                if (t := getattr(self._cache, name)) is not None}
+
+    def snapshot(self) -> dict:
+        """The engine's state for a restart (the weights are static): the
+        cache of this rank, copied to the host as tensors (one synchronous
+        copy on the stream that ran the steps), and its rank; the slot
+        lengths, the step index, the layout's signature, the observability
+        state and every unfinished request; on the paged pool the block
+        tables and allocators and each row's prefix index. The control
+        plane is host state, the same on every rank, so a snapshot needs
+        no collective. The ``snapshot`` event is emitted first, so it is
+        part of the capture. A ``snapshot`` fault of the plan corrupts the
+        capture, which ``validate_snapshot`` then refuses."""
+        self.obs.emit("snapshot", step=self.step_count)
+        self.obs.inc("snapshots_total")
+        snap = {
+            "cache": {name: t.detach().to("cpu", copy=True)
+                      for name, t in self._cache_tensors().items()},
+            "rank": self.model.shard.rank,
+            "lens": self.lens.copy(),
+            "step_count": self.step_count,
+            # a snapshot restores only into a deployment of the same
+            # (dp, sp, tp, ep) signature
+            "layout": tuple(self.deploy.layout.signature),
+            "obs": self.obs.state_dict(),
+            "requests": [
+                {"rid": r.rid, "prompt": list(r.prompt), "slot": r.slot,
+                 "row": r.row,
+                 "prefilled": r.prefilled, "generated": list(r.generated),
+                 "max_new_tokens": r.max_new_tokens, "arrival": r.arrival,
+                 "deadline": r.deadline,
+                 "first_token_time": r.first_token_time,
+                 "finish_time": r.finish_time, "last_used": r.last_used,
+                 "cached_tokens": r.cached_tokens,
+                 "num_preemptions": r.num_preemptions,
+                 "fail_count": r.fail_count, "retry_at": r.retry_at}
+                for r in self.queue + [x for x in self.slot_req
+                                       if x is not None
+                                       and x not in self.queue]],
+        }
+        if self.paged:
+            snap["kv"] = self.kv.state_dict()
+            if self.prefix_rows is not None:
+                # the allocators' states hold the indexes' pins: every
+                # row's index must come back with them
+                snap["prefix"] = [idx.state_dict()
+                                  for idx in self.prefix_rows]
+        if self.faults is not None:
+            f = self.faults.at(self.step_count, "snapshot")
+            if f is not None:
+                self._fault_fired(f)
+                corrupt_snapshot(snap, self.step_count)
+        return snap
+
+    def _auto_snapshot(self):
+        """A periodic snapshot into the ring that ``recover`` restores
+        from, which keeps the newest ``snapshot_keep``."""
+        self._snap_ring.append(self.snapshot())
+        del self._snap_ring[:-self.cfg.snapshot_keep]
+
+    def retained_snapshots(self) -> List[dict]:
+        """The auto-snapshot ring, newest last: what ``recover()``
+        restores from."""
+        return list(self._snap_ring)
+
+    def validate_snapshot(self, snap) -> None:
+        """Raise ``SnapshotError`` if this engine cannot restore ``snap``:
+        the reference's checks (required keys, the slot lengths' shape, the
+        request entries and their slots, the layout's signature, the paged
+        state and the prefix indexes), and the cache: the same tensors, of
+        the shapes and types of this engine's cache, taken on this rank.
+        ``restore`` calls it before it changes anything."""
+        if not isinstance(snap, dict):
+            raise SnapshotError(f"snapshot is {type(snap).__name__}, "
+                                "not a dict")
+        for key in ("cache", "lens", "requests"):
+            if key not in snap:
+                raise SnapshotError(f"snapshot missing required key {key!r}")
+        lens = snap["lens"]
+        if getattr(lens, "shape", None) != (self.cfg.max_slots,):
+            raise SnapshotError(
+                f"snapshot lens shape {getattr(lens, 'shape', None)} != "
+                f"engine max_slots ({self.cfg.max_slots},)")
+        seen_slots = set()
+        for rd in snap["requests"]:
+            if not isinstance(rd, dict):
+                raise SnapshotError("request entry is not a dict")
+            for key in ("rid", "prompt", "slot", "prefilled", "generated",
+                        "max_new_tokens"):
+                if key not in rd:
+                    raise SnapshotError(
+                        f"request entry missing required key {key!r}")
+            slot = rd["slot"]
+            if slot is not None:
+                if not (0 <= slot < self.cfg.max_slots):
+                    raise SnapshotError(f"request slot {slot} out of range "
+                                        f"[0, {self.cfg.max_slots})")
+                if slot in seen_slots:
+                    raise SnapshotError(f"duplicate request slot {slot}")
+                seen_slots.add(slot)
+        if "layout" in snap:
+            sig = tuple(self.deploy.layout.signature)
+            if tuple(snap["layout"]) != sig:
+                raise SnapshotError(
+                    f"snapshot was captured under layout signature "
+                    f"{tuple(snap['layout'])} (dp, sp, tp, ep); this "
+                    f"engine's deployment is {sig}: restore into a "
+                    "matching deployment")
+        if self.paged:
+            if "kv" not in snap:
+                raise SnapshotError("paged engine restoring a snapshot "
+                                    "without the paged-KV state")
+            if snap["kv"].get("dp", 1) != self.dp:
+                raise SnapshotError(
+                    f"snapshot has dp={snap['kv'].get('dp', 1)}, "
+                    f"engine has dp={self.dp}")
+            if self.prefix_rows is not None:
+                if "prefix" not in snap:
+                    raise SnapshotError(
+                        "prefix-caching engine restoring a snapshot without "
+                        "the indexes (their allocator pins would leak)")
+                if len(snap["prefix"]) != self.dp:
+                    raise SnapshotError(
+                        f"snapshot has {len(snap['prefix'])} prefix indexes, "
+                        f"engine has dp={self.dp}")
+            elif "prefix" in snap:
+                raise SnapshotError(
+                    "snapshot carries prefix indexes but this engine has "
+                    "prefix_cache=False (their allocator pins would leak)")
+        rank = self.model.shard.rank
+        if snap.get("rank", rank) != rank:
+            raise SnapshotError(f"snapshot holds rank {snap['rank']}'s "
+                                f"cache shard, this engine is rank {rank}")
+        cache, want = snap["cache"], self._cache_tensors()
+        if not isinstance(cache, dict) or set(cache) != set(want):
+            held = sorted(cache) if isinstance(cache, dict) \
+                else type(cache).__name__
+            raise SnapshotError(f"snapshot cache holds {held}, this "
+                                f"engine's cache {sorted(want)}")
+        for name, t in want.items():
+            got = cache[name]
+            if not isinstance(got, torch.Tensor) or got.shape != t.shape \
+                    or got.dtype != t.dtype:
+                raise SnapshotError(
+                    f"snapshot cache {name!r}: "
+                    f"{getattr(got, 'dtype', type(got).__name__)} "
+                    f"{tuple(getattr(got, 'shape', ()))}, this engine's "
+                    f"{t.dtype} {tuple(t.shape)}")
+
+    def recover(self, snapshots=None):
+        """Crash recovery: restore the newest snapshot that validates,
+        falling back through older ones (a ``snapshot`` fault corrupts a
+        capture; the ring absorbs it). Raises ``SnapshotError`` when none
+        is left."""
+        ring = self._snap_ring if snapshots is None else list(snapshots)
+        for snap in reversed(ring):
+            try:
+                self.validate_snapshot(snap)
+            except SnapshotError:
+                continue
+            self.restore(snap)
+            self.obs.inc("recoveries_total")
+            self.obs.emit("recovered", step=self.step_count,
+                          n_requests=len(self.queue))
+            return self
+        raise SnapshotError("no valid snapshot to recover from")
+
+    @torch.no_grad()
+    def restore(self, snap):
+        """Rebuild the engine's state from ``snapshot()``. Validates first
+        and raises ``SnapshotError`` without touching the engine. The cache
+        is copied into this engine's tensors in place, so that the step
+        tables' CUDA graphs, which hold its addresses, replay on. As in the
+        reference, the in-flight prefill registry is not restored and the
+        drafter starts empty; the pending COW copies and the stashed step
+        facts go too. Raises ``RuntimeError`` if a later engine on the same
+        model has initialised the model's cache anew (this engine's steps
+        would no longer run on the cache it restores)."""
+        if self._cache is not (self.model.pool if self.paged
+                               else self.model.cache):
+            raise RuntimeError("the model's cache was re-initialised by "
+                               "another engine; restore into that engine")
+        self.validate_snapshot(snap)
+        for name, t in self._cache_tensors().items():
+            t.copy_(snap["cache"][name])
+        self.lens = snap["lens"].copy()
+        # observability resumes where the snapshot left off: counters stay
+        # monotone, the spans of in-flight requests keep their history, and
+        # the step index continues
+        self.step_count = snap.get("step_count", 0)
+        if snap.get("obs") is not None and self.obs.enabled:
+            self.obs.load_state(snap["obs"])
+        if self.paged:
+            self.kv = PagedKVCache.from_state(snap["kv"])
+            if self.prefix_rows is not None:
+                self.prefix_rows = [
+                    PrefixIndex.from_state(s, self.kv.allocators[r])
+                    for r, s in enumerate(snap["prefix"])]
+                self.kv.prefix_indices = list(self.prefix_rows)
+                self._attach_prefix_observers()
+            self._inflight = [{} for _ in range(self.kv.dp)]
+            self._step_copies = []
+            self._refresh_block_tables()   # from_state marks every slot
+        self._step_stats = None
+        self._step_audit = None
+        self.slot_req = [None] * self.cfg.max_slots
+        self.queue = []
+        self._requests = {}
+        self.drafter.reset()
+        for rd in snap["requests"]:
+            r = Request(rd["rid"], rd["prompt"], rd["max_new_tokens"],
+                        arrival=rd.get("arrival", 0.0))
+            r.slot = rd["slot"]
+            r.row = rd.get("row")
+            r.prefilled = rd["prefilled"]
+            r.generated = list(rd["generated"])
+            r.deadline = rd.get("deadline")
+            r.first_token_time = rd.get("first_token_time")
+            r.finish_time = rd.get("finish_time")
+            r.last_used = rd.get("last_used", 0)
+            r.cached_tokens = rd.get("cached_tokens", 0)
+            r.num_preemptions = rd.get("num_preemptions", 0)
+            r.fail_count = rd.get("fail_count", 0)
+            r.retry_at = rd.get("retry_at", 0)
+            if r.slot is not None:
+                self.slot_req[r.slot] = r
+            self.queue.append(r)
+            self._requests[r.rid] = r
+        self.obs.emit("restore", step=self.step_count)
+        return self
+
+    # ------------------------------------------------------- client surface
+    def set_replica(self, replica: Optional[int]):
+        """Stamp this engine as replica ``replica`` of a cluster: the id
+        rides on every step record and event from now on."""
+        self.replica = replica
+        self.obs.replica = replica
+
+    def prefix_probe(self, tokens: List[int]) -> int:
+        """Longest indexed prefix of ``tokens`` over the dp rows, in
+        tokens, without the LRU bump; 0 when prefix caching is off."""
+        if self.prefix_rows is None or len(tokens) < 2:
+            return 0
+        best = 0
+        for idx in self.prefix_rows:
+            m = idx.match(tokens, max_tokens=len(tokens) - 1, bump=False)
+            best = max(best, len(m))
+        return best * self.cfg.block_size
+
+    def _queued_block_demand(self) -> int:
+        """Blocks the unadmitted queue will need (``_route``'s pricing)."""
+        return sum(blocks_for_tokens(q.total_tokens + 1, self.cfg.block_size)
+                   for q in self.queue if q.slot is None)
+
+    def stats(self) -> EngineStats:
+        """The ``ServingClient`` summary of the engine's serving state,
+        frozen at a step boundary."""
+        return EngineStats(
+            steps=self.step_count,
+            queue_depth=sum(1 for q in self.queue if q.slot is None),
+            active=len(self.active),
+            preemptions=self.preemptions,
+            config_counts=self.config_counts,
+            paged=self.paged,
+            paged_disabled_reason=self.paged_disabled_reason,
+            dp=self.dp,
+            block_size=self.cfg.block_size,
+            blocks_per_row=self.kv.num_blocks_per_row if self.paged else 0,
+            free_blocks=self.kv.num_free_blocks if self.paged else 0,
+            queued_block_demand=self._queued_block_demand(),
+            prefix=self.prefix_stats,
+            blocks=self.block_accounting(),
+            replica=self.replica)
 
     def drain(self, max_steps: int = 10000, release_cache: bool = True):
         """Graceful shutdown: shed the requests that never held a slot,

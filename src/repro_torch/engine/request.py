@@ -58,8 +58,7 @@ class Request:
     last_used: int = 0                # engine step that last batched this
     num_preemptions: int = 0
     # fault-tolerance state: failed steps this request was part of, and
-    # the step before which it must not be batched again. Both stay 0
-    # until fault injection is ported.
+    # the step before which it must not be batched or admitted again
     fail_count: int = 0
     retry_at: int = 0
 

@@ -41,6 +41,15 @@ queue beyond ``--max-queue`` waiting requests is shed by the policy. The
 workload is queued before the first step, so ``--max-queue 2`` keeps two
 requests and sheds the rest: the newest under ``reject-newest``, the
 oldest under ``evict-longest-queued``.
+
+``--fault-seed S`` serves under the seeded fault storm ``random_plan(S,
+--fault-steps, p_alloc=p_forward=p_route=--p-fault, dp=--dp)``; under
+``--dp`` every rank builds the same plan from the seed. Streams under it
+equal those without it, except for requests a fault quarantines (reason
+``failed``). ``--auto-snapshot-every N`` keeps the engine's snapshot ring
+(the summary prints how many snapshots it holds). ``--metrics-refresh-s
+S`` (with ``--metrics-out``) rewrites the Prometheus text every S seconds
+while serving (``serve_loop``), not only at exit.
 """
 from __future__ import annotations
 
@@ -54,8 +63,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
 from repro_torch.engine.api import FaultConfig, PrefixConfig
+from repro_torch.ft import random_plan
 # the launch counters, read and reset by callers of the entry point
 from repro_torch.kernels.ops import (launch_counts,  # noqa: F401
                                      reset_launch_counts)
@@ -71,18 +82,22 @@ DP_TIMEOUT_S = 1800                # bounds a --dp job's collectives and wall
 
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
-                 dtype=torch.bfloat16, block_size=16, num_blocks=0,
-                 paged=None, mixed=None, prefix_cache=False, spec_k=0,
-                 spec_ngram=3, deadline_s=None, max_queue=0,
-                 shed_policy="reject-newest", dp=1, sp=1, tp=1,
+                 dtype=torch.bfloat16, slots=8, s_max=256, chunk=64,
+                 threshold=DEFAULT_SHIFT_THRESHOLD, block_size=16,
+                 num_blocks=0, paged=None, mixed=None, prefix_cache=False,
+                 spec_k=0, spec_ngram=3, deadline_s=None, max_queue=0,
+                 shed_policy="reject-newest", auto_snapshot_every=0,
+                 faults=None, dp=1, sp=1, tp=1,
                  groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
-    engine with the reference CLI's settings: 8 slots, s_max 256, chunk 64;
+    engine with the reference CLI's settings by default: 8 slots, s_max
+    256, chunk 64 (``slots``, ``s_max``, ``chunk``, ``threshold``);
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
     every layer pages, else the serialized dense engine), and so do
     ``prefix_cache`` (``PrefixConfig``), ``spec_k``/``spec_ngram``
     (``SpecConfig(k, ngram_max)``) and ``deadline_s``/``max_queue``/
-    ``shed_policy`` (``FaultConfig``). With ``dp·sp·tp`` > 1 (the
+    ``shed_policy``/``auto_snapshot_every`` (``FaultConfig``); ``faults``
+    (a ``FaultPlan``) goes to the engine. With ``dp·sp·tp`` > 1 (the
     counterpart of the reference's ``_build_stack(dp=, sp=, tp=,
     mesh=)``): this rank's base model on ``Layout(dp, sp, tp)`` and, with
     ``sp·tp`` > 1, a shift model on its ``to_shift()``, both drawn from the
@@ -100,15 +115,18 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
         model.init_params(
             torch.Generator(device=model.device).manual_seed(WEIGHT_SEED))
         models.append(model)
-    ecfg = EngineConfig(block_size=block_size, num_blocks=num_blocks,
-                        paged=paged, mixed=mixed,
+    ecfg = EngineConfig(max_slots=slots, s_max=s_max, prefill_chunk=chunk,
+                        threshold=threshold, block_size=block_size,
+                        num_blocks=num_blocks, paged=paged, mixed=mixed,
                         prefix=PrefixConfig(enabled=prefix_cache),
-                        fault=FaultConfig(deadline_s=deadline_s,
-                                          max_queue=max_queue,
-                                          shed_policy=shed_policy),
+                        fault=FaultConfig(
+                            deadline_s=deadline_s, max_queue=max_queue,
+                            shed_policy=shed_policy,
+                            auto_snapshot_every=auto_snapshot_every),
                         spec=SpecConfig(k=spec_k, ngram_max=spec_ngram))
     return ShiftEngine(models[0], ecfg,
-                       shift=models[1] if len(models) > 1 else None)
+                       shift=models[1] if len(models) > 1 else None,
+                       faults=faults)
 
 
 def workload(n_requests: int, max_new: int, shared_prefix: int = 0):
@@ -121,20 +139,57 @@ def workload(n_requests: int, max_new: int, shared_prefix: int = 0):
             for i in range(n_requests)]
 
 
+def serve_loop(client, *, refresh_s=0.0, prom_path=None, max_steps=10000,
+               now=time.monotonic):
+    """Drive ``client`` to idle as ``run_until_idle`` does, with a live
+    metrics surface: with ``refresh_s`` > 0 and a ``prom_path`` the
+    Prometheus text is rewritten every ``refresh_s`` seconds of serving
+    (by ``now``, injectable) and once at exit. Returns the number of
+    writes (0 without a refresh)."""
+    writer = client.obs.write_prometheus
+    if not (refresh_s and prom_path):
+        client.run_until_idle(max_steps)
+        return 0
+    n_refresh = 0
+    last = now()
+    for _ in range(max_steps):
+        progressed = client.step()
+        t = now()
+        if t - last >= refresh_s:
+            writer(prom_path)
+            last = t
+            n_refresh += 1
+        if not progressed and not client.queue and not client.active:
+            break
+    writer(prom_path)                  # the final state is always current
+    return n_refresh + 1
+
+
+def fault_plan(args):
+    """The seeded storm of ``--fault-seed`` (None without it): the same
+    plan on every rank, as the reference CLI builds it."""
+    if args.fault_seed is None:
+        return None
+    return random_plan(args.fault_seed, args.fault_steps,
+                       p_alloc=args.p_fault, p_forward=args.p_fault,
+                       p_route=args.p_fault, dp=args.dp)
+
+
 def print_summary(eng: ShiftEngine):
-    cc = eng.config_counts
+    st = eng.stats()
+    cc = st.config_counts
     print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
     print(f"configs used: base={cc['base']} shift={cc['shift']}")
-    if eng.paged:
-        print(f"paged cache: {eng.kv.dp} dp row(s) x "
-              f"{eng.kv.num_blocks_per_row} blocks x {eng.cfg.block_size} "
-              f"tokens, {eng.preemptions} preemptions, "
-              f"{eng.kv.num_free_blocks} free at exit")
-        if eng.kv.dp > 1:
-            for r, free in enumerate(eng.block_accounting().free_per_row):
+    if st.paged:
+        print(f"paged cache: {st.dp} dp row(s) x "
+              f"{st.blocks_per_row} blocks x {st.block_size} "
+              f"tokens, {st.preemptions} preemptions, "
+              f"{st.free_blocks} free at exit")
+        if st.dp > 1:
+            for r, free in enumerate(st.blocks.free_per_row):
                 print(f"  row {r}: {free} free blocks")
         if eng.cfg.prefix.enabled:
-            p = eng.prefix_stats
+            p = st.prefix
             print(f"prefix cache: {p.entries} cached blocks, "
                   f"{p.hits} hits / {p.misses} misses, "
                   f"{p.tokens_saved} prefill tokens saved, "
@@ -152,6 +207,15 @@ def print_summary(eng: ShiftEngine):
             rate = f" ({acc / prop:.0%} acceptance)" if prop else ""
             print(f"spec decode: k={eng.cfg.spec.k}, {prop} drafted, "
                   f"{acc} accepted{rate}")
+    if eng.faults is not None or eng.cfg.auto_snapshot_every:
+        reg = eng.obs.registry
+        print(f"fault tolerance: {len(eng.faults or [])} faults planned, "
+              f"{int(reg.counter_total('faults_injected_total'))} injected, "
+              f"{int(reg.counter_total('failed_steps_total'))} failed steps, "
+              f"{int(reg.counter_total('retries_total'))} retries, "
+              f"{int(reg.counter_total('requests_failed_total'))} "
+              f"quarantined; {len(eng.retained_snapshots())} snapshots "
+              f"retained (every {eng.cfg.auto_snapshot_every} steps)")
     d = eng.deploy
     if d.world > 1:
         how = (f"shift {d.shift.lay.describe()}, {d.world} ranks over "
@@ -175,9 +239,15 @@ def serve(eng: ShiftEngine, args, write=True):
     reqs = workload(args.requests, args.max_new, args.shared_prefix)
     for r in reqs:
         eng.submit(r)
+    prom = (os.path.splitext(args.metrics_out)[0] + ".prom"
+            if write and args.metrics_out else None)
     t0 = time.monotonic()
-    eng.run_until_idle()
+    n_refresh = serve_loop(eng, refresh_s=args.metrics_refresh_s,
+                           prom_path=prom)
     dt = time.monotonic() - t0
+    if n_refresh:
+        print(f"live metrics: {prom} refreshed {n_refresh}x (every "
+              f"{args.metrics_refresh_s}s)")
     for r in reqs:
         ttft = (r.first_token_time - r.arrival) if r.first_token_time else -1
         print(f"req {r.rid}: {len(r.generated)} tokens, "
@@ -189,7 +259,6 @@ def serve(eng: ShiftEngine, args, write=True):
     dump = eng.obs.dump()
     print(format_report(build_report(dump)))
     if write and args.metrics_out:
-        prom = os.path.splitext(args.metrics_out)[0] + ".prom"
         eng.obs.write_json(args.metrics_out)
         eng.obs.write_prometheus(prom)
         print(f"metrics written: {args.metrics_out} (JSON), {prom} "
@@ -208,8 +277,9 @@ def _engine_of(args, groups=None) -> ShiftEngine:
                         prefix_cache=args.prefix_cache, spec_k=args.spec_k,
                         spec_ngram=args.spec_ngram, deadline_s=args.deadline_s,
                         max_queue=args.max_queue,
-                        shed_policy=args.shed_policy, dp=args.dp,
-                        groups=groups)
+                        shed_policy=args.shed_policy,
+                        auto_snapshot_every=args.auto_snapshot_every,
+                        faults=fault_plan(args), dp=args.dp, groups=groups)
 
 
 def serve_rank(rank, groups, args) -> dict:
@@ -250,6 +320,10 @@ def main(argv=None):
                     help="write the observability dump as JSON to PATH and "
                          "the Prometheus text exposition next to it "
                          "(PATH with a .prom extension)")
+    ap.add_argument("--metrics-refresh-s", type=float, default=0.0,
+                    help="with --metrics-out: rewrite the .prom exposition "
+                         "every S seconds while serving, not just once at "
+                         "exit")
     ap.add_argument("--trace-out", metavar="PATH",
                     help="write a Chrome trace-event file (load in "
                          "chrome://tracing or ui.perfetto.dev) to PATH")
@@ -261,6 +335,17 @@ def main(argv=None):
                          "unbounded. Overflow is shed per --shed-policy")
     ap.add_argument("--shed-policy", default="reject-newest",
                     choices=["reject-newest", "evict-longest-queued"])
+    ap.add_argument("--auto-snapshot-every", type=int, default=0,
+                    help="snapshot the engine every N steps into its "
+                         "retained ring (crash recovery)")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="serve under a seeded deterministic fault storm "
+                         "(repro_torch.ft.random_plan)")
+    ap.add_argument("--fault-steps", type=int, default=64,
+                    help="steps covered by the seeded fault storm")
+    ap.add_argument("--p-fault", type=float, default=0.05,
+                    help="per-step, per-seam fault probability of the "
+                         "storm (alloc, forward and route seams)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dp", type=int, default=1,
@@ -273,6 +358,12 @@ def main(argv=None):
                          "one card, nccl with a card per row)")
     args = ap.parse_args(argv)
 
+    if args.metrics_refresh_s and not args.metrics_out:
+        ap.error("--metrics-refresh-s requires --metrics-out")
+    faults = fault_plan(args)
+    if faults is not None:
+        print(f"fault plan: seed={args.fault_seed} {len(faults)} faults "
+              f"over {args.fault_steps} steps")
     if args.dp == 1:
         serve(_engine_of(args), args)
         return

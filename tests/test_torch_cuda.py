@@ -1085,3 +1085,123 @@ def test_cuda_dp_engine_matches_cpu_engine(cuda, kw):
     for g in got:
         assert g[5]["rmsnorm"] == steps * (3 * cfg.num_layers + 1)
         assert g[5]["paged_ragged_attention"] == steps * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# fault injection, snapshots and crash recovery on the card
+# ---------------------------------------------------------------------------
+# an alloc fault, both kinds of forward fault and a route fault
+FT_PLAN = [(0, "alloc", ""), (3, "forward", "nan"), (8, "forward", "raise"),
+           (5, "route", "")]
+
+
+def _plan(extra=()):
+    from repro_torch.ft import Fault, FaultPlan
+    return FaultPlan([Fault(s, seam, kind=k) for s, seam, k in
+                      FT_PLAN + list(extra)])
+
+
+def _ft_engine(model, plan, **fault_kw):
+    from repro_torch.engine import FaultConfig
+    return ShiftEngine(model, EngineConfig(
+        num_blocks=17, block_size=8,
+        fault=FaultConfig(quarantine_after=10, **fault_kw)), faults=plan)
+
+
+def _crash_drill(model, crash_step=7):
+    """Serve the workload under ``FT_PLAN`` with snapshots every 3 steps,
+    drop the engine after ``crash_step`` steps, recover a fresh one from
+    the ring and drive it to idle under a ``DeliveryLog``. Returns the
+    streams and the delivered tokens."""
+    from repro_torch.ft import DeliveryLog
+    eng = _ft_engine(model, _plan(), auto_snapshot_every=3)
+    log = DeliveryLog()
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(crash_step):
+        eng.step()
+        log.poll(reqs)
+    ring = eng.retained_snapshots()
+    del eng
+    eng = _ft_engine(model, _plan(), auto_snapshot_every=3)
+    eng.recover(ring)
+    live = list(eng.queue)
+    while eng.queue or eng.active:
+        eng.step()
+        log.poll(live)                 # raises ReplayDivergence
+    assert all(eng.request(r.rid).finish_reason == "ok" for r in reqs)
+    led = eng.block_accounting()
+    assert led.used == led.pinned == 0
+    return ([eng.stream(r.rid) for r in reqs],
+            [log.delivered(r.rid) for r in reqs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_crash_drill_matches_uninterrupted(cuda, dtype):
+    """The graphed mixed paged engine under a fixed plan: a crash after
+    step 7 and a recovery from the ring give the uninterrupted faulted
+    run's streams bitwise (restored state replays the same steps at the
+    same shapes); in fp32 they also equal the clean run's and the CPU's
+    drill."""
+    model = twin_models(cuda, "qwen3-8b", dtype)[0]
+    eng = _ft_engine(model, _plan())
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert eng.obs.registry.counter_total("failed_steps_total") == 2
+    whole = [r.generated for r in reqs]
+    del eng
+    streams, delivered = _crash_drill(model)
+    assert streams == delivered == whole
+    if dtype == torch.float32:
+        clean = ShiftEngine(model, EngineConfig(num_blocks=17, block_size=8))
+        assert _serve(clean, [r.prompt for r in workload(6, 8)], 8) == whole
+        cfg = get_config("qwen3-8b").reduced()
+        cpu = Model(cfg, device="cpu", dtype=torch.float32)
+        cpu.init_params(torch.Generator().manual_seed(0))
+        assert _crash_drill(cpu)[0] == whole
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_restore_in_place_replays_graphs(cuda, dtype):
+    """A graphed engine restores its own snapshot of step 4 in place: no
+    graph is captured by the restore or the rest of the run, the pool
+    tensors are the same objects, and the rest of the run equals the run
+    without the restore, bitwise. A snapshot corrupted by the plan's
+    ``snapshot`` fault is refused and leaves the engine as it was."""
+    from repro_torch.ft import SnapshotError
+    model = twin_models(cuda, "qwen3-8b", dtype)[0]
+    eng = _ft_engine(model, _plan())
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    snap = eng.snapshot()
+    eng.run_until_idle()
+    whole = [eng.stream(r.rid) for r in reqs]
+    pool = (model.pool.k, model.pool.v)
+    captures = eng.deploy.captures
+    assert captures > 0
+    eng.restore(snap)
+    assert eng.step_count == 4 and eng.deploy.captures == captures
+    eng.run_until_idle()
+    assert [eng.stream(r.rid) for r in reqs] == whole
+    assert eng.deploy.captures == captures
+    assert model.pool.k is pool[0] and model.pool.v is pool[1]
+    # a snapshot fault at step 4 corrupts a capture taken there
+    eng.restore(snap)
+    eng.faults = _plan([(4, "snapshot", "")])
+    bad = eng.snapshot()
+    assert bad.get("corrupted")
+    before = (eng.step_count, eng.lens.tolist(), model.pool.k.clone())
+    with pytest.raises(SnapshotError):
+        eng.restore(bad)
+    assert (eng.step_count, eng.lens.tolist()) == before[:2]
+    assert torch.equal(model.pool.k, before[2])
+    eng.run_until_idle()
+    assert [eng.stream(r.rid) for r in reqs] == whole

@@ -176,6 +176,8 @@ def _serve_report(rank, groups, out_dir):
         block_size=16, num_blocks=0, prefix_cache=False, spec_k=0,
         spec_ngram=3, dp=DP, requests=4, max_new=4, shared_prefix=0,
         deadline_s=None, max_queue=0, shed_policy="reject-newest",
+        auto_snapshot_every=0, fault_seed=None, fault_steps=64,
+        p_fault=0.05, metrics_refresh_s=0.0,
         metrics_out=str(Path(out_dir) / "m.json"),
         trace_out=str(Path(out_dir) / "t.json"))
     return serve.serve_rank(rank, groups, args)

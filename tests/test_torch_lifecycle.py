@@ -332,5 +332,11 @@ def test_engine_config_fault_group(weights):
     for group in ("FaultConfig", "ObsConfig"):
         assert dataclasses.asdict(getattr(peng, group)()) == \
             dataclasses.asdict(getattr(jeng, group)()), group
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        Side("port", weights).engine(auto_snapshot_every=4)
+    # snapshots are ported: auto_snapshot_every keeps the ring
+    eng = Side("port", weights).engine(auto_snapshot_every=4)
+    for r in Side("port", weights).reqs(n_new=10):
+        eng.add_request(r)
+    eng.run_until_idle()
+    assert eng.step_count >= 8
+    assert [s["step_count"] for s in eng.retained_snapshots()] == \
+        [eng.step_count // 4 * 4 - 4, eng.step_count // 4 * 4]
