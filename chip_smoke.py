@@ -28,7 +28,12 @@ Phases (every failure propagates and exits non-zero):
    against its inputs' type), and in bf16 two wider cases for the
    tensor-core tiles (ragged prefill chunks of 256 against contexts of
    2048, a flash serving chunk of 256); the padded paged decode also
-   against the ragged kernel at C == 1, with its host µs per call;
+   against the ragged kernel at C == 1, with its host µs per call; and
+   qwen-32b's shapes: the ragged kernel's mixed and decode batches at 64
+   query heads over 8 KV heads (group 8), RMSNorm over rows of 5120 (its
+   first serving step's [512, 5120] and a decode step's [8, 5120]; fp32
+   rows past 4096 take 8 chunks a lane on 256 lanes) and the q/k pair
+   over 64 + 8 heads per token;
 4. the slice against itself across devices: the engines on reduced
    qwen3-8b at fp32 (mixed, serialized on the paged pool, serialized on the
    dense cache) and on reduced mamba2 (the dense fallback, with two
@@ -45,6 +50,9 @@ Phases (every failure propagates and exits non-zero):
    and a ``raise`` forward fault, a route fault; ``quarantine_after`` 10)
    gives the clean run's streams on both devices, with equal outcomes,
    fail counts, failed steps, retries, preemptions, ledgers and dumps;
+   and the mixed engine under ``--adaptive``'s policy (the cost model at
+   the H100's numbers over (2, 2)) equal streams, per-step configs (both
+   used) and dumps;
 5. the main paths: ``repro_torch.launch.serve.build_engine`` serving
    qwen3-8b at full width in bf16 (random weights, generator seeded 0)
    with the serve CLI's workload, 6 requests x 16 new tokens, through the
@@ -112,6 +120,29 @@ Phases (every failure propagates and exits non-zero):
    retries, preemptions and steps by config, and how many faulted bf16
    streams equal the clean ones (reported only). One ``{"faults": ...}``
    line;
+   The adaptive turn: the graphed mixed paged engine on the same model
+   under ``--adaptive``'s policy (world size 1, priced over (2, 2)): its
+   streams equal the threshold turn's bitwise (base and shift are one
+   model here), launches exact per step and equal to that turn's, each
+   step's config the policy's answer to its recorded facts; it prints the
+   steps by config, the host µs per ``use_base`` call (1000 calls, no
+   sync) and, beside the measured wall and busy ms per decode step, the
+   cost model's prediction at one chip (printed only);
+5d. qwen-32b (the paper's Table 4 model: 64 layers, d_model 5120, 64 q
+   heads over 8 KV heads) at full width and depth in bf16 on the card,
+   after the qwen3-8b and mamba2 models are freed and a reckoning of its
+   65.52 GB of weights, the pool, the init temporary and a headroom
+   against the free memory (no fit, no run): the serve workload through
+   the graphed mixed paged engine under the threshold policy and under
+   ``--adaptive``'s, equal streams, 193 RMSNorm and 64 ragged launches
+   per step (counters and the profiler's trace of decode steps), no block
+   held at exit; TTFT, wall and busy ms per decode step, decode tokens/s
+   and the cost model's prediction; then a 2-layer cut at full width in
+   fp32, one mixed step's logits on the card against the CPU within 2e-3.
+   Then the serving simulator on the paper's bursty trace for llama-70b
+   and qwen-32b under dp, tp, sp and shift over 8 chips at the H100 data
+   sheet's constants (modeled numbers, not measurements; one
+   ``{"simulator": ...}`` line);
 6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
    the one card with the collectives over gloo (NCCL refuses two ranks on
    one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
@@ -127,8 +158,13 @@ Phases (every failure propagates and exits non-zero):
    cached tokens, prefix stats and spec counts equal, a hit and drafts, no
    block held at exit, 109 and 36 launches per step; it prints wall ms and
    collective bytes per step by config, one all-reduce's ms on card and
-   host tensors, and peak memory per rank. Phase 3 also holds the ragged kernel and the q/k
-   pair at a rank's shapes (8 q and 2 kv heads);
+   host tensors, and peak memory per rank; then the serve workload under
+   ``--adaptive``'s policy over the grid: every rank's streams equal to
+   those of the threshold run that makes the same per-step configs, each
+   step's config the policy's answer to its recorded facts, 109 and 36
+   launches per step. Phase 3 also holds the
+   ragged kernel and the q/k pair at a rank's shapes (8 q and 2 kv
+   heads);
 7. data parallelism, all on the one card over gloo, after a reckoning of
    the card's memory (the parent holds no model): (dp, sp, tp) = (2, 1, 1),
    two processes each with the whole qwen3-8b at full width and depth in
@@ -757,6 +793,23 @@ def kernel_phase(torch):
                                              dtype, timer, tol))
         add("rmsnorm", rmsnorm_case(torch, "hidden, per sp rank", 256, 4096,
                                     dtype, timer, tol))
+        # qwen-32b (64 q heads over 8 kv heads, d_model 5120): the ragged
+        # kernel's mixed and decode batches at group 8 (g·C = 8 rows per
+        # (sequence, kv head) in a decode step), the hidden norms of its
+        # first serving step and of a decode step (fp32: 8 chunks a lane
+        # on 256 lanes), and the q/k pair over 64 + 8 heads
+        for name, rows in (("qwen-32b mixed", mixed),
+                           ("qwen-32b decode", DECODE_ROWS)):
+            add("paged_ragged_attention", attention_case(
+                torch, name, rows, dtype, timer, tol, Hq=64, Hkv=8))
+        for name, N in (("qwen-32b hidden", 512),
+                        ("qwen-32b decode hidden", 8)):
+            add("rmsnorm", rmsnorm_case(torch, name, N, 5120, dtype, timer,
+                                        tol))
+        for name, T in (("qwen-32b pair, prefill", 512),
+                        ("qwen-32b pair, decode", 8)):
+            add("rmsnorm", rmsnorm_pair_case(torch, name, T * 64, T * 8, 128,
+                                             dtype, timer, tol))
         # mamba2-1.3b (64 heads of 64, d_state 128, chunk 64): the serving
         # prefill step (8 rows of 64), a long prompt (32 chunks), a short
         # chunk (S < 64), and the serving step as the TPU contract's
@@ -872,7 +925,38 @@ def cross_device_phase(torch):
           f"{err} (tol 1e-4)")
     prefix_spec_cross_device(torch, gpu, cpu)
     fault_cross_device(torch, gpu, cpu)
+    adaptive_cross_device(torch, gpu, cpu)
     mamba2_cross_device(torch)
+
+
+def adaptive_cross_device(torch, gpu, cpu):
+    """The mixed engine under ``--adaptive``'s policy (``serve.
+    adaptive_policy``: the cost model at the H100's numbers over (2, 2)) on
+    reduced qwen3-8b at fp32, on the card and on the CPU: equal streams,
+    per-step configs (both used) and observability dumps less their time
+    fields."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch.serve import adaptive_policy, workload
+    runs = []
+    for model in (gpu, cpu):
+        eng = ShiftEngine(model, EngineConfig(),
+                          policy=adaptive_policy(model.cfg))
+        reqs = workload(6, 16)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     [rec["config"] for rec in eng.step_log],
+                     timeless(eng.obs.dump())))
+    check(runs[0][:3] == runs[1][:3], f"reduced engine, adaptive policy: "
+          f"cuda {runs[0][:3]} != cpu {runs[1][:3]}")
+    check(runs[0][3] == runs[1][3], "reduced engine, adaptive policy: the "
+          "cuda and cpu obs dumps differ (time fields dropped)")
+    counts = runs[0][1]
+    check(counts["base"] > 0 and counts["shift"] > 0,
+          f"reduced engine, adaptive policy: configs {counts}")
+    print(f"reduced engine, adaptive policy: cuda == cpu (streams, per-step "
+          f"configs, obs dumps less time fields), configs {counts}")
 
 
 def prefix_spec_cross_device(torch, gpu, cpu):
@@ -1190,6 +1274,7 @@ def serve_path(torch, eng, label):
     kinds = count_steps(eng)
     reqs = serve.workload(6, 16)
     captured = eng.deploy.captures
+    first_step = eng.step_count
     serve.reset_launch_counts()
     t0 = time.monotonic()
     for r in reqs:
@@ -1233,7 +1318,8 @@ def serve_path(torch, eng, label):
     dec_tok = sum(len(r.generated) - 1 for r in reqs)
     stats = {"wall_ms_per_decode_step": (t_last - t_first) / 15 * 1e3,
              "ttft_ms": [t * 1e3 for t in ttft],
-             "decode_tokens_per_s": dec_tok / (t_last - t_first)}
+             "decode_tokens_per_s": dec_tok / (t_last - t_first),
+             "configs": counts, "steps": [first_step, eng.step_count]}
     print(f"{label}: served 6 requests x 16 tokens in {wall:.3f} s over "
           f"{steps} steps {kinds}; configs {counts}; "
           f"{eng.preemptions} preemptions"
@@ -1588,8 +1674,238 @@ def serving_phase(torch):
     by_path["mixed_obs"], by_path["serialized_paged_obs"] = \
         obs_phase(torch, model)
     by_path["mixed_faults"] = recovery_phase(torch, model)
+    by_path["mixed_adaptive"], turns["mixed_adaptive"] = adaptive_turn(
+        torch, model, mixed_reqs, by_path["mixed"], "mixed paged")
     print(f"card: {card_line()}")
     return by_path, turns
+
+
+# ---------------------------------------------------------------------------
+# phase 5, the adaptive turn: --adaptive's policy on the served model
+# ---------------------------------------------------------------------------
+def predicted_ms(cm, rec):
+    """The cost model's time, ms, for one step record's facts at one chip
+    (``Strategy("tp", 1)``), at the context profile ``AdaptivePolicy``
+    prices (``core.policy.ctx_profile``)."""
+    from repro_torch.core.policy import ctx_profile
+    from repro_torch.sim import Strategy
+    n, npf = rec["n_tokens"], rec["prefill_tokens"]
+    ctx, lens = ctx_profile(n, rec["ctx_tokens"], rec["n_rows"],
+                            rec["ctx_max"])
+    return cm.iteration_time(npf, max(n - npf, 0), ctx, Strategy("tp", 1),
+                             ctx_lens=lens,
+                             n_spec=rec.get("spec_tokens", 0)) * 1e3
+
+
+def measured_records(eng, stats):
+    """The step records of ``serve_path``'s measured run that chose a
+    config."""
+    lo, hi = stats["steps"]
+    return [r for r in eng.step_log
+            if lo <= r["step"] < hi and r["config"] is not None]
+
+
+def adaptive_turn(torch, model, ref_reqs, ref_launches, label):
+    """The graphed mixed paged engine on ``model`` (world size 1) under
+    ``--adaptive``'s policy (``serve.adaptive_policy``: the cost model at
+    the H100's numbers over (2, 2)), through ``serve_path`` and
+    ``profile_decode``: its streams must equal the threshold policy's turn
+    bitwise (``ref_reqs``; base and shift are one model at world size 1)
+    and its launches that turn's (``ref_launches``), each step's config the
+    policy's answer to that step's recorded facts. Prints the steps by
+    config, the host µs per ``use_base`` call (1000 calls without a sync)
+    and, beside the measured wall and busy ms per decode step, the cost
+    model's prediction for the measured decode steps at one chip. Returns
+    the launches and the turn's numbers."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    policy = serve.adaptive_policy(model.cfg)
+    eng = ShiftEngine(model, EngineConfig(), policy=policy)
+    name = f"{label} adaptive [graphed]"
+    reqs, launches, stats = serve_path(torch, eng, name)
+    recs = measured_records(eng, stats)
+    stats.update(profile_decode(torch, eng, label=name))
+    check([r.generated for r in reqs] == [r.generated for r in ref_reqs],
+          f"{name}: the streams differ from the threshold policy's turn")
+    check(launches == ref_launches, f"{name}: launches {launches}, the "
+          f"threshold turn's {ref_launches}")
+    for rec in recs:
+        want = policy.use_base(rec["n_tokens"], rec["prefill_tokens"],
+                               ctx_tokens=rec["ctx_tokens"],
+                               n_rows=rec["n_rows"], ctx_max=rec["ctx_max"],
+                               spec_tokens=rec.get("spec_tokens", 0))
+        check(rec["config"] == ("base" if want else "shift"),
+              f"{name}: step {rec['step']} ran {rec['config']} against the "
+              f"policy's answer for its facts {rec}")
+    decode = [r for r in recs if not r["prefill_tokens"]]
+    facts = (decode or recs)[0]
+    args = (facts["n_tokens"], facts["prefill_tokens"])
+    kw = {k: facts[k] for k in ("ctx_tokens", "n_rows", "ctx_max")}
+    us = host_us(torch, lambda: policy.use_base(*args, **kw))
+    pred = [predicted_ms(policy.cost_model, r) for r in decode]
+    stats.update(policy_host_us=us,
+                 predicted_ms_per_decode_step=sum(pred) / len(pred),
+                 predicted_ms_per_step={str(r["step"]): p for r, p in zip(
+                     decode, pred)})
+    print(f"{name}: equal streams and launches to the threshold turn; "
+          f"steps by config {stats['configs']} (threshold turn: base for "
+          f"steps over {serve.DEFAULT_SHIFT_THRESHOLD} tokens); every "
+          "step's config is the policy's answer to its recorded facts")
+    print(f"{name}: policy host {us:.2f} us per use_base call (1000 calls, "
+          f"no sync); decode step: measured wall "
+          f"{stats['wall_ms_per_decode_step']:.3f} ms, device busy "
+          f"{stats['busy_ms_per_step']:.3f} ms, cost model "
+          f"{stats['predicted_ms_per_decode_step']:.3f} ms (Strategy tp 1, "
+          "H100 data-sheet constants, model parameters overhead 4 ms, mfu "
+          "0.6, bw_eff 0.8; a prediction, printed only)")
+    print(f"{name} turn: " + json.dumps(stats))
+    del eng
+    return launches, [stats]
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: qwen-32b at full width and depth on one card
+# ---------------------------------------------------------------------------
+QWEN32_CHECK_LAYERS = 2         # the fp32 check's depth (full width)
+QWEN32_HEADROOM = 4e9           # activations, logits and CUDA graphs
+
+
+def qwen32b_phase(torch):
+    """The paper's evaluation model (Table 4, qwen-32b: 64 layers, d_model
+    5120, 64 q heads over 8 kv heads) at full width and depth in bf16 on
+    one card, after a reckoning of its memory against the card's free
+    memory (the phase fails if it does not fit): the serve CLI's workload
+    through the graphed mixed paged engine under the threshold policy and
+    under ``--adaptive``'s, each through ``serve_path`` and
+    ``profile_decode`` (193 RMSNorm and 64 ragged launches per step, in
+    the counters and the trace; no block held at exit); equal streams;
+    TTFT, wall and busy ms per decode step and decode tokens/s beside the
+    cost model's prediction. The model is then freed, and a 2-layer cut at
+    full width in fp32 gives one mixed step's logits on the card and on
+    the CPU (the same weights) within 2e-3, the layout phase's tolerance.
+    Returns the launches of both turns and their numbers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.sim import CostModel
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen-32b")
+    ecfg = EngineConfig()
+    blocks = ecfg.max_slots * ecfg.s_max // ecfg.block_size + 1
+    params = cfg.num_params() * 2
+    pool = (2 * cfg.num_layers * blocks * ecfg.block_size * cfg.num_kv_heads
+            * cfg.head_dim * 2)
+    init = cfg.vocab_size * cfg.d_model * (4 + 2)
+    free, total = torch.cuda.mem_get_info()
+    need = params + pool + init + QWEN32_HEADROOM
+    print(f"qwen-32b phase: memory reckoned: weights {params / 1e9:.2f} GB "
+          f"bf16 ({cfg.num_params()} params, "
+          f"{cfg.active_params() * 2 / 1e9:.2f} GB in the cost model's "
+          f"count), pool {blocks} blocks x {ecfg.block_size} tokens x "
+          f"{cfg.num_layers} layers = {pool} B, the largest init temporary "
+          f"{init / 1e9:.2f} GB (the embedding in fp32 and bf16), "
+          f"{QWEN32_HEADROOM / 1e9:.1f} GB for activations and graphs: "
+          f"{need / 1e9:.2f} GB against {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f} GB")
+    check(need <= free, f"qwen-32b: {need / 1e9:.2f} GB needed, "
+          f"{free / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = serve.build_engine("qwen-32b", device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size()
+               for p in eng.model.params.parameters())
+    pool_bytes = 2 * eng.model.pool.k.numel() * eng.model.pool.k.element_size()
+    check(held == params and pool_bytes == pool,
+          f"qwen-32b: weights {held} B and pool {pool_bytes} B, reckoned "
+          f"{params} and {pool}")
+    print(f"qwen-32b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} "
+          f"kv heads, built in {build_s:.1f} s; peak device memory while "
+          f"building {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    per_step = step_launches(eng, "mixed")
+    check(per_step == {"rmsnorm": 193, "paged_ragged_attention": 64},
+          f"qwen-32b: per-step launches {per_step}")
+    model = eng.model
+    del eng
+    out, launches = {}, {}
+    ref = None
+    for name, policy in (("threshold", None),
+                         ("adaptive", serve.adaptive_policy(cfg))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ShiftEngine(model, EngineConfig(), policy=policy)
+        label = f"qwen-32b mixed paged {name} [graphed]"
+        reqs, launches[name], st = serve_path(torch, eng, label)
+        recs = measured_records(eng, st)
+        st.update(profile_decode(torch, eng, label=label))
+        pred = [predicted_ms(CostModel(cfg), r) for r in recs
+                if not r["prefill_tokens"]]
+        st.update(predicted_ms_per_decode_step=sum(pred) / len(pred),
+                  graphs_captured=eng.deploy.captures,
+                  capture_ms=eng.deploy.graphs.capture_s * 1e3)
+        if ref is None:
+            ref = reqs
+        else:
+            check([r.generated for r in reqs] == [r.generated for r in ref],
+                  "qwen-32b: the adaptive turn's streams differ from the "
+                  "threshold turn's")
+            check(launches[name] == launches["threshold"],
+                  f"qwen-32b: launches {launches}")
+        led = eng.block_accounting()
+        check(led.used == led.pinned == 0, f"qwen-32b {name}: blocks held "
+              f"at exit {led}")
+        out[name] = st
+        print(f"{label}: TTFT ms " + ", ".join(
+            f"{t:.1f}" for t in st["ttft_ms"]) + f"; decode step wall "
+            f"{st['wall_ms_per_decode_step']:.3f} ms, device busy "
+            f"{st['busy_ms_per_step']:.3f} ms ({st['busy_share']:.1%}), "
+            f"{st['decode_tokens_per_s']:.1f} decode tokens/s; cost model "
+            f"{st['predicted_ms_per_decode_step']:.3f} ms per decode step "
+            "(Strategy tp 1, H100 data-sheet constants; printed only); "
+            f"steps by config {st['configs']}")
+        del eng
+    print(f"qwen-32b: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32, full width, 2 layers: one mixed step's logits, card vs CPU
+    check_cfg = replace(cfg, num_layers=QWEN32_CHECK_LAYERS)
+    steps, bt = layout_check_steps()
+    gpu = Model(check_cfg, device="cuda", dtype=torch.float32)
+    gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(check_cfg, device="cpu", dtype=torch.float32)
+    cpu.load_params({k: v.cpu() for k, v in
+                     gpu.params.state_dict().items()})
+    err = 0.0
+    for m in (gpu, cpu):
+        m.init_paged_cache(9, 16)
+    for t, ql, off in steps:
+        lg = [m.forward_mixed(t, ql, off, bt, sample=False)[0].cpu()
+              for m in (gpu, cpu)]
+        err = max(err, compare(torch, "qwen-32b fp32 2-layer logits",
+                               lg[0], lg[1], 2e-3))
+    print(f"qwen-32b fp32 full-width ({QWEN32_CHECK_LAYERS} layers) mixed "
+          f"step logits, card against CPU on the same weights: max abs err "
+          f"{err} (tol 2e-3)")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"qwen32b": {"build_s": build_s, "turns": out,
+                                  "fp32_max_abs_err": err,
+                                  "phase_wall_s": wall}}))
+    print(f"qwen-32b phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2402,6 +2718,7 @@ def layout_rank(rank, groups, check_cfg):
         traffic[config].clear()
     counts0 = dict(eng.config_counts)
     reqs = serve.workload(6, 16)
+    first = eng.step_count
     serve.reset_launch_counts()
     t0 = time.monotonic()
     for r in reqs:
@@ -2411,6 +2728,8 @@ def layout_rank(rank, groups, check_cfg):
     torch.cuda.synchronize()
     out["serve_s"] = time.monotonic() - t0
     out["launches"] = serve.launch_counts()
+    out["step_configs"] = [rec["config"] for rec in eng.step_log
+                           if rec["step"] >= first and rec["config"]]
     out["streams"] = [r.generated for r in reqs]
     out["finish"] = [r.finish_reason for r in reqs]
     out["counts"] = delta(eng.config_counts, counts0)
@@ -2504,7 +2823,47 @@ def layout_rank(rank, groups, check_cfg):
         "counts": dict(ps.config_counts), "stats": ps.prefix_stats.as_dict(),
         "spec": spec_counts(ps),
         "ledger": ps.block_accounting().as_dict()}
+    del ps
+    gc.collect()
+    from repro_torch.core import ThresholdPolicy
+    from repro_torch.launch.serve import adaptive_policy
+    out["adaptive"] = a = layout_serve(
+        torch, base, shift, adaptive_policy(base.cfg, lay.sp, lay.tp))
+    # base and shift sum in different orders in bf16, so the adaptive run
+    # is held bitwise to the threshold run that makes its per-step configs:
+    # base above the batched tokens of its largest shift step
+    out["same_configs"] = layout_serve(torch, base, shift, ThresholdPolicy(
+        max((f[0] for c, f in zip(a["configs"], a["facts"]) if c == "shift"),
+            default=0)))
     return out
+
+
+def layout_serve(torch, base, shift, policy):
+    """Serve the workload on a new engine over ``base`` and ``shift`` under
+    ``policy``, launch counters from 0: the streams, outcomes, per-step
+    configs and facts, launches, config counts and blocks at exit."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    eng = ShiftEngine(base, EngineConfig(), shift=shift, policy=policy)
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    recs = [r for r in eng.step_log if r["config"]]
+    return {"serve_s": time.monotonic() - t0,
+            "launches": serve.launch_counts(),
+            "streams": [r.generated for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "configs": [r["config"] for r in recs],
+            "facts": [(r["n_tokens"], r["prefill_tokens"], r["ctx_tokens"],
+                       r["n_rows"], r["ctx_max"], r.get("spec_tokens", 0))
+                      for r in recs],
+            "counts": dict(eng.config_counts),
+            "free": eng.kv.num_free_blocks, "blocks": eng.kv.num_blocks}
 
 
 def layout_phase(torch):
@@ -2660,16 +3019,83 @@ def layout_phase(torch):
           f"{ps0['cached']}; prefix {ps0['stats']}; drafted {ps0['spec'][0]}"
           f", accepted {ps0['spec'][1]}, rollback blocks {ps0['spec'][2]}; "
           f"no block held at exit ({ps0['ledger']})")
+    adaptive = layout_adaptive_check(res, per_step)
     print(json.dumps({"layout": {
         "grid": {"sp": sp, "tp": tp}, "backend": "gloo",
         "fp32_max_abs_err": err, "configs": r0["counts"],
+        "adaptive": adaptive,
         "per_config": stats,
         "all_reduce_ms": [r["all_reduce_ms"] for r in res],
         "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}}))
     print(f"card: {card_line()}")
     overhead = max(r["peak_bytes"] - sum(r["param_bytes"].values())
                    for r in res)
-    return r0["launches"], ps0["launches"], overhead
+    return r0["launches"], ps0["launches"], r0["adaptive"]["launches"], \
+        overhead
+
+
+def layout_adaptive_check(res, per_step):
+    """The layout phase's adaptive runs (``--adaptive``'s policy over the
+    grid): every rank's streams, configs and facts equal, and the streams
+    equal to those of the threshold run that makes the same per-step
+    configs; each step's config the port policy's answer to its recorded
+    facts; launches exact per step; no block held. Prints the steps by
+    config of both runs and, without a limit, how many tokens agree with
+    the default threshold run's streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import adaptive_policy
+    sp, tp = LAYOUT_GRID
+    policy = adaptive_policy(get_config("qwen3-8b"), sp, tp)
+    a0 = res[0]["adaptive"]
+    for r in res:
+        a = r["adaptive"]
+        check(all(a[k] == a0[k] for k in ("streams", "configs", "facts",
+                                          "counts")),
+              f"layout adaptive: rank {r['rank']} differs from rank 0")
+        check(all(f == "ok" for f in a["finish"])
+              and all(len(t) == 16 for t in a["streams"]),
+              f"layout adaptive: rank {r['rank']}: {a['finish']}")
+        check(a["free"] == a["blocks"] - 1,
+              f"layout adaptive: rank {r['rank']}: {a['free']} of "
+              f"{a['blocks']} blocks free at exit")
+        steps = sum(a["counts"].values())
+        check(a["launches"] == {k: per_step.get(k, 0) * steps
+                                for k in a["launches"]},
+              f"layout adaptive: rank {r['rank']}: launches "
+              f"{a['launches']} over {steps} steps")
+        for config, (n, npf, ctx, rows, cmax, spec) in zip(a["configs"],
+                                                           a["facts"]):
+            want = policy.use_base(n, npf, ctx_tokens=ctx, n_rows=rows,
+                                   ctx_max=cmax, spec_tokens=spec)
+            check(config == ("base" if want else "shift"),
+                  f"layout adaptive: rank {r['rank']}: a {config} step "
+                  f"against the policy's answer for {(n, npf, ctx, rows)}")
+        same = r["same_configs"]
+        check(same["configs"] == a["configs"]
+              and same["streams"] == a["streams"],
+              f"layout adaptive: rank {r['rank']}: the streams differ from "
+              f"the threshold run of the same configs ({same['configs']} "
+              f"against {a['configs']})")
+    agree = sum(next((i for i, (x, y) in enumerate(zip(s, t)) if x != y),
+                     min(len(s), len(t)))
+                for s, t in zip(a0["streams"], res[0]["streams"]))
+    total = sum(len(s) for s in a0["streams"])
+    thr = res[0]["same_configs"]
+    print(f"layout phase: adaptive policy (the cost model over sp={sp} x "
+          f"tp={tp}, H100 data-sheet constants): steps by config "
+          f"{a0['counts']} (the threshold run: {res[0]['counts']}); every "
+          "rank's streams equal, and equal to those of the threshold run "
+          f"that makes the same per-step configs ({thr['counts']}); each "
+          "step's config the policy's answer to its recorded facts; "
+          f"{per_step['rmsnorm']} rmsnorm and "
+          f"{per_step['paged_ragged_attention']} ragged launches per step; "
+          f"{agree} of {total} tokens agree with the default threshold "
+          f"run's streams before their first difference; served in "
+          f"{a0['serve_s']:.2f} s")
+    return {"counts": a0["counts"], "threshold_counts": res[0]["counts"],
+            "tokens_agreeing_with_threshold_run": [agree, total],
+            "serve_s": a0["serve_s"]}
+
 
 
 DP_TIMEOUT_S = 600
@@ -3340,6 +3766,36 @@ def dp_phase(torch, overhead_bytes):
             g0["launches"])
 
 
+def simulator_line():
+    """The serving simulator (``repro_torch.sim.simulate``, host code) on
+    the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
+    and shift over 8 chips, priced at the H100 data sheet's constants:
+    modeled numbers, not measurements. Prints the TTFT and TPOT p50 and the
+    peak tokens/s as one ``{"simulator": ...}`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import H100
+    from repro_torch.sim import bursty_trace, simulate
+    t0 = time.monotonic()
+    out = {}
+    for arch in ("llama-70b", "qwen-32b"):
+        out[arch] = {}
+        for strategy in ("dp", "tp", "sp", "shift"):
+            r = simulate(get_config(arch), bursty_trace(), strategy, hw=H100,
+                         n_chips=8)
+            check(r["n_done"] == len(bursty_trace()),
+                  f"simulator {arch} {strategy}: {r['outcomes']}")
+            out[arch][strategy] = {k: r[k] for k in (
+                "ttft_p50_ms", "tpot_p50_ms", "peak_tput_tok_s")}
+            print(f"simulator (modeled, H100 data sheet constants) {arch} "
+                  f"{strategy} n 8: TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
+                  f"TPOT p50 {r['tpot_p50_ms']:.2f} ms, peak "
+                  f"{r['peak_tput_tok_s']:.0f} tokens/s")
+    print(json.dumps({"simulator": {
+        "label": "modeled, H100 data sheet constants", "trace":
+        "bursty_trace()", "n_chips": 8, "results": out,
+        "host_s": time.monotonic() - t0}}))
+
+
 def summary(cases, by_path):
     """One entry per kernel; its top-level numbers are its first case (bf16
     at a serving path's shapes), every case is listed under ``cases``.
@@ -3404,8 +3860,12 @@ def main():
     by_path, turns = serving_phase(torch)
     by_path["mamba2_dense"], turns["mamba2_dense"] = \
         mamba2_serving_phase(torch)
+    q32, turns["qwen32b"] = qwen32b_phase(torch)
+    by_path["qwen32b_threshold"] = q32["threshold"]
+    by_path["qwen32b_adaptive"] = q32["adaptive"]
+    simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
-        overhead = layout_phase(torch)
+        by_path["layout_adaptive_rank0"], overhead = layout_phase(torch)
     by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
         by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)
     print(json.dumps({"graph_turns": turns}))

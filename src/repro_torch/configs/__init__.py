@@ -1,8 +1,8 @@
 """Config registry: ``get_config("qwen3-8b")`` / ``--arch qwen3-8b``."""
 from __future__ import annotations
 
-from .archs import ARCHS, DENSE_GQA
-from .base import ModelConfig, SSMConfig
+from .archs import ARCHS, DENSE_GQA, PAPER_MODELS
+from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 _REGISTRY = {c.name: c for c in ARCHS}
 
@@ -15,4 +15,5 @@ def get_config(name: str) -> ModelConfig:
                        f"{sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ModelConfig", "SSMConfig", "ARCHS", "DENSE_GQA", "get_config"]
+__all__ = ["ModelConfig", "MLAConfig", "MoEConfig", "SSMConfig", "ARCHS",
+           "DENSE_GQA", "PAPER_MODELS", "get_config"]

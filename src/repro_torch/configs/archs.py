@@ -1,5 +1,7 @@
 """The architectures the port serves (same numbers as
-``repro.configs.archs``): four dense GQA decoders and mamba2."""
+``repro.configs.archs``): four dense GQA decoders and mamba2, plus the
+paper's dense evaluation models (Table 4): qwen-32b, which fits one card,
+and llama-70b, which the cost model and the simulator price."""
 from __future__ import annotations
 
 from .base import ModelConfig, SSMConfig
@@ -42,5 +44,20 @@ MAMBA2_1_3B = ModelConfig(
     source="arXiv:2405.21060",
 )
 
+LLAMA_70B = ModelConfig(
+    name="llama-70b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab_size=128256, rope_theta=5e5,
+    source="paper Table 4 / hf:meta-llama/Llama-3.3-70B",
+)
+
+QWEN_32B = ModelConfig(
+    name="qwen-32b", family="dense",
+    num_layers=64, d_model=5120, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=25600, vocab_size=151936, qk_norm=True, rope_theta=1e6,
+    source="paper Table 4 / hf:Qwen/Qwen3-32B",
+)
+
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
-ARCHS = DENSE_GQA + (MAMBA2_1_3B,)
+PAPER_MODELS = (LLAMA_70B, QWEN_32B)
+ARCHS = DENSE_GQA + (MAMBA2_1_3B,) + PAPER_MODELS

@@ -2,9 +2,10 @@
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
 that its two layer kinds use: ``"attn"`` (GQA attention with SwiGLU and
-RMSNorm) and ``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``).
-``reduced()`` cuts widths and depth exactly as the reference's ``reduced()``
-does for such a model.
+RMSNorm) and ``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``), and
+the fields the cost model reads (``local_window``, ``mla``, ``moe``; no
+architecture the port serves sets them yet). ``reduced()`` cuts widths and
+depth exactly as the reference's ``reduced()`` does for such a model.
 """
 from __future__ import annotations
 
@@ -30,6 +31,33 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2/V3)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def cache_dim(self) -> int:
+        # compressed latent + decoupled rope key, per token per layer
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """The reference's MoE fields that ``active_params`` reads."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0          # per-expert intermediate size
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0          # shared-expert intermediate (0 -> d_ff_expert)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                   # "dense" (attn layers) | "ssm" (ssd layers)
@@ -43,8 +71,11 @@ class ModelConfig:
     layer_pattern: tuple = ("attn",)     # repeated; "attn" or "ssd"
     qk_norm: bool = False         # RMSNorm over q and k per head (qwen3)
     qkv_bias: bool = False        # bias on the q/k/v projections (qwen2)
+    local_window: int = 0         # for "local" (sliding-window) layers
     rope_theta: float = 1e4
     logits_soft_cap: float = 0.0
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     tie_embeddings: bool = False  # the LM head is the embedding table
     norm_eps: float = 1e-6
@@ -90,16 +121,67 @@ class ModelConfig:
                     + s.d_conv * (di + 2 * ds) + di + di * d + d
         return n
 
+    def active_params(self) -> int:
+        """Parameters one token's forward pass multiplies by, as the
+        reference counts them (``repro.configs.base.ModelConfig``'s
+        ``num_params`` and ``active_params``): the embedding, the LM head
+        unless tied, per layer the attention (or MLA) projections and the
+        SwiGLU matrices (of a MoE layer only the routed top-k experts, the
+        shared experts and the router), or the SSD projections and
+        convolutions. It leaves out the norm scales, biases and the SSD's
+        per-head vectors that ``num_params`` counts, so that the cost model
+        prices the reference's numbers."""
+        d, dh = self.d_model, self.head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for kind in self.layer_kinds:
+            if kind in ("attn", "local", "moe"):
+                if self.mla is not None:
+                    m = self.mla
+                    n += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * (
+                        m.qk_nope_head_dim + m.qk_rope_head_dim)
+                    n += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    n += m.kv_lora_rank * self.num_heads * (
+                        m.qk_nope_head_dim + m.v_head_dim)
+                    n += self.num_heads * m.v_head_dim * d
+                else:
+                    n += d * dh * (self.num_heads + 2 * self.num_kv_heads)
+                    n += self.num_heads * dh * d
+            if kind == "moe":
+                mo = self.moe
+                n += mo.top_k * 3 * d * mo.d_ff_expert
+                n += mo.num_shared_experts * 3 * d * (mo.d_ff_shared
+                                                      or mo.d_ff_expert)
+                n += d * mo.num_experts                       # router
+            elif kind in ("attn", "local"):
+                n += 3 * d * self.d_ff
+            elif kind == "ssd":
+                s = self.ssm
+                di = s.d_inner(d)
+                n += d * (2 * di + 2 * s.d_state + s.n_heads(d))
+                n += di * d + s.d_conv * (di + 2 * s.d_state)
+        return n
+
     def reduced(self) -> "ModelConfig":
         """The CPU-test size: one full pattern repetition of at least 2
         layers, d_model 64, 4 query heads, at most 2 KV heads, head_dim
         16, d_ff 128, vocab 256; an SSD mixer of d_state 16, head_dim 16
-        and chunk 8."""
+        and chunk 8; MLA, MoE and a local window cut as the reference cuts
+        them."""
         pat = len(self.layer_pattern)
         kw = dict(num_layers=pat * max(1, 2 // pat), d_model=64, num_heads=4,
                   num_kv_heads=min(self.num_kv_heads, 2), head_dim=16,
                   d_ff=128, vocab_size=256)
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                  qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                  v_head_dim=16)
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe, num_experts=4,
+                                top_k=min(self.moe.top_k, 2), d_ff_expert=32,
+                                d_ff_shared=32)
         if self.ssm is not None:
             kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2,
                                   head_dim=16, chunk=8)
+        if self.local_window:
+            kw["local_window"] = 8
         return replace(self, **kw)

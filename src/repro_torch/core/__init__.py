@@ -1,3 +1,3 @@
-from .policy import DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
+from .policy import AdaptivePolicy, DEFAULT_SHIFT_THRESHOLD, ThresholdPolicy
 
-__all__ = ["DEFAULT_SHIFT_THRESHOLD", "ThresholdPolicy"]
+__all__ = ["AdaptivePolicy", "DEFAULT_SHIFT_THRESHOLD", "ThresholdPolicy"]

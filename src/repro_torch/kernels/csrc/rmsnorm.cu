@@ -21,7 +21,7 @@
 // Design: a row belongs to a group of `lanes` threads (a power of two that
 // the wrapper's launch plan picks from D and the element size: 8 or 16
 // lanes at D 64 or 128 in bf16, so a warp takes 4 or 2 rows; 4 warps at D
-// 4096). Lane l of the group takes the row's 16-byte chunks l, l + lanes,
+// 4096; 8 warps at fp32 D 5120 or 8192, 8 chunks a lane). Lane l of the group takes the row's 16-byte chunks l, l + lanes,
 // ... (at most CPL of them), so neighbouring lanes read neighbouring
 // bytes. Every lane issues all its loads of x and of the scale row before
 // it reduces, the reduction runs over the group's lanes only (shuffles;
@@ -68,8 +68,9 @@ struct Seg {
 };
 
 // Threads per CTA, at most, so at most 255 registers a thread: a row of up
-// to 8192 bf16 or 4096 fp32 elements (4 16-byte chunks a lane), or 4096
-// single elements (16 a lane).
+// to 16384 bf16 or 8192 fp32 elements (8 16-byte chunks a lane, at 256
+// lanes; 4 a lane below that), or 8192 single elements (32 a lane at 256
+// lanes, 16 below).
 constexpr int MAX_THREADS = 256;
 
 // A chunk through the read-only data path.
@@ -178,12 +179,18 @@ cudaError_t launch_k(const Seg<T>& a, const Seg<T>& b, int D, int threads, float
 
 // The (lanes, chunks per lane) pairs the launch plan makes: one chunk a
 // lane on fewer than 32 lanes; 1, 2 or 4 chunks of 16 bytes (up to 16
-// single elements) on 32 lanes; the most chunks on more lanes. More than 4
-// chunks of 16 bytes would spill at 16 bytes of x and of the scale each.
+// single elements) on 32 lanes; the most chunks on more lanes, and twice
+// that on 256 lanes for the rows no fewer chunks cover (fp32 past 4096
+// elements). The 4-chunk instances stay as they were: the longer ones hold
+// 8 chunks of x and of the scale, 256 bytes of registers a thread.
 template <typename T, int V, int LANES>
 cudaError_t launch_l(const Seg<T>& a, const Seg<T>& b, int D, int cpl, int threads, float eps,
                      cudaStream_t stream) {
   constexpr int MAX_CPL = V == 1 ? 16 : 4;
+  if constexpr (LANES == MAX_THREADS) {
+    if (cpl == 2 * MAX_CPL)
+      return launch_k<T, V, LANES, 2 * MAX_CPL>(a, b, D, threads, eps, stream);
+  }
   if constexpr (LANES != 32) {
     constexpr int CPL = LANES < 32 ? 1 : MAX_CPL;
     if (cpl != CPL) return cudaErrorInvalidValue;
@@ -268,7 +275,8 @@ int run(const void* x0, void* out0, const void* s0, long long n0, long long stri
 // CTAs. Segment b likewise with a [D] scale, on the blocks1 CTAs after them;
 // n1 = 0 leaves it empty. The launch plan (vec: 16-byte chunks or single
 // elements; lanes per row; chunks per lane cpl, 1, 2 or 4, or also 8 or 16
-// single elements; threads per CTA) comes from the wrapper
+// single elements, and 8 chunks or 32 single elements on 256 lanes;
+// threads per CTA) comes from the wrapper
 // (repro_torch/kernels/rmsnorm.py) and holds for both segments. All on the
 // device of `stream`. Returns a cudaError_t (0 = launched).
 extern "C" int rmsnorm_f32(const void* x0, void* out0, const void* s0, long long n0,

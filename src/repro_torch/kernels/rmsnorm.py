@@ -66,7 +66,9 @@ def launch_plan(n_rows: int, D: int, elt: int, vec: bool = True) -> Plan:
       of at most 32 chunks takes one chunk per lane on the next power of
       two of lanes (bf16: 16 lanes at D 128, 8 at D 64, so a warp takes 2
       or 4 rows); a longer row takes a warp, or as many warps as keep each
-      lane at 4 chunks or fewer (16 single elements).
+      lane at 4 chunks or fewer (16 single elements); a row longer than
+      256 such lanes hold (fp32 past 4096 elements: qwen-32b's 5120,
+      llama-70b's 8192) takes 256 lanes of 8 chunks (32 single elements).
     * CTAs, from the row count: 256 threads (or one row), halved (down to
       one warp, or one row) while the grid would leave some SM without a
       CTA."""
@@ -75,11 +77,13 @@ def launch_plan(n_rows: int, D: int, elt: int, vec: bool = True) -> Plan:
         raise ValueError(f"D {D} is not a whole number of {v}-element chunks")
     chunks, max_cpl = D // v, 4 if vec else 16
     lanes = _pow2_at_least(chunks) if chunks <= 32 else 32
-    while _ceil(chunks, lanes) > max_cpl:
+    while _ceil(chunks, lanes) > max_cpl and lanes < MAX_THREADS:
         lanes *= 2
-    if lanes > MAX_THREADS:
+    if _ceil(chunks, lanes) > max_cpl:
+        max_cpl *= 2                    # the longest rows: a CTA per row
+    if _ceil(chunks, lanes) > max_cpl:
         raise ValueError(f"D {D}: a row of {chunks} chunks needs more than "
-                         f"{MAX_THREADS} threads")
+                         f"{MAX_THREADS} threads of {max_cpl} chunks")
     cpl = _pow2_at_least(_ceil(chunks, lanes))
     threads = max(256, lanes)
     while threads > max(lanes, 32) \

@@ -42,6 +42,14 @@ workload is queued before the first step, so ``--max-queue 2`` keeps two
 requests and sheds the rest: the newest under ``reject-newest``, the
 oldest under ``evict-longest-queued``.
 
+``--adaptive`` picks each step's config with ``AdaptivePolicy``, the
+roofline cost model (``repro_torch.sim.CostModel``, H100 data-sheet
+constants) priced at the layout's (sp, tp), or at (2, 2) when sp·tp is 1
+(one rank, or dp rows alone), as the reference CLI prices it; without it
+the threshold policy decides. ``--arch qwen-32b`` serves the paper's
+evaluation model (64 layers, d_model 5120), which fits one card in bf16;
+``llama-70b`` is a config of the cost model and the simulator only.
+
 ``--fault-seed S`` serves under the seeded fault storm ``random_plan(S,
 --fault-steps, p_alloc=p_forward=p_route=--p-fault, dp=--dp)``; under
 ``--dp`` every rank builds the same plan from the seed. Streams under it
@@ -63,7 +71,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.core.policy import DEFAULT_SHIFT_THRESHOLD
+from repro_torch.core.policy import (DEFAULT_SHIFT_THRESHOLD, AdaptivePolicy,
+                                     ThresholdPolicy)
 from repro_torch.engine import EngineConfig, Request, ShiftEngine
 from repro_torch.engine.api import FaultConfig, PrefixConfig
 from repro_torch.ft import random_plan
@@ -74,6 +83,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import Model
 from repro_torch.obs import build_report, format_report, write_chrome_trace
 from repro_torch.parallel import Groups, Layout
+from repro_torch.sim import CostModel
 from repro_torch.spec import SpecConfig
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -83,11 +93,11 @@ DP_TIMEOUT_S = 1800                # bounds a --dp job's collectives and wall
 
 def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                  dtype=torch.bfloat16, slots=8, s_max=256, chunk=64,
-                 threshold=DEFAULT_SHIFT_THRESHOLD, block_size=16,
-                 num_blocks=0, paged=None, mixed=None, prefix_cache=False,
-                 spec_k=0, spec_ngram=3, deadline_s=None, max_queue=0,
-                 shed_policy="reject-newest", auto_snapshot_every=0,
-                 faults=None, dp=1, sp=1, tp=1,
+                 threshold=DEFAULT_SHIFT_THRESHOLD, adaptive=False,
+                 block_size=16, num_blocks=0, paged=None, mixed=None,
+                 prefix_cache=False, spec_k=0, spec_ngram=3,
+                 deadline_s=None, max_queue=0, shed_policy="reject-newest",
+                 auto_snapshot_every=0, faults=None, dp=1, sp=1, tp=1,
                  groups: Groups = None) -> ShiftEngine:
     """Model with random weights (``torch.Generator`` seeded 0) and the
     engine with the reference CLI's settings by default: 8 slots, s_max
@@ -97,12 +107,14 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
     ``prefix_cache`` (``PrefixConfig``), ``spec_k``/``spec_ngram``
     (``SpecConfig(k, ngram_max)``) and ``deadline_s``/``max_queue``/
     ``shed_policy``/``auto_snapshot_every`` (``FaultConfig``); ``faults``
-    (a ``FaultPlan``) goes to the engine. With ``dp·sp·tp`` > 1 (the
-    counterpart of the reference's ``_build_stack(dp=, sp=, tp=,
-    mesh=)``): this rank's base model on ``Layout(dp, sp, tp)`` and, with
-    ``sp·tp`` > 1, a shift model on its ``to_shift()``, both drawn from the
-    same seed (every dp row the same shards), over the ranks' ``groups``;
-    ``num_blocks`` is then per dp row. The model checks the device before
+    (a ``FaultPlan``) goes to the engine. ``adaptive`` gives the engine
+    ``adaptive_policy(cfg, sp, tp)`` instead of the threshold policy.
+    With ``dp·sp·tp`` > 1 (the counterpart of the reference's
+    ``_build_stack(dp=, sp=, tp=, mesh=)``): this rank's base model on
+    ``Layout(dp, sp, tp)`` and, with ``sp·tp`` > 1, a shift model on its
+    ``to_shift()``, both drawn from the same seed (every dp row the same
+    shards), over the ranks' ``groups``; ``num_blocks`` is then per dp
+    row. The model checks the device before
     it allocates anything."""
     cfg = get_config(arch)
     if reduced:
@@ -124,9 +136,20 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                             shed_policy=shed_policy,
                             auto_snapshot_every=auto_snapshot_every),
                         spec=SpecConfig(k=spec_k, ngram_max=spec_ngram))
+    policy = (adaptive_policy(cfg, sp, tp) if adaptive
+              else ThresholdPolicy(threshold))
     return ShiftEngine(models[0], ecfg,
                        shift=models[1] if len(models) > 1 else None,
-                       faults=faults)
+                       policy=policy, faults=faults)
+
+
+def adaptive_policy(cfg, sp=1, tp=1) -> AdaptivePolicy:
+    """``--adaptive``'s policy: the cost model of ``cfg`` (H100 constants)
+    pricing base as sp and shift as tp over the layout's ``sp·tp`` ranks, or
+    over (2, 2) when ``sp·tp`` is 1, the reference CLI's default grid."""
+    if sp * tp == 1:
+        sp, tp = 2, 2
+    return AdaptivePolicy(CostModel(cfg), sp, tp)
 
 
 def workload(n_requests: int, max_new: int, shared_prefix: int = 0):
@@ -179,6 +202,14 @@ def print_summary(eng: ShiftEngine):
     st = eng.stats()
     cc = st.config_counts
     print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
+    pol = eng.policy
+    if isinstance(pol, AdaptivePolicy):
+        n = pol.sp * pol.tp
+        print(f"shift policy: AdaptivePolicy, the cost model at "
+              f"{pol.cost_model.hw.name} pricing base as sp={n} and shift "
+              f"as tp={n}")
+    else:
+        print(f"shift policy: {pol!r}")
     print(f"configs used: base={cc['base']} shift={cc['shift']}")
     if st.paged:
         print(f"paged cache: {st.dp} dp row(s) x "
@@ -272,7 +303,8 @@ def serve(eng: ShiftEngine, args, write=True):
 
 def _engine_of(args, groups=None) -> ShiftEngine:
     return build_engine(args.arch, reduced=args.reduced, device=args.device,
-                        dtype=DTYPES[args.dtype], block_size=args.block_size,
+                        dtype=DTYPES[args.dtype], adaptive=args.adaptive,
+                        block_size=args.block_size,
                         num_blocks=args.num_blocks,
                         prefix_cache=args.prefix_cache, spec_k=args.spec_k,
                         spec_ngram=args.spec_ngram, deadline_s=args.deadline_s,
@@ -299,6 +331,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true",
                     help="the test-size config (2 layers, d_model 64)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="pick each step's config by the roofline cost "
+                         "model (H100 constants) instead of the threshold")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--block-size", type=int, default=16,

@@ -63,6 +63,9 @@ CASES = [
     (3, 4, 4, 2, 32, 8, 8, [30, 64, 5], [4, 4, 2], 9, 20.0),         # both
     # ctx past the table (padding overhang): positions beyond nmax*bs absent
     (2, 8, 4, 2, 32, 8, 4, [36, 20], [8, 8], 0, 0.0),
+    # GQA 8:1 with D 128 (qwen-32b's and llama-70b's group), mixed and decode
+    (4, 8, 16, 2, 128, 16, 8, [40, 8, 100, 17], [8, 8, 1, 1], 0, 0.0),
+    (3, 1, 16, 2, 128, 16, 16, [1, 130, 256], [1, 1, 1], 0, 0.0),
 ]
 PARAMS = "B,C,Hq,Hkv,D,bs,nmax,ctx,ql,window,cap"
 
@@ -220,6 +223,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (37, 4096), (200, 128), (5, 100), (3, 16),
     # a decode step's rows: qwen3-8b's hidden, q and k heads; mamba2's hidden
     (8, 4096), (256, 128), (64, 128), (8, 2048),
+    # qwen-32b's hidden rows (prefill, decode) and llama-70b's: fp32 past
+    # 4096 elements takes 8 chunks a lane on 256 lanes
+    (512, 5120), (8, 5120), (8, 8192), (3, 8192),
 ])
 def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
     g = torch.Generator(device=cuda).manual_seed(N + D)
@@ -235,7 +241,8 @@ def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (9, 64)])
+@pytest.mark.parametrize("N,D", [(37, 4096), (200, 128), (9, 64),
+                                 (9, 5120), (2, 8192)])
 def test_cuda_rmsnorm_unaligned_rows_match_plain(cuda, dtype, N, D):
     """Rows 2 elements apart from 16-byte alignment (a view into a wider
     buffer, one element in) take the scalar instance."""
@@ -254,6 +261,8 @@ def test_cuda_rmsnorm_unaligned_rows_match_plain(cuda, dtype, N, D):
 @pytest.mark.parametrize("q_shape,k_shape", [
     ((8, 1, 32, 128), (8, 1, 8, 128)),       # qwen3-8b, a decode step
     ((8, 64, 32, 128), (8, 64, 8, 128)),     # qwen3-8b, a prefill step
+    ((8, 1, 64, 128), (8, 1, 8, 128)),       # qwen-32b, a decode step
+    ((8, 64, 64, 128), (8, 64, 8, 128)),     # qwen-32b, a prefill step
     ((2, 8, 4, 16), (2, 8, 2, 16)),          # reduced, head_dim 16
     ((3, 100), (0, 100)),                    # an empty k, D 100
 ])
@@ -492,6 +501,33 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     assert runs[0][4:] == (steps * cfg.num_layers,
                            steps * (3 * cfg.num_layers + 1))
     assert runs[1][4:] == (0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_engine_matches_cpu_engine(cuda):
+    """Reduced qwen3-8b at fp32 under ``--adaptive``'s policy (the cost
+    model over (2, 2)): the card and the CPU give equal streams, per-step
+    configs (both used) and preemptions, mixed and under pool pressure."""
+    from repro_torch.launch.serve import adaptive_policy
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    for kw in ({}, {"num_blocks": 9, "block_size": 8}):
+        runs = []
+        for model in (gpu, cpu):
+            eng = ShiftEngine(model, EngineConfig(**kw),
+                              policy=adaptive_policy(cfg))
+            reqs = workload(6, 8)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            runs.append(([r.generated for r in reqs],
+                         [r["config"] for r in eng.step_log],
+                         eng.config_counts, eng.preemptions))
+        assert runs[0] == runs[1]
+        assert runs[0][2]["base"] > 0 and runs[0][2]["shift"] > 0
 
 
 @pytest.mark.cuda

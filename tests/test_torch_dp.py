@@ -173,7 +173,8 @@ def _indivisible(m):
 def _serve_report(rank, groups, out_dir):
     args = argparse.Namespace(
         arch="qwen3-8b", reduced=True, device="cpu", dtype="fp32",
-        block_size=16, num_blocks=0, prefix_cache=False, spec_k=0,
+        adaptive=False, block_size=16, num_blocks=0, prefix_cache=False,
+        spec_k=0,
         spec_ngram=3, dp=DP, requests=4, max_new=4, shared_prefix=0,
         deadline_s=None, max_queue=0, shed_policy="reject-newest",
         auto_snapshot_every=0, fault_seed=None, fault_steps=64,

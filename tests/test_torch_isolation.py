@@ -37,7 +37,11 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.core.ulysses", "repro_torch.parallel.collectives",
             "repro_torch.launch.mesh", "repro_torch.obs.observer",
             "repro_torch.ft.watchdog", "repro_torch.ft.faults",
-            "repro_torch.ft.recovery"} <= set(_modules())
+            "repro_torch.ft.recovery", "repro_torch.core.policy",
+            "repro_torch.roofline", "repro_torch.roofline.terms",
+            "repro_torch.sim", "repro_torch.sim.costmodel",
+            "repro_torch.sim.simulator", "repro_torch.sim.elastic",
+            "repro_torch.sim.traces"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -46,6 +50,22 @@ def test_every_module_imports_without_jax_or_repro():
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_models_and_engine_do_not_load_the_simulator():
+    """The pricing layer sits above the engine: importing the policies, the
+    models and the engine loads no module of ``repro_torch.sim``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core, repro_torch.models, repro_torch.engine\n"
+        "sim = sorted(m for m in sys.modules if m == 'repro_torch.sim' or "
+        "m.startswith('repro_torch.sim.'))\n"
+        "print(sim)\n"
+        "sys.exit(1 if sim else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -99,7 +99,7 @@ def _bf16_ulps(a, b):
     return (ia - ib).abs()
 
 
-@pytest.mark.parametrize("N,D", [(24, 64), (96, 16)])
+@pytest.mark.parametrize("N,D", [(24, 64), (96, 16), (8, 5120)])
 def test_plain_rmsnorm_matches_reference_fp32(N, D):
     """fp32: the plain version vs ``layers.rmsnorm`` and the Pallas kernel
     in interpret mode, at 1e-6."""
@@ -113,7 +113,7 @@ def test_plain_rmsnorm_matches_reference_fp32(N, D):
     np.testing.assert_allclose(got, pal, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("N,D", [(24, 64), (96, 16)])
+@pytest.mark.parametrize("N,D", [(24, 64), (96, 16), (8, 5120)])
 def test_plain_rmsnorm_matches_reference_bf16(N, D):
     """bf16: within one bf16 ulp of the reference, and equal in all but a
     few elements (on these inputs every element is equal; at [2000, 128]

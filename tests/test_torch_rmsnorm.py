@@ -54,7 +54,7 @@ ROWS = [1, 2, 3, 5, 7, 8, 31, 64, 100, 255, 256, 511, 512, 1000, 4097, 16384]
 def test_widths_span_the_configs_and_the_odd_case():
     """The configs reach the widths the plan is written for."""
     ds = {d for d, _ in WIDTHS}
-    assert {4096, 3584, 2048, 1536, 128, 64, 16, 100} <= ds
+    assert {8192, 5120, 4096, 3584, 2048, 1536, 128, 64, 16, 100} <= ds
     assert (64, 64) in WIDTHS and (16, 8) in WIDTHS
 
 
@@ -96,11 +96,16 @@ def test_launch_plan_covers_every_cell_once(D, H):
                 p = RMS.launch_plan(N, D, elt, vec)
                 assert p.vec == (16 // elt if vec else 1)
                 assert p.lanes & (p.lanes - 1) == 0
-                assert p.cpl in ((1, 2, 4) if vec else (1, 2, 4, 8, 16))
+                assert p.cpl in ((1, 2, 4, 8) if vec
+                                 else (1, 2, 4, 8, 16, 32))
                 # the (lanes, chunks) pairs the kernel is built for: one
-                # chunk on fewer than 32 lanes, the most on more than 32
-                if p.lanes != 32:
-                    assert p.cpl == (1 if p.lanes < 32 else 4 if vec else 16)
+                # chunk on fewer than 32 lanes, the most on more than 32,
+                # and twice that on 256 lanes for the longest rows
+                most = 4 if vec else 16
+                if p.lanes == RMS.MAX_THREADS:
+                    assert p.cpl in (most, 2 * most)
+                elif p.lanes != 32:
+                    assert p.cpl == (1 if p.lanes < 32 else most)
                 assert p.threads % 32 == 0 and p.threads <= RMS.MAX_THREADS
                 assert p.threads % p.lanes == 0
                 assert p.lanes * p.cpl * p.vec >= D
@@ -153,7 +158,9 @@ def test_launch_plan_refuses_what_the_kernel_cannot_cover():
     with pytest.raises(ValueError, match="chunks"):
         RMS.launch_plan(4, 100, 2, vec=True)   # 200 bytes: no 16-byte chunks
     with pytest.raises(ValueError, match="threads"):
-        RMS.launch_plan(4, 4097, 4, vec=False)   # 4097 elements: 512 lanes
+        RMS.launch_plan(4, 8193, 4, vec=False)   # 8193 elements: 512 lanes
+    with pytest.raises(ValueError, match="threads"):
+        RMS.launch_plan(4, 8196, 4, vec=True)    # 2049 chunks: 512 lanes
 
 
 def test_launch_plan_fits_the_rows_to_the_card():
@@ -170,6 +177,12 @@ def test_launch_plan_fits_the_rows_to_the_card():
     assert RMS.launch_plan(20480, 128, 2) == P(8, 16, 1, 256, 1280)
     assert RMS.launch_plan(20480, 128, 4) == P(4, 32, 1, 256, 2560)
     assert RMS.launch_plan(8, 4096, 4, vec=False) == P(1, 256, 16, 256, 8)
+    # fp32 rows past 4096 elements (qwen-32b's 5120, llama-70b's 8192): a
+    # CTA of 256 lanes per row, 8 chunks a lane (32 single elements)
+    assert RMS.launch_plan(512, 5120, 4) == P(4, 256, 8, 256, 512)
+    assert RMS.launch_plan(8, 8192, 4) == P(4, 256, 8, 256, 8)
+    assert RMS.launch_plan(8, 5120, 4, vec=False) == P(1, 256, 32, 256, 8)
+    assert RMS.launch_plan(8, 5120, 2) == P(8, 256, 4, 256, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
