@@ -143,6 +143,20 @@ Phases (every failure propagates and exits non-zero):
    and qwen-32b under dp, tp, sp and shift over 8 chips at the H100 data
    sheet's constants (modeled numbers, not measurements; one
    ``{"simulator": ...}`` line);
+5e. the cluster, on the served qwen3-8b (at the end of phase 5): two
+   graphed replicas over its ONE weight set behind
+   ``repro_torch.cluster.Router`` (each its own pool and graphs, the
+   prefix cache on), two turns, the second capturing nothing: the serve
+   workload after a 32-token shared prefix under ``affinity`` (on one
+   replica, the other prefilling nothing, saving what a lone engine
+   saves) and under ``round-robin`` (prefilled on both, saving less); a
+   lone request migrated at 4, 8 and 12 tokens (ms per ``migrate`` on the
+   host clock after a synchronize, blocks and bytes moved) whose bf16
+   stream equals the bare engine's bitwise; a rebalance run under skew;
+   launches exact per forward step in every run; then ``drain`` (both
+   ledgers ``used == pinned == 0``) and the merged dump (every record
+   stamped with its replica, counters equal to the replicas' sums). One
+   ``{"cluster": ...}`` line;
 6. the layouts: four ranks of (sp, tp) = (2, 2), one process each, all on
    the one card with the collectives over gloo (NCCL refuses two ranks on
    one card; ``launch.mesh.run_ranks`` with ``backend="gloo"``): the fp32
@@ -189,7 +203,16 @@ Phases (every failure propagates and exits non-zero):
    replayed through (1, 2, 2) models, gives the same tokens bitwise; and
    the streams equal a (1, 2, 2) engine's fed each row's routed requests,
    pinned as above to the row's segments and the dp step's config; it
-   prints the wall per step by config and the collective bytes by kind.
+   prints the wall per step by config and the collective bytes by kind;
+8. resharding, two processes on the one card over gloo, the parent holding
+   nothing: qwen3-8b at full width with the depth cut by a memory
+   reckoning (and at most ``RESHARD_MAX_LAYERS``), fp32 then bf16: a
+   static (2, 1, 1) run, then the same requests behind a one-replica
+   Router through ``schedule_reshard`` to (1, 1, 2) and back mid-decode:
+   every rank's streams equal, delivered exactly once, fp32 equal to the
+   static run's, bf16's agreement printed; launches exact per step; ms
+   per reshard, blocks moved, ``reshard_gather`` and weight bytes. One
+   ``{"reshard": ...}`` line.
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -1370,8 +1393,9 @@ def serve_turns(torch, model, kw, label):
         torch.cuda.empty_cache()
         eng = ShiftEngine(model, EngineConfig(**kw))
         if not graphed:
-            eng.deploy = Deployment.build(model, model, mixed=eng.mixed,
-                                          paged=eng.paged, graphed=False)
+            eng.deploy = Deployment.build(eng.base, eng.shift,
+                                          mixed=eng.mixed, paged=eng.paged,
+                                          graphed=False)
         name = f"{label} [{'graphed' if graphed else 'eager'}]"
         reqs, launches, stats = serve_path(torch, eng, name)
         stats.update(profile_decode(torch, eng, label=name))
@@ -1572,7 +1596,7 @@ def prefix_spec_phase(torch, model):
         eng = ShiftEngine(model, EngineConfig(
             prefix=PrefixConfig(enabled=True), spec=SpecConfig(k=k)))
         if not graphed:
-            eng.deploy = Deployment.build(model, model, mixed=True,
+            eng.deploy = Deployment.build(eng.base, eng.shift, mixed=True,
                                           paged=True, graphed=False)
         name = (f"mixed prefix + spec k={k} "
                 f"[{'graphed' if graphed else 'eager'}]")
@@ -1676,8 +1700,298 @@ def serving_phase(torch):
     by_path["mixed_faults"] = recovery_phase(torch, model)
     by_path["mixed_adaptive"], turns["mixed_adaptive"] = adaptive_turn(
         torch, model, mixed_reqs, by_path["mixed"], "mixed paged")
+    by_path.update(cluster_phase(torch, model))
     print(f"card: {card_line()}")
     return by_path, turns
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: two replicas of the served model behind the cluster Router
+# ---------------------------------------------------------------------------
+CLUSTER_SHARED = 32             # the cluster workload's shared prefix
+LONE_PROMPT = list(range(1, 20))  # the serve workload's request 0
+MIGRATE_AT = (4, 8, 12)         # tokens delivered before each migration
+
+
+def cluster_requests(base, n=6, max_new=16):
+    """The serve workload after a ``CLUSTER_SHARED``-token shared prefix,
+    with rids ``base ..``: an engine keeps every rid it served (``stream``
+    reads it), so each run of the phase takes rids of its own."""
+    from repro_torch.launch import serve
+    reqs = serve.workload(n, max_new, shared_prefix=CLUSTER_SHARED)
+    for r in reqs:
+        r.rid += base
+    return reqs
+
+
+def forward_steps(engines):
+    """Steps whose forward ran, summed over the replicas."""
+    return sum(sum(e.config_counts.values()) for e in engines)
+
+
+def empty_prefix(engines):
+    for e in engines:
+        e.prefix.evict(len(e.prefix))
+
+
+def exact_launches(launches, steps, label):
+    """109 RMSNorm and 36 ragged launches per qwen3-8b step whose forward
+    ran, and nothing else."""
+    want = {k: 0 for k in launches}
+    want.update(rmsnorm=109 * steps, paged_ragged_attention=36 * steps)
+    check(launches == want, f"{label}: launches {launches} over {steps} "
+          f"steps, want {want}")
+
+
+def cluster_run(torch, engines, routing, reqs, rebalance_every=0):
+    """Serve ``reqs`` through a new ``Router`` over ``engines`` (their prefix
+    caches emptied first), every launch counter set to 0 just before and
+    read just after. Checks every request's 16 tokens (delivered exactly
+    once) and the launches per forward step."""
+    from repro_torch.cluster import Router
+    from repro_torch.launch import serve
+    empty_prefix(engines)
+    router = Router(engines, routing=routing,
+                    rebalance_every=rebalance_every)
+    reg = [e.obs.registry for e in engines]
+    saved0 = [r.counter_total("prefix_tokens_saved_total") for r in reg]
+    pre0 = [r.counter_total("tokens_prefill_total") for r in reg]
+    steps0, caps0 = forward_steps(engines), [e.deploy.captures
+                                             for e in engines]
+    torch.cuda.synchronize()
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        router.submit(r)
+    owners = [router.owner(r.rid) for r in reqs]
+    router.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = serve.launch_counts()
+    steps = forward_steps(engines) - steps0
+    label = f"cluster {routing}" + (" + rebalance" if rebalance_every
+                                    else "")
+    exact_launches(launches, steps, label)
+    live = [router.request(r.rid) for r in reqs]
+    for r in live:
+        check(r.finish_reason == "ok" and len(r.generated) == 16
+              and router.delivered(r.rid) == r.generated,
+              f"{label}: request {r.rid}: {r.finish_reason}, "
+              f"{len(r.generated)} tokens, delivered "
+              f"{len(router.delivered(r.rid))}")
+    t_first = min(r.first_token_time for r in live)
+    t_last = max(r.finish_time for r in live)
+    return {"router": router, "owners": owners,
+            "streams": [r.generated for r in live],
+            "saved": sum(r.counter_total("prefix_tokens_saved_total")
+                         for r in reg) - sum(saved0),
+            "prefill": [r.counter_total("tokens_prefill_total") - p
+                        for r, p in zip(reg, pre0)],
+            "router_steps": router.steps, "forward_steps": steps,
+            "wall_s": wall, "migrations": router.migrations,
+            "migrated_blocks": router.migrated_blocks,
+            "wall_ms_per_router_step": wall / router.steps * 1e3,
+            "wall_ms_per_decode_step": (t_last - t_first) / 15 * 1e3,
+            "captures": [e.deploy.captures - c
+                         for e, c in zip(engines, caps0)],
+            "launches": launches}
+
+
+def migration_run(torch, engines, rid, want):
+    """One request alone, migrated mid-decode between the replicas at
+    ``MIGRATE_AT`` tokens (there and back and there), each ``migrate``
+    timed on the host clock after a synchronize; its stream must equal
+    ``want`` (the bare engine's) bitwise."""
+    from repro_torch.cluster import Router
+    from repro_torch.engine import Request
+    from repro_torch.launch import serve
+    empty_prefix(engines)
+    router = Router(engines, routing="least-loaded", rebalance_every=0)
+    caps0 = [e.deploy.captures for e in engines]
+    steps0 = forward_steps(engines)
+    serve.reset_launch_counts()
+    router.submit(Request(rid, LONE_PROMPT, max_new_tokens=16))
+    ms, blocks = [], []
+    for at in MIGRATE_AT:
+        while len(router.stream(rid)) < at:
+            router.step()
+            router.poll()
+        src = router.owner(rid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops = router.migrate(rid, 1 - src)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(ops is not None and router.owner(rid) == 1 - src,
+              f"cluster migration at {at} tokens: not moved")
+        blocks.append(len(ops) - 1)
+    router.run_until_idle()
+    torch.cuda.synchronize()
+    exact_launches(serve.launch_counts(), forward_steps(engines) - steps0,
+                   "cluster migration")
+    got = router.delivered(rid)
+    check(got == want, f"cluster migration: the migrated bf16 stream {got} "
+          f"differs from the bare engine's {want}")
+    return {"migrate_ms": ms, "blocks": blocks, "stream": got,
+            "captures": [e.deploy.captures - c
+                         for e, c in zip(engines, caps0)],
+            "launches": serve.launch_counts()}
+
+
+def cluster_turn(torch, engines, base):
+    """One turn of the phase on ``engines``: the lone request on replica 0
+    alone (the bare engine's stream), then affinity, round-robin, the
+    migrations and the rebalance run."""
+    from repro_torch.engine import Request
+    empty_prefix(engines)
+    lone = Request(base, LONE_PROMPT, max_new_tokens=16)
+    engines[0].submit(lone)
+    engines[0].run_until_idle()
+    return {"affinity": cluster_run(torch, engines, "affinity",
+                                    cluster_requests(base + 10)),
+            "round_robin": cluster_run(torch, engines, "round-robin",
+                                       cluster_requests(base + 20)),
+            "migration": migration_run(torch, engines, base + 30,
+                                       lone.generated),
+            "rebalance": cluster_run(torch, engines, "affinity",
+                                     cluster_requests(base + 40),
+                                     rebalance_every=2)}
+
+
+def cluster_phase(torch, model):
+    """Two graphed replicas of the served model (qwen3-8b, full width,
+    bf16) over its ONE weight set behind the ``Router``, each with its own
+    pool and graphs, the prefix cache on. Two turns of ``cluster_turn``:
+    the first captures every bucket, the second is measured and must
+    capture nothing. Checks: affinity prefills the shared prefix on one
+    replica only (the other prefills nothing) and saves what a lone engine
+    saves; round-robin prefills it on both and saves less; a lone request
+    migrated three times mid-decode streams bitwise what the bare engine
+    streams; the skewed affinity run rebalances (migrations); launches per
+    forward step exact in every run; then ``drain``: both ledgers read
+    ``used == pinned == 0``, every event and step record of the merged
+    dump carries its replica, and the merged counters equal the sums of
+    the replicas'. Returns each measured run's launches; prints one
+    ``{"cluster": ...}`` line. Two replicas on one card, stepped by one
+    Python thread, are not a speed of a cluster."""
+    from repro_torch.engine import EngineConfig, PrefixConfig, ShiftEngine
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecfg = EngineConfig(prefix=PrefixConfig(enabled=True))
+    weights = sum(p.numel() * p.element_size()
+                  for p in model.params.parameters())
+    free, _ = torch.cuda.mem_get_info()
+    engines = [ShiftEngine(model, ecfg) for _ in range(2)]
+    for i, e in enumerate(engines):
+        e.set_replica(i)       # every record from the first on is stamped
+    pool = engines[0].model.pool
+    pool_bytes = 2 * pool.k.numel() * pool.k.element_size()
+    block_bytes = pool_bytes // pool.k.shape[1]
+    print(f"cluster phase: 2 replicas over one weight set: "
+          f"{weights / 1e9:.2f} GB of weights once + 2 pools of "
+          f"{pool.k.shape[1]} blocks x {pool_bytes / 1e6:.1f} MB "
+          f"({block_bytes} B a block: {cfg.num_layers} layers x K and V x "
+          f"16 tokens x {cfg.num_kv_heads} kv heads x {cfg.head_dim} x "
+          f"{pool.k.element_size()} B)"
+          f" + two graph pools, against {free / 1e9:.2f} GB free before the "
+          "pools")
+    check(engines[0].base.params is engines[1].base.params is model.params
+          and engines[0].model.pool is not engines[1].model.pool
+          and all(e.deploy.graphs is not None for e in engines),
+          "cluster phase: the replicas do not share the weights, share a "
+          "pool or run eager tables")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    warm = cluster_turn(torch, engines, 1000)
+    captured = sum(sum(v["captures"]) for v in warm.values())
+    print(f"cluster phase: turn 1 (captures {captured} graphs) in "
+          f"{time.monotonic() - t0:.1f} s")
+    run = cluster_turn(torch, engines, 2000)
+    for name in ("affinity", "round_robin", "migration", "rebalance"):
+        check(run[name]["captures"] == [0, 0],
+              f"cluster {name}: {run[name]['captures']} captures after the "
+              "first turn")
+    aff, rr, mig, reb = (run[k] for k in ("affinity", "round_robin",
+                                          "migration", "rebalance"))
+    lone_saved = None
+    # the lone engine's saving on the same workload: replica 0 alone
+    empty_prefix(engines)
+    reg = engines[0].obs.registry
+    s0 = reg.counter_total("prefix_tokens_saved_total")
+    for r in cluster_requests(3000):
+        engines[0].submit(r)
+    engines[0].run_until_idle()
+    lone_saved = reg.counter_total("prefix_tokens_saved_total") - s0
+    check(len(set(aff["owners"])) == 1 and 0 in aff["prefill"]
+          and aff["saved"] == lone_saved >= 5 * CLUSTER_SHARED,
+          f"cluster affinity: owners {aff['owners']}, prefill per replica "
+          f"{aff['prefill']}, saved {aff['saved']} (a lone engine "
+          f"{lone_saved})")
+    check(set(rr["owners"]) == {0, 1} and min(rr["prefill"]) > 0
+          and rr["saved"] < aff["saved"],
+          f"cluster round-robin: owners {rr['owners']}, prefill per replica "
+          f"{rr['prefill']}, saved {rr['saved']}")
+    check(reb["migrations"] >= 1, "cluster rebalance: no migration")
+    router = reb["router"]
+    router.drain()
+    for i, e in enumerate(engines):
+        led = e.block_accounting()
+        check(led.used == led.pinned == 0,
+              f"cluster drain: replica {i} holds blocks: {led}")
+    dump = router.dump()
+    check(all("replica" in ev for ev in dump["events"])
+          and all("replica" in rec for rec in dump["steps"])
+          and {rec["replica"] for rec in dump["steps"]} == {0, 1},
+          "cluster dump: a record without its replica")
+    for c in {c["name"] for c in dump["metrics"]["counters"]}:
+        merged = sum(x["value"] for x in dump["metrics"]["counters"]
+                     if x["name"] == c)
+        check(merged == router.counter_total(c),
+              f"cluster dump: merged {c} {merged} != the replicas' sum "
+              f"{router.counter_total(c)}")
+    moved = [b * block_bytes for b in mig["blocks"]]
+    print(f"cluster affinity: all 6 requests on replica "
+          f"{aff['owners'][0]}, prefill tokens per replica {aff['prefill']}, "
+          f"{aff['saved']:.0f} prefill tokens saved (a lone engine "
+          f"{lone_saved:.0f}); wall {aff['wall_ms_per_router_step']:.2f} ms "
+          f"per router step, {aff['wall_ms_per_decode_step']:.2f} ms per "
+          "decode step")
+    print(f"cluster round-robin: owners {rr['owners']}, prefill tokens per "
+          f"replica {rr['prefill']}, {rr['saved']:.0f} saved; wall "
+          f"{rr['wall_ms_per_router_step']:.2f} ms per router step, "
+          f"{rr['wall_ms_per_decode_step']:.2f} ms per decode step (both "
+          "replicas step one after the other on one card)")
+    print(f"cluster migration: a lone request moved at {MIGRATE_AT} tokens: "
+          f"{', '.join(f'{m:.3f}' for m in mig['migrate_ms'])} ms per "
+          f"migrate, {mig['blocks']} blocks, "
+          f"{', '.join(str(b) for b in moved)} B moved on the card; its bf16 "
+          "stream equals the bare engine's bitwise")
+    print(f"cluster rebalance: {reb['migrations']} migrations "
+          f"({reb['migrated_blocks']} blocks) under skew; drained: both "
+          f"ledgers used == pinned == 0; merged dump: "
+          f"{len(dump['events'])} events, {len(dump['steps'])} step records, "
+          f"counters equal the replicas' sums; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(json.dumps({"cluster": {
+        "card": card_line(), "weights_bytes": weights,
+        "pool_bytes": pool_bytes, "block_bytes": block_bytes,
+        "migrate_ms": mig["migrate_ms"], "migrated_blocks": mig["blocks"],
+        "migrated_bytes": moved, **{
+            k: {f: run[k][f] for f in (
+                "owners", "saved", "prefill", "router_steps",
+                "forward_steps", "migrations", "migrated_blocks",
+                "wall_ms_per_router_step", "wall_ms_per_decode_step")}
+            for k in ("affinity", "round_robin", "rebalance")},
+        "lone_saved": lone_saved,
+        "peak_bytes": torch.cuda.max_memory_allocated()}}))
+    launches = {f"cluster_{k}": run[k]["launches"]
+                for k in ("affinity", "round_robin", "migration",
+                          "rebalance")}
+    del engines, router, warm, run, reb, aff, rr, mig
+    gc.collect()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2364,14 +2678,15 @@ def recovery_phase(torch, model):
 
     # restore in place: the graphs replay, nothing is captured
     captures = eng.deploy.captures
-    pool = (model.pool.k.data_ptr(), model.pool.v.data_ptr())
+    pool = (eng.model.pool.k.data_ptr(), eng.model.pool.v.data_ptr())
     _, out["restore_ms"] = timed_ms(torch, lambda: eng.restore(snap))
     eng.run_until_idle()
     check([eng.stream(r.rid) for r in reqs] == whole,
           "faults phase: the run after an in-place restore differs from "
           "the uninterrupted run")
     check(eng.deploy.captures == captures
-          and (model.pool.k.data_ptr(), model.pool.v.data_ptr()) == pool,
+          and (eng.model.pool.k.data_ptr(),
+               eng.model.pool.v.data_ptr()) == pool,
           f"faults phase: the in-place restore captured "
           f"{eng.deploy.captures - captures} graphs or moved the pool")
     out["graphs"] = captures
@@ -3109,11 +3424,9 @@ def one_row_view(model):
     the whole model) as the trivial layout's model over the same parameter
     tensors: the layers' computation is the same, only the dp row slicing
     and the DP gather go. A new engine gives it its own pool."""
-    import copy
     from repro_torch.parallel import Layout, Shard
-    view = copy.copy(model)
+    view = model.view()
     view.lay, view.shard = Layout(), Shard()
-    view.pool = view.cache = None
     return view
 
 
@@ -3267,8 +3580,8 @@ def one_row_streams(torch, model, reqs, row, kw, steps):
     from repro_torch.engine.deployment import Deployment
     view = one_row_view(model)
     eng = ShiftEngine(view, EngineConfig(max_slots=4, **kw))
-    eng.deploy = Deployment.build(view, view, mixed=True, paged=True,
-                                  graphed=False)
+    eng.deploy = Deployment.build(eng.base, eng.shift, mixed=True,
+                                  paged=True, graphed=False)
     ran, n = pin_to_dp_steps(eng, steps, row, model.lay.dp)
     sub = [Request(r.rid, list(r.prompt), max_new_tokens=r.max_new_tokens)
            for r in reqs if r.row == row]
@@ -3766,6 +4079,193 @@ def dp_phase(torch, overhead_bytes):
             g0["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: reshard mid-decode on two ranks
+# ---------------------------------------------------------------------------
+RESHARD_TIMEOUT_S = 600
+RESHARD_MAX_LAYERS = 8          # the phase's depth at most (its time)
+RESHARD_NEW = 12                # new tokens per request
+RESHARD_KW = dict(max_slots=4, s_max=128, prefill_chunk=64, block_size=16)
+
+
+def reshard_rank(rank, groups, layers):
+    """One of two ranks: qwen3-8b at full width and ``layers`` deep, first
+    fp32, then bf16: a static (2, 1, 1) run of 4 requests of the serve
+    workload, then the same requests on a (2, 1, 1) engine behind a
+    one-replica ``Router`` (its ``DeliveryLog`` polled every step) that
+    ``schedule_reshard``s to (1, 1, 2) after 3 steps and back 3 steps after
+    that swap. Returns per type the streams, the delivered tokens, the
+    static streams, each reshard's wall (host clock after a synchronize),
+    report and the traffic it added, the launches of the resharded run
+    (counted from 0) and its forward steps, and the peak memory."""
+    import torch
+    from repro_torch.cluster import Router
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Groups, Layout
+    groups_tp = Groups(1, 2)
+    grids = (groups, groups_tp)
+    out = {"rank": rank}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(grid_cfg(layers), device="cuda", dtype=dtype,
+                      lay=Layout(dp=2), groups=groups)
+        model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        ecfg = EngineConfig(**RESHARD_KW)
+
+        def reqs():
+            return serve.workload(4, RESHARD_NEW)
+
+        static = ShiftEngine(model, ecfg)
+        ref = reqs()
+        for r in ref:
+            static.submit(r)
+        static.run_until_idle()
+        del static
+        eng = ShiftEngine(model, ecfg)
+        # the engine's views hold the weights; a reshard frees them
+        del model
+        router = Router([eng], rebalance_every=0)
+        swaps = []
+        reshard = eng.reshard
+
+        def traffic():
+            return grids[0].traffic + grids[1].traffic
+
+        def timed(layout, groups=None, row_blocks=0):
+            before = traffic()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = reshard(layout, groups=groups, row_blocks=row_blocks)
+            torch.cuda.synchronize()
+            swaps.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "kind": rep.delta.kind, "requests": rep.moved_requests,
+                "blocks": rep.blocks_moved,
+                "traffic": dict(traffic() - before)})
+            return rep
+
+        eng.reshard = timed
+        rs = reqs()
+        steps0 = sum(eng.config_counts.values())
+        serve.reset_launch_counts()
+        for r in rs:
+            router.submit(r)
+        for lay, g in ((Layout(tp=2), groups_tp), (Layout(dp=2), groups)):
+            for _ in range(3):
+                router.poll()
+                router.step()
+            n = len(swaps)
+            eng.schedule_reshard(lay, groups=g, lead_steps=1)
+            while len(swaps) == n:
+                router.poll()
+                router.step()
+        router.run_until_idle()
+        torch.cuda.synchronize()
+        out[name] = {
+            "streams": [router.stream(r.rid) for r in rs],
+            "delivered": [router.delivered(r.rid) for r in rs],
+            "static": [r.generated for r in ref], "swaps": swaps,
+            "signature": list(eng.deploy.signature),
+            "launches": serve.launch_counts(),
+            "steps": sum(eng.config_counts.values()) - steps0,
+            "paused": eng.last_reshard_report.admission_paused_steps,
+            "ledger": eng.block_accounting().as_dict(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del eng, router
+    return out
+
+
+def reshard_phase(torch):
+    """(2, 1, 1) -> (1, 1, 2) -> (2, 1, 1) mid-decode through
+    ``schedule_reshard``, two processes on the one card over gloo, at full
+    width with the depth cut by a memory reckoning and
+    ``RESHARD_MAX_LAYERS``: the fp32 streams must equal the static (2, 1,
+    1) run's, delivered exactly once through a one-replica Router's
+    ``DeliveryLog``; bf16's agreement is printed without a limit (changing
+    tp changes the order of the logits' sum). Launches exact per step.
+    Prints ms per reshard, blocks moved and the ``reshard_gather`` bytes;
+    returns rank 0's fp32 launches. Two ranks on one card over gloo are not
+    a speed of a reshard across cards."""
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    overhead = 2e9                      # a rank's context, pool, staging
+    cfg = grid_cfg(1)
+    # the gather of the largest parameter (the embedding): its parts, their
+    # concatenation and the new rank's copy
+    gather = 3 * cfg.vocab_size * cfg.d_model * 4
+    # a rank holds the old and the new model during a swap: its (2, 1, 1)
+    # model whole and the (1, 1, 2) half, in fp32
+    fit = max(L for L in range(1, 37) if 2 * (
+        1.5 * grid_cfg(L).num_params() * 4 + gather + overhead)
+        <= 0.8 * free)
+    layers = min(fit, RESHARD_MAX_LAYERS)
+    print(f"reshard phase: {free / 1e9:.2f} GB free of {total / 1e9:.2f}; a "
+          f"rank holds 1.5 x the fp32 model during a swap, "
+          f"{gather / 1e9:.2f} GB for the embedding's gather and ~"
+          f"{overhead / 1e9:.0f} GB: {fit} layers fit in 80 % of it, run "
+          f"at {layers} (full width, d_model {cfg.d_model}; at most "
+          f"{RESHARD_MAX_LAYERS} for the run's time)")
+    t0 = time.monotonic()
+    res = run_ranks(reshard_rank, 1, 1, dp=2, device="cuda",
+                    backend="gloo", timeout_s=RESHARD_TIMEOUT_S,
+                    args=(layers,))
+    print(f"reshard phase: 2 ranks ran in {time.monotonic() - t0:.1f} s")
+    per_step = {"rmsnorm": 3 * layers + 1, "paged_ragged_attention": layers}
+    out = {}
+    for name in ("fp32", "bf16"):
+        a = res[0][name]
+        for r in res:
+            b = r[name]
+            check(b["streams"] == a["streams"] and b["static"] == a["static"],
+                  f"reshard {name}: rank {r['rank']}'s streams differ from "
+                  "rank 0's")
+            check(b["delivered"] == b["streams"]
+                  and all(len(t) == RESHARD_NEW for t in b["streams"]),
+                  f"reshard {name}: rank {r['rank']}: delivered "
+                  f"{b['delivered']} against {b['streams']}")
+            check([w["kind"] for w in b["swaps"]] == ["grow", "shrink"]
+                  and b["signature"] == [2, 1, 1, 1] and b["paused"] == 1,
+                  f"reshard {name}: rank {r['rank']}: swaps "
+                  f"{[w['kind'] for w in b['swaps']]}, ends on "
+                  f"{b['signature']}")
+            check(b["ledger"]["used"] == b["ledger"]["pinned"] == 0,
+                  f"reshard {name}: rank {r['rank']} holds blocks")
+            want = {k: per_step.get(k, 0) * b["steps"] for k in b["launches"]}
+            check(b["launches"] == want, f"reshard {name}: rank {r['rank']}"
+                  f": launches {b['launches']} over {b['steps']} steps")
+        agree = sum(x == y for s, t in zip(a["streams"], a["static"])
+                    for x, y in zip(s, t))
+        if name == "fp32":
+            check(a["streams"] == a["static"],
+                  f"reshard fp32: the resharded streams {a['streams']} differ "
+                  f"from the static run's {a['static']}")
+        for w in a["swaps"]:
+            print(f"reshard {name} {w['kind']}: {w['ms']:.1f} ms, "
+                  f"{w['requests']} requests, {w['blocks']} blocks moved, "
+                  f"reshard_gather "
+                  f"{w['traffic'].get('reshard_gather_bytes', 0)} B, weights "
+                  f"gathered {w['traffic'].get('reshard_weights_bytes', 0)} B"
+                  " (rank 0)")
+        print(f"reshard {name}: streams equal on both ranks, delivered "
+              f"exactly once; {agree} of "
+              f"{sum(len(t) for t in a['static'])} tokens equal the static "
+              f"(2, 1, 1) run's ({'must be all' if name == 'fp32' else 'for information'}); "
+              f"{a['steps']} steps, launches exact; peak "
+              f"{a['peak_bytes'] / 1e9:.2f} GB on rank 0")
+        out[name] = {"swaps": a["swaps"], "agree": agree,
+                     "tokens": sum(len(t) for t in a["static"]),
+                     "steps": a["steps"], "peak_bytes": a["peak_bytes"]}
+    print(json.dumps({"reshard": {"card": card_line(), "layers": layers,
+                                  "layers_fit": fit, **out}}))
+    return res[0]["fp32"]["launches"]
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -3868,6 +4368,7 @@ def main():
         by_path["layout_adaptive_rank0"], overhead = layout_phase(torch)
     by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
         by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)
+    by_path["reshard_fp32_rank0"] = reshard_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {

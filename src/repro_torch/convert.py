@@ -4,11 +4,13 @@
 trivial ``Layout()``, as nested dicts of numpy arrays (``jax.tree.map(
 np.asarray, params)``, done by the caller), and returns ``{name: array}``
 for ``Model.load_params``; ``shard_state`` cuts that state into one rank's
-shard of a wider layout. ``from_jax_cache`` is the state counterpart: it
-turns the reference's cache tree (the ``cache`` of its engine's
-snapshot) into the port's cache tensors, as ``ShiftEngine.snapshot``
-holds them, so that a snapshot the reference took restores into the
-port. It imports neither jax nor repro.
+shard of a wider layout, and ``unshard_state`` puts the shards back together
+(``ft.elastic.reshard_params`` moves live weights through the pair,
+parameter by parameter, with their tensor forms). ``from_jax_cache`` is the
+state counterpart: it turns the reference's cache tree (the ``cache`` of its
+engine's snapshot) into the port's cache tensors, as
+``ShiftEngine.snapshot`` holds them, so that a snapshot the reference took
+restores into the port. It imports neither jax nor repro.
 """
 from __future__ import annotations
 
@@ -81,32 +83,99 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     shard of its grid position ``(i, j)``, the same in every row (the
     reference replicates the parameters over ``"data"``). Attention and MLP
     weights only: SSD layers run only the trivial layout."""
-    k, tp = lay.tp_rank(rank), max(lay.tp, 1)
+    k = lay.tp_rank(rank)
+    return {name: shard_tensor(name, torch.from_numpy(
+                np.ascontiguousarray(a)), cfg, lay, k).contiguous().numpy()
+            for name, a in state.items()}
+
+
+_HEADS = {"wq": "q", "bq": "q", "wo": "q", "wk": "kv", "wv": "kv",
+          "bk": "kv", "bv": "kv"}
+
+
+def _canon_shape(name: str, t: torch.Tensor, h: int, cfg) -> torch.Tensor:
+    """Attention parameter ``name`` of ``h`` heads with the heads on axis
+    -2: wq/wk/wv [d, h, dh], wo [h, dh·d], biases [h, dh]."""
     d, dh = cfg.d_model, cfg.head_dim
-    heads = {"wq": cfg.num_heads, "bq": cfg.num_heads, "wo": cfg.num_heads,
-             "wk": cfg.num_kv_heads, "wv": cfg.num_kv_heads,
-             "bk": cfg.num_kv_heads, "bv": cfg.num_kv_heads}
-    out = {}
-    for name, a in state.items():
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        parts = name.split(".")
-        if name == "embed.table":
-            t = vocab_shard(t, 0, lay, k)
-        elif name == "lm_head.w":
-            t = vocab_shard(t, 1, lay, k)
-        elif parts[-2] == "attn" and parts[-1] in heads:
-            h = heads[parts[-1]]
-            canon = (t.reshape(h, dh * d) if parts[-1] == "wo" else
-                     t.reshape(d, h, dh) if parts[-1][0] == "w" else
-                     t.reshape(h, dh))
-            t = attn_layout(parts[-1], canon, cfg, lay, k)
-        elif parts[-2] == "ffn":
-            t = shard_of(t, 0 if parts[-1] == "wo" else 1, tp, k)
-        elif parts[-2] == "mix" and lay.world > 1:
-            raise NotImplementedError(f"{name}: SSD layers run only the "
-                                      "trivial layout")
-        out[name] = t.contiguous().numpy()
-    return out
+    return (t.reshape(h, dh * d) if name == "wo" else
+            t.reshape(d, h, dh) if name[0] == "w" else t.reshape(h, dh))
+
+
+def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
+                 tp_rank: int) -> torch.Tensor:
+    """``shard_state`` of one parameter, as a tensor (a view where the
+    shard is a slice): tp rank ``tp_rank``'s part of the trivial layout's
+    ``t``, in any type and on any device."""
+    parts = name.split(".")
+    if name == "embed.table":
+        return vocab_shard(t, 0, lay, tp_rank)
+    if name == "lm_head.w":
+        return vocab_shard(t, 1, lay, tp_rank)
+    if parts[-2] == "attn" and parts[-1] in _HEADS:
+        h = cfg.num_heads if _HEADS[parts[-1]] == "q" else cfg.num_kv_heads
+        return attn_layout(parts[-1], _canon_shape(parts[-1], t, h, cfg),
+                           cfg, lay, tp_rank)
+    if parts[-2] == "ffn":
+        return shard_of(t, 0 if parts[-1] == "wo" else 1, max(lay.tp, 1),
+                        tp_rank)
+    if parts[-2] == "mix" and lay.world > 1:
+        raise NotImplementedError(f"{name}: SSD layers run only the "
+                                  "trivial layout")
+    return t
+
+
+def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
+    """The inverse of ``shard_tensor``: the trivial layout's parameter
+    ``name`` from ``parts``, every tp rank's shard of it on ``lay`` in tp
+    rank order. The pad slots of the head plan go; of a kv head that KV
+    replication repeats, the first copy is taken (every copy is the same
+    head). Bitwise: ``shard_tensor`` of the result gives each part back."""
+    p = name.split(".")
+    tp = max(lay.tp, 1)
+    if len(parts) != tp:
+        raise ValueError(f"{name}: {len(parts)} shards for tp={tp}")
+    if name in ("embed.table", "lm_head.w"):
+        dim = 0 if name == "embed.table" else 1
+        return torch.cat(list(parts), dim).narrow(dim, 0, cfg.vocab_size)
+    if p[-2] == "attn" and p[-1] in _HEADS:
+        from repro_torch.models.attention import get_plan, kv_exp_slots
+        plan = get_plan(cfg, lay)
+        axis = 0 if p[-1] == "wo" else (1 if p[-1][0] == "w" else 0)
+        full = torch.cat(list(parts), axis)
+        if _HEADS[p[-1]] == "q":
+            slots, h = plan.q_slot_to_orig, cfg.num_heads
+            place = list(slots)
+            n = len(slots)
+        else:
+            # expanded slot e holds padded slot e // r (repeat_interleave)
+            n = kv_exp_slots(plan, lay)
+            r = n // plan.h_kv_pad
+            place = [plan.kv_slot_to_orig[e // r] for e in range(n)]
+            h = cfg.num_kv_heads
+        canon = _canon_shape(p[-1], full, n, cfg)
+        first = [place.index(i) for i in range(h)]
+        out = canon.index_select(canon.dim() - 2, torch.as_tensor(
+            first, device=canon.device))
+        return out.reshape(-1, cfg.d_model) if p[-1] == "wo" else \
+            out.reshape(out.shape[0], -1) if p[-1][0] == "w" else \
+            out.reshape(-1)
+    if p[-2] == "ffn":
+        return torch.cat(list(parts), 0 if p[-1] == "wo" else 1)
+    if p[-2] == "mix" and lay.world > 1:
+        raise NotImplementedError(f"{name}: SSD layers run only the "
+                                  "trivial layout")
+    return parts[0]
+
+
+def unshard_state(shards, cfg, lay) -> Dict[str, np.ndarray]:
+    """The inverse of ``shard_state``: the trivial layout's state from
+    ``shards``, one state per tp rank of ``lay`` in tp rank order (on a
+    base config with sp > 1 the sp ranks of one tp rank hold the same
+    shard: pass one of them). Bitwise: ``shard_state`` of the result on
+    ``lay`` gives each shard back."""
+    return {name: unshard_tensor(name, [torch.from_numpy(
+                np.ascontiguousarray(s[name])) for s in shards], cfg, lay)
+            .contiguous().numpy() for name in shards[0]}
 
 
 def _tensor(a) -> torch.Tensor:

@@ -23,8 +23,14 @@ pool, and each has its entry. ``dp`` is the layout's: each rank's entries
 step its row's segment of the batch. Above world size 1 every entry runs
 eagerly: its steps call collectives, and a gloo
 collective cannot be captured in a CUDA graph (capturing NCCL across cards
-is ROADMAP Queue 1 item 2). Asking for graphs there raises. ``reshard``
-comes later.
+is ROADMAP Queue 1 item 2). Asking for graphs there raises.
+
+``reshard(new_base, new_shift)`` builds the deployment of another layout
+over the same ranks: the weights move through ``ft.elastic.reshard_params``
+and the step tables are built anew (eager above world size 1, as always),
+so the old tables and their graphs retire with the old deployment.
+``ShiftEngine.reshard`` drives it (validate -> plan -> mutate), and
+raises :class:`ReshardError` before it changes anything.
 """
 from __future__ import annotations
 
@@ -39,7 +45,36 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model
-from repro_torch.parallel import Layout
+from repro_torch.parallel import Layout, LayoutDelta
+
+
+class ReshardError(RuntimeError):
+    """A reshard request that cannot be satisfied. Raised BEFORE any
+    engine state is mutated — the engine keeps serving on its current
+    deployment when this propagates."""
+
+
+@dataclass(frozen=True)
+class ReshardReport:
+    """What a completed ``ShiftEngine.reshard`` did, as data.
+
+    ``plan`` is the typed block-granular move list — one tuple of
+    :class:`~repro_torch.cluster.migration.TransferOp` per live request
+    that was re-poured into the new pool layout (the migration's
+    extract→admit→copy→release shape, replica-local)."""
+
+    delta: LayoutDelta
+    moved_requests: int
+    blocks_moved: int
+    dropped_prefix_blocks: int
+    plan: Tuple[tuple, ...] = ()
+    # steps ``schedule_reshard`` held admissions before executing the swap
+    # (0 for an immediate ``reshard()`` call): fewer live blocks to re-pour
+    admission_paused_steps: int = 0
+
+    @property
+    def noop(self) -> bool:
+        return self.delta.kind == "same"
 
 
 class GraphPool:
@@ -293,3 +328,18 @@ class Deployment:
                 other = "shift" if config == "base" else "base"
                 self.spec_forward[(other, n_last)] = entry
         return entry
+
+    # ------------------------------------------------------------ reshard
+    def reshard(self, new_base: Model, new_shift: Model) -> "Deployment":
+        """A fresh Deployment over the new models' layout (the same ranks).
+        The weights move into them through ``ft.elastic.reshard_params``
+        (gathered over the old model group, cut for the new rank); the
+        step tables are built anew, eager above world size 1, so every
+        graph of this deployment retires with it. The new base model must
+        hold its pool already: the engine initialises it first."""
+        from repro_torch.ft.elastic import reshard_params
+        reshard_params(self.base, new_base)
+        if new_shift is not new_base:
+            reshard_params(self.shift, new_shift)
+        return Deployment.build(new_base, new_shift, mixed=self.mixed,
+                                paged=self.paged)

@@ -114,11 +114,24 @@ request and, on the paged pool, the block tables, allocators and prefix
 indexes. ``restore()`` validates first (a snapshot that does not fit
 leaves the engine untouched) and then copies the cache back in place, so
 that the captured CUDA graphs keep their addresses; ``recover()`` restores
-the newest valid snapshot of the ``auto_snapshot_every`` ring. Not in
-this slice: reshard.
+the newest valid snapshot of the ``auto_snapshot_every`` ring.
+
+An engine steps a cache it owns: it builds its own views of the models it
+is given (``Model.view()``: the parameters are shared, the cache is not),
+so several engines on one model serve side by side (a cluster's replicas,
+``repro_torch.cluster.Router``). The migration surface (``migratable``,
+``extract_request``, ``admit_migrated``, ``write_blocks``,
+``release_migrated``) moves a live request between engines with its KV
+blocks: the payload is a copy of its blocks on the card, written into the
+destination's pool in place, so the destination's CUDA graphs replay on.
+``reshard`` (and ``schedule_reshard``) swaps the engine onto another
+layout of the same ranks between iterations, validate -> plan -> mutate,
+re-pouring the live requests' blocks through one all-gather over the
+world.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import time
 from typing import Dict, List, Optional
@@ -133,10 +146,12 @@ from repro_torch.ft import (FaultPlan, SnapshotError, StragglerWatchdog,
                             corrupt_snapshot)
 from repro_torch.models.model import Model
 from repro_torch.obs import NullObs, Observability
+from repro_torch.parallel import Groups, Layout, Shard, layout_delta
+from repro_torch.parallel.collectives import all_gather_if
 from repro_torch.spec import SpecConfig, SuffixDrafter
 from .api import (BlockLedger, EngineStats, FaultConfig, ObsConfig,
                   PrefixConfig, PrefixStats)
-from .deployment import Deployment
+from .deployment import Deployment, ReshardError, ReshardReport
 from .request import FinishReason, Request
 
 _EMPTY_STEP = {"prefill_tokens": 0, "decode_tokens": 0, "ready_decodes": 0,
@@ -227,7 +242,10 @@ class ShiftEngine:
         cfg = cfg or EngineConfig()
         if cfg.shed_policy not in ("reject-newest", "evict-longest-queued"):
             raise ValueError(f"unknown shed_policy {cfg.shed_policy!r}")
-        self.model = model
+        # this engine's own views of the models: the weights are shared
+        # with every other engine built on them, the caches are not
+        model = model.view()
+        shift = shift.view() if shift is not None else None
         self.mcfg = model.cfg
         self.cfg = cfg
         self.policy = policy or ThresholdPolicy(cfg.threshold)
@@ -309,8 +327,8 @@ class ShiftEngine:
             row_blocks = cfg.num_blocks or self.slots_per_row * nmax + 1
             self.kv = PagedKVCache(row_blocks, cfg.block_size, cfg.max_slots,
                                    nmax, dp=dp)
-            # the cache this engine steps, kept for its snapshots (a later
-            # engine on the same model initialises another)
+            # the cache this engine steps, kept to tell a re-initialised
+            # one from it
             self._cache = model.init_paged_cache(row_blocks, cfg.block_size)
             if shift is not None:
                 shift.adopt_paged_cache(model)
@@ -365,6 +383,10 @@ class ShiftEngine:
         # _log_step and _choose and folded into one record in step()
         self._step_stats: Optional[dict] = None
         self._step_audit: Optional[dict] = None
+        # elastic resharding: a swap scheduled ahead (admissions pause
+        # while it counts down) and the report of the last scheduled one
+        self._pending_reshard: Optional[dict] = None
+        self.last_reshard_report: Optional[ReshardReport] = None
         # the base and shift views and their step tables, built over the
         # caches initialised above
         self.deploy = Deployment.build(model, shift or model,
@@ -372,12 +394,25 @@ class ShiftEngine:
 
     # ------------------------------------------- deployment (read-through)
     @property
+    def model(self) -> Model:
+        """This engine's base view (its cache is the engine's own)."""
+        return self.deploy.base
+
+    @property
     def base(self) -> Model:
         return self.deploy.base
 
     @property
     def shift(self) -> Model:
         return self.deploy.shift
+
+    @property
+    def p_base(self):
+        return self.deploy.p_base
+
+    @property
+    def p_shift(self):
+        return self.deploy.p_shift
 
     @property
     def dp(self) -> int:
@@ -727,7 +762,12 @@ class ShiftEngine:
         is mapped into the slot's table, so prefill starts at the first
         uncached token. One exception to FCFS: a request waiting for an
         in-flight same-prefix prefill is skipped, not blocking (its wait is
-        bounded by the writer's progress)."""
+        bounded by the writer's progress). Admissions hold while a
+        scheduled reshard counts down."""
+        if self._pending_reshard is not None:
+            # the swap then re-pours only already-running requests' blocks
+            self._pending_reshard["paused"] += 1
+            return
         if not self.paged:
             for req in list(self.queue):
                 if req.slot is not None or not self._admissible(req):
@@ -1338,6 +1378,17 @@ class ShiftEngine:
         # fault preempts before admission refills the failed row's slots)
         self._expire_deadlines()
         self._arm_step_faults()
+        if self._pending_reshard is not None \
+                and self._pending_reshard["countdown"] <= 0:
+            # lead steps served with admissions paused; execute the swap
+            # now, before this step admits into the old layout
+            p, self._pending_reshard = self._pending_reshard, None
+            rep = self.reshard(p["layout"], groups=p["groups"],
+                               row_blocks=p["row_blocks"])
+            self.last_reshard_report = dataclasses.replace(
+                rep, admission_paused_steps=p["paused"])
+        elif self._pending_reshard is not None:
+            self._pending_reshard["countdown"] -= 1
         self._admit()
         if self.mixed:
             # fused prefill+decode batch: no iteration-granularity
@@ -1497,8 +1548,8 @@ class ShiftEngine:
                 raise SnapshotError(
                     f"snapshot was captured under layout signature "
                     f"{tuple(snap['layout'])} (dp, sp, tp, ep); this "
-                    f"engine's deployment is {sig}: restore into a "
-                    "matching deployment")
+                    f"engine's deployment is {sig} — reshard first, or "
+                    "restore into a matching deployment")
         if self.paged:
             if "kv" not in snap:
                 raise SnapshotError("paged engine restoring a snapshot "
@@ -1566,13 +1617,13 @@ class ShiftEngine:
         tables' CUDA graphs, which hold its addresses, replay on. As in the
         reference, the in-flight prefill registry is not restored and the
         drafter starts empty; the pending COW copies and the stashed step
-        facts go too. Raises ``RuntimeError`` if a later engine on the same
-        model has initialised the model's cache anew (this engine's steps
-        would no longer run on the cache it restores)."""
+        facts go too. Raises ``RuntimeError`` if the engine's cache was
+        initialised anew behind it (``init_paged_cache`` on its view: its
+        graphs would no longer step the cache it restores)."""
         if self._cache is not (self.model.pool if self.paged
                                else self.model.cache):
-            raise RuntimeError("the model's cache was re-initialised by "
-                               "another engine; restore into that engine")
+            raise RuntimeError("the engine's cache was re-initialised "
+                               "behind it; build a new engine")
         self.validate_snapshot(snap)
         for name, t in self._cache_tensors().items():
             t.copy_(snap["cache"][name])
@@ -1684,3 +1735,419 @@ class ShiftEngine:
             for idx in self.prefix_rows:
                 idx.evict(len(idx))
         return self
+
+    # -------------------------------------------- live KV migration (cluster)
+    # Block-granular request migration between replicas: extract (read-only)
+    # -> admit on the destination -> write the block payload -> release on
+    # the source (decrement-not-free). The Router drives the sequence and
+    # only releases after the destination holds the data, so a failed
+    # migration aborts with the source untouched.
+    def migratable(self) -> List[int]:
+        """Rids of requests a Router may migrate off this engine now:
+        active, prefill-complete, mid-decode, least recently batched first
+        (their streams are coldest). A request inside a retry backoff is
+        included: its remaining backoff travels step-relative."""
+        if not self.paged:
+            return []
+        return [r.rid for r in sorted(self.active,
+                                      key=lambda r: (r.last_used, r.rid))
+                if self._prefill_done(r) and not r.done]
+
+    def _take_blocks(self, row: int, local: List[int]) -> Optional[dict]:
+        """This rank's K and V of ``row``'s blocks ``local`` (row-local ids),
+        ``{"k", "v": [L, n, bs, kv_per_rank, Dh]}``: a copy on the pool's
+        device (``index_select``), or None when the row's pool lies on
+        other ranks."""
+        if row != self.model.shard.dp_rank:
+            return None
+        pool = self.model.pool
+        ids = torch.as_tensor(local, dtype=torch.long, device=pool.k.device)
+        return {"k": pool.k.index_select(1, ids),
+                "v": pool.v.index_select(1, ids)}
+
+    def extract_request(self, rid: int) -> Optional[dict]:
+        """Read-only export of a live request for migration: its state dict
+        and the payload of its committed KV blocks (``_take_blocks``: torch
+        tensors on the pool's device, gathered after the pending COW copies
+        landed, so the bytes are final; above world size 1 this rank's
+        shard). None when ``rid`` is not migratable now. The source is not
+        touched: ``release_migrated`` comes after the destination holds the
+        data."""
+        req = self._requests.get(rid)
+        if req is None or req.slot is None or not self.paged \
+                or not self._prefill_done(req) or req.done:
+            return None
+        self._apply_copies()            # pending COW lands before the read
+        row = self.kv.row_of(req.slot)
+        local = self.kv.seq_blocks(req.slot)
+        state = {"rid": req.rid, "prompt": list(req.prompt),
+                 "generated": list(req.generated),
+                 "max_new_tokens": req.max_new_tokens,
+                 "arrival": req.arrival, "deadline": req.deadline,
+                 "prefilled": req.prefilled,
+                 "cached_tokens": req.cached_tokens,
+                 "first_token_time": req.first_token_time,
+                 "num_preemptions": req.num_preemptions,
+                 "fail_count": req.fail_count, "retry_at": req.retry_at,
+                 # backoff travels step-relative: destination step clocks
+                 # are unrelated to the source's
+                 "retry_remaining": max(0, req.retry_at - self.step_count)}
+        return {"state": state, "n_blocks": len(local),
+                "block_size": self.cfg.block_size,
+                "src_blocks": [int(self.kv.global_block(row, b))
+                               for b in local],
+                "payload": self._take_blocks(row, local)}
+
+    def admit_migrated(self, state: dict, n_blocks: int) -> Optional[list]:
+        """Allocate ``n_blocks`` fresh blocks and register the migrated
+        request in a free slot of the row with the most free blocks.
+        Returns the pool-global destination block ids to write the payload
+        into, or None when no row has a free slot and the blocks (the
+        migration aborts; the source was never touched)."""
+        if not self.paged or state["rid"] in self._requests:
+            return None
+        need_tokens = n_blocks * self.cfg.block_size
+        spr = self.slots_per_row
+        for row in sorted(range(self.dp),
+                          key=lambda r: (-self.kv.row_free_blocks(r), r)):
+            slot = next((s for s in range(row * spr, (row + 1) * spr)
+                         if self.slot_req[s] is None), None)
+            if slot is None:
+                continue
+            if not self.kv.can_allocate(need_tokens, cached_blocks=[],
+                                        row=row):
+                continue
+            if not self.kv.ensure(slot, need_tokens):
+                continue
+            req = Request(state["rid"], list(state["prompt"]),
+                          max_new_tokens=state["max_new_tokens"],
+                          arrival=state["arrival"],
+                          deadline=state["deadline"])
+            req.generated = list(state["generated"])
+            req.prefilled = state["prefilled"]
+            req.cached_tokens = state["cached_tokens"]
+            req.first_token_time = state["first_token_time"]
+            req.num_preemptions = state["num_preemptions"]
+            req.fail_count = state["fail_count"]
+            # re-base a mid-backoff request onto this engine's step clock
+            if "retry_remaining" in state:
+                req.retry_at = self.step_count + state["retry_remaining"]
+            else:
+                req.retry_at = state["retry_at"]
+            req.row, req.slot = row, slot
+            req.last_used = self.step_count
+            self.slot_req[slot] = req
+            self.lens[slot] = req.prefilled
+            self.queue.append(req)
+            self._requests[req.rid] = req
+            self.obs.inc("migration_blocks_total", n_blocks)
+            self.obs.emit("migrate_in", step=self.step_count, rid=req.rid,
+                          row=row, slot=slot, blocks=n_blocks,
+                          tokens=req.prefilled)
+            local = self.kv.seq_blocks(slot)
+            return [int(self.kv.global_block(row, b)) for b in local]
+        return None
+
+    @torch.no_grad()
+    def write_blocks(self, gids: list, payload: Optional[dict]):
+        """Migration data plane: write ``payload`` (``extract_request``'s
+        ``{"k", "v"}``) into this engine's pool at the pool-global ids
+        ``gids`` of one row, IN PLACE (``index_copy_`` along the block axis),
+        so that the step tables' CUDA graphs keep their addresses. A rank
+        whose row is not the blocks' row writes nothing; the blocks' row
+        must get its own shard."""
+        bpr = self.kv.num_blocks_per_row
+        rows = {g // bpr for g in gids}
+        if len(rows) != 1:
+            raise ValueError(f"blocks {gids} span rows {sorted(rows)}")
+        row = rows.pop()
+        if row != self.model.shard.dp_rank:
+            return
+        if payload is None:
+            raise RuntimeError(f"no payload for row {row}'s blocks on rank "
+                               f"{self.model.shard.rank}: the source row's "
+                               "ranks hold it")
+        pool = self.model.pool
+        ids = torch.as_tensor([g - row * bpr for g in gids],
+                              dtype=torch.long, device=pool.k.device)
+        for t, data in ((pool.k, payload["k"]), (pool.v, payload["v"])):
+            t.index_copy_(1, ids, data.to(device=t.device, dtype=t.dtype))
+
+    def release_migrated(self, rid: int):
+        """Drop a migrated-away request: slot and blocks go through
+        ``free_seq`` (decrement-not-free: blocks a prefix index pins
+        survive), the rid leaves the registry, and no FinishReason is
+        recorded (the request lives on at the destination; ``migrate_out``
+        is its lifecycle event)."""
+        req = self._requests.pop(rid, None)
+        if req is None:
+            return
+        n_out = len(req.generated)
+        row = req.row
+        if req.slot is not None:
+            self._release_slot(req)
+        self.queue = [q for q in self.queue if q.rid != rid]
+        self.obs.inc("requests_migrated_total")
+        self.obs.emit("migrate_out", step=self.step_count, rid=rid,
+                      row=row, n_out=n_out)
+
+    # --------------------------------------------------- elastic resharding
+    def schedule_reshard(self, layout: Layout, groups: Optional[Groups] = None,
+                         row_blocks: int = 0, lead_steps: int = 1):
+        """Plan a reshard ``lead_steps`` iterations ahead: admissions pause
+        at once (so the swap re-pours only the blocks of already-running
+        requests) and the swap runs at the start of the target step; its
+        report, with ``admission_paused_steps``, lands in
+        ``last_reshard_report``. ``lead_steps=0`` reshards on the next
+        step with no paused admission. Every rank schedules the same."""
+        if self._pending_reshard is not None:
+            raise ReshardError("a reshard is already scheduled")
+        if lead_steps < 0:
+            raise ValueError(f"lead_steps must be >= 0, got {lead_steps}")
+        self._pending_reshard = {"layout": layout, "groups": groups,
+                                 "row_blocks": row_blocks,
+                                 "countdown": lead_steps, "paused": 0}
+        self.obs.emit("reshard_scheduled", step=self.step_count,
+                      lead_steps=lead_steps)
+
+    def _validate_layout(self, layout: Layout, groups: Optional[Groups]):
+        """The port's own refusals, before anything changes: a reshard
+        keeps the world size (each rank is a process), runs the mixed
+        iteration above a model group of one, and needs the new grid's
+        ``groups`` above world size 1."""
+        old = self.deploy.layout
+        if layout.world != old.world:
+            raise ReshardError(
+                f"layout {layout.describe()} runs on {layout.world} ranks, "
+                f"this deployment ({old.describe()}) on {old.world}: a "
+                "reshard keeps the world size (its ranks are processes)")
+        if layout.G > 1 and not self.mixed:
+            raise ReshardError(
+                f"{layout.describe()}: above a model group of one the engine "
+                "runs the mixed paged iteration only")
+        try:
+            Shard.of(layout, groups)
+        except ValueError as e:
+            raise ReshardError(f"{layout.describe()}: {e}") from e
+
+    def reshard(self, layout: Layout, groups: Optional[Groups] = None,
+                row_blocks: int = 0) -> ReshardReport:
+        """Swap the engine onto another layout of the same ranks between
+        iterations, as the reference's ``reshard``: validate -> plan ->
+        mutate, so a raised :class:`ReshardError` leaves the engine serving
+        on its current deployment. ``groups`` are the new grid's process
+        groups (every rank builds them, in the same order), in place of the
+        reference's ``mesh``; a layout of another world size raises.
+
+        The mutation (1) flushes pending COW copies and takes every
+        slot-holder's committed blocks from this rank's pool (its row, its
+        kv slots), (2) brings every holder's blocks of all kv heads to
+        every rank with one all-gather over the world (traffic kind
+        ``reshard_gather``), (3) swaps the :class:`Deployment` (weights
+        through ``ft.elastic.reshard_params``, bitwise; new step tables,
+        eager above world size 1), (4) rebuilds the paged pool in the new
+        dp-row geometry (``row_blocks`` per row; 0 = the same usable
+        capacity) and (5) re-pours the holders: the reference's
+        deterministic best-fit placement into the new rows, each rank
+        writing its new row's blocks in its new kv slots, recorded as the
+        reference's typed :class:`TransferOp` plan (replica-local).
+        Queued non-holders are routed anew; the prefix indexes restart
+        empty (the dropped pins are reported); a retained snapshot of the
+        old layout fails ``validate_snapshot``.
+
+        Block bytes move verbatim, so mid-decode streams resume as they
+        were on the dp-row change; changing tp changes the order of the
+        logits' sum, which can change a bf16 stream."""
+        from repro_torch.cluster.migration import build_transfer_plan
+        if not self.paged:
+            raise ReshardError(
+                "resharding requires the paged KV cache "
+                f"({self.paged_disabled_reason})")
+        self._validate_layout(layout, groups)
+        delta = layout_delta(self.deploy.layout, layout)
+        new_dp = max(layout.dp, 1)
+        if self.cfg.max_slots % new_dp != 0:
+            raise ReshardError(
+                f"max_slots={self.cfg.max_slots} not divisible by the new "
+                f"dp={new_dp} — slots partition into dp rows")
+        if delta.kind == "same":
+            return ReshardReport(delta, 0, 0, 0)
+        old_dp = self.dp
+        old_rb = self.kv.num_blocks_per_row
+        bs = self.cfg.block_size
+        nmax = self.kv.max_blocks_per_seq
+        # default: preserve total usable (non-null) block capacity
+        new_rb = row_blocks or (old_dp * (old_rb - 1)) // new_dp + 1
+        new_spr = self.cfg.max_slots // new_dp
+        # ---------------- validate + plan (read-only; ReshardError-safe)
+        holders = [r for r in self.slot_req if r is not None]
+        for q in self.queue:
+            worst = max(q.total_tokens + 1,
+                        len(q.prompt) + q.max_new_tokens)
+            if blocks_for_tokens(worst, bs) > new_rb - 1:
+                raise ReshardError(
+                    f"request {q.rid} needs {blocks_for_tokens(worst, bs)} "
+                    f"blocks; each new dp row's pool has {new_rb - 1}")
+        free = [new_rb - 1] * new_dp
+        slots_left = [new_spr] * new_dp
+        placement = {}                     # rid -> (row, slot, n_blocks)
+        for r in sorted(holders,
+                        key=lambda r: (-int(self.kv.n_mapped[r.slot]),
+                                       r.rid)):
+            need = int(self.kv.n_mapped[r.slot])
+            fits = [ri for ri in range(new_dp)
+                    if slots_left[ri] > 0 and free[ri] >= need]
+            if not fits:
+                raise ReshardError(
+                    f"cannot place request {r.rid} ({need} blocks) into "
+                    f"layout {layout.describe()} — shrink exceeds "
+                    "per-row capacity")
+            row = max(fits, key=lambda ri: (free[ri], -ri))
+            slot = (row + 1) * new_spr - slots_left[row]
+            slots_left[row] -= 1
+            free[row] -= need
+            placement[r.rid] = (row, slot, need)
+        blocks_moved = sum(n for _, _, n in placement.values())
+        self.obs.emit("reshard_begin", step=self.step_count,
+                      old=self.deploy.layout.describe(),
+                      new=layout.describe(), delta_kind=delta.kind,
+                      requests=len(holders), blocks=blocks_moved)
+        # ---------------- export: every holder's blocks, all kv heads
+        self._apply_copies()               # pending COW lands first
+        exports = {}
+        for r in holders:
+            row = self.kv.row_of(r.slot)
+            exports[r.rid] = {
+                "state": {"rid": r.rid, "prefilled": r.prefilled},
+                "block_size": bs,
+                "src_blocks": [int(self.kv.global_block(row, b))
+                               for b in self.kv.seq_blocks(r.slot)]}
+        heads = self._gather_holders(holders, groups)
+        dropped_pins = sum(len(idx.blocks())
+                           for idx in (self.prefix_rows or []))
+        # ---------------- swap the deployment + pool geometry
+        old = self.deploy.base
+        new_base = Model(self.mcfg, device=old.device, dtype=old.dtype,
+                         lay=layout, groups=groups)
+        self._cache = new_base.init_paged_cache(new_rb, bs)
+        new_shift = new_base
+        if layout.to_shift() != layout:
+            new_shift = Model(self.mcfg, device=old.device, dtype=old.dtype,
+                              lay=layout.to_shift(), groups=groups)
+            new_shift.adopt_paged_cache(new_base)
+        self.deploy = self.deploy.reshard(new_base, new_shift)
+        self.kv = PagedKVCache(new_rb, bs, self.cfg.max_slots, nmax,
+                               dp=new_dp)
+        self.slots_per_row = new_spr
+        self.slot_req = [None] * self.cfg.max_slots
+        self.lens[:] = 0
+        self._bt_host = np.zeros((self.cfg.max_slots, nmax), np.int32)
+        self._step_copies = []
+        self._inflight = [dict() for _ in range(new_dp)]
+        if self.prefix_rows is not None:
+            # fresh (empty) per-row indexes: cached prefixes do not survive
+            # a pool re-layout; traffic rebuilds them as it re-commits
+            self.prefix_rows = [PrefixIndex(bs, self.kv.allocators[r])
+                                for r in range(new_dp)]
+            self.kv.prefix_indices = list(self.prefix_rows)
+            self._attach_prefix_observers()
+        # ---------------- re-pour the holders; re-route everyone else
+        rep = self.replica if self.replica is not None else 0
+        plan = []
+        for q in self.queue:
+            q.inflight_keys = []
+            if q.rid not in placement:
+                q.row = None               # re-route under the new geometry
+        for r in holders:
+            row, slot, need = placement[r.rid]
+            r.row, r.slot = row, slot
+            r.pc_blocks, r.pc_parent = 0, None
+            self.slot_req[slot] = r
+            ok = self.kv.ensure(slot, need * bs)
+            assert ok, "planned placement must allocate"
+            self.lens[slot] = r.prefilled
+            dst = [int(self.kv.global_block(row, b))
+                   for b in self.kv.seq_blocks(slot)]
+            self.write_blocks(dst, heads(r))
+            plan.append(build_transfer_plan(exports[r.rid], dst, rep, rep))
+        self._refresh_block_tables()
+        self.obs.inc("reshards_total")
+        self.obs.inc("reshard_blocks_moved_total", blocks_moved)
+        self.obs.emit("reshard_end", step=self.step_count,
+                      old=f"{delta.old}", new=f"{delta.new}",
+                      delta_kind=delta.kind, requests=len(holders),
+                      blocks=blocks_moved, dropped_pins=dropped_pins)
+        return ReshardReport(delta, len(holders), blocks_moved,
+                             dropped_pins, tuple(plan))
+
+    def _gather_holders(self, holders: List[Request],
+                        groups: Optional[Groups]):
+        """Step (2) of ``reshard``: every rank takes its row's holders'
+        blocks (its kv slots), padded to the largest row's block count, and
+        one all-gather over the world brings every rank's to every rank.
+        Returns ``heads(r)``: holder ``r``'s K and V blocks in the NEW
+        layout's kv slots of this rank, rebuilt from the old ranks' slots
+        by the head plans (pad slots zero), to be called once the new
+        deployment is in place."""
+        old = self.deploy.base
+        lay, plan = old.lay, old.plan
+        rows = {}                          # old row -> [(rid, n_blocks)]
+        for r in holders:
+            rows.setdefault(self.kv.row_of(r.slot), []).append(
+                (r.rid, int(self.kv.n_mapped[r.slot])))
+        width = max((sum(n for _, n in v) for v in rows.values()), default=0)
+        if width == 0:
+            return lambda r: None          # no holder: nothing to move
+        pool = old.pool
+        mine = rows.get(old.shard.dp_rank, [])
+        by_rid = {r.rid: r for r in holders}
+        local = [b for rid, _ in mine
+                 for b in self.kv.seq_blocks(by_rid[rid].slot)]
+        shape = (2, pool.k.shape[0], width) + tuple(pool.k.shape[2:])
+        buf = pool.k.new_zeros(shape)
+        if local:
+            taken = self._take_blocks(old.shard.dp_rank, local)
+            buf[0, :, :len(local)] = taken["k"]
+            buf[1, :, :len(local)] = taken["v"]
+        world = groups.all_ranks() if groups is not None else None
+        parts = all_gather_if(buf, world, "reshard_gather").chunk(lay.world)
+        # the old layout's pool slot s holds original kv head
+        # kv_slot_to_orig[s * h_kv_pad // kv_slots_total]; take each head
+        # from the first slot (and rank) that holds it
+        where = {}
+        for s in range(plan.kv_slots_total):
+            h = plan.kv_slot_to_orig[s * plan.h_kv_pad // plan.kv_slots_total]
+            if h >= 0 and h not in where:
+                where[h] = divmod(s, plan.kv_per_rank)  # (model rank, slot)
+        offsets = {}
+        for row, members in rows.items():
+            off = 0
+            for rid, n in members:
+                offsets[rid] = (row, off, n)
+                off += n
+
+        def heads(r: Request) -> Optional[dict]:
+            new = self.deploy.base
+            if r.row != new.shard.dp_rank:
+                return None
+            npl = new.plan
+            g_new = new.shard.model_rank
+            row, off, n = offsets[r.rid]
+            picks = []
+            for c in range(npl.kv_per_rank):
+                s = g_new * npl.kv_per_rank + c
+                h = npl.kv_slot_to_orig[s * npl.h_kv_pad
+                                        // npl.kv_slots_total]
+                if h < 0:
+                    picks.append(None)
+                    continue
+                g, c_old = where[h]
+                src = next(row * lay.G + p for p in range(lay.G)
+                           if lay.model_rank(row * lay.G + p) == g)
+                picks.append(parts[src][:, :, off:off + n, :, c_old])
+            zero = torch.zeros_like(parts[0][:, :, :n, :, 0])
+            kv = torch.stack([zero if p is None else p for p in picks],
+                             dim=4)
+            return {"k": kv[0], "v": kv[1]}
+
+        return heads

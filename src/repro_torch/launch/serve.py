@@ -58,6 +58,22 @@ equal those without it, except for requests a fault quarantines (reason
 (the summary prints how many snapshots it holds). ``--metrics-refresh-s
 S`` (with ``--metrics-out``) rewrites the Prometheus text every S seconds
 while serving (``serve_loop``), not only at exit.
+
+``build_cluster(arch, replicas, routing=, rebalance_every=, faults=,
+**kw)`` builds N engine replicas over ONE weight set behind a
+``repro_torch.cluster.Router`` (each replica steps a pool of its own; a
+``faults`` plan applies to replica 0 only, as in the reference). The CLI's
+``--replicas N`` serves the workload through it under ``--routing``
+(``affinity``, ``round-robin``, ``least-loaded``) and prints the
+reference's cluster summary; ``--metrics-out`` then writes the Router's
+merged dump. The replicas run in one process at world size 1.
+
+``--reshard-demo`` is the reference's elastic resharding demo on two
+ranks (``run_ranks`` over ``--backend``): a (2, 1, 1) engine reshards
+mid-decode to (1, 1, 2) (dp merge, wider TP) and back, and every stream
+must equal a static (2, 1, 1) run's; it prints ``PASS`` and exits 0, or
+``FAIL`` and exits 1. The port's reshard keeps the world size (its ranks
+are processes), so both layouts run on the same two ranks.
 """
 from __future__ import annotations
 
@@ -70,6 +86,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.cluster import ROUTING_POLICIES, Router
 from repro_torch.configs import get_config
 from repro_torch.core.policy import (DEFAULT_SHIFT_THRESHOLD, AdaptivePolicy,
                                      ThresholdPolicy)
@@ -91,31 +108,55 @@ WEIGHT_SEED = 0
 DP_TIMEOUT_S = 1800                # bounds a --dp job's collectives and wall
 
 
-def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
-                 dtype=torch.bfloat16, slots=8, s_max=256, chunk=64,
-                 threshold=DEFAULT_SHIFT_THRESHOLD, adaptive=False,
-                 block_size=16, num_blocks=0, paged=None, mixed=None,
-                 prefix_cache=False, spec_k=0, spec_ngram=3,
-                 deadline_s=None, max_queue=0, shed_policy="reject-newest",
-                 auto_snapshot_every=0, faults=None, dp=1, sp=1, tp=1,
-                 groups: Groups = None) -> ShiftEngine:
-    """Model with random weights (``torch.Generator`` seeded 0) and the
-    engine with the reference CLI's settings by default: 8 slots, s_max
-    256, chunk 64 (``slots``, ``s_max``, ``chunk``, ``threshold``);
+def build_engine(arch: str = "qwen3-8b", *, faults=None,
+                 **kw) -> ShiftEngine:
+    """``build_stack``'s model with random weights (``torch.Generator`` seeded
+    0) and the engine with the reference CLI's settings by default: 8 slots,
+    s_max 256, chunk 64 (``slots``, ``s_max``, ``chunk``, ``threshold``);
     ``paged``/``mixed`` go to ``EngineConfig`` (None: paged and mixed when
     every layer pages, else the serialized dense engine), and so do
     ``prefix_cache`` (``PrefixConfig``), ``spec_k``/``spec_ngram``
     (``SpecConfig(k, ngram_max)``) and ``deadline_s``/``max_queue``/
-    ``shed_policy``/``auto_snapshot_every`` (``FaultConfig``); ``faults``
-    (a ``FaultPlan``) goes to the engine. ``adaptive`` gives the engine
-    ``adaptive_policy(cfg, sp, tp)`` instead of the threshold policy.
-    With ``dp·sp·tp`` > 1 (the counterpart of the reference's
-    ``_build_stack(dp=, sp=, tp=, mesh=)``): this rank's base model on
-    ``Layout(dp, sp, tp)`` and, with ``sp·tp`` > 1, a shift model on its
-    ``to_shift()``, both drawn from the same seed (every dp row the same
-    shards), over the ranks' ``groups``; ``num_blocks`` is then per dp
-    row. The model checks the device before
-    it allocates anything."""
+    ``shed_policy``/``auto_snapshot_every`` (``FaultConfig``); ``faults`` (a
+    ``FaultPlan``) goes to the engine. ``adaptive`` gives the engine
+    ``adaptive_policy(cfg, sp, tp)`` instead of the threshold policy. With
+    ``dp·sp·tp`` > 1 (the counterpart of the reference's ``_build_stack(dp=,
+    sp=, tp=, mesh=)``): this rank's base model on ``Layout(dp, sp, tp)`` and,
+    with ``sp·tp`` > 1, a shift model on its ``to_shift()``, both drawn from
+    the same seed (every dp row the same shards), over the ranks' ``groups``;
+    ``num_blocks`` is then per dp row. The model checks the device before it
+    allocates anything."""
+    models, ecfg, policy = build_stack(arch, **kw)
+    return ShiftEngine(models[0], ecfg,
+                       shift=models[1] if len(models) > 1 else None,
+                       policy=policy, faults=faults)
+
+
+def build_cluster(arch: str, replicas: int, *, routing="affinity",
+                  rebalance_every=8, faults=None, **kw) -> Router:
+    """N engine replicas over ONE weight set (``build_stack(arch, **kw)``,
+    the ``build_engine`` settings) behind a ``Router``: every replica is a
+    ``ShiftEngine`` on the same models, with a pool and step tables of its
+    own. ``faults`` (a ``FaultPlan``) applies to replica 0 only: the
+    migration drills need a healthy destination."""
+    models, ecfg, policy = build_stack(arch, **kw)
+    engines = [ShiftEngine(models[0], ecfg,
+                           shift=models[1] if len(models) > 1 else None,
+                           policy=policy, faults=faults if i == 0 else None)
+               for i in range(replicas)]
+    return Router(engines, routing=routing, rebalance_every=rebalance_every)
+
+
+def build_stack(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
+                dtype=torch.bfloat16, slots=8, s_max=256, chunk=64,
+                threshold=DEFAULT_SHIFT_THRESHOLD, adaptive=False,
+                block_size=16, num_blocks=0, paged=None, mixed=None,
+                prefix_cache=False, spec_k=0, spec_ngram=3,
+                deadline_s=None, max_queue=0, shed_policy="reject-newest",
+                auto_snapshot_every=0, dp=1, sp=1, tp=1,
+                groups: Groups = None):
+    """``build_engine``'s models (the base, and the shift one with
+    ``sp·tp`` > 1), engine config and policy, for engines to share."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -138,9 +179,7 @@ def build_engine(arch: str = "qwen3-8b", *, reduced=False, device="cuda",
                         spec=SpecConfig(k=spec_k, ngram_max=spec_ngram))
     policy = (adaptive_policy(cfg, sp, tp) if adaptive
               else ThresholdPolicy(threshold))
-    return ShiftEngine(models[0], ecfg,
-                       shift=models[1] if len(models) > 1 else None,
-                       policy=policy, faults=faults)
+    return models, ecfg, policy
 
 
 def adaptive_policy(cfg, sp=1, tp=1) -> AdaptivePolicy:
@@ -162,28 +201,43 @@ def workload(n_requests: int, max_new: int, shared_prefix: int = 0):
             for i in range(n_requests)]
 
 
+def _is_idle(client) -> bool:
+    if isinstance(client, Router):
+        return all(st.queue_depth == 0 and st.active == 0
+                   for st in (e.stats() for e in client.engines))
+    return not client.queue and not client.active
+
+
 def serve_loop(client, *, refresh_s=0.0, prom_path=None, max_steps=10000,
                now=time.monotonic):
-    """Drive ``client`` to idle as ``run_until_idle`` does, with a live
-    metrics surface: with ``refresh_s`` > 0 and a ``prom_path`` the
-    Prometheus text is rewritten every ``refresh_s`` seconds of serving
-    (by ``now``, injectable) and once at exit. Returns the number of
-    writes (0 without a refresh)."""
-    writer = client.obs.write_prometheus
+    """Drive ``client`` (an engine or a ``Router``) to idle as
+    ``run_until_idle`` does, with a live metrics surface: with
+    ``refresh_s`` > 0 and a ``prom_path`` the Prometheus text is rewritten
+    every ``refresh_s`` seconds of serving (by ``now``, injectable) and
+    once at exit; a Router is polled every iteration (its exactly-once
+    delivery check). Returns the number of writes (0 without a
+    refresh)."""
+    cluster = isinstance(client, Router)
+    writer = client.write_prometheus if cluster \
+        else client.obs.write_prometheus
     if not (refresh_s and prom_path):
         client.run_until_idle(max_steps)
         return 0
     n_refresh = 0
     last = now()
     for _ in range(max_steps):
+        if cluster:
+            client.poll()
         progressed = client.step()
         t = now()
         if t - last >= refresh_s:
             writer(prom_path)
             last = t
             n_refresh += 1
-        if not progressed and not client.queue and not client.active:
+        if not progressed and _is_idle(client):
             break
+    if cluster:
+        client.poll()
     writer(prom_path)                  # the final state is always current
     return n_refresh + 1
 
@@ -198,7 +252,18 @@ def fault_plan(args):
                        p_route=args.p_fault, dp=args.dp)
 
 
-def print_summary(eng: ShiftEngine):
+def print_summary(eng: ShiftEngine, label: str = "", launches: bool = True):
+    """The engine's summary, each line after ``label`` (a replica's
+    ``[replica i] ``); ``launches`` prints the process-wide kernel launch
+    counters too."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _summary(eng, launches)
+    for line in out.getvalue().splitlines():
+        print(label + line)
+
+
+def _summary(eng: ShiftEngine, launches: bool):
     st = eng.stats()
     cc = st.config_counts
     print(f"iteration: {'mixed' if eng.mixed else 'serialized'}")
@@ -258,6 +323,11 @@ def print_summary(eng: ShiftEngine):
     else:
         how = "eager steps on the CPU"
     print(f"deployment: {d.layout.describe()}, {how}")
+    if launches:
+        print_launches()
+
+
+def print_launches():
     print("kernel launches: " + " ".join(
         f"{name}={n}" for name, n in launch_counts().items()))
 
@@ -301,17 +371,164 @@ def serve(eng: ShiftEngine, args, write=True):
     return reqs
 
 
+def serve_cluster(router: Router, args):
+    """Serve the CLI's workload through ``router`` and print the
+    reference's cluster report: each request's tokens, outcome, TTFT and
+    replica (read through the facade: a migrated request lives on in its
+    destination's copy), each replica's summary, the cluster line and the
+    observability report of the merged dump; ``--metrics-out`` and
+    ``--trace-out`` get the merged dump. Returns the requests."""
+    reqs = workload(args.requests, args.max_new, args.shared_prefix)
+    for r in reqs:
+        router.submit(r)
+    prom = (os.path.splitext(args.metrics_out)[0] + ".prom"
+            if args.metrics_out else None)
+    t0 = time.monotonic()
+    n_refresh = serve_loop(router, refresh_s=args.metrics_refresh_s,
+                           prom_path=prom)
+    dt = time.monotonic() - t0
+    if n_refresh:
+        print(f"live metrics: {prom} refreshed {n_refresh}x (every "
+              f"{args.metrics_refresh_s}s)")
+    for r in reqs:
+        live = router.request(r.rid) or r
+        ttft = (live.first_token_time - live.arrival) \
+            if live.first_token_time else -1
+        out = router.stream(r.rid)
+        print(f"req {r.rid}: {len(out)} tokens, "
+              f"reason={live.finish_reason}, ttft={ttft*1e3:.0f}ms, "
+              f"replica={router.owner(r.rid)}, out={out[:8]}...")
+    n_tok = sum(len(router.stream(r.rid)) for r in reqs)
+    print(f"{n_tok} tokens in {dt:.2f}s")
+    cs = router.stats()
+    for i, eng in enumerate(router.engines):
+        print_summary(eng, label=f"[replica {i}] ", launches=False)
+    print(f"cluster: {cs.migrations} migrations "
+          f"({cs.migrated_blocks} KV blocks moved), "
+          f"routing={cs.routing}, {cs.steps} router steps")
+    print_launches()
+    dump = router.dump()
+    print(format_report(build_report(dump)))
+    if args.metrics_out:
+        router.write_json(args.metrics_out)
+        router.write_prometheus(prom)
+        print(f"metrics written: {args.metrics_out} (JSON), {prom} "
+              "(Prometheus text)")
+    if args.trace_out:
+        write_chrome_trace(args.trace_out, dump)
+        print(f"chrome trace written: {args.trace_out} "
+              f"({len(dump['events'])} events, {len(dump['steps'])} steps)")
+    return reqs
+
+
+def _stack_kw(args, groups=None) -> dict:
+    return dict(reduced=args.reduced, device=args.device,
+                dtype=DTYPES[args.dtype], adaptive=args.adaptive,
+                block_size=args.block_size, num_blocks=args.num_blocks,
+                prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                spec_ngram=args.spec_ngram, deadline_s=args.deadline_s,
+                max_queue=args.max_queue, shed_policy=args.shed_policy,
+                auto_snapshot_every=args.auto_snapshot_every, dp=args.dp,
+                groups=groups)
+
+
 def _engine_of(args, groups=None) -> ShiftEngine:
-    return build_engine(args.arch, reduced=args.reduced, device=args.device,
-                        dtype=DTYPES[args.dtype], adaptive=args.adaptive,
-                        block_size=args.block_size,
-                        num_blocks=args.num_blocks,
-                        prefix_cache=args.prefix_cache, spec_k=args.spec_k,
-                        spec_ngram=args.spec_ngram, deadline_s=args.deadline_s,
-                        max_queue=args.max_queue,
-                        shed_policy=args.shed_policy,
-                        auto_snapshot_every=args.auto_snapshot_every,
-                        faults=fault_plan(args), dp=args.dp, groups=groups)
+    return build_engine(args.arch, faults=fault_plan(args),
+                        **_stack_kw(args, groups))
+
+
+# the demo's engines: the reference demo's settings
+DEMO_KW = dict(slots=4, s_max=64, chunk=8, block_size=8)
+
+
+def reshard_demo_rank(rank, groups, args) -> dict:
+    """One rank of ``--reshard-demo``: a static (2, 1, 1) run, then the
+    same requests on a (2, 1, 1) engine that reshards mid-decode to
+    (1, 1, 2) and back, on the same weights; both grids' groups are built
+    first, in the same order on every rank. Returns the printed report,
+    the streams and the pass flag."""
+    from repro_torch.ft import DeliveryLog
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        groups_tp = Groups(1, 2)
+        lay_dp, lay_tp = Layout(dp=2), Layout(tp=2)
+        kw = dict(reduced=args.reduced, device=args.device,
+                  dtype=DTYPES[args.dtype], **DEMO_KW)
+        models, ecfg, policy = build_stack(args.arch, dp=2, groups=groups,
+                                           **kw)
+
+        def reqs():
+            return [Request(i, list(range(1, 11 + 2 * i)),
+                            max_new_tokens=args.max_new)
+                    for i in range(args.requests)]
+
+        print(f"reference: static {lay_dp.describe()} run")
+        ref = ShiftEngine(models[0], ecfg, policy=policy)
+        ref_reqs = reqs()
+        for r in ref_reqs:
+            ref.submit(r)
+        ref.run_until_idle()
+        expect = {r.rid: list(r.generated) for r in ref_reqs}
+
+        eng = ShiftEngine(models[0], ecfg, policy=policy)
+        log, rs = DeliveryLog(), reqs()
+        for r in rs:
+            eng.submit(r)
+        for _ in range(4):
+            eng.step()
+            log.poll(rs)
+        walls = []
+        for lay, g, what in ((lay_tp, groups_tp, "mid-decode"),
+                             (lay_dp, groups, "back")):
+            print(f"resharding {what}: {eng.deploy.layout.describe()} -> "
+                  f"{lay.describe()}" + (" (dp merge, wider TP)"
+                                         if lay is lay_tp else ""))
+            t0 = time.monotonic()
+            rep = eng.reshard(lay, groups=g)
+            walls.append(time.monotonic() - t0)
+            print(f"  {rep.delta.kind}: {rep.moved_requests} requests, "
+                  f"{rep.blocks_moved} KV blocks re-poured")
+            for _ in range(3):
+                eng.step()
+                log.poll(rs)
+        while eng.queue or eng.active:
+            eng.step()
+            log.poll(rs)              # raises ReplayDivergence
+        got = {r.rid: list(r.generated) for r in rs}
+        ok = got == expect
+        for rid in sorted(got):
+            print(f"req {rid}: {len(got[rid])} tokens, "
+                  f"bit-identical={got[rid] == expect.get(rid)}")
+        eng.drain()
+        led = eng.stats().blocks
+        print(f"drained: used={led.used} pinned={led.pinned} blocks")
+        reg = eng.obs.registry
+        print(f"obs: reshards_total={int(reg.counter_total('reshards_total'))}"
+              f" reshard_blocks_moved_total="
+              f"{int(reg.counter_total('reshard_blocks_moved_total'))}")
+        traffic = groups.traffic + groups_tp.traffic
+        print(f"reshard: {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; "
+              f"reshard_gather "
+              f"{traffic.get('reshard_gather_bytes', 0)} bytes in "
+              f"{traffic.get('reshard_gather_calls', 0)} calls "
+              f"({args.backend}, {args.device})")
+        print("PASS: streams bit-identical across grow+shrink" if ok
+              else "FAIL: streams diverged after reshard")
+    return {"rank": rank, "report": text.getvalue(), "ok": ok,
+            "streams": got}
+
+
+def reshard_demo(args) -> int:
+    """``--reshard-demo``: two ranks over ``--backend``; prints rank 0's
+    report and returns 0 when every rank's streams equal the static
+    run's."""
+    res = run_ranks(reshard_demo_rank, 1, 1, dp=2, device=args.device,
+                    backend=args.backend, timeout_s=DP_TIMEOUT_S,
+                    args=(args,))
+    if any(r["streams"] != res[0]["streams"] for r in res):
+        raise RuntimeError("the ranks' streams differ")
+    print(res[0]["report"], end="")
+    return 0 if all(r["ok"] for r in res) else 1
 
 
 def serve_rank(rank, groups, args) -> dict:
@@ -391,14 +608,40 @@ def main(argv=None):
                     help="torch.distributed backend of the --dp processes "
                          "(no default: gloo on the CPU or several rows on "
                          "one card, nccl with a card per row)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas over one weight set behind the "
+                         "cluster Router (prefix-affinity routing, live KV "
+                         "migration); 1 = a bare engine, no Router")
+    ap.add_argument("--routing", default="affinity",
+                    choices=list(ROUTING_POLICIES),
+                    help="Router policy for --replicas > 1")
+    ap.add_argument("--reshard-demo", action="store_true",
+                    help="elastic resharding demo on two ranks (needs "
+                         "--backend): a (2, 1, 1) engine reshards to "
+                         "(1, 1, 2) mid-decode and back; its streams must "
+                         "equal a static run's")
     args = ap.parse_args(argv)
 
     if args.metrics_refresh_s and not args.metrics_out:
         ap.error("--metrics-refresh-s requires --metrics-out")
+    if args.reshard_demo:
+        if args.backend is None:
+            ap.error("--reshard-demo runs 2 processes: pass --backend gloo "
+                     "or --backend nccl")
+        raise SystemExit(reshard_demo(args))
+    if args.replicas > 1 and args.dp > 1:
+        ap.error("--replicas runs its replicas in one process; --dp spawns "
+                 "one process per row: use one of them")
     faults = fault_plan(args)
     if faults is not None:
         print(f"fault plan: seed={args.fault_seed} {len(faults)} faults "
               f"over {args.fault_steps} steps")
+    if args.replicas > 1:
+        router = build_cluster(args.arch, args.replicas, routing=args.routing,
+                               faults=faults, **_stack_kw(args))
+        print(f"cluster: {args.replicas} replicas, routing={args.routing}")
+        serve_cluster(router, args)
+        return
     if args.dp == 1:
         serve(_engine_of(args), args)
         return

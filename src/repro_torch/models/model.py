@@ -3,6 +3,9 @@ bundles the config, the layout, this process's shard of the parameters on
 one device and its caches (the paged KV pool, for configs whose layers all
 page, and the dense contiguous cache with KV and SSD state), and exposes
 the mixed paged step and the serialized prefill and decode steps.
+``view()`` gives a ``Model`` over the same parameters with caches of its
+own: each engine steps its own view, so engines built on one model share
+its weights and nothing else.
 
 Above world size 1 a ``Model`` is one rank of an SPMD program, one process
 per rank as ``shard_map`` runs one program per device: its steps take the
@@ -54,6 +57,16 @@ class Model:
         self.params = T.Transformer(cfg, lay, dtype, self.device, self.shard)
         self.pool: Optional[T.PagedPool] = None
         self.cache: Optional[T.DenseCache] = None
+
+    def view(self) -> "Model":
+        """A ``Model`` over the same parameters, layout, shard, head plan,
+        type and device, with no cache of its own yet: each engine steps a
+        view whose pool it initialised, so that engines built on one model
+        share its weights and nothing else."""
+        v = Model.__new__(Model)
+        v.__dict__.update(self.__dict__)
+        v.pool = v.cache = None
+        return v
 
     def _trivial_only(self, what: str, paged: bool = False):
         """Raise for a serialized step or the dense cache on a layout they
@@ -125,7 +138,8 @@ class Model:
         """Step ``other``'s pool tensors themselves, not a copy: the shift
         model adopts the base model's pool, so that the two configs hold
         identical bytes and a switch moves none (paper §3.3.1). Both must be
-        the same rank of the same grid, with the same head plan."""
+        the same rank of the same grid, with the same head plan (an
+        engine's base and shift views)."""
         self._require_paged()
         if other.pool is None:
             raise RuntimeError("the other model has no paged pool yet")

@@ -97,6 +97,14 @@ class Groups:
                 if (ii, jj) == (i, j):
                     self.dp_group = g
 
+    def all_ranks(self) -> Optional[Group]:
+        """Every rank of the world as one group, counting into this
+        ``Groups``' traffic (None for a world of one): a reshard's re-pour
+        gathers over it."""
+        if self.world == 1:
+            return None
+        return Group(dist.group.WORLD, self.world, self.rank, self.traffic)
+
     def _new(self, ranks) -> Optional[Group]:
         if len(ranks) == 1:
             return None

@@ -148,3 +148,43 @@ class Shard:
     @property
     def model_rank(self) -> int:
         return self.lay.model_rank(self.rank)
+
+
+# ---------------------------------------------------------------------------
+# Layout diffing: what changes when a deployment reshards old -> new.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LayoutDelta:
+    """Typed diff between two layouts' signatures.
+
+    ``kind`` classifies the dp-row transition the paged pool must survive:
+
+    * ``"same"``    — identical signatures; reshard is a no-op.
+    * ``"grow"``    — fewer dp rows (replica merge -> wider model group):
+                      low-traffic latency mode.
+    * ``"shrink"``  — more dp rows (replica split): high-traffic
+                      throughput mode.
+    * ``"reshape"`` — same dp but a different sp/tp/ep factorisation.
+    """
+
+    old: Tuple[int, int, int, int]
+    new: Tuple[int, int, int, int]
+    kind: str
+
+    @property
+    def dp_change(self) -> bool:
+        return self.old[0] != self.new[0]
+
+
+def layout_delta(old: Layout, new: Layout) -> LayoutDelta:
+    a, b = old.signature, new.signature
+    if a == b:
+        kind = "same"
+    elif b[0] < a[0]:
+        kind = "grow"
+    elif b[0] > a[0]:
+        kind = "shrink"
+    else:
+        kind = "reshape"
+    return LayoutDelta(old=a, new=b, kind=kind)

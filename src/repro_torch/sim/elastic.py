@@ -1,9 +1,9 @@
 """Elastic reshard policy A/B on the serving simulator (the port's copy of
 ``repro.sim.elastic``: the pricing only).
 
-The reference engine's ``reshard()`` (not ported yet) swaps the mesh
-factorization between iterations; this module prices WHEN to do that on a
-trace: windows of high offered load run the throughput-optimal dp
+The engine's ``reshard()`` (``repro_torch.engine.ShiftEngine.reshard``)
+swaps the layout between iterations; this module prices WHEN to do that
+on a trace: windows of high offered load run the throughput-optimal dp
 factorization (many narrow replicas), low-load windows run the
 latency-optimal merged configuration (one wide tensor-parallel group), and
 every switch charges a reshard pause (weight re-placement + pool re-pour —

@@ -881,8 +881,9 @@ def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
     for graphed, model in zip((False, True), twin_models(cuda, arch, dtype)):
         eng = ShiftEngine(model, EngineConfig(**kw))
         if not graphed:
-            eng.deploy = Deployment.build(model, model, mixed=eng.mixed,
-                                          paged=eng.paged, graphed=False)
+            eng.deploy = Deployment.build(eng.base, eng.shift,
+                                          mixed=eng.mixed, paged=eng.paged,
+                                          graphed=False)
         ops.reset_launch_counts()
         runs, captures = [], []
         for _ in range(2):
@@ -988,7 +989,7 @@ def test_cuda_prefix_spec_engine_graphed_matches_eager(cuda, dtype):
         eng = ShiftEngine(model, EngineConfig(
             prefix=PrefixConfig(enabled=True), spec=SpecConfig(k=4)))
         if not graphed:
-            eng.deploy = Deployment.build(model, model, mixed=True,
+            eng.deploy = Deployment.build(eng.base, eng.shift, mixed=True,
                                           paged=True, graphed=False)
         ops.reset_launch_counts()
         runs = []
@@ -1220,7 +1221,7 @@ def test_cuda_restore_in_place_replays_graphs(cuda, dtype):
     snap = eng.snapshot()
     eng.run_until_idle()
     whole = [eng.stream(r.rid) for r in reqs]
-    pool = (model.pool.k, model.pool.v)
+    pool = (eng.model.pool.k, eng.model.pool.v)
     captures = eng.deploy.captures
     assert captures > 0
     eng.restore(snap)
@@ -1228,16 +1229,98 @@ def test_cuda_restore_in_place_replays_graphs(cuda, dtype):
     eng.run_until_idle()
     assert [eng.stream(r.rid) for r in reqs] == whole
     assert eng.deploy.captures == captures
-    assert model.pool.k is pool[0] and model.pool.v is pool[1]
+    assert eng.model.pool.k is pool[0] and eng.model.pool.v is pool[1]
     # a snapshot fault at step 4 corrupts a capture taken there
     eng.restore(snap)
     eng.faults = _plan([(4, "snapshot", "")])
     bad = eng.snapshot()
     assert bad.get("corrupted")
-    before = (eng.step_count, eng.lens.tolist(), model.pool.k.clone())
+    before = (eng.step_count, eng.lens.tolist(), eng.model.pool.k.clone())
     with pytest.raises(SnapshotError):
         eng.restore(bad)
     assert (eng.step_count, eng.lens.tolist()) == before[:2]
-    assert torch.equal(model.pool.k, before[2])
+    assert torch.equal(eng.model.pool.k, before[2])
     eng.run_until_idle()
     assert [eng.stream(r.rid) for r in reqs] == whole
+
+
+# ---------------------------------------------------------------------------
+# cluster replicas on one model, live migration
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_two_graphed_replicas_on_one_model(cuda, dtype):
+    """Two graphed engines on ONE model, stepped in turns: each captures
+    its own graphs over its own pool (the weights are the model's) and
+    replays them, interleaved, with the streams of a lone graphed engine
+    on a twin model per workload, over two runs (the second captures
+    nothing)."""
+    model, twin = twin_models(cuda, "qwen3-8b", dtype)
+    prompts = [[list(range(1, 20 + 3 * i)) for i in range(3)],
+               [list(range(40, 50 + 2 * i)) for i in range(3)]]
+    want = [_serve(ShiftEngine(twin, EngineConfig()), p, 8) for p in prompts]
+    engs = [ShiftEngine(model, EngineConfig()) for _ in range(2)]
+    assert engs[0].base.pool is not engs[1].base.pool
+    assert engs[0].base.params is engs[1].base.params is model.params
+    for run in range(2):
+        captures = [e.deploy.captures for e in engs]
+        reqs = [[Request(i, list(p), max_new_tokens=8)
+                 for i, p in enumerate(ps)] for ps in prompts]
+        for e, rs in zip(engs, reqs):
+            for r in rs:
+                e.submit(r)
+        while any(e.queue for e in engs):
+            for e in engs:
+                e.step()
+        assert [[r.generated for r in rs] for rs in reqs] == want
+        if run:
+            assert [e.deploy.captures for e in engs] == captures
+    assert all(e.deploy.captures > 0 for e in engs)
+    assert engs[0].deploy.graphs is not engs[1].deploy.graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_migration_writes_in_place_and_replays(cuda, dtype):
+    """A request migrated mid-decode between two graphed replicas of one
+    model: the payload is a copy on the card, ``write_blocks`` writes the
+    destination's pool in place (its tensors and addresses unchanged, the
+    blocks equal the source's), the destination's graphs replay after it
+    with no new capture once warm, and the stream equals an unmigrated
+    engine's bitwise (bf16 too: the destination steps the same one-row
+    bucket)."""
+    from repro_torch.cluster import Router
+    model = twin_models(cuda, "qwen3-8b", dtype)[0]
+    prompt = list(range(1, 40))
+    bare = ShiftEngine(model, EngineConfig())
+    want = _serve(bare, [prompt], 12)[0]
+    router = Router([ShiftEngine(model, EngineConfig()) for _ in range(2)],
+                    routing="least-loaded", rebalance_every=0)
+    for eng in router.engines:               # warm every bucket of a lone row
+        _serve(eng, [prompt], 12)
+    captures = [e.deploy.captures for e in router.engines]
+    # a rid neither replica served (an engine keeps every rid it served,
+    # and a migration to one that knows the rid aborts)
+    rid = 100
+    router.submit(Request(rid, prompt, max_new_tokens=12))
+    while len(router.stream(rid)) < 4:
+        router.step()
+        router.poll()
+    src = router.owner(rid)
+    dst = router.engines[1 - src]
+    export = router.engines[src].extract_request(rid)
+    assert export["payload"]["k"].device.type == "cuda"
+    pool = (dst.model.pool.k, dst.model.pool.v)
+    addr = [t.data_ptr() for t in pool]
+    ops = router.migrate(rid, 1 - src)
+    assert ops is not None and router.owner(rid) == 1 - src
+    dst_ids = [o.dst_block for o in ops[1:]]
+    assert dst.model.pool.k is pool[0] and dst.model.pool.v is pool[1]
+    assert [t.data_ptr() for t in pool] == addr
+    for t, name in ((pool[0], "k"), (pool[1], "v")):
+        assert torch.equal(t[:, dst_ids], export["payload"][name])
+    router.run_until_idle()
+    assert router.delivered(rid) == want
+    assert [e.deploy.captures for e in router.engines] == captures
+    led = dst.block_accounting()
+    assert led.used == led.pinned == 0

@@ -171,6 +171,7 @@ def test_dense_engine_config_rules():
     eng = ShiftEngine(model, EngineConfig(paged=False))
     assert not eng.paged and not eng.mixed and eng.kv is None
     assert eng.paged_disabled_reason == "paged=False in EngineConfig"
-    assert tuple(model.cache.k.shape) == (2, 8, 256, 2, 16)
+    assert tuple(eng.base.cache.k.shape) == (2, 8, 256, 2, 16)
+    assert model.cache is None                  # the engine's own view
     eng = ShiftEngine(model, EngineConfig(mixed=False))
     assert eng.paged and not eng.mixed and eng.paged_disabled_reason is None

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.roofline", "repro_torch.roofline.terms",
             "repro_torch.sim", "repro_torch.sim.costmodel",
             "repro_torch.sim.simulator", "repro_torch.sim.elastic",
-            "repro_torch.sim.traces"} <= set(_modules())
+            "repro_torch.sim.traces", "repro_torch.cluster",
+            "repro_torch.cluster.router", "repro_torch.cluster.migration",
+            "repro_torch.ft.elastic"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"

@@ -33,6 +33,14 @@ canonical weights.
   the one-rank port engine's, on every rank.
 * ``Layout`` against the reference's; ep above 1 raises, and so does
   ``graphed=True`` above world size 1.
+* ``ft.elastic.reshard_params`` at the world size of four: (1, 2, 2) ->
+  (1, 1, 4) -> (1, 2, 2) gives every rank's weights back bitwise and the
+  (1, 1, 4) ones equal ``shard_state``'s; base -> shift expands wk/wv as
+  the reference's ``reshard_params`` on ``mesh122`` does for key-0
+  weights, while for other weights the port derives them from the
+  gathered weights and the reference re-draws them from key 0 (a
+  difference by design, ROADMAP Queue 3); the resharded models' logits
+  equal the base model's within 3e-4.
 
 JAX is imported only in this process (inside the fixtures), so that the
 spawned ranks, which import this module to find their job, stay light.
@@ -266,6 +274,55 @@ def _own_init(rank, groups, cfg):
     return ok
 
 
+def _reshard_params(rank, groups, groups14, inputs, cfg):
+    """``reshard_params`` between the base (2, 2) grid, its shift config
+    and (1, 1, 4) on the grid (1, 4), for the key-0 state and a key-1 one;
+    each model's state as numpy, and its logits over ``STEPS``."""
+    from repro_torch.ft import reshard_params
+    lay = Layout(sp=SP, tp=TP)
+
+    def model(layout, g, state=None):
+        m = Model(cfg, device="cpu", dtype=torch.float32, lay=layout,
+                  groups=g)
+        if state is not None:
+            m.load_params(shard_state(state, cfg, layout, rank))
+        return m
+
+    def sd(m):
+        return {k: v.numpy().copy() for k, v in m.params.state_dict().items()}
+
+    def equal(a, b):
+        return set(a) == set(b) and all(
+            a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+            for k in a)
+
+    groups.traffic.clear()
+    a = model(lay, groups, inputs["state"])
+    wide = reshard_params(a, model(Layout(tp=4), groups14))
+    back = reshard_params(wide, model(lay, groups))
+    shift = reshard_params(a, model(lay.to_shift(), groups))
+    shift1 = reshard_params(model(lay, groups, inputs["state_k1"]),
+                            model(lay.to_shift(), groups))
+    out = {"wide": equal(sd(wide), shard_state(inputs["state"], cfg,
+                                               Layout(tp=4), rank)),
+           "round_trip": equal(sd(back), sd(a)),
+           "shift": sd(shift), "shift1": sd(shift1),
+           "shift1_own": equal(sd(shift1), shard_state(
+               inputs["state_k1"], cfg, lay.to_shift(), rank)),
+           "weights_calls": groups.traffic["reshard_weights_calls"]}
+    rng = np.random.default_rng(1)
+    toks = [rng.integers(1, cfg.vocab_size, (4, 8)).astype(np.int32)
+            for _ in STEPS]
+    logits = {}
+    for name, m in (("base", a), ("shift", shift), ("wide", wide)):
+        m.init_paged_cache(17, 4)
+        logits[name] = [m.forward_mixed(t, ql, off, STEP_BT, sample=False)[0]
+                        .numpy() for t, (ql, off) in zip(toks, STEPS)]
+        logits[name + "_tp_rank"] = m.shard.tp_rank
+    out["logits"] = logits
+    return out
+
+
 def _job(rank, groups, inputs):
     cfg, padded = _cfg(), _cfg(padded=True)
     state, pstate = inputs["state"], inputs["padded_state"]
@@ -289,6 +346,8 @@ def _job(rank, groups, inputs):
                      for name, kw in (("free", {}), ("tight", TIGHT))}
     out["prefix_spec"] = _engine_prefix_spec(rank, groups, state, cfg)
     out["graphed"] = _graphed_refused(groups, cfg, state)
+    out["reshard"] = _reshard_params(rank, groups, Groups(1, 4), inputs, cfg)
+    out["reshard_logits"] = out["reshard"].pop("logits")
     return out
 
 
@@ -308,9 +367,9 @@ def _jax_cfg(padded=False):
     return dataclasses.replace(cfg, num_heads=6) if padded else cfg
 
 
-def _ref_params(model):
+def _ref_params(model, key=0):
     import jax
-    tree = jax.tree.map(np.asarray, model.init_params(jax.random.key(0)))
+    tree = jax.tree.map(np.asarray, model.init_params(jax.random.key(key)))
     return _randomize_norms(tree, np.random.default_rng(0))
 
 
@@ -333,11 +392,11 @@ class Reference:
         self.pb, self.ps = _ref_params(self.mb), _ref_params(self.ms)
 
 
-def _trivial_state(padded=False):
+def _trivial_state(padded=False, key=0):
     from repro.models import build_model
     import jax.numpy as jnp
     jm = build_model(_jax_cfg(padded), dtype=jnp.float32)
-    return from_jax_params(_ref_params(jm), _cfg(padded))
+    return from_jax_params(_ref_params(jm, key), _cfg(padded))
 
 
 def _device_shard(arr, dev):
@@ -483,7 +542,7 @@ def inputs():
          "v": rng.standard_normal((U_B, U_S, 2, U_C)).astype(np.float32)}
     vocab = _cfg().vocab_size
     return {"state": _trivial_state(), "padded_state": _trivial_state(True),
-            "u": u,
+            "state_k1": _trivial_state(key=1), "u": u,
             "drive_toks": np.asarray(jax.random.randint(
                 jax.random.key(1), (8, 16), 0, vocab), np.int32),
             "inv_toks": np.asarray(jax.random.randint(
@@ -681,6 +740,78 @@ def test_prefix_spec_engine_matches_reference(ranks, ref22, inputs):
     assert 0 < want["spec"][1] < want["spec"][0]
     assert want["counts"]["base"] > 0 and want["counts"]["shift"] > 0
     assert want["used"] == want["pinned"] == want["stats"]["entries"]
+
+
+def _ref_shards(ref, tree, model):
+    """The reference's ``tree``, placed by ``model``'s specs on ``ref``'s
+    mesh, as each port rank's state."""
+    import jax
+    placed = jax.device_put(tree, model.shardings(model.param_specs()))
+    return {r: from_jax_params(jax.tree.map(
+        lambda a: _device_shard(a, ref.mesh.devices[0, i, j]), placed),
+        _cfg()) for r, i, j in _coords()}
+
+
+def test_reshard_params_round_trip_bitwise(ranks):
+    """(1, 2, 2) -> (1, 1, 4) -> (1, 2, 2) at the world size of four (the
+    reference's round trip is (1, 2, 2) <-> (1, 4, 2): the port's reshard
+    keeps its processes): every rank's weights come back bitwise, the wide
+    ones are ``shard_state``'s, and the weights went through the gathers."""
+    for r, res in enumerate(ranks):
+        rs = res["reshard"]
+        assert rs["wide"] and rs["round_trip"], f"rank {r}"
+        assert rs["weights_calls"] > 0
+
+
+def test_reshard_params_expands_like_the_reference(ranks, ref22):
+    """Base -> shift materializes KV replication: wk/wv change shape. With
+    the key-0 weights every leaf equals the reference's ``reshard_params``
+    bitwise. With key-1 weights the port derives the expanded leaves from
+    the gathered weights (``shard_state`` of them), while the reference
+    re-draws them from ``init_params(key(0))``: those leaves differ, every
+    other leaf is equal (ROADMAP Queue 3, a difference by design)."""
+    import jax
+    from repro.ft import reshard_params as jax_reshard
+    out = jax_reshard(ref22.pb, ref22.mb, ref22.ms)
+    want = _ref_shards(ref22, out, ref22.ms)
+    # the leaves whose global shape the shift layout's KV replication
+    # changes
+    glob = [from_jax_params(jax.tree.map(np.asarray, t), _cfg())
+            for t in (ref22.pb, out)]
+    expanded = sorted(k for k, v in glob[0].items()
+                      if v.shape != glob[1][k].shape)
+    assert len(expanded) >= 2 and all(
+        k.endswith(("attn.wk", "attn.wv")) for k in expanded)
+    k1 = _randomize_norms(jax.tree.map(np.asarray, ref22.mb.init_params(
+        jax.random.key(1))), np.random.default_rng(0))
+    want1 = _ref_shards(ref22, jax_reshard(k1, ref22.mb, ref22.ms),
+                        ref22.ms)
+    for r, res in enumerate(ranks):
+        rs = res["reshard"]
+        assert set(rs["shift"]) == set(want[r])
+        for k, v in want[r].items():
+            np.testing.assert_array_equal(_bits(rs["shift"][k]), _bits(v),
+                                          err_msg=f"rank {r} {k}")
+        assert rs["shift1_own"]
+        for k, v in want1[r].items():
+            same = np.array_equal(_bits(rs["shift1"][k]), _bits(v))
+            assert same == (k not in expanded), f"rank {r} {k}"
+            if k in expanded:        # the reference's key-0 re-draw
+                np.testing.assert_array_equal(_bits(v),
+                                              _bits(rs["shift"][k]))
+
+
+@pytest.mark.parametrize("config", ["shift", "wide"])
+def test_resharded_params_produce_same_logits(ranks, config):
+    """The resharded shift model, and the (1, 1, 4) one, compute the base
+    model's logits (3e-4, as ``tests/test_ft_elastic.py`` and
+    ``tests/test_system.py`` hold them)."""
+    base = _assemble(ranks, "reshard_logits", "base", 4)
+    got = _assemble(ranks, "reshard_logits", config, 4)
+    for g, b in zip(got, base):
+        assert g.shape == b.shape
+        np.testing.assert_allclose(g, b, rtol=3e-4, atol=3e-4)
+        assert np.abs(b).max() > 0.1
 
 
 def test_graphed_above_world_size_one_raises(ranks):

@@ -585,16 +585,22 @@ def test_reference_snapshot_restores_into_port(weights, case):
 
 
 def test_restore_refuses_a_stale_engine(weights):
-    """An engine whose model's cache a later engine initialised anew
-    refuses to restore (its steps would run on the other cache), and the
-    later engine restores the first one's snapshot."""
+    """A later engine on the same model steps a pool of its own, so the
+    first engine's cache is untouched and both restore the first one's
+    snapshot; an engine whose cache was initialised anew behind it
+    (``init_paged_cache`` on its view) refuses to restore, since its steps
+    would run on the other cache."""
     s = Side("port", weights)
     eng, reqs = _stepped(s)
     snap = eng.snapshot()
     other = s.engine()
+    assert other.base.pool is not eng.base.pool
+    assert other.base.params is eng.base.params
+    clean = list(_clean_streams(s).values())
+    for e in (other, eng):
+        e.restore(snap)
+        e.run_until_idle()
+        assert [e.stream(r.rid) for r in reqs] == clean
+    eng.model.init_paged_cache(eng.kv.num_blocks, eng.cfg.block_size)
     with pytest.raises(RuntimeError, match="re-initialised"):
         eng.restore(snap)
-    other.restore(snap)
-    other.run_until_idle()
-    assert [other.stream(r.rid) for r in reqs] == \
-        list(_clean_streams(s).values())

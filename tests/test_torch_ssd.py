@@ -479,5 +479,6 @@ def test_engine_rules_for_a_config_that_does_not_page(weights):
         model.init_paged_cache(9, 8)
     with pytest.raises(ValueError, match="page"):
         model.forward_mixed(np.zeros((1, 4)), [4], [0], np.zeros((1, 2)))
-    assert model.cache.k is None and model.cache.ssm.dtype == torch.float32
-    assert tuple(model.cache.ssm.shape) == (2, 8, 8, 16, 16)
+    cache = eng.base.cache
+    assert cache.k is None and cache.ssm.dtype == torch.float32
+    assert tuple(cache.ssm.shape) == (2, 8, 8, 16, 16)
