@@ -243,6 +243,9 @@ CSRC = "src/repro_torch/kernels/csrc/"
 # the decode rows of the ragged kernel's decode case: (context, q_len)
 DECODE_ROWS = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
                (100, 1), (1, 1)]
+# a MoE model's serving step: seven decode rows beside a 64-column prefill
+# row (C = 64, so each decode row has 63 padding columns)
+MOE_MIXED = [(640, 64)] + DECODE_ROWS[:7]
 
 
 def check(cond, msg):
@@ -342,10 +345,14 @@ def rates(case, flops):
 
 
 def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
-                   C=None):
+                   C=None, pad_cols=False):
     """rows: [(ctx, q_len)] of one batch; Hq 32, Hkv 8 (a rank's 8 and 2
     on the layout phase's grid), D 128, bs 16; C query columns per row
-    (the longest q_len unless given: the engine pads to a power of two)."""
+    (the longest q_len unless given: the engine pads to a power of two).
+    With ``pad_cols`` (a MoE model's instance) the padding columns are
+    computed and held against the plain version too, the bound counts
+    their work, and the kernel is also timed without the option
+    (``ms_pad_off``) on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_ragged_attention as PRA
     D, bs = 128, 16
@@ -371,13 +378,14 @@ def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
                      device="cuda").to(dtype)
     args = (q, kp, vp, bt.cuda(), ql.cuda(), ctx.cuda())
 
-    got = PRA.paged_ragged_attention_cuda(*args)
+    got = PRA.paged_ragged_attention_cuda(*args, pad_cols=pad_cols)
     torch.cuda.synchronize()
     want = PRA.paged_ragged_attention_plain(*args)
     torch.cuda.synchronize()
     check(torch.isfinite(got.float()).all(), f"attention {name}: non-finite")
     err = 0.0
-    for b, (_, n) in enumerate(rows):      # real columns only
+    for b, (_, n) in enumerate(rows):      # real columns, or all of them
+        n = C if pad_cols else n
         gb, wb = got[b, :, :, :n].float(), want[b, :, :, :n].float()
         err = max(err, (gb - wb).abs().max().item())
         check(torch.allclose(gb, wb, atol=tol, rtol=tol),
@@ -396,7 +404,12 @@ def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
     mask = ((kpos[None, None] <= qpos[:, :, None])
             & (kpos[None, None] < ctx[:, None, None]))[:, None].cuda()
 
-    ms = timer(lambda: PRA.paged_ragged_attention_cuda(*args))
+    ms = timer(lambda: PRA.paged_ragged_attention_cuda(*args,
+                                                       pad_cols=pad_cols))
+    extra = {}
+    if pad_cols:
+        extra = {"pad_cols": True, "ms_pad_off": timer(
+            lambda: PRA.paged_ragged_attention_cuda(*args))}
     plain_ms = timer(lambda: PRA.paged_ragged_attention_plain(*args), iters=3)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
@@ -404,11 +417,14 @@ def attention_case(torch, name, rows, dtype, timer, tol, Hq=32, Hkv=8,
     elt = q.element_size()
     kv_bytes = sum(nbs) * bs * Hkv * D * 2 * elt   # live blocks, K and V
     io_bytes = 2 * q.numel() * elt + (bt.numel() + 2 * B) * 4
+    # a real column j sees keys up to its position; a computed padding
+    # column sees all of its row's keys
     flops = sum(4 * D * Hq * min(c - n + j + 1, c)
-                for c, n in rows for j in range(n))
+                for c, n in rows for j in range(C if pad_cols else n))
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return rates({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                  **extra,
                   "shape": {"q": list(q.shape), "pool": list(kp.shape),
                             "block_tables": list(bt.shape),
                             "ctx_lens": [c for c, _ in rows],
@@ -825,6 +841,21 @@ def kernel_phase(torch):
                            ("qwen-32b decode", DECODE_ROWS)):
             add("paged_ragged_attention", attention_case(
                 torch, name, rows, dtype, timer, tol, Hq=64, Hkv=8))
+        # qwen-30b-a3b (32 q heads over 4 kv heads, d_model 2048): decode
+        # rows beside a 64-column prefill row, every padding column
+        # computed (the MoE instance), timed with the option on and off;
+        # RMSNorm over its rows of 2048 and the q/k pair over 32 + 4 heads
+        add("paged_ragged_attention", attention_case(
+            torch, "qwen-30b-a3b mixed, padding columns", MOE_MIXED, dtype,
+            timer, tol, Hq=32, Hkv=4, C=64, pad_cols=True))
+        for name, N in (("qwen-30b-a3b hidden", 512),
+                        ("qwen-30b-a3b decode hidden", 8)):
+            add("rmsnorm", rmsnorm_case(torch, name, N, 2048, dtype, timer,
+                                        tol))
+        for name, T in (("qwen-30b-a3b pair, prefill", 512),
+                        ("qwen-30b-a3b pair, decode", 8)):
+            add("rmsnorm", rmsnorm_pair_case(torch, name, T * 32, T * 4, 128,
+                                             dtype, timer, tol))
         for name, N in (("qwen-32b hidden", 512),
                         ("qwen-32b decode hidden", 8)):
             add("rmsnorm", rmsnorm_case(torch, name, N, 5120, dtype, timer,
@@ -950,6 +981,60 @@ def cross_device_phase(torch):
     fault_cross_device(torch, gpu, cpu)
     adaptive_cross_device(torch, gpu, cpu)
     mamba2_cross_device(torch)
+    moe_cross_device(torch)
+
+
+def pad_sensitive_prompts(seed=0):
+    """Ten random prompts of 2-39 tokens: with chunk 16 most steps carry
+    padding columns, which a MoE model routes (at capacity factor 1.25,
+    zeroing them changes 7 of qwen-30b-a3b's 100 tokens on the CPU)."""
+    import random
+    rnd = random.Random(seed)
+    return [[rnd.randrange(1, 250) for _ in range(rnd.randrange(2, 40))]
+            for _ in range(10)]
+
+
+def moe_cross_device(torch):
+    """Reduced qwen-30b-a3b and llama4-17b-16e in fp32 at capacity factor
+    1.25 on the pad-sensitive workload (8 slots, s_max 128, chunk 16, 10
+    new tokens): the mixed paged, serialized paged and dense engines give
+    the same streams and config counts on the card (kernels; the ragged
+    kernel computes the padding columns) as on the CPU (plain versions),
+    and the card's paged runs launch the ragged kernel once per layer and
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, Request, ShiftEngine
+    from repro_torch.kernels import paged_ragged_attention as PRA
+    from repro_torch.models import Model
+    for arch in ("qwen-30b-a3b", "llama4-17b-16e"):
+        cfg = get_config(arch).reduced()
+        check(cfg.moe.capacity_factor == 1.25, f"{arch}: {cfg.moe}")
+        cpu = Model(cfg, device="cpu", dtype=torch.float32)
+        cpu.init_params(torch.Generator().manual_seed(0))
+        gpu = Model(cfg, device="cuda", dtype=torch.float32)
+        gpu.load_params(cpu.params.state_dict())
+        for kw in ({}, {"mixed": False}, {"paged": False, "mixed": False}):
+            runs = []
+            for model in (gpu, cpu):
+                PRA.launches = 0
+                eng = ShiftEngine(model, EngineConfig(
+                    max_slots=8, s_max=128, prefill_chunk=16, **kw))
+                reqs = [Request(i, p, max_new_tokens=10)
+                        for i, p in enumerate(pad_sensitive_prompts())]
+                for r in reqs:
+                    eng.submit(r)
+                eng.run_until_idle()
+                runs.append(([r.generated for r in reqs], eng.config_counts,
+                             PRA.launches))
+            label = f"reduced {arch} cf 1.25 {kw or 'mixed'}"
+            check(runs[0][:2] == runs[1][:2],
+                  f"{label}: cuda {runs[0][:2]} != cpu {runs[1][:2]}")
+            steps = sum(runs[0][1].values())
+            ragged = steps * cfg.num_layers if kw.get("paged", True) else 0
+            check(runs[0][2] == ragged,
+                  f"{label}: {runs[0][2]} ragged launches, want {ragged}")
+            print(f"{label}: cuda == cpu (10 streams of 10 tokens, "
+                  f"{steps} steps, {runs[0][2]} ragged launches)")
 
 
 def adaptive_cross_device(torch, gpu, cpu):
@@ -1249,12 +1334,13 @@ def count_steps(eng):
 def step_launches(eng, kind):
     """Each kernel's launches in one full-width engine step of ``kind``
     ("mixed", "prefill" or "decode"): ln1, ln2 and the q_norm + k_norm pair
-    (one launch) per attention layer, ln1 and the grouped norm per SSD
+    (one launch) per attention or MoE layer, ln1 and the grouped norm per SSD
     layer, and the final norm; one attention per attention layer, by the
     kernel of the step's kind and cache; one SSD chunk launch per SSD layer
     in a prefill step, none in a decode step."""
     kinds = eng.mcfg.layer_kinds
-    n_attn, n_ssd = kinds.count("attn"), kinds.count("ssd")
+    n_ssd = kinds.count("ssd")
+    n_attn = len(kinds) - n_ssd                 # attention and MoE layers
     attention = ("paged_ragged_attention" if eng.paged else
                  "flash_attention" if kind == "prefill" else
                  "decode_attention")
@@ -1326,8 +1412,8 @@ def serve_path(torch, eng, label):
               f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
               f"{eng.kv.num_blocks}")
     check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
-    n_attn = cfg.layer_kinds.count("attn")
     n_ssd = cfg.layer_kinds.count("ssd")
+    n_attn = cfg.num_layers - n_ssd
     want = {name: 0 for name in launches}
     for kind, n in kinds.items():
         for name, k in step_launches(eng, kind).items():
@@ -3349,6 +3435,178 @@ def layout_phase(torch):
         overhead
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: qwen-30b-a3b's expert parallelism on the layouts
+# ---------------------------------------------------------------------------
+MOE_LAYOUT_MAX_LAYERS = 12      # the phase's depth at most (its time)
+MOE_LAYOUT_HEADROOM = 0.2       # of the card's free memory, kept free
+
+
+def moe_layout_rank(rank, groups, layers):
+    """One rank of the MoE layout run (spawned by ``run_ranks``):
+    qwen-30b-a3b at full width and ``layers`` deep in bf16, base on the
+    (2, 2) grid (experts over sp with the all-to-all dispatch, their FF
+    over tp) and shift on its ``to_shift()`` (experts over the whole model
+    group, tokens replicated), over one pool, serving the serve workload
+    under the threshold policy. Returns numpy-free results."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace_layers(get_config("qwen-30b-a3b"), layers)
+    lay = Layout(sp=LAYOUT_GRID[0], tp=LAYOUT_GRID[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    models = []
+    for layout in (lay, lay.to_shift()):
+        m = Model(cfg, device="cuda", dtype=torch.bfloat16, lay=layout,
+                  groups=groups)
+        m.init_params(torch.Generator(device="cuda").manual_seed(0))
+        models.append(m)
+    base, shift = models
+    torch.cuda.synchronize()
+    out = {"rank": rank, "build_s": time.monotonic() - t0,
+           "ep": {name: (m.params.layers[0].ffn.ep_axes,
+                         m.params.layers[0].ffn.replicated,
+                         tuple(m.params.layers[0].ffn.wi.shape))
+                  for name, m in (("base", base), ("shift", shift))},
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for m in models
+                              for p in m.params.parameters())}
+    eng = ShiftEngine(base, EngineConfig(), shift=shift)
+    walls, traffic = timed_forward(torch, eng, groups)
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    out.update(serve_s=time.monotonic() - t0,
+               launches=serve.launch_counts(),
+               streams=[r.generated for r in reqs],
+               finish=[r.finish_reason for r in reqs],
+               counts=dict(eng.config_counts),
+               free=eng.kv.num_free_blocks, blocks=eng.kv.num_blocks,
+               walls={k: list(v) for k, v in walls.items()},
+               traffic={k: dict(v) for k, v in traffic.items()},
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def moe_layout_phase(torch):
+    """qwen-30b-a3b's expert parallelism on four ranks of (sp, tp) = (2, 2),
+    one process each on the one card over gloo, the parent holding
+    nothing: full width, the depth cut to what fits with a fifth of the
+    free memory spare (at most ``MOE_LAYOUT_MAX_LAYERS``). Base runs the
+    a2a EP, shift the replicated EP; every rank's streams equal, both
+    configs used, 3L+1 RMSNorm and L ragged launches per step and rank, no
+    block held. Prints the all-to-all bytes per step by config. Returns
+    rank 0's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    sp, tp = LAYOUT_GRID
+    G = sp * tp
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"moe layout phase: the parent still holds "
+          f"{held / 1e9:.2f} GB on the card")
+    cfg = get_config("qwen-30b-a3b")
+    free, total = torch.cuda.mem_get_info()
+    vocab = 2 * cfg.vocab_size * cfg.d_model * 2     # table and head, bf16
+    per_layer = moe_param_bytes(replace_layers(cfg, 1)) - vocab
+    # per rank: the base shard holds 1/tp of the tables and 1/G of the
+    # experts, the shift shard 1/G of both; the layer's attention and norms
+    # are counted whole for each, an upper bound
+    expert = cfg.moe.num_experts * 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
+    rank_fixed = vocab / tp + vocab / G + 2e9        # + context, pool, staging
+    rank_layer = 2 * expert / G + 2 * (per_layer - expert)
+    budget = free * (1 - MOE_LAYOUT_HEADROOM)
+    fit = int((budget / G - rank_fixed) // rank_layer)
+    layers = min(fit, MOE_LAYOUT_MAX_LAYERS)
+    check(layers >= 2, f"moe layout phase: {fit} layers fit")
+    print(f"moe layout phase: memory reckoned per rank: the tables "
+          f"{(vocab / tp + vocab / G) / 1e9:.2f} GB (base 1/{tp}, shift "
+          f"1/{G}) + 2 GB (context, pool, staging) + "
+          f"{rank_layer / 1e9:.3f} GB per layer (1/{G} of the experts in "
+          f"each config, the attention whole): {fit} layers fit in "
+          f"{budget / 1e9:.1f} GB ({1 - MOE_LAYOUT_HEADROOM:.0%} of "
+          f"{free / 1e9:.1f} GB free) over {G} ranks; running {layers} "
+          f"(at most {MOE_LAYOUT_MAX_LAYERS}, the phase's time)")
+    t0 = time.monotonic()
+    res = run_ranks(moe_layout_rank, sp, tp, device="cuda", backend="gloo",
+                    timeout_s=LAYOUT_TIMEOUT_S, args=(layers,))
+    print(f"moe layout phase: {G} ranks ran in {time.monotonic() - t0:.1f} s")
+    r0 = res[0]
+    per_step = {"rmsnorm": 3 * layers + 1, "paged_ragged_attention": layers}
+    steps = sum(r0["counts"].values())
+    for r in res:
+        check(r["streams"] == r0["streams"] and r["counts"] == r0["counts"],
+              f"moe layout: rank {r['rank']}'s streams or configs differ "
+              "from rank 0's")
+        check(all(f == "ok" for f in r["finish"])
+              and all(len(s) == 16 for s in r["streams"]),
+              f"moe layout: rank {r['rank']}: {r['finish']}")
+        check(r["free"] == r["blocks"] - 1, f"moe layout: rank "
+              f"{r['rank']}: {r['free']} of {r['blocks']} blocks free")
+        check(r["launches"] == {k: per_step.get(k, 0) * steps
+                                for k in r["launches"]},
+              f"moe layout: rank {r['rank']}: launches {r['launches']} "
+              f"over {steps} steps, want {per_step} per step")
+        ffn_loc = cfg.moe.d_ff_expert
+        check(r["ep"]["base"][:2] == (("sp",), False)
+              and r["ep"]["shift"][:2] == (("tp", "sp"), True)
+              and r["ep"]["base"][2] == (cfg.moe.num_experts // sp,
+                                         cfg.d_model, ffn_loc // tp)
+              and r["ep"]["shift"][2] == (cfg.moe.num_experts // G,
+                                          cfg.d_model, ffn_loc),
+              f"moe layout: rank {r['rank']}: EP {r['ep']}")
+        check(r["traffic"]["base"].get("all_to_all_calls", 0) > 0,
+              f"moe layout: rank {r['rank']}: no exchange in base steps")
+    check(r0["counts"]["base"] > 0 and r0["counts"]["shift"] > 0,
+          f"moe layout: configs used {r0['counts']}")
+    stats = {}
+    for config in ("base", "shift"):
+        n = len(r0["walls"][config])
+        tr = r0["traffic"][config]
+        stats[config] = {
+            "steps": n,
+            "wall_ms_per_step": sum(r0["walls"][config]) / n * 1e3,
+            "all_to_all_bytes_per_step": tr.get("all_to_all_bytes", 0) / n,
+            "all_to_all_calls_per_step": tr.get("all_to_all_calls", 0) / n,
+            "all_reduce_bytes_per_step": tr.get("all_reduce_bytes", 0) / n}
+        kind = "a2a" if config == "base" else "replicated"
+        print(f"moe layout phase: {config} ({kind} EP) steps on rank 0: "
+              f"{n}, wall "
+              f"{stats[config]['wall_ms_per_step']:.2f} ms per step; per "
+              f"step {stats[config]['all_to_all_bytes_per_step'] / 1e6:.3f} "
+              f"MB in {stats[config]['all_to_all_calls_per_step']:.0f} "
+              f"all-to-all calls (Ulysses and the expert dispatch), "
+              f"{stats[config]['all_reduce_bytes_per_step'] / 1e6:.3f} MB "
+              "all-reduce (payload handed over by the rank)")
+    print(f"moe layout phase: qwen-30b-a3b full width, {layers} layers, "
+          f"served 6 requests x 16 tokens on every rank in "
+          f"{r0['serve_s']:.2f} s, {steps} steps {r0['counts']}; all "
+          f"ranks' streams equal; per rank and step {per_step}; base "
+          f"experts {r0['ep']['base']}, shift {r0['ep']['shift']}; peak "
+          "device memory per rank "
+          + ", ".join(f"{r['peak_bytes'] / 1e9:.2f}" for r in res) + " GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"moe_layout": {
+        "grid": {"sp": sp, "tp": tp}, "backend": "gloo", "layers": layers,
+        "layers_fit": fit, "configs": r0["counts"], "per_config": stats,
+        "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res],
+        "phase_wall_s": wall}}))
+    print(f"moe layout phase: {wall:.1f} s in all; card: {card_line()}")
+    return r0["launches"]
+
+
 def layout_adaptive_check(res, per_step):
     """The layout phase's adaptive runs (``--adaptive``'s policy over the
     grid): every rank's streams, configs and facts equal, and the streams
@@ -4266,6 +4524,225 @@ def reshard_phase(torch):
     return res[0]["fp32"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: qwen-30b-a3b (MoE) at full width and depth on one card
+# ---------------------------------------------------------------------------
+QWEN30_CHECK_LAYERS = 2         # the fp32 check's depth (full width)
+QWEN30_HEADROOM = 4e9           # activations, logits and CUDA graphs
+
+
+def replace_layers(cfg, layers):
+    from dataclasses import replace
+    return replace(cfg, num_layers=layers)
+
+
+def moe_param_bytes(cfg):
+    """A MoE model's weight bytes in bf16, its routers in fp32."""
+    routers = cfg.num_layers * cfg.d_model * cfg.moe.num_experts
+    return cfg.num_params() * 2 + routers * 2
+
+
+def drop_shares(torch, model):
+    """The share of routed assignments that capacity drops, per step of the
+    serve workload: an eager engine over ``model`` whose every MoE layer's
+    kept mask is summed on the card (``moe.route`` wrapped for this turn
+    only) and read after each step. Returns [(prefill tokens, share)], one
+    per step that ran the model."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.engine.deployment import Deployment
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+    kept = []
+
+    def counted(p, xt):
+        out = route(p, xt)
+        keep = out[5]
+        kept.append(torch.stack([keep.sum(), torch.tensor(
+            keep.numel(), device=keep.device)]))
+        return out
+    eng = ShiftEngine(model, EngineConfig())
+    eng.deploy = Deployment.build(eng.base, eng.shift, mixed=eng.mixed,
+                                  paged=eng.paged, graphed=False)
+    out = []
+    MOE.route = counted
+    try:
+        for r in serve.workload(6, 16):
+            eng.submit(r)
+        for _ in range(1000):
+            kept.clear()
+            n = len(eng.step_log)
+            did = eng.step()
+            if kept:
+                k, t = torch.stack(kept).sum(0).tolist()
+                rec = eng.step_log[n] if len(eng.step_log) > n else {}
+                out.append((rec.get("prefill_tokens", 0), 1 - k / t))
+            if not did and not eng.queue and not eng.active:
+                break
+    finally:
+        MOE.route = route
+    return out
+
+
+def qwen30b_phase(torch):
+    """The paper's MoE evaluation model (Table 4, qwen-30b-a3b: 48 layers,
+    d_model 2048, 32 q heads over 4 kv heads of 128, 128 experts, top-8,
+    d_ff_expert 768) at full width and depth in bf16 on one card, after a
+    reckoning of its memory against the card's free memory (the phase
+    fails if it does not fit): the serve CLI's workload through the graphed
+    mixed paged engine in two turns on one engine (``serve_path`` each),
+    equal streams and launches, the second turn capturing nothing; 145
+    RMSNorm and 48 ragged launches per step (counters, and the profiler's
+    trace of decode steps); no block held at exit; TTFT, wall and busy ms
+    per decode step, decode tokens/s, peak memory, and the share of routed
+    assignments dropped per step (an eager turn; printed only). Then a
+    2-layer cut at full width in fp32: one mixed step's logits with
+    padding columns on the card against the CPU within 2e-3. Returns the
+    launches of the measured turn and its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.sim import CostModel
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen-30b-a3b")
+    ecfg = EngineConfig()
+    blocks = ecfg.max_slots * ecfg.s_max // ecfg.block_size + 1
+    params = moe_param_bytes(cfg)
+    pool = (2 * cfg.num_layers * blocks * ecfg.block_size * cfg.num_kv_heads
+            * cfg.head_dim * 2)
+    init = cfg.vocab_size * cfg.d_model * (4 + 2)
+    free, total = torch.cuda.mem_get_info()
+    need = params + pool + init + QWEN30_HEADROOM
+    expert_bytes = (cfg.num_layers * cfg.moe.num_experts * 3 * cfg.d_model
+                    * cfg.moe.d_ff_expert * 2)
+    print(f"qwen-30b-a3b phase: memory reckoned: weights {params / 1e9:.2f} "
+          f"GB ({cfg.num_params()} params in bf16, the routers in fp32; "
+          f"the experts {expert_bytes / 1e9:.2f} GB), pool {blocks} blocks x "
+          f"{ecfg.block_size} tokens x {cfg.num_layers} layers = {pool} B, "
+          f"the largest init temporary {init / 1e9:.2f} GB (the embedding "
+          f"in fp32 and bf16), {QWEN30_HEADROOM / 1e9:.1f} GB for "
+          f"activations and graphs: {need / 1e9:.2f} GB against "
+          f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB")
+    check(need <= free, f"qwen-30b-a3b: {need / 1e9:.2f} GB needed, "
+          f"{free / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = serve.build_engine("qwen-30b-a3b", device="cuda",
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size()
+               for p in eng.model.params.parameters())
+    pool_bytes = 2 * eng.model.pool.k.numel() * eng.model.pool.k.element_size()
+    check(held == params and pool_bytes == pool,
+          f"qwen-30b-a3b: weights {held} B and pool {pool_bytes} B, "
+          f"reckoned {params} and {pool}")
+    build_peak = torch.cuda.max_memory_allocated()
+    print(f"qwen-30b-a3b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} "
+          f"kv heads, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+          f"d_ff {cfg.moe.d_ff_expert}, capacity factor "
+          f"{cfg.moe.capacity_factor}, built in {build_s:.1f} s; peak "
+          f"device memory while building {build_peak / 1e9:.2f} GB")
+    per_step = step_launches(eng, "mixed")
+    check(per_step == {"rmsnorm": 145, "paged_ragged_attention": 48},
+          f"qwen-30b-a3b: per-step launches {per_step}")
+    label = "qwen-30b-a3b mixed paged [graphed]"
+    turns = []
+    for turn in (1, 2):
+        captured = eng.deploy.captures
+        reqs, launches, st = serve_path(torch, eng, f"{label} turn {turn}")
+        if turn == 2:
+            check(eng.deploy.captures == captured,
+                  f"{label}: turn 2 captured "
+                  f"{eng.deploy.captures - captured} graphs")
+        turns.append((reqs, launches, st))
+    check([r.generated for r in turns[0][0]]
+          == [r.generated for r in turns[1][0]],
+          f"{label}: the two turns' streams differ")
+    check(turns[0][1] == turns[1][1], f"{label}: launches "
+          f"{turns[0][1]} != {turns[1][1]}")
+    reqs, launches, st = turns[1]
+    recs = measured_records(eng, st)
+    st.update(profile_decode(torch, eng, label=label))
+    pred = [predicted_ms(CostModel(cfg), r) for r in recs
+            if not r["prefill_tokens"]]
+    st.update(predicted_ms_per_decode_step=sum(pred) / len(pred),
+              graphs_captured=eng.deploy.captures,
+              capture_ms=eng.deploy.graphs.capture_s * 1e3,
+              turn1_wall_ms_per_decode_step=turns[0][2][
+                  "wall_ms_per_decode_step"])
+    led = eng.block_accounting()
+    check(led.used == led.pinned == 0, f"qwen-30b-a3b: blocks held at "
+          f"exit {led}")
+    st["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: TTFT ms " + ", ".join(
+        f"{t:.1f}" for t in st["ttft_ms"]) + f"; decode step wall "
+        f"{st['wall_ms_per_decode_step']:.3f} ms (turn 1 "
+        f"{st['turn1_wall_ms_per_decode_step']:.3f}), device busy "
+        f"{st['busy_ms_per_step']:.3f} ms ({st['busy_share']:.1%}), "
+        f"{st['decode_tokens_per_s']:.1f} decode tokens/s; cost model "
+        f"{st['predicted_ms_per_decode_step']:.3f} ms per decode step "
+        "(Strategy tp 1, H100 data-sheet constants; printed only); "
+        f"{st['graphs_captured']} graphs captured in "
+        f"{st['capture_ms']:.0f} ms; steps by config {st['configs']}; peak "
+        f"device memory {st['peak_gb']:.2f} GB")
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    shares = drop_shares(torch, model)
+    dec = sorted(x for n, x in shares if n == 0)
+    pre = [x for n, x in shares if n]
+    check(dec and pre, f"qwen-30b-a3b: drop shares {shares}")
+    st["drop_share"] = {"prefill_steps": pre,
+                        "decode_steps_min": dec[0],
+                        "decode_steps_median": dec[len(dec) // 2],
+                        "decode_steps_max": dec[-1]}
+    print(f"qwen-30b-a3b: share of routed assignments dropped by capacity "
+          f"(cf {cfg.moe.capacity_factor}; an eager turn of the serve "
+          f"workload, printed only): prefill steps "
+          + ", ".join(f"{x:.3f}" for x in pre)
+          + f"; {len(dec)} decode steps: min {dec[0]:.3f}, median "
+          f"{dec[len(dec) // 2]:.3f}, max {dec[-1]:.3f}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32, full width, 2 layers: one mixed step with padding columns
+    check_cfg = replace_layers(cfg, QWEN30_CHECK_LAYERS)
+    steps, bt = layout_check_steps()
+    gpu = Model(check_cfg, device="cuda", dtype=torch.float32)
+    gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(check_cfg, device="cpu", dtype=torch.float32)
+    cpu.load_params({k: v.cpu() for k, v in
+                     gpu.params.state_dict().items()})
+    err = 0.0
+    for m in (gpu, cpu):
+        m.init_paged_cache(9, 16)
+    for t, ql, off in steps:
+        lg = [m.forward_mixed(t, ql, off, bt, sample=False)[0].cpu()
+              for m in (gpu, cpu)]
+        err = max(err, compare(torch, "qwen-30b-a3b fp32 2-layer logits",
+                               lg[0], lg[1], 2e-3))
+    print(f"qwen-30b-a3b fp32 full-width ({QWEN30_CHECK_LAYERS} layers) "
+          f"mixed step logits with padding columns (q_lens "
+          f"{[s[1] for s in steps]} of 16 columns), card against CPU on "
+          f"the same weights: max abs err {err} (tol 2e-3)")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"qwen30b": {"build_s": build_s, "turn": st,
+                                  "fp32_max_abs_err": err,
+                                  "phase_wall_s": wall}}))
+    print(f"qwen-30b-a3b phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, st
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -4363,9 +4840,11 @@ def main():
     q32, turns["qwen32b"] = qwen32b_phase(torch)
     by_path["qwen32b_threshold"] = q32["threshold"]
     by_path["qwen32b_adaptive"] = q32["adaptive"]
+    by_path["qwen30b_a3b"], turns["qwen30b_a3b"] = qwen30b_phase(torch)
     simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
         by_path["layout_adaptive_rank0"], overhead = layout_phase(torch)
+    by_path["moe_layout_sp2_tp2_rank0"] = moe_layout_phase(torch)
     by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
         by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)
     by_path["reshard_fp32_rank0"] = reshard_phase(torch)

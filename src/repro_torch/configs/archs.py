@@ -1,10 +1,13 @@
 """The architectures the port serves (same numbers as
 ``repro.configs.archs``): four dense GQA decoders and mamba2, plus the
-paper's dense evaluation models (Table 4): qwen-32b, which fits one card,
-and llama-70b, which the cost model and the simulator price."""
+paper's evaluation models (Table 4): the dense qwen-32b and the MoE
+qwen-30b-a3b, which fit one card in bf16 (65.52 GB and 61.06 GB of
+weights), and llama-70b and the MoE llama4-17b-16e (215.5 GB), which the
+cost model and the simulator price and the CPU tests hold at reduced size.
+"""
 from __future__ import annotations
 
-from .base import ModelConfig, SSMConfig
+from .base import ModelConfig, MoEConfig, SSMConfig
 
 QWEN3_8B = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -58,6 +61,25 @@ QWEN_32B = ModelConfig(
     source="paper Table 4 / hf:Qwen/Qwen3-32B",
 )
 
+LLAMA4_17B_16E = ModelConfig(
+    name="llama4-17b-16e", family="moe",
+    num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+    d_ff=16384, vocab_size=202048,
+    layer_pattern=("moe",),
+    moe=MoEConfig(num_experts=16, top_k=1, d_ff_expert=8192,
+                  num_shared_experts=1, d_ff_shared=8192),
+    source="paper Table 4 / hf:meta-llama/Llama-4-Scout-17B-16E",
+)
+
+QWEN_30B_A3B = ModelConfig(
+    name="qwen-30b-a3b", family="moe",
+    num_layers=48, d_model=2048, num_heads=32, num_kv_heads=4, head_dim=128,
+    d_ff=6144, vocab_size=151936, qk_norm=True,
+    layer_pattern=("moe",),
+    moe=MoEConfig(num_experts=128, top_k=8, d_ff_expert=768),
+    source="paper Table 4 / hf:Qwen/Qwen3-30B-A3B",
+)
+
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
-PAPER_MODELS = (LLAMA_70B, QWEN_32B)
+PAPER_MODELS = (LLAMA_70B, QWEN_32B, LLAMA4_17B_16E, QWEN_30B_A3B)
 ARCHS = DENSE_GQA + (MAMBA2_1_3B,) + PAPER_MODELS

@@ -1,9 +1,10 @@
 """Model configuration of the port's architectures.
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
-that its two layer kinds use: ``"attn"`` (GQA attention with SwiGLU and
-RMSNorm) and ``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``), and
-the fields the cost model reads (``local_window``, ``mla``, ``moe``; no
+that its three layer kinds use: ``"attn"`` (GQA attention with SwiGLU and
+RMSNorm), ``"moe"`` (the same attention with the Mixture-of-Experts FFN,
+``MoEConfig``) and ``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``),
+and the fields the cost model reads (``local_window``, ``mla``; no
 architecture the port serves sets them yet). ``reduced()`` cuts widths and
 depth exactly as the reference's ``reduced()`` does for such a model.
 """
@@ -48,19 +49,22 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """The reference's MoE fields that ``active_params`` reads."""
+    """The reference's MoE fields (``repro.configs.base.MoEConfig``)."""
 
     num_experts: int = 8
     top_k: int = 2
     d_ff_expert: int = 0          # per-expert intermediate size
     num_shared_experts: int = 0
     d_ff_shared: int = 0          # shared-expert intermediate (0 -> d_ff_expert)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001  # load-balance aux loss (training only)
+    dispatch_dtype: str = "bf16"    # "int8" halves EP all-to-all traffic
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "dense" (attn layers) | "ssm" (ssd layers)
+    family: str                   # "dense" (attn) | "moe" (moe) | "ssm" (ssd)
     num_layers: int
     d_model: int
     num_heads: int
@@ -68,7 +72,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
-    layer_pattern: tuple = ("attn",)     # repeated; "attn" or "ssd"
+    layer_pattern: tuple = ("attn",)     # repeated; "attn", "moe" or "ssd"
     qk_norm: bool = False         # RMSNorm over q and k per head (qwen3)
     qkv_bias: bool = False        # bias on the q/k/v projections (qwen2)
     local_window: int = 0         # for "local" (sliding-window) layers
@@ -101,19 +105,28 @@ class ModelConfig:
     def num_params(self) -> int:
         """Parameter count of the port's modules: the embedding, the LM head
         unless tied, the norm scales, and per layer q/k/v/o with SwiGLU
-        (three matrices) or the SSD mixer (z/x/bc/dt projections, dt_bias,
-        A_log, D, the two convolutions, the grouped norm and wo)."""
+        (three matrices) or the MoE FFN (the router, every expert's three
+        matrices and the shared experts'), or the SSD mixer (z/x/bc/dt
+        projections, dt_bias, A_log, D, the two convolutions, the grouped
+        norm and wo)."""
         d, dh = self.d_model, self.head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
         for kind in self.layer_kinds:
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 attn = d * dh * (self.num_heads + 2 * self.num_kv_heads) \
                     + self.num_heads * dh * d
                 if self.qkv_bias:
                     attn += dh * (self.num_heads + 2 * self.num_kv_heads)
                 if self.qk_norm:
                     attn += 2 * dh
-                n += attn + 3 * d * self.d_ff + 2 * d
+                n += attn + 2 * d
+                if kind == "attn":
+                    n += 3 * d * self.d_ff
+                else:
+                    mo = self.moe
+                    n += d * mo.num_experts + mo.num_experts * 3 * d \
+                        * mo.d_ff_expert + mo.num_shared_experts * 3 * d \
+                        * (mo.d_ff_shared or mo.d_ff_expert)
             else:
                 s = self.ssm
                 di, nh, ds = s.d_inner(d), s.n_heads(d), s.d_state

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.models.attention import attn_layout
 from repro_torch.models.layers import shard_of, vocab_shard
+from repro_torch.models.moe import expert_grid, expert_shard
 
 
 def _flatten(tree, prefix=""):
@@ -34,8 +35,10 @@ def _flatten(tree, prefix=""):
 
 def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
     """* ``body.s0.*`` (stacked over layers on axis 0) -> ``layers.{i}.*``,
-      for an attention block (``ln1``, ``attn``, ``ln2``, ``ffn``) and for
-      an SSD block (``ln1``, ``mix``) alike;
+      for an attention block (``ln1``, ``attn``, ``ln2``, ``ffn``), a MoE
+      block (the same, its ``ffn`` the ``router``, the ``wi``/``wg``/``wo``
+      expert stacks and ``shared.*``) and an SSD block (``ln1``, ``mix``)
+      alike;
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
     * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
       the port's tied head reads the table);
@@ -78,15 +81,31 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     rows over TP after the head plan's padding and KV replication
     (``attn_specs``), the MLP's ``wi``/``wg`` columns and ``wo`` rows over
     TP, the embedding's rows and the LM head's columns over TP, ``G/tp``
-    shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), and
-    the norm scales whole. On a layout with dp rows the rank gets the
-    shard of its grid position ``(i, j)``, the same in every row (the
-    reference replicates the parameters over ``"data"``). Attention and MLP
-    weights only: SSD layers run only the trivial layout."""
-    k = lay.tp_rank(rank)
+    shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), a
+    MoE layer's expert stacks over its EP axes and their FF dim over the
+    TP axes outside them (``moe_specs``' ``P(ep, None, tpr)``), its shared
+    experts as the MLP and its router whole, and the norm scales whole. On
+    a layout with dp rows the rank gets the shard of its grid position
+    ``(i, j)``, the same in every row (the reference replicates the
+    parameters over ``"data"``). Attention, MLP and MoE weights only: SSD
+    layers run only the trivial layout."""
     return {name: shard_tensor(name, torch.from_numpy(
-                np.ascontiguousarray(a)), cfg, lay, k).contiguous().numpy()
+                np.ascontiguousarray(a)), cfg, lay, rank).contiguous().numpy()
             for name, a in state.items()}
+
+
+def is_expert_leaf(name: str, cfg) -> bool:
+    """True for a MoE layer's ``ffn.wi``/``wg``/``wo`` expert stack, the
+    leaves sharded over the model group's EP and FF axes (not over TP
+    alone)."""
+    p = name.split(".")
+    return (len(p) == 4 and p[0] == "layers" and p[2] == "ffn"
+            and p[3] in ("wi", "wg", "wo")
+            and cfg.layer_kinds[int(p[1])] == "moe")
+
+
+def _ff_dim(name: str) -> int:
+    return 1 if name.endswith(".wo") else 2
 
 
 _HEADS = {"wq": "q", "bq": "q", "wo": "q", "wk": "kv", "wv": "kv",
@@ -102,10 +121,14 @@ def _canon_shape(name: str, t: torch.Tensor, h: int, cfg) -> torch.Tensor:
 
 
 def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
-                 tp_rank: int) -> torch.Tensor:
+                 rank: int) -> torch.Tensor:
     """``shard_state`` of one parameter, as a tensor (a view where the
-    shard is a slice): tp rank ``tp_rank``'s part of the trivial layout's
-    ``t``, in any type and on any device."""
+    shard is a slice): process ``rank``'s part of the trivial layout's
+    ``t`` on ``lay`` (its tp rank's, or for an expert stack its grid
+    position's), in any type and on any device."""
+    if is_expert_leaf(name, cfg):
+        return expert_shard(t, _ff_dim(name), cfg, lay, rank)
+    tp_rank = lay.tp_rank(rank)
     parts = name.split(".")
     if name == "embed.table":
         return vocab_shard(t, 0, lay, tp_rank)
@@ -115,7 +138,7 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
         h = cfg.num_heads if _HEADS[parts[-1]] == "q" else cfg.num_kv_heads
         return attn_layout(parts[-1], _canon_shape(parts[-1], t, h, cfg),
                            cfg, lay, tp_rank)
-    if parts[-2] == "ffn":
+    if parts[-2] in ("ffn", "shared") and parts[-1] in ("wi", "wg", "wo"):
         return shard_of(t, 0 if parts[-1] == "wo" else 1, max(lay.tp, 1),
                         tp_rank)
     if parts[-2] == "mix" and lay.world > 1:
@@ -124,14 +147,44 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
     return t
 
 
+def _row_rank(lay, g: int) -> int:
+    """The process rank of model rank ``g`` in dp row 0 of ``lay``."""
+    sp, tp = lay.grid
+    return (g % sp) * tp + g // sp
+
+
+def _unshard_experts(name, parts, cfg, lay) -> torch.Tensor:
+    """An expert stack from every model rank's block (model-rank order):
+    the FF blocks of each EP index side by side, then the EP blocks."""
+    blocks = {}
+    for g, part in enumerate(parts):
+        ep, e, tpr, t = expert_grid(cfg, lay, _row_rank(lay, g))
+        blocks.setdefault((e, t), part)
+    return torch.cat([torch.cat([blocks[(e, t)] for t in range(tpr)],
+                                _ff_dim(name)) for e in range(ep)], 0)
+
+
 def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     """The inverse of ``shard_tensor``: the trivial layout's parameter
     ``name`` from ``parts``, every tp rank's shard of it on ``lay`` in tp
-    rank order. The pad slots of the head plan go; of a kv head that KV
-    replication repeats, the first copy is taken (every copy is the same
-    head). Bitwise: ``shard_tensor`` of the result gives each part back."""
+    rank order, or every model rank's (``G`` of them) in model-rank order,
+    which an expert stack needs. The pad slots of the head plan go; of a kv
+    head that KV replication repeats, the first copy is taken (every copy
+    is the same head). Bitwise: ``shard_tensor`` of the result gives each
+    part back."""
     p = name.split(".")
-    tp = max(lay.tp, 1)
+    tp, G = max(lay.tp, 1), max(lay.G, 1)
+    if is_expert_leaf(name, cfg):
+        if len(parts) != G:
+            raise ValueError(f"{name}: {len(parts)} shards, want one per "
+                             f"model rank ({G})")
+        return _unshard_experts(name, parts, cfg, lay)
+    if len(parts) == G != tp:
+        # every model rank's: keep the first of each tp rank's
+        by_tp = {}
+        for g, part in enumerate(parts):
+            by_tp.setdefault(lay.tp_rank(_row_rank(lay, g)), part)
+        parts = [by_tp[k] for k in range(tp)]
     if len(parts) != tp:
         raise ValueError(f"{name}: {len(parts)} shards for tp={tp}")
     if name in ("embed.table", "lm_head.w"):
@@ -159,7 +212,7 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
         return out.reshape(-1, cfg.d_model) if p[-1] == "wo" else \
             out.reshape(out.shape[0], -1) if p[-1][0] == "w" else \
             out.reshape(-1)
-    if p[-2] == "ffn":
+    if p[-2] in ("ffn", "shared") and p[-1] in ("wi", "wg", "wo"):
         return torch.cat(list(parts), 0 if p[-1] == "wo" else 1)
     if p[-2] == "mix" and lay.world > 1:
         raise NotImplementedError(f"{name}: SSD layers run only the "
@@ -171,8 +224,9 @@ def unshard_state(shards, cfg, lay) -> Dict[str, np.ndarray]:
     """The inverse of ``shard_state``: the trivial layout's state from
     ``shards``, one state per tp rank of ``lay`` in tp rank order (on a
     base config with sp > 1 the sp ranks of one tp rank hold the same
-    shard: pass one of them). Bitwise: ``shard_state`` of the result on
-    ``lay`` gives each shard back."""
+    shard: pass one of them), or one per model rank in model-rank order,
+    which a state with MoE expert stacks needs. Bitwise: ``shard_state`` of
+    the result on ``lay`` gives each shard back."""
     return {name: unshard_tensor(name, [torch.from_numpy(
                 np.ascontiguousarray(s[name])) for s in shards], cfg, lay)
             .contiguous().numpy() for name in shards[0]}
@@ -206,7 +260,7 @@ def from_jax_cache(tree, cfg, paged: bool) -> Dict[str, torch.Tensor]:
             or len(cfg.layer_pattern) != 1:
         raise ValueError("only a stack of one repeated block converts")
     body = tree["body"]["s0"]
-    want = (("k", "v") if paged or cfg.layer_pattern[0] == "attn"
+    want = (("k", "v") if paged or cfg.layer_pattern[0] in ("attn", "moe")
             else ("ssm", "conv_x", "conv_bc"))
     if set(body) != set(want):
         raise ValueError(f"cache leaves {sorted(body)}, want {list(want)} "

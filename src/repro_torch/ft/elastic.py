@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.convert import shard_tensor, unshard_tensor
+from repro_torch.convert import is_expert_leaf, shard_tensor, unshard_tensor
 from repro_torch.parallel import Layout
 from repro_torch.parallel.collectives import all_gather_if
 
@@ -48,10 +48,11 @@ def _tp_members(lay: Layout, rank: int):
 def reshard_params(old_model, new_model):
     """Copy ``old_model``'s weights into ``new_model`` (the same config,
     device and ranks, another layout): every parameter is all-gathered over
-    the old model's TP group (traffic kind ``reshard_weights``), put back
-    into its trivial form and cut for the new model's rank, one parameter
-    at a time. Bitwise for every leaf. Every rank of the world calls it, in
-    the same order. Returns ``new_model``."""
+    the old model's TP group (a MoE layer's expert stacks over its whole
+    model group, in model-rank order; traffic kind ``reshard_weights``),
+    put back into its trivial form and cut for the new model's rank, one
+    parameter at a time. Bitwise for every leaf. Every rank of the world
+    calls it, in the same order. Returns ``new_model``."""
     old, new = old_model.lay, new_model.lay
     if old.world != new.world or old_model.cfg != new_model.cfg:
         raise ValueError(f"reshard_params: {old.describe()} on {old.world} "
@@ -62,11 +63,21 @@ def reshard_params(old_model, new_model):
     order = sorted(range(len(members)),
                    key=lambda m: old.tp_rank(members[m]))
     group = old_model.shard.tp_group
-    k_new = new.tp_rank(new_model.shard.rank)
+    # an expert stack's: the row's model group, ascending process rank
+    row = old.dp_rank(old_model.shard.rank) * old.G
+    by_model = sorted(range(old.G), key=lambda m: old.model_rank(row + m))
+    model_group = old_model.shard.axes_group(("sp", "tp"))
     dst = new_model.params.state_dict()
     for name, t in old_model.params.state_dict().items():
-        parts = all_gather_if(t, group, "reshard_weights").chunk(
-            len(members))
-        full = unshard_tensor(name, [parts[m] for m in order], cfg, old)
-        dst[name].copy_(shard_tensor(name, full, cfg, new, k_new))
+        if is_expert_leaf(name, cfg):
+            parts = all_gather_if(t, model_group, "reshard_weights").chunk(
+                old.G)
+            parts = [parts[m] for m in by_model]
+        else:
+            parts = all_gather_if(t, group, "reshard_weights").chunk(
+                len(members))
+            parts = [parts[m] for m in order]
+        full = unshard_tensor(name, parts, cfg, old)
+        dst[name].copy_(shard_tensor(name, full, cfg, new,
+                                     new_model.shard.rank))
     return new_model

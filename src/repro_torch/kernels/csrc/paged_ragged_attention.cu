@@ -12,7 +12,11 @@
 // window of the earliest real column are skipped; rows with ctx == 0 give
 // zeros. NEG_INF is the finite -1e30 of the TPU kernel, so masked keys seen
 // before a row's first live key vanish through the correction factor.
-// Padding columns (c >= q_len) are not computed: they are written as zeros.
+// Padding columns (c >= q_len) are written as zeros, unless pad_cols is set:
+// then they are computed as the reference's CPU path computes them. Their
+// position ctx - q_len + c is at least ctx, so the mask gives each of them
+// all of its row's ctx keys (a MoE layer routes every column of the step,
+// so their values reach the router and take expert capacity).
 //
 // What bounds it on the H100: bytes. Each live K/V block is read once per
 // (sequence, kv head) and the work per byte is ~2*g*q_len flops, below the
@@ -59,6 +63,7 @@ struct Args {
   const int* q_lens;
   const int* ctx_lens;
   int Hkv, g, C, D, bs, nmax, window;
+  int pad_cols;  // 1: padding columns are computed, 0: written as zeros
   float soft_cap, scale;
 };
 
@@ -66,7 +71,7 @@ struct Args {
 struct Tile {
   int n, b, h;       // n = b * Hkv + h
   int r0, rows;      // first row of the [g*C] axis (position-major), rows in the tile
-  int live;          // rows in [0, live) are real; the rest are padding
+  int live;          // rows in [0, live) are computed; the rest are zeroed
   int ctx, base;     // base = ctx - q_len: the position of column 0
   int kbeg, kend;    // keys [kbeg, kend) are walked; kend is past the tile's last query
   int bs_log;        // log2(bs) when bs is a power of two, else -1
@@ -83,7 +88,7 @@ struct Tile {
     ctx = a.ctx_lens[b];
     const int q_len = a.q_lens[b];
     base = ctx - q_len;
-    live = ctx > 0 ? max(0, min(rows, a.g * q_len - r0)) : 0;
+    live = ctx > 0 ? max(0, min(rows, a.g * (a.pad_cols ? a.C : q_len) - r0)) : 0;
     bt = a.block_tables + static_cast<long long>(b) * a.nmax;
     bs_log = (a.bs & (a.bs - 1)) == 0 ? __ffs(a.bs) - 1 : -1;
     kbeg = kend = 0;
@@ -92,7 +97,8 @@ struct Tile {
       const int lo = a.window > 0 ? max(base - a.window + 1, 0) / a.bs : 0;
       const int last_q = base + (r0 + live - 1) / a.g;  // the tile's last query
       kbeg = lo * a.bs;
-      kend = min(nblk * a.bs, last_q + 1);
+      // a padding column's query lies at or past ctx: its keys end at ctx
+      kend = min(min(nblk * a.bs, last_q + 1), ctx);
     }
   }
   // Column of row r of the tile.
@@ -446,15 +452,17 @@ bool valid(int B, const Args& a) {
 // q, out: [B, Hkv, g, C, D]; k_pool, v_pool: [num_blocks, bs, Hkv, D];
 // block_tables: [B, nmax] int32; q_lens, ctx_lens: [B] int32. All contiguous
 // and 16-byte aligned on the device of `stream`; D <= 256, a multiple of 4
-// (fp32) or of 16 (bf16). Returns a cudaError_t (0 = launched).
+// (fp32) or of 16 (bf16). pad_cols != 0 computes the padding columns.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_ragged_attention_f32(const void* q, const void* k_pool,
                                           const void* v_pool, void* out,
                                           const int* block_tables, const int* q_lens,
                                           const int* ctx_lens, int B, int Hkv, int g,
                                           int C, int D, int bs, int nmax, int window,
-                                          float soft_cap, float scale, void* stream) {
-  const Args a{block_tables, q_lens, ctx_lens, Hkv, g, C, D, bs, nmax, window, soft_cap,
-               scale};
+                                          int pad_cols, float soft_cap, float scale,
+                                          void* stream) {
+  const Args a{block_tables, q_lens, ctx_lens, Hkv, g, C, D, bs, nmax, window, pad_cols != 0,
+               soft_cap, scale};
   if (!valid(B, a) || D % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qt = static_cast<const float*>(q);
   const auto* kt = static_cast<const float*>(k_pool);
@@ -474,9 +482,10 @@ extern "C" int paged_ragged_attention_bf16(const void* q, const void* k_pool,
                                            const int* block_tables, const int* q_lens,
                                            const int* ctx_lens, int B, int Hkv, int g,
                                            int C, int D, int bs, int nmax, int window,
-                                           float soft_cap, float scale, void* stream) {
-  const Args a{block_tables, q_lens, ctx_lens, Hkv, g, C, D, bs, nmax, window, soft_cap,
-               scale};
+                                           int pad_cols, float soft_cap, float scale,
+                                           void* stream) {
+  const Args a{block_tables, q_lens, ctx_lens, Hkv, g, C, D, bs, nmax, window, pad_cols != 0,
+               soft_cap, scale};
   if (!valid(B, a) || D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
   const auto* kt = static_cast<const __nv_bfloat16*>(k_pool);

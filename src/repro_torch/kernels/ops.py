@@ -83,12 +83,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lens):
 
 
 def paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens, ctx_lens, *,
-                        window=0, soft_cap=0.0):
+                        window=0, soft_cap=0.0, pad_cols=False):
     """Work-proportional paged attention in the model's head-minor layout.
 
     q: [B, C, Hq, D], C ragged query columns (columns >= q_lens[b] are
     padding); k_pool/v_pool: [num_blocks, bs, Hkv, D]; block_tables:
-    [B, nmax] int32; q_lens/ctx_lens: [B] int32 -> [B, C, Hq, D]."""
+    [B, nmax] int32; q_lens/ctx_lens: [B] int32 -> [B, C, Hq, D].
+    ``pad_cols=True`` has the kernel compute the padding columns as the
+    plain version does (a MoE model's); without it they come back as zeros
+    on the card."""
     B, C, Hq, D = q.shape
     Hkv = k_pool.shape[2]
     g = Hq // Hkv
@@ -96,7 +99,7 @@ def paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens, ctx_lens, *,
     fn = (PRA.paged_ragged_attention_cuda if _on_cuda(q)
           else PRA.paged_ragged_attention_plain)
     out = fn(qf.contiguous(), k_pool, v_pool, block_tables, q_lens, ctx_lens,
-             window=window, soft_cap=soft_cap)
+             window=window, soft_cap=soft_cap, pad_cols=pad_cols)
     return out.reshape(B, Hq, C, D).transpose(1, 2)
 
 

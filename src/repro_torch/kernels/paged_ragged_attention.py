@@ -15,12 +15,21 @@ The source note in the ``.cu`` file says more.
 
 Shapes (all three functions): q ``[B, Hkv, g, C, D]``, C ragged query
 columns per sequence (column c sits at global position
-``ctx_lens[b] - q_lens[b] + c``; columns >= q_lens[b] are padding, their
-output finite but unspecified); k_pool/v_pool ``[num_blocks, bs, Hkv, D]``;
+``ctx_lens[b] - q_lens[b] + c``; columns >= q_lens[b] are padding);
+k_pool/v_pool ``[num_blocks, bs, Hkv, D]``;
 block_tables ``[B, nmax]`` (0 = null block); q_lens/ctx_lens ``[B]``.
 ctx_lens may exceed ``nmax*bs`` when padding columns overhang the table:
 positions past the table are absent. Returns ``[B, Hkv, g, C, D]`` in q's
 type.
+
+Padding columns: the plain version and the oracle compute them as the
+reference's CPU path (``paged_ragged_attention_mirror``) does, each over
+all ``ctx`` keys of its row (its position is at least ctx). The kernel
+writes them as zeros by default, which is all a dense model needs (only
+real columns reach its logits), and computes them as the plain version
+does with ``pad_cols=True``: a MoE layer routes every column of the step,
+so the padding columns' values take expert capacity. Rows with
+``ctx == 0`` give zeros in all three.
 """
 from __future__ import annotations
 
@@ -42,13 +51,16 @@ def _window_lo_block(ctx, q_len, bs, window):
 
 
 def paged_ragged_attention_plain(q, k_pool, v_pool, block_tables, q_lens,
-                                 ctx_lens, *, window=0, soft_cap=0.0):
+                                 ctx_lens, *, window=0, soft_cap=0.0,
+                                 pad_cols=True):
     """Plain PyTorch version of the kernel: the same block loop, skip rule,
     masks and online softmax in fp32, vectorised over sequences, heads and
-    query rows. A skipped block leaves the state unchanged through
-    ``torch.where`` (the reference's ``lax.cond``); products take bf16
-    inputs exactly in fp32, and p is rounded to the value type before the
-    PV sum, as the TPU kernel does."""
+    query rows, padding columns computed (``pad_cols`` is the kernel's
+    option; the plain version computes them either way). A skipped block
+    leaves the state unchanged through ``torch.where`` (the reference's
+    ``lax.cond``); products take bf16 inputs exactly in fp32, and p is
+    rounded to the value type before the PV sum, as the TPU kernel
+    does."""
     B, Hkv, g, C, D = q.shape
     bs = k_pool.shape[1]
     nmax = block_tables.shape[1]
@@ -139,7 +151,7 @@ def paged_ragged_attention_gather(q, k_pool, v_pool, block_tables, q_lens,
 
 _C_FUNCS = {torch.float32: "paged_ragged_attention_f32",
             torch.bfloat16: "paged_ragged_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
@@ -152,13 +164,15 @@ def _bind(dtype):
 
 
 def paged_ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_lens,
-                                ctx_lens, *, window=0, soft_cap=0.0):
+                                ctx_lens, *, window=0, soft_cap=0.0,
+                                pad_cols=False):
     """Launch the CUDA kernel on PyTorch's current stream. Takes q and the
     pools in fp32 or bf16, contiguous and 16-byte aligned, on one CUDA
     device, with ``D <= 256`` a multiple of 4 in fp32 and of 16 in bf16
     (the tensor cores' depth); the int inputs as int32. Raises on anything
     else and when the launch fails. Padding columns (``c >= q_lens[b]``)
-    come back as zeros."""
+    come back as zeros, or with ``pad_cols=True`` computed as the plain
+    version computes them."""
     global launches
     if q.dtype not in _C_FUNCS:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
@@ -205,8 +219,8 @@ def paged_ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_lens,
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  out.data_ptr(), block_tables.data_ptr(), q_lens.data_ptr(),
                  ctx_lens.data_ptr(), B, Hkv, g, C, D, bs,
-                 block_tables.shape[1], int(window), float(soft_cap),
-                 float(D ** -0.5), stream)
+                 block_tables.shape[1], int(window), int(bool(pad_cols)),
+                 float(soft_cap), float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"paged_ragged_attention kernel launch failed: "
                            f"cudaError_t {err}")

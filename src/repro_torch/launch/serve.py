@@ -46,9 +46,14 @@ oldest under ``evict-longest-queued``.
 roofline cost model (``repro_torch.sim.CostModel``, H100 data-sheet
 constants) priced at the layout's (sp, tp), or at (2, 2) when sp·tp is 1
 (one rank, or dp rows alone), as the reference CLI prices it; without it
-the threshold policy decides. ``--arch qwen-32b`` serves the paper's
-evaluation model (64 layers, d_model 5120), which fits one card in bf16;
-``llama-70b`` is a config of the cost model and the simulator only.
+the threshold policy decides. ``--arch`` takes qwen3-8b (the default),
+qwen2-7b, qwen2-1.5b, internlm2-1.8b, mamba2-1.3b and the paper's
+evaluation models that fit one card in bf16: qwen-32b (64 layers,
+d_model 5120) and the Mixture-of-Experts qwen-30b-a3b (48 layers, d_model
+2048, 128 experts, top-8; ``--adaptive`` prices its routed experts
+through the cost model's MoE branch). ``llama-70b`` and the MoE
+llama4-17b-16e (215.5 GB) are configs of the cost model and the
+simulator, and llama4-17b-16e runs at ``--reduced`` size.
 
 ``--fault-seed S`` serves under the seeded fault storm ``random_plan(S,
 --fault-steps, p_alloc=p_forward=p_route=--p-fault, dp=--dp)``; under

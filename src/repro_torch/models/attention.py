@@ -204,7 +204,9 @@ def paged_attn_mixed(p: Attention, x, k_pool, v_pool, pos, offsets, q_lens,
     the exchange). Writes their K/V into this rank's ``k_pool``/``v_pool``
     ([num_blocks, bs, kv_per_rank, Dh]) IN PLACE: the reference's
     functional ``.at[].set`` would copy a multi-GB pool per layer here,
-    which the card cannot afford. Returns out [B, S_loc, d]."""
+    which the card cannot afford. Returns out [B, S_loc, d]. A MoE model's
+    padding columns are computed as the reference computes them (each over
+    its row's keys): its router sees every column of the step."""
     q, k, v = _project_exchange(p, x, cfg)
     S = q.shape[1]
     q, k = _qk_post(p, q, k, pos, cfg)
@@ -222,7 +224,8 @@ def paged_attn_mixed(p: Attention, x, k_pool, v_pool, pos, offsets, q_lens,
     v_pool[blk, pos % bs] = v
     out = K.paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens,
                                 offsets + q_lens,
-                                soft_cap=cfg.logits_soft_cap)
+                                soft_cap=cfg.logits_soft_cap,
+                                pad_cols=cfg.moe is not None)
     return _finish(p, out)
 
 

@@ -1,12 +1,14 @@
 """Pre-norm residual blocks (counterpart of ``repro.models.blocks``) for the
-port's two layer kinds: ``"attn"`` (attention + SwiGLU MLP) and ``"ssd"``
-(the Mamba-2 mixer alone, no ln2 and no FFN)."""
+port's three layer kinds: ``"attn"`` (attention + SwiGLU MLP), ``"moe"``
+(the same attention + the Mixture-of-Experts FFN) and ``"ssd"`` (the
+Mamba-2 mixer alone, no ln2 and no FFN)."""
 from __future__ import annotations
 
 from torch import nn
 
 from repro_torch.parallel import Layout, Shard
 from . import attention as A
+from . import moe as MOE
 from . import ssd as S
 from .layers import MLP, RMSNorm, mlp_apply
 
@@ -30,6 +32,20 @@ class Block(nn.Module):
         self.ffn.reset_parameters(generator)
 
 
+class MoEBlock(Block):
+    """The attention block's attention half and the MoE FFN."""
+    kind = "moe"
+
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
+        nn.Module.__init__(self)
+        d = cfg.d_model
+        shard = shard or Shard(lay)
+        self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.attn = A.Attention(cfg, lay, dtype, device, shard)
+        self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ffn = MOE.MoE(cfg, lay, dtype, device, shard)
+
+
 class SSDBlock(nn.Module):
     kind = "ssd"
 
@@ -45,15 +61,23 @@ class SSDBlock(nn.Module):
         self.mix.reset_parameters(generator)
 
 
-BLOCKS = {"attn": Block, "ssd": SSDBlock}
+BLOCKS = {"attn": Block, "moe": MoEBlock, "ssd": SSDBlock}
+
+
+def _ffn(p, h2):
+    """The FFN half: the MoE layer's routed experts, or the SwiGLU MLP.
+    h2: [B, S, d]."""
+    if p.kind == "moe":
+        return MOE.moe_apply(p.ffn, h2)[0]
+    return mlp_apply(p.ffn, h2)
 
 
 def block_paged_cache_init(kind, cfg, lay: Layout, num_blocks: int,
                            block_size: int):
     """Shape of one layer's K (and V) block pool. Only attention layers
-    page; an SSD layer keeps per-sequence recurrent state, so a config with
-    one keeps the contiguous cache."""
-    if kind == "attn":
+    (``attn`` and ``moe``) page; an SSD layer keeps per-sequence recurrent
+    state, so a config with one keeps the contiguous cache."""
+    if kind in ("attn", "moe"):
         return A.paged_cache_init(cfg, lay, num_blocks, block_size)
     raise ValueError(f"layer kind {kind!r} does not support a paged cache")
 
@@ -80,7 +104,7 @@ def block_prefill(p, x, cache, ctx, cfg):
     else:
         a = A.attn_prefill(p.attn, h, k_cache, v_cache, ctx["offsets"], cfg)
     x = x + a
-    return x + mlp_apply(p.ffn, p.ln2(x))
+    return x + _ffn(p, p.ln2(x))
 
 
 def block_decode(p, x, cache, ctx, cfg):
@@ -97,4 +121,8 @@ def block_decode(p, x, cache, ctx, cfg):
     else:
         a = A.attn_decode(p.attn, h, k_cache, v_cache, ctx["lens"], cfg)
     x = x + a
-    return x + mlp_apply(p.ffn, p.ln2(x))
+    h2 = p.ln2(x)
+    if p.kind == "moe":
+        # one token per row: the reference routes [B, 1, d]
+        return x + MOE.moe_apply(p.ffn, h2[:, None, :])[0][:, 0]
+    return x + mlp_apply(p.ffn, h2)

@@ -1,7 +1,8 @@
 """Public model API (counterpart of ``repro.models.model``): a ``Model``
 bundles the config, the layout, this process's shard of the parameters on
 one device and its caches (the paged KV pool, for configs whose layers all
-page, and the dense contiguous cache with KV and SSD state), and exposes
+page: attention and MoE layers; and the dense contiguous cache with KV and
+SSD state), and exposes
 the mixed paged step and the serialized prefill and decode steps.
 ``view()`` gives a ``Model`` over the same parameters with caches of its
 own: each engine steps its own view, so engines built on one model share
@@ -16,7 +17,9 @@ paged pool, and all-gathers the sampled tokens over the DP group, so that
 every rank returns the whole batch's tokens. The mixed paged step runs on
 every layout; the serialized steps on the paged pool run while the model
 group is one rank (dp rows alone); the dense cache and SSD layers run only
-the trivial layout (ROADMAP Queue 1 item 2)."""
+the trivial layout (ROADMAP Queue 1 item 2). A MoE layer's experts are
+sharded over its EP group (``models.moe.ep_group``) within a dp row; a
+pod-scale config whose EP group would span dp rows raises."""
 from __future__ import annotations
 
 from typing import Optional
@@ -28,11 +31,13 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import Groups, Layout, Shard
 from repro_torch.parallel.collectives import all_gather_if
 from .attention import get_plan
+from .moe import POD_SCALE_ARCHS
 from . import transformer as T
 
 
 class Model:
-    """A decoder (dense GQA, or mamba2's SSD layers) on one device.
+    """A decoder (dense GQA, GQA with MoE FFNs, or mamba2's SSD layers) on
+    one device.
     ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
     runs only when asked for. ``lay`` is the layout (the trivial one by
     default); above world size 1, ``groups`` are the grid's process groups
@@ -43,7 +48,8 @@ class Model:
 
     def __init__(self, cfg, device="cuda", dtype=torch.bfloat16,
                  lay: Layout = Layout(), groups: Optional[Groups] = None):
-        if lay.world > 1 and any(k != "attn" for k in cfg.layer_kinds):
+        if lay.world > 1 and any(k not in ("attn", "moe")
+                                 for k in cfg.layer_kinds):
             raise NotImplementedError(
                 f"{cfg.name} on {lay.describe()}: SSD layers run only the "
                 "trivial layout (their Ulysses exchange is ROADMAP Queue 1 "
@@ -57,6 +63,12 @@ class Model:
         self.params = T.Transformer(cfg, lay, dtype, self.device, self.shard)
         self.pool: Optional[T.PagedPool] = None
         self.cache: Optional[T.DenseCache] = None
+
+    @property
+    def pod_scale(self) -> bool:
+        """The reference's ``POD_SCALE_ARCHS``: the EP group of such a
+        config may take the dp axes (above one dp row the port raises)."""
+        return self.cfg.name in POD_SCALE_ARCHS
 
     def view(self) -> "Model":
         """A ``Model`` over the same parameters, layout, shard, head plan,
@@ -114,10 +126,11 @@ class Model:
     # -------------------------------------------------------- paged cache
     @property
     def supports_paged(self) -> bool:
-        """True when every cached layer is GQA attention, whose [block_size,
-        kv_slots, Dh] block layout pages. SSD layers keep recurrent state
-        per sequence, so their configs keep the contiguous cache."""
-        return all(k == "attn" for k in self.cfg.layer_kinds)
+        """True when every cached layer is GQA attention (``attn`` or
+        ``moe``), whose [block_size, kv_slots, Dh] block layout pages. SSD
+        layers keep recurrent state per sequence, so their configs keep the
+        contiguous cache."""
+        return all(k in ("attn", "moe") for k in self.cfg.layer_kinds)
 
     def _require_paged(self):
         if not self.supports_paged:

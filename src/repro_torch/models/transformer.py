@@ -25,10 +25,11 @@ class Transformer(nn.Module):
     """The parameters of a decoder whose layers follow ``cfg.layer_kinds``.
     State-dict names: ``embed.table`` [V, d], ``final_norm.scale``,
     ``lm_head.w`` [d, V] unless the embedding is tied, and
-    ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention layer or
-    ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the reference's leaf
-    names. Each holds this rank's shard (``shard``; the whole tensors on
-    the trivial layout)."""
+    ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention or MoE layer
+    (a MoE layer's ``ffn.router``, ``ffn.wi``/``wg``/``wo`` and
+    ``ffn.shared.*``) or ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with
+    the reference's leaf names. Each holds this rank's shard (``shard``;
+    the whole tensors on the trivial layout)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
@@ -93,11 +94,12 @@ def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
 @dataclass
 class DenseCache:
     """The contiguous cache of every layer, stacked by kind and updated in
-    place by each step. Attention layers: K and V ``[n_attn, B, s_max,
-    kv_slots, Dh]``. SSD layers: ``ssm`` [n_ssd, B, H, hd, ds] in fp32,
-    ``conv_x`` [n_ssd, B, cw-1, H·hd] and ``conv_bc`` [n_ssd, B, cw-1,
-    2·ds]. A kind the config lacks has None. ``kinds[i]`` and ``index[i]``
-    give layer i's kind and its index among the layers of that kind."""
+    place by each step. Attention and MoE layers: K and V ``[n_attn, B,
+    s_max, kv_slots, Dh]``. SSD layers: ``ssm`` [n_ssd, B, H, hd, ds] in
+    fp32, ``conv_x`` [n_ssd, B, cw-1, H·hd] and ``conv_bc`` [n_ssd, B,
+    cw-1, 2·ds]. A kind the config lacks has None. ``kinds[i]`` and ``index[i]``
+    give layer i's kind and its index among the layers of its cache (the
+    attention and MoE layers together, or the SSD layers)."""
     kinds: tuple
     index: tuple
     k: Optional[torch.Tensor] = None
@@ -118,9 +120,11 @@ def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
                device) -> DenseCache:
     """Zeroed dense caches of every layer."""
     kinds = cfg.layer_kinds
-    index = tuple(kinds[:i].count(k) for i, k in enumerate(kinds))
+    ssd = tuple(k == "ssd" for k in kinds)
+    index = tuple(ssd[:i].count(s) for i, s in enumerate(ssd))
     c = DenseCache(kinds=kinds, index=index)
-    n_attn, n_ssd = kinds.count("attn"), kinds.count("ssd")
+    n_ssd = ssd.count(True)
+    n_attn = len(kinds) - n_ssd
     if n_attn:
         shape = (n_attn,) + cache_init(cfg, lay, batch, s_max)
         c.k = torch.zeros(shape, dtype=dtype, device=device)
@@ -166,7 +170,7 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     (or [B, n_last, v_blk] logits); columns before the row's start give
     zero logits and a token the engine ignores. n_last == 1 is the
     single-token path, unchanged."""
-    if any(kind != "attn" for kind in cfg.layer_kinds):
+    if any(kind not in ("attn", "moe") for kind in cfg.layer_kinds):
         raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
                          "which only attention layers have")
     sh = params.shard

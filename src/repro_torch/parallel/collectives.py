@@ -136,6 +136,27 @@ class Groups:
         self._check(lay)
         return self.dp_group
 
+    def axes_group(self, axes) -> Optional[Group]:
+        """The group over any set of the grid's named axes within this
+        rank's dp row: ``"sp"`` is the grid's SP group, ``"tp"`` its TP
+        group, both the row's model group; no axes, or axes of one rank,
+        give None. A group's ranks are numbered in ascending process rank,
+        which is the joint index over ``("sp",)``, ``("tp",)`` and
+        ``("sp", "tp")`` (not over ``("tp", "sp")``). ``"data"`` (a group
+        across dp rows) raises."""
+        names = set(axes)
+        if not names <= {"sp", "tp"}:
+            raise NotImplementedError(
+                f"a group over {sorted(names)}: groups across dp rows are "
+                "the DP group's alone (EP across dp rows is ROADMAP Queue 1)")
+        if names == {"sp", "tp"}:
+            return self.world_group
+        if names == {"sp"}:
+            return self.sp_group
+        if names == {"tp"}:
+            return self.tp_group
+        return None
+
 
 def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     """Sum of ``x`` over ``group``, in place; ``x`` itself for no group."""
@@ -169,3 +190,16 @@ def all_to_all(send: torch.Tensor, group: Group) -> torch.Tensor:
     out = torch.empty_like(send)
     dist.all_to_all_single(out, send, group=group.pg)
     return out
+
+
+def all_to_all_tiled(x: torch.Tensor, group: Optional[Group], split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axes, split_axis, concat_axis, tiled=True)``
+    over ``group``: ``x`` cut into ``group.size`` equal chunks along
+    ``split_axis``, chunk k sent to group rank k, and the chunks received
+    concatenated along ``concat_axis`` in source rank order; ``x`` itself
+    for no group."""
+    if group is None:
+        return x
+    send = torch.stack(x.chunk(group.size, dim=split_axis)).contiguous()
+    return torch.cat(all_to_all(send, group).unbind(0), dim=concat_axis)

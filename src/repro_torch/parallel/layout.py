@@ -12,7 +12,14 @@ sub-block ``g = j*sp + i`` in the base config, and in the shift config
 ``to_shift()`` (sp 1, tp = SP·TP on the same grid) its tp rank is that same
 ``g``, so it holds the same KV head slots in both configs.
 
-Expert parallelism is not ported: ep above 1 raises.
+The reference names its mesh axes; ``axis_sizes``, ``dp_axes``,
+``sp_axes``, ``tp_axes`` and ``model_axes`` give the port's layouts the
+names and sizes of ``Layout.from_mesh(mesh, dp=("data",), sp=("sp",),
+tp=("tp",))`` on a ``(dp, sp, tp)`` mesh (and of its ``to_shift()``), and
+``axis_coords`` a rank's index along each. Expert parallelism reads them:
+the ``ep`` degree stays 1, as the reference's ``ep_axes`` (read by nothing
+there) stay empty, and a MoE layer's EP group is
+``repro_torch.models.moe.ep_group`` of the layout.
 """
 from __future__ import annotations
 
@@ -35,8 +42,9 @@ class Layout:
     def __post_init__(self):
         if self.ep != 1:
             raise NotImplementedError(
-                f"ep={self.ep}: the port's layouts run ep = 1 (expert "
-                "parallelism comes with the MoE models, ROADMAP Queue 1)")
+                f"ep={self.ep}: the layout's ep degree stays 1; a MoE "
+                "layer's expert parallelism follows models.moe.ep_group over "
+                "the layout's axes (EP across dp rows is ROADMAP Queue 1)")
         if self.dp < 1 or self.sp < 1 or self.tp < 1:
             raise ValueError(f"dp={self.dp}, sp={self.sp}, tp={self.tp}: "
                              "degrees are >= 1")
@@ -65,6 +73,49 @@ class Layout:
         it the KV pool's sharding, is unchanged; dp is kept, as the
         reference's ``to_shift`` keeps its ``dp_axes``."""
         return replace(self, sp=1, tp=self.G)
+
+    # ------------------------------------------------------------ axes
+    @property
+    def is_shift(self) -> bool:
+        """True for a grid's shift config (its SP axis folded into TP)."""
+        return self.grid != (self.sp, self.tp)
+
+    @property
+    def axis_sizes(self) -> dict:
+        """Size of every named axis: ``"data"`` (dp), and the grid's
+        ``"sp"`` and ``"tp"``, in the base and the shift config alike."""
+        return {"data": self.dp, "sp": self.grid[0], "tp": self.grid[1]}
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return ("data",)
+
+    @property
+    def sp_axes(self) -> Tuple[str, ...]:
+        return () if self.is_shift else ("sp",)
+
+    @property
+    def tp_axes(self) -> Tuple[str, ...]:
+        """The TP axes: the grid's ``"tp"``, and in the shift config its
+        ``"sp"`` appended (tp-major, the reference's ``to_shift``)."""
+        return ("tp", "sp") if self.is_shift else ("tp",)
+
+    @property
+    def model_axes(self) -> Tuple[str, ...]:
+        """The model group's axes, tp-major, as the reference's."""
+        return self.tp_axes + self.sp_axes
+
+    def axis_coords(self, rank: int) -> dict:
+        """Index of ``rank`` along every named axis."""
+        i, j = self._coords(rank)
+        return {"data": self.dp_rank(rank), "sp": i, "tp": j}
+
+    def axes_index(self, axes, rank: int) -> int:
+        """Joint index of ``rank`` over ``axes``, major to minor in listed
+        order (the reference's ``joint_axis_index``)."""
+        at, sizes = self.axis_coords(rank), self.axis_sizes
+        return joint_axis_index([at[a] for a in axes],
+                                [sizes[a] for a in axes])
 
     # ------------------------------------------------------------ ranks
     def _check_rank(self, rank: int):
@@ -120,6 +171,7 @@ class Shard:
     sp_group: Optional[Group] = None
     tp_group: Optional[Group] = None
     dp_group: Optional[Group] = None
+    groups: Optional[Groups] = None     # the grid's groups (None: one rank)
 
     @classmethod
     def of(cls, lay: Layout, groups: Optional[Groups]) -> "Shard":
@@ -131,7 +183,14 @@ class Shard:
                                  "ranks: pass the grid's Groups")
             return cls(lay)
         return cls(lay, groups.rank, groups.sp_of(lay), groups.tp_of(lay),
-                   groups.dp_of(lay))
+                   groups.dp_of(lay), groups)
+
+    def axes_group(self, axes) -> Optional[Group]:
+        """The process group over the named ``axes`` within this rank's dp
+        row (``Groups.axes_group``); None for axes of one rank."""
+        if self.groups is None:
+            return None
+        return self.groups.axes_group(axes)
 
     @property
     def dp_rank(self) -> int:

@@ -174,6 +174,39 @@ def test_cuda_ragged_tiles_match_plain(cuda, dtype, B, C, Hq, Hkv, D, bs,
         assert not got[b, :, :, n:].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(PARAMS, [c for c in CASES + RAGGED_TILE_CASES
+                                  if not c[9]])
+def test_cuda_ragged_padding_columns_match_plain(cuda, dtype, B, C, Hq, Hkv,
+                                                 D, bs, nmax, ctx, ql, window,
+                                                 cap):
+    """``pad_cols=True`` (a MoE model's ragged attention): every column,
+    padding columns included, within TOL of the plain version, which
+    computes each padding column over its row's keys; rows with ctx == 0
+    give zeros. The cases without a window (no MoE config has one)."""
+    q, kp, vp, bt, qla, ctxa = paged_case(B, C, Hq, Hkv, D, bs, nmax, ctx, ql,
+                                          seed=B + C + D + 1)
+    g = Hq // Hkv
+    args = [torch.from_numpy(q).transpose(1, 2).reshape(B, Hkv, g, C, D)
+            .contiguous().to(cuda, dtype),
+            torch.from_numpy(kp).to(cuda, dtype),
+            torch.from_numpy(vp).to(cuda, dtype),
+            *(torch.from_numpy(a).to(cuda) for a in (bt, qla, ctxa))]
+    before = PRA.launches
+    got = PRA.paged_ragged_attention_cuda(*args, soft_cap=cap, pad_cols=True)
+    torch.cuda.synchronize()
+    assert PRA.launches == before + 1
+    want = PRA.paged_ragged_attention_plain(*args, soft_cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for b in range(B):
+        if int(ctx[b]) == 0:
+            assert not got[b].any()
+        elif int(ql[b]) < C:
+            assert got[b, :, :, int(ql[b]):].any()   # computed, not zeroed
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Refused with a ValueError before any launch: a bf16 head dim that is
     not a multiple of 16 (the tensor cores' depth; also the SSD chunk's hd
@@ -501,6 +534,71 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     assert runs[0][4:] == (steps * cfg.num_layers,
                            steps * (3 * cfg.num_layers + 1))
     assert runs[1][4:] == (0, 0)
+
+
+def _moe_pair(cuda, name, cap=1.25):
+    import dataclasses
+    cfg = get_config(name).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cap))
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    return cfg, cpu, gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen-30b-a3b", "llama4-17b-16e"])
+def test_cuda_moe_apply_matches_cpu(cuda, name):
+    """Reduced MoE layers at fp32, cf 1.25: the same routing, kept mask and
+    slots on the card as on the CPU, outputs within 1e-5."""
+    from repro_torch.models import moe as MOE
+    cfg, cpu, gpu = _moe_pair(cuda, name)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32))
+    for layer in range(cfg.num_layers):
+        a, b = cpu.params.layers[layer].ffn, gpu.params.layers[layer].ffn
+        want = MOE.route(a, x.reshape(-1, cfg.d_model))
+        got = MOE.route(b, x.reshape(-1, cfg.d_model).to(cuda))
+        for i in (2, 4, 5):                        # sel, slot, keep
+            assert torch.equal(got[i].cpu(), want[i])
+        torch.testing.assert_close(MOE.moe_apply(b, x.to(cuda))[0].cpu(),
+                                   MOE.moe_apply(a, x)[0], atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen-30b-a3b", "llama4-17b-16e"])
+@pytest.mark.parametrize("kw", [{}, {"mixed": False},
+                                {"paged": False, "mixed": False}],
+                         ids=["mixed", "serialized", "dense"])
+def test_cuda_moe_engine_matches_cpu_engine(cuda, name, kw):
+    """Reduced MoE models at fp32, cf 1.25, on the pad-sensitive workload
+    (10 random prompts, chunk 16, 10 new tokens): equal streams on the card
+    and the CPU on every path, the card's mixed run through the ragged
+    kernel with its padding columns computed."""
+    import random
+    cfg, cpu, gpu = _moe_pair(cuda, name)
+    rnd = random.Random(0)
+    prompts = [[rnd.randrange(1, 250) for _ in range(rnd.randrange(2, 40))]
+               for _ in range(10)]
+    runs = []
+    for model in (gpu, cpu):
+        PRA.launches = 0
+        eng = ShiftEngine(model, EngineConfig(max_slots=8, s_max=128,
+                                              prefill_chunk=16, **kw))
+        reqs = [Request(i, p, max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     PRA.launches))
+    assert runs[0][:2] == runs[1][:2]
+    steps = sum(runs[0][1].values())
+    assert runs[0][2] == (steps * cfg.num_layers if kw.get("paged", True)
+                          else 0)
 
 
 @pytest.mark.cuda
@@ -853,6 +951,15 @@ def _serve(eng, prompts, n_new):
 
 
 A_PROMPT, B_PROMPT = list(range(3, 14)), list(range(40, 60))
+# the pad-sensitive MoE workload (``tests/test_torch_moe.py``): chunk 16
+MOE_KW = {"max_slots": 8, "s_max": 128, "prefill_chunk": 16}
+
+
+def _pad_prompts(seed=0):
+    import random
+    rnd = random.Random(seed)
+    return [[rnd.randrange(1, 250) for _ in range(rnd.randrange(2, 40))]
+            for _ in range(10)]
 
 
 @pytest.mark.cuda
@@ -864,9 +971,12 @@ A_PROMPT, B_PROMPT = list(range(3, 14)), list(range(40, 60))
     ("mamba2-1.3b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
      [A_PROMPT, B_PROMPT]),
     ("mamba2-1.3b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
-     [list(range(1, 10 + 3 * i)) for i in range(5)])],
+     [list(range(1, 10 + 3 * i)) for i in range(5)]),
+    ("qwen-30b-a3b", MOE_KW, _pad_prompts()),
+    ("llama4-17b-16e", MOE_KW, _pad_prompts())],
     ids=["mixed-tight-pool", "serialized-paged", "dense",
-         "mamba2-two-in-flight", "mamba2-more-than-slots"])
+         "mamba2-two-in-flight", "mamba2-more-than-slots",
+         "moe-qwen-30b-a3b-pad", "moe-llama4-17b-16e-pad"])
 def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
                                                   prompts):
     """The engine's graphed tables against the eager ones on twin models:
@@ -875,7 +985,9 @@ def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
     nothing (every bucket it steps through was captured in the first). The
     mamba2 cases are ``test_torch_ssd.py``'s two-in-flight and
     more-than-slots workloads: their streams depend on the dummy rows' SSD
-    state, so a step run twice would show."""
+    state, so a step run twice would show. The MoE cases route every
+    column of a step (capacity 1.25): a replayed dispatch that kept stale
+    slots would show."""
     prompts = prompts or [list(range(1, 20 + 3 * i)) for i in range(6)]
     results = []
     for graphed, model in zip((False, True), twin_models(cuda, arch, dtype)):

@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.simulator", "repro_torch.sim.elastic",
             "repro_torch.sim.traces", "repro_torch.cluster",
             "repro_torch.cluster.router", "repro_torch.cluster.migration",
-            "repro_torch.ft.elastic"} <= set(_modules())
+            "repro_torch.ft.elastic", "repro_torch.models.moe"} \
+        <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -152,6 +153,16 @@ def test_mamba2_entry_points_default_to_cuda(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         ShiftEngine(Model(get_config("mamba2-1.3b").reduced()),
                     EngineConfig())
+
+
+def test_moe_entry_points_default_to_cuda(no_card):
+    """qwen-30b-a3b through the same entry points: full width raises at
+    once without a card, before it allocates its 61 GB."""
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_engine("qwen-30b-a3b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "qwen-30b-a3b"])
 
 
 def test_cpu_runs_mamba2_when_asked(capsys):

@@ -4,7 +4,8 @@ against the reference's (``repro.roofline``, ``repro.sim``).
 * The hardware entries: ``H100`` holds the H100 SXM5 data sheet's numbers,
   ``H200`` equals the reference's, and the port carries no TPU entry.
 * ``CostModel``'s every method on a grid of inputs for llama-70b, qwen-32b,
-  reduced qwen3-8b and two synthetic configurations that reach the MoE,
+  reduced qwen3-8b, the paper's MoE models qwen-30b-a3b and
+  llama4-17b-16e, and two synthetic configurations that reach the MoE,
   MLA and sliding-window branches (full and reduced), under the reference's ``V5E`` and ``H200`` (handed
   to the port as ``Hardware(**asdict(...))``) and the port's ``H100``
   (handed to the reference the same way), with both attention pricings:
@@ -72,8 +73,10 @@ SYNTH = {
         moe=dict(num_experts=64, top_k=6, d_ff_expert=1408,
                  num_shared_experts=2, d_ff_shared=2816)),
 }
+# the paper's two MoE models (Table 4), which the port serves
+MOE_ARCHS = ("qwen-30b-a3b", "llama4-17b-16e")
 ARCHS = ("llama-70b", "qwen-32b", "qwen3-8b-reduced") + tuple(SYNTH) + \
-    tuple(f"{a}-reduced" for a in SYNTH)
+    tuple(f"{a}-reduced" for a in SYNTH) + MOE_ARCHS
 HWS = ("v5e", "h200", "h100")
 
 
@@ -109,6 +112,26 @@ def test_synthetic_configs_match_reference(arch):
             got = dataclasses.asdict(got)
         assert got == want, f.name
     assert p.active_params() == j.active_params() < j.num_params()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + tuple(f"{a}-reduced"
+                                                  for a in MOE_ARCHS))
+def test_moe_configs_match_reference(arch):
+    """The port's qwen-30b-a3b and llama4-17b-16e equal the reference's in
+    every field the port has (the MoE ones too, capacity factor, aux
+    coefficient and dispatch type included), at full size and reduced, and
+    in ``active_params()``; ``num_params()`` counts the port's modules,
+    which add the norm scales to the reference's count."""
+    p, j = _cfgs(arch)
+    for f in dataclasses.fields(p):
+        got, want = getattr(p, f.name), getattr(j, f.name)
+        if dataclasses.is_dataclass(got):
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
+    assert p.active_params() == j.active_params() < j.num_params()
+    norms = p.num_layers * (2 * p.d_model + 2 * p.head_dim * p.qk_norm) \
+        + p.d_model
+    assert p.num_params() == j.num_params() + norms
 
 
 def _hws(hw):
@@ -232,7 +255,9 @@ def _prefix_trace(n=12):
 @pytest.mark.parametrize("strategy", ["dp", "tp", "sp", "shift"])
 @pytest.mark.parametrize("arch,hw", [("qwen-32b", "h100"),
                                      ("llama-70b", "h200"),
-                                     ("qwen3-8b-reduced", "v5e")])
+                                     ("qwen3-8b-reduced", "v5e"),
+                                     ("qwen-30b-a3b", "h100"),
+                                     ("llama4-17b-16e", "h200")])
 def test_simulate_matches_reference(arch, hw, strategy):
     (pc, jc), (ph, jh) = _cfgs(arch), _hws(hw)
     tr = uniform_trace(n=24, rate=3.0, n_in=1024, n_out=48)
