@@ -176,9 +176,28 @@ Phases (every failure propagates and exits non-zero):
    ``--adaptive``'s policy over the grid: every rank's streams equal to
    those of the threshold run that makes the same per-step configs, each
    step's config the policy's answer to its recorded facts, 109 and 36
-   launches per step. Phase 3 also holds the
-   ragged kernel and the q/k pair at a rank's shapes (8 q and 2 kv
-   heads);
+   launches per step. Then the serialized iteration on the same models,
+   over one paged pool per rank and over one dense cache per rank, and
+   mamba2-1.3b at full width and depth in bf16 through its dense fallback
+   on the grid (its SSD mixers through the Ulysses exchange): the serve
+   workload on every rank, streams equal on every rank, both configs
+   used, launches exact per step of each kind and rank (RMSNorm, and
+   ragged, or flash in a prefill step and decode in a decode step, or
+   the SSD chunk in a prefill step: counters, and rank 0's profiler
+   trace of one prefill and three decode steps), no block held, and the
+   dense cache's invariance after a base prefill step and a shift decode
+   step (one set of tensors, the base step's positions unchanged); it
+   prints the wall per step by config and kind, the collective bytes per
+   step and the peak memory per rank. Before the bf16 runs, the fp32
+   serialized prefill then decode at full width and 2 layers, on the
+   dense cache and the paged pool (qwen3-8b) and on the dense cache
+   (mamba2-1.3b), base and shift, against the single-rank model on the
+   same weights (2e-3). Phase 3 also holds the kernels at a rank's shapes
+   on the grid: the ragged kernel and the q/k pair (8 q and 2 kv heads),
+   flash over the whole 64-column chunk after the exchange against dense
+   caches of 256 and 2048, the dense decode over its dp row's 8 rows,
+   the SSD chunk at 16 and 8 heads, and the grouped RMSNorm at 16 and 8
+   heads of 64;
 7. data parallelism, all on the one card over gloo, after a reckoning of
    the card's memory (the parent holds no model): (dp, sp, tp) = (2, 1, 1),
    two processes each with the whole qwen3-8b at full width and depth in
@@ -832,6 +851,15 @@ def kernel_phase(torch):
                                              dtype, timer, tol))
         add("rmsnorm", rmsnorm_case(torch, "hidden, per sp rank", 256, 4096,
                                     dtype, timer, tol))
+        # mamba2-1.3b's grouped norm at a rank's heads after the exchange:
+        # 16 of its 64 heads on G 4, 8 on G 8; a prefill step's 512 rows
+        # (8 x 64) and a decode step's 8
+        for hpr in (16, 8):
+            for what, rows in (("prefill", 512), ("decode", 8)):
+                add("rmsnorm", rmsnorm_case(
+                    torch, f"mamba2 grouped, {what}, per rank (G "
+                    f"{64 // hpr})", rows * hpr, 64, dtype, timer, tol,
+                    H=hpr))
         # qwen-32b (64 q heads over 8 kv heads, d_model 5120): the ragged
         # kernel's mixed and decode batches at group 8 (g·C = 8 rows per
         # (sequence, kv head) in a decode step), the hidden norms of its
@@ -872,12 +900,26 @@ def kernel_phase(torch):
                 ("serving step", 8, 64, 64, 64, True),
                 ("long prompt", 1, 2048, 64, 64, True),
                 ("short chunk", 8, 19, 64, 19, True),
-                ("TPU contract copies", 8 * 64, 64, 1, 64, False)):
+                ("TPU contract copies", 8 * 64, 64, 1, 64, False),
+                # a rank's heads after the exchange: 16 on G 4, 8 on G 8
+                ("serving step, per rank (G 4)", 8, 64, 16, 64, True),
+                ("serving step, per rank (G 8)", 8, 64, 8, 64, True)):
             add("ssd_chunk", ssd_chunk_case(torch, name, B, S, H, 64, 128, L,
                                             shared, dtype, timer))
         add("flash_attention", flash_case(
             torch, "serving chunk", 8, 64, 2048, chunk_offsets, True, dtype,
             timer, tol))
+        # one rank of the (2, 2) grid: the whole chunk after the exchange at
+        # its 8 q and 2 kv heads, over a dense cache of the serve default's
+        # s_max 256 (rows at offsets up to the dummy offset s_max - C) and
+        # of 2048
+        add("flash_attention", flash_case(
+            torch, "serving chunk, per rank, s_max 256", 8, 64, 256,
+            [0, 32, 64, 96, 128, 160, 192, 192], True, dtype, timer, tol,
+            Hq=8, Hkv=2))
+        add("flash_attention", flash_case(
+            torch, "serving chunk, per rank, s_max 2048", 8, 64, 2048,
+            chunk_offsets, True, dtype, timer, tol, Hq=8, Hkv=2))
         add("flash_attention", flash_case(
             torch, "TPU contract", 1, 2048, 2048, [0], True, dtype, timer,
             tol))
@@ -895,6 +937,11 @@ def kernel_phase(torch):
         # one sequence of 2048: 8 (sequence, kv head) pairs for 132 SMs
         add("decode_attention", decode_case(
             torch, "B 1", [2048], 2048, dtype, timer, tol))
+        # one rank of the (2, 2) grid: its dp row's 8 rows after the
+        # exchange, at its 8 q and 2 kv heads
+        add("decode_attention", decode_case(
+            torch, "decode, per rank", [c for c, _ in DECODE_ROWS], 2048,
+            dtype, timer, tol, Hq=8, Hkv=2))
         add("paged_decode_attention", paged_decode_case(
             torch, "decode", DECODE_ROWS, dtype, timer, tol))
         torch.cuda.synchronize()
@@ -1460,6 +1507,9 @@ def shared_tokens(reqs, ref):
 # eager tables first and last, graphed ones between: a drift of the host
 # over the run shows as a difference between the two eager turns
 TURNS = (False, True, True, False)
+# the single-rank serialized paths' bf16 streams (phase 5), by path, that
+# the layout phase's serialized runs are reported against
+SINGLE_RANK_STREAMS = {}
 
 
 def serve_turns(torch, model, kw, label):
@@ -1763,6 +1813,7 @@ def serving_phase(torch):
                   f"{2 * c.k.numel() * c.k.element_size() / 1e6:.1f} MB")
             del ser
         reqs, by_path[key], turns[key] = serve_turns(torch, model, kw, label)
+        SINGLE_RANK_STREAMS[key] = [list(r.generated) for r in reqs]
         print(f"{label}: {shared_tokens(reqs, mixed_reqs)} of "
               f"{sum(len(r.generated) for r in reqs)} tokens agree with the "
               "mixed stream before their first difference (bf16 through "
@@ -2903,8 +2954,9 @@ def mamba2_serving_phase(torch):
           f"({eng.paged_disabled_reason})")
     model = eng.model
     del eng, c
-    _, launches, turns = serve_turns(torch, model, {},
-                                     "mamba2 serialized dense")
+    reqs, launches, turns = serve_turns(torch, model, {},
+                                        "mamba2 serialized dense")
+    SINGLE_RANK_STREAMS["mamba2_dense"] = [list(r.generated) for r in reqs]
     print(f"mamba2: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"({before / 1e9:.2f} GB allocated before the model was built)")
@@ -3045,9 +3097,17 @@ def layout_check_steps():
             (toks[1], [1, 1, 4, 16], [16, 9, 16, 0])], bt
 
 
+def mamba2_check_cfg():
+    """mamba2-1.3b at full width, cut to the fp32 check's depth."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    return replace(get_config("mamba2-1.3b"), num_layers=LAYOUT_CHECK_LAYERS)
+
+
 def layout_single_rank_logits(torch, cfg):
     """The single-rank port model's logits over ``layout_check_steps`` on
-    the same weights (generator seeded 0), fp32, on the card."""
+    the same weights (generator seeded 0), fp32, on the card; beside them
+    its ``serial_check_logits``, and mamba2-1.3b's (``mamba2_check_cfg``)."""
     from repro_torch.models import Model
     steps, bt = layout_check_steps()
     model = Model(cfg, device="cuda", dtype=torch.float32)
@@ -3055,10 +3115,181 @@ def layout_single_rank_logits(torch, cfg):
     model.init_paged_cache(9, 16)
     out = [model.forward_mixed(t, ql, off, bt, sample=False)[0].cpu()
            for t, ql, off in steps]
+    serial = serial_check_logits(torch, model, model)
     del model
     gc.collect()
+    mamba = Model(mamba2_check_cfg(), device="cuda", dtype=torch.float32)
+    mamba.init_params(torch.Generator(device="cuda").manual_seed(0))
+    serial_mamba = serial_check_logits(torch, mamba, mamba)
+    del mamba
+    gc.collect()
     torch.cuda.empty_cache()
+    return out, serial, serial_mamba
+
+
+def serial_check_inputs(vocab):
+    """The fp32 check's serialized steps: a prefill chunk of 16 over 4 rows
+    at offset 0, then one decode token per row at position 16; blocks of
+    16 for the paged pool. Returns (tokens [4, 16], next tokens [4], block
+    tables [4, 2])."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return (rng.integers(1, vocab, (4, 16)).astype(np.int32),
+            rng.integers(1, vocab, (4,)).astype(np.int32),
+            np.arange(1, 9, dtype=np.int32).reshape(4, 2))
+
+
+def serial_check_logits(torch, base, shift):
+    """The fp32 logits of ``serial_check_inputs``' prefill then decode,
+    on the dense cache and (for a config that pages) through the paged
+    pool, under each config, each on a fresh cache that both models step:
+    {(path, config): (sp rank, tp rank, [prefill [B, v_blk], decode
+    [B/sp, v_blk]])}. One model on the trivial layout (``base`` is
+    ``shift``)."""
+    import numpy as np
+    toks, nxt, bt = serial_check_inputs(base.cfg.vocab_size)
+    offs, lens = np.zeros(4, np.int32), np.full(4, 16, np.int32)
+    out = {}
+    for path in ("dense", "paged") if base.supports_paged else ("dense",):
+        for config, m in (("base", base), ("shift", shift)):
+            if path == "dense":
+                base.init_cache(4, 64)
+                if shift is not base:
+                    shift.adopt_cache(base)
+            else:
+                base.init_paged_cache(9, 16)
+                if shift is not base:
+                    shift.adopt_paged_cache(base)
+            b = bt if path == "paged" else None
+            pre, _ = m.prefill(toks, offs, b)
+            dec, _ = m.decode(nxt, lens, b, sample=False)
+            out[(path, config)] = (m.shard.sp_rank, m.shard.tp_rank,
+                                   [pre.cpu().numpy(), dec.cpu().numpy()])
+    base.cache = base.pool = shift.cache = shift.pool = None
     return out
+
+
+def serial_check_compare(torch, res, key, want, label):
+    """The ranks' ``serial_check_logits`` (``res[r][key]``) put together,
+    prefill logits by tp rank (every sp rank holds the whole batch's, equal
+    bitwise), decode logits by sp rank's rows and tp rank's columns,
+    against the single-rank model's ``want`` (2e-3). Returns the max abs
+    error."""
+    import numpy as np
+    err = 0.0
+    for (path, config) in res[0][key]:
+        parts = {}
+        for r in res:
+            i, j, lg = r[key][(path, config)]
+            parts[(i, j)] = lg
+        sps = 1 + max(i for i, _ in parts)
+        tps = 1 + max(j for _, j in parts)
+        for (i, j), lg in parts.items():
+            check(np.array_equal(lg[0], parts[(0, j)][0]),
+                  f"{label} {path} {config}: sp rank {i}'s prefill logits "
+                  "differ from sp rank 0's")
+        pre = np.concatenate([parts[(0, j)][0] for j in range(tps)], -1)
+        dec = np.concatenate([np.concatenate(
+            [parts[(i, j)][1] for j in range(tps)], -1) for i in range(sps)])
+        w = want[(path, "base")][2]
+        V = w[0].shape[-1]
+        for step, got, ref in (("prefill", pre, w[0]), ("decode", dec, w[1])):
+            err = max(err, compare(
+                torch, f"{label} {path} {config} {step} fp32 logits",
+                torch.from_numpy(np.ascontiguousarray(got[:, :V])),
+                torch.from_numpy(ref), 2e-3))
+    return err
+
+
+def layout_engine_run(torch, eng, groups, rank, label):
+    """The serve workload through an engine above world size 1 (eager): a
+    warm-up run, then the measured run (``layout_serve``) with the walls
+    and collective traffic of each step by config (and kind, on the
+    serialized iteration) and the launches it should make by step kind;
+    then one prefill and three decode steps of a second workload in rank
+    0's profiler trace (every rank steps them). Returns numpy results."""
+    import contextlib
+    from collections import Counter
+    from repro_torch.launch import serve
+    walls, traffic = timed_forward(
+        torch, eng, groups,
+        kinds=("forward",) if eng.mixed else ("prefill", "decode"))
+    for r in serve.workload(6, 16):            # warm-up
+        eng.submit(r)
+    eng.run_until_idle()
+    for key in walls:
+        walls[key].clear()
+        traffic[key].clear()
+    kinds = count_steps(eng)
+    out = layout_serve(torch, eng)
+    out.update(kinds=dict(kinds), walls={k: list(v) for k, v in walls.items()},
+               traffic={k: dict(v) for k, v in traffic.items()},
+               want_launches=kind_launches(eng, out["launches"], kinds))
+    for r in serve.workload(6, 4):
+        eng.submit(r)
+    before, kinds0 = dict(eng.config_counts), dict(kinds)
+    with (profiled(torch) if rank == 0
+          else contextlib.nullcontext()) as prof:
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+    out["profiled_configs"] = delta(eng.config_counts, before)
+    traced_kinds = delta(kinds, kinds0)
+    eng.run_until_idle()
+    if rank == 0:
+        traced, busy = Counter(), 0.0
+        for key, t, c in device_kernels(prof):
+            busy += t
+            kernel = port_kernel(key)
+            if kernel:
+                traced[kernel] += c
+        out["traced"] = dict(traced)
+        out["traced_want"] = {k: v for k, v in kind_launches(
+            eng, traced, traced_kinds).items() if v}
+        out["profiled_busy_ms"] = busy / 1e3
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.print_summary(eng)
+    out["summary"] = f"{label}: " + text.getvalue()
+    return out
+
+
+def kind_launches(eng, keys, kinds):
+    """Each kernel's launches (``keys`` and any the steps make) in
+    ``kinds`` ({kind: steps}) of ``eng``'s full-width steps."""
+    want = {k: 0 for k in keys}
+    for kind, n in kinds.items():
+        for k, per in step_launches(eng, kind).items():
+            want[k] = want.get(k, 0) + n * per
+    return want
+
+
+def dense_invariance_step(torch, eng, rank):
+    """§3.3.1 on the dense cache: a base prefill step of every slot's
+    first 64 positions, then a shift decode step at position 64. Both
+    configs step one set of tensors at the same KV slots and SSD heads
+    (``verify_dense_invariance``); the positions the base step wrote stay
+    bitwise as they were under the shift step, which wrote position 64;
+    an SSD model's state is the tensor the shift step advanced."""
+    import numpy as np
+    from repro_torch.core import invariance as INV
+    n = eng.cfg.max_slots
+    toks = (np.arange(n * 64, dtype=np.int32).reshape(n, 64) % 1000) + 1
+    eng.deploy.prefill["base"](toks, np.zeros(n, np.int32), None)
+    torch.cuda.synchronize()
+    c = eng.base.cache
+    before = INV.snapshot_dense(c)
+    eng.deploy.decode["shift"](toks[:, 0].copy(), np.full(n, 64, np.int32),
+                               None)
+    torch.cuda.synchronize()
+    ok = INV.verify_dense_invariance(eng.base, eng.shift, rank)
+    if c.k is not None:
+        ok = ok and torch.equal(c.k[:, :, :64], before["k"][:, :, :64]) \
+            and torch.equal(c.v[:, :, :64], before["v"][:, :, :64]) \
+            and bool(c.k[:, :, 64].abs().sum() > 0)
+    if c.ssm is not None:
+        ok = ok and not torch.equal(c.ssm, before["ssm"])
+    return bool(ok)
 
 
 def layout_rank(rank, groups, check_cfg):
@@ -3066,8 +3297,6 @@ def layout_rank(rank, groups, check_cfg):
     check's logits of both configs, then qwen3-8b at full width and depth
     in bf16 served on the base and shift models over one pool. Returns
     numpy results; only the parent prints."""
-    import contextlib
-    from collections import Counter
     import numpy as np
     import torch
     from repro_torch.core import invariance as INV
@@ -3093,7 +3322,17 @@ def layout_rank(rank, groups, check_cfg):
         out["fp32"][name] = (m.shard.tp_rank, [
             m.forward_mixed(t, ql, off, bt, sample=False)[0].cpu().numpy()
             for t, ql, off in steps])
+    # the serialized steps on the dense cache and the paged pool
+    out["fp32_serial"] = serial_check_logits(torch, base, shift)
     del base, shift, m
+    # mamba2-1.3b's SSD mixers through the Ulysses exchange, fp32, 2 layers
+    mcheck = mamba2_check_cfg()
+    mb, ms = (Model(mcheck, device="cuda", dtype=torch.float32, lay=layout,
+                    groups=groups) for layout in (lay, lay.to_shift()))
+    for m in (mb, ms):
+        m.init_params(torch.Generator(device="cuda").manual_seed(0))
+    out["fp32_mamba2"] = serial_check_logits(torch, mb, ms)
+    del mb, ms, m
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3110,62 +3349,7 @@ def layout_rank(rank, groups, check_cfg):
         for name, m in (("base", eng.base), ("shift", eng.shift))}
     pool = eng.base.pool
     out["pool_bytes"] = 2 * pool.k.numel() * pool.k.element_size()
-    walls, traffic = timed_forward(torch, eng, groups)
-    for r in serve.workload(6, 16):            # warm-up
-        eng.submit(r)
-    eng.run_until_idle()
-    for config in walls:
-        walls[config].clear()
-        traffic[config].clear()
-    counts0 = dict(eng.config_counts)
-    reqs = serve.workload(6, 16)
-    first = eng.step_count
-    serve.reset_launch_counts()
-    t0 = time.monotonic()
-    for r in reqs:
-        r.arrival = t0
-        eng.submit(r)
-    eng.run_until_idle()
-    torch.cuda.synchronize()
-    out["serve_s"] = time.monotonic() - t0
-    out["launches"] = serve.launch_counts()
-    out["step_configs"] = [rec["config"] for rec in eng.step_log
-                           if rec["step"] >= first and rec["config"]]
-    out["streams"] = [r.generated for r in reqs]
-    out["finish"] = [r.finish_reason for r in reqs]
-    out["counts"] = delta(eng.config_counts, counts0)
-    out["preemptions"] = eng.preemptions
-    out["free"], out["blocks"] = eng.kv.num_free_blocks, eng.kv.num_blocks
-    out["walls"] = {k: list(v) for k, v in walls.items()}
-    out["traffic"] = {k: dict(v) for k, v in traffic.items()}
-    text = io.StringIO()
-    with contextlib.redirect_stdout(text):
-        serve.print_summary(eng)
-    out["summary"] = text.getvalue()
-
-    # one prefill step (base) and three decode steps (shift) in rank 0's
-    # profiler trace
-    for r in serve.workload(6, 4):
-        eng.submit(r)
-    before = dict(eng.config_counts)
-    with (profiled(torch) if rank == 0
-          else contextlib.nullcontext()) as prof:
-        for _ in range(4):
-            eng.step()
-        torch.cuda.synchronize()
-    out["profiled_configs"] = {k: eng.config_counts[k] - before[k]
-                               for k in before}
-    eng.run_until_idle()
-    if rank == 0:
-        traced = Counter()
-        busy = 0.0
-        for key, t, c in device_kernels(prof):
-            busy += t
-            kernel = port_kernel(key)
-            if kernel:
-                traced[kernel] += c
-        out["traced"] = dict(traced)
-        out["profiled_busy_ms"] = busy / 1e3
+    out.update(layout_engine_run(torch, eng, groups, rank, "layout mixed"))
 
     # §3.3.1 on the card's pools: base prefills row 0 into blocks 1 and 2,
     # shift runs row 1, reading them and writing blocks 3 and 4
@@ -3228,24 +3412,62 @@ def layout_rank(rank, groups, check_cfg):
     gc.collect()
     from repro_torch.core import ThresholdPolicy
     from repro_torch.launch.serve import adaptive_policy
-    out["adaptive"] = a = layout_serve(
-        torch, base, shift, adaptive_policy(base.cfg, lay.sp, lay.tp))
+    def policy_engine(policy):
+        return ShiftEngine(base, EngineConfig(), shift=shift, policy=policy)
+    out["adaptive"] = a = layout_serve(torch, policy_engine(
+        adaptive_policy(base.cfg, lay.sp, lay.tp)))
     # base and shift sum in different orders in bf16, so the adaptive run
     # is held bitwise to the threshold run that makes its per-step configs:
     # base above the batched tokens of its largest shift step
-    out["same_configs"] = layout_serve(torch, base, shift, ThresholdPolicy(
+    out["same_configs"] = layout_serve(torch, policy_engine(ThresholdPolicy(
         max((f[0] for c, f in zip(a["configs"], a["facts"]) if c == "shift"),
-            default=0)))
+            default=0))))
+
+    # the serialized iteration on the same models: over one paged pool per
+    # rank, and over one dense cache per rank
+    torch.cuda.reset_peak_memory_stats()
+    for key, kw in (("serial_paged", dict(mixed=False)),
+                    ("serial_dense", dict(paged=False, mixed=False))):
+        se = ShiftEngine(base, EngineConfig(**kw), shift=shift)
+        out[key] = layout_engine_run(torch, se, groups, rank,
+                                     f"layout {key}")
+        if not se.paged:
+            out[key]["invariance"] = dense_invariance_step(torch, se, rank)
+        out[key]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del se
+        gc.collect()
+    del base, shift
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-1.3b at full width and depth: its dense fallback on the grid
+    torch.cuda.reset_peak_memory_stats()
+    me = serve.build_engine("mamba2-1.3b", device="cuda",
+                            dtype=torch.bfloat16, sp=lay.sp, tp=lay.tp,
+                            groups=groups)
+    out["mamba2_dense"] = m2 = layout_engine_run(
+        torch, me, groups, rank, "layout mamba2_dense")
+    m2["reason"] = me.paged_disabled_reason
+    m2["invariance"] = dense_invariance_step(torch, me, rank)
+    m2["ssd_heads"] = list(INV.ssd_heads(me.base, rank))
+    m2["param_bytes"] = sum(p.numel() * p.element_size() for m in
+                            (me.base, me.shift)
+                            for p in m.params.parameters())
+    m2["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del me
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def layout_serve(torch, base, shift, policy):
-    """Serve the workload on a new engine over ``base`` and ``shift`` under
-    ``policy``, launch counters from 0: the streams, outcomes, per-step
-    configs and facts, launches, config counts and blocks at exit."""
-    from repro_torch.engine import EngineConfig, ShiftEngine
+def layout_serve(torch, eng):
+    """Serve the workload on ``eng``, launch counters from 0: the wall, the
+    launches, streams and outcomes, this run's per-step configs and facts,
+    config counts and preemptions, and the blocks free at exit (``None`` on
+    a dense cache)."""
     from repro_torch.launch import serve
-    eng = ShiftEngine(base, EngineConfig(), shift=shift, policy=policy)
+    counts0, first, pre0 = dict(eng.config_counts), eng.step_count, \
+        eng.preemptions
     reqs = serve.workload(6, 16)
     serve.reset_launch_counts()
     t0 = time.monotonic()
@@ -3254,17 +3476,19 @@ def layout_serve(torch, base, shift, policy):
         eng.submit(r)
     eng.run_until_idle()
     torch.cuda.synchronize()
-    recs = [r for r in eng.step_log if r["config"]]
+    recs = [r for r in eng.step_log if r["step"] >= first and r["config"]]
     return {"serve_s": time.monotonic() - t0,
             "launches": serve.launch_counts(),
             "streams": [r.generated for r in reqs],
-            "finish": [r.finish_reason for r in reqs],
+            "finish": [str(r.finish_reason) for r in reqs],
             "configs": [r["config"] for r in recs],
             "facts": [(r["n_tokens"], r["prefill_tokens"], r["ctx_tokens"],
                        r["n_rows"], r["ctx_max"], r.get("spec_tokens", 0))
                       for r in recs],
-            "counts": dict(eng.config_counts),
-            "free": eng.kv.num_free_blocks, "blocks": eng.kv.num_blocks}
+            "counts": delta(eng.config_counts, counts0),
+            "preemptions": eng.preemptions - pre0,
+            "free": eng.kv.num_free_blocks if eng.paged else None,
+            "blocks": eng.kv.num_blocks if eng.paged else None}
 
 
 def layout_phase(torch):
@@ -3284,7 +3508,8 @@ def layout_phase(torch):
     check_cfg = replace(cfg, num_layers=LAYOUT_CHECK_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
-    want = layout_single_rank_logits(torch, check_cfg)
+    want, want_serial, want_mamba = layout_single_rank_logits(torch,
+                                                              check_cfg)
     print(f"layout phase: sp={sp} x tp={tp} = {sp * tp} ranks, one process "
           f"each, all on {torch.cuda.device_count()} card(s): backend "
           "'gloo', because NCCL refuses two ranks of one communicator on "
@@ -3321,6 +3546,16 @@ def layout_phase(torch):
     print(f"layout phase: fp32 full-width ({LAYOUT_CHECK_LAYERS} layers) "
           f"logits of base and shift against the single-rank model: max "
           f"abs err {err} (tol 2e-3)")
+    serial_err = {
+        "qwen3-8b": serial_check_compare(torch, res, "fp32_serial",
+                                         want_serial, "layout qwen3-8b"),
+        "mamba2-1.3b": serial_check_compare(torch, res, "fp32_mamba2",
+                                            want_mamba, "layout mamba2")}
+    print(f"layout phase: fp32 full-width ({LAYOUT_CHECK_LAYERS} layers) "
+          "serialized prefill then decode, base and shift, against the "
+          "single-rank model (tol 2e-3): qwen3-8b on the dense cache and "
+          f"the paged pool max abs err {serial_err['qwen3-8b']}; "
+          f"mamba2-1.3b on the dense cache {serial_err['mamba2-1.3b']}")
 
     r0 = res[0]
     for r in res:
@@ -3421,18 +3656,117 @@ def layout_phase(torch):
           f", accepted {ps0['spec'][1]}, rollback blocks {ps0['spec'][2]}; "
           f"no block held at exit ({ps0['ledger']})")
     adaptive = layout_adaptive_check(res, per_step)
+    serialized = layout_serialized_check(res)
     print(json.dumps({"layout": {
         "grid": {"sp": sp, "tp": tp}, "backend": "gloo",
         "fp32_max_abs_err": err, "configs": r0["counts"],
+        "fp32_serialized_max_abs_err": serial_err,
         "adaptive": adaptive,
         "per_config": stats,
+        "serialized": serialized,
         "all_reduce_ms": [r["all_reduce_ms"] for r in res],
         "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res]}}))
     print(f"card: {card_line()}")
     overhead = max(r["peak_bytes"] - sum(r["param_bytes"].values())
                    for r in res)
     return r0["launches"], ps0["launches"], r0["adaptive"]["launches"], \
-        overhead
+        overhead, {f"layout_{k}_rank0": r0[k]["launches"]
+                   for k in ("serial_paged", "serial_dense", "mamba2_dense")}
+
+
+def layout_serialized_check(res):
+    """The layout phase's serialized runs (qwen3-8b on the paged pool and
+    on the dense cache, mamba2-1.3b on its dense fallback): every rank's
+    streams and configs equal, both configs used, every request whole,
+    launches exact per step of each kind and rank (counters) and in rank
+    0's trace of one prefill and three decode steps, no block held, the
+    dense cache's invariance after a base and a shift step. Prints the
+    wall per step by config and kind on rank 0, the collective bytes per
+    step and the peak memory per rank; returns them."""
+    out = {}
+    for key in ("serial_paged", "serial_dense", "mamba2_dense"):
+        r0 = res[0][key]
+        for r in res:
+            x = r[key]
+            check(x["streams"] == r0["streams"]
+                  and x["counts"] == r0["counts"],
+                  f"layout {key}: rank {r['rank']}'s streams or configs "
+                  "differ from rank 0's")
+            check(all(f == "ok" for f in x["finish"])
+                  and all(len(t) == 16 for t in x["streams"]),
+                  f"layout {key}: rank {r['rank']}: {x['finish']}")
+            check(x["launches"] == x["want_launches"],
+                  f"layout {key}: rank {r['rank']}: launches "
+                  f"{x['launches']} over steps {x['kinds']}, want "
+                  f"{x['want_launches']}")
+            if x["free"] is not None:
+                check(x["free"] == x["blocks"] - 1,
+                      f"layout {key}: rank {r['rank']}: {x['free']} of "
+                      f"{x['blocks']} blocks free at exit")
+            if "invariance" in x:
+                check(x["invariance"], f"layout {key}: rank {r['rank']}: "
+                      "the dense cache's invariance failed")
+        check(r0["counts"].get("base", 0) > 0
+              and r0["counts"].get("shift", 0) > 0,
+              f"layout {key}: configs used {r0['counts']}")
+        check(r0["profiled_configs"] == {"base": 1, "shift": 3},
+              f"layout {key}: profiled steps {r0['profiled_configs']}")
+        traced = {k: v for k, v in r0["traced"].items() if v}
+        check(traced == r0["traced_want"],
+              f"layout {key}: rank 0's trace holds {traced}, want "
+              f"{r0['traced_want']}")
+        per = {}
+        for k, w in r0["walls"].items():
+            if not w:
+                continue
+            tr = r0["traffic"][k]
+            per[k] = {"steps": len(w), "wall_ms_per_step":
+                      sum(w) / len(w) * 1e3,
+                      "bytes_per_step": {b[:-6]: v / len(w) for b, v in
+                                         tr.items() if b.endswith("_bytes")}}
+        single = SINGLE_RANK_STREAMS.get(
+            {"serial_paged": "serialized_paged",
+             "serial_dense": "serialized_dense"}.get(key, key))
+        agree = None
+        if single is not None:
+            agree = 0
+            for a, b in zip(r0["streams"], single):
+                for x, y in zip(a, b):
+                    if x != y:
+                        break
+                    agree += 1
+            print(f"layout phase: {key}: {agree} of "
+                  f"{sum(len(t) for t in single)} tokens agree with the "
+                  "single-rank run's (phase 5) before their first "
+                  "difference (bf16, collectives sum in another order; "
+                  "reported only)")
+        out[key] = {"configs": r0["counts"], "steps": r0["kinds"],
+                    "single_rank_agreeing_tokens": agree,
+                    "launches": r0["launches"], "per_config": per,
+                    "profiled_busy_ms_per_step": r0["profiled_busy_ms"] / 4,
+                    "serve_s": r0["serve_s"],
+                    "peak_gb_per_rank": [r[key]["peak_bytes"] / 1e9
+                                         for r in res]}
+        print("layout phase: " + r0["summary"].replace("\n", "; "))
+        print(f"layout phase: {key}: 6 requests x 16 tokens on every rank "
+              f"in {r0['serve_s']:.2f} s, steps {r0['kinds']}, configs "
+              f"{r0['counts']}; all ranks' streams equal; launches exact per "
+              f"step ({r0['launches']}); rank 0's trace over 1 prefill and 3 "
+              f"decode steps {traced}, device busy "
+              f"{r0['profiled_busy_ms'] / 4:.2f} ms per step; peak GB per "
+              "rank " + ", ".join(f"{r[key]['peak_bytes'] / 1e9:.2f}"
+                                  for r in res))
+        for k, v in per.items():
+            print(f"layout phase: {key} {k} steps on rank 0: {v['steps']}, "
+                  f"wall {v['wall_ms_per_step']:.2f} ms per step; per step "
+                  + ", ".join(f"{b} {n / 1e6:.3f} MB" for b, n in
+                              v["bytes_per_step"].items()))
+    m = res[0]["mamba2_dense"]
+    print(f"layout phase: mamba2_dense: {m['reason']}; rank SSD heads "
+          + ", ".join(str(r["mamba2_dense"]["ssd_heads"]) for r in res)
+          + f"; params per rank (base + shift) {m['param_bytes'] / 1e9:.2f} "
+          "GB")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3688,27 +4022,32 @@ def one_row_view(model):
     return view
 
 
-def timed_forward(torch, eng, groups):
-    """Wrap the engine's mixed entries so that each call's wall (after a
-    device sync) and the collective traffic it made are kept by config."""
+def timed_forward(torch, eng, groups, kinds=("forward",)):
+    """Wrap the engine's entries of the step tables ``kinds`` (the mixed
+    ``forward``, or the serialized ``prefill`` and ``decode``) so that each
+    call's wall (after a device sync) and the collective traffic it made
+    are kept by config (by "config kind" for more than one table)."""
     from collections import Counter
-    walls = {"base": [], "shift": []}
-    traffic = {"base": Counter(), "shift": Counter()}
+    walls, traffic = {}, {}
 
-    def timed(entry, config):
+    def timed(entry, key):
         def call(*arrays):
             before = Counter(groups.traffic)
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = entry(*arrays)
             torch.cuda.synchronize()
-            walls[config].append(time.perf_counter() - t)
-            traffic[config].update(Counter(groups.traffic) - before)
+            walls[key].append(time.perf_counter() - t)
+            traffic[key].update(Counter(groups.traffic) - before)
             return res
         return call
 
-    for config in ("base", "shift"):
-        eng.deploy.forward[config] = timed(eng.deploy.forward[config], config)
+    for kind in kinds:
+        table = getattr(eng.deploy, kind)
+        for config in ("base", "shift"):
+            key = config if len(kinds) == 1 else f"{config} {kind}"
+            walls[key], traffic[key] = [], Counter()
+            table[config] = timed(table[config], key)
     return walls, traffic
 
 
@@ -4843,7 +5182,9 @@ def main():
     by_path["qwen30b_a3b"], turns["qwen30b_a3b"] = qwen30b_phase(torch)
     simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
-        by_path["layout_adaptive_rank0"], overhead = layout_phase(torch)
+        by_path["layout_adaptive_rank0"], overhead, serialized = \
+        layout_phase(torch)
+    by_path.update(serialized)
     by_path["moe_layout_sp2_tp2_rank0"] = moe_layout_phase(torch)
     by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
         by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)

@@ -10,7 +10,9 @@ parameter by parameter, with their tensor forms). ``from_jax_cache`` is the
 state counterpart: it turns the reference's cache tree (the ``cache`` of its
 engine's snapshot) into the port's cache tensors, as
 ``ShiftEngine.snapshot`` holds them, so that a snapshot the reference took
-restores into the port. It imports neither jax nor repro.
+restores into the port; ``gather_dense_cache`` puts the ranks' dense
+caches of a layout together into the reference's global arrays. It
+imports neither jax nor repro.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.models.attention import attn_layout
 from repro_torch.models.layers import shard_of, vocab_shard
 from repro_torch.models.moe import expert_grid, expert_shard
+from repro_torch.models.ssd import HEAD_LEAVES, ssd_layout, ssd_unlayout
 
 
 def _flatten(tree, prefix=""):
@@ -84,14 +87,24 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), a
     MoE layer's expert stacks over its EP axes and their FF dim over the
     TP axes outside them (``moe_specs``' ``P(ep, None, tpr)``), its shared
-    experts as the MLP and its router whole, and the norm scales whole. On
-    a layout with dp rows the rank gets the shard of its grid position
-    ``(i, j)``, the same in every row (the reference replicates the
-    parameters over ``"data"``). Attention, MLP and MoE weights only: SSD
-    layers run only the trivial layout."""
+    experts as the MLP and its router whole, an SSD mixer's projections
+    over TP and its per-head leaves over the model group after padding
+    the heads (``ssd_specs``, ``models.ssd.ssd_layout``), and the norm
+    scales whole. On a layout with dp rows the rank gets the shard of its
+    grid position ``(i, j)``, the same in every row (the reference
+    replicates the parameters over ``"data"``)."""
     return {name: shard_tensor(name, torch.from_numpy(
                 np.ascontiguousarray(a)), cfg, lay, rank).contiguous().numpy()
             for name, a in state.items()}
+
+
+def is_model_group_leaf(name: str, cfg) -> bool:
+    """True for the leaves cut over the whole model group (not over TP
+    alone): a MoE layer's expert stacks and an SSD mixer's per-head
+    leaves. Putting one back together takes every model rank's part."""
+    p = name.split(".")
+    return is_expert_leaf(name, cfg) or (
+        len(p) == 4 and p[2] == "mix" and p[3] in HEAD_LEAVES)
 
 
 def is_expert_leaf(name: str, cfg) -> bool:
@@ -141,9 +154,8 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
     if parts[-2] in ("ffn", "shared") and parts[-1] in ("wi", "wg", "wo"):
         return shard_of(t, 0 if parts[-1] == "wo" else 1, max(lay.tp, 1),
                         tp_rank)
-    if parts[-2] == "mix" and lay.world > 1:
-        raise NotImplementedError(f"{name}: SSD layers run only the "
-                                  "trivial layout")
+    if parts[-2] == "mix":
+        return ssd_layout(parts[-1], t, cfg, lay, rank)
     return t
 
 
@@ -168,16 +180,18 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     """The inverse of ``shard_tensor``: the trivial layout's parameter
     ``name`` from ``parts``, every tp rank's shard of it on ``lay`` in tp
     rank order, or every model rank's (``G`` of them) in model-rank order,
-    which an expert stack needs. The pad slots of the head plan go; of a kv
-    head that KV replication repeats, the first copy is taken (every copy
-    is the same head). Bitwise: ``shard_tensor`` of the result gives each
-    part back."""
+    which a model-group leaf (``is_model_group_leaf``) needs. The pad slots
+    of the head plan go; of a kv head that KV replication repeats, the
+    first copy is taken (every copy is the same head). Bitwise:
+    ``shard_tensor`` of the result gives each part back."""
     p = name.split(".")
     tp, G = max(lay.tp, 1), max(lay.G, 1)
-    if is_expert_leaf(name, cfg):
+    if is_model_group_leaf(name, cfg):
         if len(parts) != G:
             raise ValueError(f"{name}: {len(parts)} shards, want one per "
                              f"model rank ({G})")
+        if p[-2] == "mix":
+            return ssd_unlayout(p[-1], parts, cfg, lay)
         return _unshard_experts(name, parts, cfg, lay)
     if len(parts) == G != tp:
         # every model rank's: keep the first of each tp rank's
@@ -214,9 +228,8 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
             out.reshape(-1)
     if p[-2] in ("ffn", "shared") and p[-1] in ("wi", "wg", "wo"):
         return torch.cat(list(parts), 0 if p[-1] == "wo" else 1)
-    if p[-2] == "mix" and lay.world > 1:
-        raise NotImplementedError(f"{name}: SSD layers run only the "
-                                  "trivial layout")
+    if p[-2] == "mix":
+        return ssd_unlayout(p[-1], parts, cfg, lay)
     return parts[0]
 
 
@@ -225,7 +238,7 @@ def unshard_state(shards, cfg, lay) -> Dict[str, np.ndarray]:
     ``shards``, one state per tp rank of ``lay`` in tp rank order (on a
     base config with sp > 1 the sp ranks of one tp rank hold the same
     shard: pass one of them), or one per model rank in model-rank order,
-    which a state with MoE expert stacks needs. Bitwise: ``shard_state`` of
+    which a state with MoE expert stacks or SSD layers needs. Bitwise: ``shard_state`` of
     the result on ``lay`` gives each shard back."""
     return {name: unshard_tensor(name, [torch.from_numpy(
                 np.ascontiguousarray(s[name])) for s in shards], cfg, lay)
@@ -273,4 +286,41 @@ def from_jax_cache(tree, cfg, paged: bool) -> Dict[str, torch.Tensor]:
             raise ValueError(f"body.s0.{name}: {a.shape[0]} stacked layers, "
                              f"config has {cfg.num_layers}")
         out[name] = _tensor(a)
+    return out
+
+
+def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
+    """The reference's global dense cache arrays (``init_cache``'s leaves,
+    its ``cache_specs`` undone) from ``caches``, every rank's dense cache
+    tensors by name (``ShiftEngine._cache_tensors()`` or the fields of a
+    ``DenseCache``), in process-rank order over the world of ``lay``. The
+    batch axis takes the dp rows in order; the head axis of ``k``/``v``
+    [L, B, s_max, kv_slots, Dh] and ``ssm`` [L, B, H, hd, ds] and the
+    channels of ``conv_x`` [L, B, cw-1, H·hd] take the model ranks in
+    model-rank order (the reference's ``head_spec_entry``); ``conv_bc``
+    [L, B, cw-1, 2·ds], whole on every rank of a row, comes from each
+    row's first rank."""
+    G, dp = max(lay.G, 1), max(lay.dp, 1)
+    if len(caches) != G * dp:
+        raise ValueError(f"{len(caches)} ranks' caches for a world of "
+                         f"{G * dp}")
+
+    def arr(t):
+        return t.detach().cpu().float().numpy() if isinstance(
+            t, torch.Tensor) else np.asarray(t)
+
+    axis = {"k": 3, "v": 3, "ssm": 2, "conv_x": 3}
+    out = {}
+    for name in caches[0]:
+        rows = []
+        for d in range(dp):
+            row = [caches[d * G + m] for m in range(G)]
+            if name == "conv_bc":
+                rows.append(arr(row[0][name]))
+                continue
+            by_model = sorted(range(G),
+                              key=lambda m: lay.model_rank(d * G + m))
+            rows.append(np.concatenate([arr(row[m][name]) for m in by_model],
+                                       axis=axis[name]))
+        out[name] = np.concatenate(rows, axis=1)
     return out

@@ -6,8 +6,11 @@ i, tp rank j), rank ``i*t + j``, owns head sub-block ``j*s + i`` after the
 Ulysses all-to-all; the shift config (TP = s·t) numbers its tp ranks in
 that same order, so every rank owns the same KV head slots in both and a
 switch moves no byte. The reference proves it on the shardings of its
-global arrays; in the port each rank holds its own pool, and
-``verify_paged_invariance`` checks it on that rank's tensors.
+global arrays; in the port each rank holds its own pool or dense cache,
+and ``verify_paged_invariance`` and ``verify_dense_invariance`` check it
+on that rank's tensors. The dense cache's SSD state is sharded over the
+heads as the KV cache over its slots (the reference's ``ssd_state_specs``
+and ``verify_invariance`` on them), so the same holds for its heads.
 
 With dp rows the check also runs per row (the reference's ``dp_axes``
 form, ``dp_rows_aligned``): each rank holds one row's pool, and every
@@ -38,13 +41,35 @@ def head_order_shift(sp: int, tp: int):
     return head_order_base(sp, tp)
 
 
+def _head_block(model, rank: int) -> int:
+    """The head sub-block ``model`` steps on ``rank``: its tp rank's in the
+    shift config, its model rank's in the base config (after the
+    all-to-all)."""
+    lay = model.lay
+    return lay.tp_rank(rank) if lay.sp == 1 else lay.model_rank(rank)
+
+
 def kv_slots(model, rank: int) -> range:
-    """The global KV head slots that ``model``'s pool holds on ``rank``:
-    its tp rank's slots in the shift config, its model rank's in the base
-    config (after the all-to-all)."""
-    lay, plan = model.lay, model.plan
-    g = lay.tp_rank(rank) if lay.sp == 1 else lay.model_rank(rank)
-    return range(g * plan.kv_per_rank, (g + 1) * plan.kv_per_rank)
+    """The global KV head slots that ``model``'s cache holds on ``rank``."""
+    g, n = _head_block(model, rank), model.plan.kv_per_rank
+    return range(g * n, (g + 1) * n)
+
+
+def ssd_heads(model, rank: int) -> range:
+    """The global SSD heads (padded) that ``model``'s dense cache holds on
+    ``rank``; empty for a config without SSD layers."""
+    from repro_torch.models.ssd import ssd_plan
+    if model.cfg.ssm is None:
+        return range(0)
+    n = ssd_plan(model.cfg, model.lay).h_q_pad // max(model.lay.G, 1)
+    g = _head_block(model, rank)
+    return range(g * n, (g + 1) * n)
+
+
+def snapshot_dense(cache):
+    """Copies of every tensor of a dense cache, by name, for
+    ``verify_dense_invariance``."""
+    return {name: t.clone() for name, t in cache.tensors().items()}
 
 
 def snapshot_blocks(pool, blocks: Sequence[int]):
@@ -93,3 +118,22 @@ def verify_paged_invariance(base, shift, rank: int,
         now = snapshot_blocks(a, shared_blocks)
         return all(torch.equal(x, y) for x, y in zip(now, before))
     return True
+
+
+def verify_dense_invariance(base, shift, rank: int) -> bool:
+    """The §3.3.1 check of the dense cache on one rank, for its ``base``
+    and ``shift`` models:
+
+    1. both step the same cache tensors (equal ``data_ptr`` of every KV
+       and SSD state tensor), so a switch moves no byte;
+    2. the rank owns the same KV head slots and the same SSD heads in
+       both configs."""
+    a, b = base.cache, shift.cache
+    if a is None or b is None:
+        return False
+    ta, tb = a.tensors(), b.tensors()
+    if set(ta) != set(tb) or any(ta[n].data_ptr() != tb[n].data_ptr()
+                                 for n in ta):
+        return False
+    return (kv_slots(base, rank) == kv_slots(shift, rank)
+            and ssd_heads(base, rank) == ssd_heads(shift, rank))

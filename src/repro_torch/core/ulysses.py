@@ -15,6 +15,11 @@ buffer, whose leading axis is the source rank. A call copies each tensor
 twice: once into the send buffer (one ``torch.cat``) and once out of the
 received one (one ``contiguous`` per tensor), so every result is
 contiguous, as the CUDA kernels require.
+
+For a decode step the "sequence" is the rank's rows of its dp row's
+batch, sent as ``x[None]``: after the scatter each rank holds every row
+of its dp row at its heads. The SSD mixer's one (B, C) group goes through
+``expand_kv_for_send`` as a kv head does.
 """
 from __future__ import annotations
 

@@ -19,11 +19,12 @@ On the trivial layout, and with dp rows alone (a model group of one),
 base and shift are one ``Model`` and one program, and the two entries of
 a table are one object. Above a model group of one they are two models,
 the base on the SP×TP layout and the shift on its ``to_shift()``, over one
-pool, and each has its entry. ``dp`` is the layout's: each rank's entries
-step its row's segment of the batch. Above world size 1 every entry runs
-eagerly: its steps call collectives, and a gloo
-collective cannot be captured in a CUDA graph (capturing NCCL across cards
-is ROADMAP Queue 1 item 2). Asking for graphs there raises.
+pool or one dense cache, and each has its entry, in both tables. ``dp`` is
+the layout's: each rank's entries step its row's segment of the batch.
+Above world size 1 every entry runs eagerly: its steps call collectives,
+and a gloo collective cannot be captured in a CUDA graph (capturing NCCL
+across cards needs one card per rank: ROADMAP Queue 1 item 2, its last
+leftover). Asking for graphs there raises.
 
 ``reshard(new_base, new_shift)`` builds the deployment of another layout
 over the same ranks: the weights move through ``ft.elastic.reshard_params``
@@ -279,7 +280,8 @@ class Deployment:
             raise ValueError(
                 f"graphed=True at world size {world}: the steps call "
                 "collectives, which a CUDA graph cannot capture over gloo "
-                "(NCCL capture across cards is ROADMAP Queue 1 item 2)")
+                "(NCCL capture needs one card per rank: ROADMAP Queue 1 "
+                "item 2, its last leftover)")
         if graphed is None:
             graphed = world == 1
         d = cls(base=model_base, shift=model_shift, mixed=mixed, paged=paged,

@@ -18,12 +18,15 @@ shift model adopts the base model's pool.
 
 Above world size 1 the engine is SPMD: every rank runs the same engine on
 the same requests, one process per rank, and the greedy token is
-all-gathered over TP and then over DP, so every rank sees the whole
-batch's tokens and takes the same routing, admission and scheduling
-decisions. Above a model group of one (sp·tp > 1) the engine runs the
-mixed paged iteration only; with dp rows alone it also runs the
-serialized one on the paged pool. The dense cache runs only the trivial
-layout.
+all-gathered over TP, SP and DP, so every rank sees the whole batch's
+tokens and takes the same routing, admission and scheduling decisions.
+Both iterations run on every layout, with the policy's config per step:
+the mixed one over the paged pool, the serialized one over the paged pool
+or the dense cache. Base and shift step one cache per rank (the shift
+model adopts the base model's pool or dense cache), so a switch moves no
+byte. A serialized step cuts its chunk over sp and its decode rows over
+dp×sp, as the reference's ``shard_map`` does, and raises where that would
+refuse.
 
 Data parallelism pages per row, as in the reference: the slots partition
 into ``dp`` contiguous ranges, each row owns a private block pool of
@@ -34,9 +37,11 @@ demand less its allocatable blocks (ties to the lowest row) and keeps that
 row across preemptions; admission is FCFS within a row, and block
 exhaustion preempts only requests of the same row, so pressure in one row
 never preempts or evicts another row's work. With ``max_slots`` not
-divisible by dp a forced ``paged=True`` raises; the reference's automatic
-fallback to the dense cache raises ``NotImplementedError`` here, since the
-dense cache on a layout is not ported.
+divisible by dp a forced ``paged=True`` raises, and the automatic choice
+falls back to the dense cache and says why (``paged_disabled_reason``),
+as the reference does; its steps then raise, as the reference's
+``shard_map`` does, since the slots do not split into the dp rows. On the
+dense cache every rank holds its dp row's ``max_slots/dp`` slots.
 
 KV lives in one of two caches. The paged pool (``paged``, the default
 for configs whose layers all page)
@@ -278,19 +283,14 @@ class ShiftEngine:
                       "kinds (MLA latents / ring buffers / recurrent state "
                       "keep the contiguous cache)")
         elif cfg.max_slots % dp:
-            reason = (f"max_slots={cfg.max_slots} not divisible by dp={dp}: "
-                      "slots partition into dp rows")
+            reason = (f"max_slots={cfg.max_slots} not divisible by "
+                      f"dp={dp} — slots partition into dp rows")
         if cfg.paged and reason is not None:
             raise ValueError(f"config {self.mcfg.name} cannot use a paged KV "
                              f"cache: {reason}")
         self.paged = reason is None if cfg.paged is None else cfg.paged
         if not self.paged and reason is None:
             reason = "paged=False in EngineConfig"
-        if not self.paged and lay.world > 1:
-            raise NotImplementedError(
-                f"{lay.describe()}: the dense cache runs only the trivial "
-                f"layout (ROADMAP Queue 1 item 2), and paging is off: "
-                f"{reason}")
         self.paged_disabled_reason = None if self.paged else reason
         self.mixed = self.paged if cfg.mixed is None else cfg.mixed
         if self.mixed and not self.paged:
@@ -301,11 +301,6 @@ class ShiftEngine:
             raise ValueError(
                 "prefix caching requires the paged KV cache (cached blocks "
                 "are shared through ref-counted block tables)")
-        if lay.G > 1 and not self.mixed:
-            raise NotImplementedError(
-                f"{lay.describe()}: above a model group of one the engine "
-                "runs the mixed paged iteration only (ROADMAP Queue 1 item "
-                "2)")
         # speculation rides the mixed paged iteration (verify rows are
         # ragged 1+k rows through the paged attention); elsewhere it is
         # off, and says why
@@ -351,7 +346,11 @@ class ShiftEngine:
             self._step_copies: List[tuple] = []
         else:
             self.kv = None
+            # every rank holds its dp row's slots; the shift model steps
+            # the same tensors
             self._cache = model.init_cache(cfg.max_slots, cfg.s_max)
+            if shift is not None:
+                shift.adopt_cache(model)
         # per-slot cache length: positions already written
         self.lens = np.zeros((cfg.max_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * cfg.max_slots
@@ -1439,10 +1438,9 @@ class ShiftEngine:
         ``v``, ``ssm``, ``conv_x``, ``conv_bc``; those of kinds the config
         lacks are absent). The shift model adopts the base model's pool,
         so these are all there is."""
-        names = ("k", "v") if self.paged \
-            else ("k", "v", "ssm", "conv_x", "conv_bc")
-        return {name: t for name in names
-                if (t := getattr(self._cache, name)) is not None}
+        if self.paged:
+            return {"k": self._cache.k, "v": self._cache.v}
+        return self._cache.tensors()
 
     def snapshot(self) -> dict:
         """The engine's state for a restart (the weights are static): the
@@ -1912,19 +1910,14 @@ class ShiftEngine:
 
     def _validate_layout(self, layout: Layout, groups: Optional[Groups]):
         """The port's own refusals, before anything changes: a reshard
-        keeps the world size (each rank is a process), runs the mixed
-        iteration above a model group of one, and needs the new grid's
-        ``groups`` above world size 1."""
+        keeps the world size (each rank is a process) and needs the new
+        grid's ``groups`` above world size 1."""
         old = self.deploy.layout
         if layout.world != old.world:
             raise ReshardError(
                 f"layout {layout.describe()} runs on {layout.world} ranks, "
                 f"this deployment ({old.describe()}) on {old.world}: a "
                 "reshard keeps the world size (its ranks are processes)")
-        if layout.G > 1 and not self.mixed:
-            raise ReshardError(
-                f"{layout.describe()}: above a model group of one the engine "
-                "runs the mixed paged iteration only")
         try:
             Shard.of(layout, groups)
         except ValueError as e:

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.convert import is_expert_leaf, shard_tensor, unshard_tensor
+from repro_torch.convert import (is_model_group_leaf, shard_tensor,
+                                 unshard_tensor)
 from repro_torch.parallel import Layout
 from repro_torch.parallel.collectives import all_gather_if
 
@@ -48,8 +49,9 @@ def _tp_members(lay: Layout, rank: int):
 def reshard_params(old_model, new_model):
     """Copy ``old_model``'s weights into ``new_model`` (the same config,
     device and ranks, another layout): every parameter is all-gathered over
-    the old model's TP group (a MoE layer's expert stacks over its whole
-    model group, in model-rank order; traffic kind ``reshard_weights``),
+    the old model's TP group (a MoE layer's expert stacks and an SSD
+    mixer's per-head leaves over its whole model group, in model-rank
+    order; traffic kind ``reshard_weights``),
     put back into its trivial form and cut for the new model's rank, one
     parameter at a time. Bitwise for every leaf. Every rank of the world
     calls it, in the same order. Returns ``new_model``."""
@@ -63,13 +65,13 @@ def reshard_params(old_model, new_model):
     order = sorted(range(len(members)),
                    key=lambda m: old.tp_rank(members[m]))
     group = old_model.shard.tp_group
-    # an expert stack's: the row's model group, ascending process rank
+    # a model-group leaf's: the row's model group, ascending process rank
     row = old.dp_rank(old_model.shard.rank) * old.G
     by_model = sorted(range(old.G), key=lambda m: old.model_rank(row + m))
     model_group = old_model.shard.axes_group(("sp", "tp"))
     dst = new_model.params.state_dict()
     for name, t in old_model.params.state_dict().items():
-        if is_expert_leaf(name, cfg):
+        if is_model_group_leaf(name, cfg):
             parts = all_gather_if(t, model_group, "reshard_weights").chunk(
                 old.G)
             parts = [parts[m] for m in by_model]

@@ -22,8 +22,9 @@ matches), as the reference CLI's flags do.
 ``build_engine(..., dp=, sp=, tp=, groups=)`` builds one rank of the Shift
 Parallelism deployment: the base model on ``Layout(dp, sp, tp)`` and the
 shift model on its ``to_shift()`` (one model while sp·tp is 1), over this
-rank's row's paged pool, inside a rank of ``launch.mesh.run_ranks`` (which
-builds the ``groups``). As in the reference, the CLI has a flag for dp
+rank's row's paged pool or, with ``paged=False`` and for mamba2-1.3b, its
+dense cache, with any iteration, inside a rank of
+``launch.mesh.run_ranks`` (which builds the ``groups``). As in the reference, the CLI has a flag for dp
 only: ``--dp N`` serves with N data-parallel rows, one process per row
 spawned through ``run_ranks`` over ``--backend`` (``gloo`` or ``nccl``; no
 default above one process). Every rank serves the same requests; the

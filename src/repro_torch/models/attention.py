@@ -7,11 +7,15 @@ kernels, the all-to-all back, and the O projection (row parallel) with its
 TP psum.
 
 Each rank holds its tp rank's weight columns and its own slice of the KV
-pool, ``[num_blocks, bs, kv_per_rank, Dh]``: the kv slots of its model rank
-in the base config (after the all-to-all) and of its tp rank in the shift
-config, which are the same slots (``core.invariance``). The serialized and
-dense paths run only the trivial layout (``Model`` refuses them above
-world size 1).
+cache: the kv slots of its model rank in the base config (after the
+all-to-all) and of its tp rank in the shift config, which are the same
+slots (``core.invariance``). The paged pool is ``[num_blocks, bs,
+kv_per_rank, Dh]``; the dense cache ``[B_row, s_max, kv_per_rank, Dh]``,
+its dp row's slots. Every path runs on every layout: the mixed and the
+chunked prefill steps see the whole chunk after the exchange, and a
+decode step sends the rank's batch rows as the exchange's "sequence"
+(``x[None]``, the reference's batch-as-sequence), so that each rank
+attends every row of its dp row at its own heads.
 
 Only global causal attention with RoPE and no logit soft cap is ported:
 no config of the port has sliding windows, soft caps or rope-free layers
@@ -232,26 +236,42 @@ def paged_attn_mixed(p: Attention, x, k_pool, v_pool, pos, offsets, q_lens,
 def paged_attn_prefill(p: Attention, x, k_pool, v_pool, pos, offsets,
                        block_tables, cfg):
     """Chunked prefill against the paged pool: the degenerate mixed call
-    with ``q_lens == S`` for every row. All S columns are written (rows
-    outside the chunk batch carry all-null tables, so their writes land in
-    the null block); the padding past a short chunk is causally masked and
-    overwritten by the next chunk. x: [B, S, d] -> [B, S, d]."""
-    q_lens = torch.full_like(offsets, x.shape[1])
+    with ``q_lens == S`` for every row, S the whole chunk after the
+    exchange. All S columns are written (rows outside the chunk batch
+    carry all-null tables, so their writes land in the null block); the
+    padding past a short chunk is causally masked and overwritten by the
+    next chunk. x: [B, S_loc, d] -> [B, S_loc, d]."""
+    q_lens = torch.full_like(offsets, pos.shape[1])
     return paged_attn_mixed(p, x, k_pool, v_pool, pos, offsets, q_lens,
                             block_tables, cfg)
+
+
+def _decode_exchange(p: Attention, x, lens, cfg):
+    """A decode step's projection and exchange: the rank's rows x [B_loc,
+    d] travel as a sequence ``x[None]``, so after the exchange the rank
+    holds every row of its dp row at its heads, q [B_row, 1, q_per_rank,
+    dh] and k, v [B_row, 1, kv_per_rank, dh], normed and rotated at
+    positions ``lens`` [B_row]."""
+    q, k, v = (t.transpose(0, 1) for t in _project_exchange(p, x[None],
+                                                            cfg))
+    return (*_qk_post(p, q, k, lens[:, None].long(), cfg), v)
+
+
+def _decode_finish(p: Attention, out):
+    """out [B_row, 1, q_per_rank, dh] back to the rank's rows, [B_loc,
+    d]."""
+    return _finish(p, out.transpose(0, 1))[0]
 
 
 def paged_attn_decode(p: Attention, x, k_pool, v_pool, lens, block_tables,
                       cfg):
     """One-token decode against the paged pool, the ragged kernel at
-    C == 1. x: [B, d]; lens: [B] write positions; block_tables [B, nmax]
-    (all-null rows for inactive slots write into the null block). Writes
-    the new K/V in place. Returns [B, d]."""
-    q, k, v = _project_exchange(p, x[:, None], cfg)           # [B, 1, H, dh]
-    pos = lens[:, None].long()
-    q, k = _qk_post(p, q, k, pos, cfg)
+    C == 1. x: [B_loc, d]; lens: [B_row] write positions; block_tables
+    [B_row, nmax] (all-null rows for inactive slots write into the null
+    block). Writes the new K/V in place. Returns [B_loc, d]."""
+    q, k, v = _decode_exchange(p, x, lens, cfg)
     bs = k_pool.shape[1]
-    rows = torch.arange(x.shape[0], device=x.device)
+    rows = torch.arange(q.shape[0], device=x.device)
     ln = lens.long()
     blk = block_tables.long()[rows, ln // bs]
     k_pool[blk, ln % bs] = k[:, 0]
@@ -259,7 +279,7 @@ def paged_attn_decode(p: Attention, x, k_pool, v_pool, lens, block_tables,
     out = K.paged_ragged_attend(q, k_pool, v_pool, block_tables,
                                 torch.ones_like(lens), lens + 1,
                                 soft_cap=cfg.logits_soft_cap)
-    return _finish(p, out)[:, 0]
+    return _decode_finish(p, out)
 
 
 # ---------------------------------------------------------------------------
@@ -275,14 +295,16 @@ def _dense_only(cfg, window, rope):
 
 def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
                  window: int = 0, rope: bool = True):
-    """Chunked prefill against the dense cache. x: [B, S, d]; row b's
-    tokens sit at positions ``offsets[b] + arange(S)``. Writes their K/V
-    into ``k_cache``/``v_cache`` ([B, s_max, kv_slots, Dh]) IN PLACE at
+    """Chunked prefill against the dense cache. x: [B, S_loc, d], this
+    rank's columns of a chunk of S; row b's tokens sit at positions
+    ``offsets[b] + arange(S)``, which the rank sees whole after the
+    exchange. Writes their K/V into ``k_cache``/``v_cache`` ([B, s_max,
+    kv_per_rank, Dh]) IN PLACE at
     ``offsets`` clamped so the chunk fits (the reference's
     ``dynamic_update_slice``), padding columns included, then attends the
     chunk against the whole cache row: the flash kernel's causal mask
     ``kpos <= offsets[b] + i`` is the reference's ``attend`` with
-    ``kv_len = offsets + S``. Returns out [B, S, d]."""
+    ``kv_len = offsets + S``. Returns out [B, S_loc, d]."""
     _dense_only(cfg, window, rope)
     q, k, v = _project_exchange(p, x, cfg)
     B, S = q.shape[:2]
@@ -301,17 +323,16 @@ def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
 
 def attn_decode(p: Attention, x, k_cache, v_cache, lens, cfg, *,
                 window: int = 0, rope: bool = True):
-    """One-token decode against the dense cache. x: [B, d]; lens: [B]
-    write positions (inactive slots pass 0 and write a garbage K/V at
-    position 0 of their free row, as the reference does). Writes in place,
-    then attends ``kpos < lens + 1`` with the decode kernel. Returns
-    [B, d]."""
+    """One-token decode against the dense cache. x: [B_loc, d], this
+    rank's segment of its dp row's batch; lens: [B_row] write positions
+    (inactive slots pass 0 and write a garbage K/V at position 0 of their
+    free row, as the reference does); k_cache/v_cache [B_row, s_max,
+    kv_per_rank, Dh]. Writes in place, then attends ``kpos < lens + 1``
+    with the decode kernel at the rank's heads. Returns [B_loc, d]."""
     _dense_only(cfg, window, rope)
-    q, k, v = _project_exchange(p, x[:, None], cfg)           # [B, 1, H, dh]
-    pos = lens[:, None].long()
-    q, k = _qk_post(p, q, k, pos, cfg)
-    rows = torch.arange(x.shape[0], device=x.device)
+    q, k, v = _decode_exchange(p, x, lens, cfg)
+    rows = torch.arange(q.shape[0], device=x.device)
     k_cache[rows, lens.long()] = k[:, 0]
     v_cache[rows, lens.long()] = v[:, 0]
     out = K.decode_attention(q, k_cache, v_cache, lens + 1)
-    return _finish(p, out)[:, 0]
+    return _decode_finish(p, out)

@@ -50,11 +50,9 @@ class SSDBlock(nn.Module):
     kind = "ssd"
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
-        # the SSD mixer runs only the trivial layout (``Model`` refuses an
-        # SSD config above world size 1), so ``shard`` is that layout's
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
-        self.mix = S.SSD(cfg, lay, dtype, device)
+        self.mix = S.SSD(cfg, lay, dtype, device, shard or Shard(lay))
 
     def reset_parameters(self, generator):
         self.ln1.reset_parameters()
@@ -108,9 +106,10 @@ def block_prefill(p, x, cache, ctx, cfg):
 
 
 def block_decode(p, x, cache, ctx, cfg):
-    """x: [B, d]; ctx: dict(lens, block_tables). One layer of a decode
-    step: an SSD layer steps its state; an attention layer attends through
-    the block table when there is one, else against the dense cache."""
+    """x: [B_loc, d], this rank's segment of its dp row's batch; ctx:
+    dict(lens, block_tables), the row's. One layer of a decode step: an
+    SSD layer steps its state; an attention layer attends through the
+    block table when there is one, else against the dense cache."""
     h = p.ln1(x)
     if p.kind == "ssd":
         return x + S.ssd_decode(p.mix, h, cache, cfg)

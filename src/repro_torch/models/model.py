@@ -10,16 +10,18 @@ its weights and nothing else.
 
 Above world size 1 a ``Model`` is one rank of an SPMD program, one process
 per rank as ``shard_map`` runs one program per device: its steps take the
-same host inputs on every rank and run the layout's collectives over the
-process groups it was given. With dp rows a step takes the whole batch,
-steps its dp rank's contiguous segment of rows through its row's own
-paged pool, and all-gathers the sampled tokens over the DP group, so that
-every rank returns the whole batch's tokens. The mixed paged step runs on
-every layout; the serialized steps on the paged pool run while the model
-group is one rank (dp rows alone); the dense cache and SSD layers run only
-the trivial layout (ROADMAP Queue 1 item 2). A MoE layer's experts are
-sharded over its EP group (``models.moe.ep_group``) within a dp row; a
-pod-scale config whose EP group would span dp rows raises."""
+same host inputs on every rank (the whole batch) and cut them as the
+reference's ``in_specs`` do. A dp rank steps its contiguous segment of
+rows through its row's own cache; an sp rank its contiguous columns of a
+prefill chunk (``P(dp, sp)``), or its contiguous segment of its row's
+decode rows (``P((dp, sp))``, the batch sharded over dp×sp). Every step
+runs on every layout, over the paged pool or the dense cache, and an SSD
+layer's mixer runs the Ulysses exchange as an attention layer does. The
+sampled tokens are gathered over SP and DP, so that every rank returns
+the whole batch's tokens. A MoE layer's experts are sharded over its EP
+group (``models.moe.ep_group``) within a dp row; a pod-scale config whose
+EP group would span dp rows raises (ROADMAP Queue 1 item 2, its first
+leftover)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -48,12 +50,6 @@ class Model:
 
     def __init__(self, cfg, device="cuda", dtype=torch.bfloat16,
                  lay: Layout = Layout(), groups: Optional[Groups] = None):
-        if lay.world > 1 and any(k not in ("attn", "moe")
-                                 for k in cfg.layer_kinds):
-            raise NotImplementedError(
-                f"{cfg.name} on {lay.describe()}: SSD layers run only the "
-                "trivial layout (their Ulysses exchange is ROADMAP Queue 1 "
-                "item 2)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.lay = lay
@@ -80,17 +76,6 @@ class Model:
         v.pool = v.cache = None
         return v
 
-    def _trivial_only(self, what: str, paged: bool = False):
-        """Raise for a serialized step or the dense cache on a layout they
-        do not run: the dense cache needs world size 1, a serialized step
-        on the paged pool a model group of one."""
-        if (self.lay.G if paged else self.lay.world) > 1:
-            raise NotImplementedError(
-                f"{what} on {self.lay.describe()}: the serialized steps run "
-                "on the paged pool with a model group of one, the dense "
-                "cache only on the trivial layout (ROADMAP Queue 1 item 2); "
-                "the mixed paged step runs every layout")
-
     def _dp_rows(self, n: int) -> slice:
         """This rank's contiguous segment of an ``n``-row batch: dp row d
         steps rows ``[d*n/dp, (d+1)*n/dp)``."""
@@ -101,6 +86,17 @@ class Model:
         seg = n // dp
         d = self.shard.dp_rank
         return slice(d * seg, (d + 1) * seg)
+
+    def _sp_part(self, n: int, what: str) -> slice:
+        """This sp rank's contiguous part of ``n`` (a prefill chunk's
+        columns, or a decode step's rows of its dp row); raises where the
+        reference's ``shard_map`` refuses an axis that does not split."""
+        sp = self.lay.sp
+        if n % sp:
+            raise ValueError(f"{what} of {n} does not split over sp={sp}")
+        part = n // sp
+        i = self.shard.sp_rank
+        return slice(i * part, (i + 1) * part)
 
     def _dp_gather(self, tokens):
         """The rows' sampled tokens of every dp rank, in row order (the
@@ -156,24 +152,42 @@ class Model:
         self._require_paged()
         if other.pool is None:
             raise RuntimeError("the other model has no paged pool yet")
-        if (other.cfg != self.cfg or other.lay.grid != self.lay.grid
-                or other.shard.rank != self.shard.rank
-                or other.plan.kv_per_rank != self.plan.kv_per_rank
-                or other.dtype != self.dtype or other.device != self.device):
-            raise ValueError("adopt_paged_cache: the models differ in config, "
-                             "grid, rank, kv slots, type or device")
+        self._check_peer(other, "adopt_paged_cache")
         self.pool = other.pool
         return self.pool
 
     # -------------------------------------------------------- dense cache
     def init_cache(self, batch: int, s_max: int) -> T.DenseCache:
-        """Zeroed dense caches: K and V ``[n_attn, batch, s_max, kv_slots,
-        Dh]`` for attention layers, recurrent state for SSD layers. The
-        trivial layout only."""
-        self._trivial_only("the dense cache")
-        self.cache = T.init_cache(self.cfg, self.lay, batch, s_max,
-                                  self.dtype, self.device)
+        """Zeroed dense caches of a ``batch``-row batch, this rank's shard:
+        its dp row's ``batch/dp`` rows at its heads, K and V ``[n_attn,
+        batch/dp, s_max, kv_per_rank, Dh]`` for attention layers and
+        recurrent state for SSD layers. A batch that does not split over
+        dp gets ``batch // dp`` rows, and every step raises, as the
+        reference's ``shard_map`` refuses it."""
+        self.cache = T.init_cache(self.cfg, self.lay, batch // self.lay.dp,
+                                  s_max, self.dtype, self.device)
         return self.cache
+
+    def adopt_cache(self, other: "Model") -> T.DenseCache:
+        """Step ``other``'s dense cache tensors themselves, as
+        ``adopt_paged_cache`` does the pool: the shift model adopts the
+        base model's, so that a switch moves no byte of KV or SSD state.
+        Both must be the same rank of the same grid (an engine's base and
+        shift views)."""
+        if other.cache is None:
+            raise RuntimeError("the other model has no dense cache yet")
+        self._check_peer(other, "adopt_cache")
+        self.cache = other.cache
+        return self.cache
+
+    def _check_peer(self, other: "Model", what: str):
+        if (other.cfg != self.cfg or other.lay.grid != self.lay.grid
+                or other.lay.dp != self.lay.dp
+                or other.shard.rank != self.shard.rank
+                or other.plan.kv_per_rank != self.plan.kv_per_rank
+                or other.dtype != self.dtype or other.device != self.device):
+            raise ValueError(f"{what}: the models differ in config, grid, "
+                             "rank, kv slots, type or device")
 
     def _ints(self, a):
         """Host conversion: an array (or tensor) -> int32 on the model's
@@ -198,35 +212,42 @@ class Model:
     # a step can be captured as a CUDA graph (``engine.deployment``); the
     # cache they step is updated in place.
     def prefill_step(self, tokens, offsets, block_tables=None):
-        """``prefill`` on device tensors; returns the last column's fp32
-        logits [B, V] (under dp this rank's rows' only). The paged pool
-        with a model group of one, or the dense cache on the trivial
-        layout."""
-        paged = block_tables is not None
-        self._trivial_only("prefill_step", paged)
-        if paged:
-            rows = self._dp_rows(tokens.shape[0])
-            tokens, offsets = tokens[rows], offsets[rows]
+        """``prefill`` on device tensors, over the paged pool with block
+        tables, else the dense cache. ``tokens`` [B, C] is the whole batch,
+        the same on every rank: a dp rank steps its B/dp rows and an sp
+        rank its contiguous C/sp columns (the reference's ``P(dp, sp)``).
+        Returns the chunk's last column's fp32 logits, this rank's rows'
+        and this tp rank's vocabulary columns ([B/dp, v_blk]; [B, V] on
+        the trivial layout)."""
+        rows = self._dp_rows(tokens.shape[0])
+        tokens, offsets = tokens[rows], offsets[rows]
+        if block_tables is not None:
             block_tables = block_tables[rows]
+        tokens = tokens[:, self._sp_part(tokens.shape[1], "a chunk")]
         return T.prefill_body(self.params, self._step_cache(block_tables),
                               tokens, offsets, self.cfg,
                               block_tables=block_tables)
 
     def decode_step(self, tokens, lens, block_tables=None, sample=True):
-        """``decode`` on device tensors; returns the next tokens [B] (under
-        dp gathered from every row), or the fp32 logits with
-        ``sample=False`` ([B, V]; under dp this rank's rows' only). Where
-        ``prefill_step`` runs."""
-        paged = block_tables is not None
-        self._trivial_only("decode_step", paged)
-        if paged:
-            rows = self._dp_rows(tokens.shape[0])
-            tokens, lens = tokens[rows], lens[rows]
+        """``decode`` on device tensors, where ``prefill_step`` runs.
+        ``tokens`` and ``lens`` [B] are the whole batch: a dp rank keeps
+        its row's B/dp rows (their ``lens`` and tables), and an sp rank
+        steps its contiguous segment of them (the reference's batch
+        sharded over dp×sp). Returns the next tokens [B], gathered over SP
+        and DP, or with ``sample=False`` the segment's fp32 logits
+        ([B/(dp·sp), v_blk], this tp rank's vocabulary columns; [B, V] on
+        the trivial layout)."""
+        rows = self._dp_rows(tokens.shape[0])
+        tokens, lens = tokens[rows], lens[rows]
+        if block_tables is not None:
             block_tables = block_tables[rows]
+        tokens = tokens[self._sp_part(tokens.shape[0], "a dp row's batch")]
         logits = T.decode_body(self.params, self._step_cache(block_tables),
                                tokens, lens, self.cfg,
                                block_tables=block_tables)
-        return self._dp_gather(T.greedy_body(logits)) if sample else logits
+        if not sample:
+            return logits
+        return self._dp_gather(T.greedy_body(logits, self.shard))
 
     def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True,
                    n_last: int = 1):
@@ -242,16 +263,10 @@ class Model:
         self._require_paged()
         if self.pool is None:
             raise RuntimeError("init_paged_cache() before forward_mixed()")
-        sp = self.lay.sp
-        if tokens.shape[1] % sp:
-            raise ValueError(f"chunk of {tokens.shape[1]} columns does not "
-                             f"split over sp={sp}")
+        cols = self._sp_part(tokens.shape[1], "a chunk")
         rows = self._dp_rows(tokens.shape[0])
-        tokens, q_lens = tokens[rows], q_lens[rows]
+        tokens, q_lens = tokens[rows, cols], q_lens[rows]
         offsets, block_tables = offsets[rows], block_tables[rows]
-        if sp > 1:
-            c = tokens.shape[1] // sp
-            tokens = tokens[:, self.shard.sp_rank * c:][:, :c]
         out = T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
                            block_tables, self.cfg, sample=sample,
                            n_last=n_last)
@@ -262,8 +277,9 @@ class Model:
         """One chunked-prefill step (counterpart of ``prefill_fn``):
         ``tokens`` [B, S] written at positions ``offsets`` [B] .., into the
         dense cache, or with ``block_tables`` [B, nmax] through the paged
-        pool. Returns ``(last-column logits [B, V] fp32, cache)``; the
-        cache is updated in place."""
+        pool. Returns ``(last-column logits [B, V] fp32, cache)`` (above
+        world size 1 this rank's part of the logits, as
+        ``prefill_step``); the cache is updated in place."""
         logits = self.prefill_step(self._ints(tokens), self._ints(offsets),
                                    self._ints(block_tables))
         return logits, self._step_cache(block_tables)
@@ -272,8 +288,9 @@ class Model:
         """One decode step (counterpart of ``decode_fn``): ``tokens`` [B]
         written at positions ``lens`` [B], into the dense cache or through
         the paged pool with ``block_tables``. Returns ``(next_tokens [B],
-        cache)``, or the fp32 logits [B, V] in place of the tokens with
-        ``sample=False``."""
+        cache)``, or the fp32 logits in place of the tokens with
+        ``sample=False`` ([B, V]; above world size 1 this rank's part, as
+        ``decode_step``)."""
         out = self.decode_step(self._ints(tokens), self._ints(lens),
                                self._ints(block_tables), sample=sample)
         return out, self._step_cache(block_tables)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.parallel import Layout, Shard
-from repro_torch.parallel.collectives import psum_if
+from repro_torch.parallel.collectives import all_gather_if, psum_if
 from . import blocks as BK
 from .attention import cache_init
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
@@ -93,13 +93,15 @@ def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
 
 @dataclass
 class DenseCache:
-    """The contiguous cache of every layer, stacked by kind and updated in
-    place by each step. Attention and MoE layers: K and V ``[n_attn, B,
-    s_max, kv_slots, Dh]``. SSD layers: ``ssm`` [n_ssd, B, H, hd, ds] in
-    fp32, ``conv_x`` [n_ssd, B, cw-1, H·hd] and ``conv_bc`` [n_ssd, B,
-    cw-1, 2·ds]. A kind the config lacks has None. ``kinds[i]`` and ``index[i]``
-    give layer i's kind and its index among the layers of its cache (the
-    attention and MoE layers together, or the SSD layers)."""
+    """One rank's contiguous cache of every layer, stacked by kind and
+    updated in place by each step: its dp row's ``B`` slots and its model
+    rank's heads (the reference's ``cache_specs`` shard, ``P(dp, None, h,
+    None)``). Attention and MoE layers: K and V ``[n_attn, B, s_max,
+    kv_per_rank, Dh]``. SSD layers: ``ssm`` [n_ssd, B, hpr, hd, ds] in
+    fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd] and ``conv_bc`` [n_ssd, B,
+    cw-1, 2·ds]. A kind the config lacks has None. ``kinds[i]`` and
+    ``index[i]`` give layer i's kind and its index among the layers of its
+    cache (the attention and MoE layers together, or the SSD layers)."""
     kinds: tuple
     index: tuple
     k: Optional[torch.Tensor] = None
@@ -107,6 +109,14 @@ class DenseCache:
     ssm: Optional[torch.Tensor] = None
     conv_x: Optional[torch.Tensor] = None
     conv_bc: Optional[torch.Tensor] = None
+
+    FIELDS = ("k", "v", "ssm", "conv_x", "conv_bc")
+
+    def tensors(self) -> dict:
+        """The cache's tensors by field name, those of kinds the config
+        lacks left out."""
+        return {name: t for name in self.FIELDS
+                if (t := getattr(self, name)) is not None}
 
     def layer(self, i):
         """Layer i's cache: (K, V) views, or an ``SSDState`` of views."""
@@ -118,7 +128,8 @@ class DenseCache:
 
 def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
                device) -> DenseCache:
-    """Zeroed dense caches of every layer."""
+    """Zeroed dense caches of every layer, one rank's: ``batch`` rows (its
+    dp row's) at its heads."""
     kinds = cfg.layer_kinds
     ssd = tuple(k == "ssd" for k in kinds)
     index = tuple(ssd[:i].count(s) for i, s in enumerate(ssd))
@@ -145,7 +156,9 @@ def _embed_tokens(params: Transformer, tokens):
 
 
 def _positions_prefill(offsets, S: int):
-    """Global cache positions of a chunk's S columns, [B, S]."""
+    """Global cache positions of a chunk's S columns, [B, S]: the whole
+    chunk, which every attention layer sees after its exchange (an sp
+    rank's own columns start at ``sp_rank * S/sp``)."""
     return offsets[:, None].long() + torch.arange(S, device=offsets.device)[None]
 
 
@@ -209,26 +222,38 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
 @torch.no_grad()
 def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
                  block_tables=None):
-    """One chunked-prefill step. tokens: [B, S] at cache positions
-    ``offsets[b] ..``; ``cache`` is the ``DenseCache``, or the ``PagedPool``
-    with ``block_tables`` [B, nmax]. Returns the last column's logits
-    [B, V] in fp32 (``x[:, -1]``, padding or not, as the reference takes
-    it); the cache is updated in place."""
+    """One chunked-prefill step. tokens: [B, S_loc], this sp rank's
+    contiguous columns of a chunk of S_loc·sp at cache positions
+    ``offsets[b] ..``; ``cache`` is the ``DenseCache``, or the
+    ``PagedPool`` with ``block_tables`` [B, nmax]. Returns the chunk's
+    last column's logits (this tp rank's vocabulary columns [B, v_blk] in
+    fp32; ``x[:, -1]``, padding or not, as the reference takes it): the
+    last sp rank holds that column, and the SP sum hands it to the others.
+    The cache is updated in place."""
+    sh = params.shard
     x = _embed_tokens(params, tokens)
-    ctx = {"positions": _positions_prefill(offsets, tokens.shape[1]),
+    ctx = {"positions": _positions_prefill(offsets,
+                                           tokens.shape[1] * sh.lay.sp),
            "offsets": offsets, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
         x = BK.block_prefill(layer, x, cache.layer(i), ctx, cfg)
+    last = x[:, -1]
+    if sh.sp_group is not None:
+        last = (last.contiguous() if sh.sp_rank == sh.lay.sp - 1
+                else last.new_zeros(last.shape))
     # RMSNorm is per row, so the final norm runs on the last column only
-    return _logits(params, x[:, -1])
+    return _logits(params, psum_if(last, sh.sp_group))
 
 
 @torch.no_grad()
 def decode_body(params: Transformer, cache, tokens, lens, cfg,
                 block_tables=None):
-    """One decode step. tokens: [B], each written at position ``lens[b]``;
-    ``cache`` as in ``prefill_body``. Returns logits [B, V] in fp32; the
-    cache is updated in place."""
+    """One decode step. tokens: [B_loc], this sp rank's contiguous segment
+    of its dp row's B_row rows; lens [B_row] (and ``block_tables`` [B_row,
+    nmax]) the row's, row b written at position ``lens[b]``; ``cache`` as
+    in ``prefill_body``. Returns the segment's logits (this tp rank's
+    vocabulary columns, [B_loc, v_blk] in fp32); the cache is updated in
+    place."""
     x = embed_apply(params.embed, tokens)
     ctx = {"lens": lens, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
@@ -236,6 +261,8 @@ def decode_body(params: Transformer, cache, tokens, lens, cfg,
     return _logits(params, x)
 
 
-def greedy_body(logits):
-    """Greedy sampling on the trivial layout: [B, V] -> [B] token ids."""
-    return distributed_argmax(logits)
+def greedy_body(logits, shard: Shard):
+    """Distributed greedy sampling of a decode step: [B_loc, v_blk] -> the
+    dp row's [B_row] token ids, the argmax over TP and the segments
+    all-gathered over SP."""
+    return all_gather_if(distributed_argmax(logits, shard), shard.sp_group)

@@ -1436,3 +1436,119 @@ def test_cuda_migration_writes_in_place_and_replays(cuda, dtype):
     assert [e.deploy.captures for e in router.engines] == captures
     led = dst.block_accounting()
     assert led.used == led.pinned == 0
+
+
+# ---------------------------------------------------------------------------
+# one rank of the (sp, tp) = (2, 2) grid: the kernels at its shapes
+# ---------------------------------------------------------------------------
+PER_RANK_CASES = [
+    # kind, shape: flash over the whole 64-column chunk after the exchange
+    # at 8 q and 2 kv heads against dense caches of 256 and 2048 (rows at
+    # offsets up to the dummy offset s_max - C); the dense decode over the
+    # dp row's 8 rows; the SSD chunk at 16 and 8 heads (mamba2-1.3b on G 4
+    # and G 8, b and c shared); its grouped norm at 16 and 8 heads of 64
+    ("flash", (8, 64, 256, [0, 32, 64, 96, 128, 160, 192, 192])),
+    ("flash", (8, 64, 2048, [0, 256, 576, 832, 1088, 1344, 1664, 1984])),
+    ("decode", (8, 2048)),
+    ("ssd", 16),
+    ("ssd", 8),
+    ("grouped", (512, 16)),
+    ("grouped", (512, 8)),
+    ("grouped", (8, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", PER_RANK_CASES)
+def test_cuda_per_rank_kernels_match_plain(cuda, dtype, kind, shape):
+    """The kernels that the serialized steps and the SSD mixer launch on a
+    rank of the (2, 2) grid, at its shapes, against their plain versions
+    (1e-4 in fp32, 2e-2 in bf16; the SSD chunk's fp32 outputs 1e-4)."""
+    tol = TOL[dtype]
+    if kind == "flash":
+        B, C, S, offs = shape
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in dense_case(B, C, S, 8, 2, 128, seed=S))
+        qo = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        got = FA.flash_attention_cuda(q, k, v, qo, causal=True)
+        want = FA.flash_attention_plain(q, k, v, qo, causal=True)
+    elif kind == "decode":
+        B, S = shape
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in dense_case(B, 1, S, 8, 2, 128, seed=S))
+        q = q.reshape(B, 2, 4, 128)
+        lens = torch.tensor([2048, 1536, 1024, 777, 512, 256, 100, 1],
+                            dtype=torch.int32, device=cuda)
+        got = DA.decode_attention_cuda(q, k, v, lens)
+        want = DA.decode_attention_plain(q, k, v, lens)
+    elif kind == "ssd":
+        args = ssd_case(8, 64, shape, 64, 128, 64, True, dtype, cuda)
+        for g, w in zip(SSD.ssd_chunk_cuda(*args, 64),
+                        SSD.ssd_chunk_plain(*args, 64)):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        return
+    else:
+        rows, H = shape
+        g = torch.Generator(device=cuda).manual_seed(rows + H)
+        x = torch.randn((rows, H, 64), generator=g, device=cuda).to(dtype)
+        s = torch.randn((H, 64), generator=g, device=cuda).to(dtype)
+        got, want = RMS.rmsnorm_cuda(x, s), RMS.rmsnorm_plain(x, s)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _layout_serialized_rank(rank, groups, device, arch, kw):
+    """One rank of a (2, 2) engine over the reduced ``arch`` (fp32, the
+    CPU generator's weights on either device), serving the workload: its
+    streams, configs and kernel launches."""
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, lay = get_config(arch).reduced(), Layout(sp=2, tp=2)
+    base, shift = (Model(cfg, device=device, dtype=torch.float32, lay=la,
+                         groups=groups) for la in (lay, lay.to_shift()))
+    for m in (base, shift):
+        drawn = Model(cfg, device="cpu", dtype=torch.float32, lay=m.lay,
+                      groups=groups)
+        drawn.init_params(torch.Generator().manual_seed(0))
+        m.load_params(drawn.params.state_dict())
+    ops.reset_launch_counts()
+    eng = ShiftEngine(base, EngineConfig(threshold=16, **kw), shift=shift)
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return {"streams": [r.generated for r in reqs],
+            "counts": dict(eng.config_counts),
+            "launches": ops.launch_counts()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen3-8b", {"mixed": False}),
+    ("qwen3-8b", {"paged": False, "mixed": False}),
+    ("mamba2-1.3b", {})], ids=["serialized-paged", "dense", "mamba2-dense"])
+def test_cuda_layout_serialized_engine_matches_cpu(cuda, arch, kw):
+    """The serialized engines on the (2, 2) grid, four ranks on the one
+    card over gloo, against the same four ranks on the CPU: equal streams
+    and configs on every rank, both configs used, and the card's ranks
+    went through the kernels (the CPU's through none)."""
+    from repro_torch.launch import mesh
+    card, cpu = (mesh.run_ranks(_layout_serialized_rank, 2, 2, device=dev,
+                                backend="gloo", timeout_s=300,
+                                args=(dev, arch, kw))
+                 for dev in ("cuda", "cpu"))
+    for a, b in zip(card, cpu):
+        assert a["streams"] == b["streams"] == cpu[0]["streams"]
+        assert a["counts"] == b["counts"]
+        assert not any(b["launches"].values())
+        assert a["launches"]["rmsnorm"] > 0
+    assert cpu[0]["counts"]["base"] > 0 and cpu[0]["counts"]["shift"] > 0
+    attention = ("paged_ragged_attention" if kw.get("paged", True)
+                 and arch != "mamba2-1.3b" else None)
+    if attention:
+        assert card[0]["launches"][attention] > 0
+    elif arch == "mamba2-1.3b":
+        assert card[0]["launches"]["ssd_chunk"] > 0
+    else:
+        assert card[0]["launches"]["flash_attention"] > 0
+        assert card[0]["launches"]["decode_attention"] > 0

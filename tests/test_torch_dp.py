@@ -19,6 +19,9 @@ fixture) runs every engine scenario and returns numpy results:
 * routing of a burst and after a preemption, against the reference's rows;
 * one mixed step's logits (each rank its rows') within 1e-4 of the
   reference's;
+* the dense cache at dp=2: reduced qwen3-8b with ``paged=False``, and
+  reduced mamba2-1.3b on its automatic fallback, against the reference's
+  dp=2 engine;
 * ``max_slots`` not divisible by dp, forced and automatic;
 * the serve CLI's report of one rank of ``--dp 2``, with rank 0's metrics
   and trace files;
@@ -67,8 +70,8 @@ STEP = ([8, 5, 8, 0], [0, 0, 0, 0])
 STEP_BT = np.array([[1, 2], [3, 4], [1, 2], [0, 0]], np.int32)
 
 
-def _cfg():
-    return get_config("qwen3-8b").reduced()
+def _cfg(arch="qwen3-8b"):
+    return get_config(arch).reduced()
 
 
 def _mixed_reqs(make=Request, mixed=True):
@@ -89,6 +92,14 @@ CASES = {"mixed": (dict(KW, prefix=PrefixConfig(True)), _mixed_reqs),
          "serialized": (dict(KW, mixed=False),
                         lambda make=Request: _mixed_reqs(make, mixed=False)),
          "isolation": (TIGHT, _isolation_reqs)}
+# and on the dense cache, which places requests by slot, not by routed row
+DENSE_CASES = {
+    "dense": (dict(KW, paged=False),
+              lambda make=Request: _mixed_reqs(make, mixed=False)),
+    "mamba": (KW, lambda make=Request: _mixed_reqs(make, mixed=False))}
+# the scenarios on another architecture than reduced qwen3-8b (mamba2's
+# engine takes its automatic dense fallback)
+ARCH = {"mamba": "mamba2-1.3b"}
 
 
 def _spec_reqs(make=Request):
@@ -111,8 +122,8 @@ def _fake_clock():
 # ---------------------------------------------------------------------------
 # the port's side: one job on two ranks
 # ---------------------------------------------------------------------------
-def _model(state, groups, rank):
-    cfg = _cfg()
+def _model(state, groups, rank, arch="qwen3-8b"):
+    cfg = _cfg(arch)
     lay = Layout(dp=DP)
     m = Model(cfg, device="cpu", dtype=torch.float32, lay=lay, groups=groups)
     m.load_params(shard_state(state, cfg, lay, rank))
@@ -131,6 +142,8 @@ def _engine_case(m, kw, reqs):
             else None,
             "spec": (eng.obs.registry.counter_total("spec_proposed_total"),
                      eng.obs.registry.counter_total("spec_accepted_total")),
+            "paged": eng.paged, "mixed": eng.mixed,
+            "reason": eng.paged_disabled_reason,
             "dump": eng.obs.dump()}
 
 
@@ -158,15 +171,23 @@ def _route_case(m):
 
 
 def _indivisible(m):
+    """``max_slots`` 3 over 2 dp rows: forced paging raises; the automatic
+    choice falls back to the dense cache with its reason, and its steps
+    raise, as the reference's ``shard_map`` refuses the 3 rows."""
     out = {}
     try:
         ShiftEngine(m, EngineConfig(**dict(KW, max_slots=3, paged=True)))
     except ValueError as e:
         out["forced"] = str(e)
+    eng = ShiftEngine(m, EngineConfig(**dict(KW, max_slots=3)))
+    out["auto"] = {"paged": eng.paged, "mixed": eng.mixed,
+                   "reason": eng.paged_disabled_reason,
+                   "stats_reason": eng.prefix_stats.paged_disabled_reason}
+    eng.submit(Request(0, list(range(1, 10)), max_new_tokens=2))
     try:
-        ShiftEngine(m, EngineConfig(**dict(KW, max_slots=3)))
-    except NotImplementedError as e:
-        out["auto"] = str(e)
+        eng.step()
+    except ValueError as e:
+        out["step"] = str(e)
     return out
 
 
@@ -184,16 +205,17 @@ def _serve_report(rank, groups, out_dir):
     return serve.serve_rank(rank, groups, args)
 
 
-def _job(rank, groups, state, out_dir):
+def _job(rank, groups, state, out_dir, mamba_state):
     m = _model(state, groups, rank)
+    mamba = _model(mamba_state, groups, rank, "mamba2-1.3b")
     out = {"rank": rank, "dp_rank": m.shard.dp_rank}
     m.init_paged_cache(5, 8)
     out["logits"] = m.forward_mixed(STEP_TOKS, *STEP, STEP_BT,
                                     sample=False)[0].numpy()
     out["tokens"] = m.forward_mixed(STEP_TOKS, *STEP, STEP_BT)[0].numpy()
     groups.traffic.clear()
-    for name, (kw, reqs) in CASES.items():
-        out[name] = _engine_case(m, kw, reqs())
+    for name, (kw, reqs) in {**CASES, **DENSE_CASES}.items():
+        out[name] = _engine_case(mamba if name in ARCH else m, kw, reqs())
         if name == "mixed":
             out["traffic"] = dict(groups.traffic)
     out["spec_off"] = _engine_case(m, KW, _spec_reqs())
@@ -233,15 +255,18 @@ class Reference:
         self.mesh = make_mesh((DP, 1, 1))
         self.lay = JaxLayout.from_mesh(self.mesh, dp=("data",), sp=("sp",),
                                        tp=("tp",))
-        cfg = reduced_cfg("qwen3-8b")
-        self.mb = JaxModel(cfg=cfg, lay=self.lay, mesh=self.mesh,
-                           dtype=jnp.float32)
-        self.ms = JaxModel(cfg=cfg, lay=self.lay.to_shift(), mesh=self.mesh,
-                           dtype=jnp.float32)
-        self.pb, self.ps = _ref_params(self.mb), _ref_params(self.ms)
+        self.models = {}
+        for arch in ("qwen3-8b", "mamba2-1.3b"):
+            cfg = reduced_cfg(arch)
+            mb = JaxModel(cfg=cfg, lay=self.lay, mesh=self.mesh,
+                          dtype=jnp.float32)
+            ms = JaxModel(cfg=cfg, lay=self.lay.to_shift(), mesh=self.mesh,
+                          dtype=jnp.float32)
+            self.models[arch] = mb, ms, _ref_params(mb), _ref_params(ms)
+        self.mb, self.ms, self.pb, self.ps = self.models["qwen3-8b"]
         self._cases = {}
 
-    def engine(self, kw, now=None):
+    def engine(self, kw, now=None, arch="qwen3-8b"):
         import jax
         import jax.numpy as jnp
         from repro.core.policy import ThresholdPolicy as JaxPolicy
@@ -252,8 +277,9 @@ class Reference:
         if "prefix" in kw:
             kw["prefix"] = JaxPrefixConfig(enabled=kw["prefix"].enabled)
         from repro.engine import ShiftEngine as JaxEngine
-        return JaxEngine(self.mb, self.ms, jax.tree.map(jnp.asarray, self.pb),
-                         jax.tree.map(jnp.asarray, self.ps),
+        mb, ms, pb, ps = self.models[arch]
+        return JaxEngine(mb, ms, jax.tree.map(jnp.asarray, pb),
+                         jax.tree.map(jnp.asarray, ps),
                          JaxEngineConfig(threshold=threshold, **kw),
                          policy=JaxPolicy(threshold),
                          **({"now": now} if now is not None else {}))
@@ -262,12 +288,13 @@ class Reference:
         """The scenario ``name`` of ``CASES`` under a fake clock, run once
         and kept."""
         if name not in self._cases:
-            self._cases[name] = self._case(*CASES[name])
+            self._cases[name] = self._case(*{**CASES, **DENSE_CASES}[name],
+                                           ARCH.get(name, "qwen3-8b"))
         return self._cases[name]
 
-    def _case(self, kw, reqs_fn):
+    def _case(self, kw, reqs_fn, arch):
         from repro.engine import Request as JaxRequest
-        eng = self.engine(kw, now=_fake_clock())
+        eng = self.engine(kw, now=_fake_clock(), arch=arch)
         reqs = reqs_fn(JaxRequest)
         streams = _run(eng, reqs)
         return {"streams": streams, "rows": [r.row for r in reqs],
@@ -275,16 +302,27 @@ class Reference:
                 "req_preempt": [r.num_preemptions for r in reqs],
                 "stats": eng.prefix_stats.as_dict(),
                 "ledger": eng.block_accounting().as_dict(),
+                "paged": eng.paged, "mixed": eng.mixed,
+                "reason": eng.paged_disabled_reason,
                 "dump": eng.obs.dump()}
 
 
 @pytest.fixture(scope="module")
 def state():
+    return _state("qwen3-8b")
+
+
+@pytest.fixture(scope="module")
+def mamba_state():
+    return _state("mamba2-1.3b")
+
+
+def _state(arch):
     from conftest import reduced_cfg
     from repro.models import build_model
     import jax.numpy as jnp
-    jm = build_model(reduced_cfg("qwen3-8b"), dtype=jnp.float32)
-    return from_jax_params(_ref_params(jm), _cfg())
+    jm = build_model(reduced_cfg(arch), dtype=jnp.float32)
+    return from_jax_params(_ref_params(jm), _cfg(arch))
 
 
 @pytest.fixture(scope="module")
@@ -294,10 +332,11 @@ def out_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(state, out_dir):
+def ranks(state, out_dir, mamba_state):
     """The one two-rank job of this module."""
     return mesh.run_ranks(_job, 1, 1, dp=DP, device="cpu", backend="gloo",
-                          timeout_s=300, args=(state, str(out_dir)))
+                          timeout_s=300,
+                          args=(state, str(out_dir), mamba_state))
 
 
 @pytest.fixture(scope="module")
@@ -464,8 +503,8 @@ def test_serve_cli_dp_needs_a_backend(capsys):
 # ---------------------------------------------------------------------------
 def test_ranks_agree_and_gather_over_dp(ranks):
     assert [r["dp_rank"] for r in ranks] == [0, 1]
-    for key in ("mixed", "serialized", "isolation", "spec_off", "spec_on",
-                "route", "indivisible"):
+    for key in ("mixed", "serialized", "isolation", "dense", "mamba",
+                "spec_off", "spec_on", "route", "indivisible"):
         assert ranks[0][key] == ranks[1][key], key
     np.testing.assert_array_equal(ranks[0]["tokens"], ranks[1]["tokens"])
     tr = ranks[0]["traffic"]
@@ -497,6 +536,28 @@ def test_dp2_engine_matches_reference_and_routed_dp1(ranks, ref, state,
     else:
         assert got["ledger"]["used"] == 0
         assert got["ledger"]["free_per_row"] == want["ledger"]["free_per_row"]
+
+
+@pytest.mark.parametrize("name", ["dense", "mamba"])
+def test_dp2_dense_engine_matches_reference(ranks, ref, name):
+    """The dense cache at dp=2: reduced qwen3-8b with ``paged=False`` and
+    reduced mamba2-1.3b on its automatic fallback (the CLI's ``--dp 2
+    --arch mamba2-1.3b``), each rank's row of slots. Streams, rows, config
+    counts (both used), preemptions, the fallback's reason and the
+    observability dump (under one fake clock) equal the reference's dp=2
+    engine's."""
+    want = ref.case(name)
+    assert (want["paged"], want["mixed"]) == (False, False)
+    for r in ranks:
+        got = r[name]
+        for key in ("streams", "rows", "counts", "preempt", "req_preempt"):
+            assert got[key] == want[key], (r["rank"], key)
+        assert (got["paged"], got["mixed"], got["reason"]) == (
+            False, False, want["reason"])
+        assert json.dumps(got["dump"], sort_keys=True) == \
+            json.dumps(want["dump"], sort_keys=True), (r["rank"], name)
+    assert want["counts"]["base"] > 0 and want["counts"]["shift"] > 0
+    assert all(len(s) == 6 for s in want["streams"])
 
 
 def test_dp_row_preemption_isolation(ranks, ref):
@@ -567,10 +628,20 @@ def test_dp_mixed_logits_match_reference(ranks, ref):
                                   want.argmax(-1)[live])
 
 
-def test_indivisible_slots_raise(ranks):
+def test_indivisible_slots_raise(ranks, ref):
+    """As ``tests/test_paged_dp.py::test_paged_dp_indivisible_slots_reason_
+    and_raise``: the automatic choice falls back to the dense cache with
+    the reference engine's reason, and a forced ``paged=True`` raises; a
+    step then raises on the rows that do not split, as the reference's."""
     got = ranks[0]["indivisible"]
     assert "divisible" in got["forced"]
-    assert "divisible" in got["auto"] and "dense cache" in got["auto"]
+    want = ref.engine(dict(KW, max_slots=3))
+    assert not want.paged
+    assert got["auto"] == {"paged": False, "mixed": False,
+                           "reason": want.paged_disabled_reason,
+                           "stats_reason": want.paged_disabled_reason}
+    assert "divisible" in got["auto"]["reason"]
+    assert "does not split over dp=2" in got["step"]
 
 
 def test_serve_dp_report(ranks, state):

@@ -20,7 +20,10 @@ reference's weights (``init_params(key(0))``) converted and cut per rank
   serving the CLI workload under the threshold policy: every rank's
   streams and config counts equal the reference's ``ShiftEngine`` on
   ``mesh122``, for qwen-30b-a3b at capacity factor 4.0 and 1.25 and for
-  llama4-17b-16e at 1.25;
+  llama4-17b-16e at 1.25 on the mixed iteration, and for qwen-30b-a3b at
+  1.25 on the serialized steps over the paged pool and over the dense
+  cache (a decode step sends the rank's rows through the a2a dispatch as
+  a one-column sequence);
 * ``shard_state``/``unshard_state`` round-trip the MoE leaves bitwise on
   both configs, a sharded model's own init equals the trivial init cut by
   ``shard_state``, and ``ft.elastic.reshard_params`` base -> shift -> base
@@ -51,8 +54,14 @@ SP, TP = 2, 2
 MODELS = ["qwen-30b-a3b", "llama4-17b-16e"]
 N_REQ, MAX_NEW = 6, 8
 X_SHAPE = (2, 8, 64)            # moe_apply's input: [B, S, d]
-ENGINES = [("qwen-30b-a3b", 4.0), ("qwen-30b-a3b", 1.25),
-           ("llama4-17b-16e", 1.25)]
+# (arch, capacity factor, engine iteration): the mixed paged iteration,
+# and the serialized steps on the paged pool and on the dense cache
+ITERATIONS = {"mixed": {}, "serial_paged": {"mixed": False},
+              "serial_dense": {"paged": False, "mixed": False}}
+ENGINES = [("qwen-30b-a3b", 4.0, "mixed"), ("qwen-30b-a3b", 1.25, "mixed"),
+           ("llama4-17b-16e", 1.25, "mixed"),
+           ("qwen-30b-a3b", 1.25, "serial_paged"),
+           ("qwen-30b-a3b", 1.25, "serial_dense")]
 
 
 def _cfg(name, cap=1.25, dispatch="bf16"):
@@ -95,12 +104,13 @@ def _moe_apply(rank, groups, state, x):
     return out
 
 
-def _engine(groups, state, cap):
+def _engine(groups, state, cap, iteration):
     cfg = _cfg(state["name"], cap)
     lay = Layout(sp=SP, tp=TP)
     base = _model(cfg, state["state"], lay, groups)
     shift = _model(cfg, state["state"], lay.to_shift(), groups)
-    eng = ShiftEngine(base, EngineConfig(), shift=shift)
+    eng = ShiftEngine(base, EngineConfig(**ITERATIONS[iteration]),
+                      shift=shift)
     reqs = [Request(i, p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(_prompts())]
     for r in reqs:
@@ -108,7 +118,9 @@ def _engine(groups, state, cap):
     eng.run_until_idle()
     return {"streams": [r.generated for r in reqs],
             "counts": dict(eng.config_counts),
-            "free": eng.kv.num_free_blocks, "total": eng.kv.num_blocks}
+            "paged": eng.paged, "mixed": eng.mixed,
+            "free": eng.kv.num_free_blocks if eng.paged else None,
+            "total": eng.kv.num_blocks if eng.paged else None}
 
 
 def _weights(rank, groups, state):
@@ -153,9 +165,10 @@ def _job(rank, groups, inputs):
         out[name] = {"moe": _moe_apply(rank, groups, st, inputs["x"]),
                      "weights": _weights(rank, groups, st)}
     out["engine"] = {
-        (name, cap): _engine(groups, {"name": name,
-                                      "state": inputs["state"][name]}, cap)
-        for name, cap in ENGINES}
+        (name, cap, it): _engine(groups, {"name": name,
+                                          "state": inputs["state"][name]},
+                                 cap, it)
+        for name, cap, it in ENGINES}
     return out
 
 
@@ -215,7 +228,7 @@ def _ref_moe(mesh, name, tree, x):
     return out
 
 
-def _ref_engine(mesh, name, cap):
+def _ref_engine(mesh, name, cap, iteration):
     import jax
     import jax.numpy as jnp
     from repro.core.policy import ThresholdPolicy as JaxPolicy
@@ -230,13 +243,15 @@ def _ref_engine(mesh, name, cap):
     # both draw the trivial layout's canonical weights, placed
     pb = mb.init_params(jax.random.key(0))
     ps = ms.init_params(jax.random.key(0))
-    eng = JaxEngine(mb, ms, pb, ps, JaxEngineConfig(), policy=JaxPolicy(32))
+    eng = JaxEngine(mb, ms, pb, ps, JaxEngineConfig(**ITERATIONS[iteration]),
+                    policy=JaxPolicy(32))
     reqs = [JaxRequest(i, p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(_prompts())]
     for r in reqs:
         eng.submit(r)
     eng.run_until_idle()
-    return [r.generated for r in reqs], dict(eng.config_counts)
+    return ([r.generated for r in reqs], dict(eng.config_counts),
+            (eng.paged, eng.mixed))
 
 
 @pytest.fixture(scope="module")
@@ -287,14 +302,19 @@ def test_moe_apply_matches_reference(ranks, trees, x, mesh122, name):
     assert not np.array_equal(want["base_int8"][0, 0], want["base"][0, 0])
 
 
-@pytest.mark.parametrize("name,cap", ENGINES)
-def test_engine_matches_reference(ranks, mesh122, name, cap):
-    streams, counts = _ref_engine(mesh122, name, cap)
+@pytest.mark.parametrize("name,cap,iteration", [
+    pytest.param(*e, id="-".join(map(str, e[:2 if e[2] == "mixed" else 3])))
+    for e in ENGINES])
+def test_engine_matches_reference(ranks, mesh122, name, cap, iteration):
+    streams, counts, kind = _ref_engine(mesh122, name, cap, iteration)
+    assert kind == (iteration != "serial_dense", iteration == "mixed")
     for r in range(SP * TP):
-        e = ranks[r]["engine"][name, cap]
+        e = ranks[r]["engine"][name, cap, iteration]
         assert e["streams"] == streams, f"rank {r}"
         assert e["counts"] == counts
-        assert e["free"] == e["total"] - 1
+        assert (e["paged"], e["mixed"]) == kind
+        if e["paged"]:
+            assert e["free"] == e["total"] - 1
     assert counts["base"] > 0 and counts["shift"] > 0
     assert all(len(s) == MAX_NEW for s in streams)
 

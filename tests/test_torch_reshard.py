@@ -1,7 +1,8 @@
 """Elastic runtime resharding on the port, held to the reference: the
 counterparts of ``tests/test_elastic_reshard.py``, of the scheduled
-reshards of ``tests/test_spec_decode.py`` and of the port's own refusal of
-a layout of another world size.
+reshards of ``tests/test_spec_decode.py``, a serialized paged engine
+(``mixed=False``) resharded to a model group of two and back mid-stream,
+and the port's own refusal of a layout of another world size.
 
 The port's ranks are processes, so a reshard keeps the world size: on two
 ranks (2, 1, 1) <-> (1, 1, 2). One two-rank job (``launch.mesh.run_ranks``
@@ -226,10 +227,35 @@ def case_pauses(s):
                              for e in eng.obs.dump()["events"])}
 
 
+def case_serialized(s):
+    """A serialized paged engine (``mixed=False``) resharded mid-stream,
+    dp2 -> tp2 (a model group of two) -> dp2, against the same requests
+    served without a reshard."""
+    expect = _serve(s.engine("dp2", mixed=False), _reqs(s))
+    eng = s.engine("dp2", mixed=False)
+    reqs = _reqs(s)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    reps = [s.reshard(eng, "tp2")]
+    for _ in range(3):
+        eng.step()
+    reps.append(s.reshard(eng, "dp2"))
+    eng.run_until_idle()
+    return {"expect": expect, "mixed": eng.mixed,
+            "reports": [_report(r) for r in reps],
+            "streams": [list(r.generated) for r in reqs],
+            "counts": dict(eng.config_counts),
+            "ledger": dataclasses.asdict(eng.block_accounting()),
+            "dump": eng.obs.dump()}
+
+
 CASES = {"delegates": case_delegates, "noop": case_noop,
          "indivisible": case_indivisible, "capacity": case_capacity,
          "grow-shrink": case_grow_shrink, "snapshot": case_snapshot,
-         "spec-scheduled": case_spec_scheduled, "pauses": case_pauses}
+         "spec-scheduled": case_spec_scheduled, "pauses": case_pauses,
+         "serialized": case_serialized}
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +281,11 @@ class PortSide:
             m.load_params(shard_state(state, cfg, lay, rank))
             self.models[key] = m
 
-    def engine(self, key, max_slots=4, spec_k=0):
+    def engine(self, key, max_slots=4, spec_k=0, mixed=None):
         return ShiftEngine(self.models[key], EngineConfig(
             max_slots=max_slots, s_max=64, prefill_chunk=8, block_size=8,
-            spec=SpecConfig(k=spec_k)), policy=ThresholdPolicy(4),
-            now=_fake_clock())
+            spec=SpecConfig(k=spec_k), mixed=mixed),
+            policy=ThresholdPolicy(4), now=_fake_clock())
 
     def reshard(self, eng, key, **kw):
         return eng.reshard(self.lays[key], groups=self.groups[key], **kw)
@@ -362,13 +388,13 @@ class RefSide:
                                 jax.tree.map(jnp.asarray, _ref_params(mb)),
                                 jax.tree.map(jnp.asarray, _ref_params(ms)))
 
-    def engine(self, key, max_slots=4, spec_k=0):
+    def engine(self, key, max_slots=4, spec_k=0, mixed=None):
         from repro.core.policy import ThresholdPolicy as JaxPolicy
         from repro.spec import SpecConfig as JaxSpecConfig
         mb, ms, pb, ps = self.models[key]
         return self.jeng.ShiftEngine(mb, ms, pb, ps, self.jeng.EngineConfig(
             max_slots=max_slots, s_max=64, prefill_chunk=8, block_size=8,
-            spec=JaxSpecConfig(k=spec_k)), policy=JaxPolicy(4),
+            spec=JaxSpecConfig(k=spec_k), mixed=mixed), policy=JaxPolicy(4),
             now=_fake_clock())
 
     def reshard(self, eng, key, **kw):
@@ -501,8 +527,8 @@ def test_reshard_same_layout_is_noop(ranks, ref):
 
 
 def test_reshard_requires_paged():
-    """The reference's first refusal, at world size 1 (the dense cache
-    runs only there): a dense engine cannot reshard."""
+    """The reference's first refusal, at world size 1: a dense engine
+    cannot reshard."""
     model = Model(_cfg(), device="cpu", dtype=torch.float32)
     model.init_params(torch.Generator().manual_seed(0))
     eng = ShiftEngine(model, EngineConfig(max_slots=2, s_max=64,
@@ -537,6 +563,19 @@ def test_grow_shrink_mid_decode_bit_identical_and_leak_free(ranks, ref):
     assert got["delivered"] == got["expect"]   # exactly-once
     assert got["counters"][0] == 4 and got["counters"][1] > 0
     assert got["drained"]["used"] == 0 and got["drained"]["pinned"] == 0
+
+
+def test_serialized_paged_reshard_mid_stream(ranks, ref):
+    """The serialized steps over the paged pool through a grow to a model
+    group of two and back: the reference's reports, streams, configs,
+    ledger and dump, and the streams of the run without a reshard."""
+    got = _port(ranks, ref, "serialized")
+    assert got["mixed"] is False
+    kinds = [r["delta"]["kind"] for r in got["reports"]]
+    assert kinds == ["grow", "shrink"]
+    assert got["streams"] == got["expect"]
+    assert got["counts"]["base"] > 0 and got["counts"]["shift"] > 0
+    assert got["ledger"]["used"] == 0 and got["ledger"]["pinned"] == 0
 
 
 def test_restore_layout_mismatch_raises_before_mutation(ranks, ref):
