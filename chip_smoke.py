@@ -233,6 +233,32 @@ Phases (every failure propagates and exits non-zero):
    per reshard, blocks moved, ``reshard_gather`` and weight bytes. One
    ``{"reshard": ...}`` line.
 
+5g. deepseek-v3-671b (multi-head latent attention, three dense prefix
+   layers, 256 experts of 2048) at full width in bf16 on one card, its
+   depth cut to the 3 dense prefix layers and 2 of the 58 MoE layers (the
+   bytes reckoned per part against the free memory first; random weights,
+   each expert drawn from a generator of its own): the serve workload
+   through the serialized dense engine (MLA does not page), eager,
+   graphed, graphed and eager, equal streams, 21 RMSNorm launches per step
+   (ln1, ln2, the q and kv latent norms of every layer, the final norm;
+   the attention is plain PyTorch), TTFT, ms per decode step, tokens/s
+   and busy ms; then reduced deepseek-v3-671b in fp32, one prefill and one
+   decode step's logits on the card against the CPU within 1e-3. Phase 3
+   holds RMSNorm at its widths (7168, the q latent 1536, the strided kv
+   latent 512 of 576) at a prefill step's 512 rows and a decode step's 8;
+9. pod-scale MoE over gloo on the one card: deepseek-v3-671b at full
+   width, the depth cut to 1 dense prefix layer and 1 MoE layer (the
+   bytes per rank reckoned first), on (sp, tp) = (2, 2) (the latent cache
+   sharded over the sequence, the LSE merge over sp; base and shift
+   models) and on (dp, sp, tp) = (2, 1, 1) (the experts across the two dp
+   rows): the serve workload through the serialized dense engine, every
+   rank's streams equal, launches exact, the latent invariance after a
+   base prefill step and a shift decode step, and the all-to-all bytes
+   per step by config; then reduced deepseek-v3-671b and llama4-17b-16e
+   in fp32 on (2, 2, 2), eight ranks, the card against the CPU: the
+   equivalence inputs' logits within 1e-3 and the engines' streams
+   equal.
+
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -469,13 +495,16 @@ def host_us(torch, fn, calls=1000):
     return (t1 - t0) / calls * 1e6
 
 
-def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None):
+def rmsnorm_case(torch, name, N, D, dtype, timer, tol, H=None, stride=None):
     """Rows [N, D] with scale [D]; with ``H``, grouped: x [N/H, H, D] with
-    scale [H, D] (no single PyTorch call computes that)."""
+    scale [H, D] (no single PyTorch call computes that); with ``stride``,
+    the rows are the first D of rows of ``stride`` (MLA's kv latent, the
+    first 512 of 576)."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as RMS
     gen = torch.Generator(device="cuda").manual_seed(N + D)
-    x = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((N, stride or D), generator=gen, device="cuda") \
+        .to(dtype)[:, :D]
     s = torch.randn((H or 1, D), generator=gen, device="cuda").to(dtype)
     if H:
         x = x.reshape(N // H, H, D)
@@ -892,6 +921,19 @@ def kernel_phase(torch):
                         ("qwen-32b pair, decode", 8)):
             add("rmsnorm", rmsnorm_pair_case(torch, name, T * 64, T * 8, 128,
                                              dtype, timer, tol))
+        # deepseek-v3-671b: d_model 7168 (ln1, ln2, the final norm; fp32
+        # takes 8 chunks a lane), MLA's q latent norm over 1536 and its kv
+        # latent norm over the first 512 of the latent's 576 (rows strided),
+        # at a prefill step's 512 rows (8 x 64) and a decode step's 8
+        for name, N, D, stride in (
+                ("deepseek hidden", 512, 7168, None),
+                ("deepseek decode hidden", 8, 7168, None),
+                ("deepseek q latent", 512, 1536, None),
+                ("deepseek kv latent, strided", 512, 512, 576),
+                ("deepseek decode q latent", 8, 1536, None),
+                ("deepseek decode kv latent, strided", 8, 512, 576)):
+            add("rmsnorm", rmsnorm_case(torch, name, N, D, dtype, timer, tol,
+                                        stride=stride))
         # mamba2-1.3b (64 heads of 64, d_state 128, chunk 64): the serving
         # prefill step (8 rows of 64), a long prompt (32 chunks), a short
         # chunk (S < 64), and the serving step as the TPU contract's
@@ -1391,6 +1433,9 @@ def step_launches(eng, kind):
     attention = ("paged_ragged_attention" if eng.paged else
                  "flash_attention" if kind == "prefill" else
                  "decode_attention")
+    if eng.mcfg.mla is not None:
+        # ln1, ln2 and MLA's q and kv latent norms; the attention is plain
+        return {"rmsnorm": 4 * n_attn + 1}
     out = {"rmsnorm": 3 * n_attn + 2 * n_ssd + 1}
     if n_attn:
         out[attention] = n_attn
@@ -1459,8 +1504,6 @@ def serve_path(torch, eng, label):
               f"{label}: leaked blocks: {eng.kv.num_free_blocks} free of "
               f"{eng.kv.num_blocks}")
     check(steps == sum(kinds.values()), f"{label}: {steps} steps, {kinds}")
-    n_ssd = cfg.layer_kinds.count("ssd")
-    n_attn = cfg.num_layers - n_ssd
     want = {name: 0 for name in launches}
     for kind, n in kinds.items():
         for name, k in step_launches(eng, kind).items():
@@ -1487,8 +1530,8 @@ def serve_path(torch, eng, label):
           f"{dec_tok / (t_last - t_first):.1f} tokens/s, "
           f"{(t_last - t_first) / 15 * 1e3:.2f} ms per step")
     print(f"{label}: launches: {json.dumps(launches)}; per step: "
-          f"{3 * n_attn + 2 * n_ssd + 1} rmsnorm, {n_attn} attention, "
-          f"{n_ssd} ssd_chunk per prefill step and 0 per decode step")
+          f"prefill {step_launches(eng, 'prefill')}, decode "
+          f"{step_launches(eng, 'decode')}")
     return reqs, launches, stats
 
 
@@ -5082,6 +5125,518 @@ def qwen30b_phase(torch):
     return launches, st
 
 
+# ---------------------------------------------------------------------------
+# phases 5g and 9: deepseek-v3-671b (MLA, pod-scale MoE)
+# ---------------------------------------------------------------------------
+DEEPSEEK_DEPTH = 5              # its 3 dense prefix layers and 2 MoE layers
+DEEPSEEK_HEADROOM = 6e9         # activations, logits and CUDA graphs
+DEEPSEEK_LAYOUT_TIMEOUT_S = 600
+POD_TIMEOUT_S = 300
+
+
+def deepseek_cut(layers, prefix):
+    """deepseek-v3-671b at full width with ``prefix`` of its dense prefix
+    layers and ``layers - prefix`` of its MoE layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    return replace(cfg, num_layers=layers,
+                   prefix_layers=cfg.prefix_layers[:prefix])
+
+
+class _NoGroups:
+    """Stands for a grid's Groups where only shapes matter (a meta model)."""
+
+    def axes_group(self, axes):
+        return None
+
+
+def rank_param_bytes(torch, cfg, lay, rank, dtype):
+    """Bytes of ``rank``'s parameters on ``lay``, by part (the embedding
+    and head, the norms, and each layer), counted on the meta device."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import Shard
+    sh = Shard(lay, rank, groups=_NoGroups()) if lay.world > 1 else Shard(lay)
+    meta = T.Transformer(cfg, lay, dtype, "meta", sh)
+
+    def size(mod):
+        return sum(p.numel() * p.element_size() for p in mod.parameters())
+    layers = [size(m) for m in meta.layers]
+    return {"tables": size(meta) - sum(layers) - size(meta.final_norm),
+            "layers": layers, "total": size(meta)}
+
+
+def seeded_init(torch, model, seed=0):
+    """Random weights for a full-width MoE model without its canonical
+    expert draws: every other parameter as ``init_params`` draws it (one
+    generator seeded ``seed`` on the card), each expert's matrices from a
+    generator of their own (seeded by ``seed``, the layer and the expert)
+    and cut to this rank's FF block. No draw depends on the layout, so a
+    base and a shift model hold one function; the largest temporary is one
+    expert's matrix, where ``init_params`` draws a layer's stack in fp32
+    (15 GB for deepseek-v3-671b)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import dense_init, shard_of
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = model.params
+    with torch.no_grad():
+        p.embed.reset_parameters(gen)
+        p.final_norm.reset_parameters()
+        if hasattr(p, "lm_head"):
+            p.lm_head.reset_parameters(gen)
+        for i, layer in enumerate(p.layers):
+            layer.ln1.reset_parameters()
+            layer.attn.reset_parameters(gen)
+            layer.ln2.reset_parameters()
+            ffn = layer.ffn
+            if layer.kind != "moe":
+                ffn.reset_parameters(gen)
+                continue
+            cfg, mo = ffn.cfg, ffn.cfg.moe
+            d, ff = cfg.d_model, mo.d_ff_expert
+            _, e0, tpr, t = MOE.expert_grid(cfg, ffn.shard.lay,
+                                            ffn.shard.rank)
+            ffn.router.copy_(dense_init((d, mo.num_experts), gen, f32))
+            for k in range(ffn.E_loc):
+                e = e0 * ffn.E_loc + k
+                g = torch.Generator(device="cuda").manual_seed(
+                    (seed * 1000 + i) * 1000 + e)
+                for w, shape, dim in ((ffn.wi, (d, ff), 1),
+                                      (ffn.wg, (d, ff), 1),
+                                      (ffn.wo, (ff, d), 0)):
+                    w[k].copy_(shard_of(dense_init(shape, g, f32), dim, tpr,
+                                        t).to(w.dtype))
+            if mo.num_shared_experts:
+                ffs = (mo.d_ff_shared or ff) * mo.num_shared_experts
+                n, k = max(ffn.shard.lay.tp, 1), ffn.shard.tp_rank
+                for w, shape, dim in ((ffn.shared.wi, (d, ffs), 1),
+                                      (ffn.shared.wg, (d, ffs), 1),
+                                      (ffn.shared.wo, (ffs, d), 0)):
+                    w.copy_(shard_of(dense_init(shape, gen, f32), dim, n,
+                                     k).to(w.dtype))
+
+
+def deepseek_phase(torch):
+    """deepseek-v3-671b at full width in bf16 on one card, its depth cut to
+    its 3 dense prefix layers and 2 MoE layers: the bytes reckoned per part
+    against the free memory (no fit, no run), ``seeded_init`` weights, the
+    serve workload through the serialized dense engine (its automatic
+    fallback) in eager, graphed, graphed and eager turns (``serve_turns``:
+    equal streams and launches; 21 RMSNorm launches per step by the
+    counters and the profiler's trace); then reduced deepseek-v3-671b in
+    fp32, card against CPU on the same weights. Returns the first graphed
+    turn's launches and every turn's numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = deepseek_cut(DEEPSEEK_DEPTH, 3)
+    ecfg = EngineConfig()
+    parts = rank_param_bytes(torch, cfg, Layout(), 0, torch.bfloat16)
+    latent = (cfg.num_layers * ecfg.max_slots * ecfg.s_max
+              * cfg.mla.cache_dim * 2)
+    init = cfg.vocab_size * cfg.d_model * (4 + 2)
+    free, total = torch.cuda.mem_get_info()
+    need = parts["total"] + latent + init + DEEPSEEK_HEADROOM
+    print(f"deepseek phase: memory reckoned: weights "
+          f"{parts['total'] / 1e9:.2f} GB in bf16 (routers fp32): embedding "
+          f"and head {parts['tables'] / 1e9:.2f} GB, layers "
+          + ", ".join(f"{b / 1e9:.2f}" for b in parts["layers"])
+          + f" GB ({cfg.layer_kinds}); dense latent cache {latent / 1e6:.1f}"
+          f" MB; the largest init temporary {init / 1e9:.2f} GB; "
+          f"{DEEPSEEK_HEADROOM / 1e9:.0f} GB headroom: {need / 1e9:.2f} GB "
+          f"against {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB. Cut: "
+          f"{cfg.num_layers} of 61 layers (the 3 dense prefix layers and 2 "
+          "of the 58 MoE layers); widths, heads, experts and the "
+          "vocabulary whole")
+    check(need <= free, f"deepseek: {need / 1e9:.2f} GB needed, "
+          f"{free / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    seeded_init(torch, model, 0)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size() for p in model.params.parameters())
+    check(held == parts["total"], f"deepseek: {held} B held, reckoned "
+          f"{parts['total']}")
+    eng = ShiftEngine(model, ecfg)
+    check(not eng.paged and not eng.mixed and "MLA"
+          in eng.paged_disabled_reason, "deepseek: not the dense fallback")
+    for kind in ("prefill", "decode"):
+        check(step_launches(eng, kind) == {"rmsnorm": 21},
+              f"deepseek: per-step launches {step_launches(eng, kind)}")
+    print(f"deepseek-v3-671b full width: {cfg.num_layers} layers "
+          f"{cfg.layer_kinds}, d_model {cfg.d_model}, {cfg.num_heads} MLA "
+          f"heads (q latent {cfg.mla.q_lora_rank}, kv latent "
+          f"{cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}), "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert} and a shared expert, built in "
+          f"{build_s:.1f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB while building; {eng.paged_disabled_reason}")
+    del eng
+    reqs, launches, turns = serve_turns(torch, model, {},
+                                        "deepseek-v3-671b serialized dense")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at the reduced width: one prefill and one decode step
+    small = get_config("deepseek-v3-671b").reduced()
+    gpu = Model(small, device="cuda", dtype=torch.float32)
+    gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(small, device="cpu", dtype=torch.float32)
+    cpu.load_params({k: v.cpu() for k, v in gpu.params.state_dict().items()})
+    toks = (np.arange(8 * 16, dtype=np.int32).reshape(8, 16) * 7) % 256
+    err = 0.0
+    for m in (gpu, cpu):
+        m.init_cache(8, 32)
+    lg = [m.prefill(toks, np.zeros(8, np.int32))[0].cpu() for m in (gpu, cpu)]
+    err = compare(torch, "deepseek reduced fp32 prefill", lg[0], lg[1], 1e-3)
+    lg = [m.decode(np.arange(8) % 256, np.full(8, 16), sample=False)[0].cpu()
+          for m in (gpu, cpu)]
+    err = max(err, compare(torch, "deepseek reduced fp32 decode", lg[0],
+                           lg[1], 1e-3))
+    lat = compare(torch, "deepseek reduced fp32 latent", gpu.cache.lat.cpu(),
+                  cpu.cache.lat, 1e-3)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = next(st for st in turns if st["graphed"])
+    print(f"deepseek-v3-671b [graphed]: TTFT ms " + ", ".join(
+        f"{t:.1f}" for t in g["ttft_ms"]) + f"; {g['wall_ms_per_decode_step']:.2f}"
+        f" ms per decode step, {g['decode_tokens_per_s']:.1f} decode "
+        f"tokens/s, device busy {g['busy_ms_per_step']:.2f} ms per profiled "
+        f"decode step ({g['busy_share']:.1%}); peak {peak:.2f} GB; reduced "
+        f"fp32 card against CPU: logits max abs err {err}, latent {lat} "
+        "(tol 1e-3)")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"deepseek": {
+        "layers": cfg.num_layers, "kinds": list(cfg.layer_kinds),
+        "weights_gb": parts["total"] / 1e9, "build_s": build_s,
+        "turns": turns, "peak_gb": peak, "fp32_reduced_max_abs_err": err,
+        "fp32_reduced_latent_err": lat, "phase_wall_s": wall}}))
+    print(f"deepseek phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, turns
+
+
+def latent_invariance_step(torch, eng, rank):
+    """§3.3.1 on the latent cache: a base prefill step of every slot's
+    first 64 positions, then a shift decode step at position 64. Both
+    configs step one latent tensor and the rank holds one chunk of the
+    sequence in both (``verify_dense_invariance``); the positions the base
+    step wrote stay bitwise under the shift step, which wrote position 64
+    where this rank's chunk holds it."""
+    import numpy as np
+    from repro_torch.core import invariance as INV
+    n = eng.cfg.max_slots
+    toks = (np.arange(n * 64, dtype=np.int32).reshape(n, 64) % 1000) + 1
+    eng.deploy.prefill["base"](toks, np.zeros(n, np.int32), None)
+    torch.cuda.synchronize()
+    lat = eng.base.cache.lat
+    chunk = INV.latent_chunk(eng.base, rank)
+    before = lat.clone()
+    eng.deploy.decode["shift"](toks[:, 0].copy(), np.full(n, 64, np.int32),
+                               None)
+    torch.cuda.synchronize()
+    ok = INV.verify_dense_invariance(eng.base, eng.shift, rank)
+    written = [p - chunk.start for p in range(64) if p in chunk]
+    if written:
+        ok = ok and torch.equal(lat[:, :, written], before[:, :, written])
+    if 64 in chunk:
+        ok = ok and not torch.equal(lat[:, :, 64 - chunk.start],
+                                    before[:, :, 64 - chunk.start])
+    return bool(ok)
+
+
+def deepseek_layout_rank(rank, groups, dp, sp, tp):
+    """One rank of the pod-scale deepseek run (spawned by ``run_ranks``):
+    full width, 1 dense prefix layer and 1 MoE layer, in bf16, base on
+    ``Layout(dp, sp, tp)`` and shift on its ``to_shift()`` (one model when
+    sp·tp is 1), the ranks building theirs in turn (one init temporary on
+    the card at a time), serving the serve workload through the serialized
+    dense engine; then the latent invariance step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = deepseek_cut(2, 1)
+    lay = Layout(dp=dp, sp=sp, tp=tp)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    models = []
+    for turn in range(lay.world):
+        if turn == rank:
+            for layout in ((lay, lay.to_shift()) if lay.G > 1 else (lay,)):
+                m = Model(cfg, device="cuda", dtype=torch.bfloat16,
+                          lay=layout, groups=groups)
+                seeded_init(torch, m, 0)
+                models.append(m)
+            torch.cuda.synchronize()
+            # hand the init temporaries back to the card for the next rank
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out = {"rank": rank, "build_s": time.monotonic() - t0,
+           "ep": {name: (m.params.layers[1].ffn.ep_axes,
+                         m.params.layers[1].ffn.E_loc)
+                  for name, m in zip(("base", "shift"), models)},
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for m in models
+                              for p in m.params.parameters())}
+    eng = ShiftEngine(models[0], EngineConfig(),
+                      shift=models[1] if len(models) > 1 else None)
+    walls, traffic = timed_forward(torch, eng, groups,
+                                   kinds=("prefill", "decode"))
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    out.update(serve_s=time.monotonic() - t0,
+               launches=serve.launch_counts(),
+               streams=[r.generated for r in reqs],
+               finish=[r.finish_reason for r in reqs],
+               counts=dict(eng.config_counts),
+               reason=eng.paged_disabled_reason,
+               walls={k: list(v) for k, v in walls.items()},
+               traffic={k: dict(v) for k, v in traffic.items()},
+               invariance=latent_invariance_step(torch, eng, rank),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def deepseek_layout_phase(torch):
+    """deepseek-v3-671b at full width, cut to 1 dense prefix layer and 1 MoE
+    layer, over gloo on the one card (the parent holding nothing): on
+    (sp, tp) = (2, 2), four ranks (base and shift models each: the latent
+    sharded over sp, the LSE merge, the experts over sp in the base config
+    and over the model group in the shift config), and on (dp, sp, tp) =
+    (2, 1, 1), two ranks (the experts across the dp rows). The bytes per
+    rank are reckoned first. Every rank's streams equal, launches exact,
+    the latent invariance step holds; prints the wall and the all-to-all
+    bytes per step by config and kind. Returns rank 0's launches of each
+    run."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel import Layout
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"deepseek layout phase: the parent still holds "
+          f"{held / 1e9:.2f} GB on the card")
+    cfg = deepseek_cut(2, 1)
+    out, summary_ = {}, {}
+    for dp, sp, tp in ((1, 2, 2), (2, 1, 1)):
+        lay = Layout(dp=dp, sp=sp, tp=tp)
+        per_rank = []
+        for r in range(lay.world):
+            b = rank_param_bytes(torch, cfg, lay, r, torch.bfloat16)
+            s = (rank_param_bytes(torch, cfg, lay.to_shift(), r,
+                                  torch.bfloat16) if lay.G > 1
+                 else {"total": 0, "layers": [0, 0], "tables": 0})
+            per_rank.append((b, s))
+        free, total = torch.cuda.mem_get_info()
+        need = sum(b["total"] + s["total"] + 2e9 for b, s in per_rank) \
+            + cfg.vocab_size * cfg.d_model * 6
+        b, s = per_rank[0]
+        print(f"deepseek layout (dp {dp}, sp {sp}, tp {tp}): memory reckoned "
+              f"per rank: base {b['total'] / 1e9:.2f} GB (tables "
+              f"{b['tables'] / 1e9:.2f}, prefix layer "
+              f"{b['layers'][0] / 1e9:.2f}, MoE layer "
+              f"{b['layers'][1] / 1e9:.2f}), shift {s['total'] / 1e9:.2f} GB"
+              f" (MoE layer {s['layers'][1] / 1e9:.2f}), + 2 GB (context, "
+              f"staging); {lay.world} ranks and one init temporary: "
+              f"{need / 1e9:.1f} GB against {free / 1e9:.1f} GB free of "
+              f"{total / 1e9:.1f}. Cut: 2 of 61 layers (1 of the 3 dense "
+              "prefix layers, 1 of the 58 MoE layers); widths, heads, "
+              "experts and the vocabulary whole")
+        check(need <= free, f"deepseek layout ({dp}, {sp}, {tp}): "
+              f"{need / 1e9:.1f} GB needed, {free / 1e9:.1f} GB free")
+        t0 = time.monotonic()
+        res = run_ranks(deepseek_layout_rank, sp, tp, dp=dp, device="cuda",
+                        backend="gloo", timeout_s=DEEPSEEK_LAYOUT_TIMEOUT_S,
+                        args=(dp, sp, tp))
+        ran = time.monotonic() - t0
+        r0 = res[0]
+        steps = sum(r0["counts"].values())
+        key = f"dp{dp}_sp{sp}_tp{tp}"
+        for r in res:
+            check(r["streams"] == r0["streams"] and r["counts"] == r0["counts"],
+                  f"deepseek {key}: rank {r['rank']}'s streams or configs "
+                  "differ from rank 0's")
+            check(all(f == "ok" for f in r["finish"])
+                  and all(len(x) == 16 for x in r["streams"]),
+                  f"deepseek {key}: rank {r['rank']}: {r['finish']}")
+            check(r["launches"] == {k: (9 if k == "rmsnorm" else 0) * steps
+                                    for k in r["launches"]},
+                  f"deepseek {key}: rank {r['rank']}: launches "
+                  f"{r['launches']} over {steps} steps, want 9 RMSNorm a step")
+            check(r["invariance"], f"deepseek {key}: rank {r['rank']}: the "
+                  "latent invariance step failed")
+            check("MLA" in r["reason"], f"deepseek {key}: {r['reason']}")
+            check(r["param_bytes"] == sum(x["total"]
+                                          for x in per_rank[r["rank"]]),
+                  f"deepseek {key}: rank {r['rank']} holds "
+                  f"{r['param_bytes']} B, reckoned {per_rank[r['rank']]}")
+        if lay.G > 1:
+            check(r0["counts"].get("base", 0) > 0
+                  and r0["counts"].get("shift", 0) > 0,
+                  f"deepseek {key}: configs used {r0['counts']}")
+        want_ep = ({"base": (("sp",), 128), "shift": (("tp", "sp"), 64)}
+                   if dp == 1 else {"base": (("data",), 128)})
+        check({k: tuple(v) for k, v in r0["ep"].items()} ==
+              {k: (tuple(a), e) for k, (a, e) in want_ep.items()},
+              f"deepseek {key}: EP {r0['ep']}")
+        stats = {}
+        for k, w in r0["walls"].items():
+            if not w:
+                continue
+            tr = r0["traffic"][k]
+            stats[k] = {"steps": len(w),
+                        "wall_ms_per_step": sum(w) / len(w) * 1e3,
+                        "all_to_all_bytes_per_step":
+                            tr.get("all_to_all_bytes", 0) / len(w),
+                        "all_reduce_bytes_per_step":
+                            tr.get("all_reduce_bytes", 0) / len(w),
+                        "all_gather_bytes_per_step":
+                            tr.get("all_gather_bytes", 0) / len(w)}
+            print(f"deepseek {key} {k}: {len(w)} steps on rank 0, wall "
+                  f"{stats[k]['wall_ms_per_step']:.2f} ms per step; per "
+                  f"step {stats[k]['all_to_all_bytes_per_step'] / 1e6:.3f} "
+                  f"MB all-to-all (the expert dispatch), "
+                  f"{stats[k]['all_reduce_bytes_per_step'] / 1e6:.3f} MB "
+                  f"all-reduce, "
+                  f"{stats[k]['all_gather_bytes_per_step'] / 1e6:.3f} MB "
+                  "all-gather (payload handed over by the rank)")
+        print(f"deepseek {key}: {lay.world} ranks ran in {ran:.1f} s; served"
+              f" 6 requests x 16 tokens in {r0['serve_s']:.2f} s, {steps} "
+              f"steps {r0['counts']}; every rank's streams equal; EP "
+              f"{r0['ep']}; latent invariance held on every rank; peak per "
+              "rank " + ", ".join(f"{r['peak_bytes'] / 1e9:.2f}" for r in res)
+              + " GB")
+        out[key] = r0["launches"]
+        summary_[key] = {"ranks": lay.world, "configs": r0["counts"],
+                         "per_config": stats, "serve_s": r0["serve_s"],
+                         "ep": r0["ep"], "run_s": ran,
+                         "peak_gb_per_rank": [r["peak_bytes"] / 1e9
+                                              for r in res]}
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"deepseek_layout": dict(summary_, phase_wall_s=wall)}))
+    print(f"deepseek layout phase: {wall:.1f} s in all; card: {card_line()}")
+    return out
+
+
+def pod_reduced_rank(rank, groups):
+    """One rank of (2, 2, 2) (spawned by ``run_ranks``): reduced
+    deepseek-v3-671b and llama4-17b-16e in fp32 (capacity factor 4.0), the
+    same weights on the CPU and on the card (drawn on the CPU, seeded 0):
+    the equivalence inputs' prefill and decode logits of base and shift,
+    and the serving engine's streams, on each device."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lay = Layout(dp=2, sp=2, tp=2)
+    toks = (np.arange(8 * 16, dtype=np.int32).reshape(8, 16) * 7) % 256
+    out = {"rank": rank}
+    for arch in ("deepseek-v3-671b", "llama4-17b-16e"):
+        cfg = get_config(arch).reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=4.0))
+        res, states = {}, []
+        for device in ("cpu", "cuda"):
+            models = []
+            for i, layout in enumerate((lay, lay.to_shift())):
+                m = Model(cfg, device=device, dtype=torch.float32,
+                          lay=layout, groups=groups)
+                if device == "cpu":
+                    m.init_params(torch.Generator().manual_seed(0))
+                    states.append(m.params.state_dict())
+                else:
+                    m.load_params(states[i])
+                models.append(m)
+            logits = []
+            for m in models:
+                m.init_cache(8, 32)
+                lg = m.prefill_step(torch.as_tensor(toks, device=device),
+                                    torch.zeros(8, dtype=torch.int32,
+                                                device=device))
+                nx = m.decode_step(torch.arange(8, dtype=torch.int32,
+                                                device=device) % 256,
+                                   torch.full((8,), 16, dtype=torch.int32,
+                                              device=device), sample=False)
+                logits.append((lg.cpu(), nx.cpu()))
+            eng = ShiftEngine(models[0], EngineConfig(), shift=models[1])
+            reqs = serve.workload(6, 8)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_idle()
+            res[device] = {"logits": logits,
+                           "streams": [r.generated for r in reqs],
+                           "counts": dict(eng.config_counts)}
+        err = max(float((a - b).abs().max())
+                  for g, c in zip(res["cuda"]["logits"], res["cpu"]["logits"])
+                  for a, b in zip(g, c))
+        out[arch] = {"err": err, "streams": res["cuda"]["streams"],
+                     "cpu_streams": res["cpu"]["streams"],
+                     "counts": res["cuda"]["counts"],
+                     "cpu_counts": res["cpu"]["counts"]}
+    return out
+
+
+def pod_reduced_phase(torch):
+    """Reduced deepseek-v3-671b and llama4-17b-16e in fp32 on (dp, sp, tp) =
+    (2, 2, 2), eight ranks over gloo on the one card (their MoE layers'
+    experts across the dp rows: over ("data", "sp") in the base config,
+    over ("data",) in the shift config), the card against the CPU in
+    every rank's process: the logits within 1e-3, every rank's streams
+    and configs equal on both devices."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.monotonic()
+    res = run_ranks(pod_reduced_rank, 2, 2, dp=2, device="cuda",
+                    backend="gloo", timeout_s=POD_TIMEOUT_S)
+    out = {}
+    for arch in ("deepseek-v3-671b", "llama4-17b-16e"):
+        r0 = res[0][arch]
+        for r in res:
+            a = r[arch]
+            check(a["err"] <= 1e-3, f"pod reduced {arch}: rank {r['rank']}: "
+                  f"card against CPU max abs err {a['err']}")
+            check(a["streams"] == a["cpu_streams"] == r0["streams"]
+                  and a["counts"] == a["cpu_counts"] == r0["counts"],
+                  f"pod reduced {arch}: rank {r['rank']}: streams or "
+                  "configs differ")
+        check(r0["counts"].get("base", 0) > 0
+              and r0["counts"].get("shift", 0) > 0,
+              f"pod reduced {arch}: configs {r0['counts']}")
+        out[arch] = {"max_abs_err": max(r[arch]["err"] for r in res),
+                     "configs": r0["counts"]}
+        print(f"pod reduced {arch} fp32 on (2, 2, 2), 8 ranks: card "
+              f"against CPU max abs err {out[arch]['max_abs_err']} (tol "
+              f"1e-3); streams and configs {r0['counts']} equal on every "
+              "rank and both devices")
+    wall = time.monotonic() - t0
+    print(json.dumps({"pod_reduced": dict(out, phase_wall_s=wall)}))
+    print(f"pod reduced phase: {wall:.1f} s; card: {card_line()}")
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -5180,6 +5735,8 @@ def main():
     by_path["qwen32b_threshold"] = q32["threshold"]
     by_path["qwen32b_adaptive"] = q32["adaptive"]
     by_path["qwen30b_a3b"], turns["qwen30b_a3b"] = qwen30b_phase(torch)
+    by_path["deepseek_dense"], turns["deepseek_dense"] = \
+        deepseek_phase(torch)
     simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
         by_path["layout_adaptive_rank0"], overhead, serialized = \
@@ -5189,6 +5746,9 @@ def main():
     by_path["dp2_rank0"], by_path["dp2_prefix_spec_rank0"], \
         by_path["dp2_sp2_tp2_rank0"] = dp_phase(torch, overhead)
     by_path["reshard_fp32_rank0"] = reshard_phase(torch)
+    for key, launches in deepseek_layout_phase(torch).items():
+        by_path[f"deepseek_{key}_rank0"] = launches
+    pod_reduced_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
 """The architectures the port serves (same numbers as
-``repro.configs.archs``): four dense GQA decoders and mamba2, plus the
-paper's evaluation models (Table 4): the dense qwen-32b and the MoE
-qwen-30b-a3b, which fit one card in bf16 (65.52 GB and 61.06 GB of
-weights), and llama-70b and the MoE llama4-17b-16e (215.5 GB), which the
-cost model and the simulator price and the CPU tests hold at reduced size.
+``repro.configs.archs``): four dense GQA decoders and mamba2, the MoE
+DeepSeek-V3 (multi-head latent attention, three dense prefix layers ahead
+of 58 MoE layers of 256 experts) and Llama-4 Maverick (dense and MoE
+layers interleaved), plus the paper's evaluation models (Table 4): the
+dense qwen-32b and the MoE qwen-30b-a3b, which fit one card in bf16
+(65.52 GB and 61.06 GB of weights), and llama-70b and the MoE
+llama4-17b-16e (215.5 GB), which the cost model and the simulator price
+and the CPU tests hold at reduced size. deepseek-v3-671b and
+llama4-maverick-400b-a17b run at reduced size, or at full width with
+their depth cut (``dataclasses.replace(cfg, num_layers=...)``).
 """
 from __future__ import annotations
 
-from .base import ModelConfig, MoEConfig, SSMConfig
+from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 QWEN3_8B = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -47,6 +52,31 @@ MAMBA2_1_3B = ModelConfig(
     source="arXiv:2405.21060",
 )
 
+DEEPSEEK_V3_671B = ModelConfig(
+    name="deepseek-v3-671b", family="moe",
+    num_layers=61, d_model=7168, num_heads=128, num_kv_heads=128, head_dim=192,
+    d_ff=18432,            # dense layers (first 3)
+    vocab_size=129280,
+    prefix_layers=("attn", "attn", "attn"), layer_pattern=("moe",),
+    mla=MLAConfig(q_lora_rank=1536, kv_lora_rank=512,
+                  qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
+    moe=MoEConfig(num_experts=256, top_k=8, d_ff_expert=2048,
+                  num_shared_experts=1, d_ff_shared=2048),
+    mtp_depth=1,
+    source="arXiv:2412.19437",
+)
+
+LLAMA4_MAVERICK_400B = ModelConfig(
+    name="llama4-maverick-400b-a17b", family="moe",
+    num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+    d_ff=16384,            # dense (non-MoE) layers
+    vocab_size=202048,
+    layer_pattern=("attn", "moe"),   # MoE interleaved every 2nd layer
+    moe=MoEConfig(num_experts=128, top_k=1, d_ff_expert=8192,
+                  num_shared_experts=1, d_ff_shared=8192),
+    source="hf:meta-llama/Llama-4-Scout-17B-16E (family)",
+)
+
 LLAMA_70B = ModelConfig(
     name="llama-70b", family="dense",
     num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
@@ -82,4 +112,5 @@ QWEN_30B_A3B = ModelConfig(
 
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
 PAPER_MODELS = (LLAMA_70B, QWEN_32B, LLAMA4_17B_16E, QWEN_30B_A3B)
-ARCHS = DENSE_GQA + (MAMBA2_1_3B,) + PAPER_MODELS
+ARCHS = DENSE_GQA + (MAMBA2_1_3B, DEEPSEEK_V3_671B, LLAMA4_MAVERICK_400B) \
+    + PAPER_MODELS

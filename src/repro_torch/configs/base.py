@@ -1,12 +1,15 @@
 """Model configuration of the port's architectures.
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
-that its three layer kinds use: ``"attn"`` (GQA attention with SwiGLU and
-RMSNorm), ``"moe"`` (the same attention with the Mixture-of-Experts FFN,
-``MoEConfig``) and ``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``),
-and the fields the cost model reads (``local_window``, ``mla``; no
-architecture the port serves sets them yet). ``reduced()`` cuts widths and
-depth exactly as the reference's ``reduced()`` does for such a model.
+that its three layer kinds use: ``"attn"`` (GQA attention, or multi-head
+latent attention with ``MLAConfig``, with SwiGLU and RMSNorm), ``"moe"``
+(the same attention with the Mixture-of-Experts FFN, ``MoEConfig``) and
+``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``); the layer stack
+(``prefix_layers``, the repeated ``layer_pattern``, ``suffix_layers``),
+``mtp_depth`` (DeepSeek-V3's multi-token prediction head, which serving
+does not read), and the field the cost model alone reads
+(``local_window``). ``reduced()`` cuts widths and depth exactly as the
+reference's ``reduced()`` does for such a model.
 """
 from __future__ import annotations
 
@@ -73,6 +76,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     layer_pattern: tuple = ("attn",)     # repeated; "attn", "moe" or "ssd"
+    prefix_layers: tuple = ()            # run before the repeated pattern
+    suffix_layers: tuple = ()            # run after the repeated pattern
     qk_norm: bool = False         # RMSNorm over q and k per head (qwen3)
     qkv_bias: bool = False        # bias on the q/k/v projections (qwen2)
     local_window: int = 0         # for "local" (sliding-window) layers
@@ -81,6 +86,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    mtp_depth: int = 0            # DeepSeek-V3 multi-token prediction
     tie_embeddings: bool = False  # the LM head is the embedding table
     norm_eps: float = 1e-6
     source: str = ""
@@ -92,29 +98,53 @@ class ModelConfig:
 
     @property
     def pattern_repeats(self) -> int:
-        return self.num_layers // len(self.layer_pattern)
+        body = self.num_layers - len(self.prefix_layers) \
+            - len(self.suffix_layers)
+        return body // len(self.layer_pattern)
 
     @property
     def layer_kinds(self) -> tuple:
-        """Concrete kind of every layer, in execution order."""
-        assert self.num_layers % len(self.layer_pattern) == 0, (
+        """Concrete kind of every layer, in execution order: the prefix,
+        the pattern repeated, the suffix."""
+        body = self.num_layers - len(self.prefix_layers) \
+            - len(self.suffix_layers)
+        assert body >= 0 and body % len(self.layer_pattern) == 0, (
             f"{self.name}: {self.num_layers} layers do not tile with "
-            f"pattern {self.layer_pattern}")
-        return tuple(self.layer_pattern) * self.pattern_repeats
+            f"pattern {self.layer_pattern} + prefix {self.prefix_layers} "
+            f"+ suffix {self.suffix_layers}")
+        return (tuple(self.prefix_layers)
+                + tuple(self.layer_pattern) * self.pattern_repeats
+                + tuple(self.suffix_layers))
+
+    def _attn_params(self) -> int:
+        """One attention layer's projection matrices: q/k/v/o, or MLA's
+        down and up projections and its O (the reference's count)."""
+        d, dh = self.d_model, self.head_dim
+        if self.mla is None:
+            return d * dh * (self.num_heads + 2 * self.num_kv_heads) \
+                + self.num_heads * dh * d
+        m, h = self.mla, self.num_heads
+        return (d * m.q_lora_rank
+                + m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                + h * m.v_head_dim * d)
 
     def num_params(self) -> int:
         """Parameter count of the port's modules: the embedding, the LM head
-        unless tied, the norm scales, and per layer q/k/v/o with SwiGLU
-        (three matrices) or the MoE FFN (the router, every expert's three
-        matrices and the shared experts'), or the SSD mixer (z/x/bc/dt
-        projections, dt_bias, A_log, D, the two convolutions, the grouped
-        norm and wo)."""
+        unless tied, the norm scales, and per layer q/k/v/o (or MLA's
+        projections and its two latent norms) with SwiGLU (three matrices)
+        or the MoE FFN (the router, every expert's three matrices and the
+        shared experts'), or the SSD mixer (z/x/bc/dt projections, dt_bias,
+        A_log, D, the two convolutions, the grouped norm and wo). The
+        multi-token prediction head is not served and not counted."""
         d, dh = self.d_model, self.head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
         for kind in self.layer_kinds:
             if kind in ("attn", "moe"):
-                attn = d * dh * (self.num_heads + 2 * self.num_kv_heads) \
-                    + self.num_heads * dh * d
+                attn = self._attn_params()
+                if self.mla is not None:
+                    attn += self.mla.q_lora_rank + self.mla.kv_lora_rank
                 if self.qkv_bias:
                     attn += dh * (self.num_heads + 2 * self.num_kv_heads)
                 if self.qk_norm:
@@ -144,21 +174,11 @@ class ModelConfig:
         convolutions. It leaves out the norm scales, biases and the SSD's
         per-head vectors that ``num_params`` counts, so that the cost model
         prices the reference's numbers."""
-        d, dh = self.d_model, self.head_dim
+        d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds:
             if kind in ("attn", "local", "moe"):
-                if self.mla is not None:
-                    m = self.mla
-                    n += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * (
-                        m.qk_nope_head_dim + m.qk_rope_head_dim)
-                    n += d * (m.kv_lora_rank + m.qk_rope_head_dim)
-                    n += m.kv_lora_rank * self.num_heads * (
-                        m.qk_nope_head_dim + m.v_head_dim)
-                    n += self.num_heads * m.v_head_dim * d
-                else:
-                    n += d * dh * (self.num_heads + 2 * self.num_kv_heads)
-                    n += self.num_heads * dh * d
+                n += self._attn_params()
             if kind == "moe":
                 mo = self.moe
                 n += mo.top_k * 3 * d * mo.d_ff_expert
@@ -176,14 +196,19 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """The CPU-test size: one full pattern repetition of at least 2
-        layers, d_model 64, 4 query heads, at most 2 KV heads, head_dim
-        16, d_ff 128, vocab 256; an SSD mixer of d_state 16, head_dim 16
-        and chunk 8; MLA, MoE and a local window cut as the reference cuts
-        them."""
+        layers, plus the first prefix and the first suffix layer, d_model
+        64, 4 query heads, at most 2 KV heads, head_dim 16, d_ff 128,
+        vocab 256, ``mtp_depth`` at most 1; an SSD mixer of d_state 16,
+        head_dim 16 and chunk 8; MLA, MoE and a local window cut as the
+        reference cuts them."""
         pat = len(self.layer_pattern)
-        kw = dict(num_layers=pat * max(1, 2 // pat), d_model=64, num_heads=4,
-                  num_kv_heads=min(self.num_kv_heads, 2), head_dim=16,
-                  d_ff=128, vocab_size=256)
+        kw = dict(num_layers=pat * max(1, 2 // pat)
+                  + len(self.prefix_layers[:1]) + len(self.suffix_layers[:1]),
+                  prefix_layers=self.prefix_layers[:1],
+                  suffix_layers=self.suffix_layers[:1], d_model=64,
+                  num_heads=4, num_kv_heads=min(self.num_kv_heads, 2),
+                  head_dim=16, d_ff=128, vocab_size=256,
+                  mtp_depth=min(self.mtp_depth, 1))
         if self.mla is not None:
             kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                                   qk_nope_head_dim=16, qk_rope_head_dim=8,

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.models.attention import attn_layout
 from repro_torch.models.layers import shard_of, vocab_shard
-from repro_torch.models.moe import expert_grid, expert_shard
+from repro_torch.models.mla import mla_layout
+from repro_torch.models.moe import expert_axes, expert_grid, expert_shard
 from repro_torch.models.ssd import HEAD_LEAVES, ssd_layout, ssd_unlayout
 
 
@@ -36,44 +37,90 @@ def _flatten(tree, prefix=""):
             yield name, np.asarray(v)
 
 
+def _layer_index(name: str, cfg):
+    """The port's layer indices of a reference leaf of the layer stack,
+    with the rest of its name: ``prefix.{i}.*`` is layer i, ``body.s{k}.*``
+    (stacked over the pattern's repeats on axis 0) holds layer ``npre +
+    r·len(pattern) + k`` of every repeat r, ``suffix.{i}.*`` is layer
+    ``npre + reps·len(pattern) + i``. None for a leaf outside the stack."""
+    part, _, rest = name.partition(".")
+    npre = len(cfg.prefix_layers)
+    body = npre + cfg.pattern_repeats * len(cfg.layer_pattern)
+    if part in ("prefix", "suffix"):
+        i, _, rest = rest.partition(".")
+        if not i.isdigit():
+            return None
+        return int(i) + (body if part == "suffix" else 0), rest, False
+    if part == "body":
+        s, _, rest = rest.partition(".")
+        if not (s[:1] == "s" and s[1:].isdigit()):
+            return None
+        return npre + int(s[1:]), rest, True
+    return None
+
+
+def _expected_names(cfg):
+    """The port's parameter names for ``cfg`` (a model on the meta
+    device, which allocates nothing)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import Layout
+    return set(T.Transformer(cfg, Layout(), torch.float32, "meta")
+               .state_dict())
+
+
 def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
-    """* ``body.s0.*`` (stacked over layers on axis 0) -> ``layers.{i}.*``,
-      for an attention block (``ln1``, ``attn``, ``ln2``, ``ffn``), a MoE
-      block (the same, its ``ffn`` the ``router``, the ``wi``/``wg``/``wo``
-      expert stacks and ``shared.*``) and an SSD block (``ln1``, ``mix``)
-      alike;
+    """* the layer stack -> ``layers.{i}.*``, i in the order of
+      ``cfg.layer_kinds``: ``prefix.{i}.*``, ``body.s{k}.*`` (stacked over
+      the pattern's repeats on axis 0; ``s{k}`` is the pattern's k-th
+      kind) and ``suffix.{i}.*``, for an attention block (``ln1``,
+      ``attn``, ``ln2``, ``ffn``; an MLA ``attn``'s ``wq_a``, ``q_norm``,
+      ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b``, ``wo``), a MoE
+      block (the same, its ``ffn`` the ``router``, the ``wi``/``wg``/
+      ``wo`` expert stacks and ``shared.*``) and an SSD block (``ln1``,
+      ``mix``) alike;
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
     * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
       the port's tied head reads the table);
-    * everything else keeps its dotted name.
-    Only a stack of one repeated block kind, without prefix or suffix
-    layers, converts. The SSD mixer's ``wbc`` must be the trivial layout's
-    single group, [d, 2·d_state]; a tree built for TP replicates it and
-    raises."""
-    if tree.get("prefix") or tree.get("suffix") \
-            or set(tree.get("body", {})) != {"s0"} \
-            or len(cfg.layer_pattern) != 1:
-        raise ValueError("only a stack of one repeated block converts")
+    * ``mtp.*``, DeepSeek-V3's multi-token prediction head, is skipped:
+      serving does not read it;
+    * ``final_norm.scale`` keeps its name.
+    Any other leaf, a missing one, or a stack of another depth raises. The
+    SSD mixer's ``wbc`` must be the trivial layout's single group, [d,
+    2·d_state]; a tree built for TP replicates it and raises."""
+    reps, pat = cfg.pattern_repeats, len(cfg.layer_pattern)
     out = {}
     for name, a in _flatten(tree):
-        if name.startswith("body.s0."):
-            if a.shape[0] != cfg.num_layers:
+        if name.startswith("mtp."):
+            continue
+        at = _layer_index(name, cfg)
+        if at is not None:
+            first, rest, stacked = at
+            if stacked and a.shape[0] != reps:
                 raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
-                                 f"config has {cfg.num_layers}")
-            rest = name[len("body.s0."):]
-            if rest == "mix.wbc" and a.shape[1:] != (cfg.d_model,
-                                                     2 * cfg.ssm.d_state):
+                                 f"config has {reps} repeats")
+            if rest == "mix.wbc" and a.shape[-2:] != (cfg.d_model,
+                                                      2 * cfg.ssm.d_state):
                 raise ValueError(
-                    f"{name}: shape {a.shape[1:]}, want the trivial layout's "
-                    f"[{cfg.d_model}, {2 * cfg.ssm.d_state}] (kexp 1)")
-            for i in range(cfg.num_layers):
-                out[f"layers.{i}.{rest}"] = a[i]
+                    f"{name}: shape {a.shape[-2:]}, want the trivial "
+                    f"layout's [{cfg.d_model}, {2 * cfg.ssm.d_state}] "
+                    "(kexp 1)")
+            if stacked:
+                for r in range(reps):
+                    out[f"layers.{first + r * pat}.{rest}"] = a[r]
+            else:
+                out[f"layers.{first}.{rest}"] = a
         elif name == "embed.table":
             out[name] = a.reshape(-1, a.shape[-1])
         elif name == "lm_head.w":
             out[name] = a.transpose(1, 0, 2).reshape(a.shape[1], -1)
         else:
             out[name] = a
+    want = _expected_names(cfg)
+    if set(out) != want:
+        extra, missing = sorted(set(out) - want), sorted(want - set(out))
+        raise ValueError(f"{cfg.name}: leaves the port has no parameter "
+                         f"for {extra[:4]}, parameters missing "
+                         f"{missing[:4]}")
     return out
 
 
@@ -87,12 +134,16 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), a
     MoE layer's expert stacks over its EP axes and their FF dim over the
     TP axes outside them (``moe_specs``' ``P(ep, None, tpr)``), its shared
-    experts as the MLP and its router whole, an SSD mixer's projections
-    over TP and its per-head leaves over the model group after padding
-    the heads (``ssd_specs``, ``models.ssd.ssd_layout``), and the norm
-    scales whole. On a layout with dp rows the rank gets the shard of its
-    grid position ``(i, j)``, the same in every row (the reference
-    replicates the parameters over ``"data"``)."""
+    experts as the MLP and its router whole, an MLA layer's up projections
+    and O over the grid's tp alone after padding the heads (``mla_specs``,
+    ``models.mla.mla_layout``), an SSD mixer's projections over TP and its
+    per-head leaves over the model group after padding the heads
+    (``ssd_specs``, ``models.ssd.ssd_layout``), and the norm scales whole.
+    On a layout with dp rows the rank gets the shard of its grid position
+    ``(i, j)``, the same in every row (the reference replicates the
+    parameters over ``"data"``), except a pod-scale config's expert stacks,
+    whose EP axes may take ``"data"`` (over ``("data", "sp")`` on the base
+    config of (2, 2, 2))."""
     return {name: shard_tensor(name, torch.from_numpy(
                 np.ascontiguousarray(a)), cfg, lay, rank).contiguous().numpy()
             for name, a in state.items()}
@@ -143,6 +194,8 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
         return expert_shard(t, _ff_dim(name), cfg, lay, rank)
     tp_rank = lay.tp_rank(rank)
     parts = name.split(".")
+    if cfg.mla is not None and parts[-2] == "attn":
+        return mla_layout(parts[-1], t, cfg, lay, rank)
     if name == "embed.table":
         return vocab_shard(t, 0, lay, tp_rank)
     if name == "lm_head.w":
@@ -186,6 +239,13 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     ``shard_tensor`` of the result gives each part back."""
     p = name.split(".")
     tp, G = max(lay.tp, 1), max(lay.G, 1)
+    if (cfg.mla is not None and p[-2] == "attn") or (
+            is_expert_leaf(name, cfg) and "data" in expert_axes(cfg, lay)):
+        raise NotImplementedError(
+            f"{name} of {cfg.name} on {lay.describe()}: putting an MLA "
+            "layer's or a dp-spanning expert stack's shards back together "
+            "(a reshard of an MLA or pod-scale layout) is ROADMAP Queue 1 "
+            "item 2")
     if is_model_group_leaf(name, cfg):
         if len(parts) != G:
             raise ValueError(f"{name}: {len(parts)} shards, want one per "
@@ -299,7 +359,9 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
     channels of ``conv_x`` [L, B, cw-1, H·hd] take the model ranks in
     model-rank order (the reference's ``head_spec_entry``); ``conv_bc``
     [L, B, cw-1, 2·ds], whole on every rank of a row, comes from each
-    row's first rank."""
+    row's first rank; an MLA latent ``lat`` [L, B, s_max/cache_sp, C]
+    takes the grid's sp ranks in order along the sequence (the ranks of
+    tp rank 0; the others hold the same chunks)."""
     G, dp = max(lay.G, 1), max(lay.dp, 1)
     if len(caches) != G * dp:
         raise ValueError(f"{len(caches)} ranks' caches for a world of "
@@ -317,6 +379,11 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
             row = [caches[d * G + m] for m in range(G)]
             if name == "conv_bc":
                 rows.append(arr(row[0][name]))
+                continue
+            if name == "lat":
+                sp, tp = lay.grid
+                rows.append(np.concatenate([arr(row[i * tp][name])
+                                            for i in range(sp)], axis=2))
                 continue
             by_model = sorted(range(G),
                               key=lambda m: lay.model_rank(d * G + m))

@@ -11,6 +11,10 @@ and ``verify_paged_invariance`` and ``verify_dense_invariance`` check it
 on that rank's tensors. The dense cache's SSD state is sharded over the
 heads as the KV cache over its slots (the reference's ``ssd_state_specs``
 and ``verify_invariance`` on them), so the same holds for its heads.
+An MLA config's latent cache has no heads: it is sharded over the
+sequence on the grid's sp (``mla_cache_specs``' ``P(dp, cache_sp,
+None)``), and a rank holds the same chunk of it in both configs
+(``latent_chunk``).
 
 With dp rows the check also runs per row (the reference's ``dp_axes``
 form, ``dp_rows_aligned``): each rank holds one row's pool, and every
@@ -64,6 +68,18 @@ def ssd_heads(model, rank: int) -> range:
     n = ssd_plan(model.cfg, model.lay).h_q_pad // max(model.lay.G, 1)
     g = _head_block(model, rank)
     return range(g * n, (g + 1) * n)
+
+
+def latent_chunk(model, rank: int) -> range:
+    """The global sequence positions of the latent cache that ``model``'s
+    dense cache holds on ``rank`` (its grid sp rank's contiguous chunk);
+    empty for a config without MLA or before ``init_cache``."""
+    if model.cfg.mla is None or model.cache is None \
+            or model.cache.lat is None:
+        return range(0)
+    n = model.cache.lat.shape[2]
+    i = model.lay.axes_index(model.lay.cache_sp_axes, rank)
+    return range(i * n, (i + 1) * n)
 
 
 def snapshot_dense(cache):
@@ -126,8 +142,8 @@ def verify_dense_invariance(base, shift, rank: int) -> bool:
 
     1. both step the same cache tensors (equal ``data_ptr`` of every KV
        and SSD state tensor), so a switch moves no byte;
-    2. the rank owns the same KV head slots and the same SSD heads in
-       both configs."""
+    2. the rank owns the same KV head slots, the same SSD heads and the
+       same chunk of an MLA latent cache in both configs."""
     a, b = base.cache, shift.cache
     if a is None or b is None:
         return False
@@ -136,4 +152,5 @@ def verify_dense_invariance(base, shift, rank: int) -> bool:
                                  for n in ta):
         return False
     return (kv_slots(base, rank) == kv_slots(shift, rank)
-            and ssd_heads(base, rank) == ssd_heads(shift, rank))
+            and ssd_heads(base, rank) == ssd_heads(shift, rank)
+            and latent_chunk(base, rank) == latent_chunk(shift, rank))

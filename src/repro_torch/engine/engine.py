@@ -1252,10 +1252,16 @@ class ShiftEngine:
                        0 if self.paged else max(self.cfg.s_max - C, 0),
                        np.int32)
         rows = []                          # (req, chunk length)
+        # an MLA latent cache takes a chunk at one offset for every row
+        # (the reference's rule): rows at another offset wait a step
+        uniform = self.mcfg.mla is not None
+        base_off = None
         for r in todo:
             if r.slot is None:
                 continue                   # preempted by an earlier reserve
             off = r.prefilled
+            if uniform and base_off is not None and off != base_off:
+                continue
             seq = r.all_tokens()
             chunk = seq[off:min(off + C, len(seq) - 1)]
             if not chunk:
@@ -1267,6 +1273,7 @@ class ShiftEngine:
             toks[r.slot, :len(chunk)] = chunk
             offs[r.slot] = off
             rows.append((r, len(chunk)))
+            base_off = off
             self.obs.emit("prefill_chunk", step=self.step_count, rid=r.rid,
                           off=off, tokens=len(chunk))
         if not rows:

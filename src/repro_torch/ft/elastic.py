@@ -11,13 +11,16 @@ parameter over the old model's TP group into the trivial layout's form
 changes (wk/wv between the base and the shift config) is thereby derived
 from the gathered weights themselves. The reference re-draws such a leaf
 from ``init_params(key(0))`` instead: the two agree for key-0 weights and
-differ for weights of any other source (ROADMAP Queue 3)."""
+differ for weights of any other source (ROADMAP Queue 3). MLA weights
+and expert stacks whose EP group spans dp rows do not reshard yet: it
+raises before any collective (ROADMAP Queue 1 item 2)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.convert import (is_model_group_leaf, shard_tensor,
                                  unshard_tensor)
+from repro_torch.models.moe import expert_axes
 from repro_torch.parallel import Layout
 from repro_torch.parallel.collectives import all_gather_if
 
@@ -61,6 +64,12 @@ def reshard_params(old_model, new_model):
                          f"ranks -> {new.describe()} on {new.world}: the "
                          "config and the world size must be the same")
     cfg = old_model.cfg
+    if cfg.mla is not None or (cfg.moe is not None and any(
+            "data" in expert_axes(cfg, la) for la in (old, new))):
+        raise NotImplementedError(
+            f"reshard_params of {cfg.name} ({old.describe()} -> "
+            f"{new.describe()}): moving MLA weights or expert stacks that "
+            "span dp rows is ROADMAP Queue 1 item 2")
     members = _tp_members(old, old_model.shard.rank)
     order = sorted(range(len(members)),
                    key=lambda m: old.tp_rank(members[m]))

@@ -54,7 +54,15 @@ d_model 5120) and the Mixture-of-Experts qwen-30b-a3b (48 layers, d_model
 2048, 128 experts, top-8; ``--adaptive`` prices its routed experts
 through the cost model's MoE branch). ``llama-70b`` and the MoE
 llama4-17b-16e (215.5 GB) are configs of the cost model and the
-simulator, and llama4-17b-16e runs at ``--reduced`` size.
+simulator, and llama4-17b-16e runs at ``--reduced`` size. So do
+deepseek-v3-671b (multi-head latent attention, three dense prefix layers,
+256 experts; 1342 GB in bf16), which falls back to the serialized
+iteration on the dense latent cache (MLA does not page; the summary prints
+the reason), and llama4-maverick-400b-a17b (dense and MoE layers
+interleaved; 801 GB). At full depth a model that does not fit the card
+raises before it allocates, naming its size; ``--dp 2 --backend gloo``
+serves the pod-scale MoE archs with their experts spread across the dp
+rows.
 
 ``--fault-seed S`` serves under the seeded fault storm ``random_plan(S,
 --fault-steps, p_alloc=p_forward=p_route=--p-fault, dp=--dp)``; under

@@ -1,16 +1,26 @@
 """Pre-norm residual blocks (counterpart of ``repro.models.blocks``) for the
 port's three layer kinds: ``"attn"`` (attention + SwiGLU MLP), ``"moe"``
 (the same attention + the Mixture-of-Experts FFN) and ``"ssd"`` (the
-Mamba-2 mixer alone, no ln2 and no FFN)."""
+Mamba-2 mixer alone, no ln2 and no FFN). A config with ``mla`` takes
+multi-head latent attention (``models.mla``) in place of GQA attention in
+both attention kinds; its layers keep the dense latent cache and never
+page."""
 from __future__ import annotations
 
 from torch import nn
 
 from repro_torch.parallel import Layout, Shard
 from . import attention as A
+from . import mla as M
 from . import moe as MOE
 from . import ssd as S
 from .layers import MLP, RMSNorm, mlp_apply
+
+
+def _attention(cfg, lay, dtype, device, shard):
+    """The attention half: MLA for a config with ``mla``, else GQA."""
+    cls = M.MLA if cfg.mla is not None else A.Attention
+    return cls(cfg, lay, dtype, device, shard)
 
 
 class Block(nn.Module):
@@ -21,7 +31,7 @@ class Block(nn.Module):
         d = cfg.d_model
         shard = shard or Shard(lay)
         self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.attn = A.Attention(cfg, lay, dtype, device, shard)
+        self.attn = _attention(cfg, lay, dtype, device, shard)
         self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
         self.ffn = MLP(d, cfg.d_ff, dtype, device, shard)
 
@@ -41,7 +51,7 @@ class MoEBlock(Block):
         d = cfg.d_model
         shard = shard or Shard(lay)
         self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.attn = A.Attention(cfg, lay, dtype, device, shard)
+        self.attn = _attention(cfg, lay, dtype, device, shard)
         self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
         self.ffn = MOE.MoE(cfg, lay, dtype, device, shard)
 
@@ -72,10 +82,11 @@ def _ffn(p, h2):
 
 def block_paged_cache_init(kind, cfg, lay: Layout, num_blocks: int,
                            block_size: int):
-    """Shape of one layer's K (and V) block pool. Only attention layers
+    """Shape of one layer's K (and V) block pool. Only GQA attention layers
     (``attn`` and ``moe``) page; an SSD layer keeps per-sequence recurrent
-    state, so a config with one keeps the contiguous cache."""
-    if kind in ("attn", "moe"):
+    state and an MLA layer a latent, so a config with one keeps the
+    contiguous cache."""
+    if kind in ("attn", "moe") and cfg.mla is None:
         return A.paged_cache_init(cfg, lay, num_blocks, block_size)
     raise ValueError(f"layer kind {kind!r} does not support a paged cache")
 
@@ -86,10 +97,14 @@ def block_prefill(p, x, cache, ctx, cfg):
     the reference's ``block_prefill``. An attention layer's ``cache`` is its
     (K, V) pools or dense caches: ``q_lens`` -> the mixed paged step, block
     tables alone -> the paged chunked prefill, neither -> the dense cache.
-    An SSD layer's is its ``SSDState``. The cache is updated in place."""
+    An SSD layer's is its ``SSDState``, an MLA layer's its latent cache.
+    The cache is updated in place."""
     h = p.ln1(x)
     if p.kind == "ssd":
         return x + S.ssd_prefill(p.mix, h, cache, cfg)
+    if cfg.mla is not None:
+        x = x + M.mla_prefill(p.attn, h, cache, ctx["offsets"], cfg)
+        return x + _ffn(p, p.ln2(x))
     k_cache, v_cache = cache
     if ctx.get("q_lens") is not None:
         a = A.paged_attn_mixed(p.attn, h, k_cache, v_cache, ctx["positions"],
@@ -113,13 +128,20 @@ def block_decode(p, x, cache, ctx, cfg):
     h = p.ln1(x)
     if p.kind == "ssd":
         return x + S.ssd_decode(p.mix, h, cache, cfg)
+    if cfg.mla is not None:
+        a = M.mla_decode(p.attn, h, cache, ctx["lens"], cfg)
+        return _decode_ffn(p, x + a)
     k_cache, v_cache = cache
     if ctx.get("block_tables") is not None:
         a = A.paged_attn_decode(p.attn, h, k_cache, v_cache, ctx["lens"],
                                 ctx["block_tables"], cfg)
     else:
         a = A.attn_decode(p.attn, h, k_cache, v_cache, ctx["lens"], cfg)
-    x = x + a
+    return _decode_ffn(p, x + a)
+
+
+def _decode_ffn(p, x):
+    """A decode step's FFN half. x: [B_loc, d]."""
     h2 = p.ln2(x)
     if p.kind == "moe":
         # one token per row: the reference routes [B, 1, d]

@@ -19,9 +19,10 @@ runs on every layout, over the paged pool or the dense cache, and an SSD
 layer's mixer runs the Ulysses exchange as an attention layer does. The
 sampled tokens are gathered over SP and DP, so that every rank returns
 the whole batch's tokens. A MoE layer's experts are sharded over its EP
-group (``models.moe.ep_group``) within a dp row; a pod-scale config whose
-EP group would span dp rows raises (ROADMAP Queue 1 item 2, its first
-leftover)."""
+group (``models.moe.ep_group``), which for a pod-scale config spans the dp
+rows: its all-to-all then runs across rows, which every rank enters on
+every step. An MLA config's latent cache is sharded over the grid's sp
+(``models.mla``), the same chunk in the base and the shift config."""
 from __future__ import annotations
 
 from typing import Optional
@@ -38,8 +39,8 @@ from . import transformer as T
 
 
 class Model:
-    """A decoder (dense GQA, GQA with MoE FFNs, or mamba2's SSD layers) on
-    one device.
+    """A decoder (dense GQA or MLA attention, with SwiGLU or MoE FFNs, or
+    mamba2's SSD layers) on one device.
     ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
     runs only when asked for. ``lay`` is the layout (the trivial one by
     default); above world size 1, ``groups`` are the grid's process groups
@@ -56,14 +57,32 @@ class Model:
         self.shard = Shard.of(lay, groups)
         self.plan = get_plan(cfg, lay)
         self.dtype = dtype
+        if self.device.type == "cuda":
+            self._check_fits(cfg, lay, dtype)
         self.params = T.Transformer(cfg, lay, dtype, self.device, self.shard)
         self.pool: Optional[T.PagedPool] = None
         self.cache: Optional[T.DenseCache] = None
 
+    def _check_fits(self, cfg, lay, dtype):
+        """Raise, naming the size, when this rank's parameters (counted on
+        the meta device) exceed the card's free memory: deepseek-v3-671b
+        and llama4-maverick-400b-a17b at full depth, llama-70b, and
+        llama4-17b-16e hold more than one card."""
+        meta = T.Transformer(cfg, lay, dtype, "meta", self.shard)
+        need = sum(p.numel() * p.element_size() for p in meta.parameters())
+        free, total = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            raise ValueError(
+                f"{cfg.name} ({cfg.num_layers} layers, d_model "
+                f"{cfg.d_model}) holds {need / 1e9:.2f} GB of {dtype} "
+                f"weights on this rank; the card has {free / 1e9:.2f} GB "
+                f"free of {total / 1e9:.2f} GB: serve it reduced, with its "
+                "depth cut, or over more ranks")
+
     @property
     def pod_scale(self) -> bool:
         """The reference's ``POD_SCALE_ARCHS``: the EP group of such a
-        config may take the dp axes (above one dp row the port raises)."""
+        config may take the dp axes."""
         return self.cfg.name in POD_SCALE_ARCHS
 
     def view(self) -> "Model":
@@ -123,16 +142,19 @@ class Model:
     @property
     def supports_paged(self) -> bool:
         """True when every cached layer is GQA attention (``attn`` or
-        ``moe``), whose [block_size, kv_slots, Dh] block layout pages. SSD
-        layers keep recurrent state per sequence, so their configs keep the
-        contiguous cache."""
-        return all(k in ("attn", "moe") for k in self.cfg.layer_kinds)
+        ``moe``), whose [block_size, kv_slots, Dh] block layout pages. MLA
+        layers keep a latent sharded over the sequence and SSD layers
+        recurrent state per sequence, so their configs keep the contiguous
+        cache (the reference's reason)."""
+        return self.cfg.mla is None and all(
+            k in ("attn", "moe") for k in self.cfg.layer_kinds)
 
     def _require_paged(self):
         if not self.supports_paged:
             raise ValueError(
                 f"{self.cfg.name} has layer kinds {set(self.cfg.layer_kinds)}"
-                ": only attention layers page; use the dense cache")
+                f"{' with MLA' if self.cfg.mla is not None else ''}: only "
+                "GQA attention layers page; use the dense cache")
 
     def init_paged_cache(self, num_blocks: int, block_size: int) -> T.PagedPool:
         """Zeroed block pools of every layer (block 0 is the null block):

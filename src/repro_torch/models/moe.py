@@ -14,10 +14,17 @@ the EP group, as the reference chooses them:
   the combine is a psum over the model group.
 
 Expert FF dims are further sharded over the TP axes outside the EP group
-(``P(ep_axes, None, tp_rest)``). Everything is static-shaped: the capacity
-``C`` follows from the step's token count alone, dropped assignments go to a
-spare trash row of the buffer (torch has no ``mode="drop"``), and no value
-reaches the host, so a bucket's step captures as one CUDA graph. The expert
+(``P(ep_axes, None, tp_rest)``). A pod-scale config's EP group may take the
+``"data"`` axis (``ep_group``): on ``(2, 2, 2)`` its experts spread over
+``("data", "sp")`` in the base config and over ``("data",)`` in the shift
+config, and the tiled all-to-all runs over a group that spans dp rows, so
+every dp row enters every MoE layer's exchange on every step (the model's
+steps run on every rank with the whole batch, a row with nothing to run
+included). Everything is static-shaped: the capacity ``C`` follows from
+the rank's own token count in the step alone, as the reference's does,
+dropped assignments go to a spare trash row of the buffer (torch has no
+``mode="drop"``), and no value reaches the host, so a bucket's step
+captures as one CUDA graph. The expert
 products are batched matrix products (``torch.bmm``), as the reference
 computes them outside any Pallas kernel.
 """
@@ -79,12 +86,17 @@ def _degree(lay: Layout, axes) -> int:
     return n
 
 
+def expert_axes(cfg, lay: Layout) -> Tuple[str, ...]:
+    """The EP axes of ``cfg``'s MoE layers on ``lay``."""
+    return ep_group(lay, cfg.moe.num_experts,
+                    cfg.name in POD_SCALE_ARCHS)[0]
+
+
 def expert_grid(cfg, lay: Layout, rank: int) -> Tuple[int, int, int, int]:
     """(ep, ep index, tpr, tpr index) of process ``rank`` on ``lay``: the
     degrees of the EP axes and of the TP axes outside them, and the rank's
     joint index over each (the reference's ``P(ep_axes, None, tpr)``)."""
-    ep_axes, _ = ep_group(lay, cfg.moe.num_experts,
-                          cfg.name in POD_SCALE_ARCHS)
+    ep_axes = expert_axes(cfg, lay)
     tpr = moe_tp_axes(lay, ep_axes)
     return (_degree(lay, ep_axes), lay.axes_index(ep_axes, rank),
             _degree(lay, tpr), lay.axes_index(tpr, rank))
@@ -113,8 +125,8 @@ class MoE(nn.Module):
     """One MoE FFN: ``router`` [d, E] in fp32, this rank's experts ``wi``/
     ``wg`` [E_loc, d, ff_loc] and ``wo`` [E_loc, ff_loc, d] (E_loc = E/ep
     over the EP axes, ff_loc = ff/tpr over the TP axes outside them) and the
-    optional ``shared`` SwiGLU. Raises for a pod-scale config whose EP
-    group would span dp rows."""
+    optional ``shared`` SwiGLU. An EP or FF group of more than one rank
+    needs the grid's ``Groups`` (``shard``)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
@@ -124,13 +136,13 @@ class MoE(nn.Module):
         self.pod_scale = cfg.name in POD_SCALE_ARCHS
         self.ep_axes, self.replicated = ep_group(lay, mo.num_experts,
                                                  self.pod_scale)
-        if "data" in self.ep_axes:
-            raise NotImplementedError(
-                f"{cfg.name} on {lay.describe()}: its EP group "
-                f"{self.ep_axes} spans dp rows (pod-scale EP across dp rows "
-                "is ROADMAP Queue 1)")
         self.tpr = moe_tp_axes(lay, self.ep_axes)
         self.ep, self.ep_index, tpr, _ = expert_grid(cfg, lay, shard.rank)
+        if shard.groups is None and self.ep * tpr > 1:
+            raise ValueError(
+                f"{cfg.name} on {lay.describe()}: experts over "
+                f"{self.ep_axes} and FF over {self.tpr} need the grid's "
+                "Groups")
         self.E_loc = mo.num_experts // self.ep
         d, ff = cfg.d_model, mo.d_ff_expert
         self.router = empty_param((d, mo.num_experts), torch.float32, device)
@@ -141,10 +153,12 @@ class MoE(nn.Module):
             self.shared = SharedExperts(
                 d, (mo.d_ff_shared or ff) * mo.num_shared_experts,
                 max(lay.tp, 1), dtype, device)
-        # the groups of the exchange and of the two combines
+        # the groups of the exchange and of the two combines (the
+        # replicated path's, over the model axes alone)
         self.ep_group = shard.axes_group(self.ep_axes)
         self.tpr_group = shard.axes_group(self.tpr)
-        self.combine_group = shard.axes_group(self.ep_axes + self.tpr)
+        self.combine_group = (shard.axes_group(self.ep_axes + self.tpr)
+                              if self.replicated else None)
 
     def reset_parameters(self, generator):
         """``moe_init``'s draws at their canonical shapes, then this rank's

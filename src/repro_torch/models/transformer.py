@@ -2,8 +2,11 @@
 stack as per-layer modules built from the config's layer kinds, its paged
 KV pools and dense contiguous cache, and the step bodies: the mixed
 prefill+decode step and the serialized prefill and decode steps. The
-reference's ``lax.scan`` over the stacked body layers becomes a loop over
-the per-layer modules."""
+reference's prefix layers, ``lax.scan`` over the stacked body layers and
+suffix layers become one loop over the per-layer modules, in the order of
+``cfg.layer_kinds`` (the prefix, the pattern repeated, the suffix), which
+is the reference's order; a pattern of several kinds (Maverick's
+``("attn", "moe")``) runs its kinds in turn."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -16,6 +19,7 @@ from repro_torch.parallel import Layout, Shard
 from repro_torch.parallel.collectives import all_gather_if, psum_if
 from . import blocks as BK
 from .attention import cache_init
+from .mla import mla_cache_shape
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
                      embed_apply, lmhead_apply, tied_lmhead_apply)
 from .ssd import SSDState, ssd_state_shapes
@@ -27,8 +31,10 @@ class Transformer(nn.Module):
     ``lm_head.w`` [d, V] unless the embedding is tied, and
     ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention or MoE layer
     (a MoE layer's ``ffn.router``, ``ffn.wi``/``wg``/``wo`` and
-    ``ffn.shared.*``) or ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with
-    the reference's leaf names. Each holds this rank's shard (``shard``;
+    ``ffn.shared.*``; an MLA layer's ``attn.wq_a``, ``q_norm``, ``wq_b``,
+    ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b`` and ``wo``) or
+    ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the reference's leaf
+    names. Each holds this rank's shard (``shard``;
     the whole tensors on the trivial layout)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
@@ -97,20 +103,24 @@ class DenseCache:
     updated in place by each step: its dp row's ``B`` slots and its model
     rank's heads (the reference's ``cache_specs`` shard, ``P(dp, None, h,
     None)``). Attention and MoE layers: K and V ``[n_attn, B, s_max,
-    kv_per_rank, Dh]``. SSD layers: ``ssm`` [n_ssd, B, hpr, hd, ds] in
-    fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd] and ``conv_bc`` [n_ssd, B,
-    cw-1, 2·ds]. A kind the config lacks has None. ``kinds[i]`` and
-    ``index[i]`` give layer i's kind and its index among the layers of its
-    cache (the attention and MoE layers together, or the SSD layers)."""
+    kv_per_rank, Dh]``, or with MLA the latent ``lat`` [n_attn, B,
+    s_max/cache_sp, kv_lora + rope], the rank's sequence chunk
+    (``mla_cache_specs``' ``P(dp, cache_sp, None)``). SSD layers: ``ssm``
+    [n_ssd, B, hpr, hd, ds] in fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd]
+    and ``conv_bc`` [n_ssd, B, cw-1, 2·ds]. A kind the config lacks has
+    None. ``kinds[i]`` and ``index[i]`` give layer i's kind and its index
+    among the layers of its cache (the attention and MoE layers together,
+    or the SSD layers)."""
     kinds: tuple
     index: tuple
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
+    lat: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
     conv_x: Optional[torch.Tensor] = None
     conv_bc: Optional[torch.Tensor] = None
 
-    FIELDS = ("k", "v", "ssm", "conv_x", "conv_bc")
+    FIELDS = ("k", "v", "lat", "ssm", "conv_x", "conv_bc")
 
     def tensors(self) -> dict:
         """The cache's tensors by field name, those of kinds the config
@@ -119,24 +129,31 @@ class DenseCache:
                 if (t := getattr(self, name)) is not None}
 
     def layer(self, i):
-        """Layer i's cache: (K, V) views, or an ``SSDState`` of views."""
+        """Layer i's cache: (K, V) views, an MLA layer's latent view, or an
+        ``SSDState`` of views."""
         j = self.index[i]
         if self.kinds[i] == "ssd":
             return SSDState(self.ssm[j], self.conv_x[j], self.conv_bc[j])
+        if self.lat is not None:
+            return self.lat[j]
         return self.k[j], self.v[j]
 
 
 def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
                device) -> DenseCache:
     """Zeroed dense caches of every layer, one rank's: ``batch`` rows (its
-    dp row's) at its heads."""
+    dp row's) at its heads, or with MLA its chunk of the sequence."""
     kinds = cfg.layer_kinds
     ssd = tuple(k == "ssd" for k in kinds)
     index = tuple(ssd[:i].count(s) for i, s in enumerate(ssd))
     c = DenseCache(kinds=kinds, index=index)
     n_ssd = ssd.count(True)
     n_attn = len(kinds) - n_ssd
-    if n_attn:
+    if n_attn and cfg.mla is not None:
+        c.lat = torch.zeros((n_attn,) + mla_cache_shape(cfg, lay, batch,
+                                                        s_max),
+                            dtype=dtype, device=device)
+    elif n_attn:
         shape = (n_attn,) + cache_init(cfg, lay, batch, s_max)
         c.k = torch.zeros(shape, dtype=dtype, device=device)
         c.v = torch.zeros(shape, dtype=dtype, device=device)
@@ -183,9 +200,10 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     (or [B, n_last, v_blk] logits); columns before the row's start give
     zero logits and a token the engine ignores. n_last == 1 is the
     single-token path, unchanged."""
-    if any(kind not in ("attn", "moe") for kind in cfg.layer_kinds):
+    if cfg.mla is not None or any(kind not in ("attn", "moe")
+                                  for kind in cfg.layer_kinds):
         raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
-                         "which only attention layers have")
+                         "which only GQA attention layers have")
     sh = params.shard
     B, S_loc = tokens.shape
     x = _embed_tokens(params, tokens)

@@ -10,7 +10,10 @@ called by every rank for every group): for each row ``d``, one SP group
 per tp rank ``j`` (the ranks ``d*G + i*tp + j`` over ``i``), one TP group
 per sp rank ``i`` (over ``j``) and the row's model group, which is the
 shift config's TP group; then one DP group per grid position ``(i, j)``
-(the ranks ``d*G + i*tp + j`` over ``d``). A group of one is ``None``, and
+(the ranks ``d*G + i*tp + j`` over ``d``); then, with dp rows and an SP
+axis, one group over ``("data", "sp")`` per tp rank ``j`` (the ranks
+``d*G + i*tp + j`` over ``(d, i)``), the expert-parallel group of a
+pod-scale MoE layer in the base config. A group of one is ``None``, and
 the collectives below are no-ops on it, as the reference's are on empty
 axes.
 
@@ -96,6 +99,15 @@ class Groups:
                 g = self._new([dd * G + ii * tp + jj for dd in range(dp)])
                 if (ii, jj) == (i, j):
                     self.dp_group = g
+        # ascending process rank over (d, i) is the joint index over
+        # ("data", "sp"), data-major
+        self.dp_sp_group = self.sp_group if dp == 1 else self.dp_group
+        if dp > 1 and sp > 1:
+            for jj in range(tp):
+                g = self._new([dd * G + ii * tp + jj for dd in range(dp)
+                               for ii in range(sp)])
+                if jj == j:
+                    self.dp_sp_group = g
 
     def all_ranks(self) -> Optional[Group]:
         """Every rank of the world as one group, counting into this
@@ -137,25 +149,28 @@ class Groups:
         return self.dp_group
 
     def axes_group(self, axes) -> Optional[Group]:
-        """The group over any set of the grid's named axes within this
-        rank's dp row: ``"sp"`` is the grid's SP group, ``"tp"`` its TP
-        group, both the row's model group; no axes, or axes of one rank,
+        """The group over a set of the named axes: ``"sp"`` is the grid's
+        SP group, ``"tp"`` its TP group, both the row's model group (each
+        within this rank's dp row); ``"data"`` is the DP group and
+        ``"data"`` with ``"sp"`` the group over both (a pod-scale MoE
+        layer's EP group, across dp rows); no axes, or axes of one rank,
         give None. A group's ranks are numbered in ascending process rank,
-        which is the joint index over ``("sp",)``, ``("tp",)`` and
-        ``("sp", "tp")`` (not over ``("tp", "sp")``). ``"data"`` (a group
-        across dp rows) raises."""
+        which is the joint index over ``("sp",)``, ``("tp",)``,
+        ``("sp", "tp")``, ``("data",)`` and ``("data", "sp")`` (not over
+        ``("tp", "sp")``). Other sets with ``"data"`` have no group here
+        and raise."""
         names = set(axes)
-        if not names <= {"sp", "tp"}:
-            raise NotImplementedError(
-                f"a group over {sorted(names)}: groups across dp rows are "
-                "the DP group's alone (EP across dp rows is ROADMAP Queue 1)")
-        if names == {"sp", "tp"}:
-            return self.world_group
-        if names == {"sp"}:
-            return self.sp_group
-        if names == {"tp"}:
-            return self.tp_group
-        return None
+        groups = {frozenset(): None,
+                  frozenset({"sp"}): self.sp_group,
+                  frozenset({"tp"}): self.tp_group,
+                  frozenset({"sp", "tp"}): self.world_group,
+                  frozenset({"data"}): self.dp_group,
+                  frozenset({"data", "sp"}): self.dp_sp_group}
+        if frozenset(names) not in groups:
+            raise ValueError(
+                f"a group over {sorted(names)}: the groups across dp rows "
+                "are over ('data',) and ('data', 'sp') alone")
+        return groups[frozenset(names)]
 
 
 def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
@@ -164,6 +179,16 @@ def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
         return x
     group.count("all_reduce", x)
     dist.all_reduce(x, group=group.pg)
+    return x
+
+
+def pmax_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """Maximum of ``x`` over ``group``, in place; ``x`` itself for no
+    group."""
+    if group is None:
+        return x
+    group.count("all_reduce", x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group.pg)
     return x
 
 
@@ -180,6 +205,15 @@ def all_gather_if(x: torch.Tensor, group: Optional[Group],
     parts = [torch.empty_like(x) for _ in range(group.size)]
     dist.all_gather(parts, x, group=group.pg)
     return torch.cat(parts)
+
+
+def all_gather_axis(x: torch.Tensor, group: Optional[Group],
+                    axis: int) -> torch.Tensor:
+    """``all_gather_if`` concatenating along ``axis`` (the reference's
+    ``all_gather(x, axes, axis=axis, tiled=True)``)."""
+    if group is None:
+        return x
+    return torch.cat(all_gather_if(x[None], group).unbind(0), dim=axis)
 
 
 def all_to_all(send: torch.Tensor, group: Group) -> torch.Tensor:

@@ -19,7 +19,14 @@ tp=("tp",))`` on a ``(dp, sp, tp)`` mesh (and of its ``to_shift()``), and
 ``axis_coords`` a rank's index along each. Expert parallelism reads them:
 the ``ep`` degree stays 1, as the reference's ``ep_axes`` (read by nothing
 there) stay empty, and a MoE layer's EP group is
-``repro_torch.models.moe.ep_group`` of the layout.
+``repro_torch.models.moe.ep_group`` of the layout, which for a pod-scale
+config may take the ``"data"`` axis and so span dp rows.
+
+The sequence-sharded caches (MLA's latent) live on ``cache_sp_axes``, the
+grid's ``"sp"`` (``cache_sp`` ranks): fixed by the grid and kept by
+``to_shift``, as the reference's ``Layout.from_mesh`` fixes them and its
+``to_shift`` keeps them, so that the latent cache is sharded the same way
+in the base and the shift config.
 """
 from __future__ import annotations
 
@@ -41,10 +48,11 @@ class Layout:
 
     def __post_init__(self):
         if self.ep != 1:
-            raise NotImplementedError(
+            raise ValueError(
                 f"ep={self.ep}: the layout's ep degree stays 1; a MoE "
                 "layer's expert parallelism follows models.moe.ep_group over "
-                "the layout's axes (EP across dp rows is ROADMAP Queue 1)")
+                "the layout's named axes (dp rows included for a pod-scale "
+                "config)")
         if self.dp < 1 or self.sp < 1 or self.tp < 1:
             raise ValueError(f"dp={self.dp}, sp={self.sp}, tp={self.tp}: "
                              "degrees are >= 1")
@@ -104,6 +112,17 @@ class Layout:
     def model_axes(self) -> Tuple[str, ...]:
         """The model group's axes, tp-major, as the reference's."""
         return self.tp_axes + self.sp_axes
+
+    @property
+    def cache_sp_axes(self) -> Tuple[str, ...]:
+        """The axes a sequence-sharded cache lives on: the grid's
+        ``"sp"``, in the base and the shift config alike."""
+        return ("sp",)
+
+    @property
+    def cache_sp(self) -> int:
+        """The number of sequence chunks of such a cache: the grid's sp."""
+        return self.grid[0]
 
     def axis_coords(self, rank: int) -> dict:
         """Index of ``rank`` along every named axis."""
@@ -186,8 +205,9 @@ class Shard:
                    groups.dp_of(lay), groups)
 
     def axes_group(self, axes) -> Optional[Group]:
-        """The process group over the named ``axes`` within this rank's dp
-        row (``Groups.axes_group``); None for axes of one rank."""
+        """The process group over the named ``axes`` (``Groups.axes_group``:
+        within this rank's dp row unless ``"data"`` is one of them); None
+        for axes of one rank."""
         if self.groups is None:
             return None
         return self.groups.axes_group(axes)

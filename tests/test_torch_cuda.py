@@ -259,6 +259,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     # qwen-32b's hidden rows (prefill, decode) and llama-70b's: fp32 past
     # 4096 elements takes 8 chunks a lane on 256 lanes
     (512, 5120), (8, 5120), (8, 8192), (3, 8192),
+    # deepseek-v3-671b: d_model 7168, MLA's q latent 1536 and kv latent 512
+    (512, 7168), (8, 7168), (512, 1536), (8, 1536), (512, 512), (8, 512),
 ])
 def test_cuda_rmsnorm_matches_plain(cuda, dtype, N, D):
     g = torch.Generator(device=cuda).manual_seed(N + D)
@@ -1552,3 +1554,78 @@ def test_cuda_layout_serialized_engine_matches_cpu(cuda, arch, kw):
     else:
         assert card[0]["launches"]["flash_attention"] > 0
         assert card[0]["launches"]["decode_attention"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [512, 8, 3])
+def test_cuda_mla_kv_latent_norm_matches_plain(cuda, dtype, rows):
+    """MLA's kv latent norm reads the first 512 of each latent row of 576
+    (a strided view, as ``models.mla._latent`` hands it over)."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    lat = torch.randn((2, rows, 576), generator=g, device=cuda).to(dtype)
+    s = torch.randn((512,), generator=g, device=cuda).to(dtype)
+    x = lat[..., :512]
+    assert not x.is_contiguous()
+    got = RMS.rmsnorm_cuda(x, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), RMS.rmsnorm_plain(x, s).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _pod_engine_rank(rank, groups, device, arch):
+    """One rank of a (2, 2, 2) engine over the reduced ``arch`` (fp32, the
+    CPU generator's weights on either device), serving the workload: its
+    streams, configs and kernel launches. A pod-scale config: its experts
+    spread across the dp rows."""
+    import dataclasses
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    lay = Layout(dp=2, sp=2, tp=2)
+    base, shift = (Model(cfg, device=device, dtype=torch.float32, lay=la,
+                         groups=groups) for la in (lay, lay.to_shift()))
+    for m in (base, shift):
+        drawn = Model(cfg, device="cpu", dtype=torch.float32, lay=m.lay,
+                      groups=groups)
+        drawn.init_params(torch.Generator().manual_seed(0))
+        m.load_params(drawn.params.state_dict())
+    ops.reset_launch_counts()
+    groups.traffic.clear()
+    eng = ShiftEngine(base, EngineConfig(threshold=16), shift=shift)
+    reqs = workload(6, 8)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return {"streams": [r.generated for r in reqs],
+            "counts": dict(eng.config_counts),
+            "launches": ops.launch_counts(),
+            "ep": base.params.layers[-1].ffn.ep_axes,
+            "a2a": groups.traffic.get("all_to_all_bytes", 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "llama4-17b-16e"])
+def test_cuda_pod_scale_engine_matches_cpu(cuda, arch):
+    """Reduced pod-scale MoE engines on (2, 2, 2), eight ranks on the one
+    card over gloo, against the same eight ranks on the CPU: equal streams
+    and configs on every rank, both configs used, the experts over
+    ("data", "sp") with the all-to-all across rows, and the card's ranks
+    went through the kernels (RMSNorm; llama4's ragged attention)."""
+    from repro_torch.launch import mesh
+    card, cpu = (mesh.run_ranks(_pod_engine_rank, 2, 2, dp=2, device=dev,
+                                backend="gloo", timeout_s=300,
+                                args=(dev, arch))
+                 for dev in ("cuda", "cpu"))
+    for a, b in zip(card, cpu):
+        assert a["streams"] == b["streams"] == cpu[0]["streams"]
+        assert a["counts"] == b["counts"]
+        assert a["ep"] == b["ep"] == ("data", "sp")
+        assert a["a2a"] > 0 and b["a2a"] > 0
+        assert not any(b["launches"].values())
+        assert a["launches"]["rmsnorm"] > 0
+    assert cpu[0]["counts"]["base"] > 0 and cpu[0]["counts"]["shift"] > 0
+    if arch == "llama4-17b-16e":
+        assert card[0]["launches"]["paged_ragged_attention"] > 0

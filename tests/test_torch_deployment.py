@@ -51,7 +51,7 @@ def _port_engine(kw, arch="qwen3-8b"):
 def test_layout_signature_matches_reference():
     assert Layout().signature == JaxLayout().signature == (1, 1, 1, 1)
     assert Layout().describe() == JaxLayout().describe() == "dp1·sp1·tp1"
-    with pytest.raises(NotImplementedError, match="ep=2"):
+    with pytest.raises(ValueError, match="ep=2"):
         Layout(ep=2)
 
 

@@ -484,7 +484,7 @@ def test_layout_dp_rank_maps_match_reference(shape):
         assert lay.to_shift().dp_rank(r) == d
     with pytest.raises(ValueError):
         lay.dp_rank(lay.world)
-    with pytest.raises(NotImplementedError, match="ep=2"):
+    with pytest.raises(ValueError, match="ep=2"):
         Layout(dp=2, ep=2)
     with pytest.raises(ValueError):
         Layout(dp=0)

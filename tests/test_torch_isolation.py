@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.simulator", "repro_torch.sim.elastic",
             "repro_torch.sim.traces", "repro_torch.cluster",
             "repro_torch.cluster.router", "repro_torch.cluster.migration",
-            "repro_torch.ft.elastic", "repro_torch.models.moe"} \
+            "repro_torch.ft.elastic", "repro_torch.models.moe",
+            "repro_torch.models.mla"} \
         <= set(_modules())
     code = (
         "import importlib, sys\n"

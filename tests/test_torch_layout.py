@@ -588,9 +588,10 @@ def test_layout_matches_reference(mesh122):
     assert [lay.to_shift().tp_rank(r) for r in range(4)] == [0, 2, 1, 3]
     assert INV.head_order_base(SP, TP) == [0, 2, 1, 3]
     assert INV.head_order_base(3, 2) == [0, 2, 4, 1, 3, 5]
-    # dp rows build (tests/test_torch_dp.py holds them); ep still raises
+    # dp rows build (tests/test_torch_dp.py holds them); an ep degree
+    # raises: EP follows models.moe.ep_group over the named axes
     assert Layout(dp=2, sp=SP, tp=TP).world == 8
-    with pytest.raises(NotImplementedError, match="ep=2.*Queue 1"):
+    with pytest.raises(ValueError, match="ep=2.*ep_group"):
         Layout(ep=2)
     with pytest.raises(ValueError):
         Layout(sp=2, tp=1, grid=(2, 2))

@@ -19,7 +19,9 @@ Each one's streams, config counts (both configs used), preemptions,
 per engine, JSON-equal) equal the reference's ``ShiftEngine`` on
 ``mesh122`` on every rank. After each dense engine's run, on every rank,
 the base and shift views step one dense cache
-(``core.invariance.verify_dense_invariance``). A snapshot of the mamba2
+(``core.invariance.verify_dense_invariance``); so do reduced
+deepseek-v3-671b's, whose latent cache every rank holds one chunk of the
+sequence of, the chunk the reference's specs place on its device. A snapshot of the mamba2
 engine taken mid-stream (its rank's dense cache, SSD state included)
 restores into a fresh engine, which finishes with the uninterrupted
 streams.
@@ -152,9 +154,30 @@ def _snapshot_restore(rank, groups, states):
                                                       rank)}
 
 
+def _latent_invariance(rank, groups):
+    """Reduced deepseek-v3-671b's base and shift models on (1, 2, 2), the
+    shift one adopting the base one's dense cache: the structural latent
+    invariance, and the chunk of the sequence this rank holds."""
+    cfg = get_config("deepseek-v3-671b").reduced()
+    lay = Layout(sp=SP, tp=TP)
+    base, shift, own = (Model(cfg, device="cpu", dtype=torch.float32,
+                              lay=la, groups=groups)
+                        for la in (lay, lay.to_shift(), lay.to_shift()))
+    base.init_cache(8, 32)
+    shift.adopt_cache(base)
+    own.init_cache(8, 32)
+    return {"holds": INV.verify_dense_invariance(base, shift, rank),
+            "own_cache_fails": not INV.verify_dense_invariance(base, own,
+                                                               rank),
+            "chunk": (INV.latent_chunk(base, rank),
+                      INV.latent_chunk(shift, rank)),
+            "shape": tuple(base.cache.lat.shape)}
+
+
 def _job(rank, groups, states):
     out = {name: _case(rank, groups, states, name) for name in CASES}
     out["snapshot"] = _snapshot_restore(rank, groups, states)
+    out["latent"] = _latent_invariance(rank, groups)
     return out
 
 
@@ -277,3 +300,29 @@ def test_snapshot_restore_mid_stream(ranks, reference):
         assert any(snap["mid"]) and snap["mid"] != want
         assert snap["streams"] == want and snap["restored"] == want, r
         assert snap["invariance"]
+
+
+def test_latent_cache_invariance_structural(ranks, mesh122):
+    """The counterpart of the reference's structural invariance test for
+    deepseek-v3-671b on ``mesh122``: every rank's base and shift models
+    step one latent cache, and the chunk of the sequence a rank holds is
+    the one the reference's ``mla_cache_specs`` (``P(dp, cache_sp,
+    None)``) places on its device, in both configs."""
+    from jax.sharding import NamedSharding
+    from conftest import reduced_cfg
+    from repro.models.model import Model as JaxModel
+    from repro.parallel import Layout as JaxLayout
+    cfg = reduced_cfg("deepseek-v3-671b")
+    lay = JaxLayout.from_mesh(mesh122, dp=("data",), sp=("sp",), tp=("tp",))
+    shape = (8, 32, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+    for la in (lay, lay.to_shift()):
+        spec = JaxModel(cfg=cfg, lay=la, mesh=mesh122) \
+            .cache_specs()["prefix"]["0"]["lat"]
+        where = NamedSharding(mesh122, spec).devices_indices_map(shape)
+        for r, res in enumerate(ranks):
+            inv = res["latent"]
+            assert inv["holds"] and inv["own_cache_fails"], r
+            seq = where[mesh122.devices[0, r // TP, r % TP]][1]
+            for chunk in inv["chunk"]:
+                assert chunk == range(seq.start, seq.stop), r
+            assert inv["shape"] == (3, 8, 16, shape[2])

@@ -120,9 +120,12 @@ def test_ep_group_matches_reference(E, pod):
 
 
 def test_pod_scale_ep_across_dp_rows_raises():
+    """A pod-scale config's EP group on dp rows takes the data axis; its
+    MoE layer needs the grid's Groups to build (the eight-rank runs are in
+    tests/test_torch_pod_ep.py), and raises without them."""
     cfg = get_config("llama4-17b-16e").reduced()
     assert TM.ep_group(Layout(dp=2), 4, True) == (("data",), False)
-    with pytest.raises(NotImplementedError, match="dp rows.*ROADMAP"):
+    with pytest.raises(ValueError, match="data.*need the grid's Groups"):
         TM.MoE(cfg, Layout(dp=2), torch.float32, "cpu")
     assert not Model(get_config("qwen-30b-a3b").reduced(),
                      device="cpu").pod_scale
