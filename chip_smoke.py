@@ -259,6 +259,27 @@ Phases (every failure propagates and exits non-zero):
    equivalence inputs' logits within 1e-3 and the engines' streams
    equal.
 
+5h. recurrentgemma-9b (RG-LRU recurrent blocks and local attention over a
+   ring cache with soft-capped scores, MQA of 16 heads of 256 over one KV
+   head, GeGLU) at full width and depth in bf16 on one card (19.25 GB;
+   the bytes reckoned against the free memory first): the serve workload
+   through the serialized dense engine (its layers do not page), eager,
+   graphed, graphed and eager, equal streams, 77 RMSNorm launches per
+   step (ln1 and ln2 of 38 layers and the final norm; the ring attention
+   and the RG-LRU are plain PyTorch), TTFT, ms per decode step, tokens/s,
+   busy ms and peak memory; then reduced recurrentgemma-9b in fp32, card
+   against CPU: prefill and two decode steps with the ring of 8 rows
+   wrapping (logits and every cache tensor within 1e-3) and the dense
+   engine's streams with more requests than slots;
+9b. recurrentgemma-9b at full width cut to one (rglru, rglru, local)
+   pattern and the two suffix layers, in fp32 on (sp, tp) = (2, 2) over
+   gloo on the one card (the RG-LRU's branches through the Ulysses
+   exchange as channel blocks): the serve workload through the serialized
+   dense engine, every rank's streams equal and equal to a one-rank run's
+   at the same depth, 11 RMSNorm launches per step, the dense cache's
+   invariance on every rank; it prints the base prefill and shift decode
+   walls per step with their all-to-all and all-reduce bytes.
+
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -1426,8 +1447,13 @@ def step_launches(eng, kind):
     (one launch) per attention or MoE layer, ln1 and the grouped norm per SSD
     layer, and the final norm; one attention per attention layer, by the
     kernel of the step's kind and cache; one SSD chunk launch per SSD layer
-    in a prefill step, none in a decode step."""
+    in a prefill step, none in a decode step; ln1 and ln2 per layer of
+    recurrentgemma's RG-LRU and local layers and nothing else."""
     kinds = eng.mcfg.layer_kinds
+    if {"rglru", "local"} & set(kinds):
+        # ln1 and ln2 of every layer and the final norm; the ring
+        # attention and the RG-LRU block are plain
+        return {"rmsnorm": 2 * len(kinds) + 1}
     n_ssd = kinds.count("ssd")
     n_attn = len(kinds) - n_ssd                 # attention and MoE layers
     attention = ("paged_ragged_attention" if eng.paged else
@@ -5167,8 +5193,9 @@ def rank_param_bytes(torch, cfg, lay, rank, dtype):
 
 
 def seeded_init(torch, model, seed=0):
-    """Random weights for a full-width MoE model without its canonical
-    expert draws: every other parameter as ``init_params`` draws it (one
+    """Random weights for a full-width model without a MoE layer's
+    canonical expert draws: every other parameter as ``init_params`` draws
+    it, one tensor at a time (one
     generator seeded ``seed`` on the card), each expert's matrices from a
     generator of their own (seeded by ``seed``, the layer and the expert)
     and cut to this rank's FF block. No draw depends on the layout, so a
@@ -5186,13 +5213,14 @@ def seeded_init(torch, model, seed=0):
         if hasattr(p, "lm_head"):
             p.lm_head.reset_parameters(gen)
         for i, layer in enumerate(p.layers):
+            if layer.kind != "moe":
+                # ln1, the attention or mixer, ln2 and the FFN, in turn
+                layer.reset_parameters(gen)
+                continue
             layer.ln1.reset_parameters()
             layer.attn.reset_parameters(gen)
             layer.ln2.reset_parameters()
             ffn = layer.ffn
-            if layer.kind != "moe":
-                ffn.reset_parameters(gen)
-                continue
             cfg, mo = ffn.cfg, ffn.cfg.moe
             d, ff = cfg.d_model, mo.d_ff_expert
             _, e0, tpr, t = MOE.expert_grid(cfg, ffn.shard.lay,
@@ -5637,6 +5665,358 @@ def pod_reduced_phase(torch):
     print(f"pod reduced phase: {wall:.1f} s; card: {card_line()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5h / 9b: recurrentgemma-9b (RG-LRU and local ring attention)
+# ---------------------------------------------------------------------------
+RG_HEADROOM = 6e9               # activations, logits and CUDA graphs
+RG_LAYOUT_DEPTH = 5             # one (rglru, rglru, local) pattern + suffix
+RG_LAYOUT_TIMEOUT_S = 600
+
+
+def rg_cut(layers):
+    """recurrentgemma-9b at full width with ``layers`` layers: the pattern
+    repeated ``(layers - 2) / 3`` times and its two suffix RG-LRU
+    layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    return replace(get_config("recurrentgemma-9b"), num_layers=layers)
+
+
+def rg_reduced_check(torch, device="cuda"):
+    """Reduced recurrentgemma-9b in fp32, the card against the CPU on the
+    same weights: the equivalence inputs' prefill (16 tokens against a
+    window of 8 and a cache of 32 rows) and two decode steps (positions
+    16 and 17: the ring wraps), logits and every cache tensor within
+    1e-3; then the dense engine with more requests than slots (s_max 64),
+    equal streams and configs. Each output's error is printed beside its
+    largest magnitude and beside both runs' distance from a CPU run in
+    fp64 (where the model keeps fp32, Λ, the gates' decay and ``h``, that
+    run does too). Returns the max abs errors of the logits and caches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    small = get_config("recurrentgemma-9b").reduced()
+    gpu = Model(small, device=device, dtype=torch.float32)
+    gpu.init_params(torch.Generator(device=device).manual_seed(0))
+    state = {k: v.cpu() for k, v in gpu.params.state_dict().items()}
+    cpu = Model(small, device="cpu", dtype=torch.float32)
+    cpu.load_params(state)
+    f64 = Model(small, device="cpu", dtype=torch.float64)
+    f64.load_params({k: v.double() for k, v in state.items()})
+    models = (gpu, cpu, f64)
+    toks = (np.arange(8 * 16, dtype=np.int32).reshape(8, 16) * 7) % 256
+    for m in models:
+        m.init_cache(8, 32)
+    check(gpu.cache.ring_k.shape[2] == small.local_window < 32,
+          f"reduced recurrentgemma: ring of {gpu.cache.ring_k.shape[2]} rows")
+
+    def drift(what, outs):
+        g, c, x = (t.cpu().double() for t in outs)
+        err = compare(torch, f"recurrentgemma reduced fp32 {what}", g, c,
+                      1e-3)
+        top = x.abs().max().item()
+        print(f"reduced recurrentgemma fp32 {what} {tuple(g.shape)}: card "
+              f"against CPU {err}, max |value| {top} (relative "
+              f"{err / top}); card against fp64 "
+              f"{(g - x).abs().max().item()}, CPU against fp64 "
+              f"{(c - x).abs().max().item()}")
+        return err
+
+    err = drift("logits, prefill", [m.prefill(toks, np.zeros(8, np.int32))[0]
+                                    for m in models])
+    for pos in (16, 17):
+        err = max(err, drift(f"logits, decode at {pos}", [
+            m.decode(np.arange(8) % 256, np.full(8, pos), sample=False)[0]
+            for m in models]))
+    cache_err = max(drift(f"cache {name}", [m.cache.tensors()[name]
+                                            for m in models])
+                    for name in gpu.cache.tensors())
+    runs = []
+    for m in (gpu, cpu):
+        eng = ShiftEngine(m, EngineConfig(max_slots=2, s_max=64,
+                                          prefill_chunk=8))
+        reqs = serve.workload(5, 12)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], dict(eng.config_counts)))
+    check(runs[0] == runs[1], f"reduced recurrentgemma dense engine: card "
+          f"{runs[0]} != cpu {runs[1]}")
+    print(f"reduced recurrentgemma fp32 (window 8, ring wraps): card against "
+          f"CPU logits max abs err {err}, caches {cache_err} (tol 1e-3); the "
+          f"dense engine (5 requests on 2 slots) equal streams, configs "
+          f"{runs[0][1]}")
+    del gpu, cpu, f64
+    return err, cache_err
+
+
+def recurrentgemma_phase(torch):
+    """recurrentgemma-9b at full width and depth (38 layers: 12 x
+    (rglru, rglru, local) and two RG-LRU layers; d_model 4096, MQA of 16
+    heads of 256 over one KV head, window 2048, soft cap 30, GeGLU) in
+    bf16 on one card: the bytes reckoned against the free memory (no fit,
+    no run), ``seeded_init`` weights, the serve workload through the
+    serialized dense engine (its automatic fallback: local and RG-LRU
+    layers do not page) in eager, graphed, graphed and eager turns
+    (``serve_turns``: equal streams and launches; 77 RMSNorm launches per
+    step by the counters and the profiler's trace; the ring attention and
+    the RG-LRU scan are plain PyTorch); then ``rg_reduced_check``. Returns
+    the first graphed turn's launches and every turn's numbers."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = rg_cut(38)
+    ecfg = EngineConfig()
+    parts = rank_param_bytes(torch, cfg, Layout(), 0, torch.bfloat16)
+    kinds = cfg.layer_kinds
+    w = cfg.rglru.lru_width
+    ring = (kinds.count("local") * 2 * ecfg.max_slots
+            * min(ecfg.s_max, cfg.local_window) * cfg.head_dim * 2)
+    state = kinds.count("rglru") * ecfg.max_slots * w * (
+        4 + (cfg.rglru.conv1d_width - 1) * 2)
+    init = cfg.vocab_size * cfg.d_model * (4 + 2)
+    free, total = torch.cuda.mem_get_info()
+    need = parts["total"] + ring + state + init + RG_HEADROOM
+    print(f"recurrentgemma phase: memory reckoned: weights "
+          f"{parts['total'] / 1e9:.2f} GB in bf16 (Λ fp32): embedding and "
+          f"head {parts['tables'] / 1e9:.2f} GB, an RG-LRU layer "
+          f"{parts['layers'][0] / 1e9:.3f} GB, a local layer "
+          f"{parts['layers'][2] / 1e9:.3f} GB; rings {ring / 1e6:.1f} MB, "
+          f"RG-LRU state {state / 1e6:.1f} MB; the largest init temporary "
+          f"{init / 1e9:.2f} GB; {RG_HEADROOM / 1e9:.0f} GB headroom: "
+          f"{need / 1e9:.2f} GB against {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f} GB; no cut (38 of 38 layers)")
+    check(need <= free, f"recurrentgemma: {need / 1e9:.2f} GB needed, "
+          f"{free / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    seeded_init(torch, model, 0)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size() for p in model.params.parameters())
+    check(held == parts["total"], f"recurrentgemma: {held} B held, reckoned "
+          f"{parts['total']}")
+    eng = ShiftEngine(model, ecfg)
+    check(not eng.paged and not eng.mixed and "non-pageable"
+          in eng.paged_disabled_reason, "recurrentgemma: not the dense "
+          "fallback")
+    for kind in ("prefill", "decode"):
+        check(step_launches(eng, kind) == {"rmsnorm": 77},
+              f"recurrentgemma: per-step launches {step_launches(eng, kind)}")
+    rows = eng.model.cache.ring_k.shape[2]
+    print(f"recurrentgemma-9b full width: {cfg.num_layers} layers "
+          f"({kinds.count('rglru')} RG-LRU, {kinds.count('local')} local), "
+          f"d_model {cfg.d_model}, LRU width {w}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim} over {cfg.num_kv_heads} KV head, window "
+          f"{cfg.local_window} (ring of {rows} rows at s_max {ecfg.s_max}), "
+          f"soft cap {cfg.logits_soft_cap}, d_ff {cfg.d_ff} GeGLU; "
+          f"{cfg.num_params() / 1e9:.3f} B params, built in {build_s:.1f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB while "
+          f"building; {eng.paged_disabled_reason}")
+    del eng
+    reqs, launches, turns = serve_turns(torch, model, {},
+                                        "recurrentgemma-9b serialized dense")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / sum(turns[1]["configs"].values())
+                for k, v in launches.items() if v}
+    check(per_step == {"rmsnorm": 77}, f"recurrentgemma: launches per step "
+          f"{per_step}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err, cache_err = rg_reduced_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = next(st for st in turns if st["graphed"])
+    print(f"recurrentgemma-9b [graphed]: TTFT ms " + ", ".join(
+        f"{t:.1f}" for t in g["ttft_ms"]) + f"; {g['wall_ms_per_decode_step']:.2f}"
+        f" ms per decode step, {g['decode_tokens_per_s']:.1f} decode "
+        f"tokens/s, device busy {g['busy_ms_per_step']:.2f} ms per profiled "
+        f"decode step ({g['busy_share']:.1%}); 77 RMSNorm launches per step; "
+        f"peak {peak:.2f} GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"recurrentgemma": {
+        "layers": cfg.num_layers, "weights_gb": parts["total"] / 1e9,
+        "build_s": build_s, "turns": turns, "peak_gb": peak,
+        "rmsnorm_per_step": 77, "fp32_reduced_max_abs_err": err,
+        "fp32_reduced_cache_err": cache_err, "phase_wall_s": wall}}))
+    print(f"recurrentgemma phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, turns
+
+
+def rg_layout_rank(rank, groups, layers):
+    """One rank of recurrentgemma-9b on (sp, tp) = (2, 2) (spawned by
+    ``run_ranks``): full width with ``layers`` layers in fp32, base on the
+    grid and shift on its ``to_shift()``, built in turn (one init
+    temporary on the card at a time), serving the serve workload through
+    the serialized dense engine with each step's wall and collective
+    bytes kept by config and kind; then the dense cache's invariance."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import invariance as INV
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = rg_cut(layers)
+    lay = Layout(sp=2, tp=2)
+    torch.cuda.reset_peak_memory_stats()
+    models = []
+    for turn in range(lay.world):
+        if turn == rank:
+            for layout in (lay, lay.to_shift()):
+                m = Model(cfg, device="cuda", dtype=torch.float32,
+                          lay=layout, groups=groups)
+                seeded_init(torch, m, 0)
+                models.append(m)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    eng = ShiftEngine(models[0], EngineConfig(), shift=models[1])
+    walls, traffic = timed_forward(torch, eng, groups,
+                                   kinds=("prefill", "decode"))
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return {"rank": rank, "serve_s": time.monotonic() - t0,
+            "launches": serve.launch_counts(),
+            "streams": [r.generated for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "counts": dict(eng.config_counts),
+            "walls": {k: list(v) for k, v in walls.items()},
+            "traffic": {k: dict(v) for k, v in traffic.items()},
+            "invariance": INV.verify_dense_invariance(eng.base, eng.shift,
+                                                      rank),
+            "channels": list(INV.rglru_channels(eng.base, rank))[::1024],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rg_single_rank_streams(torch, layers):
+    """The serve workload's streams of a one-rank fp32 engine on the same
+    weights at the same depth (``seeded_init`` draws the canonical tensors
+    whatever the layout)."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    model = Model(rg_cut(layers), device="cuda", dtype=torch.float32)
+    seeded_init(torch, model, 0)
+    eng = ShiftEngine(model, EngineConfig())
+    reqs = serve.workload(6, 16)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    out = [list(r.generated) for r in reqs]
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrentgemma_layout_phase(torch):
+    """recurrentgemma-9b at full width, cut to one (rglru, rglru, local)
+    pattern and the two suffix RG-LRU layers, in fp32 on (sp, tp) = (2, 2)
+    over gloo on the one card (the parent holding nothing while the ranks
+    run): base (the RG-LRU's x and y branches and the attention's q, k, v
+    through the Ulysses all-to-all, sequence for channel blocks or heads)
+    and shift models over one dense cache per rank, the serve workload
+    through the serialized dense engine. Every rank's streams equal, and
+    equal to a one-rank engine's at the same depth on the same weights;
+    launches exact (11 RMSNorm a step); the dense cache's invariance on
+    every rank. Prints the base prefill and shift decode walls per step
+    and their all-to-all and all-reduce bytes. Returns rank 0's
+    launches."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel import Layout
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = RG_LAYOUT_DEPTH
+    cfg = rg_cut(layers)
+    single = rg_single_rank_streams(torch, layers)
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"recurrentgemma layout phase: the parent still "
+          f"holds {held / 1e9:.2f} GB on the card")
+    lay = Layout(sp=2, tp=2)
+    per_rank = [rank_param_bytes(torch, cfg, la, r, torch.float32)["total"]
+                for r in range(lay.world) for la in (lay, lay.to_shift())]
+    free, total = torch.cuda.mem_get_info()
+    need = sum(per_rank) + lay.world * 2e9 + cfg.vocab_size * cfg.d_model * 4
+    print(f"recurrentgemma layout (sp 2, tp 2): {cfg.layer_kinds} at full "
+          f"width in fp32; memory reckoned: {sum(per_rank) / 1e9:.2f} GB of "
+          f"weights over 4 ranks (base and shift), + 2 GB a rank, one init "
+          f"temporary: {need / 1e9:.1f} GB against {free / 1e9:.1f} GB free "
+          f"of {total / 1e9:.1f}. Cut: {layers} of 38 layers; widths, heads "
+          "and the vocabulary whole")
+    check(need <= free, f"recurrentgemma layout: {need / 1e9:.1f} GB "
+          f"needed, {free / 1e9:.1f} GB free")
+    t0 = time.monotonic()
+    res = run_ranks(rg_layout_rank, 2, 2, device="cuda", backend="gloo",
+                    timeout_s=RG_LAYOUT_TIMEOUT_S, args=(layers,))
+    ran = time.monotonic() - t0
+    r0 = res[0]
+    steps = sum(r0["counts"].values())
+    for r in res:
+        check(r["streams"] == r0["streams"] and r["counts"] == r0["counts"],
+              f"recurrentgemma layout: rank {r['rank']}'s streams or configs "
+              "differ from rank 0's")
+        check(all(f == "ok" for f in r["finish"])
+              and all(len(x) == 16 for x in r["streams"]),
+              f"recurrentgemma layout: rank {r['rank']}: {r['finish']}")
+        check(r["launches"] == {k: (11 if k == "rmsnorm" else 0) * steps
+                                for k in r["launches"]},
+              f"recurrentgemma layout: rank {r['rank']}: launches "
+              f"{r['launches']} over {steps} steps, want 11 RMSNorm a step")
+        check(r["invariance"], f"recurrentgemma layout: rank {r['rank']}: "
+              "the dense cache's invariance failed")
+    check(r0["counts"].get("base", 0) > 0 and r0["counts"].get("shift", 0) > 0,
+          f"recurrentgemma layout: configs used {r0['counts']}")
+    check(r0["streams"] == single, "recurrentgemma layout: the (2, 2) "
+          f"streams {r0['streams']} differ from the one-rank run's {single}")
+    stats = {}
+    for k, w in r0["walls"].items():
+        if not w:
+            continue
+        tr = r0["traffic"][k]
+        stats[k] = {"steps": len(w), "wall_ms_per_step": sum(w) / len(w) * 1e3,
+                    "all_to_all_bytes_per_step":
+                        tr.get("all_to_all_bytes", 0) / len(w),
+                    "all_reduce_bytes_per_step":
+                        tr.get("all_reduce_bytes", 0) / len(w)}
+        print(f"recurrentgemma (2, 2) {k}: {len(w)} steps on rank 0, wall "
+              f"{stats[k]['wall_ms_per_step']:.2f} ms per step; per step "
+              f"{stats[k]['all_to_all_bytes_per_step'] / 1e6:.3f} MB "
+              f"all-to-all, {stats[k]['all_reduce_bytes_per_step'] / 1e6:.3f}"
+              " MB all-reduce (payload handed over by the rank)")
+    print(f"recurrentgemma (2, 2): 4 ranks ran in {ran:.1f} s; served 6 "
+          f"requests x 16 tokens in {r0['serve_s']:.2f} s, {steps} steps "
+          f"{r0['counts']}; every rank's streams equal and equal to the "
+          f"one-rank run's; invariance held on every rank (RG-LRU channel "
+          f"blocks from " + ", ".join(str(r["channels"]) for r in res)
+          + "); peak per rank " + ", ".join(
+              f"{r['peak_bytes'] / 1e9:.2f}" for r in res) + " GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"recurrentgemma_layout": {
+        "layers": layers, "dtype": "fp32", "configs": r0["counts"],
+        "per_config": stats, "serve_s": r0["serve_s"], "run_s": ran,
+        "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res],
+        "phase_wall_s": wall}}))
+    print(f"recurrentgemma layout phase: {wall:.1f} s in all; card: "
+          f"{card_line()}")
+    return r0["launches"]
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -5737,6 +6117,8 @@ def main():
     by_path["qwen30b_a3b"], turns["qwen30b_a3b"] = qwen30b_phase(torch)
     by_path["deepseek_dense"], turns["deepseek_dense"] = \
         deepseek_phase(torch)
+    by_path["recurrentgemma_dense"], turns["recurrentgemma_dense"] = \
+        recurrentgemma_phase(torch)
     simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
         by_path["layout_adaptive_rank0"], overhead, serialized = \
@@ -5748,6 +6130,8 @@ def main():
     by_path["reshard_fp32_rank0"] = reshard_phase(torch)
     for key, launches in deepseek_layout_phase(torch).items():
         by_path[f"deepseek_{key}_rank0"] = launches
+    by_path["recurrentgemma_sp2_tp2_rank0"] = \
+        recurrentgemma_layout_phase(torch)
     pod_reduced_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from .archs import ARCHS, DENSE_GQA, PAPER_MODELS
-from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from .base import MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 
 _REGISTRY = {c.name: c for c in ARCHS}
 
@@ -15,5 +15,6 @@ def get_config(name: str) -> ModelConfig:
                        f"{sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ModelConfig", "MLAConfig", "MoEConfig", "SSMConfig", "ARCHS",
+__all__ = ["ModelConfig", "MLAConfig", "MoEConfig", "RGLRUConfig",
+           "SSMConfig", "ARCHS",
            "DENSE_GQA", "PAPER_MODELS", "get_config"]

@@ -1,5 +1,6 @@
 """The architectures the port serves (same numbers as
-``repro.configs.archs``): four dense GQA decoders and mamba2, the MoE
+``repro.configs.archs``): four dense GQA decoders, mamba2 and the hybrid
+recurrentgemma-9b (RG-LRU recurrent blocks and local attention), the MoE
 DeepSeek-V3 (multi-head latent attention, three dense prefix layers ahead
 of 58 MoE layers of 256 experts) and Llama-4 Maverick (dense and MoE
 layers interleaved), plus the paper's evaluation models (Table 4): the
@@ -12,7 +13,7 @@ their depth cut (``dataclasses.replace(cfg, num_layers=...)``).
 """
 from __future__ import annotations
 
-from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from .base import MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 
 QWEN3_8B = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -50,6 +51,19 @@ MAMBA2_1_3B = ModelConfig(
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64, chunk=64),
     tie_embeddings=True,
     source="arXiv:2405.21060",
+)
+
+# RecurrentGemma / Griffin: repeating (RG-LRU, RG-LRU, local attention); 38
+# layers = 12 x pattern + 2 trailing recurrent blocks. MQA (1 KV head),
+# window 2048, attention scores soft-capped at 30, GeGLU MLP.
+RECURRENTGEMMA_9B = ModelConfig(
+    name="recurrentgemma-9b", family="hybrid",
+    num_layers=38, d_model=4096, num_heads=16, num_kv_heads=1, head_dim=256,
+    d_ff=12288, vocab_size=256000,
+    layer_pattern=("rglru", "rglru", "local"), suffix_layers=("rglru", "rglru"),
+    local_window=2048, rglru=RGLRUConfig(lru_width=4096, conv1d_width=4),
+    logits_soft_cap=30.0, act="geglu",
+    source="arXiv:2402.19427",
 )
 
 DEEPSEEK_V3_671B = ModelConfig(
@@ -112,5 +126,5 @@ QWEN_30B_A3B = ModelConfig(
 
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
 PAPER_MODELS = (LLAMA_70B, QWEN_32B, LLAMA4_17B_16E, QWEN_30B_A3B)
-ARCHS = DENSE_GQA + (MAMBA2_1_3B, DEEPSEEK_V3_671B, LLAMA4_MAVERICK_400B) \
-    + PAPER_MODELS
+ARCHS = DENSE_GQA + (MAMBA2_1_3B, RECURRENTGEMMA_9B, DEEPSEEK_V3_671B,
+                     LLAMA4_MAVERICK_400B) + PAPER_MODELS

@@ -1,14 +1,18 @@
 """Model configuration of the port's architectures.
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
-that its three layer kinds use: ``"attn"`` (GQA attention, or multi-head
-latent attention with ``MLAConfig``, with SwiGLU and RMSNorm), ``"moe"``
-(the same attention with the Mixture-of-Experts FFN, ``MoEConfig``) and
-``"ssd"`` (the Mamba-2 SSD mixer, with ``SSMConfig``); the layer stack
+that its five layer kinds use: ``"attn"`` (GQA attention, or multi-head
+latent attention with ``MLAConfig``, with a gated MLP and RMSNorm),
+``"local"`` (the same attention over a sliding window of
+``local_window`` keys, a ring cache), ``"moe"`` (the attention with the
+Mixture-of-Experts FFN, ``MoEConfig``), ``"rglru"`` (Griffin's RG-LRU
+recurrent block with the MLP, ``RGLRUConfig``) and ``"ssd"`` (the Mamba-2
+SSD mixer, with ``SSMConfig``); the MLP's gate activation ``act``
+(``"silu"``: SwiGLU, ``"geglu"``: GeGLU with tanh-approximated GELU); the
+logit soft cap of the attention scores; the layer stack
 (``prefix_layers``, the repeated ``layer_pattern``, ``suffix_layers``),
-``mtp_depth`` (DeepSeek-V3's multi-token prediction head, which serving
-does not read), and the field the cost model alone reads
-(``local_window``). ``reduced()`` cuts widths and depth exactly as the
+and ``mtp_depth`` (DeepSeek-V3's multi-token prediction head, which
+serving does not read). ``reduced()`` cuts widths and depth exactly as the
 reference's ``reduced()`` does for such a model.
 """
 from __future__ import annotations
@@ -65,9 +69,20 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU (RecurrentGemma / Griffin) recurrent block."""
+
+    lru_width: int = 0            # 0 -> d_model
+    conv1d_width: int = 4
+
+    def width(self, d_model: int) -> int:
+        return self.lru_width or d_model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "dense" (attn) | "moe" (moe) | "ssm" (ssd)
+    family: str                   # dense | moe | ssm | hybrid (rglru + local)
     num_layers: int
     d_model: int
     num_heads: int
@@ -75,7 +90,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
-    layer_pattern: tuple = ("attn",)     # repeated; "attn", "moe" or "ssd"
+    layer_pattern: tuple = ("attn",)     # repeated; attn, local, moe, rglru, ssd
     prefix_layers: tuple = ()            # run before the repeated pattern
     suffix_layers: tuple = ()            # run after the repeated pattern
     qk_norm: bool = False         # RMSNorm over q and k per head (qwen3)
@@ -85,7 +100,9 @@ class ModelConfig:
     logits_soft_cap: float = 0.0
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    act: str = "silu"             # the MLP's gate: silu (SwiGLU) | geglu
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     mtp_depth: int = 0            # DeepSeek-V3 multi-token prediction
     tie_embeddings: bool = False  # the LM head is the embedding table
     norm_eps: float = 1e-6
@@ -133,15 +150,18 @@ class ModelConfig:
     def num_params(self) -> int:
         """Parameter count of the port's modules: the embedding, the LM head
         unless tied, the norm scales, and per layer q/k/v/o (or MLA's
-        projections and its two latent norms) with SwiGLU (three matrices)
-        or the MoE FFN (the router, every expert's three matrices and the
-        shared experts'), or the SSD mixer (z/x/bc/dt projections, dt_bias,
-        A_log, D, the two convolutions, the grouped norm and wo). The
-        multi-token prediction head is not served and not counted."""
+        projections and its two latent norms) with the gated MLP (three
+        matrices) or the MoE FFN (the router, every expert's three matrices
+        and the shared experts'), the RG-LRU mixer (the x, y and out
+        projections, the conv, the two block-diagonal gates over 16
+        channel blocks and Λ) with the MLP, or the SSD mixer (z/x/bc/dt
+        projections, dt_bias, A_log, D, the two convolutions, the grouped
+        norm and wo). The multi-token prediction head is not served and
+        not counted."""
         d, dh = self.d_model, self.head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
         for kind in self.layer_kinds:
-            if kind in ("attn", "moe"):
+            if kind in ("attn", "local", "moe"):
                 attn = self._attn_params()
                 if self.mla is not None:
                     attn += self.mla.q_lora_rank + self.mla.kv_lora_rank
@@ -150,13 +170,18 @@ class ModelConfig:
                 if self.qk_norm:
                     attn += 2 * dh
                 n += attn + 2 * d
-                if kind == "attn":
+                if kind != "moe":
                     n += 3 * d * self.d_ff
                 else:
                     mo = self.moe
                     n += d * mo.num_experts + mo.num_experts * 3 * d \
                         * mo.d_ff_expert + mo.num_shared_experts * 3 * d \
                         * (mo.d_ff_shared or mo.d_ff_expert)
+            elif kind == "rglru":
+                r = self.rglru
+                w = r.width(d)
+                n += 3 * d * w + r.conv1d_width * w + 2 * w * (w // 16) \
+                    + w + 2 * d + 3 * d * self.d_ff
             else:
                 s = self.ssm
                 di, nh, ds = s.d_inner(d), s.n_heads(d), s.d_state
@@ -192,6 +217,11 @@ class ModelConfig:
                 di = s.d_inner(d)
                 n += d * (2 * di + 2 * s.d_state + s.n_heads(d))
                 n += di * d + s.d_conv * (di + 2 * s.d_state)
+            elif kind == "rglru":
+                r = self.rglru
+                w = r.width(d)
+                n += 2 * d * w + w * d + r.conv1d_width * w + 2 * w
+                n += 2 * w * w // 8
         return n
 
     def reduced(self) -> "ModelConfig":
@@ -199,8 +229,8 @@ class ModelConfig:
         layers, plus the first prefix and the first suffix layer, d_model
         64, 4 query heads, at most 2 KV heads, head_dim 16, d_ff 128,
         vocab 256, ``mtp_depth`` at most 1; an SSD mixer of d_state 16,
-        head_dim 16 and chunk 8; MLA, MoE and a local window cut as the
-        reference cuts them."""
+        head_dim 16 and chunk 8; an RG-LRU of width 64; MLA, MoE and a
+        local window (8) cut as the reference cuts them."""
         pat = len(self.layer_pattern)
         kw = dict(num_layers=pat * max(1, 2 // pat)
                   + len(self.prefix_layers[:1]) + len(self.suffix_layers[:1]),
@@ -220,6 +250,8 @@ class ModelConfig:
         if self.ssm is not None:
             kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2,
                                   head_dim=16, chunk=8)
+        if self.rglru is not None:
+            kw["rglru"] = RGLRUConfig(lru_width=64, conv1d_width=4)
         if self.local_window:
             kw["local_window"] = 8
         return replace(self, **kw)

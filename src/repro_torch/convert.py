@@ -25,6 +25,8 @@ from repro_torch.models.attention import attn_layout
 from repro_torch.models.layers import shard_of, vocab_shard
 from repro_torch.models.mla import mla_layout
 from repro_torch.models.moe import expert_axes, expert_grid, expert_shard
+from repro_torch.models.recurrent import (GROUP_LEAVES, rglru_layout,
+                                          rglru_unlayout)
 from repro_torch.models.ssd import HEAD_LEAVES, ssd_layout, ssd_unlayout
 
 
@@ -76,8 +78,9 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
       ``attn``, ``ln2``, ``ffn``; an MLA ``attn``'s ``wq_a``, ``q_norm``,
       ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b``, ``wo``), a MoE
       block (the same, its ``ffn`` the ``router``, the ``wi``/``wg``/
-      ``wo`` expert stacks and ``shared.*``) and an SSD block (``ln1``,
-      ``mix``) alike;
+      ``wo`` expert stacks and ``shared.*``), a local block (as an
+      attention block), an RG-LRU block (``ln1``, ``mix``, ``ln2``,
+      ``ffn``) and an SSD block (``ln1``, ``mix``) alike;
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
     * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
       the port's tied head reads the table);
@@ -138,7 +141,10 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     and O over the grid's tp alone after padding the heads (``mla_specs``,
     ``models.mla.mla_layout``), an SSD mixer's projections over TP and its
     per-head leaves over the model group after padding the heads
-    (``ssd_specs``, ``models.ssd.ssd_layout``), and the norm scales whole.
+    (``ssd_specs``, ``models.ssd.ssd_layout``), an RG-LRU mixer's x/y
+    projections' columns and out projection's rows over TP and its conv,
+    gates and Λ over the model group (``rglru_specs``,
+    ``models.recurrent.rglru_layout``), and the norm scales whole.
     On a layout with dp rows the rank gets the shard of its grid position
     ``(i, j)``, the same in every row (the reference replicates the
     parameters over ``"data"``), except a pod-scale config's expert stacks,
@@ -149,13 +155,25 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
             for name, a in state.items()}
 
 
+def _mix_kind(name: str, cfg):
+    """The layer kind of a mixer leaf ``layers.{i}.mix.*`` (``"ssd"`` or
+    ``"rglru"``), None for any other leaf."""
+    p = name.split(".")
+    if len(p) == 4 and p[0] == "layers" and p[2] == "mix":
+        return cfg.layer_kinds[int(p[1])]
+    return None
+
+
 def is_model_group_leaf(name: str, cfg) -> bool:
     """True for the leaves cut over the whole model group (not over TP
-    alone): a MoE layer's expert stacks and an SSD mixer's per-head
-    leaves. Putting one back together takes every model rank's part."""
-    p = name.split(".")
+    alone): a MoE layer's expert stacks, an SSD mixer's per-head leaves
+    and an RG-LRU mixer's conv, gates and Λ. Putting one back together
+    takes every model rank's part."""
+    leaf = name.split(".")[-1]
+    kind = _mix_kind(name, cfg)
     return is_expert_leaf(name, cfg) or (
-        len(p) == 4 and p[2] == "mix" and p[3] in HEAD_LEAVES)
+        kind == "ssd" and leaf in HEAD_LEAVES) or (
+        kind == "rglru" and leaf in GROUP_LEAVES)
 
 
 def is_expert_leaf(name: str, cfg) -> bool:
@@ -207,6 +225,8 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
     if parts[-2] in ("ffn", "shared") and parts[-1] in ("wi", "wg", "wo"):
         return shard_of(t, 0 if parts[-1] == "wo" else 1, max(lay.tp, 1),
                         tp_rank)
+    if _mix_kind(name, cfg) == "rglru":
+        return rglru_layout(parts[-1], t, cfg, lay, rank)
     if parts[-2] == "mix":
         return ssd_layout(parts[-1], t, cfg, lay, rank)
     return t
@@ -250,6 +270,8 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
         if len(parts) != G:
             raise ValueError(f"{name}: {len(parts)} shards, want one per "
                              f"model rank ({G})")
+        if _mix_kind(name, cfg) == "rglru":
+            return rglru_unlayout(p[-1], parts)
         if p[-2] == "mix":
             return ssd_unlayout(p[-1], parts, cfg, lay)
         return _unshard_experts(name, parts, cfg, lay)
@@ -288,6 +310,8 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
             out.reshape(-1)
     if p[-2] in ("ffn", "shared") and p[-1] in ("wi", "wg", "wo"):
         return torch.cat(list(parts), 0 if p[-1] == "wo" else 1)
+    if _mix_kind(name, cfg) == "rglru":
+        return rglru_unlayout(p[-1], parts)
     if p[-2] == "mix":
         return ssd_unlayout(p[-1], parts, cfg, lay)
     return parts[0]
@@ -355,9 +379,12 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
     tensors by name (``ShiftEngine._cache_tensors()`` or the fields of a
     ``DenseCache``), in process-rank order over the world of ``lay``. The
     batch axis takes the dp rows in order; the head axis of ``k``/``v``
-    [L, B, s_max, kv_slots, Dh] and ``ssm`` [L, B, H, hd, ds] and the
-    channels of ``conv_x`` [L, B, cw-1, H·hd] take the model ranks in
-    model-rank order (the reference's ``head_spec_entry``); ``conv_bc``
+    [L, B, s_max, kv_slots, Dh], of a local layer's ring ``ring_k``/
+    ``ring_v`` [L, B, rows, kv_slots, Dh] and of ``ssm`` [L, B, H, hd,
+    ds], and the channels of ``conv_x`` [L, B, cw-1, H·hd] and of an
+    RG-LRU layer's ``h`` [L, B, w] and ``conv`` [L, B, cw-1, w] take the
+    model ranks in model-rank order (the reference's
+    ``head_spec_entry``); ``conv_bc``
     [L, B, cw-1, 2·ds], whole on every rank of a row, comes from each
     row's first rank; an MLA latent ``lat`` [L, B, s_max/cache_sp, C]
     takes the grid's sp ranks in order along the sequence (the ranks of
@@ -371,7 +398,8 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
         return t.detach().cpu().float().numpy() if isinstance(
             t, torch.Tensor) else np.asarray(t)
 
-    axis = {"k": 3, "v": 3, "ssm": 2, "conv_x": 3}
+    axis = {"k": 3, "v": 3, "ring_k": 3, "ring_v": 3, "ssm": 2, "conv_x": 3,
+            "h": 2, "conv": 3}
     out = {}
     for name in caches[0]:
         rows = []

@@ -10,8 +10,10 @@ global arrays; in the port each rank holds its own pool or dense cache,
 and ``verify_paged_invariance`` and ``verify_dense_invariance`` check it
 on that rank's tensors. The dense cache's SSD state is sharded over the
 heads as the KV cache over its slots (the reference's ``ssd_state_specs``
-and ``verify_invariance`` on them), so the same holds for its heads.
-An MLA config's latent cache has no heads: it is sharded over the
+and ``verify_invariance`` on them), so the same holds for its heads; a
+local layer's ring holds the KV cache's slots, and an RG-LRU layer's
+state is sharded over its channels as the heads (``rglru_state_specs``,
+``rglru_channels``). An MLA config's latent cache has no heads: it is sharded over the
 sequence on the grid's sp (``mla_cache_specs``' ``P(dp, cache_sp,
 None)``), and a rank holds the same chunk of it in both configs
 (``latent_chunk``).
@@ -66,6 +68,17 @@ def ssd_heads(model, rank: int) -> range:
     if model.cfg.ssm is None:
         return range(0)
     n = ssd_plan(model.cfg, model.lay).h_q_pad // max(model.lay.G, 1)
+    g = _head_block(model, rank)
+    return range(g * n, (g + 1) * n)
+
+
+def rglru_channels(model, rank: int) -> range:
+    """The global RG-LRU channels that ``model``'s dense cache holds on
+    ``rank`` (the contiguous channels of its head sub-block); empty for a
+    config without RG-LRU layers."""
+    if model.cfg.rglru is None:
+        return range(0)
+    n = model.cfg.rglru.width(model.cfg.d_model) // max(model.lay.G, 1)
     g = _head_block(model, rank)
     return range(g * n, (g + 1) * n)
 
@@ -142,8 +155,9 @@ def verify_dense_invariance(base, shift, rank: int) -> bool:
 
     1. both step the same cache tensors (equal ``data_ptr`` of every KV
        and SSD state tensor), so a switch moves no byte;
-    2. the rank owns the same KV head slots, the same SSD heads and the
-       same chunk of an MLA latent cache in both configs."""
+    2. the rank owns the same KV head slots (of the global and the ring
+       caches), the same SSD heads, the same RG-LRU channels and the same
+       chunk of an MLA latent cache in both configs."""
     a, b = base.cache, shift.cache
     if a is None or b is None:
         return False
@@ -153,4 +167,5 @@ def verify_dense_invariance(base, shift, rank: int) -> bool:
         return False
     return (kv_slots(base, rank) == kv_slots(shift, rank)
             and ssd_heads(base, rank) == ssd_heads(shift, rank)
+            and rglru_channels(base, rank) == rglru_channels(shift, rank)
             and latent_chunk(base, rank) == latent_chunk(shift, rank))

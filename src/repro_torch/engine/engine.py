@@ -1442,7 +1442,8 @@ class ShiftEngine:
     def _cache_tensors(self) -> Dict[str, torch.Tensor]:
         """The cache this engine initialised on its rank, by name: the
         paged pool's ``k`` and ``v``, or the dense cache's tensors (``k``,
-        ``v``, ``ssm``, ``conv_x``, ``conv_bc``; those of kinds the config
+        ``v``, ``lat``, ``ring_k``, ``ring_v``, ``ssm``, ``conv_x``,
+        ``conv_bc``, ``h``, ``conv``; those of kinds the config
         lacks are absent). The shift model adopts the base model's pool,
         so these are all there is."""
         if self.paged:

@@ -59,8 +59,12 @@ deepseek-v3-671b (multi-head latent attention, three dense prefix layers,
 256 experts; 1342 GB in bf16), which falls back to the serialized
 iteration on the dense latent cache (MLA does not page; the summary prints
 the reason), and llama4-maverick-400b-a17b (dense and MoE layers
-interleaved; 801 GB). At full depth a model that does not fit the card
-raises before it allocates, naming its size; ``--dp 2 --backend gloo``
+interleaved; 801 GB). ``--arch recurrentgemma-9b`` (38 layers: 12 x
+(RG-LRU, RG-LRU, local attention) and two RG-LRU layers, d_model 4096,
+19.3 GB in bf16) fits one card; its RG-LRU state and local rings do not
+page, so it falls back to the serialized iteration on the dense cache as
+mamba2 does. At full depth a model that does not fit the card raises
+before it allocates, naming its size; ``--dp 2 --backend gloo``
 serves the pod-scale MoE archs with their experts spread across the dp
 rows.
 

@@ -17,10 +17,18 @@ decode step sends the rank's batch rows as the exchange's "sequence"
 (``x[None]``, the reference's batch-as-sequence), so that each rank
 attends every row of its dp row at its own heads.
 
-Only global causal attention with RoPE and no logit soft cap is ported:
-no config of the port has sliding windows, soft caps or rope-free layers
-(local, gemma and whisper layers bring them later), so the dense paths
-raise on them."""
+Global causal attention with RoPE runs the kernels: flash for a dense
+prefill step, the dense decode kernel for a dense decode step, the ragged
+kernel on the paged pool. A sliding-window (``local``) layer keeps a ring
+cache of ``min(s_max, window)`` rows per slot on the dense path: position
+``p`` lives in row ``p mod rows``; a prefill chunk attends over the old
+ring concatenated with its own keys and then writes its last ``min(S,
+rows)`` keys, a decode step writes its key and attends the ring, both with
+the window mask and the config's logit soft cap, through the plain
+``models.attention_math`` (the reference's ring attention is jnp and
+reaches no Pallas kernel). Rope-free attention (whisper), a window over a
+cache longer than it, and a soft cap on global attention are not ported:
+the dense paths raise on them."""
 from __future__ import annotations
 
 import torch
@@ -32,6 +40,7 @@ from repro_torch.core.ulysses import (expand_kv_for_send,
 from repro_torch.kernels import ops as K
 from repro_torch.parallel import HeadPlan, Layout, Shard, plan_heads
 from repro_torch.parallel.collectives import psum_if
+from .attention_math import attend, attend_partial, finish_partial
 from .layers import (apply_rope, dense_init, empty_param, rmsnorm_pair,
                      shard_of)
 
@@ -285,12 +294,34 @@ def paged_attn_decode(p: Attention, x, k_pool, v_pool, lens, block_tables,
 # ---------------------------------------------------------------------------
 # dense contiguous cache
 # ---------------------------------------------------------------------------
-def _dense_only(cfg, window, rope):
-    if window or not rope or cfg.logits_soft_cap:
+def _ring(cfg, window, rope, rows):
+    """True for the ring path (a window over a cache of at most ``window``
+    rows, as every ``local`` layer's); False for global attention. Raises
+    on what is not ported."""
+    if not rope:
+        raise NotImplementedError("dense attention without RoPE (whisper) "
+                                  "is not ported")
+    if window and rows > window:
         raise NotImplementedError(
-            f"dense attention with window={window}, rope={rope}, "
-            f"soft_cap={cfg.logits_soft_cap}: only global causal attention "
-            "with RoPE and no soft cap is ported")
+            f"a window of {window} over a cache of {rows} rows: a local "
+            "layer's cache is its ring of min(s_max, window) rows "
+            "(init_cache); a window over a longer cache is not ported")
+    if not window and cfg.logits_soft_cap:
+        raise NotImplementedError(
+            f"soft cap {cfg.logits_soft_cap} on global attention: only the "
+            "local layers' ring attention soft-caps")
+    return bool(window)
+
+
+def ring_positions(lens, rows: int):
+    """The global position each row of a ring cache of ``rows`` rows holds
+    after ``lens`` [B] tokens: row j holds ``last - ((last mod rows - j)
+    mod rows)``, ``last = lens - 1``, and -1 (no key) where that is
+    negative. [B, rows], int64."""
+    last = lens.long()[:, None] - 1
+    j = torch.arange(rows, device=lens.device)[None]
+    pos = last - ((last % rows - j) % rows)
+    return torch.where(pos >= 0, pos, -1)
 
 
 def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
@@ -298,22 +329,36 @@ def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
     """Chunked prefill against the dense cache. x: [B, S_loc, d], this
     rank's columns of a chunk of S; row b's tokens sit at positions
     ``offsets[b] + arange(S)``, which the rank sees whole after the
-    exchange. Writes their K/V into ``k_cache``/``v_cache`` ([B, s_max,
-    kv_per_rank, Dh]) IN PLACE at
-    ``offsets`` clamped so the chunk fits (the reference's
-    ``dynamic_update_slice``), padding columns included, then attends the
-    chunk against the whole cache row: the flash kernel's causal mask
-    ``kpos <= offsets[b] + i`` is the reference's ``attend`` with
-    ``kv_len = offsets + S``. Returns out [B, S_loc, d]."""
-    _dense_only(cfg, window, rope)
+    exchange. Global attention writes their K/V into ``k_cache``/
+    ``v_cache`` ([B, s_max, kv_per_rank, Dh]) IN PLACE at ``offsets``
+    clamped so the chunk fits (the reference's ``dynamic_update_slice``),
+    padding columns included, then attends the chunk against the whole
+    cache row: the flash kernel's causal mask ``kpos <= offsets[b] + i``
+    is the reference's ``attend`` with ``kv_len = offsets + S``. A
+    ``window`` layer's ring cache [B, rows, kv_per_rank, Dh] is attended
+    concatenated with the chunk's keys (the window mask and soft cap),
+    then the chunk's last ``min(S, rows)`` keys are written at their
+    positions mod ``rows``. Returns out [B, S_loc, d]."""
+    ring = _ring(cfg, window, rope, k_cache.shape[1])
     q, k, v = _project_exchange(p, x, cfg)
     B, S = q.shape[:2]
     pos = offsets[:, None].long() + torch.arange(S, device=x.device)[None]
     q, k = _qk_post(p, q, k, pos, cfg)
+    rows = torch.arange(B, device=x.device)[:, None]
+    if ring:
+        n = k_cache.shape[1]
+        kv_pos = torch.cat([ring_positions(offsets, n), pos], dim=1)
+        k_all = torch.cat([k_cache, k], dim=1)
+        v_all = torch.cat([v_cache, v], dim=1)
+        m = min(S, n)
+        k_cache[rows, pos[:, -m:] % n] = k[:, -m:]
+        v_cache[rows, pos[:, -m:] % n] = v[:, -m:]
+        out = attend(q, k_all, v_all, pos, kv_pos, window=window,
+                     soft_cap=cfg.logits_soft_cap)
+        return _finish(p, out)
     s_max = k_cache.shape[1]
     start = offsets.long().clamp(0, s_max - S)
     idx = start[:, None] + torch.arange(S, device=x.device)[None]   # [B, S]
-    rows = torch.arange(B, device=x.device)[:, None]
     k_cache[rows, idx] = k
     v_cache[rows, idx] = v
     out = K.flash_attention(q, k_cache, v_cache, causal=True,
@@ -328,11 +373,22 @@ def attn_decode(p: Attention, x, k_cache, v_cache, lens, cfg, *,
     (inactive slots pass 0 and write a garbage K/V at position 0 of their
     free row, as the reference does); k_cache/v_cache [B_row, s_max,
     kv_per_rank, Dh]. Writes in place, then attends ``kpos < lens + 1``
-    with the decode kernel at the rank's heads. Returns [B_loc, d]."""
-    _dense_only(cfg, window, rope)
+    with the decode kernel at the rank's heads; a ``window`` layer writes
+    row ``lens mod rows`` of its ring and attends the ring with the
+    window mask and soft cap. Returns [B_loc, d]."""
+    ring = _ring(cfg, window, rope, k_cache.shape[1])
     q, k, v = _decode_exchange(p, x, lens, cfg)
     rows = torch.arange(q.shape[0], device=x.device)
-    k_cache[rows, lens.long()] = k[:, 0]
-    v_cache[rows, lens.long()] = v[:, 0]
-    out = K.decode_attention(q, k_cache, v_cache, lens + 1)
+    ln = lens.long()
+    wp = ln % k_cache.shape[1] if ring else ln
+    k_cache[rows, wp] = k[:, 0]
+    v_cache[rows, wp] = v[:, 0]
+    if ring:
+        kv_pos = ring_positions(lens + 1, k_cache.shape[1])
+        acc, l, m = attend_partial(q, k_cache, v_cache, ln[:, None], kv_pos,
+                                   window=window,
+                                   soft_cap=cfg.logits_soft_cap)
+        out = finish_partial(acc, l, m).to(q.dtype)
+    else:
+        out = K.decode_attention(q, k_cache, v_cache, lens + 1)
     return _decode_finish(p, out)

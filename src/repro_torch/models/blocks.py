@@ -1,10 +1,13 @@
 """Pre-norm residual blocks (counterpart of ``repro.models.blocks``) for the
-port's three layer kinds: ``"attn"`` (attention + SwiGLU MLP), ``"moe"``
-(the same attention + the Mixture-of-Experts FFN) and ``"ssd"`` (the
-Mamba-2 mixer alone, no ln2 and no FFN). A config with ``mla`` takes
-multi-head latent attention (``models.mla``) in place of GQA attention in
-both attention kinds; its layers keep the dense latent cache and never
-page."""
+port's five layer kinds: ``"attn"`` (attention + the gated MLP of
+``cfg.act``), ``"local"`` (the same with sliding-window attention over a
+ring cache of ``min(s_max, local_window)`` rows), ``"moe"`` (the
+attention + the Mixture-of-Experts FFN), ``"rglru"`` (the RG-LRU mixer +
+the MLP) and ``"ssd"`` (the Mamba-2 mixer alone, no ln2 and no FFN). A
+config with ``mla`` takes multi-head latent attention (``models.mla``) in
+place of GQA attention in the ``attn`` and ``moe`` kinds; its layers keep
+the dense latent cache and never page. Only ``attn`` and ``moe`` layers of
+GQA attention page."""
 from __future__ import annotations
 
 from torch import nn
@@ -13,6 +16,7 @@ from repro_torch.parallel import Layout, Shard
 from . import attention as A
 from . import mla as M
 from . import moe as MOE
+from . import recurrent as R
 from . import ssd as S
 from .layers import MLP, RMSNorm, mlp_apply
 
@@ -33,11 +37,42 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
         self.attn = _attention(cfg, lay, dtype, device, shard)
         self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard)
+        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard, cfg.act)
 
     def reset_parameters(self, generator):
         self.ln1.reset_parameters()
         self.attn.reset_parameters(generator)
+        self.ln2.reset_parameters()
+        self.ffn.reset_parameters(generator)
+
+
+class LocalBlock(Block):
+    """GQA attention over a sliding window of ``cfg.local_window`` keys
+    (the ring cache) and the MLP."""
+    kind = "local"
+
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
+        if cfg.mla is not None:
+            raise NotImplementedError("a local layer with MLA")
+        super().__init__(cfg, lay, dtype, device, shard)
+
+
+class RGLRUBlock(nn.Module):
+    """The RG-LRU mixer and the MLP, each behind its own RMSNorm."""
+    kind = "rglru"
+
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
+        super().__init__()
+        d = cfg.d_model
+        shard = shard or Shard(lay)
+        self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.mix = R.RGLRU(cfg, lay, dtype, device, shard)
+        self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard, cfg.act)
+
+    def reset_parameters(self, generator):
+        self.ln1.reset_parameters()
+        self.mix.reset_parameters(generator)
         self.ln2.reset_parameters()
         self.ffn.reset_parameters(generator)
 
@@ -69,11 +104,12 @@ class SSDBlock(nn.Module):
         self.mix.reset_parameters(generator)
 
 
-BLOCKS = {"attn": Block, "moe": MoEBlock, "ssd": SSDBlock}
+BLOCKS = {"attn": Block, "local": LocalBlock, "moe": MoEBlock,
+          "rglru": RGLRUBlock, "ssd": SSDBlock}
 
 
 def _ffn(p, h2):
-    """The FFN half: the MoE layer's routed experts, or the SwiGLU MLP.
+    """The FFN half: the MoE layer's routed experts, or the gated MLP.
     h2: [B, S, d]."""
     if p.kind == "moe":
         return MOE.moe_apply(p.ffn, h2)[0]
@@ -83,9 +119,9 @@ def _ffn(p, h2):
 def block_paged_cache_init(kind, cfg, lay: Layout, num_blocks: int,
                            block_size: int):
     """Shape of one layer's K (and V) block pool. Only GQA attention layers
-    (``attn`` and ``moe``) page; an SSD layer keeps per-sequence recurrent
-    state and an MLA layer a latent, so a config with one keeps the
-    contiguous cache."""
+    (``attn`` and ``moe``) page; SSD and RG-LRU layers keep per-sequence
+    recurrent state, a local layer a ring and an MLA layer a latent, so a
+    config with one keeps the contiguous cache."""
     if kind in ("attn", "moe") and cfg.mla is None:
         return A.paged_cache_init(cfg, lay, num_blocks, block_size)
     raise ValueError(f"layer kind {kind!r} does not support a paged cache")
@@ -97,11 +133,19 @@ def block_prefill(p, x, cache, ctx, cfg):
     the reference's ``block_prefill``. An attention layer's ``cache`` is its
     (K, V) pools or dense caches: ``q_lens`` -> the mixed paged step, block
     tables alone -> the paged chunked prefill, neither -> the dense cache.
-    An SSD layer's is its ``SSDState``, an MLA layer's its latent cache.
-    The cache is updated in place."""
+    A local layer's is its ring (K, V). An SSD layer's is its
+    ``SSDState``, an RG-LRU layer's its ``RGLRUState``, an MLA layer's its
+    latent cache. The cache is updated in place."""
     h = p.ln1(x)
     if p.kind == "ssd":
         return x + S.ssd_prefill(p.mix, h, cache, cfg)
+    if p.kind == "rglru":
+        x = x + R.rglru_prefill(p.mix, h, cache, cfg)
+        return x + _ffn(p, p.ln2(x))
+    if p.kind == "local":
+        x = x + A.attn_prefill(p.attn, h, *cache, ctx["offsets"], cfg,
+                               window=cfg.local_window)
+        return x + _ffn(p, p.ln2(x))
     if cfg.mla is not None:
         x = x + M.mla_prefill(p.attn, h, cache, ctx["offsets"], cfg)
         return x + _ffn(p, p.ln2(x))
@@ -123,11 +167,18 @@ def block_prefill(p, x, cache, ctx, cfg):
 def block_decode(p, x, cache, ctx, cfg):
     """x: [B_loc, d], this rank's segment of its dp row's batch; ctx:
     dict(lens, block_tables), the row's. One layer of a decode step: an
-    SSD layer steps its state; an attention layer attends through the
-    block table when there is one, else against the dense cache."""
+    SSD or RG-LRU layer steps its state; a local layer its ring; an
+    attention layer attends through the block table when there is one,
+    else against the dense cache."""
     h = p.ln1(x)
     if p.kind == "ssd":
         return x + S.ssd_decode(p.mix, h, cache, cfg)
+    if p.kind == "rglru":
+        return _decode_ffn(p, x + R.rglru_decode(p.mix, h, cache, cfg))
+    if p.kind == "local":
+        a = A.attn_decode(p.attn, h, *cache, ctx["lens"], cfg,
+                          window=cfg.local_window)
+        return _decode_ffn(p, x + a)
     if cfg.mla is not None:
         a = M.mla_decode(p.attn, h, cache, ctx["lens"], cfg)
         return _decode_ffn(p, x + a)

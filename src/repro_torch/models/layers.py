@@ -120,15 +120,25 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# gated MLP (SwiGLU, GeGLU)
 # ---------------------------------------------------------------------------
-class MLP(nn.Module):
-    """SwiGLU, ``wi``/``wg`` column-sharded and ``wo`` row-sharded over
-    TP."""
+ACTS = ("silu", "geglu")
 
-    def __init__(self, d, d_ff, dtype, device, shard: Shard = None):
+
+class MLP(nn.Module):
+    """A gated MLP, ``wi``/``wg`` column-sharded and ``wo`` row-sharded
+    over TP: SwiGLU with ``act="silu"``, GeGLU (the gate through the
+    tanh-approximated GELU, ``jax.nn.gelu``'s default) with
+    ``act="geglu"``."""
+
+    def __init__(self, d, d_ff, dtype, device, shard: Shard = None,
+                 act: str = "silu"):
         super().__init__()
+        if act not in ACTS:
+            raise NotImplementedError(f"MLP activation {act!r}: the port has "
+                                      f"{ACTS}")
         self.shard = shard or Shard()
+        self.act = act
         self.d, self.d_ff = d, d_ff
         ff = d_ff // max(self.shard.lay.tp, 1)
         self.wi = empty_param((d, ff), dtype, device)
@@ -144,8 +154,14 @@ class MLP(nn.Module):
             w.copy_(shard_of(full, dim, tp, k).to(w.dtype))
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(p: MLP, x):
-    h = F.silu(x @ p.wg) * (x @ p.wi)
+    gate = F.silu if p.act == "silu" else gelu
+    h = gate(x @ p.wg) * (x @ p.wi)
     return psum_if(h @ p.wo, p.shard.tp_group)
 
 
@@ -210,7 +226,7 @@ def tied_lmhead_apply(embed: Embedding, x):
 
 
 # ---------------------------------------------------------------------------
-# causal depthwise convolution (the SSD mixer's short conv)
+# causal depthwise convolution (the SSD and RG-LRU mixers' short conv)
 # ---------------------------------------------------------------------------
 def causal_depthwise_conv(x, w, state):
     """Causal depthwise 1-D conv. x: [B, S, C], w: [cw, C], state: [B, cw-1,

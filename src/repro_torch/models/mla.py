@@ -22,12 +22,11 @@ to the model group.
   base config gathers q and the new latent over SP by batch row and keeps
   its own rows of the output.
 
-The attention is plain PyTorch: ``attend``, ``attend_partial``,
-``merge_partials`` and ``finish_partial`` are copies of the reference's
-``repro.models.attention_math``, which is jnp and reaches no Pallas kernel.
-The latent and q norms are RMSNorm, the kernel on the card. Masked scores
-are the finite ``NEG_INF``, so a rank whose chunk holds no live position
-adds exactly zero to the merge (``exp(NEG_INF - m)`` underflows to 0).
+The attention is plain PyTorch (``models.attention_math``, copies of the
+reference's ``repro.models.attention_math``, which is jnp and reaches no
+Pallas kernel). The latent and q norms are RMSNorm, the kernel on the
+card. Masked scores are the finite ``NEG_INF``, so a rank whose chunk
+holds no live position adds exactly zero to the merge.
 
 The cache writes are in place (a CUDA graph keeps the cache's address):
 the reference writes every row of a prefill chunk at the positions of the
@@ -46,10 +45,10 @@ from torch import nn
 
 from repro_torch.parallel import Layout, Shard
 from repro_torch.parallel.collectives import (all_gather_axis, all_gather_if,
-                                              pmax_if, psum_if)
+                                              psum_if)
+from .attention_math import (NEG_INF, attend, attend_partial,  # noqa: F401
+                             finish_partial, merge_partials)
 from .layers import apply_rope, dense_init, empty_param, rmsnorm, shard_of
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -166,91 +165,6 @@ def mla_cache_shape(cfg, lay: Layout, batch: int, s_max: int):
         raise ValueError(f"s_max={s_max} does not split over the latent "
                          f"cache's sp={lay.cache_sp}")
     return (batch, s_max // lay.cache_sp, cfg.mla.cache_dim)
-
-
-# ---------------------------------------------------------------------------
-# attention math (copies of repro.models.attention_math)
-# ---------------------------------------------------------------------------
-def _mask(q_pos, kv_pos, kv_len=None):
-    """Causal mask [B, Sq, Skv] of global positions (kv_pos -1 =
-    invalid), limited to ``kv_len`` [B] when given."""
-    m = kv_pos[:, None, :] >= 0
-    if kv_len is not None:
-        m = m & (kv_pos[:, None, :] < kv_len[:, None, None])
-    return m & (kv_pos[:, None, :] <= q_pos[..., :, None])
-
-
-def _scaled_q(q, Hkv):
-    B, Sq, Hq, Dh = q.shape
-    return (q * Dh ** -0.5).float().reshape(B, Sq, Hkv, Hq // Hkv, Dh)
-
-
-def attend(q, k, v, q_pos, kv_pos, kv_len=None, chunk: int = 1024):
-    """Online-softmax causal attention over key chunks of ``chunk``.
-    q [B, Sq, Hq, Dh], k [B, Skv, Hkv, Dh], v [B, Skv, Hkv, Dv], q_pos [B,
-    Sq], kv_pos [Skv] or [B, Skv], kv_len [B] or None. Returns [B, Sq, Hq,
-    Dv] in q's type."""
-    B, Sq, Hq, _ = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    g = Hq // Hkv
-    qf = _scaled_q(q, Hkv)
-    kv_pos = torch.broadcast_to(torch.atleast_2d(kv_pos), (B, Skv))
-    m = q.new_full((B, Hkv, g, Sq), NEG_INF, dtype=torch.float32)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, Hkv, g, Sq, Dv), dtype=torch.float32,
-                      device=q.device)
-    for c0 in range(0, max(Skv, 1), chunk):
-        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float())
-        msk = _mask(q_pos, kv_pos[:, c0:c0 + chunk], kv_len)
-        s = torch.where(msk[:, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(vc.dtype).float(), vc.float())
-        m = m_new
-    out = acc / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dv).to(q.dtype)
-
-
-def attend_partial(q, k, v, q_pos, kv_pos, kv_len=None):
-    """``attend``'s un-normalised partial result over the given keys, for a
-    log-sum-exp merge across ranks: ``(acc [B, Hkv, g, Sq, Dv], l [B, Hkv,
-    g, Sq], m [B, Hkv, g, Sq])`` in fp32."""
-    B = q.shape[0]
-    Hkv = k.shape[2]
-    qf = _scaled_q(q, Hkv)
-    kv_pos = torch.broadcast_to(torch.atleast_2d(kv_pos), (B, k.shape[1]))
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
-    msk = _mask(q_pos, kv_pos, kv_len)
-    s = torch.where(msk[:, None, None], s, NEG_INF)
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    return torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()), p.sum(-1), m
-
-
-def merge_partials(acc, l, m, group):
-    """The LSE merge of ``attend_partial`` results over ``group`` (one
-    max, two sums), normalised: [B, Hkv, g, Sq, Dv] in fp32. Without a
-    group, the local result normalised."""
-    if group is None:
-        return acc / l.clamp(min=1e-30)[..., None]
-    m_glob = pmax_if(m.clone(), group)       # stabiliser; cancels out
-    corr = torch.exp(m - m_glob)
-    l_glob = psum_if(l * corr, group)
-    acc_glob = psum_if(acc * corr[..., None], group)
-    return acc_glob / l_glob.clamp(min=1e-30)[..., None]
-
-
-def finish_partial(acc, l, m):
-    """One rank's partial result normalised and laid out [B, Sq, Hq,
-    Dv]."""
-    B, Hkv, g, Sq, Dv = acc.shape
-    out = acc / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * g, Dv)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,9 @@ from . import transformer as T
 
 
 class Model:
-    """A decoder (dense GQA or MLA attention, with SwiGLU or MoE FFNs, or
-    mamba2's SSD layers) on one device.
+    """A decoder (dense GQA or MLA attention, with gated MLPs or MoE FFNs,
+    mamba2's SSD layers, or recurrentgemma's RG-LRU and local attention
+    layers) on one device.
     ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
     runs only when asked for. ``lay`` is the layout (the trivial one by
     default); above world size 1, ``groups`` are the grid's process groups
@@ -143,9 +144,10 @@ class Model:
     def supports_paged(self) -> bool:
         """True when every cached layer is GQA attention (``attn`` or
         ``moe``), whose [block_size, kv_slots, Dh] block layout pages. MLA
-        layers keep a latent sharded over the sequence and SSD layers
-        recurrent state per sequence, so their configs keep the contiguous
-        cache (the reference's reason)."""
+        layers keep a latent sharded over the sequence, local layers a
+        ring, and SSD and RG-LRU layers recurrent state per sequence, so
+        their configs keep the contiguous cache (the reference's
+        reason)."""
         return self.cfg.mla is None and all(
             k in ("attn", "moe") for k in self.cfg.layer_kinds)
 
@@ -182,8 +184,9 @@ class Model:
     def init_cache(self, batch: int, s_max: int) -> T.DenseCache:
         """Zeroed dense caches of a ``batch``-row batch, this rank's shard:
         its dp row's ``batch/dp`` rows at its heads, K and V ``[n_attn,
-        batch/dp, s_max, kv_per_rank, Dh]`` for attention layers and
-        recurrent state for SSD layers. A batch that does not split over
+        batch/dp, s_max, kv_per_rank, Dh]`` for attention layers, a ring
+        of ``min(s_max, local_window)`` rows for local layers and
+        recurrent state for SSD and RG-LRU layers. A batch that does not split over
         dp gets ``batch // dp`` rows, and every step raises, as the
         reference's ``shard_map`` refuses it."""
         self.cache = T.init_cache(self.cfg, self.lay, batch // self.lay.dp,
@@ -193,7 +196,8 @@ class Model:
     def adopt_cache(self, other: "Model") -> T.DenseCache:
         """Step ``other``'s dense cache tensors themselves, as
         ``adopt_paged_cache`` does the pool: the shift model adopts the
-        base model's, so that a switch moves no byte of KV or SSD state.
+        base model's, so that a switch moves no byte of KV or recurrent
+        state.
         Both must be the same rank of the same grid (an engine's base and
         shift views)."""
         if other.cache is None:

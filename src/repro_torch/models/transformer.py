@@ -22,6 +22,7 @@ from .attention import cache_init
 from .mla import mla_cache_shape
 from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
                      embed_apply, lmhead_apply, tied_lmhead_apply)
+from .recurrent import RGLRUState, rglru_state_shapes
 from .ssd import SSDState, ssd_state_shapes
 
 
@@ -32,9 +33,11 @@ class Transformer(nn.Module):
     ``layers.{i}.{ln1,attn,ln2,ffn}.*`` for an attention or MoE layer
     (a MoE layer's ``ffn.router``, ``ffn.wi``/``wg``/``wo`` and
     ``ffn.shared.*``; an MLA layer's ``attn.wq_a``, ``q_norm``, ``wq_b``,
-    ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b`` and ``wo``) or
-    ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the reference's leaf
-    names. Each holds this rank's shard (``shard``;
+    ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b`` and ``wo``), the same for
+    a local layer, ``layers.{i}.{ln1,mix,ln2,ffn}.*`` for an RG-LRU layer
+    (``mix.wx``, ``wy``, ``conv``, ``gate_a``, ``gate_x``, ``lam``,
+    ``wo``) or ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the
+    reference's leaf names. Each holds this rank's shard (``shard``;
     the whole tensors on the trivial layout)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
@@ -97,30 +100,44 @@ def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+# the kinds whose layers share one stacked cache, by the cache's group
+CACHE_GROUP = {"attn": "attn", "moe": "attn", "local": "local",
+               "ssd": "ssd", "rglru": "rglru"}
+
+
 @dataclass
 class DenseCache:
     """One rank's contiguous cache of every layer, stacked by kind and
     updated in place by each step: its dp row's ``B`` slots and its model
-    rank's heads (the reference's ``cache_specs`` shard, ``P(dp, None, h,
-    None)``). Attention and MoE layers: K and V ``[n_attn, B, s_max,
-    kv_per_rank, Dh]``, or with MLA the latent ``lat`` [n_attn, B,
-    s_max/cache_sp, kv_lora + rope], the rank's sequence chunk
-    (``mla_cache_specs``' ``P(dp, cache_sp, None)``). SSD layers: ``ssm``
-    [n_ssd, B, hpr, hd, ds] in fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd]
-    and ``conv_bc`` [n_ssd, B, cw-1, 2·ds]. A kind the config lacks has
-    None. ``kinds[i]`` and ``index[i]`` give layer i's kind and its index
-    among the layers of its cache (the attention and MoE layers together,
-    or the SSD layers)."""
+    rank's heads or channels (the reference's ``cache_specs`` shard,
+    ``P(dp, None, h, None)``). Attention and MoE layers: K and V
+    ``[n_attn, B, s_max, kv_per_rank, Dh]``, or with MLA the latent
+    ``lat`` [n_attn, B, s_max/cache_sp, kv_lora + rope], the rank's
+    sequence chunk (``mla_cache_specs``' ``P(dp, cache_sp, None)``).
+    Local layers: the ring's ``ring_k`` and ``ring_v`` [n_local, B,
+    min(s_max, window), kv_per_rank, Dh]. SSD layers: ``ssm`` [n_ssd, B,
+    hpr, hd, ds] in fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd] and
+    ``conv_bc`` [n_ssd, B, cw-1, 2·ds]. RG-LRU layers: ``h`` [n_rglru, B,
+    w/G] in fp32 and ``conv`` [n_rglru, B, cw-1, w/G]. A kind the config
+    lacks has None. ``kinds[i]`` and ``index[i]`` give layer i's kind and
+    its index among the layers of its cache (``CACHE_GROUP``: the
+    attention and MoE layers together, the local, the SSD or the RG-LRU
+    layers)."""
     kinds: tuple
     index: tuple
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
     lat: Optional[torch.Tensor] = None
+    ring_k: Optional[torch.Tensor] = None
+    ring_v: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
     conv_x: Optional[torch.Tensor] = None
     conv_bc: Optional[torch.Tensor] = None
+    h: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
 
-    FIELDS = ("k", "v", "lat", "ssm", "conv_x", "conv_bc")
+    FIELDS = ("k", "v", "lat", "ring_k", "ring_v", "ssm", "conv_x",
+              "conv_bc", "h", "conv")
 
     def tensors(self) -> dict:
         """The cache's tensors by field name, those of kinds the config
@@ -129,11 +146,16 @@ class DenseCache:
                 if (t := getattr(self, name)) is not None}
 
     def layer(self, i):
-        """Layer i's cache: (K, V) views, an MLA layer's latent view, or an
-        ``SSDState`` of views."""
-        j = self.index[i]
-        if self.kinds[i] == "ssd":
+        """Layer i's cache: (K, V) views (a local layer's of its ring), an
+        MLA layer's latent view, an ``SSDState`` or an ``RGLRUState`` of
+        views."""
+        j, kind = self.index[i], self.kinds[i]
+        if kind == "ssd":
             return SSDState(self.ssm[j], self.conv_x[j], self.conv_bc[j])
+        if kind == "rglru":
+            return RGLRUState(self.h[j], self.conv[j])
+        if kind == "local":
+            return self.ring_k[j], self.ring_v[j]
         if self.lat is not None:
             return self.lat[j]
         return self.k[j], self.v[j]
@@ -142,27 +164,35 @@ class DenseCache:
 def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
                device) -> DenseCache:
     """Zeroed dense caches of every layer, one rank's: ``batch`` rows (its
-    dp row's) at its heads, or with MLA its chunk of the sequence."""
+    dp row's) at its heads or channels, or with MLA its chunk of the
+    sequence; a local layer's ring holds ``min(s_max, local_window)``
+    rows."""
     kinds = cfg.layer_kinds
-    ssd = tuple(k == "ssd" for k in kinds)
-    index = tuple(ssd[:i].count(s) for i, s in enumerate(ssd))
+    group = tuple(CACHE_GROUP[k] for k in kinds)
+    index = tuple(group[:i].count(g) for i, g in enumerate(group))
     c = DenseCache(kinds=kinds, index=index)
-    n_ssd = ssd.count(True)
-    n_attn = len(kinds) - n_ssd
-    if n_attn and cfg.mla is not None:
-        c.lat = torch.zeros((n_attn,) + mla_cache_shape(cfg, lay, batch,
-                                                        s_max),
-                            dtype=dtype, device=device)
-    elif n_attn:
-        shape = (n_attn,) + cache_init(cfg, lay, batch, s_max)
-        c.k = torch.zeros(shape, dtype=dtype, device=device)
-        c.v = torch.zeros(shape, dtype=dtype, device=device)
-    if n_ssd:
+    n = {g: group.count(g) for g in set(CACHE_GROUP.values())}
+
+    def zeros(count, shape, dt=dtype):
+        return torch.zeros((count,) + tuple(shape), dtype=dt, device=device)
+
+    if n["attn"] and cfg.mla is not None:
+        c.lat = zeros(n["attn"], mla_cache_shape(cfg, lay, batch, s_max))
+    elif n["attn"]:
+        shape = cache_init(cfg, lay, batch, s_max)
+        c.k, c.v = zeros(n["attn"], shape), zeros(n["attn"], shape)
+    if n["local"]:
+        shape = cache_init(cfg, lay, batch, min(s_max, cfg.local_window))
+        c.ring_k, c.ring_v = zeros(n["local"], shape), zeros(n["local"],
+                                                             shape)
+    if n["ssd"]:
         ssm, cx, cbc = ssd_state_shapes(cfg, lay, batch)
-        c.ssm = torch.zeros((n_ssd,) + ssm, dtype=torch.float32,
-                            device=device)
-        c.conv_x = torch.zeros((n_ssd,) + cx, dtype=dtype, device=device)
-        c.conv_bc = torch.zeros((n_ssd,) + cbc, dtype=dtype, device=device)
+        c.ssm = zeros(n["ssd"], ssm, torch.float32)
+        c.conv_x, c.conv_bc = zeros(n["ssd"], cx), zeros(n["ssd"], cbc)
+    if n["rglru"]:
+        h, conv = rglru_state_shapes(cfg, lay, batch)
+        c.h = zeros(n["rglru"], h, torch.float32)
+        c.conv = zeros(n["rglru"], conv)
     return c
 
 

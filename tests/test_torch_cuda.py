@@ -811,6 +811,39 @@ def test_cuda_mamba2_engine_matches_cpu_engine(cuda):
     assert counts[1][:2] == (0, 0)
 
 
+@pytest.mark.cuda
+def test_cuda_recurrentgemma_engine_matches_cpu_engine(cuda):
+    """Reduced recurrentgemma-9b at fp32 on the dense serialized engine
+    (the automatic fallback), with more requests than slots and a window
+    of 8 under an s_max of 64, so that the local layer's ring wraps:
+    equal streams and config counts on the card and the CPU, and the
+    card's run went through RMSNorm, 2 * layers + 1 launches per step (ln1
+    and ln2 of each layer, and the final norm); the ring attention and the
+    RG-LRU scan are plain PyTorch."""
+    cfg = get_config("recurrentgemma-9b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs, counts = [], []
+    for model in (gpu, cpu):
+        ops.reset_launch_counts()
+        eng = ShiftEngine(model, EngineConfig(max_slots=2, s_max=64,
+                                              prefill_chunk=8))
+        assert not eng.paged and not eng.mixed
+        reqs = workload(5, 12)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts))
+        counts.append(ops.launch_counts())
+    assert runs[0] == runs[1]
+    steps = sum(runs[0][1].values())
+    assert counts[0]["rmsnorm"] == steps * (2 * cfg.num_layers + 1)
+    assert sum(counts[0].values()) == counts[0]["rmsnorm"]
+    assert not any(counts[1].values())
+
+
 # ---------------------------------------------------------------------------
 # the Deployment: each step captured once per bucket as a CUDA graph
 # ---------------------------------------------------------------------------
@@ -867,15 +900,23 @@ ENTRY_KINDS = {
         lambda *a: m.decode_step(*a, sample=False)), [
         (_tokens((2,), 1), [0, 3], None), (_tokens((2,), 2), [1, 4], None),
         (_tokens((2,), 3), [2, 5], None)]),
+    # the local layer's ring of 8 rows wraps from the second call on
+    "recurrentgemma-prefill": ("recurrentgemma-9b", False,
+                               lambda m: m.prefill_step, [
+        (_tokens((2, 8), 1), [0, 0], None), (_tokens((2, 8), 2), [8, 8], None),
+        (_tokens((2, 8), 3), [16, 16], None),
+        (_tokens((2, 16), 4), [24, 24], None)]),
+    "recurrentgemma-decode": ("recurrentgemma-9b", False, lambda m: (
+        lambda *a: m.decode_step(*a, sample=False)), [
+        (_tokens((2,), 1), [0, 13], None), (_tokens((2,), 2), [1, 14], None),
+        (_tokens((2,), 3), [2, 15], None)]),
 }
 
 
 def _cache_tensors(model, paged):
     if paged:
         return {"k": model.pool.k, "v": model.pool.v}
-    c = model.cache
-    return {n: getattr(c, n) for n in ("k", "v", "ssm", "conv_x", "conv_bc")
-            if getattr(c, n) is not None}
+    return model.cache.tensors()
 
 
 @pytest.mark.cuda
@@ -975,10 +1016,13 @@ def _pad_prompts(seed=0):
     ("mamba2-1.3b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
      [list(range(1, 10 + 3 * i)) for i in range(5)]),
     ("qwen-30b-a3b", MOE_KW, _pad_prompts()),
-    ("llama4-17b-16e", MOE_KW, _pad_prompts())],
+    ("llama4-17b-16e", MOE_KW, _pad_prompts()),
+    ("recurrentgemma-9b", {"max_slots": 2, "s_max": 64, "prefill_chunk": 8},
+     [list(range(1, 10 + 3 * i)) for i in range(5)])],
     ids=["mixed-tight-pool", "serialized-paged", "dense",
          "mamba2-two-in-flight", "mamba2-more-than-slots",
-         "moe-qwen-30b-a3b-pad", "moe-llama4-17b-16e-pad"])
+         "moe-qwen-30b-a3b-pad", "moe-llama4-17b-16e-pad",
+         "recurrentgemma-more-than-slots"])
 def test_cuda_graphed_engine_matches_eager_engine(cuda, dtype, arch, kw,
                                                   prompts):
     """The engine's graphed tables against the eager ones on twin models:

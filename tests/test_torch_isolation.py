@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.traces", "repro_torch.cluster",
             "repro_torch.cluster.router", "repro_torch.cluster.migration",
             "repro_torch.ft.elastic", "repro_torch.models.moe",
-            "repro_torch.models.mla"} \
+            "repro_torch.models.mla", "repro_torch.models.recurrent",
+            "repro_torch.models.attention_math"} \
         <= set(_modules())
     code = (
         "import importlib, sys\n"
