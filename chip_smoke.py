@@ -280,6 +280,46 @@ Phases (every failure propagates and exits non-zero):
    invariance on every rank; it prints the base prefill and shift decode
    walls per step with their all-to-all and all-reduce bytes.
 
+5i. whisper-small (12 encoder layers over 1536 frames, 12 decoder layers
+   with cross attention, d_model 768, 12 heads of 64 over 12 KV heads,
+   LayerNorm, the plain GELU MLP) at full width and depth in bf16 on one
+   card: the serve workload through the serialized dense engine (an
+   encoder-decoder stack does not page; every prefill step runs the
+   encoder over the engine's zero frames and rewrites the cross caches),
+   eager, graphed, graphed and eager, equal streams, 36 flash launches per
+   prefill step and 24 decode launches per decode step (counters, and the
+   profiler's trace of decode steps), no RMSNorm; TTFT, ms per decode
+   step, tokens/s, busy ms and peak memory; then reduced whisper-small in
+   fp32, card against CPU: prefill with random frames and two decode
+   steps (logits and the self and cross caches within 1e-3) and the dense
+   engine's streams with more requests than slots;
+5j. internvl2-2b (24 GQA layers, 16 q heads over 8 KV heads, the vision
+   stub over the first 256 positions) at full width in bf16: the serve
+   workload after a 256-token prefix (s_max 512), so that text tokens
+   reach the logits, through the mixed paged engine and its zero image
+   embeddings, eager, graphed, graphed and eager, equal streams, 49
+   RMSNorm and 24 ragged launches per step; then reduced internvl2-2b in
+   fp32, card against CPU: a prefill step's logits with random image
+   embeddings within 1e-3, and the mixed, serialized paged and serialized
+   dense engines' streams, each path on its own;
+9c. whisper-small at full width in fp32, cut to 2 encoder and 2 decoder
+   layers, on (sp, tp) = (2, 2) over gloo on the one card (at its random
+   init fp32 streams of another summation order part with depth:
+   ``tools/whisper_fp32_drift.py``; the encoder's frames and each chunk
+   through
+   the Ulysses exchange, the cross K/V scattered with the KV
+   replication): the serve workload through the serialized dense engine,
+   every rank's streams equal and equal to a one-rank run's, launches
+   exact, the dense cache's invariance on every rank (the cross cache
+   included); it prints the base prefill and shift decode walls per step
+   with their all-to-all and all-reduce bytes.
+   Phase 3 also holds the kernels at these models' shapes: flash over
+   whisper's encoder ([8, 1536, 12, 64], non-causal), its cross prefill
+   (64 queries over 1536 frames) and its decoder's causal chunk (s_max
+   256), the dense decode at group 1 over 1536 frames and over s_max 256,
+   and the ragged kernel's mixed and decode batches at internvl2-2b's 16
+   q heads over 8 KV heads.
+
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -312,6 +352,9 @@ DECODE_ROWS = [(2048, 1), (1536, 1), (1024, 1), (777, 1), (512, 1), (256, 1),
 # a MoE model's serving step: seven decode rows beside a 64-column prefill
 # row (C = 64, so each decode row has 63 padding columns)
 MOE_MIXED = [(640, 64)] + DECODE_ROWS[:7]
+# a whisper decode step's self-attention lengths: the serve workload's
+# prompts (19-34 tokens) a few steps in, two idle slots, and s_max
+WHISPER_SELF_LENS = [23, 28, 31, 34, 37, 40, 1, 256]
 
 
 def check(cond, msg):
@@ -1007,6 +1050,35 @@ def kernel_phase(torch):
             dtype, timer, tol, Hq=8, Hkv=2))
         add("paged_decode_attention", paged_decode_case(
             torch, "decode", DECODE_ROWS, dtype, timer, tol))
+        # whisper-small (12 heads over 12 KV heads, group 1, D 64) at its
+        # serving shapes: the encoder's non-causal flash over 8 slots x
+        # 1536 frames, the cross prefill of a 64-token chunk against them,
+        # the decoder's causal chunk against its cache of s_max 256, and
+        # decode over every row's 1536 frames (cross) and its s_max 256
+        # (self)
+        wkw = dict(Hq=12, Hkv=12, D=64)
+        add("flash_attention", flash_case(
+            torch, "whisper encoder", 8, 1536, 1536, [0] * 8, False, dtype,
+            timer, tol, **wkw))
+        add("flash_attention", flash_case(
+            torch, "whisper cross prefill", 8, 64, 1536, [0] * 8, False,
+            dtype, timer, tol, **wkw))
+        add("flash_attention", flash_case(
+            torch, "whisper decoder chunk, s_max 256", 8, 64, 256,
+            [0, 32, 64, 96, 128, 160, 192, 192], True, dtype, timer, tol,
+            **wkw))
+        add("decode_attention", decode_case(
+            torch, "whisper cross", [1536] * 8, 1536, dtype, timer, tol,
+            **wkw))
+        add("decode_attention", decode_case(
+            torch, "whisper self, s_max 256", WHISPER_SELF_LENS, 256, dtype,
+            timer, tol, **wkw))
+        # internvl2-2b (16 q heads over 8 KV heads, group 2, D 128): the
+        # ragged kernel's mixed and decode batches
+        for name, rows in (("internvl2-2b mixed", mixed),
+                           ("internvl2-2b decode", DECODE_ROWS)):
+            add("paged_ragged_attention", attention_case(
+                torch, name, rows, dtype, timer, tol, Hq=16, Hkv=8))
         torch.cuda.synchronize()
     return cases
 
@@ -1448,12 +1520,21 @@ def step_launches(eng, kind):
     layer, and the final norm; one attention per attention layer, by the
     kernel of the step's kind and cache; one SSD chunk launch per SSD layer
     in a prefill step, none in a decode step; ln1 and ln2 per layer of
-    recurrentgemma's RG-LRU and local layers and nothing else."""
+    recurrentgemma's RG-LRU and local layers and nothing else; whisper's
+    flash launches (encoder, self and cross attention) in a prefill step and
+    decode launches (self and cross) in a decode step, and no RMSNorm."""
     kinds = eng.mcfg.layer_kinds
     if {"rglru", "local"} & set(kinds):
         # ln1 and ln2 of every layer and the final norm; the ring
         # attention and the RG-LRU block are plain
         return {"rmsnorm": 2 * len(kinds) + 1}
+    if "dec" in kinds:
+        # whisper: LayerNorm is plain; a prefill step's flash launches are
+        # the encoder layers' and each decoder layer's self and cross
+        # attention, a decode step's decode launches its self and cross
+        if kind == "decode":
+            return {"decode_attention": 2 * len(kinds)}
+        return {"flash_attention": eng.mcfg.encoder_layers + 2 * len(kinds)}
     n_ssd = kinds.count("ssd")
     n_attn = len(kinds) - n_ssd                 # attention and MoE layers
     attention = ("paged_ragged_attention" if eng.paged else
@@ -1462,7 +1543,9 @@ def step_launches(eng, kind):
     if eng.mcfg.mla is not None:
         # ln1, ln2 and MLA's q and kv latent norms; the attention is plain
         return {"rmsnorm": 4 * n_attn + 1}
-    out = {"rmsnorm": 3 * n_attn + 2 * n_ssd + 1}
+    # ln1 and ln2, and the q/k pair where the config norms q and k
+    per_attn = 3 if eng.mcfg.qk_norm else 2
+    out = {"rmsnorm": per_attn * n_attn + 2 * n_ssd + 1}
     if n_attn:
         out[attention] = n_attn
     if n_ssd and kind != "decode":
@@ -1486,20 +1569,23 @@ def port_kernel(name):
     return None
 
 
-def serve_path(torch, eng, label):
+def serve_path(torch, eng, label, workload=None):
     """The main path through ``eng``: a warm-up run of the workload (cuBLAS's
     caches, the kernels' first launches), then the measured run with every launch counter
     set to 0 just before it and read just after. Checks the requests and
-    the counters against the per-step counts; returns the requests."""
+    the counters against the per-step counts; returns the requests.
+    ``workload(n, max_new)`` makes the requests (the serve CLI's by
+    default)."""
     from repro_torch.launch import serve
+    workload = workload or serve.workload
     cfg = eng.mcfg
-    for r in serve.workload(6, 16):
+    for r in workload(6, 16):
         eng.submit(r)
     eng.run_until_idle()
     torch.cuda.synchronize()
     counts0 = dict(eng.config_counts)
     kinds = count_steps(eng)
-    reqs = serve.workload(6, 16)
+    reqs = workload(6, 16)
     captured = eng.deploy.captures
     first_step = eng.step_count
     serve.reset_launch_counts()
@@ -1581,7 +1667,7 @@ TURNS = (False, True, True, False)
 SINGLE_RANK_STREAMS = {}
 
 
-def serve_turns(torch, model, kw, label):
+def serve_turns(torch, model, kw, label, workload=None):
     """One serving path in turns on ``model``: eager, graphed, graphed and
     eager step tables, each on a new engine (``EngineConfig(**kw)``, its
     cache initialised anew) with the same workload. Each turn runs
@@ -1602,7 +1688,7 @@ def serve_turns(torch, model, kw, label):
                                           mixed=eng.mixed, paged=eng.paged,
                                           graphed=False)
         name = f"{label} [{'graphed' if graphed else 'eager'}]"
-        reqs, launches, stats = serve_path(torch, eng, name)
+        reqs, launches, stats = serve_path(torch, eng, name, workload)
         stats.update(profile_decode(torch, eng, label=name))
         stats.update(graphed=graphed, graphs_captured=eng.deploy.captures,
                      capture_ms=(eng.deploy.graphs.capture_s * 1e3
@@ -5212,6 +5298,10 @@ def seeded_init(torch, model, seed=0):
         p.final_norm.reset_parameters()
         if hasattr(p, "lm_head"):
             p.lm_head.reset_parameters(gen)
+        if hasattr(p, "encoder"):
+            for layer in p.encoder:
+                layer.reset_parameters(gen)
+            p.enc_norm.reset_parameters()
         for i, layer in enumerate(p.layers):
             if layer.kind != "moe":
                 # ln1, the attention or mixer, ln2 and the FFN, in turn
@@ -6017,6 +6107,423 @@ def recurrentgemma_layout_phase(torch):
     return r0["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phases 5i, 5j and 9c: whisper-small and internvl2-2b
+# ---------------------------------------------------------------------------
+WHISPER_LAYOUT_TIMEOUT_S = 600
+# the layout phase's depth (encoder and decoder layers each): at whisper's
+# random init the attention is near-hard (score std ~63), so fp32 rounding
+# of another summation order moves near-ties and the streams part with
+# depth (tools/whisper_fp32_drift.py measures it)
+WHISPER_LAYOUT_DEPTH = 2
+# internvl2-2b's image embeddings cover the first 256 positions: the serve
+# workload's prompts after 256 tokens, so that text reaches the logits
+VLM_PREFIX = 256
+VLM_KW = {"s_max": 512}
+
+
+def vlm_workload(n, max_new):
+    """The serve workload's requests after ``VLM_PREFIX`` tokens (the
+    positions internvl2-2b's vision stub replaces; the serve CLI's shared
+    prefix ``1000 ..``): prompts of 275-290 tokens."""
+    from repro_torch.launch import serve
+    return serve.workload(n, max_new, shared_prefix=VLM_PREFIX)
+
+
+def engine_streams(eng, reqs):
+    """Serve ``reqs`` on ``eng``; (streams, config counts, preemptions)."""
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    return ([list(r.generated) for r in reqs], dict(eng.config_counts),
+            eng.preemptions)
+
+
+def card_and_cpu(torch, arch):
+    """The reduced ``arch`` in fp32 on the card, randomly initialised, and
+    on the CPU with the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    small = get_config(arch).reduced()
+    gpu = Model(small, device="cuda", dtype=torch.float32)
+    gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(small, device="cpu", dtype=torch.float32)
+    cpu.load_params({k: v.cpu() for k, v in gpu.params.state_dict().items()})
+    return small, gpu, cpu
+
+
+def whisper_reduced_check(torch):
+    """Reduced whisper-small in fp32, the card against the CPU on the same
+    weights: the equivalence inputs (8 rows of 16 tokens, random frames of
+    16 x 64) through a prefill step and two decode steps, the logits and
+    every cache tensor (the self and the cross K/V) within 1e-3; then the
+    dense engine with more requests than slots, equal streams and configs.
+    Returns the max abs errors of the logits and of the caches."""
+    import numpy as np
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    small, gpu, cpu = card_and_cpu(torch, "whisper-small")
+    toks = (np.arange(8 * 16, dtype=np.int32).reshape(8, 16) * 7) % 256
+    frames = np.random.default_rng(0).standard_normal(
+        (8, small.encoder_seq, small.d_model)).astype(np.float32)
+    for m in (gpu, cpu):
+        m.init_cache(8, 32)
+    err = compare(torch, "whisper reduced fp32 prefill logits",
+                  *[m.prefill(toks, np.zeros(8, np.int32),
+                              enc_frames=frames)[0].cpu() for m in (gpu, cpu)],
+                  1e-3)
+    for pos in (16, 17):
+        err = max(err, compare(
+            torch, f"whisper reduced fp32 decode logits at {pos}",
+            *[m.decode(np.arange(8) % 256, np.full(8, pos),
+                       sample=False)[0].cpu() for m in (gpu, cpu)], 1e-3))
+    names = sorted(gpu.cache.tensors())
+    check(names == ["cross_k", "cross_v", "k", "v"],
+          f"whisper reduced: cache tensors {names}")
+    cache_err = max(compare(torch, f"whisper reduced fp32 cache {n}",
+                            gpu.cache.tensors()[n].cpu(),
+                            cpu.cache.tensors()[n], 1e-3) for n in names)
+    runs = [engine_streams(ShiftEngine(m, EngineConfig(
+        max_slots=2, s_max=64, prefill_chunk=8)), serve.workload(5, 12))
+        for m in (gpu, cpu)]
+    check(runs[0] == runs[1], f"reduced whisper dense engine: card "
+          f"{runs[0]} != cpu {runs[1]}")
+    print(f"reduced whisper-small fp32: card against CPU logits max abs err "
+          f"{err}, caches (self and cross) {cache_err} (tol 1e-3); the dense "
+          f"engine (5 requests on 2 slots) equal streams, configs "
+          f"{runs[0][1]}")
+    del gpu, cpu
+    return err, cache_err
+
+
+def whisper_phase(torch):
+    """whisper-small at full width and depth (12 encoder layers over 1536
+    frames, 12 decoder layers, d_model 768, 12 heads of 64 over 12 KV
+    heads, LayerNorm, the plain GELU MLP) in bf16 on one card,
+    ``seeded_init`` weights: the serve workload through the serialized
+    dense engine (its automatic fallback: an encoder-decoder stack does
+    not page; every prefill step runs the encoder over the engine's zero
+    frames and rewrites the cross caches), eager, graphed, graphed and
+    eager turns (``serve_turns``: equal streams and launches; 36 flash
+    launches per prefill step, 24 decode launches per decode step, no
+    RMSNorm, by the counters and the profiler's trace); then
+    ``whisper_reduced_check``. Returns the first graphed turn's launches
+    and every turn's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    seeded_init(torch, model, 0)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size() for p in model.params.parameters())
+    eng = ShiftEngine(model, EngineConfig())
+    check(not eng.paged and not eng.mixed and "non-pageable"
+          in eng.paged_disabled_reason, "whisper: not the dense fallback")
+    want = {"prefill": {"flash_attention": 36}, "decode":
+            {"decode_attention": 24}}
+    for kind, w in want.items():
+        check(step_launches(eng, kind) == w, f"whisper: per-step launches "
+              f"{step_launches(eng, kind)}")
+    cross = sum(eng.model.cache.tensors()[n].numel() * 2
+                for n in ("cross_k", "cross_v"))
+    print(f"whisper-small full width: {cfg.encoder_layers} encoder layers "
+          f"over {cfg.encoder_seq} frames, {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim} "
+          f"over {cfg.num_kv_heads} KV heads; {cfg.num_params() / 1e9:.3f} "
+          f"B params ({held / 1e9:.3f} GB bf16), built in {build_s:.1f} s; "
+          f"cross caches {cross / 1e9:.3f} GB for {EngineConfig().max_slots}"
+          f" slots; {eng.paged_disabled_reason}")
+    del eng
+    reqs, launches, turns = serve_turns(torch, model, {},
+                                        "whisper-small serialized dense")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err, cache_err = whisper_reduced_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = next(st for st in turns if st["graphed"])
+    print(f"whisper-small [graphed]: TTFT ms " + ", ".join(
+        f"{t:.1f}" for t in g["ttft_ms"]) + f"; "
+        f"{g['wall_ms_per_decode_step']:.2f} ms per decode step, "
+        f"{g['decode_tokens_per_s']:.1f} decode tokens/s, device busy "
+        f"{g['busy_ms_per_step']:.2f} ms per profiled decode step "
+        f"({g['busy_share']:.1%}); 36 flash per prefill step, 24 decode per "
+        f"decode step, no RMSNorm; peak {peak:.2f} GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"whisper": {
+        "weights_gb": held / 1e9, "cross_cache_gb": cross / 1e9,
+        "build_s": build_s, "turns": turns, "peak_gb": peak,
+        "launches_per_step": want, "fp32_reduced_max_abs_err": err,
+        "fp32_reduced_cache_err": cache_err, "phase_wall_s": wall}}))
+    print(f"whisper phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, turns
+
+
+def internvl2_reduced_check(torch):
+    """Reduced internvl2-2b in fp32 (8 image embeddings), the card against
+    the CPU on the same weights, each path on its own: the mixed paged,
+    serialized paged and serialized dense engines with the serve workload
+    (prompts past the stub), equal streams, configs and preemptions; and
+    one prefill step with random image embeddings, logits within 1e-3.
+    Returns the logits' max abs error."""
+    import numpy as np
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    small, gpu, cpu = card_and_cpu(torch, "internvl2-2b")
+    fe = np.random.default_rng(0).standard_normal(
+        (8, small.frontend_seq, small.d_model)).astype(np.float32)
+    toks = (np.arange(8 * 16, dtype=np.int32).reshape(8, 16) * 7) % 256
+    for m in (gpu, cpu):
+        m.init_cache(8, 32)
+    err = compare(torch, "internvl2 reduced fp32 prefill logits",
+                  *[m.prefill(toks, np.zeros(8, np.int32),
+                              frontend_embeds=fe)[0].cpu()
+                    for m in (gpu, cpu)], 1e-3)
+    for path, kw in (("mixed", {}), ("serialized paged", {"mixed": False}),
+                     ("serialized dense", {"paged": False, "mixed": False})):
+        runs = [engine_streams(ShiftEngine(m, EngineConfig(**kw)),
+                               serve.workload(6, 8)) for m in (gpu, cpu)]
+        check(runs[0] == runs[1], f"reduced internvl2 {path}: card "
+              f"{runs[0]} != cpu {runs[1]}")
+        print(f"reduced internvl2-2b fp32 {path}: card and CPU equal "
+              f"streams, configs {runs[0][1]}, {runs[0][2]} preemptions")
+    print(f"reduced internvl2-2b fp32: prefill logits with random image "
+          f"embeddings, card against CPU max abs err {err} (tol 1e-3)")
+    del gpu, cpu
+    return err
+
+
+def internvl2_phase(torch):
+    """internvl2-2b at full width and depth (24 GQA layers, d_model 2048,
+    16 q heads over 8 KV heads, the vision stub over the first 256
+    positions) in bf16 on one card, ``seeded_init`` weights: the serve
+    workload's prompts after 256 tokens (s_max 512), so that text tokens
+    reach the logits, through the mixed paged engine and its zero image
+    embeddings, eager, graphed, graphed and eager (``serve_turns``: equal
+    streams and launches; 49 RMSNorm and 24 ragged launches per step, by
+    the counters and the profiler's trace); then
+    ``internvl2_reduced_check``. Returns the first graphed turn's
+    launches and every turn's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("internvl2-2b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    seeded_init(torch, model, 0)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    held = sum(p.numel() * p.element_size() for p in model.params.parameters())
+    eng = ShiftEngine(model, EngineConfig(**VLM_KW))
+    check(eng.paged and eng.mixed, "internvl2: not the mixed paged engine")
+    want = {"rmsnorm": 49, "paged_ragged_attention": 24}
+    check(step_launches(eng, "mixed") == want, f"internvl2: per-step "
+          f"launches {step_launches(eng, 'mixed')}")
+    print(f"internvl2-2b full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} "
+          f"KV heads of {cfg.head_dim}, vision stub over {cfg.frontend_seq} "
+          f"positions; {cfg.num_params() / 1e9:.3f} B params "
+          f"({held / 1e9:.2f} GB bf16), built in {build_s:.1f} s; pool "
+          f"{eng.kv.num_blocks} blocks of {eng.cfg.block_size} at s_max "
+          f"{eng.cfg.s_max}; prompts of {len(vlm_workload(6, 1)[0].prompt)}"
+          f"-{len(vlm_workload(6, 1)[-1].prompt)} tokens")
+    del eng
+    reqs, launches, turns = serve_turns(torch, model, VLM_KW,
+                                        "internvl2-2b mixed paged",
+                                        vlm_workload)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = internvl2_reduced_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = next(st for st in turns if st["graphed"])
+    print(f"internvl2-2b [graphed]: TTFT ms " + ", ".join(
+        f"{t:.1f}" for t in g["ttft_ms"]) + f"; "
+        f"{g['wall_ms_per_decode_step']:.2f} ms per decode step, "
+        f"{g['decode_tokens_per_s']:.1f} decode tokens/s, device busy "
+        f"{g['busy_ms_per_step']:.2f} ms per profiled decode step "
+        f"({g['busy_share']:.1%}); 49 RMSNorm and 24 ragged per step; peak "
+        f"{peak:.2f} GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"internvl2": {
+        "weights_gb": held / 1e9, "build_s": build_s, "turns": turns,
+        "peak_gb": peak, "launches_per_step": want,
+        "fp32_reduced_max_abs_err": err, "phase_wall_s": wall}}))
+    print(f"internvl2 phase: {wall:.1f} s in all; card: {card_line()}")
+    return launches, turns
+
+
+def whisper_cut(layers):
+    """whisper-small at full width with ``layers`` encoder and decoder
+    layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    return replace(get_config("whisper-small"), num_layers=layers,
+                   encoder_layers=layers)
+
+
+def whisper_layout_rank(rank, groups, layers):
+    """One rank of whisper-small on (sp, tp) = (2, 2) (spawned by
+    ``run_ranks``): full width in fp32 with ``layers`` encoder and decoder
+    layers, base on the grid and shift on its ``to_shift()``, built in
+    turn, serving the serve workload
+    through the serialized dense engine with each step's wall and
+    collective bytes kept by config and kind, its launches against the
+    per-step counts; then the dense cache's invariance, the cross cache
+    included."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import invariance as INV
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = whisper_cut(layers)
+    lay = Layout(sp=2, tp=2)
+    torch.cuda.reset_peak_memory_stats()
+    models = []
+    for turn in range(lay.world):
+        if turn == rank:
+            for layout in (lay, lay.to_shift()):
+                m = Model(cfg, device="cuda", dtype=torch.float32,
+                          lay=layout, groups=groups)
+                seeded_init(torch, m, 0)
+                models.append(m)
+            torch.cuda.synchronize()
+        dist.barrier()
+    eng = ShiftEngine(models[0], EngineConfig(), shift=models[1])
+    walls, traffic = timed_forward(torch, eng, groups,
+                                   kinds=("prefill", "decode"))
+    kinds = count_steps(eng)
+    reqs = serve.workload(6, 16)
+    serve.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival = t0
+        eng.submit(r)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    want = {name: 0 for name in serve.launch_counts()}
+    for kind, n in kinds.items():
+        for name, k in step_launches(eng, kind).items():
+            want[name] += n * k
+    return {"rank": rank, "serve_s": time.monotonic() - t0,
+            "launches": serve.launch_counts(), "want": want,
+            "streams": [r.generated for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "counts": dict(eng.config_counts),
+            "walls": {k: list(v) for k, v in walls.items()},
+            "traffic": {k: dict(v) for k, v in traffic.items()},
+            "invariance": INV.verify_dense_invariance(eng.base, eng.shift,
+                                                      rank),
+            "slots": list(INV.kv_slots(eng.base, rank)),
+            "cross_shape": list(eng.base.cache.cross_k.shape),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def whisper_layout_phase(torch, layers=WHISPER_LAYOUT_DEPTH):
+    """whisper-small at full width in fp32, cut to ``layers`` encoder and
+    decoder layers, on (sp, tp) = (2, 2) over gloo on the one card (the
+    parent holding nothing while the ranks run): base (the encoder's
+    frames and every chunk through the Ulysses all-to-all, the cross K/V
+    scattered with the KV replication) and shift models over one dense
+    cache per rank, the serve workload through the serialized dense
+    engine. Every rank's streams equal, and equal to a one-rank fp32
+    engine's on the same weights; launches exact (3 x ``layers`` flash a
+    prefill step, 2 x ``layers`` decode a decode step); the dense cache's
+    invariance on every rank, the cross cache included. Prints the base
+    prefill and shift decode walls per step and their all-to-all and
+    all-reduce bytes. Returns rank 0's launches."""
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(whisper_cut(layers), device="cuda", dtype=torch.float32)
+    seeded_init(torch, model, 0)
+    single = engine_streams(ShiftEngine(model, EngineConfig()),
+                            serve.workload(6, 16))[0]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"whisper layout phase: the parent still holds "
+          f"{held / 1e9:.2f} GB on the card")
+    t0 = time.monotonic()
+    res = run_ranks(whisper_layout_rank, 2, 2, device="cuda",
+                    backend="gloo", timeout_s=WHISPER_LAYOUT_TIMEOUT_S,
+                    args=(layers,))
+    ran = time.monotonic() - t0
+    r0 = res[0]
+    steps = sum(r0["counts"].values())
+    for r in res:
+        check(r["streams"] == r0["streams"] and r["counts"] == r0["counts"],
+              f"whisper layout: rank {r['rank']}'s streams or configs "
+              "differ from rank 0's")
+        check(all(f == "ok" for f in r["finish"])
+              and all(len(x) == 16 for x in r["streams"]),
+              f"whisper layout: rank {r['rank']}: {r['finish']}")
+        check(r["launches"] == r["want"], f"whisper layout: rank "
+              f"{r['rank']}: launches {r['launches']}, want {r['want']}")
+        check(r["invariance"], f"whisper layout: rank {r['rank']}: the "
+              "dense cache's invariance failed")
+    check(r0["counts"].get("base", 0) > 0 and r0["counts"].get("shift", 0) > 0,
+          f"whisper layout: configs used {r0['counts']}")
+    check(r0["streams"] == single, "whisper layout: the (2, 2) streams "
+          f"{r0['streams']} differ from the one-rank run's {single}")
+    stats = {}
+    for k, w in r0["walls"].items():
+        if not w:
+            continue
+        tr = r0["traffic"][k]
+        stats[k] = {"steps": len(w), "wall_ms_per_step": sum(w) / len(w) * 1e3,
+                    "all_to_all_bytes_per_step":
+                        tr.get("all_to_all_bytes", 0) / len(w),
+                    "all_reduce_bytes_per_step":
+                        tr.get("all_reduce_bytes", 0) / len(w)}
+        print(f"whisper (2, 2) {k}: {len(w)} steps on rank 0, wall "
+              f"{stats[k]['wall_ms_per_step']:.2f} ms per step; per step "
+              f"{stats[k]['all_to_all_bytes_per_step'] / 1e6:.3f} MB "
+              f"all-to-all, {stats[k]['all_reduce_bytes_per_step'] / 1e6:.3f}"
+              " MB all-reduce (payload handed over by the rank)")
+    print(f"whisper (2, 2), {layers} encoder and {layers} decoder layers "
+          f"of 12 at full width, fp32: 4 ranks ran in {ran:.1f} s; served 6 "
+          f"requests x "
+          f"16 tokens in {r0['serve_s']:.2f} s, {steps} steps "
+          f"{r0['counts']}; every rank's streams equal and equal to the "
+          f"one-rank run's; launches {r0['launches']}; invariance held on "
+          f"every rank (kv slots " + ", ".join(str(r["slots"]) for r in res)
+          + f", cross cache {r0['cross_shape']} a rank); peak per rank "
+          + ", ".join(f"{r['peak_bytes'] / 1e9:.2f}" for r in res) + " GB")
+    wall = time.monotonic() - t_phase
+    print(json.dumps({"whisper_layout": {
+        "layers": layers, "dtype": "fp32", "configs": r0["counts"],
+        "per_config": stats,
+        "serve_s": r0["serve_s"], "run_s": ran,
+        "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res],
+        "phase_wall_s": wall}}))
+    print(f"whisper layout phase: {wall:.1f} s in all; card: {card_line()}")
+    return r0["launches"]
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -6119,6 +6626,9 @@ def main():
         deepseek_phase(torch)
     by_path["recurrentgemma_dense"], turns["recurrentgemma_dense"] = \
         recurrentgemma_phase(torch)
+    by_path["whisper_dense"], turns["whisper_dense"] = whisper_phase(torch)
+    by_path["internvl2_mixed"], turns["internvl2_mixed"] = \
+        internvl2_phase(torch)
     simulator_line()
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
         by_path["layout_adaptive_rank0"], overhead, serialized = \
@@ -6132,6 +6642,7 @@ def main():
         by_path[f"deepseek_{key}_rank0"] = launches
     by_path["recurrentgemma_sp2_tp2_rank0"] = \
         recurrentgemma_layout_phase(torch)
+    by_path["whisper_sp2_tp2_rank0"] = whisper_layout_phase(torch)
     pod_reduced_phase(torch)
     print(json.dumps({"graph_turns": turns}))
     print(json.dumps(summary(cases, by_path)))

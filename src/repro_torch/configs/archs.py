@@ -1,6 +1,9 @@
 """The architectures the port serves (same numbers as
 ``repro.configs.archs``): four dense GQA decoders, mamba2 and the hybrid
-recurrentgemma-9b (RG-LRU recurrent blocks and local attention), the MoE
+recurrentgemma-9b (RG-LRU recurrent blocks and local attention), the
+vision-language internvl2-2b (a stub vision frontend ahead of a GQA
+decoder) and the encoder-decoder whisper-small (a stub audio frontend,
+cross attention), the MoE
 DeepSeek-V3 (multi-head latent attention, three dense prefix layers ahead
 of 58 MoE layers of 256 experts) and Llama-4 Maverick (dense and MoE
 layers interleaved), plus the paper's evaluation models (Table 4): the
@@ -124,7 +127,31 @@ QWEN_30B_A3B = ModelConfig(
     source="paper Table 4 / hf:Qwen/Qwen3-30B-A3B",
 )
 
+# InternVL2-2B: the InternViT frontend is a stub (the caller hands over
+# ``frontend_seq`` precomputed patch embeddings, which replace the token
+# embeddings at positions below it) ahead of the InternLM2-1.8B backbone.
+INTERNVL2_2B = ModelConfig(
+    name="internvl2-2b", family="vlm",
+    num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab_size=92553, rope_theta=1e6,
+    frontend="vision_stub", frontend_seq=256,
+    source="arXiv:2404.16821",
+)
+
+# Whisper-small: encoder-decoder; the conv frontend is a stub (the caller
+# hands over the encoder's frame embeddings, 1500 mel frames padded to
+# 1536, the SP tile). No RoPE: sinusoidal positions on both sides.
+WHISPER_SMALL = ModelConfig(
+    name="whisper-small", family="audio",
+    num_layers=12, d_model=768, num_heads=12, num_kv_heads=12, head_dim=64,
+    d_ff=3072, vocab_size=51865,
+    layer_pattern=("dec",), encoder_layers=12, encoder_seq=1536,
+    frontend="audio_stub", act="gelu", norm="layernorm",
+    source="arXiv:2212.04356",
+)
+
 DENSE_GQA = (QWEN3_8B, QWEN2_7B, QWEN2_1_5B, INTERNLM2_1_8B)
 PAPER_MODELS = (LLAMA_70B, QWEN_32B, LLAMA4_17B_16E, QWEN_30B_A3B)
 ARCHS = DENSE_GQA + (MAMBA2_1_3B, RECURRENTGEMMA_9B, DEEPSEEK_V3_671B,
-                     LLAMA4_MAVERICK_400B) + PAPER_MODELS
+                     LLAMA4_MAVERICK_400B, INTERNVL2_2B,
+                     WHISPER_SMALL) + PAPER_MODELS

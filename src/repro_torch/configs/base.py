@@ -6,9 +6,17 @@ latent attention with ``MLAConfig``, with a gated MLP and RMSNorm),
 ``"local"`` (the same attention over a sliding window of
 ``local_window`` keys, a ring cache), ``"moe"`` (the attention with the
 Mixture-of-Experts FFN, ``MoEConfig``), ``"rglru"`` (Griffin's RG-LRU
-recurrent block with the MLP, ``RGLRUConfig``) and ``"ssd"`` (the Mamba-2
-SSD mixer, with ``SSMConfig``); the MLP's gate activation ``act``
-(``"silu"``: SwiGLU, ``"geglu"``: GeGLU with tanh-approximated GELU); the
+recurrent block with the MLP, ``RGLRUConfig``), ``"ssd"`` (the Mamba-2
+SSD mixer, with ``SSMConfig``) and ``"dec"`` (whisper's decoder layer:
+rope-free causal self-attention, cross attention over the encoder's
+output, the MLP), with ``encoder_layers`` rope-free non-causal encoder
+layers over ``encoder_seq`` frames ahead of the stack; the stub frontends
+(``frontend``: ``"audio_stub"``, frames handed to the encoder, or
+``"vision_stub"``, ``frontend_seq`` image embeddings in place of the
+first token embeddings); the norm (``norm``: ``"rmsnorm"`` or
+``"layernorm"``, scale and bias); the MLP's activation ``act``
+(``"silu"``: SwiGLU, ``"geglu"``: GeGLU with tanh-approximated GELU,
+``"gelu"``: a plain MLP through the tanh-approximated GELU, no gate); the
 logit soft cap of the attention scores; the layer stack
 (``prefix_layers``, the repeated ``layer_pattern``, ``suffix_layers``),
 and ``mtp_depth`` (DeepSeek-V3's multi-token prediction head, which
@@ -82,7 +90,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid (rglru + local)
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -90,7 +98,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
-    layer_pattern: tuple = ("attn",)     # repeated; attn, local, moe, rglru, ssd
+    layer_pattern: tuple = ("attn",)     # repeated: attn, local, moe, rglru,
+    #                                      ssd or dec
     prefix_layers: tuple = ()            # run before the repeated pattern
     suffix_layers: tuple = ()            # run after the repeated pattern
     qk_norm: bool = False         # RMSNorm over q and k per head (qwen3)
@@ -100,9 +109,14 @@ class ModelConfig:
     logits_soft_cap: float = 0.0
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
-    act: str = "silu"             # the MLP's gate: silu (SwiGLU) | geglu
+    act: str = "silu"             # silu (SwiGLU) | geglu | gelu (no gate)
+    norm: str = "rmsnorm"         # rmsnorm | layernorm (scale and bias)
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    encoder_layers: int = 0       # whisper-style encoder depth
+    encoder_seq: int = 1500       # encoder frames (stub frontend)
+    frontend: str = "none"        # none | vision_stub | audio_stub
+    frontend_seq: int = 0         # image embeddings of the vision stub
     mtp_depth: int = 0            # DeepSeek-V3 multi-token prediction
     tie_embeddings: bool = False  # the LM head is the embedding table
     norm_eps: float = 1e-6
@@ -147,21 +161,33 @@ class ModelConfig:
                 + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
                 + h * m.v_head_dim * d)
 
+    def _mlp_params(self) -> int:
+        """One MLP's matrices: three with a gate (SwiGLU, GeGLU), two for
+        the plain GELU MLP."""
+        return (3 if self.act in ("silu", "geglu") else 2) \
+            * self.d_model * self.d_ff
+
     def num_params(self) -> int:
         """Parameter count of the port's modules: the embedding, the LM head
-        unless tied, the norm scales, and per layer q/k/v/o (or MLA's
-        projections and its two latent norms) with the gated MLP (three
-        matrices) or the MoE FFN (the router, every expert's three matrices
-        and the shared experts'), the RG-LRU mixer (the x, y and out
-        projections, the conv, the two block-diagonal gates over 16
-        channel blocks and Λ) with the MLP, or the SSD mixer (z/x/bc/dt
-        projections, dt_bias, A_log, D, the two convolutions, the grouped
-        norm and wo). The multi-token prediction head is not served and
-        not counted."""
+        unless tied, the norms (a scale, and a bias for LayerNorm), and per
+        layer q/k/v/o (or MLA's projections and its two latent norms) with
+        the MLP or the MoE FFN (the router, every expert's three matrices
+        and the shared experts'), a decoder layer's cross attention and its
+        norm besides, the RG-LRU mixer (the x, y and out projections, the
+        conv, the two block-diagonal gates over 16 channel blocks and Λ)
+        with the MLP, or the SSD mixer (z/x/bc/dt projections, dt_bias,
+        A_log, D, the two convolutions, the grouped norm and wo); the
+        encoder's layers (attention, MLP, two norms) and its final norm.
+        The multi-token prediction head is not served and not counted."""
         d, dh = self.d_model, self.head_dim
-        n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
-        for kind in self.layer_kinds:
-            if kind in ("attn", "local", "moe"):
+        nd = 2 * d if self.norm == "layernorm" else d
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + nd
+        mlp = self._mlp_params()
+        kinds = self.layer_kinds + ("enc",) * self.encoder_layers
+        if self.encoder_layers:
+            n += nd
+        for kind in kinds:
+            if kind in ("attn", "local", "moe", "dec", "enc"):
                 attn = self._attn_params()
                 if self.mla is not None:
                     attn += self.mla.q_lora_rank + self.mla.kv_lora_rank
@@ -169,9 +195,13 @@ class ModelConfig:
                     attn += dh * (self.num_heads + 2 * self.num_kv_heads)
                 if self.qk_norm:
                     attn += 2 * dh
-                n += attn + 2 * d
+                n += attn + 2 * nd
+                if kind == "dec":
+                    n += self._attn_params() + nd
+                    if self.qkv_bias:
+                        n += dh * (self.num_heads + 2 * self.num_kv_heads)
                 if kind != "moe":
-                    n += 3 * d * self.d_ff
+                    n += mlp
                 else:
                     mo = self.moe
                     n += d * mo.num_experts + mo.num_experts * 3 * d \
@@ -181,12 +211,12 @@ class ModelConfig:
                 r = self.rglru
                 w = r.width(d)
                 n += 3 * d * w + r.conv1d_width * w + 2 * w * (w // 16) \
-                    + w + 2 * d + 3 * d * self.d_ff
+                    + w + 2 * nd + mlp
             else:
                 s = self.ssm
                 di, nh, ds = s.d_inner(d), s.n_heads(d), s.d_state
                 n += d * (2 * di + 2 * ds + nh) + 3 * nh \
-                    + s.d_conv * (di + 2 * ds) + di + di * d + d
+                    + s.d_conv * (di + 2 * ds) + di + di * d + nd
         return n
 
     def active_params(self) -> int:
@@ -194,15 +224,18 @@ class ModelConfig:
         reference counts them (``repro.configs.base.ModelConfig``'s
         ``num_params`` and ``active_params``): the embedding, the LM head
         unless tied, per layer the attention (or MLA) projections and the
-        SwiGLU matrices (of a MoE layer only the routed top-k experts, the
-        shared experts and the router), or the SSD projections and
-        convolutions. It leaves out the norm scales, biases and the SSD's
-        per-head vectors that ``num_params`` counts, so that the cost model
-        prices the reference's numbers."""
+        MLP's matrices (of a MoE layer only the routed top-k experts, the
+        shared experts and the router; a decoder layer's cross attention
+        besides), or the SSD projections and convolutions. It leaves out
+        the norm scales, biases and the SSD's per-head vectors that
+        ``num_params`` counts, and the encoder's layers, so that the cost
+        model prices the reference's numbers."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds:
-            if kind in ("attn", "local", "moe"):
+            if kind in ("attn", "local", "moe", "dec"):
+                n += self._attn_params()
+            if kind == "dec":
                 n += self._attn_params()
             if kind == "moe":
                 mo = self.moe
@@ -210,8 +243,8 @@ class ModelConfig:
                 n += mo.num_shared_experts * 3 * d * (mo.d_ff_shared
                                                       or mo.d_ff_expert)
                 n += d * mo.num_experts                       # router
-            elif kind in ("attn", "local"):
-                n += 3 * d * self.d_ff
+            elif kind in ("attn", "local", "dec"):
+                n += self._mlp_params()
             elif kind == "ssd":
                 s = self.ssm
                 di = s.d_inner(d)
@@ -228,7 +261,8 @@ class ModelConfig:
         """The CPU-test size: one full pattern repetition of at least 2
         layers, plus the first prefix and the first suffix layer, d_model
         64, 4 query heads, at most 2 KV heads, head_dim 16, d_ff 128,
-        vocab 256, ``mtp_depth`` at most 1; an SSD mixer of d_state 16,
+        vocab 256, ``mtp_depth`` at most 1, at most 2 encoder layers over
+        16 frames, at most 8 image embeddings; an SSD mixer of d_state 16,
         head_dim 16 and chunk 8; an RG-LRU of width 64; MLA, MoE and a
         local window (8) cut as the reference cuts them."""
         pat = len(self.layer_pattern)
@@ -238,6 +272,8 @@ class ModelConfig:
                   suffix_layers=self.suffix_layers[:1], d_model=64,
                   num_heads=4, num_kv_heads=min(self.num_kv_heads, 2),
                   head_dim=16, d_ff=128, vocab_size=256,
+                  encoder_layers=min(self.encoder_layers, 2), encoder_seq=16,
+                  frontend_seq=min(self.frontend_seq, 8),
                   mtp_depth=min(self.mtp_depth, 1))
         if self.mla is not None:
             kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,

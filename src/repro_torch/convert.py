@@ -80,13 +80,18 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
       block (the same, its ``ffn`` the ``router``, the ``wi``/``wg``/
       ``wo`` expert stacks and ``shared.*``), a local block (as an
       attention block), an RG-LRU block (``ln1``, ``mix``, ``ln2``,
-      ``ffn``) and an SSD block (``ln1``, ``mix``) alike;
+      ``ffn``), an SSD block (``ln1``, ``mix``) and a decoder block
+      (``ln1``, ``attn``, ``lnx``, ``cross``, ``ln2``, ``ffn``) alike; a
+      LayerNorm's ``scale`` and ``bias``, a plain GELU MLP's ``wi`` and
+      ``wo``;
+    * the encoder's stack ``encoder.*`` (stacked over its layers on axis
+      0) -> ``encoder.{e}.*``; ``enc_norm.*`` keeps its name;
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
     * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
       the port's tied head reads the table);
     * ``mtp.*``, DeepSeek-V3's multi-token prediction head, is skipped:
       serving does not read it;
-    * ``final_norm.scale`` keeps its name.
+    * ``final_norm.*`` keeps its name.
     Any other leaf, a missing one, or a stack of another depth raises. The
     SSD mixer's ``wbc`` must be the trivial layout's single group, [d,
     2·d_state]; a tree built for TP replicates it and raises."""
@@ -94,6 +99,15 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
     out = {}
     for name, a in _flatten(tree):
         if name.startswith("mtp."):
+            continue
+        if name.startswith("encoder."):
+            if a.shape[0] != cfg.encoder_layers:
+                raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
+                                 f"config has {cfg.encoder_layers} encoder "
+                                 "layers")
+            rest = name[len("encoder."):]
+            for e in range(cfg.encoder_layers):
+                out[f"encoder.{e}.{rest}"] = a[e]
             continue
         at = _layer_index(name, cfg)
         if at is not None:
@@ -133,7 +147,8 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     reference's specs place it: the attention's q/k/v columns and its O
     rows over TP after the head plan's padding and KV replication
     (``attn_specs``), the MLP's ``wi``/``wg`` columns and ``wo`` rows over
-    TP, the embedding's rows and the LM head's columns over TP, ``G/tp``
+    TP (a decoder layer's ``cross`` attention as its ``attn``), the
+    embedding's rows and the LM head's columns over TP, ``G/tp``
     shards of ``ceil(V/G)`` each (``embed_specs``, ``lmhead_specs``), a
     MoE layer's expert stacks over its EP axes and their FF dim over the
     TP axes outside them (``moe_specs``' ``P(ep, None, tpr)``), its shared
@@ -144,7 +159,8 @@ def shard_state(state, cfg, lay, rank: int) -> Dict[str, np.ndarray]:
     (``ssd_specs``, ``models.ssd.ssd_layout``), an RG-LRU mixer's x/y
     projections' columns and out projection's rows over TP and its conv,
     gates and Λ over the model group (``rglru_specs``,
-    ``models.recurrent.rglru_layout``), and the norm scales whole.
+    ``models.recurrent.rglru_layout``), and the norms' scales and biases
+    whole.
     On a layout with dp rows the rank gets the shard of its grid position
     ``(i, j)``, the same in every row (the reference replicates the
     parameters over ``"data"``), except a pod-scale config's expert stacks,
@@ -218,7 +234,7 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, lay,
         return vocab_shard(t, 0, lay, tp_rank)
     if name == "lm_head.w":
         return vocab_shard(t, 1, lay, tp_rank)
-    if parts[-2] == "attn" and parts[-1] in _HEADS:
+    if parts[-2] in ("attn", "cross") and parts[-1] in _HEADS:
         h = cfg.num_heads if _HEADS[parts[-1]] == "q" else cfg.num_kv_heads
         return attn_layout(parts[-1], _canon_shape(parts[-1], t, h, cfg),
                            cfg, lay, tp_rank)
@@ -286,7 +302,7 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     if name in ("embed.table", "lm_head.w"):
         dim = 0 if name == "embed.table" else 1
         return torch.cat(list(parts), dim).narrow(dim, 0, cfg.vocab_size)
-    if p[-2] == "attn" and p[-1] in _HEADS:
+    if p[-2] in ("attn", "cross") and p[-1] in _HEADS:
         from repro_torch.models.attention import get_plan, kv_exp_slots
         plan = get_plan(cfg, lay)
         axis = 0 if p[-1] == "wo" else (1 if p[-1][0] == "w" else 0)
@@ -348,7 +364,10 @@ def from_jax_cache(tree, cfg, paged: bool) -> Dict[str, torch.Tensor]:
       ``PagedPool`` stacks them, -> ``k``/``v``;
     * dense (``init_cache``): attention ``body.s0.k``/``v`` ``[L, B,
       s_max, kv_slots, Dh]`` -> ``k``/``v``, SSD ``body.s0.ssm``/
-      ``conv_x``/``conv_bc`` -> the ``DenseCache`` fields of those names.
+      ``conv_x``/``conv_bc`` -> the ``DenseCache`` fields of those names,
+      a decoder stack's ``body.s0.self.k``/``v`` -> ``k``/``v`` and
+      ``body.s0.cross.k``/``v`` [L, B, S_enc, kv_slots, Dh] ->
+      ``cross_k``/``cross_v``.
 
     Only a stack of one repeated block kind converts, as for the
     parameters."""
@@ -356,20 +375,23 @@ def from_jax_cache(tree, cfg, paged: bool) -> Dict[str, torch.Tensor]:
             or set(tree.get("body", {})) != {"s0"} \
             or len(cfg.layer_pattern) != 1:
         raise ValueError("only a stack of one repeated block converts")
-    body = tree["body"]["s0"]
-    want = (("k", "v") if paged or cfg.layer_pattern[0] in ("attn", "moe")
-            else ("ssm", "conv_x", "conv_bc"))
+    body = dict(_flatten(tree["body"]["s0"]))
+    kind = cfg.layer_pattern[0]
+    want = ({"k": "k", "v": "v"} if paged or kind in ("attn", "moe") else
+            {"self.k": "k", "self.v": "v", "cross.k": "cross_k",
+             "cross.v": "cross_v"} if kind == "dec" else
+            {n: n for n in ("ssm", "conv_x", "conv_bc")})
     if set(body) != set(want):
         raise ValueError(f"cache leaves {sorted(body)}, want {list(want)} "
                          f"for a {'paged' if paged else 'dense'} "
-                         f"{cfg.layer_pattern[0]} stack")
+                         f"{kind} stack")
     out = {}
-    for name in want:
+    for name, field in want.items():
         a = body[name]
         if a.shape[0] != cfg.num_layers:
             raise ValueError(f"body.s0.{name}: {a.shape[0]} stacked layers, "
                              f"config has {cfg.num_layers}")
-        out[name] = _tensor(a)
+        out[field] = _tensor(a)
     return out
 
 
@@ -379,7 +401,9 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
     tensors by name (``ShiftEngine._cache_tensors()`` or the fields of a
     ``DenseCache``), in process-rank order over the world of ``lay``. The
     batch axis takes the dp rows in order; the head axis of ``k``/``v``
-    [L, B, s_max, kv_slots, Dh], of a local layer's ring ``ring_k``/
+    [L, B, s_max, kv_slots, Dh], of a decoder layer's cross cache
+    ``cross_k``/``cross_v`` [L, B, S_enc, kv_slots, Dh], of a local
+    layer's ring ``ring_k``/
     ``ring_v`` [L, B, rows, kv_slots, Dh] and of ``ssm`` [L, B, H, hd,
     ds], and the channels of ``conv_x`` [L, B, cw-1, H·hd] and of an
     RG-LRU layer's ``h`` [L, B, w] and ``conv`` [L, B, cw-1, w] take the
@@ -399,7 +423,7 @@ def gather_dense_cache(caches, cfg, lay) -> Dict[str, np.ndarray]:
             t, torch.Tensor) else np.asarray(t)
 
     axis = {"k": 3, "v": 3, "ring_k": 3, "ring_v": 3, "ssm": 2, "conv_x": 3,
-            "h": 2, "conv": 3}
+            "h": 2, "conv": 3, "cross_k": 3, "cross_v": 3}
     out = {}
     for name in caches[0]:
         rows = []

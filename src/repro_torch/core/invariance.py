@@ -13,7 +13,9 @@ heads as the KV cache over its slots (the reference's ``ssd_state_specs``
 and ``verify_invariance`` on them), so the same holds for its heads; a
 local layer's ring holds the KV cache's slots, and an RG-LRU layer's
 state is sharded over its channels as the heads (``rglru_state_specs``,
-``rglru_channels``). An MLA config's latent cache has no heads: it is sharded over the
+``rglru_channels``), and a decoder layer's cross cache holds the encoder's
+frames at the KV cache's slots (the reference's ``cache_specs`` for
+``cross``). An MLA config's latent cache has no heads: it is sharded over the
 sequence on the grid's sp (``mla_cache_specs``' ``P(dp, cache_sp,
 None)``), and a rank holds the same chunk of it in both configs
 (``latent_chunk``).
@@ -153,17 +155,22 @@ def verify_dense_invariance(base, shift, rank: int) -> bool:
     """The §3.3.1 check of the dense cache on one rank, for its ``base``
     and ``shift`` models:
 
-    1. both step the same cache tensors (equal ``data_ptr`` of every KV
-       and SSD state tensor), so a switch moves no byte;
-    2. the rank owns the same KV head slots (of the global and the ring
-       caches), the same SSD heads, the same RG-LRU channels and the same
-       chunk of an MLA latent cache in both configs."""
+    1. both step the same cache tensors (equal ``data_ptr`` of every KV,
+       cross KV and recurrent state tensor), so a switch moves no byte;
+    2. the rank owns the same KV head slots (of the global, the ring and
+       the cross caches: a cross cache holds ``kv_per_rank`` slots, those
+       of the KV cache), the same SSD heads, the same RG-LRU channels and
+       the same chunk of an MLA latent cache in both configs."""
     a, b = base.cache, shift.cache
     if a is None or b is None:
         return False
     ta, tb = a.tensors(), b.tensors()
     if set(ta) != set(tb) or any(ta[n].data_ptr() != tb[n].data_ptr()
                                  for n in ta):
+        return False
+    if any(ta[n].shape[3] != m.plan.kv_per_rank for n in ("cross_k",
+                                                          "cross_v")
+           if n in ta for m in (base, shift)):
         return False
     return (kv_slots(base, rank) == kv_slots(shift, rank)
             and ssd_heads(base, rank) == ssd_heads(shift, rank)

@@ -94,18 +94,31 @@ class GraphPool:
         return self.handle
 
 
+def _is_float(a) -> bool:
+    """A frontend input (image embeddings, encoder frames): a floating
+    tensor, which the step takes in the model's type."""
+    return isinstance(a, torch.Tensor) and a.is_floating_point()
+
+
 class _Bucket:
     """One bucket of a captured entry: pinned host staging and static int32
-    device buffers for each input (None where the step takes None), the
-    graph, its static output, and the kernel launches of one replay."""
+    device buffers for each int input, static device buffers of the
+    model's type for each frontend input (copied in on the device, no
+    staging), None where the step takes None (the block tables of a dense
+    step), the graph, its static output, and the kernel launches of one
+    replay."""
 
-    def __init__(self, shapes, device):
-        self.host = [None if s is None else
-                     torch.empty(s, dtype=torch.int32, pin_memory=True)
-                     for s in shapes]
-        self.inputs = [None if s is None else
-                       torch.empty(s, dtype=torch.int32, device=device)
-                       for s in shapes]
+    def __init__(self, arrays, device, dtype):
+        self.host = [None if a is None or _is_float(a) else
+                     torch.empty(np.shape(a), dtype=torch.int32,
+                                 pin_memory=True)
+                     for a in arrays]
+        self.inputs = [None if a is None else
+                       torch.empty(tuple(a.shape), dtype=dtype, device=device)
+                       if _is_float(a) else
+                       torch.empty(np.shape(a), dtype=torch.int32,
+                                   device=device)
+                       for a in arrays]
         self.staged = torch.cuda.Event()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.output: Optional[torch.Tensor] = None
@@ -113,7 +126,8 @@ class _Bucket:
 
     def load(self, arrays):
         """Copy the host arrays into the static buffers through the pinned
-        staging, ordered before the work that follows on this stream."""
+        staging, and the frontend tensors straight in, ordered before the
+        work that follows on this stream."""
         # the last call's copies may still read the staging: wait for them
         # (they were queued before that call's step, so this waits for no
         # step)
@@ -122,6 +136,8 @@ class _Bucket:
             if host is not None:
                 host.numpy()[...] = a
                 dev.copy_(host, non_blocking=True)
+            elif dev is not None:
+                dev.copy_(a, non_blocking=True)
         self.staged.record()
 
     def capture(self, step: Callable, pool):
@@ -149,8 +165,10 @@ class CapturedStep:
     """One entry of a step table: a ``Model``'s device-only step
     (``mixed_step``, ``prefill_step`` or ``decode_step``) behind the host
     conversion of its inputs. A call takes host int arrays, None where the
-    step takes None (the block tables of a dense step), and returns the
-    step's output on the model's device.
+    step takes None (the block tables of a dense step), and the frontend
+    inputs as floating tensors (the engine's zero image embeddings or
+    encoder frames, on the model's device), and returns the step's output
+    on the model's device.
 
     On the CPU, and on the card when ``graphs`` is None (the eager
     counterpart that tests compare against), it converts the arrays and
@@ -189,15 +207,16 @@ class CapturedStep:
     def __call__(self, *arrays) -> torch.Tensor:
         model = self.model
         if self.graphs is None or model.device.type != "cuda":
-            return self.step(*map(model._ints, arrays))
+            return self.step(*(model._floats(a) if _is_float(a)
+                               else model._ints(a) for a in arrays))
         self._check_cache()
-        key = tuple(None if a is None else tuple(np.shape(a))
+        key = tuple(None if a is None else (tuple(np.shape(a)), _is_float(a))
                     for a in arrays)
         bucket = self.buckets.get(key)
         if bucket is not None:
             bucket.load(arrays)
             return bucket.replay()
-        bucket = _Bucket(key, model.device)
+        bucket = _Bucket(arrays, model.device, model.dtype)
         bucket.load(arrays)
         out = self.step(*bucket.inputs)
         t0 = time.perf_counter()

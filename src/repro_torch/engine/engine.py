@@ -51,8 +51,15 @@ prompt fits in the free blocks, and block exhaustion preempts the
 least-recently scheduled request back to the queue (recompute), which
 bounds memory while guaranteeing progress. The dense contiguous cache
 (``paged=False``, and the automatic fallback for mamba2, whose SSD layers
-keep recurrent state per slot) gives each slot a ``[s_max]`` row; it
-serves only the serialized iteration and admits FCFS by free slot.
+keep recurrent state per slot, and the other configs whose layers do not
+page) gives each slot a ``[s_max]`` row; it serves only the serialized
+iteration and admits FCFS by free slot.
+
+A config with a stub frontend takes its inputs from the engine, zeros as
+the reference's engine feeds them (``_extras``): internvl2-2b's image
+embeddings go to every mixed and serialized prefill step, whisper-small's
+encoder frames to every serialized prefill step (its encoder runs and its
+cross caches are rewritten each time); decode steps take none.
 
 As in the reference, a serialized step always runs all ``max_slots``
 rows, and nothing resets a slot's SSD state on admission: the dummy rows
@@ -1166,7 +1173,8 @@ class ShiftEngine:
         if fault is None or fault.kind == "nan":
             # "nan": the step runs (and writes the KV bytes a retry writes
             # again), but its tokens are garbage
-            nxt = fwd(toks, qlen, offs, bt).cpu().numpy()
+            nxt = fwd(toks, qlen, offs, bt,
+                      *self._extras(Rb, mixed=True)).cpu().numpy()
         if fault is not None:
             # no token is applied: every batched request retries or
             # quarantines, and a retry recomputes the same chunk. The
@@ -1295,7 +1303,8 @@ class ShiftEngine:
             self._apply_copies()
         fault = self._forward_fault()
         if fault is None or fault.kind == "nan":
-            self.deploy.prefill[mode](toks, offs, bt)
+            self.deploy.prefill[mode](toks, offs, bt,
+                                      *self._extras(self.cfg.max_slots))
             self._wait_for_device()
         if fault is not None:
             self._fail_step([r for r, _ in rows],
@@ -1312,6 +1321,26 @@ class ShiftEngine:
                        sum(1 for r in self.active
                            if self._prefill_done(r) and not r.done), ctx)
         return True
+
+    def _extras(self, batch: int, mixed: bool = False) -> tuple:
+        """The frontend inputs a step of ``batch`` rows takes after its
+        ints, zeros as the reference's engine feeds them: the vision stub's
+        image embeddings [batch, frontend_seq, d] (mixed and serialized
+        prefill steps), then the encoder's frames [batch, S_enc, d]
+        (serialized prefill steps); None in place of one the config lacks,
+        and nothing past the last one it has. Decode steps take none."""
+        mc, m = self.mcfg, self.model
+
+        def zeros(n):
+            return torch.zeros((batch, n, mc.d_model), dtype=m.dtype,
+                               device=m.device)
+        ex = (zeros(mc.frontend_seq) if mc.frontend == "vision_stub"
+              else None,
+              None if mixed or not mc.encoder_layers
+              else zeros(mc.encoder_seq))
+        while ex and ex[-1] is None:
+            ex = ex[:-1]
+        return ex
 
     def _wait_for_device(self):
         """A serialized prefill step reads nothing back: on the card, wait

@@ -63,8 +63,13 @@ interleaved; 801 GB). ``--arch recurrentgemma-9b`` (38 layers: 12 x
 (RG-LRU, RG-LRU, local attention) and two RG-LRU layers, d_model 4096,
 19.3 GB in bf16) fits one card; its RG-LRU state and local rings do not
 page, so it falls back to the serialized iteration on the dense cache as
-mamba2 does. At full depth a model that does not fit the card raises
-before it allocates, naming its size; ``--dp 2 --backend gloo``
+mamba2 does. ``--arch whisper-small`` (12 encoder and 12 decoder layers,
+d_model 768, 0.56 GB in bf16) takes that fallback too, at any ``--dp``
+(its cross caches do not page), and runs its encoder over zero frames in
+every prefill step; ``--arch internvl2-2b`` (24 layers, d_model 2048, 3.8
+GB) serves through the mixed paged engine with zero image embeddings over
+its first 256 positions. At full depth a model that does not fit the card
+raises before it allocates, naming its size; ``--dp 2 --backend gloo``
 serves the pod-scale MoE archs with their experts spread across the dp
 rows.
 

@@ -26,9 +26,19 @@ ring concatenated with its own keys and then writes its last ``min(S,
 rows)`` keys, a decode step writes its key and attends the ring, both with
 the window mask and the config's logit soft cap, through the plain
 ``models.attention_math`` (the reference's ring attention is jnp and
-reaches no Pallas kernel). Rope-free attention (whisper), a window over a
-cache longer than it, and a soft cap on global attention are not ported:
-the dense paths raise on them."""
+reaches no Pallas kernel). A window over a cache longer than it and a soft
+cap on global attention are not ported: the dense paths raise on them.
+
+Whisper's attention is rope-free: its decoder's self-attention takes the
+dense paths with ``rope=False`` (flash in prefill, the decode kernel in
+decode); its encoder attends the rank's whole frame sequence after the
+exchange, non-causal, with no cache, through the flash kernel
+(``enc_attn``); its cross attention projects the encoder's output into
+the cross cache in every prefill step (``cross_kv_prefill``, through the
+exchange in the base config), then attends all ``S_enc`` keys
+non-causally: the flash kernel in prefill (``cross_attend``), the decode
+kernel with every row's length ``S_enc`` in decode
+(``cross_attend_decode``), the reference's unmasked ``attend``."""
 from __future__ import annotations
 
 import torch
@@ -255,15 +265,15 @@ def paged_attn_prefill(p: Attention, x, k_pool, v_pool, pos, offsets,
                             block_tables, cfg)
 
 
-def _decode_exchange(p: Attention, x, lens, cfg):
+def _decode_exchange(p: Attention, x, lens, cfg, rope: bool = True):
     """A decode step's projection and exchange: the rank's rows x [B_loc,
     d] travel as a sequence ``x[None]``, so after the exchange the rank
     holds every row of its dp row at its heads, q [B_row, 1, q_per_rank,
-    dh] and k, v [B_row, 1, kv_per_rank, dh], normed and rotated at
-    positions ``lens`` [B_row]."""
+    dh] and k, v [B_row, 1, kv_per_rank, dh], normed and (with ``rope``)
+    rotated at positions ``lens`` [B_row]."""
     q, k, v = (t.transpose(0, 1) for t in _project_exchange(p, x[None],
                                                             cfg))
-    return (*_qk_post(p, q, k, lens[:, None].long(), cfg), v)
+    return (*_qk_post(p, q, k, lens[:, None].long(), cfg, rope), v)
 
 
 def _decode_finish(p: Attention, out):
@@ -294,13 +304,10 @@ def paged_attn_decode(p: Attention, x, k_pool, v_pool, lens, block_tables,
 # ---------------------------------------------------------------------------
 # dense contiguous cache
 # ---------------------------------------------------------------------------
-def _ring(cfg, window, rope, rows):
+def _ring(cfg, window, rows):
     """True for the ring path (a window over a cache of at most ``window``
     rows, as every ``local`` layer's); False for global attention. Raises
     on what is not ported."""
-    if not rope:
-        raise NotImplementedError("dense attention without RoPE (whisper) "
-                                  "is not ported")
     if window and rows > window:
         raise NotImplementedError(
             f"a window of {window} over a cache of {rows} rows: a local "
@@ -329,7 +336,8 @@ def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
     """Chunked prefill against the dense cache. x: [B, S_loc, d], this
     rank's columns of a chunk of S; row b's tokens sit at positions
     ``offsets[b] + arange(S)``, which the rank sees whole after the
-    exchange. Global attention writes their K/V into ``k_cache``/
+    exchange (rotated there unless ``rope`` is False). Global attention
+    writes their K/V into ``k_cache``/
     ``v_cache`` ([B, s_max, kv_per_rank, Dh]) IN PLACE at ``offsets``
     clamped so the chunk fits (the reference's ``dynamic_update_slice``),
     padding columns included, then attends the chunk against the whole
@@ -339,11 +347,11 @@ def attn_prefill(p: Attention, x, k_cache, v_cache, offsets, cfg, *,
     concatenated with the chunk's keys (the window mask and soft cap),
     then the chunk's last ``min(S, rows)`` keys are written at their
     positions mod ``rows``. Returns out [B, S_loc, d]."""
-    ring = _ring(cfg, window, rope, k_cache.shape[1])
+    ring = _ring(cfg, window, k_cache.shape[1])
     q, k, v = _project_exchange(p, x, cfg)
     B, S = q.shape[:2]
     pos = offsets[:, None].long() + torch.arange(S, device=x.device)[None]
-    q, k = _qk_post(p, q, k, pos, cfg)
+    q, k = _qk_post(p, q, k, pos, cfg, rope)
     rows = torch.arange(B, device=x.device)[:, None]
     if ring:
         n = k_cache.shape[1]
@@ -372,12 +380,13 @@ def attn_decode(p: Attention, x, k_cache, v_cache, lens, cfg, *,
     rank's segment of its dp row's batch; lens: [B_row] write positions
     (inactive slots pass 0 and write a garbage K/V at position 0 of their
     free row, as the reference does); k_cache/v_cache [B_row, s_max,
-    kv_per_rank, Dh]. Writes in place, then attends ``kpos < lens + 1``
-    with the decode kernel at the rank's heads; a ``window`` layer writes
+    kv_per_rank, Dh]. Writes in place (q and k rotated at ``lens`` unless
+    ``rope`` is False), then attends ``kpos < lens + 1`` with the decode
+    kernel at the rank's heads; a ``window`` layer writes
     row ``lens mod rows`` of its ring and attends the ring with the
     window mask and soft cap. Returns [B_loc, d]."""
-    ring = _ring(cfg, window, rope, k_cache.shape[1])
-    q, k, v = _decode_exchange(p, x, lens, cfg)
+    ring = _ring(cfg, window, k_cache.shape[1])
+    q, k, v = _decode_exchange(p, x, lens, cfg, rope)
     rows = torch.arange(q.shape[0], device=x.device)
     ln = lens.long()
     wp = ln % k_cache.shape[1] if ring else ln
@@ -392,3 +401,67 @@ def attn_decode(p: Attention, x, k_cache, v_cache, lens, cfg, *,
     else:
         out = K.decode_attention(q, k_cache, v_cache, lens + 1)
     return _decode_finish(p, out)
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder's attention and the decoder's cross attention
+# ---------------------------------------------------------------------------
+def enc_attn(p: Attention, x, cfg):
+    """Encoder self-attention: x [B, S_loc, d], the rank's frames; after
+    the exchange the rank attends the whole sequence at its heads,
+    non-causal, rope-free, with no cache (the flash kernel at zero
+    offsets). Returns [B, S_loc, d]."""
+    q, k, v = _project_exchange(p, x, cfg)
+    q, k = _qk_post(p, q, k, None, cfg, rope=False)
+    return _finish(p, K.flash_attention(q, k, v, causal=False))
+
+
+def cross_kv_prefill(p: Attention, enc_out, k_cross, v_cross, cfg):
+    """Project the encoder's output [B, S_enc_loc, d] (the rank's frames)
+    into the cross K/V and write them IN PLACE into ``k_cross``/``v_cross``
+    [B, S_enc, kv_per_rank, Dh]: in the base config the kv slots are
+    replicated into the send buffer and scattered over SP, as the
+    self-attention's are, so each rank holds every frame at its slots."""
+    dh = cfg.head_dim
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p.wk).reshape(B, S, -1, dh)
+    v = (enc_out @ p.wv).reshape(B, S, -1, dh)
+    if cfg.qkv_bias:
+        k, v = k + p.bk.reshape(-1, dh), v + p.bv.reshape(-1, dh)
+    sh = p.shard
+    if sh.sp_group is not None:
+        k = expand_kv_for_send(k, p.plan, sh.lay.sp, sh.tp_rank)
+        v = expand_kv_for_send(v, p.plan, sh.lay.sp, sh.tp_rank)
+        k, v = ulysses_scatter_heads([k, v], sh.sp_group)
+    k_cross.copy_(k)
+    v_cross.copy_(v)
+
+
+def _cross_q(p: Attention, x, cfg):
+    """The cross attention's queries [B, S, d] -> [B, S_full, q_per_rank,
+    dh] after the exchange (no norm, no rotation)."""
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(x.shape[0], x.shape[1], -1, cfg.head_dim)
+    (q,) = ulysses_scatter_heads([q], p.shard.sp_group)
+    return q
+
+
+def cross_attend(p: Attention, x, k_cross, v_cross, cfg):
+    """A prefill chunk's cross attention: x [B, S_loc, d] against every
+    frame of the cross cache, non-causal (the flash kernel at zero
+    offsets). Returns [B, S_loc, d]."""
+    q = _cross_q(p, x, cfg)
+    return _finish(p, K.flash_attention(q, k_cross, v_cross, causal=False))
+
+
+def cross_attend_decode(p: Attention, x, k_cross, v_cross, cfg):
+    """A decode step's cross attention: the rank's rows x [B_loc, d] travel
+    as a sequence, as in ``attn_decode``; every row of the dp row attends
+    all ``S_enc`` frames (the decode kernel with every length ``S_enc``).
+    Returns [B_loc, d]."""
+    q = _cross_q(p, x[None], cfg).transpose(0, 1)    # [B_row, 1, q_pr, dh]
+    B, S_enc = k_cross.shape[:2]
+    lens = torch.full((B,), S_enc, dtype=torch.int32, device=x.device)
+    return _decode_finish(p, K.decode_attention(q, k_cross, v_cross, lens))

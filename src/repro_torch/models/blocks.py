@@ -1,12 +1,16 @@
 """Pre-norm residual blocks (counterpart of ``repro.models.blocks``) for the
-port's five layer kinds: ``"attn"`` (attention + the gated MLP of
-``cfg.act``), ``"local"`` (the same with sliding-window attention over a
-ring cache of ``min(s_max, local_window)`` rows), ``"moe"`` (the
-attention + the Mixture-of-Experts FFN), ``"rglru"`` (the RG-LRU mixer +
-the MLP) and ``"ssd"`` (the Mamba-2 mixer alone, no ln2 and no FFN). A
-config with ``mla`` takes multi-head latent attention (``models.mla``) in
-place of GQA attention in the ``attn`` and ``moe`` kinds; its layers keep
-the dense latent cache and never page. Only ``attn`` and ``moe`` layers of
+port's layer kinds: ``"attn"`` (attention + the MLP of ``cfg.act``),
+``"local"`` (the same with sliding-window attention over a ring cache of
+``min(s_max, local_window)`` rows), ``"moe"`` (the attention + the
+Mixture-of-Experts FFN), ``"rglru"`` (the RG-LRU mixer + the MLP),
+``"ssd"`` (the Mamba-2 mixer alone, no ln2 and no FFN), and whisper's
+``"enc"`` (non-causal rope-free self-attention with no cache + the MLP)
+and ``"dec"`` (rope-free causal self-attention on the dense cache, then
+``lnx`` and cross attention over the encoder's output, + the MLP). The
+norms are ``cfg.norm``'s (RMSNorm, or LayerNorm with a bias). A config
+with ``mla`` takes multi-head latent attention (``models.mla``) in place
+of GQA attention in the ``attn`` and ``moe`` kinds; its layers keep the
+dense latent cache and never page. Only ``attn`` and ``moe`` layers of
 GQA attention page."""
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from . import mla as M
 from . import moe as MOE
 from . import recurrent as R
 from . import ssd as S
-from .layers import MLP, RMSNorm, mlp_apply
+from .layers import MLP, make_norm, mlp_apply
 
 
 def _attention(cfg, lay, dtype, device, shard):
@@ -32,12 +36,11 @@ class Block(nn.Module):
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
-        d = cfg.d_model
         shard = shard or Shard(lay)
-        self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ln1 = make_norm(cfg, dtype, device)
         self.attn = _attention(cfg, lay, dtype, device, shard)
-        self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard, cfg.act)
+        self.ln2 = make_norm(cfg, dtype, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device, shard, cfg.act)
 
     def reset_parameters(self, generator):
         self.ln1.reset_parameters()
@@ -58,17 +61,16 @@ class LocalBlock(Block):
 
 
 class RGLRUBlock(nn.Module):
-    """The RG-LRU mixer and the MLP, each behind its own RMSNorm."""
+    """The RG-LRU mixer and the MLP, each behind its own norm."""
     kind = "rglru"
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
-        d = cfg.d_model
         shard = shard or Shard(lay)
-        self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ln1 = make_norm(cfg, dtype, device)
         self.mix = R.RGLRU(cfg, lay, dtype, device, shard)
-        self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
-        self.ffn = MLP(d, cfg.d_ff, dtype, device, shard, cfg.act)
+        self.ln2 = make_norm(cfg, dtype, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device, shard, cfg.act)
 
     def reset_parameters(self, generator):
         self.ln1.reset_parameters()
@@ -83,11 +85,10 @@ class MoEBlock(Block):
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         nn.Module.__init__(self)
-        d = cfg.d_model
         shard = shard or Shard(lay)
-        self.ln1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ln1 = make_norm(cfg, dtype, device)
         self.attn = _attention(cfg, lay, dtype, device, shard)
-        self.ln2 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.ln2 = make_norm(cfg, dtype, device)
         self.ffn = MOE.MoE(cfg, lay, dtype, device, shard)
 
 
@@ -96,7 +97,7 @@ class SSDBlock(nn.Module):
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.ln1 = make_norm(cfg, dtype, device)
         self.mix = S.SSD(cfg, lay, dtype, device, shard or Shard(lay))
 
     def reset_parameters(self, generator):
@@ -104,12 +105,36 @@ class SSDBlock(nn.Module):
         self.mix.reset_parameters(generator)
 
 
+class EncBlock(Block):
+    """A whisper encoder layer: non-causal rope-free self-attention over
+    the rank's frames (no cache) and the MLP."""
+    kind = "enc"
+
+
+class DecBlock(Block):
+    """A whisper decoder layer: rope-free causal self-attention on the
+    dense cache, then ``lnx`` and cross attention (``cross``, a second
+    attention's parameters) over the encoder's output, then the MLP."""
+    kind = "dec"
+
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
+        super().__init__(cfg, lay, dtype, device, shard)
+        self.lnx = make_norm(cfg, dtype, device)
+        self.cross = A.Attention(cfg, lay, dtype, device, self.attn.shard)
+
+    def reset_parameters(self, generator):
+        super().reset_parameters(generator)
+        self.lnx.reset_parameters()
+        self.cross.reset_parameters(generator)
+
+
 BLOCKS = {"attn": Block, "local": LocalBlock, "moe": MoEBlock,
-          "rglru": RGLRUBlock, "ssd": SSDBlock}
+          "rglru": RGLRUBlock, "ssd": SSDBlock, "enc": EncBlock,
+          "dec": DecBlock}
 
 
 def _ffn(p, h2):
-    """The FFN half: the MoE layer's routed experts, or the gated MLP.
+    """The FFN half: the MoE layer's routed experts, or the MLP.
     h2: [B, S, d]."""
     if p.kind == "moe":
         return MOE.moe_apply(p.ffn, h2)[0]
@@ -127,16 +152,33 @@ def block_paged_cache_init(kind, cfg, lay: Layout, num_blocks: int,
     raise ValueError(f"layer kind {kind!r} does not support a paged cache")
 
 
+def block_encode(p, x, cfg):
+    """One encoder layer. x: [B, S_loc, d], the rank's frames."""
+    x = x + A.enc_attn(p.attn, p.ln1(x), cfg)
+    return x + _ffn(p, p.ln2(x))
+
+
 def block_prefill(p, x, cache, ctx, cfg):
-    """x: [B, S, d]; ctx: dict(positions, offsets, q_lens, block_tables).
-    One layer of a prefill-shaped step, dispatched by the layer's kind as
-    the reference's ``block_prefill``. An attention layer's ``cache`` is its
-    (K, V) pools or dense caches: ``q_lens`` -> the mixed paged step, block
-    tables alone -> the paged chunked prefill, neither -> the dense cache.
-    A local layer's is its ring (K, V). An SSD layer's is its
-    ``SSDState``, an RG-LRU layer's its ``RGLRUState``, an MLA layer's its
-    latent cache. The cache is updated in place."""
+    """x: [B, S, d]; ctx: dict(positions, offsets, q_lens, block_tables,
+    enc_out). One layer of a prefill-shaped step, dispatched by the
+    layer's kind as the reference's ``block_prefill``. An attention
+    layer's ``cache`` is its (K, V) pools or dense caches: ``q_lens`` ->
+    the mixed paged step, block tables alone -> the paged chunked prefill,
+    neither -> the dense cache. A local layer's is its ring (K, V). A
+    decoder layer's is its self (K, V) and its cross (K, V), which it
+    rewrites from ``enc_out`` (the reference's ``init_cross``, set in
+    every prefill step). An SSD layer's is its ``SSDState``, an RG-LRU
+    layer's its ``RGLRUState``, an MLA layer's its latent cache. The cache
+    is updated in place."""
     h = p.ln1(x)
+    if p.kind == "dec":
+        k_cache, v_cache, cross_k, cross_v = cache
+        x = x + A.attn_prefill(p.attn, h, k_cache, v_cache, ctx["offsets"],
+                               cfg, rope=False)
+        hx = p.lnx(x)
+        A.cross_kv_prefill(p.cross, ctx["enc_out"], cross_k, cross_v, cfg)
+        x = x + A.cross_attend(p.cross, hx, cross_k, cross_v, cfg)
+        return x + _ffn(p, p.ln2(x))
     if p.kind == "ssd":
         return x + S.ssd_prefill(p.mix, h, cache, cfg)
     if p.kind == "rglru":
@@ -167,10 +209,18 @@ def block_prefill(p, x, cache, ctx, cfg):
 def block_decode(p, x, cache, ctx, cfg):
     """x: [B_loc, d], this rank's segment of its dp row's batch; ctx:
     dict(lens, block_tables), the row's. One layer of a decode step: an
-    SSD or RG-LRU layer steps its state; a local layer its ring; an
-    attention layer attends through the block table when there is one,
-    else against the dense cache."""
+    SSD or RG-LRU layer steps its state; a local layer its ring; a decoder
+    layer its self cache, then attends its cross cache; an attention layer
+    attends through the block table when there is one, else against the
+    dense cache."""
     h = p.ln1(x)
+    if p.kind == "dec":
+        k_cache, v_cache, cross_k, cross_v = cache
+        x = x + A.attn_decode(p.attn, h, k_cache, v_cache, ctx["lens"], cfg,
+                              rope=False)
+        x = x + A.cross_attend_decode(p.cross, p.lnx(x), cross_k, cross_v,
+                                      cfg)
+        return _decode_ffn(p, x)
     if p.kind == "ssd":
         return x + S.ssd_decode(p.mix, h, cache, cfg)
     if p.kind == "rglru":

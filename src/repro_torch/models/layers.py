@@ -100,6 +100,38 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.scale, self.eps)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-6):
+    """``(x - mean)·rsqrt(var + eps)`` in fp32, cast to x's type, times
+    scale plus bias (the reference's ``layernorm``). No TPU kernel computes
+    it, so it stays plain PyTorch."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d, dtype, device, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = empty_param((d,), dtype, device)
+        self.bias = empty_param((d,), dtype, device)
+
+    def reset_parameters(self, generator=None):
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return layernorm(x, self.scale, self.bias, self.eps)
+
+
+def make_norm(cfg, dtype, device):
+    """The config's norm over d_model (``cfg.norm``): RMSNorm or
+    LayerNorm, the reference's ``norm_init``."""
+    cls = LayerNorm if cfg.norm == "layernorm" else RMSNorm
+    return cls(cfg.d_model, dtype, device, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -120,16 +152,17 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# gated MLP (SwiGLU, GeGLU)
+# MLP (SwiGLU, GeGLU, plain GELU)
 # ---------------------------------------------------------------------------
-ACTS = ("silu", "geglu")
+ACTS = ("silu", "geglu", "gelu")
 
 
 class MLP(nn.Module):
-    """A gated MLP, ``wi``/``wg`` column-sharded and ``wo`` row-sharded
-    over TP: SwiGLU with ``act="silu"``, GeGLU (the gate through the
+    """An MLP, ``wi``/``wg`` column-sharded and ``wo`` row-sharded over TP:
+    SwiGLU with ``act="silu"``, GeGLU (the gate through the
     tanh-approximated GELU, ``jax.nn.gelu``'s default) with
-    ``act="geglu"``."""
+    ``act="geglu"``, and with ``act="gelu"`` the plain MLP ``gelu(x @ wi)
+    @ wo``, which has no ``wg``."""
 
     def __init__(self, d, d_ff, dtype, device, shard: Shard = None,
                  act: str = "silu"):
@@ -142,14 +175,18 @@ class MLP(nn.Module):
         self.d, self.d_ff = d, d_ff
         ff = d_ff // max(self.shard.lay.tp, 1)
         self.wi = empty_param((d, ff), dtype, device)
-        self.wg = empty_param((d, ff), dtype, device)
+        if act != "gelu":
+            self.wg = empty_param((d, ff), dtype, device)
         self.wo = empty_param((ff, d), dtype, device)
 
     def reset_parameters(self, generator):
         tp, k = max(self.shard.lay.tp, 1), self.shard.tp_rank
-        for w, shape, dim in ((self.wi, (self.d, self.d_ff), 1),
-                              (self.wo, (self.d_ff, self.d), 0),
-                              (self.wg, (self.d, self.d_ff), 1)):
+        for name, shape, dim in (("wi", (self.d, self.d_ff), 1),
+                                 ("wo", (self.d_ff, self.d), 0),
+                                 ("wg", (self.d, self.d_ff), 1)):
+            if not hasattr(self, name):
+                continue
+            w = getattr(self, name)
             full = dense_init(shape, generator, torch.float32)
             w.copy_(shard_of(full, dim, tp, k).to(w.dtype))
 
@@ -160,8 +197,11 @@ def gelu(x):
 
 
 def mlp_apply(p: MLP, x):
-    gate = F.silu if p.act == "silu" else gelu
-    h = gate(x @ p.wg) * (x @ p.wi)
+    if p.act == "gelu":
+        h = gelu(x @ p.wi)
+    else:
+        gate = F.silu if p.act == "silu" else gelu
+        h = gate(x @ p.wg) * (x @ p.wi)
     return psum_if(h @ p.wo, p.shard.tp_group)
 
 

@@ -40,8 +40,9 @@ from . import transformer as T
 
 class Model:
     """A decoder (dense GQA or MLA attention, with gated MLPs or MoE FFNs,
-    mamba2's SSD layers, or recurrentgemma's RG-LRU and local attention
-    layers) on one device.
+    mamba2's SSD layers, recurrentgemma's RG-LRU and local attention
+    layers, internvl2's vision stub ahead of GQA layers, or whisper's
+    encoder-decoder stack) on one device.
     ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
     runs only when asked for. ``lay`` is the layout (the trivial one by
     default); above world size 1, ``groups`` are the grid's process groups
@@ -145,11 +146,11 @@ class Model:
         """True when every cached layer is GQA attention (``attn`` or
         ``moe``), whose [block_size, kv_slots, Dh] block layout pages. MLA
         layers keep a latent sharded over the sequence, local layers a
-        ring, and SSD and RG-LRU layers recurrent state per sequence, so
-        their configs keep the contiguous cache (the reference's
-        reason)."""
-        return self.cfg.mla is None and all(
-            k in ("attn", "moe") for k in self.cfg.layer_kinds)
+        ring, SSD and RG-LRU layers recurrent state per sequence, and an
+        encoder-decoder stack its cross cache, so their configs keep the
+        contiguous cache (the reference's reason)."""
+        return (self.cfg.mla is None and not self.cfg.encoder_layers
+                and all(k in ("attn", "moe") for k in self.cfg.layer_kinds))
 
     def _require_paged(self):
         if not self.supports_paged:
@@ -221,6 +222,25 @@ class Model:
         return None if a is None else torch.as_tensor(
             a, dtype=torch.int32, device=self.device)
 
+    def _floats(self, a):
+        """Host conversion of the frontend inputs: an array (or tensor) ->
+        the model's type on its device; None stays None."""
+        return None if a is None else torch.as_tensor(
+            a, dtype=self.dtype, device=self.device)
+
+    def _frontend(self, rows, frontend_embeds, enc_frames):
+        """This rank's part of the frontend inputs, as the reference's
+        ``in_specs`` cut them: its dp rows of the image embeddings
+        (``P(dp, None, None)``), and its dp rows and contiguous sp part of
+        the encoder's frames (``P(dp, seq, None)``)."""
+        if frontend_embeds is not None:
+            frontend_embeds = frontend_embeds[rows]
+        if enc_frames is not None:
+            enc_frames = enc_frames[rows]
+            enc_frames = enc_frames[:, self._sp_part(enc_frames.shape[1],
+                                                     "the encoder frames")]
+        return frontend_embeds, enc_frames
+
     def _step_cache(self, block_tables):
         """The paged pool when a step carries block tables, else the dense
         cache; raises if that cache was not initialised."""
@@ -237,22 +257,29 @@ class Model:
     # make no host sync and branch only on shapes and the config, so that
     # a step can be captured as a CUDA graph (``engine.deployment``); the
     # cache they step is updated in place.
-    def prefill_step(self, tokens, offsets, block_tables=None):
+    def prefill_step(self, tokens, offsets, block_tables=None,
+                     frontend_embeds=None, enc_frames=None):
         """``prefill`` on device tensors, over the paged pool with block
         tables, else the dense cache. ``tokens`` [B, C] is the whole batch,
         the same on every rank: a dp rank steps its B/dp rows and an sp
         rank its contiguous C/sp columns (the reference's ``P(dp, sp)``).
-        Returns the chunk's last column's fp32 logits, this rank's rows'
-        and this tp rank's vocabulary columns ([B/dp, v_blk]; [B, V] on
-        the trivial layout)."""
+        ``frontend_embeds`` [B, frontend_seq, d] (the vision stub's) and
+        ``enc_frames`` [B, S_enc, d] (the encoder's) are the whole batch's
+        too, cut by ``_frontend``. Returns the chunk's last column's fp32
+        logits, this rank's rows' and this tp rank's vocabulary columns
+        ([B/dp, v_blk]; [B, V] on the trivial layout)."""
         rows = self._dp_rows(tokens.shape[0])
         tokens, offsets = tokens[rows], offsets[rows]
         if block_tables is not None:
             block_tables = block_tables[rows]
         tokens = tokens[:, self._sp_part(tokens.shape[1], "a chunk")]
+        frontend_embeds, enc_frames = self._frontend(rows, frontend_embeds,
+                                                     enc_frames)
         return T.prefill_body(self.params, self._step_cache(block_tables),
                               tokens, offsets, self.cfg,
-                              block_tables=block_tables)
+                              block_tables=block_tables,
+                              frontend_embeds=frontend_embeds,
+                              enc_frames=enc_frames)
 
     def decode_step(self, tokens, lens, block_tables=None, sample=True):
         """``decode`` on device tensors, where ``prefill_step`` runs.
@@ -275,8 +302,8 @@ class Model:
             return logits
         return self._dp_gather(T.greedy_body(logits, self.shard))
 
-    def mixed_step(self, tokens, q_lens, offsets, block_tables, sample=True,
-                   n_last: int = 1):
+    def mixed_step(self, tokens, q_lens, offsets, block_tables,
+                   frontend_embeds=None, sample=True, n_last: int = 1):
         """``forward_mixed`` on device tensors; returns the next tokens [B],
         or the newest token's fp32 logits (this tp rank's vocabulary
         columns, [B, v_blk]) with ``sample=False``; with ``n_last`` > 1
@@ -284,8 +311,9 @@ class Model:
         v_blk]). ``tokens`` [B, C] is the whole batch, the same on every
         rank; a dp rank steps its contiguous B/dp rows and an sp rank its
         contiguous C/sp columns, as the reference's ``shard_map`` hands
-        them over. The tokens are gathered over DP, so every rank returns
-        all B rows'; the logits are this rank's B/dp rows' only."""
+        them over, and its B/dp rows of ``frontend_embeds`` [B,
+        frontend_seq, d]. The tokens are gathered over DP, so every rank
+        returns all B rows'; the logits are this rank's B/dp rows' only."""
         self._require_paged()
         if self.pool is None:
             raise RuntimeError("init_paged_cache() before forward_mixed()")
@@ -293,21 +321,27 @@ class Model:
         rows = self._dp_rows(tokens.shape[0])
         tokens, q_lens = tokens[rows, cols], q_lens[rows]
         offsets, block_tables = offsets[rows], block_tables[rows]
+        frontend_embeds, _ = self._frontend(rows, frontend_embeds, None)
         out = T.mixed_body(self.params, self.pool, tokens, q_lens, offsets,
                            block_tables, self.cfg, sample=sample,
-                           n_last=n_last)
+                           n_last=n_last, frontend_embeds=frontend_embeds)
         return self._dp_gather(out) if sample else out
 
     # ------------------------------------------------------------- step
-    def prefill(self, tokens, offsets, block_tables=None):
+    def prefill(self, tokens, offsets, block_tables=None,
+                frontend_embeds=None, enc_frames=None):
         """One chunked-prefill step (counterpart of ``prefill_fn``):
         ``tokens`` [B, S] written at positions ``offsets`` [B] .., into the
         dense cache, or with ``block_tables`` [B, nmax] through the paged
-        pool. Returns ``(last-column logits [B, V] fp32, cache)`` (above
-        world size 1 this rank's part of the logits, as
+        pool; the vision stub's ``frontend_embeds`` [B, frontend_seq, d]
+        and the encoder's ``enc_frames`` [B, S_enc, d] move to the model's
+        device and type. Returns ``(last-column logits [B, V] fp32,
+        cache)`` (above world size 1 this rank's part of the logits, as
         ``prefill_step``); the cache is updated in place."""
         logits = self.prefill_step(self._ints(tokens), self._ints(offsets),
-                                   self._ints(block_tables))
+                                   self._ints(block_tables),
+                                   self._floats(frontend_embeds),
+                                   self._floats(enc_frames))
         return logits, self._step_cache(block_tables)
 
     def decode(self, tokens, lens, block_tables=None, sample: bool = True):
@@ -322,7 +356,8 @@ class Model:
         return out, self._step_cache(block_tables)
 
     def forward_mixed(self, tokens, q_lens, offsets, block_tables,
-                      sample: bool = True, n_last: int = 1):
+                      frontend_embeds=None, sample: bool = True,
+                      n_last: int = 1):
         """Unified mixed-batch step over the paged pool: chunked-prefill rows
         (q_len up to the chunk width) and decode rows (q_len == 1) in one
         pass (under dp each rank steps its segment of rows, as
@@ -333,10 +368,12 @@ class Model:
         world size 1) in place of the tokens with ``sample=False``; the pool
         is updated in place. ``n_last`` > 1 is the speculative verify width:
         each row's last ``n_last`` columns' tokens [B, n_last] (logits [B,
-        n_last, V]). Raises for a config that does not page."""
+        n_last, V]). ``frontend_embeds`` [B, frontend_seq, d] are the
+        vision stub's. Raises for a config that does not page."""
         out = self.mixed_step(self._ints(tokens), self._ints(q_lens),
                               self._ints(offsets), self._ints(block_tables),
-                              sample=sample, n_last=n_last)
+                              self._floats(frontend_embeds), sample=sample,
+                              n_last=n_last)
         return out, self.pool
 
     @torch.no_grad()

@@ -9,6 +9,7 @@ is the reference's order; a pattern of several kinds (Maverick's
 ``("attn", "moe")``) runs its kinds in turn."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -20,8 +21,8 @@ from repro_torch.parallel.collectives import all_gather_if, psum_if
 from . import blocks as BK
 from .attention import cache_init
 from .mla import mla_cache_shape
-from .layers import (Embedding, LMHead, RMSNorm, distributed_argmax,
-                     embed_apply, lmhead_apply, tied_lmhead_apply)
+from .layers import (Embedding, LMHead, distributed_argmax, embed_apply,
+                     lmhead_apply, make_norm, tied_lmhead_apply)
 from .recurrent import RGLRUState, rglru_state_shapes
 from .ssd import SSDState, ssd_state_shapes
 
@@ -36,22 +37,30 @@ class Transformer(nn.Module):
     ``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b`` and ``wo``), the same for
     a local layer, ``layers.{i}.{ln1,mix,ln2,ffn}.*`` for an RG-LRU layer
     (``mix.wx``, ``wy``, ``conv``, ``gate_a``, ``gate_x``, ``lam``,
-    ``wo``) or ``layers.{i}.{ln1,mix}.*`` for an SSD layer, with the
-    reference's leaf names. Each holds this rank's shard (``shard``;
-    the whole tensors on the trivial layout)."""
+    ``wo``), ``layers.{i}.{ln1,mix}.*`` for an SSD layer, or
+    ``layers.{i}.{ln1,attn,lnx,cross,ln2,ffn}.*`` for a decoder layer,
+    with the reference's leaf names; an encoder-decoder config also has
+    ``encoder.{e}.{ln1,attn,ln2,ffn}.*`` and ``enc_norm.*``. A LayerNorm
+    has ``scale`` and ``bias``, a plain GELU MLP no ``wg``. Each holds this
+    rank's shard (``shard``; the whole tensors on the trivial layout)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
         self.shard = shard = shard or Shard(lay)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device,
                                shard)
-        self.final_norm = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.final_norm = make_norm(cfg, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device,
                                   shard)
         self.layers = nn.ModuleList(
             BK.BLOCKS[kind](cfg, lay, dtype, device, shard)
             for kind in cfg.layer_kinds)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                BK.EncBlock(cfg, lay, dtype, device, shard)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = make_norm(cfg, dtype, device)
 
 
 def _logits(params: Transformer, x):
@@ -74,6 +83,10 @@ def init_params(params: Transformer, generator: torch.Generator):
         params.lm_head.reset_parameters(generator)
     for layer in params.layers:
         layer.reset_parameters(generator)
+    if hasattr(params, "encoder"):
+        for layer in params.encoder:
+            layer.reset_parameters(generator)
+        params.enc_norm.reset_parameters()
 
 
 @dataclass
@@ -101,8 +114,8 @@ def init_paged_cache(cfg, lay: Layout, num_blocks: int, block_size: int,
 
 
 # the kinds whose layers share one stacked cache, by the cache's group
-CACHE_GROUP = {"attn": "attn", "moe": "attn", "local": "local",
-               "ssd": "ssd", "rglru": "rglru"}
+CACHE_GROUP = {"attn": "attn", "moe": "attn", "dec": "attn",
+               "local": "local", "ssd": "ssd", "rglru": "rglru"}
 
 
 @dataclass
@@ -114,7 +127,10 @@ class DenseCache:
     ``[n_attn, B, s_max, kv_per_rank, Dh]``, or with MLA the latent
     ``lat`` [n_attn, B, s_max/cache_sp, kv_lora + rope], the rank's
     sequence chunk (``mla_cache_specs``' ``P(dp, cache_sp, None)``).
-    Local layers: the ring's ``ring_k`` and ``ring_v`` [n_local, B,
+    Decoder layers: their self K and V among the attention layers', and
+    the cross K and V ``cross_k``/``cross_v`` [n_dec, B, S_enc,
+    kv_per_rank, Dh], the encoder's frames at the same kv slots. Local
+    layers: the ring's ``ring_k`` and ``ring_v`` [n_local, B,
     min(s_max, window), kv_per_rank, Dh]. SSD layers: ``ssm`` [n_ssd, B,
     hpr, hd, ds] in fp32, ``conv_x`` [n_ssd, B, cw-1, hpr·hd] and
     ``conv_bc`` [n_ssd, B, cw-1, 2·ds]. RG-LRU layers: ``h`` [n_rglru, B,
@@ -135,9 +151,11 @@ class DenseCache:
     conv_bc: Optional[torch.Tensor] = None
     h: Optional[torch.Tensor] = None
     conv: Optional[torch.Tensor] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
     FIELDS = ("k", "v", "lat", "ring_k", "ring_v", "ssm", "conv_x",
-              "conv_bc", "h", "conv")
+              "conv_bc", "h", "conv", "cross_k", "cross_v")
 
     def tensors(self) -> dict:
         """The cache's tensors by field name, those of kinds the config
@@ -146,10 +164,13 @@ class DenseCache:
                 if (t := getattr(self, name)) is not None}
 
     def layer(self, i):
-        """Layer i's cache: (K, V) views (a local layer's of its ring), an
-        MLA layer's latent view, an ``SSDState`` or an ``RGLRUState`` of
-        views."""
+        """Layer i's cache: (K, V) views (a local layer's of its ring; a
+        decoder layer's self and cross K, V), an MLA layer's latent view,
+        an ``SSDState`` or an ``RGLRUState`` of views."""
         j, kind = self.index[i], self.kinds[i]
+        if kind == "dec":
+            c = self.kinds[:i].count("dec")
+            return self.k[j], self.v[j], self.cross_k[c], self.cross_v[c]
         if kind == "ssd":
             return SSDState(self.ssm[j], self.conv_x[j], self.conv_bc[j])
         if kind == "rglru":
@@ -193,13 +214,60 @@ def init_cache(cfg, lay: Layout, batch: int, s_max: int, dtype,
         h, conv = rglru_state_shapes(cfg, lay, batch)
         c.h = zeros(n["rglru"], h, torch.float32)
         c.conv = zeros(n["rglru"], conv)
+    if n_dec := kinds.count("dec"):
+        shape = cache_init(cfg, lay, batch, cfg.encoder_seq)
+        c.cross_k, c.cross_v = zeros(n_dec, shape), zeros(n_dec, shape)
     return c
 
 
-def _embed_tokens(params: Transformer, tokens):
-    """Token embedding (the reference's audio and vision frontends come
-    with their model kinds)."""
-    return embed_apply(params.embed, tokens)
+def _sin_pos(positions, d: int):
+    """Sinusoidal position embedding [..., d] in fp32 (the whisper-style
+    frontends): sines then cosines of ``positions · exp(-i·ln(1e4) /
+    (d/2 - 1))``, i < d/2."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_tokens(params: Transformer, tokens, offsets, cfg,
+                  frontend_embeds=None):
+    """Token embedding with the reference's frontends, on this sp rank's
+    own columns [B, S_loc] at positions ``offsets + sp_rank·S_loc + j``
+    (the embedding runs before the exchange): the audio family adds the
+    sinusoid there; the vision stub replaces the embedding at positions
+    below ``frontend_seq`` by that image embedding (``frontend_embeds``
+    [B, frontend_seq, d], the rank's rows)."""
+    x = embed_apply(params.embed, tokens)
+    vision = frontend_embeds is not None and cfg.frontend == "vision_stub"
+    if cfg.family != "audio" and not vision:
+        return x
+    S_loc = tokens.shape[1]
+    pos = offsets[:, None].long() + params.shard.sp_rank * S_loc \
+        + torch.arange(S_loc, device=tokens.device)[None]
+    if cfg.family == "audio":
+        x = x + _sin_pos(pos, cfg.d_model).to(x.dtype)
+    if vision:
+        fs = cfg.frontend_seq
+        idx = pos.clamp(0, fs - 1)[..., None].expand(*pos.shape, cfg.d_model)
+        img = torch.gather(frontend_embeds, 1, idx)
+        x = torch.where((pos < fs)[..., None], img.to(x.dtype), x)
+    return x
+
+
+def _run_encoder(params: Transformer, frames, cfg):
+    """The encoder over this sp rank's frames [B, S_enc_loc, d] (its
+    contiguous part of the sequence, at positions ``sp_rank·S_loc + j``),
+    then its final norm: the encoder's output, the rank's frames."""
+    S_loc = frames.shape[1]
+    pos = params.shard.sp_rank * S_loc + torch.arange(S_loc,
+                                                      device=frames.device)
+    x = frames + _sin_pos(pos, cfg.d_model).to(frames.dtype)
+    for layer in params.encoder:
+        x = BK.block_encode(layer, x, cfg)
+    return params.enc_norm(x)
 
 
 def _positions_prefill(offsets, S: int):
@@ -211,7 +279,8 @@ def _positions_prefill(offsets, S: int):
 
 @torch.no_grad()
 def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
-               block_tables, cfg, sample: bool = True, n_last: int = 1):
+               block_tables, cfg, sample: bool = True, n_last: int = 1,
+               frontend_embeds=None):
     """Unified mixed prefill+decode step against the paged pool.
 
     tokens: [B, S_loc], this sp rank's contiguous columns of a chunk of
@@ -229,14 +298,17 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
     ``q_lens[b] - n_last .. q_lens[b] - 1`` and returns [B, n_last] tokens
     (or [B, n_last, v_blk] logits); columns before the row's start give
     zero logits and a token the engine ignores. n_last == 1 is the
-    single-token path, unchanged."""
+    single-token path, unchanged. ``frontend_embeds`` [B, frontend_seq,
+    d] (the vision stub's) replace the embedding of every column below
+    ``frontend_seq``, decode rows' included, as the reference's mixed step
+    does."""
     if cfg.mla is not None or any(kind not in ("attn", "moe")
                                   for kind in cfg.layer_kinds):
         raise ValueError(f"{cfg.name}: the mixed step runs on the paged pool, "
                          "which only GQA attention layers have")
     sh = params.shard
     B, S_loc = tokens.shape
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, tokens, offsets, cfg, frontend_embeds)
     # every attention layer sees the whole chunk after its exchange: its
     # positions are computed once per step, and each layer's RoPE and KV
     # scatter read them
@@ -246,7 +318,7 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
         x = BK.block_prefill(layer, x, pool.layer(i), ctx, cfg)
     # ragged last-token extraction: row b's newest token sits at chunk
     # column q_lens[b]-1, which lives on exactly one sp rank; the others
-    # give zeros and the SP sum collects it. RMSNorm is per row, so the
+    # give zeros and the SP sum collects it. The norm is per row, so the
     # final norm runs on the extracted rows only.
     if n_last == 1:
         loc = q_lens.long() - 1 - sh.sp_rank * S_loc
@@ -269,7 +341,7 @@ def mixed_body(params: Transformer, pool: PagedPool, tokens, q_lens, offsets,
 
 @torch.no_grad()
 def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
-                 block_tables=None):
+                 block_tables=None, frontend_embeds=None, enc_frames=None):
     """One chunked-prefill step. tokens: [B, S_loc], this sp rank's
     contiguous columns of a chunk of S_loc·sp at cache positions
     ``offsets[b] ..``; ``cache`` is the ``DenseCache``, or the
@@ -277,19 +349,28 @@ def prefill_body(params: Transformer, cache, tokens, offsets, cfg,
     last column's logits (this tp rank's vocabulary columns [B, v_blk] in
     fp32; ``x[:, -1]``, padding or not, as the reference takes it): the
     last sp rank holds that column, and the SP sum hands it to the others.
-    The cache is updated in place."""
+    The cache is updated in place. ``frontend_embeds`` [B, frontend_seq,
+    d] are the vision stub's; an encoder-decoder config runs its encoder
+    over ``enc_frames`` [B, S_enc_loc, d] (the rank's frames) in every
+    prefill step and rewrites every row's cross cache from it, as the
+    reference's ``init_cross`` does."""
     sh = params.shard
-    x = _embed_tokens(params, tokens)
-    ctx = {"positions": _positions_prefill(offsets,
-                                           tokens.shape[1] * sh.lay.sp),
+    S_loc = tokens.shape[1]
+    x = _embed_tokens(params, tokens, offsets, cfg, frontend_embeds)
+    ctx = {"positions": _positions_prefill(offsets, S_loc * sh.lay.sp),
            "offsets": offsets, "block_tables": block_tables}
+    if cfg.encoder_layers:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: a prefill step runs the encoder "
+                             "over enc_frames; none were given")
+        ctx["enc_out"] = _run_encoder(params, enc_frames, cfg)
     for i, layer in enumerate(params.layers):
         x = BK.block_prefill(layer, x, cache.layer(i), ctx, cfg)
     last = x[:, -1]
     if sh.sp_group is not None:
         last = (last.contiguous() if sh.sp_rank == sh.lay.sp - 1
                 else last.new_zeros(last.shape))
-    # RMSNorm is per row, so the final norm runs on the last column only
+    # the norm is per row, so the final norm runs on the last column only
     return _logits(params, psum_if(last, sh.sp_group))
 
 
@@ -301,8 +382,15 @@ def decode_body(params: Transformer, cache, tokens, lens, cfg,
     nmax]) the row's, row b written at position ``lens[b]``; ``cache`` as
     in ``prefill_body``. Returns the segment's logits (this tp rank's
     vocabulary columns, [B_loc, v_blk] in fp32); the cache is updated in
-    place."""
+    place. The audio family adds the sinusoid at the segment's ``lens``;
+    the vision stub is not applied (the reference's decode step has
+    none)."""
     x = embed_apply(params.embed, tokens)
+    if cfg.family == "audio":
+        B_loc = tokens.shape[0]
+        i = params.shard.sp_rank
+        x = x + _sin_pos(lens[i * B_loc:(i + 1) * B_loc],
+                         cfg.d_model).to(x.dtype)
     ctx = {"lens": lens, "block_tables": block_tables}
     for i, layer in enumerate(params.layers):
         x = BK.block_decode(layer, x, cache.layer(i), ctx, cfg)

@@ -351,6 +351,12 @@ FLASH_TILE_CASES = [
     (3, 33, 65, 2, 2, 16, False, [0, 5, 9]),
     (4, 512, 512, 32, 4, 32, True, None),
     (1, 1024, 1536, 32, 8, 128, True, [512]),
+    # whisper-small at D 64, group 1 (12 over 12 heads), non-causal: the
+    # encoder over its 1536 frames, the cross prefill of a 64-token chunk
+    # against them, and the decoder's causal chunk against its cache
+    (2, 1536, 1536, 12, 12, 64, False, None),
+    (8, 64, 1536, 12, 12, 64, False, None),
+    (8, 64, 256, 12, 12, 64, True, [0, 16, 64, 192, 0, 3, 100, 150]),
 ]
 DECODE_CASES = [  # B, S, Hq, Hkv, D (S need not tile)
     (4, 512, 8, 2, 64), (2, 1024, 4, 4, 128), (8, 512, 16, 1, 64),
@@ -369,6 +375,10 @@ DECODE_TILE_CASES = [  # B, S, Hq, Hkv, D, lens, dtypes
     (2, 300, 32, 8, 256, [300, 45], "bf16"),
     (2, 96, 8, 2, 32, [96, 3], "both"),
     (2, 70, 4, 2, 16, [70, 9], "both"),
+    # whisper-small's decode at group 1, D 64: the cross attention over all
+    # 1536 frames of every row, and the self-attention over s_max 256
+    (8, 1536, 12, 12, 64, [1536] * 8, "both"),
+    (8, 256, 12, 12, 64, [1, 20, 34, 50, 256, 7, 128, 129], "both"),
 ]
 
 
@@ -913,23 +923,74 @@ ENTRY_KINDS = {
 }
 
 
+# whisper's prefill takes the encoder's frames, internvl2's steps the image
+# embeddings: float tensors on the card, another draw each call, which a
+# captured entry copies into its bucket's static buffers
+def _frames(cuda, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+
+
+def _frontend_kinds(cuda):
+    """The entry kinds of whisper-small (reduced: 16 frames of d 64) and
+    internvl2-2b (8 image embeddings), as ``ENTRY_KINDS``."""
+    return {
+        "whisper-prefill": ("whisper-small", False, lambda m: m.prefill_step, [
+            (_tokens((2, 8), 1), [0, 0], None, None,
+             _frames(cuda, (2, 16, 64), 1)),
+            (_tokens((2, 8), 2), [8, 8], None, None,
+             _frames(cuda, (2, 16, 64), 2)),
+            (_tokens((2, 8), 3), [16, 16], None, None,
+             _frames(cuda, (2, 16, 64), 3)),
+            (_tokens((2, 16), 4), [24, 24], None, None,
+             _frames(cuda, (2, 16, 64), 4))]),
+        "whisper-decode": ("whisper-small", False, lambda m: (
+            lambda *a: m.decode_step(*a, sample=False)), [
+            (_tokens((2,), 1), [0, 3], None), (_tokens((2,), 2), [1, 4], None),
+            (_tokens((2,), 3), [2, 5], None)]),
+        "internvl2-mixed": ("internvl2-2b", True, lambda m: (
+            lambda *a: m.mixed_step(*a, sample=False)), [
+            (_tokens((2, 8), 1), [8, 5], [0, 0], BT,
+             _frames(cuda, (2, 8, 64), 1)),
+            (_tokens((2, 8), 2), [1, 1], [8, 5], BT,
+             _frames(cuda, (2, 8, 64), 2)),
+            (_tokens((2, 8), 3), [3, 1], [9, 6], BT,
+             _frames(cuda, (2, 8, 64), 3)),
+            (_tokens((2, 1), 4), [1, 1], [12, 7], BT[:, :2],
+             _frames(cuda, (2, 8, 64), 4))]),
+    }
+
+
+def _eager_inputs(model, args):
+    """An eager step's inputs: the host ints as int32, the frontend tensors
+    in the model's type, on its device."""
+    return [model._floats(a) if isinstance(a, torch.Tensor)
+            and a.is_floating_point() else model._ints(a) for a in args]
+
+
 def _cache_tensors(model, paged):
     if paged:
         return {"k": model.pool.k, "v": model.pool.v}
     return model.cache.tensors()
 
 
+FRONTEND_KINDS = ("whisper-prefill", "whisper-decode", "internvl2-mixed")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", list(ENTRY_KINDS))
+@pytest.mark.parametrize("kind", list(ENTRY_KINDS) + list(FRONTEND_KINDS))
 def test_cuda_graphed_entry_matches_eager(cuda, dtype, kind):
     """A captured entry against the eager step on twin models, call by
     call: equal outputs and caches (the first call of a bucket runs the
     step once, eagerly, and its capture executes nothing: a prefill step
     on a fresh mamba2 cache leaves the SSD and conv state of one eager
     step), one capture per bucket, and the launch counters after the
-    replays equal to the eager steps' counts."""
-    arch, paged, step_of, calls = ENTRY_KINDS[kind]
+    replays equal to the eager steps' counts. Whisper's prefill entry holds
+    the whole encoder and rewrites the cross cache from each call's
+    frames; internvl2's mixed entry reads each call's image embeddings."""
+    kinds = dict(ENTRY_KINDS, **_frontend_kinds(cuda))
+    arch, paged, step_of, calls = kinds[kind]
     twins = twin_models(cuda, arch, dtype)
     for m in twins:
         if paged:
@@ -945,7 +1006,7 @@ def test_cuda_graphed_entry_matches_eager(cuda, dtype, kind):
         outs = []
         for i, args in enumerate(calls):
             if model is eager:
-                out = step_of(model)(*map(model._ints, args))
+                out = step_of(model)(*_eager_inputs(model, args))
             else:
                 out = entry(*args)
                 assert entry.graphs.captures == (1 if i < 3 else 2)
@@ -966,6 +1027,85 @@ def test_cuda_graphed_entry_matches_eager(cuda, dtype, kind):
                                        rtol=tol)
     assert counts[0] == counts[1]
     assert sum(counts[0].values()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_engine_matches_cpu_engine(cuda):
+    """Reduced whisper-small at fp32 on the dense serialized engine (the
+    automatic fallback), more requests than slots: equal streams, config
+    counts and preemptions on the card and the CPU, and the card's run went
+    through its kernels: per prefill step one flash launch per encoder
+    layer and two per decoder layer (its causal self-attention and the
+    cross attention), per decode step two decode launches per decoder layer
+    (self and cross), and no RMSNorm (LayerNorm is plain PyTorch)."""
+    cfg = get_config("whisper-small").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs, counts = [], []
+    for model in (gpu, cpu):
+        ops.reset_launch_counts()
+        eng = ShiftEngine(model, EngineConfig(max_slots=4, s_max=64,
+                                              prefill_chunk=8))
+        assert not eng.paged and not eng.mixed
+        reqs = workload(6, 8)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        log = eng.step_log
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     eng.preemptions))
+        counts.append((ops.launch_counts(),
+                       sum(rec["prefill_tokens"] > 0 for rec in log),
+                       sum(rec["decode_tokens"] > 0 for rec in log)))
+    assert runs[0] == runs[1]
+    got, n_pre, n_dec = counts[0]
+    L, E = cfg.num_layers, cfg.encoder_layers
+    assert n_pre > 0 and n_dec > 0
+    assert got["flash_attention"] == n_pre * (E + 2 * L)
+    assert got["decode_attention"] == n_dec * 2 * L
+    assert sum(got.values()) == got["flash_attention"] \
+        + got["decode_attention"]
+    assert not any(counts[1][0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"mixed": False},
+                                {"paged": False, "mixed": False}],
+                         ids=["mixed", "serialized", "dense"])
+def test_cuda_internvl2_engine_matches_cpu_engine(cuda, kw):
+    """Reduced internvl2-2b at fp32 with the serve workload under its 8
+    image embeddings (the engine's zeros): on each path, equal streams,
+    config counts and preemptions on the card and the CPU; the card's run
+    went through the ragged kernel on the paged pool (flash and decode on
+    the dense cache), one launch per layer per step, and 2 * layers + 1
+    RMSNorm launches per step."""
+    cfg = get_config("internvl2-2b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    runs, counts = [], []
+    for model in (gpu, cpu):
+        ops.reset_launch_counts()
+        eng = ShiftEngine(model, EngineConfig(**kw))
+        reqs = workload(6, 8)
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        runs.append(([r.generated for r in reqs], eng.config_counts,
+                     eng.preemptions))
+        counts.append(ops.launch_counts())
+    assert runs[0] == runs[1]
+    steps = sum(runs[0][1].values())
+    got, L = counts[0], cfg.num_layers
+    assert got["rmsnorm"] == steps * (2 * L + 1)
+    attn = ("paged_ragged_attention",) if kw.get("paged", True) else (
+        "flash_attention", "decode_attention")
+    assert sum(got[k] for k in attn) == steps * L
+    assert sum(got.values()) == got["rmsnorm"] + steps * L
+    assert not any(counts[1].values())
 
 
 @pytest.mark.cuda

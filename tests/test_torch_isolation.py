@@ -167,6 +167,40 @@ def test_moe_entry_points_default_to_cuda(no_card):
         serve.main(["--arch", "qwen-30b-a3b"])
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-2b"])
+def test_frontend_archs_entry_points_default_to_cuda(no_card, arch):
+    """whisper-small (the dense fallback) and internvl2-2b (the mixed paged
+    engine) through the same entry points: the card unless the CPU is
+    asked for, at full width raising before anything is allocated."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.engine import EngineConfig, ShiftEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    assert arch in {c.name for c in ARCHS}
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_engine(arch)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", arch])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", arch, "--dp", "2", "--backend", "gloo"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShiftEngine(Model(get_config(arch).reduced()), EngineConfig())
+
+
+@pytest.mark.parametrize("arch,iteration", [("whisper-small", "serialized"),
+                                            ("internvl2-2b", "mixed")])
+def test_cpu_runs_frontend_archs_when_asked(capsys, arch, iteration):
+    """The serve CLI on the CPU: whisper-small on the dense serialized
+    fallback with its reason, internvl2-2b on the mixed paged engine."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--dtype",
+                "fp32", "--requests", "2", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert f"iteration: {iteration}" in out and "6 tokens in" in out
+    assert ("non-pageable" in out) == (arch == "whisper-small")
+    assert ("paged cache" in out) == (arch == "internvl2-2b")
+
+
 def test_cpu_runs_mamba2_when_asked(capsys):
     """The serve CLI's mamba2 on the CPU: the dense serialized fallback,
     reported with its reason, and the SSD chunk counter listed."""

@@ -207,8 +207,10 @@ def test_dense_matches_paged():
 
 
 def test_dense_attention_refuses_what_is_not_ported():
-    """Windows, rope-free layers and logit soft caps raise on the dense
-    path instead of computing something else."""
+    """A window over a cache longer than it and a logit soft cap on global
+    attention raise on the dense path instead of computing something else
+    (rope-free attention is whisper's, held to the reference in
+    ``tests/test_torch_encdec.py``)."""
     from repro_torch.models import attention as TA
     cfg = get_config("qwen3-8b").reduced()
     tm = Model(cfg, device="cpu", dtype=torch.float32)
@@ -217,7 +219,7 @@ def test_dense_attention_refuses_what_is_not_ported():
     p = tm.params.layers[0].attn
     x = torch.zeros((1, 2, cfg.d_model))
     off = torch.zeros((1,), dtype=torch.int32)
-    for kw in ({"window": 4}, {"rope": False}):
+    for kw in ({"window": 4},):
         with pytest.raises(NotImplementedError):
             TA.attn_prefill(p, x, tm.cache.k[0], tm.cache.v[0], off, cfg, **kw)
         with pytest.raises(NotImplementedError):
