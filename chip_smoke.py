@@ -319,6 +319,35 @@ Phases (every failure propagates and exits non-zero):
    256), the dense decode at group 1 over 1536 frames and over s_max 256,
    and the ragged kernel's mixed and decode batches at internvl2-2b's 16
    q heads over 8 KV heads.
+10. training (PR 30): phase 3 also holds the two backward kernels of
+   training against their plain backward versions, bf16 then fp32, each
+   twice (bitwise equal: no atomics): flash at a microbatch of qwen3-8b
+   (B 2 x S 2048, 32 over 8 heads of 128, causal; within 2e-2 / 1e-4 of
+   each gradient's largest entry, and each row, one token's and head's
+   gradient, within 2e-2 / 1e-3 of its own norm plus 1 % of the rms row
+   norm; so is every RMSNorm row), beside SDPA's backward through
+   autograd, with the forward's training instance (its log-sum-exp within
+   1e-4 of the plain version's) timed beside the serving one; RMSNorm over
+   [4096, 4096] (beside ``F.rms_norm``'s backward), the q/k pair [4096 x
+   32 + 4096 x 8, 128] in one call and grouped over 64 heads of 64. After
+   phase 4, reduced qwen3-8b in fp32 on the card against the CPU: the loss
+   (1e-5) and gradients (1e-4 of each leaf's largest entry) of one
+   ``Model.loss_fn`` call, three Trainer steps (microbatch 2, remat: the
+   losses within 1e-4, the params within 5e-4 outside entries whose
+   gradient is below 1e-7). After phase 5j, the main path of training:
+   qwen3-8b at full width, its depth cut to a fixed 12 of 36
+   (``train_layers`` checks that it fits the card's memory), bf16, six
+   Trainer steps of 4 x 2048 synthetic tokens on one fixed batch,
+   microbatch 2, remat, lr 3e-4: the loss must fall by more than 0.3, the
+   kernel launches per step must be exactly 2L x 2 flash forward,
+   3 x L x 2 flash backward (three launches a call), (6L + 1) x 2 RMSNorm
+   forward and 2 x (3L + 1) x 2 backward (two a call); one ``{"training": ...}``
+   line with ms per step, tokens/s, peak GB, device busy ms per step
+   (``torch.profiler`` over a seventh step). After the simulator line,
+   reduced qwen3-8b in fp32 on (sp, tp) = (2, 2) over gloo, four ranks on
+   the card, each also on the CPU: every rank's loss equals a one-rank
+   run's, each rank's card gradients and three step losses equal its CPU
+   ones (a rank's gradients are the reference's per-device ones).
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -329,6 +358,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -6524,6 +6554,472 @@ def whisper_layout_phase(torch, layers=WHISPER_LAYOUT_DEPTH):
     return r0["launches"]
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels, qwen3-8b at full width, card against CPU,
+# and the (2, 2) layout over gloo
+# ---------------------------------------------------------------------------
+FLASH_BWD_SHAPE = dict(B=2, S=2048, Hq=32, Hkv=8, D=128)   # a microbatch
+TRAIN_LAYERS = 12          # qwen3-8b's 36 layers cut to 12
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 6
+TRAIN_LR = 3e-4
+# a backward kernel's rows against its plain version's (``row_rel_err``):
+# bf16 as its max-abs rule; fp32 ten times its 1e-4, since a row that is 0
+# in exact arithmetic (dQ of a causal row's first query) keeps fp32
+# cancellation noise of ~1e-6, a few 1e-4 of the floor
+ROW_TOLS = {"torch.bfloat16": 2e-2, "torch.float32": 1e-3}
+
+
+def rel_compare(torch, what, got, want, tol):
+    """Max abs error of ``got`` against ``want``; fails unless finite and
+    within ``tol`` times ``want``'s largest entry (a gradient's scale)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item()
+    check(torch.isfinite(g).all(), f"{what}: non-finite output")
+    check(err <= tol * max(scale, 1e-30),
+          f"{what}: max abs err {err} > {tol} x {scale}")
+    return err
+
+
+def row_rel_err(torch, got, want):
+    """The largest error of a row of ``got`` (its last dim: one token's and
+    head's gradient) against ``want``'s row, relative to that row's norm
+    plus 1 % of the rms row norm (a floor for rows that are 0 in exact
+    arithmetic, such as dQ of a causal row's first query). So every row is
+    held to its own scale: a row of small gradients (dV of a late key, dQ
+    of a late query) is checked as closely as a large one."""
+    g, w = (t.float().reshape(-1, t.shape[-1]) for t in (got, want))
+    wn = w.norm(dim=1)
+    floor = 1e-2 * wn.square().mean().sqrt()
+    return ((g - w).norm(dim=1) / (wn + floor)).max().item()
+
+
+def grad_compare(torch, what, got, want, tol):
+    """A gradient against its plain version: within ``tol`` of its largest
+    entry (``rel_compare``) and every row within ``ROW_TOLS[dtype]`` of its
+    own norm (``row_rel_err``). Returns (max abs error, max row error)."""
+    err = rel_compare(torch, what, got, want, tol)
+    row = row_rel_err(torch, got, want)
+    row_tol = ROW_TOLS[str(got.dtype)]
+    check(row <= row_tol, f"{what}: a row's relative error {row} > "
+          f"{row_tol}")
+    return err, row
+
+
+def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
+    """The flash backward at a training microbatch (causal, zero offsets)
+    against its plain version, twice (bitwise equal: no atomics), timed
+    beside the plain version and SDPA's backward through autograd over K/V
+    expanded to Hq heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    gen = torch.Generator(device="cuda").manual_seed(S + D)
+    q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    off = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    out, lse = FA.flash_attention_cuda(q, k, v, off, causal=True,
+                                       return_lse=True)
+    # the forward's training instance: its log-sum-exp against the plain
+    # version's, and its time beside the serving instance's
+    _, lse_plain = FA.flash_attention_plain(q, k, v, off, causal=True,
+                                            return_lse=True)
+    lse_err = rel_compare(torch, f"flash forward lse {dtype}", lse,
+                          lse_plain, 1e-4)
+    fwd_lse_ms = timer(lambda: FA.flash_attention_cuda(q, k, v, off,
+                                                       causal=True,
+                                                       return_lse=True))
+    fwd_ms = timer(lambda: FA.flash_attention_cuda(q, k, v, off,
+                                                   causal=True))
+    args = (q, k, v, out, lse, do, off)
+    got = FAB.flash_attention_bwd_cuda(*args)
+    again = FAB.flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash bwd {dtype}: two runs differ")
+    want = FAB.flash_attention_bwd_plain(*args)
+    errs = [grad_compare(torch, f"flash bwd d{n} {dtype}", a, b, tol)
+            for n, a, b in zip("qkv", got, want)]
+    err, row_err = (max(e) for e in zip(*errs))
+    ms = timer(lambda: FAB.flash_attention_bwd_cuda(*args))
+    plain_ms = timer(lambda: FAB.flash_attention_bwd_plain(*args), iters=3)
+    g = Hq // Hkv
+    qs = q.transpose(1, 2).detach().clone().requires_grad_(True)
+    ks = k.transpose(1, 2).repeat_interleave(g, dim=1).detach().clone() \
+        .requires_grad_(True)
+    vs = v.transpose(1, 2).repeat_interleave(g, dim=1).detach().clone() \
+        .requires_grad_(True)
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2).contiguous()
+    library_ms = timer(lambda: torch.autograd.grad(o, (qs, ks, vs), dos,
+                                                   retain_graph=True))
+    elt = q.element_size()
+    pairs = B * S * (S + 1) // 2
+    flops = 5 * 2 * pairs * Hq * D           # S, dP, dV, dQ, dK
+    nbytes = (3 * q.numel() + 4 * k.numel()) * elt + 2 * lse.numel() * 4 \
+        + q.numel() * elt                    # q, out, dout, dq; k, v, dk, dv
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    return rates({"case": "training microbatch", "dtype":
+                  str(dtype).replace("torch.", ""),
+                  "shape": {"q": list(q.shape), "kv": list(k.shape),
+                            "causal": True}, "tol": tol,
+                  "row_tol": ROW_TOLS[str(dtype)],
+                  "tol_of": "tol: the largest entry of each gradient; "
+                  "row_tol: each row's norm plus 1 % of the rms row norm",
+                  "max_abs_err": err, "max_row_rel_err": row_err,
+                  "bitwise_repeat": True, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "forward_lse_ms": fwd_lse_ms, "forward_ms": fwd_ms,
+                  "lse_max_abs_err": lse_err}, flops)
+
+
+def rmsnorm_bwd_case(torch, name, dtype, timer, tol, x_shape, s_shape,
+                     pair_k=None):
+    """The RMSNorm backward (dx and dscale) against its plain version,
+    twice (bitwise equal), timed beside the plain version and, for plain
+    rows, ``F.rms_norm``'s backward through autograd. ``pair_k``: the
+    k rows of a q/k pair in the same call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    gen = torch.Generator(device="cuda").manual_seed(sum(x_shape))
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x, dy, s = rnd(x_shape), rnd(x_shape), rnd(s_shape)
+    if pair_k is not None:
+        k, dk, sk = rnd(pair_k), rnd(pair_k), rnd(s_shape)
+        args = (x, s, dy, k, sk, dk)
+        run = lambda: RB.rmsnorm_pair_bwd_cuda(*args)  # noqa: E731
+        plain = lambda: RB.rmsnorm_pair_bwd_plain(*args)  # noqa: E731
+        n_el = x.numel() + k.numel()
+    else:
+        args = (x, s, dy)
+        run = lambda: RB.rmsnorm_bwd_cuda(*args)  # noqa: E731
+        plain = lambda: RB.rmsnorm_bwd_plain(*args)  # noqa: E731
+        n_el = x.numel()
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"rmsnorm bwd {name} {dtype}: two runs differ")
+    want = plain()
+    errs = [grad_compare(torch, f"rmsnorm bwd {name} {dtype}", a, b, tol)
+            for a, b in zip(got, want)]
+    err, row_err = (max(e) for e in zip(*errs))
+    ms = timer(run)
+    plain_ms = timer(plain, iters=3)
+    library_ms = None
+    if pair_k is None and len(s_shape) == 1:
+        xl = x.detach().clone().requires_grad_(True)
+        sl = s.detach().clone().requires_grad_(True)
+        yl = F.rms_norm(xl, (x_shape[-1],), weight=sl, eps=1e-6)
+        library_ms = timer(lambda: torch.autograd.grad(yl, (xl, sl), dy,
+                                                       retain_graph=True))
+    elt = x.element_size()
+    nbytes = (3 * n_el + 4 * s.numel()) * elt
+    bound_ms, bound_by = bound(nbytes, 8 * n_el, torch.float32)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"x": list(x_shape), "scale": list(s_shape),
+                      **({"k": list(pair_k)} if pair_k else {})},
+            "tol": tol, "row_tol": ROW_TOLS[str(dtype)],
+            "tol_of": "tol: the largest entry of dx and of dscale; row_tol: "
+            "each row's norm plus 1 % of the rms row norm",
+            "max_abs_err": err, "max_row_rel_err": row_err,
+            "bitwise_repeat": True, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def backward_kernel_phase(torch, cases):
+    """Phase 3's rows of the two backward kernels of training, bf16 first:
+    flash at a microbatch of qwen3-8b (B 2 x S 2048, 32 over 8 heads of
+    128, causal); RMSNorm over [4096, 4096] (a microbatch's ln rows), the
+    q/k pair over its 4096 x 32 q rows and 4096 x 8 k rows of 128 in one
+    call, and grouped over 64 heads of 64 (mamba2's norm)."""
+    timer = Timer(torch)
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    for kernel in ("flash_attention_bwd", "rmsnorm_bwd"):
+        cases[kernel] = []
+
+    def add(kernel, case):
+        cases[kernel].append(case)
+        print(kernel, json.dumps(case))
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = tols[dtype]
+        add("flash_attention_bwd", flash_bwd_case(torch, dtype, timer, tol,
+                                                  **FLASH_BWD_SHAPE))
+        add("rmsnorm_bwd", rmsnorm_bwd_case(torch, "ln rows", dtype, timer,
+                                            tol, (4096, 4096), (4096,)))
+        add("rmsnorm_bwd", rmsnorm_bwd_case(
+            torch, "q/k pair", dtype, timer, tol, (4096 * 32, 128), (128,),
+            pair_k=(4096 * 8, 128)))
+        add("rmsnorm_bwd", rmsnorm_bwd_case(
+            torch, "grouped, 64 heads", dtype, timer, tol, (512, 64, 64),
+            (64, 64)))
+    torch.cuda.synchronize()
+
+
+def train_layers(torch, cfg):
+    """The depth of qwen3-8b that the training phase runs: the fixed
+    ``TRAIN_LAYERS`` (12 of 36). The memory reckoning only checks that it
+    fits the card: every parameter takes ~16 bytes (bf16 weight and
+    gradient, an fp32 gradient sum, fp32 m and v), the LM head's fp32
+    logits and their temporaries about four copies of [B/micro x S, V]
+    fp32, plus 4 GB of other activations."""
+    free, total = torch.cuda.mem_get_info()
+    per_layer = 16 * (replace_layers(cfg, 2).num_params()
+                      - replace_layers(cfg, 1).num_params())
+    fixed = 16 * replace_layers(cfg, 1).num_params() - per_layer \
+        + 4 * 4 * (TRAIN_BATCH // TRAIN_MICRO) * TRAIN_SEQ * cfg.vocab_size \
+        + 4e9
+    fit = int((free - fixed) // per_layer)
+    print(f"training depth: the fixed {TRAIN_LAYERS} of {cfg.num_layers} "
+          f"layers; {fit} would fit in {free / 1e9:.1f} GB free of "
+          f"{total / 1e9:.1f} GB ({per_layer / 1e9:.2f} GB a layer, "
+          f"{fixed / 1e9:.1f} GB fixed)")
+    check(fit >= TRAIN_LAYERS, f"{TRAIN_LAYERS} layers of qwen3-8b do not "
+          f"fit this card's training memory ({fit} do)")
+    return TRAIN_LAYERS
+
+
+def training_phase(torch):
+    """The main path of training: qwen3-8b at full width, depth cut to
+    ``TRAIN_LAYERS`` (12 of 36; ``train_layers`` checks it fits), bf16 weights from a seeded generator, the
+    synthetic corpus's batch of 4 x 2048 (``repro_torch.data``), microbatch
+    2, remat, AdamW at lr 3e-4, six steps on that one fixed batch through
+    ``training.Trainer``. The loss must fall by more than 0.3. Prints ms per
+    step and tokens/s (steps 2-6), the peak memory, the kernel launches
+    per step of flash and RMSNorm forward and backward (three a flash
+    backward call, two an RMSNorm backward call), and the device's
+    busy ms per step from ``torch.profiler`` (one more step, profiled).
+    Returns the launch counts of the six steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus, TokenBatcher
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    from repro_torch.models import Model
+    from repro_torch.training import Trainer
+    from repro_torch.training.optimizer import AdamWConfig
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-8b")
+    cfg = replace_layers(cfg, train_layers(torch, cfg))
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.params.parameters())
+    data = TokenBatcher(SyntheticCorpus(cfg.vocab_size), TRAIN_BATCH,
+                        TRAIN_SEQ)
+    toks, labels = next(data)
+    data.close()
+    tr = Trainer(model, AdamWConfig(lr=TRAIN_LR), microbatch=TRAIN_MICRO,
+                 remat=True)
+    opt = tr.init_opt_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        opt, loss = tr.step(opt, toks, labels)
+        losses.append(float(loss))
+        walls.append(time.monotonic() - t0)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training qwen3-8b ({cfg.num_layers} layers, {n_params / 1e9:.2f}e9 "
+          f"params, bf16): losses {losses}")
+    check(all(map(math.isfinite, losses)), f"training losses {losses}")
+    check(losses[-1] < losses[0] - 0.3,
+          f"training loss fell {losses[0] - losses[-1]:.3f} (want > 0.3)")
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
+    L = cfg.num_layers
+    # per microbatch: flash forward twice a layer (remat), backward once;
+    # RMSNorm forward ln1, ln2 and the q/k pair twice a layer and the final
+    # norm once, backward the same once; each backward call is
+    # LAUNCHES_PER_CALL launches
+    want = {"flash_attention": 2 * L * TRAIN_MICRO,
+            "flash_attention_bwd": L * TRAIN_MICRO * FAB.LAUNCHES_PER_CALL,
+            "rmsnorm": (6 * L + 1) * TRAIN_MICRO,
+            "rmsnorm_bwd": (3 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
+    check(per_step == want, f"training launches per step {per_step}, want "
+          f"{want}")
+    with profiled(torch) as prof:
+        opt, _ = tr.step(opt, toks, labels)
+    busy_ms = sum(us for _, us, _ in device_kernels(prof)) / 1e3
+    ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"model": "qwen3-8b", "layers": L, "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICRO,
+           "remat": True, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+           "losses": losses, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "max_memory_allocated_gb": peak / 1e9,
+           "launches_per_step": per_step,
+           "device_busy_ms_per_step": busy_ms,
+           "busy_share": busy_ms / ms,
+           "phase_s": time.monotonic() - t_phase}
+    print(json.dumps({"training": rec}))
+    del model, tr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_state(torch, seed=0):
+    """Reduced qwen3-8b's trivial-layout state in fp32 from a seeded CPU
+    generator, by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    m = Model(get_config("qwen3-8b").reduced(), device="cpu",
+              dtype=torch.float32)
+    m.init_params(torch.Generator().manual_seed(seed))
+    return {k: v.numpy().copy() for k, v in m.params.state_dict().items()}
+
+
+def train_batch(vocab, B=8, S=16):
+    import numpy as np
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:2, -1] = -1
+    return toks, labels
+
+
+def train_run(torch, model, steps=3):
+    """The loss and gradients of one ``loss_fn`` call, then ``steps``
+    Trainer steps (microbatch 2, remat, lr 1e-3): returns (loss, grads,
+    [step losses], params), all on the host (numpy, so that a rank's
+    result pickles without shared memory)."""
+    from repro_torch.training import Trainer
+    from repro_torch.training.optimizer import AdamWConfig
+    toks, labels = train_batch(model.cfg.vocab_size)
+    with model.trainable() as named:
+        loss = model.loss_fn(remat=True)(toks, labels)
+        loss.backward()
+        grads = {k: p.grad.cpu().numpy() for k, p in named.items()}
+    tr = Trainer(model, AdamWConfig(lr=1e-3), microbatch=2, remat=True)
+    opt, losses = tr.init_opt_state(), []
+    for _ in range(steps):
+        opt, lv = tr.step(opt, toks, labels)
+        losses.append(float(lv))
+    return (float(loss.detach()), grads, losses,
+            {k: v.cpu().numpy() for k, v in model.params.state_dict().items()})
+
+
+def train_close(torch, what, got, want, tol, rel=False, skip=None):
+    """Every array of ``got`` within ``tol`` of ``want``'s (times its
+    largest entry with ``rel``), outside ``skip``'s entries."""
+    import numpy as np
+    for name, w in want.items():
+        err = np.abs(got[name].astype(np.float64) - w)
+        if skip is not None:
+            err = err[~skip[name]]
+        limit = tol * (np.abs(w).max() if rel else 1.0)
+        e = float(err.max()) if err.size else 0.0
+        check(e <= limit, f"{what} {name}: max abs err {e} > {limit}")
+
+
+def train_cross_device(torch):
+    """Card against CPU in fp32 on reduced qwen3-8b (TF32 off): the loss
+    (1e-5) and the gradients (1e-4 of each leaf's largest entry) of one
+    ``loss_fn`` call, then three Trainer steps with microbatch 2 and remat:
+    the losses (1e-4) and the params (5e-4, outside the entries whose
+    gradient on the CPU is below 1e-7)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    t0 = time.monotonic()
+    cfg = get_config("qwen3-8b").reduced()
+    state = train_state(torch)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = Model(cfg, device=dev, dtype=torch.float32)
+        m.load_params(state)
+        before = ops.launch_counts()
+        runs[dev] = train_run(torch, m)
+        runs[dev + "_launches"] = delta(ops.launch_counts(), before)
+    (lg, gg, sg, pg), (lc, gc_, sc, pc) = runs["cuda"], runs["cpu"]
+    check(abs(lg - lc) <= 1e-5, f"train card vs CPU loss {lg} vs {lc}")
+    train_close(torch, "train card vs CPU grad", gg, gc_, 1e-4, rel=True)
+    check(max(abs(a - b) for a, b in zip(sg, sc)) <= 1e-4,
+          f"train card vs CPU step losses {sg} vs {sc}")
+    train_close(torch, "train card vs CPU params", pg, pc, 5e-4,
+                skip={k: abs(g) < 1e-7 for k, g in gc_.items()})
+    check(runs["cuda_launches"].get("flash_attention_bwd", 0) > 0
+          and runs["cuda_launches"].get("rmsnorm_bwd", 0) > 0
+          and not runs["cpu_launches"].get("flash_attention_bwd", 0),
+          f"train card vs CPU launches {runs['cuda_launches']}")
+    print(f"training card vs CPU (reduced qwen3-8b, fp32): loss {lg:.7f} vs "
+          f"{lc:.7f}, step losses {sg} vs {sc}; "
+          f"{time.monotonic() - t0:.1f} s")
+
+
+def train_layout_rank(rank, groups, state):
+    """One rank of reduced qwen3-8b on (sp, tp) = (2, 2) in fp32:
+    ``train_run`` on the card, then on the CPU over the same gloo groups
+    (gloo takes either), so one job holds both."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_state
+    from repro_torch.models import Model
+    from repro_torch.parallel import Layout
+    cfg, lay = get_config("qwen3-8b").reduced(), Layout(sp=2, tp=2)
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = Model(cfg, device=device, dtype=torch.float32, lay=lay,
+                  groups=groups)
+        m.load_params(shard_state(state, cfg, lay, rank))
+        before = dict(groups.traffic)
+        loss, grads, losses, _ = train_run(torch, m)
+        out[device] = {"loss": loss, "grads": grads, "losses": losses,
+                       "traffic": delta(dict(groups.traffic), before)}
+    return out
+
+
+def train_layout_phase(torch):
+    """Reduced qwen3-8b in fp32 on (sp, tp) = (2, 2) over gloo: four ranks
+    on the one card, each also running the same on the CPU. Every rank's
+    loss equals a one-rank run's (1e-5) and the other ranks'; each rank's
+    card gradients equal its CPU gradients (1e-4 of each leaf's largest
+    entry: the reference's per-device gradients, ROADMAP Queue 3), and so
+    do its three Trainer steps' losses (1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import Model
+    t0 = time.monotonic()
+    state = train_state(torch)
+    one = Model(get_config("qwen3-8b").reduced(), device="cuda",
+                dtype=torch.float32)
+    one.load_params(state)
+    toks, labels = train_batch(one.cfg.vocab_size)
+    with torch.no_grad():
+        want = float(one.loss_fn()(toks, labels))
+    del one
+    res = run_ranks(train_layout_rank, 2, 2, device="cuda", backend="gloo",
+                    timeout_s=300, args=(state,))
+    for r, out in enumerate(res):
+        g, c = out["cuda"], out["cpu"]
+        check(abs(g["loss"] - want) <= 1e-5,
+              f"train layout rank {r}: loss {g['loss']} vs one rank {want}")
+        check(g["losses"] == res[0]["cuda"]["losses"],
+              f"train layout rank {r}: step losses differ between ranks")
+        check(max(abs(a - b) for a, b in zip(g["losses"], c["losses"]))
+              <= 1e-4, f"train layout rank {r}: {g['losses']} vs CPU "
+              f"{c['losses']}")
+        train_close(torch, f"train layout rank {r} grad", g["grads"],
+                    c["grads"], 1e-4, rel=True)
+    print(f"training (sp, tp) = (2, 2) over gloo on the card: loss "
+          f"{res[0]['cuda']['loss']:.7f} (one rank {want:.7f}), step losses "
+          f"{res[0]['cuda']['losses']} (CPU {res[0]['cpu']['losses']}); "
+          f"rank 0 traffic on the card {res[0]['cuda']['traffic']}; "
+          f"{time.monotonic() - t0:.1f} s")
+
+
 def simulator_line():
     """The serving simulator (``repro_torch.sim.simulate``, host code) on
     the paper's bursty trace for llama-70b and qwen-32b under dp, tp, sp
@@ -6569,12 +7065,16 @@ def summary(cases, by_path):
              DECODE_TPU),
             ("paged_decode_attention", "cuda", CSRC + "decode_attention.cu",
              PAGED_DECODE_TPU),
-            ("ssd_chunk", "cuda", CSRC + "ssd_chunk.cu", SSD_TPU)):
+            ("ssd_chunk", "cuda", CSRC + "ssd_chunk.cu", SSD_TPU),
+            ("flash_attention_bwd", "cuda", CSRC + "flash_attention_bwd.cu",
+             FLASH_TPU),
+            ("rmsnorm_bwd", "cuda", CSRC + "rmsnorm_bwd.cu", RMS_TPU)):
         top = cases[name][0]
         out.append({"name": name, "route": route, "source": source,
                     "replaces": replaces,
-                    "launches": sum(p[name] for p in by_path.values()),
-                    "launches_by_path": {k: p[name]
+                    "launches": sum(p.get(name, 0)
+                                    for p in by_path.values()),
+                    "launches_by_path": {k: p.get(name, 0)
                                          for k, p in by_path.items()},
                     "max_abs_err": top["max_abs_err"], "ms": top["ms"],
                     "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -6614,7 +7114,9 @@ def main():
         ptxas_report(name, log)
 
     cases = kernel_phase(torch)
+    backward_kernel_phase(torch, cases)
     cross_device_phase(torch)
+    train_cross_device(torch)
     by_path, turns = serving_phase(torch)
     by_path["mamba2_dense"], turns["mamba2_dense"] = \
         mamba2_serving_phase(torch)
@@ -6629,7 +7131,9 @@ def main():
     by_path["whisper_dense"], turns["whisper_dense"] = whisper_phase(torch)
     by_path["internvl2_mixed"], turns["internvl2_mixed"] = \
         internvl2_phase(torch)
+    by_path["training"] = training_phase(torch)
     simulator_line()
+    train_layout_phase(torch)
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \
         by_path["layout_adaptive_rank0"], overhead, serialized = \
         layout_phase(torch)

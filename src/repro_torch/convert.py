@@ -11,8 +11,11 @@ state counterpart: it turns the reference's cache tree (the ``cache`` of its
 engine's snapshot) into the port's cache tensors, as
 ``ShiftEngine.snapshot`` holds them, so that a snapshot the reference took
 restores into the port; ``gather_dense_cache`` puts the ranks' dense
-caches of a layout together into the reference's global arrays. It
-imports neither jax nor repro.
+caches of a layout together into the reference's global arrays.
+``from_jax_opt_state`` converts the reference's optimizer state (AdamW's
+``m`` and ``v`` and the int8 compression's ``err``, each a tree of the
+parameters' structure), so that a reference checkpoint resumes in the
+port. It imports neither jax nor repro.
 """
 from __future__ import annotations
 
@@ -138,6 +141,21 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
         raise ValueError(f"{cfg.name}: leaves the port has no parameter "
                          f"for {extra[:4]}, parameters missing "
                          f"{missing[:4]}")
+    return out
+
+
+def from_jax_opt_state(tree, cfg) -> dict:
+    """The reference's optimizer state of a model on the trivial layout
+    (``Trainer.init_opt_state``'s tree, as nested dicts of numpy arrays):
+    ``m``, ``v`` and, with int8 compression, ``err`` have the parameters'
+    structure and convert as ``from_jax_params`` converts them; ``step``
+    becomes an int. Returns ``{"m": {name: array}, "v": ..., ["err":
+    ...,] "step": int}``, the global logical trees that
+    ``training.checkpoint.load_state`` takes."""
+    out = {"step": int(np.asarray(tree["step"]))}
+    for key in ("m", "v", "err"):
+        if key in tree:
+            out[key] = from_jax_params(tree[key], cfg)
     return out
 
 

@@ -50,10 +50,10 @@ struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
-template <typename T, int EPL>
+template <typename T, int EPL, bool LSE>
 __global__ void __launch_bounds__(MAX_ROWS / ROWS * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                        const int* __restrict__ q_offsets, Strides qs, Strides ks,
                        Strides os, int Sq, int Skv, int Hkv, int g, int D, int bq,
                        int causal, float scale) {
@@ -127,11 +127,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = e * 32 + lane;
       if (d < D) dst[d] = from_f<T>(st.acc[rr][e] / denom);
     }
+    // the row's log-sum-exp of the scaled scores, [B, Hq, Sq], for the
+    // backward (training only)
+    if (LSE && lane == 0)
+      lse[(static_cast<long long>(b) * Hkv * g + h * g + j) * Sq + q0 + i] =
+          st.m[rr] + logf(denom);
   }
 }
 
-template <typename T, int EPL>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, const int* q_offsets,
+template <typename T, int EPL, bool LSE>
+cudaError_t launch(const T* q, const T* k, const T* v, T* out, float* lse, const int* q_offsets,
                    Strides qs, Strides ks, Strides os, int B, int Sq, int Skv,
                    int Hkv, int g, int D, int causal, float scale, cudaStream_t stream) {
   const int bq = max(1, min(MAX_ROWS / g, Sq));
@@ -139,18 +144,19 @@ cudaError_t launch(const T* q, const T* k, const T* v, T* out, const int* q_offs
   const int DP = tile_stride<T>(D);
   const size_t smem = 2 * static_cast<size_t>(NK) * DP * sizeof(T) +
                       static_cast<size_t>(nwarps) * ROWS * (D + NK) * sizeof(float);
-  auto kern = flash_attention_kernel<T, EPL>;
+  auto kern = flash_attention_kernel<T, EPL, LSE>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + bq - 1) / bq, B * Hkv);
-  kern<<<grid, nwarps * 32, smem, stream>>>(q, k, v, out, q_offsets, qs, ks, os, Sq, Skv,
+  kern<<<grid, nwarps * 32, smem, stream>>>(q, k, v, out, lse, q_offsets, qs, ks, os, Sq, Skv,
                                             Hkv, g, D, bq, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
+             const int* q_offsets,
              const long long* strides, int B, int Sq, int Skv, int Hq, int Hkv, int D,
              int causal, float scale, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_ROWS ||
@@ -164,9 +170,11 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const int* 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
-#define FA_LAUNCH(EPL)                                                                    \
-  launch<T, EPL>(qt, kt, vt, ot, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D, causal, \
-                 scale, stream)
+#define FA_LAUNCH(EPL)                                                                       \
+  (lse ? launch<T, EPL, true>(qt, kt, vt, ot, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, \
+                              D, causal, scale, stream)                                       \
+       : launch<T, EPL, false>(qt, kt, vt, ot, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv,   \
+                               g, D, causal, scale, stream))
   cudaError_t e;
   if (D <= 32) e = FA_LAUNCH(1);
   else if (D <= 64) e = FA_LAUNCH(2);
@@ -182,12 +190,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const int* 
 // ---------------------------------------------------------------------------
 constexpr int MMA_STAGES = 2;  // K/V tiles in flight
 
-template <int DT, int NW>
+template <int DT, int NW, bool LSE>
 __global__ void __launch_bounds__(NW * 32)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                           const int* __restrict__ q_offsets, Strides qs, Strides ks,
+                           float* __restrict__ lse, const int* __restrict__ q_offsets, Strides qs, Strides ks,
                            Strides os, int Sq, int Skv, int Hkv, int g, int D, int bq,
                            int causal, float scale) {
   using namespace mma;
@@ -281,11 +289,23 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     return out + b * os.b + static_cast<long long>(q0 + r / g) * os.s +
            static_cast<long long>(h * g + r % g) * os.h;
   });
+  if (LSE && (lane & 3) == 0) {
+    // the rows' log-sum-exp of the scaled scores, [B, Hq, Sq], for the
+    // backward (training only)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = row0 + (lane >> 2) + 8 * rr;
+      if (r < rows)
+        lse[(static_cast<long long>(b) * Hkv * g + h * g + r % g) * Sq + q0 + r / g] =
+            st.m[rr] + logf(fmaxf(st.l[rr], 1e-30f));
+    }
+  }
 }
 
-template <int DT, int NW>
+template <int DT, int NW, bool LSE>
 cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, __nv_bfloat16* out, const int* q_offsets,
+                       const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                       const int* q_offsets,
                        Strides qs, Strides ks, Strides os, int B, int Sq, int Skv, int Hkv,
                        int g, int D, int causal, float scale, cudaStream_t stream) {
   constexpr int ROWS_CTA = NW * mma::WARP_ROWS;
@@ -293,19 +313,20 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const int SP = mma::tile_stride(D);
   const size_t smem = static_cast<size_t>(ROWS_CTA + MMA_STAGES * 2 * mma::TILE_KEYS) * SP *
                       sizeof(__nv_bfloat16);
-  auto kern = flash_attention_mma_kernel<DT, NW>;
+  auto kern = flash_attention_mma_kernel<DT, NW, LSE>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(B * Hkv, (Sq + bq - 1) / bq);
-  kern<<<grid, NW * 32, smem, stream>>>(q, k, v, out, q_offsets, qs, ks, os, Sq, Skv, Hkv,
-                                        g, D, bq, causal, scale);
+  kern<<<grid, NW * 32, smem, stream>>>(q, k, v, out, lse, q_offsets, qs, ks, os, Sq, Skv,
+                                        Hkv, g, D, bq, causal, scale);
   return cudaGetLastError();
 }
 
-template <int DT>
+template <int DT, bool LSE>
 cudaError_t launch_mma_nw(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                          const __nv_bfloat16* v, __nv_bfloat16* out, const int* q_offsets,
+                          const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                          const int* q_offsets,
                           Strides qs, Strides ks, Strides os, int B, int Sq, int Skv,
                           int Hkv, int g, int D, int causal, float scale,
                           cudaStream_t stream) {
@@ -314,13 +335,14 @@ cudaError_t launch_mma_nw(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const int bq8 = max(1, min(128 / g, Sq));
   const long long ctas8 = static_cast<long long>((Sq + bq8 - 1) / bq8) * B * Hkv;
   if (DT <= 128 && ctas8 >= 264)
-    return launch_mma<DT, 8>(q, k, v, out, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D,
-                             causal, scale, stream);
-  return launch_mma<DT, 4>(q, k, v, out, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D, causal,
-                           scale, stream);
+    return launch_mma<DT, 8, LSE>(q, k, v, out, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv,
+                                  g, D, causal, scale, stream);
+  return launch_mma<DT, 4, LSE>(q, k, v, out, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g,
+                                D, causal, scale, stream);
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
+int dispatch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                 const int* q_offsets,
                  const long long* strides, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                  int causal, float scale, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_ROWS ||
@@ -334,9 +356,11 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* out, const i
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
   const auto* vt = static_cast<const __nv_bfloat16*>(v);
   auto* ot = static_cast<__nv_bfloat16*>(out);
-#define FA_MMA(DT) \
-  launch_mma_nw<DT>(qt, kt, vt, ot, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, g, D, causal, \
-                    scale, stream)
+#define FA_MMA(DT)                                                                          \
+  (lse ? launch_mma_nw<DT, true>(qt, kt, vt, ot, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv,  \
+                                 g, D, causal, scale, stream)                                \
+       : launch_mma_nw<DT, false>(qt, kt, vt, ot, lse, q_offsets, qs, ks, os, B, Sq, Skv, Hkv, \
+                                  g, D, causal, scale, stream))
   cudaError_t e;
   if (D <= 32) e = FA_MMA(32);
   else if (D <= 64) e = FA_MMA(64);
@@ -350,20 +374,23 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* out, const i
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], each with element strides
 // (batch, position, head) in `strides` (q, k and v alike, out: 9 values) and
-// a contiguous head dim, 16-byte aligned; q_offsets: [B] int32. All on the
-// device of `stream`. Returns a cudaError_t (0 = launched).
+// a contiguous head dim, 16-byte aligned; q_offsets: [B] int32. lse: null
+// (serving), or an fp32 [B, Hq, Sq] output for each row's log-sum-exp of
+// its scaled scores, which the backward (flash_attention_bwd.cu) reads; the
+// instances without it are the serving path's, unchanged. All on the device
+// of `stream`. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   const int* q_offsets, const long long* strides, int B,
-                                   int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                                   float* lse, const int* q_offsets, const long long* strides,
+                                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                                    float scale, void* stream) {
-  return dispatch<float>(q, k, v, out, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D, causal,
+  return dispatch<float>(q, k, v, out, lse, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D, causal,
                          scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    const int* q_offsets, const long long* strides, int B,
-                                    int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                                    float* lse, const int* q_offsets, const long long* strides,
+                                    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                                     float scale, void* stream) {
-  return dispatch_mma(q, k, v, out, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D, causal, scale,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_mma(q, k, v, out, lse, q_offsets, strides, B, Sq, Skv, Hq, Hkv, D, causal,
+                      scale, static_cast<cudaStream_t>(stream));
 }

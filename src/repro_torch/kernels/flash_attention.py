@@ -31,11 +31,14 @@ NEG_INF = -1e30
 launches = 0
 
 
-def flash_attention_plain(q, k, v, q_offsets, *, causal=True, bk=128):
+def flash_attention_plain(q, k, v, q_offsets, *, causal=True, bk=128,
+                          return_lse=False):
     """Plain PyTorch version: the TPU kernel's online softmax over key
     tiles of ``bk`` in fp32, vectorised over rows, heads and queries. Scores
     are scaled after the dot (as the kernel does, not q before it) and p is
-    rounded to v's type before the PV product."""
+    rounded to v's type before the PV product. With ``return_lse`` it also
+    returns each row's log-sum-exp of the scaled scores, fp32 [B, Hq, Sq],
+    which the backward reads."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -61,12 +64,16 @@ def flash_attention_plain(q, k, v, q_offsets, *, causal=True, bk=128):
         acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vt.float())
         m = m_new
     out = acc / l.clamp(min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l.clamp(min=1e-30)))[..., 0].reshape(B, Hq, Sq)
+    return out, lse
 
 
 _C_FUNCS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                         ctypes.c_void_p]
 
 
@@ -88,13 +95,16 @@ def check_vectors(name, t):
                          f"16-byte aligned rows (strides {t.stride()})")
 
 
-def flash_attention_cuda(q, k, v, q_offsets, *, causal=True):
+def flash_attention_cuda(q, k, v, q_offsets, *, causal=True,
+                         return_lse=False):
     """Launch the CUDA kernel on PyTorch's current stream. q, k, v in fp32
     or bf16 on one CUDA device, any strides with a contiguous head dim
     (``D <= 256``, a multiple of 8 in fp32 and of 16 in bf16, the tensor
     cores' depth; ``Hq / Hkv <= 64``), k and v with equal strides;
-    q_offsets int32 ``[B]``. Raises on anything else and when the launch
-    fails."""
+    q_offsets int32 ``[B]``. With ``return_lse`` the kernel's training
+    instance also writes each row's log-sum-exp, fp32 [B, Hq, Sq], and
+    ``(out, lse)`` is returned; without it the serving instance runs.
+    Raises on anything else and when the launch fails."""
     global launches
     if q.dtype not in _C_FUNCS:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
@@ -124,7 +134,11 @@ def flash_attention_cuda(q, k, v, q_offsets, *, causal=True):
     if not q_offsets.is_contiguous():
         raise ValueError("q_offsets must be contiguous")
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or Skv == 0:
+        if return_lse:
+            return out.zero_(), lse.fill_(-1e30)
         return out.zero_()
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, out)
                                         for s in t.stride()[:3]))
@@ -132,10 +146,11 @@ def flash_attention_cuda(q, k, v, q_offsets, *, causal=True):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  q_offsets.data_ptr(), ctypes.addressof(strides), B, Sq, Skv,
                  Hq, Hkv, D, int(bool(causal)), float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

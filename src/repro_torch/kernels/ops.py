@@ -5,22 +5,35 @@ The device of the tensors decides the dispatch: a CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the hand-written kernel,
 which raises if it cannot build or launch. There is no backend switch and
 no fallback: a run on the card either went through the kernels or failed.
+
+Training differentiates through flash attention and RMSNorm: while
+autograd records (an input requires grad) ``flash_attention``,
+``rmsnorm`` and ``rmsnorm_pair`` run as ``torch.autograd.Function``s
+(``FlashAttention``, ``RMSNorm``, ``RMSNormPair``) whose forward is the
+kernel (or the plain version on the CPU) and whose backward is the
+backward kernel (or its plain version), dispatched by device as the
+forward is. The serving path runs under ``no_grad`` and calls the forward
+kernels directly.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import recording
 from . import decode_attention as DA
 from . import flash_attention as FA
+from . import flash_attention_bwd as FAB
 from . import paged_decode_attention as PDA
 from . import paged_ragged_attention as PRA
 from . import rmsnorm as RMS
+from . import rmsnorm_bwd as RMSB
 from . import ssd_scan as SSD
 
 # every kernel's module, by the name its launch counter is reported under
 KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
            "decode_attention": DA, "paged_decode_attention": PDA,
-           "rmsnorm": RMS, "ssd_chunk": SSD}
+           "rmsnorm": RMS, "ssd_chunk": SSD, "flash_attention_bwd": FAB,
+           "rmsnorm_bwd": RMSB}
 
 
 def launch_counts() -> dict:
@@ -46,15 +59,40 @@ def _on_cuda(t) -> bool:
     return t.is_cuda
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel's training
+    instance saves each row's log-sum-exp, the backward kernel reads it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offsets, causal):
+        fn = (FA.flash_attention_cuda if _on_cuda(q)
+              else FA.flash_attention_plain)
+        out, lse = fn(q, k, v, q_offsets, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_offsets)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_offsets = ctx.saved_tensors
+        fn = (FAB.flash_attention_bwd_cuda if _on_cuda(q)
+              else FAB.flash_attention_bwd_plain)
+        dq, dk, dv = fn(q, k, v, out, lse, dout, q_offsets, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, q_offsets=None):
     """Flash attention in the reference's public layout: q [B, Sq, Hq, D],
     k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D]. ``q_offsets`` [B] int32 places
     row b's first query at that global position (default 0, the TPU
     kernel's alignment); the causal mask is ``kpos <= q_offsets[b] + i``.
-    Nothing is transposed or copied: the kernel reads the strides."""
+    Nothing is transposed or copied: the kernel reads the strides. While
+    autograd records, ``FlashAttention`` carries the gradient."""
     if q_offsets is None:
         q_offsets = torch.zeros((q.shape[0],), dtype=torch.int32,
                                 device=q.device)
+    if recording(q, k, v):
+        return FlashAttention.apply(q, k, v, q_offsets, causal)
     fn = FA.flash_attention_cuda if _on_cuda(q) else FA.flash_attention_plain
     return fn(q, k, v, q_offsets, causal=causal)
 
@@ -103,9 +141,49 @@ def paged_ragged_attend(q, k_pool, v_pool, block_tables, q_lens, ctx_lens, *,
     return out.reshape(B, Hq, C, D).transpose(1, 2)
 
 
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with its gradient (dx and dscale)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        fn = RMS.rmsnorm_cuda if _on_cuda(x) else RMS.rmsnorm_plain
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return fn(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        fn = RMSB.rmsnorm_bwd_cuda if _on_cuda(x) else RMSB.rmsnorm_bwd_plain
+        dx, dscale = fn(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+class RMSNormPair(torch.autograd.Function):
+    """A layer's q_norm and k_norm with their gradients: one backward call
+    over both, as the forward is one launch."""
+
+    @staticmethod
+    def forward(ctx, q, q_scale, k, k_scale, eps):
+        fn = RMS.rmsnorm_pair_cuda if _on_cuda(q) else RMS.rmsnorm_pair_plain
+        ctx.save_for_backward(q, q_scale, k, k_scale)
+        ctx.eps = eps
+        return fn(q, q_scale, k, k_scale, eps)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        q, q_scale, k, k_scale = ctx.saved_tensors
+        fn = (RMSB.rmsnorm_pair_bwd_cuda if _on_cuda(q)
+              else RMSB.rmsnorm_pair_bwd_plain)
+        return (*fn(q, q_scale, dq, k, k_scale, dk, ctx.eps), None)
+
+
 def rmsnorm(x, scale, eps=1e-6):
     """RMSNorm over the last axis of x ([..., D]) with scale [D], or
-    grouped: x [..., H, D] with one scale row per head, [H, D]."""
+    grouped: x [..., H, D] with one scale row per head, [H, D].
+    Differentiable (``RMSNorm``) while autograd records."""
+    if recording(x, scale):
+        return RMSNorm.apply(x, scale, eps)
     fn = RMS.rmsnorm_cuda if _on_cuda(x) else RMS.rmsnorm_plain
     return fn(x, scale, eps)
 
@@ -113,7 +191,10 @@ def rmsnorm(x, scale, eps=1e-6):
 def rmsnorm_pair(q, q_scale, k, k_scale, eps=1e-6):
     """A layer's q_norm and k_norm: RMSNorm over the last axis of q and of
     k (one D), each with its own [D] scale, in one kernel launch on the
-    card. Returns (q', k')."""
+    card. Returns (q', k'). Differentiable (``RMSNormPair``) while
+    autograd records."""
+    if recording(q, q_scale, k, k_scale):
+        return RMSNormPair.apply(q, q_scale, k, k_scale, eps)
     fn = RMS.rmsnorm_pair_cuda if _on_cuda(q) else RMS.rmsnorm_pair_plain
     return fn(q, q_scale, k, k_scale, eps)
 

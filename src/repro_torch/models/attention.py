@@ -216,6 +216,22 @@ def _qk_post(p: Attention, q, k, positions, cfg, rope: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# training forward (no cache)
+# ---------------------------------------------------------------------------
+def attn_train(p: Attention, x, pos, cfg):
+    """The cache-free forward of training (the reference's ``attn_prefill``
+    with ``cache is None``): x [B, S_loc, d], this rank's columns; after
+    the exchange q and k are normed and rotated at the chunk's global
+    positions ``pos`` [B, S] and the flash kernel attends the chunk's own
+    keys, causal at zero offsets. Writes no cache; every step is
+    differentiable (the exchange, the kernels, the TP psum). Returns [B,
+    S_loc, d]."""
+    q, k, v = _project_exchange(p, x, cfg)
+    q, k = _qk_post(p, q, k, pos, cfg)
+    return _finish(p, K.flash_attention(q, k, v, causal=True))
+
+
+# ---------------------------------------------------------------------------
 # paged forward
 # ---------------------------------------------------------------------------
 def paged_attn_mixed(p: Attention, x, k_pool, v_pool, pos, offsets, q_lens,

@@ -206,6 +206,15 @@ def block_prefill(p, x, cache, ctx, cfg):
     return x + _ffn(p, p.ln2(x))
 
 
+def block_train(p, x, pos, cfg):
+    """One layer of training's forward (the reference's ``block_prefill``
+    with ``train=True`` and no cache). x: [B, S_loc, d]; pos [B, S] the
+    chunk's global positions. Only the dense GQA stack trains: the
+    ``attn`` kind with the dense FFN (``transformer.check_trainable``)."""
+    x = x + A.attn_train(p.attn, p.ln1(x), pos, cfg)
+    return x + mlp_apply(p.ffn, p.ln2(x))
+
+
 def block_decode(p, x, cache, ctx, cfg):
     """x: [B_loc, d], this rank's segment of its dp row's batch; ctx:
     dict(lens, block_tables), the row's. One layer of a decode step: an

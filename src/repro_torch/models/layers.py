@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as K
-from repro_torch.parallel.collectives import all_gather_if, psum_if
+from repro_torch.parallel.collectives import all_gather_if, pmax_sg, psum_if
 from repro_torch.parallel.layout import Shard
 
 
@@ -228,7 +228,9 @@ class Embedding(nn.Module):
 
 def embed_apply(p: Embedding, ids):
     """Distributed lookup over the vocab-sharded table, summed over TP: ids
-    outside this rank's rows (and outside the vocabulary) give zero rows."""
+    outside this rank's rows (and outside the vocabulary) give zero rows.
+    Differentiable while autograd records: the TP sum's backward is a TP
+    sum, as in the reference."""
     v_blk = p.table.shape[0]
     local = ids - p.shard.tp_rank * v_blk
     ok = (local >= 0) & (local < v_blk)
@@ -263,6 +265,25 @@ def tied_lmhead_apply(embed: Embedding, x):
     """The LM head of a tied model, the embedding table itself: logits
     ``x @ table.T`` [..., v_blk] in fp32."""
     return (x @ embed.table.T).float()
+
+
+def distributed_xent(logits, labels, shard: Shard):
+    """Per-token cross-entropy over TP vocab shards (the reference's
+    ``distributed_xent``): logits [..., v_blk] fp32, this tp rank's
+    columns; labels [...] global ids. The max is ``pmax_sg`` (no
+    gradient); the denominator and the label's logit are summed over TP
+    (``psum_if``, whose backward is a TP sum). Returns [...] nll."""
+    v_blk = logits.shape[-1]
+    off = shard.tp_rank * v_blk
+    mx = pmax_sg(logits.amax(dim=-1), shard.tp_group)
+    z = torch.exp(logits - mx[..., None])
+    denom = psum_if(z.sum(dim=-1), shard.tp_group)
+    local = labels.long() - off
+    ok = (local >= 0) & (local < v_blk)
+    picked = torch.gather(logits, -1, local.clamp(0, v_blk - 1)[..., None])[..., 0]
+    picked = torch.where(ok, picked, torch.zeros_like(picked))
+    label_logit = psum_if(picked, shard.tp_group)
+    return torch.log(denom) + mx - label_logit
 
 
 # ---------------------------------------------------------------------------

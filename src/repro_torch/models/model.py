@@ -25,6 +25,7 @@ every step. An MLA config's latent cache is sharded over the grid's sp
 (``models.mla``), the same chunk in the base and the shift config."""
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -139,6 +140,48 @@ class Model:
         self.params.load_state_dict(
             {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.array(v)) for k, v in state.items()}, strict=True)
+
+    # ------------------------------------------------------------ training
+    @contextmanager
+    def trainable(self):
+        """Turn gradients on for every parameter for the block's length
+        (serving keeps them off: ``requires_grad=False``), and off again
+        after it, the parameters' ``.grad`` cleared. Yields the parameters
+        by name."""
+        named = dict(self.params.named_parameters())
+        for p in named.values():
+            p.requires_grad_(True)
+        try:
+            yield named
+        finally:
+            for p in named.values():
+                p.requires_grad_(False)
+                p.grad = None
+
+    def local_batch(self, a):
+        """This rank's part of a global [B, S] training batch (tokens or
+        labels, an array or a tensor), as the reference's ``P(dp, sp)``
+        cuts it: its dp row's B/dp rows and its sp rank's S/sp columns, as
+        int32 on the model's device."""
+        a = self._ints(a)
+        rows = self._dp_rows(a.shape[0])
+        return a[rows, self._sp_part(a.shape[1], "a sequence")]
+
+    def loss_fn(self, remat: bool = True):
+        """The training loss (counterpart of ``loss_fn``): a function of
+        the global batch ``(tokens, labels)`` [B, S] (the same on every
+        rank) that returns the mean nll, a 0-d fp32 tensor equal on every
+        rank. Differentiable in the parameters inside ``trainable()``; its
+        gradients are this rank's, the reference's per-device ones. Only
+        the dense GQA stack trains (``transformer.check_trainable`` raises
+        for the rest)."""
+        T.check_trainable(self.cfg)
+
+        def loss(tokens, labels):
+            return T.loss_body(self.params, self.local_batch(tokens),
+                               self.local_batch(labels), self.cfg,
+                               remat=remat)
+        return loss
 
     # -------------------------------------------------------- paged cache
     @property

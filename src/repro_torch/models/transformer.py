@@ -15,14 +15,16 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.parallel import Layout, Shard
 from repro_torch.parallel.collectives import all_gather_if, psum_if
 from . import blocks as BK
 from .attention import cache_init
 from .mla import mla_cache_shape
-from .layers import (Embedding, LMHead, distributed_argmax, embed_apply,
-                     lmhead_apply, make_norm, tied_lmhead_apply)
+from .layers import (Embedding, LMHead, distributed_argmax,
+                     distributed_xent, embed_apply, lmhead_apply, make_norm,
+                     tied_lmhead_apply)
 from .recurrent import RGLRUState, rglru_state_shapes
 from .ssd import SSDState, ssd_state_shapes
 
@@ -402,3 +404,58 @@ def greedy_body(logits, shard: Shard):
     dp row's [B_row] token ids, the argmax over TP and the segments
     all-gathered over SP."""
     return all_gather_if(distributed_argmax(logits, shard), shard.sp_group)
+
+
+def check_trainable(cfg):
+    """Raise ``NotImplementedError`` for a config whose training is not
+    ported, naming the ROADMAP item (Queue 1 item 4) that ports it: only
+    the dense GQA stack (``attn`` layers with the dense FFN, no frontend,
+    no encoder, no MTP head) trains."""
+    kinds = set(cfg.layer_kinds)
+    why = ("MLA and the mtp head" if cfg.mla is not None or cfg.mtp_depth
+           else "MoE's aux loss and EP training" if "moe" in kinds
+           or cfg.moe is not None
+           else "mamba2's SSD with its chunk backward kernel" if "ssd" in kinds
+           else "the RG-LRU and local attention" if kinds & {"rglru", "local"}
+           else "the encoder and vision frontends" if cfg.encoder_layers
+           or cfg.frontend != "none" or kinds & {"enc", "dec"}
+           else "soft-capped global attention" if cfg.logits_soft_cap
+           else None)
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training {why} is not ported (ROADMAP Queue 1 "
+            "item 4 lists the training slices left)")
+
+
+def loss_body(params: Transformer, tokens, labels, cfg, remat: bool = True):
+    """Training loss (the reference's ``loss_body``): the mean next-token
+    nll over the global batch. tokens/labels: [B_loc, S_loc], this rank's
+    rows and columns (labels < 0 are not counted). Embedding, every layer
+    (``blocks.block_train``; with ``remat`` each layer is recomputed in
+    the backward, ``torch.utils.checkpoint`` without reentrancy, as the
+    reference's ``jax.checkpoint`` per superblock), the final norm, the LM
+    head and the cross-entropy over the TP vocab shards; the loss sum and
+    the token count are summed over (dp, sp). The aux loss of this stack is
+    0. Returns the loss, a 0-d fp32 tensor, the same on every rank; its
+    gradients are the reference's per-device gradients (``psum`` transposes
+    to ``psum``: ROADMAP Queue 3). Its callers, ``Model.loss_fn`` and the
+    ``Trainer``, refuse a config that does not train
+    (``check_trainable``)."""
+    sh = params.shard
+    B, S_loc = tokens.shape
+    x = embed_apply(params.embed, tokens)
+    pos = _positions_prefill(torch.zeros((B,), dtype=torch.long,
+                                         device=tokens.device),
+                             S_loc * sh.lay.sp)
+    for layer in params.layers:
+        if remat:
+            x = checkpoint(BK.block_train, layer, x, pos, cfg,
+                           use_reentrant=False)
+        else:
+            x = BK.block_train(layer, x, pos, cfg)
+    nll = distributed_xent(_logits(params, x), labels, sh)
+    valid = (labels >= 0).float()
+    group = sh.axes_group(("data", "sp") if sh.lay.sp > 1 else ("data",))
+    loss_sum = psum_if((nll * valid).sum(), group)
+    count = psum_if(valid.sum(), group)
+    return loss_sum / count.clamp(min=1.0)

@@ -20,6 +20,17 @@ axes.
 The backend is whatever ``init_process_group`` was given (``launch.mesh``
 passes it explicitly). Each ``Group`` counts the payload bytes this rank
 hands to its collectives, by kind, in the ``Groups``' ``traffic``.
+
+Training differentiates through ``psum_if``, ``all_to_all`` (and so
+``all_to_all_tiled`` and the Ulysses exchange) and ``all_gather_axis``:
+while autograd records, each runs out of place as a
+``torch.autograd.Function`` whose backward is JAX's transpose rule in a
+``shard_map`` without replication checks: ``psum`` -> ``psum``,
+``all_to_all`` -> the reverse ``all_to_all``, a tiled ``all_gather`` -> a
+reduce-scatter; ``pmax_sg`` carries no gradient. So a rank's gradients are
+the reference's per-device gradients, not the single-device ones (ROADMAP
+Queue 3). The serving path runs under ``no_grad`` and keeps its in-place
+calls; a backward's collectives are counted in ``traffic`` too.
 """
 from __future__ import annotations
 
@@ -173,10 +184,40 @@ class Groups:
         return groups[frozenset(names)]
 
 
+def recording(*ts: torch.Tensor) -> bool:
+    """True while autograd records an operation on any of ``ts``: the
+    differentiable collectives and kernels (``kernels.ops``) of training
+    run then, the serving path's in-place collectives and forward kernels
+    otherwise."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` out of place; its backward is ``psum`` of the cotangent,
+    JAX's transpose of ``psum`` in a ``shard_map`` without replication
+    checks (``check_vma=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        group.count("all_reduce", y)
+        dist.all_reduce(y, group=group.pg)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PSum.apply(g, ctx.group), None
+
+
 def psum_if(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
-    """Sum of ``x`` over ``group``, in place; ``x`` itself for no group."""
+    """Sum of ``x`` over ``group``, in place; ``x`` itself for no group.
+    While autograd records (``x`` requires grad) the sum is out of place
+    and differentiable (``_PSum``)."""
     if group is None:
         return x
+    if recording(x):
+        return _PSum.apply(x, group)
     group.count("all_reduce", x)
     dist.all_reduce(x, group=group.pg)
     return x
@@ -207,23 +248,76 @@ def all_gather_if(x: torch.Tensor, group: Optional[Group],
     return torch.cat(parts)
 
 
+class _AllGatherAxis(torch.autograd.Function):
+    """The tiled all-gather along ``axis``; its backward is the
+    reduce-scatter of the cotangent (``psum_scatter``, JAX's transpose of a
+    tiled ``all_gather``): summed over the group, each rank keeping its own
+    part along ``axis``."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        ctx.size = x.shape[axis]
+        return torch.cat(all_gather_if(x[None], group).unbind(0), dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _PSum.apply(g.contiguous(), ctx.group)
+        return (total.narrow(ctx.axis, ctx.group.rank * ctx.size, ctx.size),
+                None, None)
+
+
 def all_gather_axis(x: torch.Tensor, group: Optional[Group],
                     axis: int) -> torch.Tensor:
     """``all_gather_if`` concatenating along ``axis`` (the reference's
-    ``all_gather(x, axes, axis=axis, tiled=True)``)."""
+    ``all_gather(x, axes, axis=axis, tiled=True)``), differentiable while
+    autograd records."""
     if group is None:
         return x
+    if recording(x):
+        return _AllGatherAxis.apply(x, group, axis)
     return torch.cat(all_gather_if(x[None], group).unbind(0), dim=axis)
+
+
+def pmax_sg(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The reference's ``layers.pmax_sg``: the maximum over ``group`` of
+    the stop-gradient'd ``x``, taken over an all-gather (a softmax
+    stabilizer, where the max cancels); no gradient flows through it."""
+    x = x.detach()
+    if group is None:
+        return x
+    return all_gather_if(x[None], group).amax(dim=0)
+
+
+def _all_to_all(send: torch.Tensor, group: Group) -> torch.Tensor:
+    group.count("all_to_all", send)
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group.pg)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks; its backward sends the
+    cotangent's chunk k back to rank k, which is the same exchange (JAX's
+    transpose of ``all_to_all`` swaps the split and concat axes)."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
 
 
 def all_to_all(send: torch.Tensor, group: Group) -> torch.Tensor:
     """One ``all_to_all_single``: ``send`` [n, ...] (contiguous) sends its
     chunk k to group rank k; the result [n, ...] holds in chunk k what rank
-    k sent."""
-    group.count("all_to_all", send)
-    out = torch.empty_like(send)
-    dist.all_to_all_single(out, send, group=group.pg)
-    return out
+    k sent. Differentiable while autograd records."""
+    if recording(send):
+        return _AllToAll.apply(send, group)
+    return _all_to_all(send, group)
 
 
 def all_to_all_tiled(x: torch.Tensor, group: Optional[Group], split_axis: int,
@@ -232,7 +326,8 @@ def all_to_all_tiled(x: torch.Tensor, group: Optional[Group], split_axis: int,
     over ``group``: ``x`` cut into ``group.size`` equal chunks along
     ``split_axis``, chunk k sent to group rank k, and the chunks received
     concatenated along ``concat_axis`` in source rank order; ``x`` itself
-    for no group."""
+    for no group. Differentiable while autograd records (its backward is
+    the reverse exchange)."""
     if group is None:
         return x
     send = torch.stack(x.chunk(group.size, dim=split_axis)).contiguous()

@@ -1813,3 +1813,154 @@ def test_cuda_pod_scale_engine_matches_cpu(cuda, arch):
     assert cpu[0]["counts"]["base"] > 0 and cpu[0]["counts"]["shift"] > 0
     if arch == "llama4-17b-16e":
         assert card[0]["launches"]["paged_ragged_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training: the two backward kernels and a Trainer step, card against CPU
+# ---------------------------------------------------------------------------
+def _grad_close(got, want, tol):
+    """A backward kernel's gradient against its plain version: within
+    ``tol`` of its largest entry, and every row (last dim: one token's and
+    head's gradient) within 2e-2 (bf16) or 1e-3 (fp32: a row that is 0 in
+    exact arithmetic keeps cancellation noise) of its own norm plus 1 % of
+    the rms row norm, so that rows of small gradients are held to their
+    own scale."""
+    g, w = (t.float().reshape(-1, t.shape[-1]) for t in (got, want))
+    assert got.shape == want.shape
+    assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+    wn = w.norm(dim=1)
+    floor = 1e-2 * wn.square().mean().sqrt()
+    row_tol = 2e-2 if got.dtype == torch.bfloat16 else 1e-3
+    assert ((g - w).norm(dim=1) / (wn + floor)).max().item() <= row_tol
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    """The flash backward refuses a bf16 head dim that is not a multiple of
+    16 and an fp32 one that is not a multiple of 4, the RMSNorm backward a
+    mismatched dy, before any launch (so this runs without a card too)."""
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    before = (FAB.launches, RB.launches)
+    for dtype, D in ((torch.bfloat16, 24), (torch.float32, 6)):
+        q = torch.zeros((1, 3, 2, D), dtype=dtype)
+        kv = torch.zeros((1, 3, 1, D), dtype=dtype)
+        lse = torch.zeros((1, 2, 3))
+        with pytest.raises(ValueError, match="D %"):
+            FAB.flash_attention_bwd_cuda(q, kv, kv, q, lse, q,
+                                         torch.zeros(1, dtype=torch.int32))
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        RB.rmsnorm_bwd_cuda(x, torch.ones(8), torch.zeros((4, 4)))
+    assert (FAB.launches, RB.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (2, 70, 4, 2, 16, True), (1, 33, 6, 2, 64, False),
+    (2, 300, 8, 2, 128, True), (1, 129, 32, 8, 128, True)])
+def test_cuda_flash_backward_matches_plain(cuda, dtype, B, S, Hq, Hkv, D,
+                                           causal):
+    """dQ, dK, dV of the kernel against the plain backward over the
+    forward kernel's log-sum-exp (which matches the plain forward's),
+    within 1e-4 (fp32) or 2e-2 (bf16) of each gradient's largest entry and
+    of each row's norm (``_grad_close``); two runs are bitwise equal (no
+    atomics), three launches a call."""
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    off = torch.zeros(B, dtype=torch.int32, device="cuda")
+    out, lse = FA.flash_attention_cuda(q, k, v, off, causal=causal,
+                                       return_lse=True)
+    _, lse_p = FA.flash_attention_plain(q, k, v, off, causal=causal,
+                                        return_lse=True)
+    assert (lse - lse_p).abs().max().item() < 1e-4
+    before = FAB.launches
+    got = FAB.flash_attention_bwd_cuda(q, k, v, out, lse, do, off,
+                                       causal=causal)
+    again = FAB.flash_attention_bwd_cuda(q, k, v, out, lse, do, off,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    assert FAB.launches == before + 2 * FAB.LAUNCHES_PER_CALL == before + 6
+    want = FAB.flash_attention_bwd_plain(q, k, v, out, lse, do, off,
+                                         causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _grad_close(a, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["rows", "grouped", "pair", "long rows"])
+def test_cuda_rmsnorm_backward_matches_plain(cuda, dtype, case):
+    """dx and dscale of the kernel against the plain backward, within
+    1e-4 (fp32) or 2e-2 (bf16) of their largest entries and of each row's
+    norm (``_grad_close``), bitwise equal over two runs (the dscale
+    partials are summed in a fixed order), two launches a call."""
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if case == "pair":
+        args = (rnd(96, 4, 128), rnd(128), rnd(96, 4, 128), rnd(96, 1, 128),
+                rnd(128), rnd(96, 1, 128))
+        run, plain = RB.rmsnorm_pair_bwd_cuda, RB.rmsnorm_pair_bwd_plain
+    else:
+        shape, sshape = {"rows": ((37, 64), (64,)),
+                         "grouped": ((5, 7, 3, 32), (3, 32)),
+                         "long rows": ((600, 5120), (5120,))}[case]
+        args = (rnd(*shape), rnd(*sshape), rnd(*shape))
+        run, plain = RB.rmsnorm_bwd_cuda, RB.rmsnorm_bwd_plain
+    before = RB.launches
+    got, again = run(*args), run(*args)
+    torch.cuda.synchronize()
+    assert RB.launches == before + 2 * RB.LAUNCHES_PER_CALL == before + 4
+    want = plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _grad_close(a, w, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_training_matches_cpu(cuda):
+    """Reduced qwen3-8b in fp32: the loss and gradients of one call and
+    two Trainer steps (microbatch 2, remat) on the card equal the CPU's,
+    and the card's backward went through both backward kernels."""
+    from repro_torch.training import Trainer
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = get_config("qwen3-8b").reduced()
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device="cuda", dtype=torch.float32)
+    gpu.load_params(cpu.params.state_dict())
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, 256, (8, 16)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    res = {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        ops.reset_launch_counts()
+        with m.trainable() as named:
+            loss = m.loss_fn()(toks, labels)
+            loss.backward()
+            grads = {k: p.grad.cpu() for k, p in named.items()}
+        tr = Trainer(m, AdamWConfig(lr=1e-3), microbatch=2)
+        opt = tr.init_opt_state()
+        for _ in range(2):
+            opt, _ = tr.step(opt, toks, labels)
+        res[name] = (float(loss), grads, {k: v.cpu() for k, v in
+                                          m.params.state_dict().items()},
+                     ops.launch_counts())
+    (lc, gc, pc, nc), (lg, gg, pg, ng) = res["cpu"], res["gpu"]
+    assert abs(lc - lg) <= 1e-5
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-4 * gc[k].abs().max()
+        keep = gc[k].abs() >= 1e-7
+        assert (pg[k] - pc[k]).abs()[keep].max() <= 5e-4
+    assert not any(nc.values())
+    assert ng["flash_attention_bwd"] > 0 and ng["rmsnorm_bwd"] > 0

@@ -245,3 +245,28 @@ def test_cpu_runs_serialized_when_asked(kw, capsys):
     assert ("paged cache" in out) == eng.paged
     assert "eager steps on the CPU" in out
     assert "flash_attention=0" in out and "decode_attention=0" in out
+
+
+def test_training_entry_points_default_to_cuda(no_card, tmp_path):
+    """The training CLI and a Trainer's model run on the card unless asked
+    for the CPU: the CLI raises before it builds anything."""
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1", "--ckpt", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+
+
+def test_cpu_trains_when_asked(tmp_path, capsys):
+    """The training CLI on the CPU: two steps of reduced qwen3-8b, a
+    checkpoint at step 2, and a resumed run that takes step 3 from it."""
+    from repro_torch.launch import train
+    ck = str(tmp_path / "ck")
+    train.main(["--device", "cpu", "--steps", "2", "--ckpt-every", "2",
+                "--ckpt", ck, "--batch", "4", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "step 1: loss=" in out and "checkpoint @ step 2" in out
+    train.main(["--device", "cpu", "--steps", "3", "--ckpt", ck,
+                "--batch", "4", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "step 2: loss=" in out
+    assert "step 0:" not in out
