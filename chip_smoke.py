@@ -6610,7 +6610,8 @@ def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
     """The flash backward at a training microbatch (causal, zero offsets)
     against its plain version, twice (bitwise equal: no atomics), timed
     beside the plain version and SDPA's backward through autograd over K/V
-    expanded to Hq heads."""
+    expanded to Hq heads; the forward's training instance timed beside
+    SDPA's forward on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FAB
@@ -6655,6 +6656,9 @@ def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
     dos = do.transpose(1, 2).contiguous()
     library_ms = timer(lambda: torch.autograd.grad(o, (qs, ks, vs), dos,
                                                    retain_graph=True))
+    with torch.no_grad():   # the forward's yardstick: SDPA's forward alone
+        library_fwd_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True))
     elt = q.element_size()
     pairs = B * S * (S + 1) // 2
     flops = 5 * 2 * pairs * Hq * D           # S, dP, dV, dQ, dK
@@ -6673,6 +6677,7 @@ def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
                   "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "forward_lse_ms": fwd_lse_ms, "forward_ms": fwd_ms,
+                  "forward_library_ms": library_fwd_ms,
                   "lse_max_abs_err": lse_err}, flops)
 
 

@@ -7,10 +7,21 @@ so that kernel needs a gradient: ``ops.FlashAttention`` is the
 whose backward is this. The kernel (``csrc/flash_attention_bwd.cu``, CUDA
 C++ for sm_90a) follows FlashAttention-2 over the saved fp32 log-sum-exp in
 three launches (delta = rowsum(dO * O); dK and dV per key tile, the
-group's g heads summed in the CTA; dQ per query tile), bf16 on the tensor
-cores (``mma.sync``), fp32 on the CUDA cores. It replaces no TPU kernel of
-its own (the reference differentiates its jnp attention); the source note
-says more. No atomics: two runs give bitwise equal gradients.
+group's g heads summed in the CTA; dQ per query tile). It replaces no TPU
+kernel of its own (the reference differentiates its jnp attention); the
+source note says more. No atomics: two runs give bitwise equal gradients.
+
+What bounds it on the H100: operations (five products of Sq x Skv x D per
+head; the kernel computes seven, since dQ's launch recomputes S and dP to
+need no atomics). ``design`` picks the kernels by type and shape alone:
+
+- ``"wgmma"``: bf16 with D 64 or 128 (every trainable arch), any group up
+  to 64: warpgroup products (``wgmma``) on tiles that TMA brings into
+  shared memory through an ``mbarrier`` ring, a producer warp feeding
+  consumer warpgroups (``csrc/hopper.cuh``);
+- ``"mma"``: every other bf16 D (a multiple of 16 up to 256): ``mma.sync``
+  over ``cp.async`` tiles (``csrc/mma_attention_tile.cuh``);
+- ``"fp32"``: fp32 on the CUDA cores (the 1e-4 contract TF32 would miss).
 
 Shapes: q, out, dout ``[B, Sq, Hq, D]``, k, v ``[B, Skv, Hkv, D]``, lse
 fp32 ``[B, Hq, Sq]``, q_offsets int32 ``[B]``; returns ``(dq, dk, dv)`` in
@@ -25,9 +36,19 @@ import torch
 from .flash_attention import NEG_INF
 
 # kernel launches of the CUDA backward since the count was last set to 0:
-# LAUNCHES_PER_CALL a call (delta, dK/dV, dQ)
+# LAUNCHES_PER_CALL a call in every design (delta, dK/dV, dQ)
 launches = 0
 LAUNCHES_PER_CALL = 3
+DESIGNS = ("wgmma", "mma", "fp32")
+
+
+def design(dtype, D, g) -> str:
+    """The kernels a call of this type, head dim D and group size g (Hq /
+    Hkv) launches: one of ``DESIGNS`` (see the module note). Chosen by type
+    and shape alone, never on a failure."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if D in (64, 128) and g <= 64 else "mma"
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, q_offsets, *,
@@ -66,22 +87,30 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, q_offsets, *,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-_C_FUNCS = {torch.float32: "flash_attention_bwd_f32",
-            torch.bfloat16: "flash_attention_bwd_bf16"}
+_C_FUNCS = {"fp32": "flash_attention_bwd_f32",
+            "mma": "flash_attention_bwd_bf16",
+            "wgmma": "flash_attention_bwd_bf16_wgmma"}
+_DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                          ctypes.c_void_p]
 _bound = {}
 
 
-def _bind(dtype):
-    fn = _bound.get(dtype)
+def _bind(kind):
+    fn = _bound.get(kind)
     if fn is None:
         from .build import load
-        fn = getattr(load("flash_attention_bwd"), _C_FUNCS[dtype])
+        fn = getattr(load("flash_attention_bwd"), _C_FUNCS[kind])
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        _bound[dtype] = fn
+        _bound[kind] = fn
     return fn
+
+
+def _aligned(t):
+    """t itself, or a copy when its data does not start on 16 bytes (the
+    vector reads and TMA need it; a fresh allocation always does)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_offsets, *,
@@ -89,9 +118,10 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_offsets, *,
     """Launch the CUDA backward on PyTorch's current stream: q, k, v, out,
     dout in fp32 or bf16 on one CUDA device (made contiguous here), ``D <=
     256`` (a multiple of 4 in fp32, of 16 in bf16), ``Hq / Hkv <= 64``; lse
-    fp32 [B, Hq, Sq]. Raises on anything else and when a launch fails."""
+    fp32 [B, Hq, Sq]. The kernels are ``design``'s. Raises on anything else
+    and when a launch fails."""
     global launches
-    if q.dtype not in _C_FUNCS:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         "bfloat16")
     B, Sq, Hq, D = q.shape
@@ -117,9 +147,12 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_offsets, *,
         if name in ("k", "v", "out", "dout") and t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     q, k, v, out, dout, lse, q_offsets = ts
+    kind = design(q.dtype, D, Hq // Hkv)
+    if kind != "fp32":
+        q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    fn = _bind(q.dtype)
+    fn = _bind(kind)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -11,11 +11,18 @@ with ``xh = x * r`` and ``r = rsqrt(mean(x^2) + eps)``::
     dscale = sum over rows of dy * xh      (per head for a grouped scale)
 
 for plain rows, grouped heads (scale [H, D], row i takes row i mod H) and
-a layer's q/k pair in one call, as the forward does: dx and fp32 partials
-of dscale per CTA in one launch, then a second launch that sums the
-partials in a fixed order (no atomics, so two runs give bitwise equal
-gradients). It replaces no TPU kernel of its own (the reference
-differentiates its jnp ``rmsnorm``). What bounds it on the H100: bytes.
+a layer's q/k pair in one call, as the forward does. It replaces no TPU
+kernel of its own (the reference differentiates its jnp ``rmsnorm``).
+
+What bounds it on the H100: bytes (x and dy read, dx written). So the
+first launch reads each row once with 16-byte vectors (scalars where D is
+not a multiple of 16 bytes), keeps it in registers, reduces the row's two
+sums across its lanes, writes dx, and sums dy * xh of its columns over the
+CTA's rows in registers, one fp32 partial row per CTA; the second sums
+the partials over the CTAs in a fixed order, many CTAs over the columns.
+No atomics, so two runs give bitwise equal gradients. The kernel chooses
+how a row spreads over the lanes from D and the type; the wrapper chooses
+the rows per CTA (``_segment``).
 """
 from __future__ import annotations
 
@@ -29,7 +36,11 @@ launches = 0
 LAUNCHES_PER_CALL = 2
 
 H100_SMS = 132
-MAX_ROWS = 1024                 # rows per CTA, at most (the kernel's)
+CTAS = 2 * H100_SMS             # CTAs a segment is cut into, at most
+# 16-byte chunks (or values, when D is not a multiple of 16 bytes) of a
+# record (a plain row, or one position's H rows of a grouped norm) that one
+# team of lanes holds in registers: MAX_TEAM * MAX_CPL in csrc/rmsnorm_bwd.cu
+MAX_CHUNKS = 8192
 
 
 def rmsnorm_bwd_plain(x, scale, dy, eps=1e-6):
@@ -74,10 +85,22 @@ def _bind(dtype):
     return fn
 
 
+def rows_per_cta(n, H=1):
+    """(rows per CTA, CTAs) for n rows of a norm with H heads per position:
+    whole positions per CTA (a multiple of H), as few as give at most
+    ``CTAS`` CTAs."""
+    rows = H * max(1, -(-(n // H) // CTAS))
+    return rows, (-(-n // rows) if n else 0)
+
+
 def _segment(name, x, scale, dy, grouped):
     """A segment's tensors after the checks: (x, dy, scale, dx, partial,
-    dscale, n, h, rows per CTA, CTAs), x and dy made contiguous. Rows per
-    CTA are chosen so that the grid has about two CTAs per SM."""
+    dscale, n, h, rows per CTA, CTAs); a record of more than ``MAX_CHUNKS``
+    chunks is refused. x and dy are made contiguous (and copied
+    when their data does not start on 16 bytes, which the vector reads
+    need). Rows per CTA from ``rows_per_cta``: at most ``CTAS`` CTAs, so
+    that one wave fills the card while the fp32 partials (one row of H * D
+    per CTA) stay a few percent of the bytes read."""
     if x.dtype not in _C_FUNCS:
         raise TypeError(f"{name} dtype {x.dtype}: the kernel takes float32 "
                         "or bfloat16")
@@ -88,14 +111,20 @@ def _segment(name, x, scale, dy, grouped):
         raise ValueError(f"{name} {tuple(x.shape)} {x.dtype}: scale "
                          f"{tuple(scale.shape)} {scale.dtype} and dy "
                          f"{tuple(dy.shape)} {dy.dtype} do not match")
+    vec = 16 // x.element_size()
+    chunks = H * D // (vec if D % vec == 0 else 1)
+    if chunks > MAX_CHUNKS:
+        raise ValueError(f"{name} {tuple(x.shape)} {x.dtype}: a record of "
+                         f"{H} x {D} values is {chunks} chunks, more than "
+                         f"the {MAX_CHUNKS} the kernel holds in registers")
     for t in (x, scale, dy):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name}, its scale and dy must lie on one CUDA "
                              "device")
-    x, dy, scale = x.contiguous(), dy.contiguous(), scale.contiguous()
+    x, dy, scale = (t.contiguous() for t in (x, dy, scale))
+    x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
     n = x.numel() // D if D else 0
-    rows = min(MAX_ROWS, max(1, -(-n // (2 * H100_SMS))))
-    blocks = -(-n // rows) if n else 0
+    rows, blocks = rows_per_cta(n, H)
     partial = torch.empty((max(blocks, 1), H * D), dtype=torch.float32,
                           device=x.device)
     return (x, dy, scale, torch.empty_like(x), partial,

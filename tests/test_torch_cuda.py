@@ -1837,7 +1837,8 @@ def _grad_close(got, want, tol):
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     """The flash backward refuses a bf16 head dim that is not a multiple of
     16 and an fp32 one that is not a multiple of 4, the RMSNorm backward a
-    mismatched dy, before any launch (so this runs without a card too)."""
+    mismatched dy and a record wider than ``MAX_CHUNKS`` (the most a team
+    of lanes holds), before any launch (so this runs without a card too)."""
     from repro_torch.kernels import flash_attention_bwd as FAB
     from repro_torch.kernels import rmsnorm_bwd as RB
     before = (FAB.launches, RB.launches)
@@ -1851,28 +1852,84 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="do not match"):
         RB.rmsnorm_bwd_cuda(x, torch.ones(8), torch.zeros((4, 4)))
+    # a record past MAX_CHUNKS: bf16 rows of 8193 (scalar reads) and 65544
+    # (16-byte chunks), a grouped fp32 record of 4 x 8196, and a pair of
+    # fp32 heads of 32772; records of exactly MAX_CHUNKS pass the check
+    for shape, scale_shape, dtype in (((2, 8193), (8193,), torch.bfloat16),
+                                      ((1, 65544), (65544,), torch.bfloat16),
+                                      ((1, 4, 8196), (4, 8196), torch.float32),
+                                      ((1, 32772), (32772,), torch.float32)):
+        x = torch.zeros(shape, dtype=dtype)
+        s = torch.ones(scale_shape, dtype=dtype)
+        with pytest.raises(ValueError, match="more than the 8192"):
+            if len(shape) == 2 and dtype == torch.float32:
+                RB.rmsnorm_pair_bwd_cuda(x, s, x, x, s, x)
+            else:
+                RB.rmsnorm_bwd_cuda(x, s, x)
+    for shape, dtype in (((2, 8192), torch.bfloat16), ((1, 65536), torch.bfloat16),
+                         ((1, 32768), torch.float32)):
+        x = torch.zeros(shape, dtype=dtype)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            RB.rmsnorm_bwd_cuda(x, torch.ones(shape[-1:], dtype=dtype), x)
     assert (FAB.launches, RB.launches) == before
+
+
+def test_backward_designs_by_type_and_shape():
+    """The flash backward's kernels are chosen by type and shape alone
+    (``design``): bf16 at D 64 and 128 with any group up to 64 takes the
+    wgmma kernels, every other bf16 D the mma.sync ones, fp32 the CUDA
+    cores; each design has its C entry and is three launches a call (delta,
+    dK/dV, dQ), as ``LAUNCHES_PER_CALL`` counts (the cuda tests count the
+    launches of every design). The RMSNorm backward cuts a segment into
+    whole positions, at most ``CTAS`` CTAs covering every row, two launches
+    a call. Runs without a card."""
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    for g in (1, 2, 4, 6, 7, 8, 64):
+        for D in (64, 128):
+            assert FAB.design(torch.bfloat16, D, g) == "wgmma"
+        for D in (16, 32, 48, 96, 112, 160, 256):
+            assert FAB.design(torch.bfloat16, D, g) == "mma"
+        for D in (4, 64, 100, 128, 256):
+            assert FAB.design(torch.float32, D, g) == "fp32"
+    assert set(FAB.DESIGNS) == set(FAB._C_FUNCS)
+    assert FAB.LAUNCHES_PER_CALL == 3 and RB.LAUNCHES_PER_CALL == 2
+    for n, H in ((4096, 1), (131072, 1), (37, 1), (1, 1), (512 * 64, 64),
+                 (35 * 3, 3)):
+        rows, blocks = RB.rows_per_cta(n, H)
+        assert rows % H == 0 and blocks <= RB.CTAS
+        assert blocks * rows >= n > (blocks - 1) * rows
+    assert RB.rows_per_cta(0) == (1, 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
-    (2, 70, 4, 2, 16, True), (1, 33, 6, 2, 64, False),
-    (2, 300, 8, 2, 128, True), (1, 129, 32, 8, 128, True)])
-def test_cuda_flash_backward_matches_plain(cuda, dtype, B, S, Hq, Hkv, D,
-                                           causal):
+@pytest.mark.parametrize("B,S,Skv,Hq,Hkv,D,causal,offsets", [
+    (2, 70, 70, 4, 2, 16, True, (0, 0)),
+    (1, 33, 33, 6, 2, 64, False, (0,)),
+    (2, 300, 300, 8, 2, 128, True, (0, 0)),
+    (1, 129, 129, 32, 8, 128, True, (0,)),
+    (2, 100, 164, 8, 2, 64, True, (64, 30)),
+    (2, 90, 200, 28, 4, 128, True, (110, 7)),
+    (2, 70, 70, 4, 2, 96, True, (0, 0)),
+    (1, 80, 80, 4, 2, 256, True, (0,))])
+def test_cuda_flash_backward_matches_plain(cuda, dtype, B, S, Skv, Hq, Hkv,
+                                           D, causal, offsets):
     """dQ, dK, dV of the kernel against the plain backward over the
     forward kernel's log-sum-exp (which matches the plain forward's),
     within 1e-4 (fp32) or 2e-2 (bf16) of each gradient's largest entry and
     of each row's norm (``_grad_close``); two runs are bitwise equal (no
-    atomics), three launches a call."""
+    atomics), three launches a call. Every design is reached: bf16 D 64
+    and 128 on the wgmma kernels (with Sq not a multiple of 64, nonzero
+    offsets, Skv > Sq, a group of 7), D 16, 96 and 256 on the mma.sync
+    ones, fp32 on the CUDA cores."""
     from repro_torch.kernels import flash_attention_bwd as FAB
     gen = torch.Generator(device="cuda").manual_seed(S)
     q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda")
              .to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda")
             .to(dtype) for _ in range(2))
-    off = torch.zeros(B, dtype=torch.int32, device="cuda")
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
     out, lse = FA.flash_attention_cuda(q, k, v, off, causal=causal,
                                        return_lse=True)
     _, lse_p = FA.flash_attention_plain(q, k, v, off, causal=causal,
@@ -1895,25 +1952,37 @@ def test_cuda_flash_backward_matches_plain(cuda, dtype, B, S, Hq, Hkv, D,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["rows", "grouped", "pair", "long rows"])
+@pytest.mark.parametrize("case", ["rows", "grouped", "pair", "long rows",
+                                  "d_model 3584", "d_model 8192",
+                                  "pair, training", "odd D",
+                                  "grouped, D 96"])
 def test_cuda_rmsnorm_backward_matches_plain(cuda, dtype, case):
     """dx and dscale of the kernel against the plain backward, within
     1e-4 (fp32) or 2e-2 (bf16) of their largest entries and of each row's
     norm (``_grad_close``), bitwise equal over two runs (the dscale
-    partials are summed in a fixed order), two launches a call."""
+    partials are summed in a fixed order), two launches a call: narrow
+    rows, grouped heads, d_model rows (a CTA per row), the q/k pair (also
+    at a 256-token microbatch of qwen3-8b's heads), a D that is not a
+    multiple of 8 (scalar reads) and grouped heads of 96 (each head's sums
+    through shared memory)."""
     from repro_torch.kernels import rmsnorm_bwd as RB
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    if case == "pair":
-        args = (rnd(96, 4, 128), rnd(128), rnd(96, 4, 128), rnd(96, 1, 128),
-                rnd(128), rnd(96, 1, 128))
+    if case.startswith("pair"):
+        n, hq, hk = (96, 4, 1) if case == "pair" else (256, 32, 8)
+        args = (rnd(n, hq, 128), rnd(128), rnd(n, hq, 128), rnd(n, hk, 128),
+                rnd(128), rnd(n, hk, 128))
         run, plain = RB.rmsnorm_pair_bwd_cuda, RB.rmsnorm_pair_bwd_plain
     else:
         shape, sshape = {"rows": ((37, 64), (64,)),
                          "grouped": ((5, 7, 3, 32), (3, 32)),
-                         "long rows": ((600, 5120), (5120,))}[case]
+                         "long rows": ((600, 5120), (5120,)),
+                         "d_model 3584": ((64, 3584), (3584,)),
+                         "d_model 8192": ((32, 8192), (8192,)),
+                         "odd D": ((50, 102), (102,)),
+                         "grouped, D 96": ((9, 5, 96), (5, 96))}[case]
         args = (rnd(*shape), rnd(*sshape), rnd(*shape))
         run, plain = RB.rmsnorm_bwd_cuda, RB.rmsnorm_bwd_plain
     before = RB.launches

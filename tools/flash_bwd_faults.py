@@ -15,11 +15,14 @@ largest row error over 2e-2 (``row_rel_err``, which ``grad_compare`` adds);
 a ratio above 1 fails. The unchanged source must pass both; a fault that
 passes the row rule means the check is too weak.
 
-Faults (the mma.sync kernels, which the bf16 training path runs):
+Faults (the wgmma kernels, which the bf16 training path runs at D 128;
+each shortens a loop bound that the producer warp and the consumer
+warpgroups share, so the copy still runs to its end):
 
-- ``dkdv_skip_last_query_tile``: the dK/dV CTA's loop over query tiles
-  stops one tile early, so the last 32 queries add nothing to any key;
-- ``dq_skip_last_key_tile``: the dQ CTA's loop over key tiles stops one
+- ``dkdv_skip_last_query_tile``: the dK/dV CTA's walk over query tiles
+  stops one tile early for every head of the group, so the last 64 queries
+  add nothing to any key;
+- ``dq_skip_last_key_tile``: the dQ CTA's walk over key tiles stops one
   tile early (under the causal mask, the tile of the diagonal).
 """
 import json
@@ -36,13 +39,13 @@ SOURCE = "kernels/csrc/flash_attention_bwd.cu"
 FAULTS = {
     "none": None,
     "dkdv_skip_last_query_tile": (
-        "dkdv_mma_kernel(",
-        "for (int i0 = i_first; i0 < dm.Sq; i0 += M_QT)",
-        "for (int i0 = i_first; i0 + M_QT < dm.Sq; i0 += M_QT)"),
+        "dkdv_wgmma_kernel(",
+        "const int ntq = (dm.Sq - i_first + QT - 1) / QT;",
+        "const int ntq = (dm.Sq - i_first + QT - 1) / QT - 1;"),
     "dq_skip_last_key_tile": (
-        "dq_mma_kernel(",
-        "for (int kt = 0; kt < ntiles; ++kt)",
-        "for (int kt = 0; kt + 1 < ntiles; ++kt)"),
+        "dq_wgmma_kernel(",
+        "ntiles = last < 0 ? 0 : min(ntiles, last / KT + 1);",
+        "ntiles = last < 0 ? 0 : min(ntiles, last / KT + 1) - 1;"),
 }
 TOL = 2e-2
 
