@@ -348,6 +348,21 @@ Phases (every failure propagates and exits non-zero):
    the card, each also on the CPU: every rank's loss equals a one-rank
    run's, each rank's card gradients and three step losses equal its CPU
    ones (a rank's gradients are the reference's per-device ones).
+11. MoE training (PR 32): phase 3 also holds the two backward kernels at
+   qwen-30b-a3b's training shapes in bf16 (flash at B 2 x S 2048, 32 over
+   4 heads of 128, with the forward's training instance; RMSNorm over
+   [4096, 2048] and the q/k pair [4096 x 32 + 4096 x 4, 128]). The card
+   against the CPU and the (2, 2) gloo job of phase 10 also run reduced
+   qwen-30b-a3b in fp32 (its 4 experts over sp in the job, the aux loss in
+   the loss). After phase 10's main path, with every earlier model freed,
+   qwen-30b-a3b at full width (128 experts of 768, top-8, capacity factor
+   1.25, 32 over 4 heads with q/k norms), its depth cut to a fixed 4 of 48
+   (``train_layers``), bf16, the same six steps: the loss must fall by
+   more than 0.3, the aux loss of the trained weights must be finite and
+   positive, and the launches per step follow phase 10's formula; one
+   ``{"training_moe": ...}`` line with ms per step, tokens/s, peak GB,
+   busy ms (a seventh step under ``torch.profiler``), the expert ``bmm``s'
+   share of it and the share of routed assignments that capacity drops.
 
 With no arguments it needs one card. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -6559,7 +6574,9 @@ def whisper_layout_phase(torch, layers=WHISPER_LAYOUT_DEPTH):
 # and the (2, 2) layout over gloo
 # ---------------------------------------------------------------------------
 FLASH_BWD_SHAPE = dict(B=2, S=2048, Hq=32, Hkv=8, D=128)   # a microbatch
+MOE_FLASH_BWD_SHAPE = dict(B=2, S=2048, Hq=32, Hkv=4, D=128)
 TRAIN_LAYERS = 12          # qwen3-8b's 36 layers cut to 12
+MOE_TRAIN_LAYERS = 4       # qwen-30b-a3b's 48 layers cut to 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 6
 TRAIN_LR = 3e-4
 # a backward kernel's rows against its plain version's (``row_rel_err``):
@@ -6606,7 +6623,8 @@ def grad_compare(torch, what, got, want, tol):
     return err, row
 
 
-def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
+def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D,
+                   case="training microbatch"):
     """The flash backward at a training microbatch (causal, zero offsets)
     against its plain version, twice (bitwise equal: no atomics), timed
     beside the plain version and SDPA's backward through autograd over K/V
@@ -6665,7 +6683,7 @@ def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D):
     nbytes = (3 * q.numel() + 4 * k.numel()) * elt + 2 * lse.numel() * 4 \
         + q.numel() * elt                    # q, out, dout, dq; k, v, dk, dv
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    return rates({"case": "training microbatch", "dtype":
+    return rates({"case": case, "dtype":
                   str(dtype).replace("torch.", ""),
                   "shape": {"q": list(q.shape), "kv": list(k.shape),
                             "causal": True}, "tol": tol,
@@ -6743,7 +6761,10 @@ def backward_kernel_phase(torch, cases):
     flash at a microbatch of qwen3-8b (B 2 x S 2048, 32 over 8 heads of
     128, causal); RMSNorm over [4096, 4096] (a microbatch's ln rows), the
     q/k pair over its 4096 x 32 q rows and 4096 x 8 k rows of 128 in one
-    call, and grouped over 64 heads of 64 (mamba2's norm)."""
+    call, and grouped over 64 heads of 64 (mamba2's norm). Then, in bf16,
+    the same at qwen-30b-a3b's training shapes (``MOE_FLASH_BWD_SHAPE``:
+    32 over 4 heads; ln rows [4096, 2048]; the pair's 4096 x 32 q rows and
+    4096 x 4 k rows)."""
     timer = Timer(torch)
     tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     for kernel in ("flash_attention_bwd", "rmsnorm_bwd"):
@@ -6764,16 +6785,28 @@ def backward_kernel_phase(torch, cases):
         add("rmsnorm_bwd", rmsnorm_bwd_case(
             torch, "grouped, 64 heads", dtype, timer, tol, (512, 64, 64),
             (64, 64)))
+    bf16 = torch.bfloat16
+    tol = tols[bf16]
+    add("flash_attention_bwd", flash_bwd_case(
+        torch, bf16, timer, tol, case="qwen-30b-a3b training microbatch",
+        **MOE_FLASH_BWD_SHAPE))
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "qwen-30b-a3b ln rows", bf16, timer, tol, (4096, 2048),
+        (2048,)))
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "qwen-30b-a3b q/k pair", bf16, timer, tol, (4096 * 32, 128),
+        (128,), pair_k=(4096 * 4, 128)))
     torch.cuda.synchronize()
 
 
-def train_layers(torch, cfg):
-    """The depth of qwen3-8b that the training phase runs: the fixed
-    ``TRAIN_LAYERS`` (12 of 36). The memory reckoning only checks that it
-    fits the card: every parameter takes ~16 bytes (bf16 weight and
-    gradient, an fp32 gradient sum, fp32 m and v), the LM head's fp32
-    logits and their temporaries about four copies of [B/micro x S, V]
-    fp32, plus 4 GB of other activations."""
+def train_layers(torch, cfg, layers):
+    """The depth of ``cfg`` that a training phase runs: the fixed
+    ``layers`` (``TRAIN_LAYERS``, 12 of qwen3-8b's 36;
+    ``MOE_TRAIN_LAYERS``, 4 of qwen-30b-a3b's 48). The memory reckoning
+    only checks that it fits the card: every parameter takes ~16 bytes
+    (bf16 weight and gradient, an fp32 gradient sum, fp32 m and v), the LM
+    head's fp32 logits and their temporaries about four copies of [B/micro
+    x S, V] fp32, plus 4 GB of other activations."""
     free, total = torch.cuda.mem_get_info()
     per_layer = 16 * (replace_layers(cfg, 2).num_params()
                       - replace_layers(cfg, 1).num_params())
@@ -6781,13 +6814,14 @@ def train_layers(torch, cfg):
         + 4 * 4 * (TRAIN_BATCH // TRAIN_MICRO) * TRAIN_SEQ * cfg.vocab_size \
         + 4e9
     fit = int((free - fixed) // per_layer)
-    print(f"training depth: the fixed {TRAIN_LAYERS} of {cfg.num_layers} "
-          f"layers; {fit} would fit in {free / 1e9:.1f} GB free of "
-          f"{total / 1e9:.1f} GB ({per_layer / 1e9:.2f} GB a layer, "
-          f"{fixed / 1e9:.1f} GB fixed)")
-    check(fit >= TRAIN_LAYERS, f"{TRAIN_LAYERS} layers of qwen3-8b do not "
-          f"fit this card's training memory ({fit} do)")
-    return TRAIN_LAYERS
+    print(f"training depth of {cfg.name}: the fixed {layers} of "
+          f"{cfg.num_layers} layers reckon "
+          f"{(fixed + layers * per_layer) / 1e9:.1f} GB; {fit} would fit in "
+          f"{free / 1e9:.1f} GB free of {total / 1e9:.1f} GB "
+          f"({per_layer / 1e9:.2f} GB a layer, {fixed / 1e9:.1f} GB fixed)")
+    check(fit >= layers, f"{layers} layers of {cfg.name} do not fit this "
+          f"card's training memory ({fit} do)")
+    return layers
 
 
 def training_phase(torch):
@@ -6813,7 +6847,7 @@ def training_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("qwen3-8b")
-    cfg = replace_layers(cfg, train_layers(torch, cfg))
+    cfg = replace_layers(cfg, train_layers(torch, cfg, TRAIN_LAYERS))
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.params.parameters())
@@ -6875,12 +6909,175 @@ def training_phase(torch):
     return launches
 
 
-def train_state(torch, seed=0):
-    """Reduced qwen3-8b's trivial-layout state in fp32 from a seeded CPU
+def moe_probe(torch, model, toks, labels):
+    """The aux loss and the capacity drops of ``model``'s current weights
+    on the batch: one forward without remat per microbatch, ``no_grad``,
+    with ``moe.moe_apply`` and ``moe.route`` wrapped for the call only.
+    Returns (the aux loss of each microbatch, the layers' sum; the share of
+    routed assignments that capacity drops)."""
+    from repro_torch.models import moe as MOE
+    apply, route = MOE.moe_apply, MOE.route
+    auxes, kept = [], []
+
+    def applied(p, x, train=False):
+        out, aux = apply(p, x, train)
+        auxes.append(aux)
+        return out, aux
+
+    def routed(p, xt):
+        out = route(p, xt)
+        kept.append(torch.stack([out[5].sum(), torch.tensor(
+            out[5].numel(), device=xt.device)]))
+        return out
+    MOE.moe_apply, MOE.route = applied, routed
+    sums = []
+    try:
+        bs = toks.shape[0] // TRAIN_MICRO
+        for i in range(TRAIN_MICRO):
+            part = slice(i * bs, (i + 1) * bs)
+            auxes.clear()
+            with torch.no_grad():
+                model.loss_fn(remat=False)(toks[part], labels[part])
+            sums.append(float(torch.stack(auxes).sum()))
+    finally:
+        MOE.moe_apply, MOE.route = apply, route
+    k, t = torch.stack(kept).sum(0).tolist()
+    return sums, 1 - k / t
+
+
+def ops_device_ms(prof):
+    """The device ms of each CPU op's own kernels in ``prof``'s trace
+    (``self_device_time_total``, which splits the busy time among the ops
+    without counting a kernel twice; an op's backward calls of itself
+    included), most first: {op: ms}."""
+    from torch.autograd import DeviceType
+    ops = [(e.key, e.self_device_time_total / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0
+           and not e.key.startswith("ProfilerStep")]
+    return dict(sorted(ops, key=lambda kv: -kv[1]))
+
+
+def moe_training_phase(torch):
+    """MoE training on the card: qwen-30b-a3b at full width (d_model 2048,
+    32 over 4 heads of 128 with q/k norms, 128 experts of 768, top-8,
+    capacity factor 1.25, vocab 151936), depth cut to ``MOE_TRAIN_LAYERS``
+    (4 of 48; ``train_layers`` checks it fits), every earlier model freed;
+    bf16 weights from a seeded generator, the synthetic corpus's batch of
+    4 x 2048, microbatch 2, remat, AdamW at lr 3e-4, six steps on that one
+    batch through ``training.Trainer``, the aux loss in the loss. The loss
+    must fall by more than 0.3, and the aux loss (one forward per
+    microbatch, before the steps and after) be finite and positive. The
+    launches per step follow the qwen3-8b phase's formula (q/k norms,
+    remat). Prints ms per step and tokens/s (steps 2-6), the peak memory,
+    the device's busy ms of a seventh step (``torch.profiler``) with the
+    share of it in the expert ``bmm``s (forward, recompute and backward:
+    the device time of ``aten::bmm``'s kernels) and the ops that took the
+    most of it, and the share of routed assignments that capacity drops before
+    the steps and after. Returns the launch counts of the six steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus, TokenBatcher
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    from repro_torch.models import Model
+    from repro_torch.training import Trainer
+    from repro_torch.training.optimizer import AdamWConfig
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen-30b-a3b")
+    cfg = replace_layers(cfg, train_layers(torch, cfg, MOE_TRAIN_LAYERS))
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.params.parameters())
+    data = TokenBatcher(SyntheticCorpus(cfg.vocab_size), TRAIN_BATCH,
+                        TRAIN_SEQ)
+    toks, labels = next(data)
+    data.close()
+    tr = Trainer(model, AdamWConfig(lr=TRAIN_LR), microbatch=TRAIN_MICRO,
+                 remat=True)
+    opt = tr.init_opt_state()
+    auxes0, dropped0 = moe_probe(torch, model, toks, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        opt, loss = tr.step(opt, toks, labels)
+        losses.append(float(loss))
+        walls.append(time.monotonic() - t0)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mo = cfg.moe
+    print(f"training qwen-30b-a3b ({cfg.num_layers} layers, {mo.num_experts} "
+          f"experts of {mo.d_ff_expert}, top-{mo.top_k}, capacity factor "
+          f"{mo.capacity_factor}, {n_params / 1e9:.2f}e9 params, bf16): "
+          f"losses {losses}")
+    check(all(map(math.isfinite, losses)), f"MoE training losses {losses}")
+    check(losses[-1] < losses[0] - 0.3,
+          f"MoE training loss fell {losses[0] - losses[-1]:.3f} (want > 0.3)")
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * TRAIN_MICRO,
+            "flash_attention_bwd": L * TRAIN_MICRO * FAB.LAUNCHES_PER_CALL,
+            "rmsnorm": (6 * L + 1) * TRAIN_MICRO,
+            "rmsnorm_bwd": (3 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
+    check(per_step == want, f"MoE training launches per step {per_step}, "
+          f"want {want}")
+    with profiled(torch) as prof:
+        opt, _ = tr.step(opt, toks, labels)
+    busy_ms = sum(us for _, us, _ in device_kernels(prof)) / 1e3
+    by_op = ops_device_ms(prof)
+    bmm_ms = by_op.get("aten::bmm", 0.0)
+    top = dict(list(by_op.items())[:12])
+    auxes, dropped = moe_probe(torch, model, toks, labels)
+    check(all(math.isfinite(a) and a > 0 for a in auxes0 + auxes),
+          f"MoE aux loss per microbatch {auxes0} before the steps, {auxes} "
+          "after: want finite and positive")
+    ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"model": "qwen-30b-a3b", "layers": L, "params": n_params,
+           "experts": mo.num_experts, "top_k": mo.top_k,
+           "capacity_factor": mo.capacity_factor,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICRO,
+           "remat": True, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+           "losses": losses, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "max_memory_allocated_gb": peak / 1e9,
+           "launches_per_step": per_step,
+           "device_busy_ms_per_step": busy_ms,
+           "busy_share": busy_ms / ms,
+           "expert_bmm_ms": bmm_ms,
+           "expert_bmm_share_of_busy": bmm_ms / busy_ms,
+           "top_ops_device_ms": top,
+           "aux_loss_per_microbatch": {"before": auxes0, "after": auxes},
+           "dropped_share": {"before": dropped0, "after": dropped},
+           "phase_s": time.monotonic() - t_phase}
+    print(f"training qwen-30b-a3b: {ms:.2f} ms a step, "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, busy {busy_ms:.2f} ms, "
+          f"expert bmm {bmm_ms:.2f} ms of it, peak {peak / 1e9:.2f} GB, aux "
+          f"{auxes0} before the steps and {auxes} after, routed assignments "
+          f"dropped {dropped0:.4f} before and {dropped:.4f} after; the ops' "
+          f"own device ms {top}; card: {card_line()}")
+    print(json.dumps({"training_moe": rec}))
+    del model, tr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_CHECK_ARCHS = ("qwen3-8b", "qwen-30b-a3b")   # reduced, fp32
+
+
+def train_state(torch, arch, seed=0):
+    """``arch``'s reduced trivial-layout state in fp32 from a seeded CPU
     generator, by name."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    m = Model(get_config("qwen3-8b").reduced(), device="cpu",
+    m = Model(get_config(arch).reduced(), device="cpu",
               dtype=torch.float32)
     m.init_params(torch.Generator().manual_seed(seed))
     return {k: v.numpy().copy() for k, v in m.params.state_dict().items()}
@@ -6930,42 +7127,46 @@ def train_close(torch, what, got, want, tol, rel=False, skip=None):
 
 
 def train_cross_device(torch):
-    """Card against CPU in fp32 on reduced qwen3-8b (TF32 off): the loss
-    (1e-5) and the gradients (1e-4 of each leaf's largest entry) of one
-    ``loss_fn`` call, then three Trainer steps with microbatch 2 and remat:
-    the losses (1e-4) and the params (5e-4, outside the entries whose
-    gradient on the CPU is below 1e-7)."""
+    """Card against CPU in fp32 (TF32 off) on reduced qwen3-8b and reduced
+    qwen-30b-a3b (4 experts, top-2, capacity factor 1.25; the aux loss in
+    the loss): the loss (1e-5) and the gradients (1e-4 of each leaf's
+    largest entry) of one ``loss_fn`` call, then three Trainer steps with
+    microbatch 2 and remat: the losses (1e-4) and the params (5e-4,
+    outside the entries whose gradient on the CPU is below 1e-7)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    t0 = time.monotonic()
-    cfg = get_config("qwen3-8b").reduced()
-    state = train_state(torch)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        m = Model(cfg, device=dev, dtype=torch.float32)
-        m.load_params(state)
-        before = ops.launch_counts()
-        runs[dev] = train_run(torch, m)
-        runs[dev + "_launches"] = delta(ops.launch_counts(), before)
-    (lg, gg, sg, pg), (lc, gc_, sc, pc) = runs["cuda"], runs["cpu"]
-    check(abs(lg - lc) <= 1e-5, f"train card vs CPU loss {lg} vs {lc}")
-    train_close(torch, "train card vs CPU grad", gg, gc_, 1e-4, rel=True)
-    check(max(abs(a - b) for a, b in zip(sg, sc)) <= 1e-4,
-          f"train card vs CPU step losses {sg} vs {sc}")
-    train_close(torch, "train card vs CPU params", pg, pc, 5e-4,
-                skip={k: abs(g) < 1e-7 for k, g in gc_.items()})
-    check(runs["cuda_launches"].get("flash_attention_bwd", 0) > 0
-          and runs["cuda_launches"].get("rmsnorm_bwd", 0) > 0
-          and not runs["cpu_launches"].get("flash_attention_bwd", 0),
-          f"train card vs CPU launches {runs['cuda_launches']}")
-    print(f"training card vs CPU (reduced qwen3-8b, fp32): loss {lg:.7f} vs "
-          f"{lc:.7f}, step losses {sg} vs {sc}; "
-          f"{time.monotonic() - t0:.1f} s")
+    for arch in TRAIN_CHECK_ARCHS:
+        t0 = time.monotonic()
+        cfg = get_config(arch).reduced()
+        state = train_state(torch, arch)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = Model(cfg, device=dev, dtype=torch.float32)
+            m.load_params(state)
+            before = ops.launch_counts()
+            runs[dev] = train_run(torch, m)
+            runs[dev + "_launches"] = delta(ops.launch_counts(), before)
+        (lg, gg, sg, pg), (lc, gc_, sc, pc) = runs["cuda"], runs["cpu"]
+        what = f"train {arch} card vs CPU"
+        check(abs(lg - lc) <= 1e-5, f"{what} loss {lg} vs {lc}")
+        train_close(torch, f"{what} grad", gg, gc_, 1e-4, rel=True)
+        check(max(abs(a - b) for a, b in zip(sg, sc)) <= 1e-4,
+              f"{what} step losses {sg} vs {sc}")
+        train_close(torch, f"{what} params", pg, pc, 5e-4,
+                    skip={k: abs(g) < 1e-7 for k, g in gc_.items()})
+        check(runs["cuda_launches"].get("flash_attention_bwd", 0) > 0
+              and runs["cuda_launches"].get("rmsnorm_bwd", 0) > 0
+              and not runs["cpu_launches"].get("flash_attention_bwd", 0),
+              f"{what} launches {runs['cuda_launches']}")
+        print(f"training card vs CPU (reduced {arch}, fp32): loss {lg:.7f} "
+              f"vs {lc:.7f}, step losses {sg} vs {sc}; "
+              f"{time.monotonic() - t0:.1f} s")
 
 
-def train_layout_rank(rank, groups, state):
-    """One rank of reduced qwen3-8b on (sp, tp) = (2, 2) in fp32:
+def train_layout_rank(rank, groups, states):
+    """One rank of reduced qwen3-8b and of reduced qwen-30b-a3b (its 4
+    experts over sp, the a2a path) on (sp, tp) = (2, 2) in fp32:
     ``train_run`` on the card, then on the CPU over the same gloo groups
     (gloo takes either), so one job holds both."""
     import torch
@@ -6973,56 +7174,74 @@ def train_layout_rank(rank, groups, state):
     from repro_torch.convert import shard_state
     from repro_torch.models import Model
     from repro_torch.parallel import Layout
-    cfg, lay = get_config("qwen3-8b").reduced(), Layout(sp=2, tp=2)
+    lay = Layout(sp=2, tp=2)
     out = {}
-    for device in ("cuda", "cpu"):
-        m = Model(cfg, device=device, dtype=torch.float32, lay=lay,
-                  groups=groups)
-        m.load_params(shard_state(state, cfg, lay, rank))
-        before = dict(groups.traffic)
-        loss, grads, losses, _ = train_run(torch, m)
-        out[device] = {"loss": loss, "grads": grads, "losses": losses,
-                       "traffic": delta(dict(groups.traffic), before)}
+    for arch, state in zip(TRAIN_CHECK_ARCHS, states):
+        cfg = get_config(arch).reduced()
+        for device in ("cuda", "cpu"):
+            m = Model(cfg, device=device, dtype=torch.float32, lay=lay,
+                      groups=groups)
+            m.load_params(shard_state(state, cfg, lay, rank))
+            before = dict(groups.traffic)
+            loss, grads, losses, _ = train_run(torch, m)
+            out[arch, device] = {"loss": loss, "grads": grads,
+                                 "losses": losses,
+                                 "traffic": delta(dict(groups.traffic),
+                                                  before)}
     return out
 
 
 def train_layout_phase(torch):
-    """Reduced qwen3-8b in fp32 on (sp, tp) = (2, 2) over gloo: four ranks
-    on the one card, each also running the same on the CPU. Every rank's
-    loss equals a one-rank run's (1e-5) and the other ranks'; each rank's
-    card gradients equal its CPU gradients (1e-4 of each leaf's largest
-    entry: the reference's per-device gradients, ROADMAP Queue 3), and so
-    do its three Trainer steps' losses (1e-4)."""
+    """Reduced qwen3-8b and reduced qwen-30b-a3b in fp32 on (sp, tp) = (2,
+    2) over gloo: four ranks on the one card, each also running the same on
+    the CPU. Every rank's loss equals the other ranks' and its CPU run's
+    (1e-5), and for qwen3-8b a one-rank run's (and its step losses the
+    other ranks'); qwen-30b-a3b's does not
+    (printed only): each sp rank routes its own tokens with a capacity
+    from its own token count, and the aux loss is the ranks' mean, as in
+    the reference. Each rank's card gradients equal its CPU gradients (1e-4
+    of each leaf's largest entry: the reference's per-device gradients,
+    ROADMAP Queue 3), and so do its three Trainer steps' losses (1e-4)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import Model
     t0 = time.monotonic()
-    state = train_state(torch)
-    one = Model(get_config("qwen3-8b").reduced(), device="cuda",
-                dtype=torch.float32)
-    one.load_params(state)
-    toks, labels = train_batch(one.cfg.vocab_size)
-    with torch.no_grad():
-        want = float(one.loss_fn()(toks, labels))
-    del one
+    states = [train_state(torch, arch) for arch in TRAIN_CHECK_ARCHS]
+    want = {}
+    for arch, state in zip(TRAIN_CHECK_ARCHS, states):
+        one = Model(get_config(arch).reduced(), device="cuda",
+                    dtype=torch.float32)
+        one.load_params(state)
+        toks, labels = train_batch(one.cfg.vocab_size)
+        with torch.no_grad():
+            want[arch] = float(one.loss_fn()(toks, labels))
+        del one
     res = run_ranks(train_layout_rank, 2, 2, device="cuda", backend="gloo",
-                    timeout_s=300, args=(state,))
-    for r, out in enumerate(res):
-        g, c = out["cuda"], out["cpu"]
-        check(abs(g["loss"] - want) <= 1e-5,
-              f"train layout rank {r}: loss {g['loss']} vs one rank {want}")
-        check(g["losses"] == res[0]["cuda"]["losses"],
-              f"train layout rank {r}: step losses differ between ranks")
-        check(max(abs(a - b) for a, b in zip(g["losses"], c["losses"]))
-              <= 1e-4, f"train layout rank {r}: {g['losses']} vs CPU "
-              f"{c['losses']}")
-        train_close(torch, f"train layout rank {r} grad", g["grads"],
-                    c["grads"], 1e-4, rel=True)
-    print(f"training (sp, tp) = (2, 2) over gloo on the card: loss "
-          f"{res[0]['cuda']['loss']:.7f} (one rank {want:.7f}), step losses "
-          f"{res[0]['cuda']['losses']} (CPU {res[0]['cpu']['losses']}); "
-          f"rank 0 traffic on the card {res[0]['cuda']['traffic']}; "
-          f"{time.monotonic() - t0:.1f} s")
+                    timeout_s=300, args=(states,))
+    for arch in TRAIN_CHECK_ARCHS:
+        for r, out in enumerate(res):
+            g, c = out[arch, "cuda"], out[arch, "cpu"]
+            what = f"train layout {arch} rank {r}"
+            check(abs(g["loss"] - c["loss"]) <= 1e-5,
+                  f"{what}: loss {g['loss']} vs CPU {c['loss']}")
+            check(abs(g["loss"] - res[0][arch, "cuda"]["loss"]) <= 1e-6,
+                  f"{what}: losses differ between ranks")
+            if arch == "qwen3-8b":
+                check(abs(g["loss"] - want[arch]) <= 1e-5,
+                      f"{what}: loss {g['loss']} vs one rank {want[arch]}")
+                check(g["losses"] == res[0][arch, "cuda"]["losses"],
+                      f"{what}: step losses differ between ranks")
+            check(max(abs(a - b) for a, b in zip(g["losses"], c["losses"]))
+                  <= 1e-4, f"{what}: {g['losses']} vs CPU {c['losses']}")
+            train_close(torch, f"{what} grad", g["grads"], c["grads"], 1e-4,
+                        rel=True)
+        r0 = res[0][arch, "cuda"]
+        print(f"training {arch} (sp, tp) = (2, 2) over gloo on the card: "
+              f"loss {r0['loss']:.7f} (CPU {res[0][arch, 'cpu']['loss']:.7f},"
+              f" one rank {want[arch]:.7f}), step "
+              f"losses {r0['losses']} (CPU {res[0][arch, 'cpu']['losses']});"
+              f" rank 0 traffic on the card {r0['traffic']}")
+    print(f"training layout phase: {time.monotonic() - t0:.1f} s")
 
 
 def simulator_line():
@@ -7137,6 +7356,7 @@ def main():
     by_path["internvl2_mixed"], turns["internvl2_mixed"] = \
         internvl2_phase(torch)
     by_path["training"] = training_phase(torch)
+    by_path["training_moe"] = moe_training_phase(torch)
     simulator_line()
     train_layout_phase(torch)
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \

@@ -272,12 +272,45 @@ def _row_rank(lay, g: int) -> int:
     return (g % sp) * tp + g // sp
 
 
+def spans_dp(name: str, cfg, lay) -> bool:
+    """True for an expert stack whose EP group on ``lay`` takes the
+    ``"data"`` axis (a pod-scale config's with dp rows): its parts lie on
+    the ranks of every dp row."""
+    return is_expert_leaf(name, cfg) and "data" in expert_axes(cfg, lay)
+
+
+def unshard_ranks(name: str, cfg, lay) -> list:
+    """The process ranks whose parts ``unshard_tensor`` takes for ``name``
+    on ``lay``, in the order it takes them: every rank of the world, in
+    process-rank order, for an expert stack that spans dp rows
+    (``spans_dp``); dp row 0's model ranks, in model-rank order, for
+    another model-group leaf; else dp row 0's sp rank 0's tp ranks, in tp
+    rank order (a leaf that every tp rank holds whole is taken from tp
+    rank 0, the copy the reference's ``device_get`` reads)."""
+    if spans_dp(name, cfg, lay):
+        return list(range(lay.world))
+    if is_model_group_leaf(name, cfg):
+        return [_row_rank(lay, g) for g in range(max(lay.G, 1))]
+    return [r for _, r in sorted((lay.tp_rank(r), r)
+                                 for r in range(max(lay.G, 1))
+                                 if lay.sp_rank(r) == 0)]
+
+
 def _unshard_experts(name, parts, cfg, lay) -> torch.Tensor:
-    """An expert stack from every model rank's block (model-rank order):
-    the FF blocks of each EP index side by side, then the EP blocks."""
+    """An expert stack from its blocks: the FF blocks of each EP index
+    side by side, then the EP blocks. ``parts`` are every model rank's
+    (model-rank order), or every rank's of the world (process-rank order)
+    for a stack that spans dp rows."""
+    world = spans_dp(name, cfg, lay)
+    want = lay.world if world else max(lay.G, 1)
+    if len(parts) != want:
+        raise ValueError(f"{name}: {len(parts)} shards, want one per "
+                         f"{'rank of the world' if world else 'model rank'}"
+                         f" ({want})")
     blocks = {}
-    for g, part in enumerate(parts):
-        ep, e, tpr, t = expert_grid(cfg, lay, _row_rank(lay, g))
+    for i, part in enumerate(parts):
+        ep, e, tpr, t = expert_grid(cfg, lay, i if world
+                                    else _row_rank(lay, i))
         blocks.setdefault((e, t), part)
     return torch.cat([torch.cat([blocks[(e, t)] for t in range(tpr)],
                                 _ff_dim(name)) for e in range(ep)], 0)
@@ -285,21 +318,23 @@ def _unshard_experts(name, parts, cfg, lay) -> torch.Tensor:
 
 def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     """The inverse of ``shard_tensor``: the trivial layout's parameter
-    ``name`` from ``parts``, every tp rank's shard of it on ``lay`` in tp
-    rank order, or every model rank's (``G`` of them) in model-rank order,
-    which a model-group leaf (``is_model_group_leaf``) needs. The pad slots
-    of the head plan go; of a kv head that KV replication repeats, the
-    first copy is taken (every copy is the same head). Bitwise:
-    ``shard_tensor`` of the result gives each part back."""
+    ``name`` from ``parts``, the shards of the ranks ``unshard_ranks``
+    names, in its order: every tp rank's shard on ``lay`` in tp rank
+    order, or every model rank's (``G`` of them) in model-rank order,
+    which a model-group leaf (``is_model_group_leaf``) needs, or every
+    rank's of the world, which an expert stack that spans dp rows needs.
+    The pad slots of the head plan go; of a kv head that KV replication
+    repeats, the first copy is taken (every copy is the same head).
+    Bitwise: ``shard_tensor`` of the result gives each part back."""
     p = name.split(".")
     tp, G = max(lay.tp, 1), max(lay.G, 1)
-    if (cfg.mla is not None and p[-2] == "attn") or (
-            is_expert_leaf(name, cfg) and "data" in expert_axes(cfg, lay)):
+    if cfg.mla is not None and p[-2] == "attn":
         raise NotImplementedError(
             f"{name} of {cfg.name} on {lay.describe()}: putting an MLA "
-            "layer's or a dp-spanning expert stack's shards back together "
-            "(a reshard of an MLA or pod-scale layout) is ROADMAP Queue 1 "
-            "item 2")
+            "layer's shards back together (a reshard of an MLA layout) is "
+            "ROADMAP Queue 1 item 2")
+    if is_expert_leaf(name, cfg):
+        return _unshard_experts(name, parts, cfg, lay)
     if is_model_group_leaf(name, cfg):
         if len(parts) != G:
             raise ValueError(f"{name}: {len(parts)} shards, want one per "
@@ -308,7 +343,6 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
             return rglru_unlayout(p[-1], parts)
         if p[-2] == "mix":
             return ssd_unlayout(p[-1], parts, cfg, lay)
-        return _unshard_experts(name, parts, cfg, lay)
     if len(parts) == G != tp:
         # every model rank's: keep the first of each tp rank's
         by_tp = {}

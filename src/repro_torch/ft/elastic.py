@@ -11,16 +11,16 @@ parameter over the old model's TP group into the trivial layout's form
 changes (wk/wv between the base and the shift config) is thereby derived
 from the gathered weights themselves. The reference re-draws such a leaf
 from ``init_params(key(0))`` instead: the two agree for key-0 weights and
-differ for weights of any other source (ROADMAP Queue 3). MLA weights
-and expert stacks whose EP group spans dp rows do not reshard yet: it
-raises before any collective (ROADMAP Queue 1 item 2)."""
+differ for weights of any other source (ROADMAP Queue 3). An expert stack
+whose EP group spans dp rows is gathered over the whole world. MLA
+weights do not reshard yet: it raises before any collective (ROADMAP
+Queue 1 item 2)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.convert import (is_model_group_leaf, shard_tensor,
-                                 unshard_tensor)
-from repro_torch.models.moe import expert_axes
+                                 spans_dp, unshard_tensor)
 from repro_torch.parallel import Layout
 from repro_torch.parallel.collectives import all_gather_if
 
@@ -54,7 +54,8 @@ def reshard_params(old_model, new_model):
     device and ranks, another layout): every parameter is all-gathered over
     the old model's TP group (a MoE layer's expert stacks and an SSD
     mixer's per-head leaves over its whole model group, in model-rank
-    order; traffic kind ``reshard_weights``),
+    order, and a pod-scale config's expert stacks that span dp rows over
+    the whole world; traffic kind ``reshard_weights``),
     put back into its trivial form and cut for the new model's rank, one
     parameter at a time. Bitwise for every leaf. Every rank of the world
     calls it, in the same order. Returns ``new_model``."""
@@ -64,12 +65,11 @@ def reshard_params(old_model, new_model):
                          f"ranks -> {new.describe()} on {new.world}: the "
                          "config and the world size must be the same")
     cfg = old_model.cfg
-    if cfg.mla is not None or (cfg.moe is not None and any(
-            "data" in expert_axes(cfg, la) for la in (old, new))):
+    if cfg.mla is not None:
         raise NotImplementedError(
             f"reshard_params of {cfg.name} ({old.describe()} -> "
-            f"{new.describe()}): moving MLA weights or expert stacks that "
-            "span dp rows is ROADMAP Queue 1 item 2")
+            f"{new.describe()}): moving MLA weights is ROADMAP Queue 1 "
+            "item 2")
     members = _tp_members(old, old_model.shard.rank)
     order = sorted(range(len(members)),
                    key=lambda m: old.tp_rank(members[m]))
@@ -79,8 +79,14 @@ def reshard_params(old_model, new_model):
     by_model = sorted(range(old.G), key=lambda m: old.model_rank(row + m))
     model_group = old_model.shard.axes_group(("sp", "tp"))
     dst = new_model.params.state_dict()
+    world = (old_model.shard.groups.all_ranks()
+             if old_model.shard.groups is not None else None)
     for name, t in old_model.params.state_dict().items():
-        if is_model_group_leaf(name, cfg):
+        if spans_dp(name, cfg, old):
+            # every rank's block, in process-rank order
+            parts = list(all_gather_if(t, world, "reshard_weights").chunk(
+                old.world))
+        elif is_model_group_leaf(name, cfg):
             parts = all_gather_if(t, model_group, "reshard_weights").chunk(
                 old.G)
             parts = [parts[m] for m in by_model]

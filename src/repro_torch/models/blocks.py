@@ -209,10 +209,16 @@ def block_prefill(p, x, cache, ctx, cfg):
 def block_train(p, x, pos, cfg):
     """One layer of training's forward (the reference's ``block_prefill``
     with ``train=True`` and no cache). x: [B, S_loc, d]; pos [B, S] the
-    chunk's global positions. Only the dense GQA stack trains: the
-    ``attn`` kind with the dense FFN (``transformer.check_trainable``)."""
+    chunk's global positions. Returns (x, aux): an ``attn`` layer's FFN is
+    the dense MLP and its aux 0.0; a ``moe`` layer's is ``moe_apply`` with
+    ``train=True`` (the routed and the shared experts) and its aux the
+    load-balance loss. GQA attention alone trains
+    (``transformer.check_trainable``)."""
     x = x + A.attn_train(p.attn, p.ln1(x), pos, cfg)
-    return x + mlp_apply(p.ffn, p.ln2(x))
+    if p.kind == "moe":
+        f, aux = MOE.moe_apply(p.ffn, p.ln2(x), train=True)
+        return x + f, aux
+    return x + mlp_apply(p.ffn, p.ln2(x)), 0.0
 
 
 def block_decode(p, x, cache, ctx, cfg):

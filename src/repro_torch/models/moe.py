@@ -27,6 +27,21 @@ dropped assignments go to a spare trash row of the buffer (torch has no
 captures as one CUDA graph. The expert
 products are batched matrix products (``torch.bmm``), as the reference
 computes them outside any Pallas kernel.
+
+``moe_apply`` is differentiable, for training (``train=True`` adds the
+load-balance aux loss). Its gradient reaches what ``jax.grad`` of the
+reference reaches: the tokens through the scatter into the dispatch buffer
+and the gather back, the combine weights through ``top_k``'s values to
+the router's probabilities and the router, the experts through the three
+``bmm``s, and the shared experts; the routing, the capacity assignment,
+the kept mask and the aux loss's expert counts carry none. The int8
+dispatch passes no gradient through ``round`` and the cast to int8, as
+JAX's does not: the tokens' gradient through that exchange flows only
+through the per-row scale. The exchanges differentiate through
+``collectives.all_to_all_tiled`` (the reverse exchange) and the combines
+through ``psum_if`` (a psum). The serving path runs without autograd (its
+steps under ``no_grad``, the parameters without ``requires_grad``), so
+its operations are the same as before.
 """
 from __future__ import annotations
 
@@ -243,11 +258,12 @@ def _int8_exchange(buf, group):
     return (q8.float() * sc).to(buf.dtype)
 
 
-@torch.no_grad()
 def moe_apply(p: MoE, x, train: bool = False):
     """x: [B, S_loc, d]. Returns (out [B, S_loc, d], aux): the routed
     experts' weighted outputs plus the shared experts', and under
-    ``train=True`` the load-balance loss (0.0 otherwise)."""
+    ``train=True`` the load-balance loss, a 0-d fp32 tensor (0.0
+    otherwise). Differentiable while autograd records (the module
+    docstring says where the gradient flows)."""
     mo = p.cfg.moe
     B, S, d = x.shape
     T = B * S

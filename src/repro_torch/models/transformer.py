@@ -408,54 +408,66 @@ def greedy_body(logits, shard: Shard):
 
 def check_trainable(cfg):
     """Raise ``NotImplementedError`` for a config whose training is not
-    ported, naming the ROADMAP item (Queue 1 item 4) that ports it: only
-    the dense GQA stack (``attn`` layers with the dense FFN, no frontend,
-    no encoder, no MTP head) trains."""
+    ported, naming the sub-item of ROADMAP Queue 1 item 4 that ports it:
+    GQA attention stacks train, with the dense FFN or MoE layers (no MLA,
+    no MTP head, no frontend, no encoder)."""
     kinds = set(cfg.layer_kinds)
-    why = ("MLA and the mtp head" if cfg.mla is not None or cfg.mtp_depth
-           else "MoE's aux loss and EP training" if "moe" in kinds
-           or cfg.moe is not None
-           else "mamba2's SSD with its chunk backward kernel" if "ssd" in kinds
-           else "the RG-LRU and local attention" if kinds & {"rglru", "local"}
-           else "the encoder and vision frontends" if cfg.encoder_layers
-           or cfg.frontend != "none" or kinds & {"enc", "dec"}
-           else "soft-capped global attention" if cfg.logits_soft_cap
-           else None)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training {why} is not ported (ROADMAP Queue 1 "
-            "item 4 lists the training slices left)")
+    if cfg.mla is not None or cfg.mtp_depth:
+        why, item = "MLA and the mtp head", "4.2"
+    elif "ssd" in kinds:
+        why, item = "mamba2's SSD with its chunk backward kernel", "4.3"
+    elif kinds & {"rglru", "local"} or cfg.logits_soft_cap:
+        why, item = "the RG-LRU and local or soft-capped attention", "4.4"
+    elif cfg.encoder_layers or cfg.frontend != "none" \
+            or kinds & {"enc", "dec"}:
+        why, item = "the encoder and vision frontends", "4.5"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: training {why} is not ported (ROADMAP Queue 1 item "
+        f"{item}; item 4 lists the training slices left)")
 
 
 def loss_body(params: Transformer, tokens, labels, cfg, remat: bool = True):
     """Training loss (the reference's ``loss_body``): the mean next-token
-    nll over the global batch. tokens/labels: [B_loc, S_loc], this rank's
-    rows and columns (labels < 0 are not counted). Embedding, every layer
-    (``blocks.block_train``; with ``remat`` each layer is recomputed in
-    the backward, ``torch.utils.checkpoint`` without reentrancy, as the
-    reference's ``jax.checkpoint`` per superblock), the final norm, the LM
-    head and the cross-entropy over the TP vocab shards; the loss sum and
-    the token count are summed over (dp, sp). The aux loss of this stack is
-    0. Returns the loss, a 0-d fp32 tensor, the same on every rank; its
-    gradients are the reference's per-device gradients (``psum`` transposes
-    to ``psum``: ROADMAP Queue 3). Its callers, ``Model.loss_fn`` and the
-    ``Trainer``, refuse a config that does not train
-    (``check_trainable``)."""
+    nll over the global batch plus the MoE layers' aux loss. tokens/labels:
+    [B_loc, S_loc], this rank's rows and columns (labels < 0 are not
+    counted). Embedding, every layer (``blocks.block_train``; with
+    ``remat`` each layer is recomputed in the backward,
+    ``torch.utils.checkpoint`` without reentrancy, as the reference's
+    ``jax.checkpoint`` per superblock; a MoE layer's recompute routes as
+    its forward did, the sort being stable), the final norm, the LM head
+    and the cross-entropy over the TP vocab shards; the loss sum and the
+    token count are summed over (dp, sp). The layers' aux losses are summed
+    in layer order (the reference's prefix, body and suffix), then summed
+    over (dp, sp) and divided by dp·sp; a stack without MoE layers adds
+    none. Returns the loss, a 0-d fp32 tensor, the same on every rank (a
+    MoE stack's: on the ranks of one tp index, once the tp ranks' copies of
+    a router have drifted apart, as the reference's devices' do); its
+    gradients are the reference's per-device gradients (``psum``
+    transposes to ``psum``: ROADMAP Queue 3). Its callers,
+    ``Model.loss_fn`` and the ``Trainer``, refuse a config that does not
+    train (``check_trainable``)."""
     sh = params.shard
     B, S_loc = tokens.shape
     x = embed_apply(params.embed, tokens)
     pos = _positions_prefill(torch.zeros((B,), dtype=torch.long,
                                          device=tokens.device),
                              S_loc * sh.lay.sp)
+    aux = 0.0
     for layer in params.layers:
         if remat:
-            x = checkpoint(BK.block_train, layer, x, pos, cfg,
-                           use_reentrant=False)
+            x, a = checkpoint(BK.block_train, layer, x, pos, cfg,
+                              use_reentrant=False)
         else:
-            x = BK.block_train(layer, x, pos, cfg)
+            x, a = BK.block_train(layer, x, pos, cfg)
+        aux = aux + a
     nll = distributed_xent(_logits(params, x), labels, sh)
     valid = (labels >= 0).float()
     group = sh.axes_group(("data", "sp") if sh.lay.sp > 1 else ("data",))
     loss_sum = psum_if((nll * valid).sum(), group)
     count = psum_if(valid.sum(), group)
-    return loss_sum / count.clamp(min=1.0)
+    loss = loss_sum / count.clamp(min=1.0)
+    if isinstance(aux, torch.Tensor):
+        loss = loss + psum_if(aux, group) / (sh.lay.dp * sh.lay.sp)
+    return loss

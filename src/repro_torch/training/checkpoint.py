@@ -2,8 +2,10 @@
 ``repro.training.checkpoint``).
 
 Format: one ``arrays.npz`` of *global logical* arrays, the trivial
-layout's (``convert.unshard_state`` of the ranks' shards, the ZeRO-1
-moment slices put together first), keyed ``params|{name}``, ``m|{name}``,
+layout's (``convert.unshard_tensor`` of the shards of the ranks that
+``convert.unshard_ranks`` names, the ZeRO-1 moment slices put together
+first: a MoE layer's expert stacks from every model rank, a pod-scale
+config's from every rank of the world), keyed ``params|{name}``, ``m|{name}``,
 ``v|{name}`` and ``err|{name}`` with the port's parameter names, and a
 ``manifest.json`` (step, extra, keys) committed by ``os.replace``. So a
 checkpoint written on one (dp, sp, tp) layout restores on any other
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.convert import shard_state, unshard_state
+from repro_torch.convert import shard_state, unshard_ranks, unshard_tensor
 from .optimizer import gather_moment, moment_slice, zero1_slice
 
 _TREES = ("m", "v", "err")
@@ -65,15 +67,13 @@ def save_checkpoint(path: str, step: int, model, opt_state=None,
     else:
         states = [local]
     if sh.rank == 0:
-        # one state per tp rank, in tp rank order: dp row 0, sp rank 0
-        by_tp = [states[r] for _, r in sorted(
-            (lay.tp_rank(r), r) for r in range(max(lay.G, 1))
-            if lay.sp_rank(r) == 0)]
         blobs = {}
         for tree in local:
-            full = unshard_state([s[tree] for s in by_tp], model.cfg, lay)
-            for name, a in full.items():
-                blobs[f"{tree}|{name}"] = a
+            for name in local[tree]:
+                parts = [torch.from_numpy(states[r][tree][name])
+                         for r in unshard_ranks(name, model.cfg, lay)]
+                blobs[f"{tree}|{name}"] = unshard_tensor(
+                    name, parts, model.cfg, lay).contiguous().numpy()
         os.makedirs(path, exist_ok=True)
         np.savez(os.path.join(path, "arrays.npz"), **blobs)
         manifest = {"step": int(step), "extra": extra or {},

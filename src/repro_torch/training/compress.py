@@ -18,18 +18,25 @@ import torch
 from repro_torch.parallel.collectives import Group, pmax_if, psum_if
 
 
-def int8_compress_psum(g, err, group: Optional[Group]):
+def int8_compress_psum(g, err, group: Optional[Group],
+                       named: Optional[bool] = None):
     """g: the local gradient; err: the error-feedback buffer (g's shape,
-    fp32); ``group`` the (dp, sp) group, None for none (the reference's
-    empty ``axes``: g in fp32 and err as they are). Returns
-    (the reduced gradient in fp32, the new err). ``g`` and ``err`` may be
-    lists of the parts of one reference leaf (the layers its body stacks
-    into one array): the parts then share one scale, the max over all of
-    them, as the reference's one tensor does, and lists come back."""
+    fp32); ``group`` the (dp, sp) group, None for a group of one rank.
+    ``named`` says whether the reference's ``axes`` are named (by default,
+    whether there is a group): on a mesh they are, whatever their size,
+    and the reference quantizes even where its psum over them is the
+    identity ((dp, sp) = (1, 1) on a mesh); on its trivial layout they are
+    empty and g passes through in fp32, err as it is. Returns (the reduced
+    gradient in fp32, the new err). ``g`` and ``err`` may be lists of the
+    parts of one reference leaf (the layers its body stacks into one
+    array): the parts then share one scale, the max over all of them, as
+    the reference's one tensor does, and lists come back."""
+    if named is None:
+        named = group is not None
     if not isinstance(g, (list, tuple)):
-        out, new_err = int8_compress_psum([g], [err], group)
+        out, new_err = int8_compress_psum([g], [err], group, named)
         return out[0], new_err[0]
-    if group is None:
+    if not named:
         return [t.float() for t in g], list(err)
     gf = [t.float() + e for t, e in zip(g, err)]
     amax = pmax_if(torch.stack([t.abs().max() for t in gf]).max(), group)

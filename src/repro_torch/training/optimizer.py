@@ -12,9 +12,11 @@ port keeps a record of which dims of a parameter the reference's spec
 shards (``tp_dims``, the same record ``convert.shard_tensor`` cuts by) and
 of the reference's local view of the embedding and the LM head
 (``ref_view``), so each rank holds exactly the moment slice of its device
-in the reference. Each rank updates its slice and all-gathers the delta
-over dp (classic ZeRO-1): a cut dim by one all-gather, a whole layer by a
-broadcast from the row that holds it."""
+in the reference. A leaf that already shards over a dp axis gets no ZeRO
+dim, as in the reference: a pod-scale config's expert stacks, whose EP
+group takes ``"data"`` (``convert.spans_dp``). Each rank updates its slice
+and all-gathers the delta over dp (classic ZeRO-1): a cut dim by one
+all-gather, a whole layer by a broadcast from the row that holds it."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -23,6 +25,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.convert import is_expert_leaf, spans_dp
+from repro_torch.models.moe import expert_axes, moe_tp_axes
 from repro_torch.parallel.collectives import psum_if
 
 
@@ -44,12 +48,21 @@ _TP_DIMS = {"wq": (1,), "wk": (1,), "wv": (1,), "wi": (1,), "wg": (1,),
             "wo": (0,), "bq": (0,), "bk": (0,), "bv": (0,)}
 
 
-def tp_dims(name: str) -> tuple:
+def tp_dims(name: str, cfg, lay) -> tuple:
     """Dims of the reference's per-layer local view of parameter ``name``
-    whose spec names the TP axes (whatever their size): the embedding's and
-    the LM head's leading ``G/tp`` shards, the attention's and the MLP's
-    column-sharded q/k/v, ``wi``, ``wg`` (and biases) and row-sharded
-    ``wo``; none for the norms' scales."""
+    whose spec names mesh axes (whatever their size): the embedding's and
+    the LM head's leading ``G/tp`` shards, the attention's, the MLP's and
+    the shared experts' column-sharded q/k/v, ``wi``, ``wg`` (and biases)
+    and row-sharded ``wo``; of a MoE layer's expert stack [E_loc, ., .]
+    the experts' dim over the EP axes and the FF dim over the TP axes
+    outside them, where those are not empty (``P(ep, None, tpr)``); none
+    for the router and the norms' scales."""
+    if is_expert_leaf(name, cfg):
+        ep_axes = expert_axes(cfg, lay)
+        ff = 1 if name.endswith(".wo") else 2
+        return tuple(i for i, axes in ((0, ep_axes),
+                                       (ff, moe_tp_axes(lay, ep_axes)))
+                     if axes)
     if name in ("embed.table", "lm_head.w"):
         return (0,)
     parts = name.split(".")
@@ -121,11 +134,14 @@ class ZeroSlice:
 def zero1_slice(name: str, shape, cfg, lay) -> ZeroSlice:
     """The ZeRO-1 slice of parameter ``name`` (this rank's ``shape``) on
     ``lay``: the reference's ``_zero1_dim`` of the reference's leaf (with
-    the stacked body's leading repeats axis)."""
+    the stacked body's leading repeats axis); ``"whole"`` for an expert
+    stack sharded over a dp axis."""
     dp = lay.dp
+    if spans_dp(name, cfg, lay):
+        return ZeroSlice("whole")
     view = tuple(ref_view(name, torch.empty(shape, device="meta"),
                           lay).shape)
-    sharded = [i in tp_dims(name) for i in range(len(view))]
+    sharded = [i in tp_dims(name, cfg, lay) for i in range(len(view))]
     r = stack_index(name, cfg)
     if r is not None:
         reps = cfg.pattern_repeats

@@ -125,12 +125,16 @@ class Trainer:
         loss, grads = self.grads(tokens, labels)
         group = self.reduce_group
         if self.grad_compression == "int8":
-            # one scale per reference leaf: its stacked layers share it
+            # one scale per reference leaf: its stacked layers share it.
+            # Above world size 1 the reference runs on a mesh, whose (dp,
+            # sp) axes are named even where they have one device, and it
+            # quantizes there too
             new_err = {}
+            named = self.model.lay.world > 1
             for names in reference_leaves(list(grads), self.model.cfg):
                 outs, errs = int8_compress_psum(
                     [grads[n] for n in names],
-                    [opt_state["err"][n] for n in names], group)
+                    [opt_state["err"][n] for n in names], group, named)
                 grads.update(zip(names, outs))
                 new_err.update(zip(names, errs))
         else:
