@@ -5378,6 +5378,8 @@ def seeded_init(torch, model, seed=0):
                                       (ffn.shared.wo, (ffs, d), 0)):
                     w.copy_(shard_of(dense_init(shape, gen, f32), dim, n,
                                      k).to(w.dtype))
+        if hasattr(p, "mtp"):           # drawn last, as init_params does
+            p.mtp.reset_parameters(gen)
 
 
 def deepseek_phase(torch):
@@ -6700,11 +6702,12 @@ def flash_bwd_case(torch, dtype, timer, tol, B, S, Hq, Hkv, D,
 
 
 def rmsnorm_bwd_case(torch, name, dtype, timer, tol, x_shape, s_shape,
-                     pair_k=None):
+                     pair_k=None, row_stride=None):
     """The RMSNorm backward (dx and dscale) against its plain version,
     twice (bitwise equal), timed beside the plain version and, for plain
     rows, ``F.rms_norm``'s backward through autograd. ``pair_k``: the
-    k rows of a q/k pair in the same call."""
+    k rows of a q/k pair in the same call. ``row_stride``: x is the first
+    columns of rows that long, a strided view (MLA's kv latent norm)."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm_bwd as RB
     gen = torch.Generator(device="cuda").manual_seed(sum(x_shape))
@@ -6712,6 +6715,8 @@ def rmsnorm_bwd_case(torch, name, dtype, timer, tol, x_shape, s_shape,
     def rnd(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
     x, dy, s = rnd(x_shape), rnd(x_shape), rnd(s_shape)
+    if row_stride is not None:
+        x = rnd(x_shape[:-1] + (row_stride,))[..., :x_shape[-1]]
     if pair_k is not None:
         k, dk, sk = rnd(pair_k), rnd(pair_k), rnd(s_shape)
         args = (x, s, dy, k, sk, dk)
@@ -6745,7 +6750,8 @@ def rmsnorm_bwd_case(torch, name, dtype, timer, tol, x_shape, s_shape,
     bound_ms, bound_by = bound(nbytes, 8 * n_el, torch.float32)
     return {"case": name, "dtype": str(dtype).replace("torch.", ""),
             "shape": {"x": list(x_shape), "scale": list(s_shape),
-                      **({"k": list(pair_k)} if pair_k else {})},
+                      **({"k": list(pair_k)} if pair_k else {}),
+                      **({"row_stride": row_stride} if row_stride else {})},
             "tol": tol, "row_tol": ROW_TOLS[str(dtype)],
             "tol_of": "tol: the largest entry of dx and of dscale; row_tol: "
             "each row's norm plus 1 % of the rms row norm",
@@ -6754,6 +6760,85 @@ def rmsnorm_bwd_case(torch, name, dtype, timer, tol, x_shape, s_shape,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms}
+
+
+def ssd_chunk_bwd_case(torch, name, dtype, timer, tol, B, S, H, hd, ds, L):
+    """The SSD chunk's backward (dx, db, dc, ddt, dcum) against its plain
+    version, twice (bitwise equal: no atomics), on the forward's inputs as
+    the model hands them over (x, b and c views of one conv output; dt the
+    softplus of a draw, cum its chunked cumsum times -A) and random
+    cotangents; timed beside the plain version and beside autograd through
+    ``ssd_chunk_plain`` (the gradient the port would take without the
+    kernel). No single PyTorch call computes this function: library_ms is
+    None."""
+    from repro_torch.kernels import ssd_chunk_bwd as SB
+    from repro_torch.kernels import ssd_scan as SSD
+    gen = torch.Generator(device="cuda").manual_seed(B * S + H + hd)
+    xc = torch.randn((B, S, H * hd + 2 * ds), generator=gen,
+                     device="cuda").to(dtype)
+    x = xc[..., :H * hd].reshape(B, S, H, hd)
+    b, c = xc[..., H * hd:H * hd + ds], xc[..., H * hd + ds:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = torch.exp(torch.randn((H,), generator=gen, device="cuda") * 0.5)
+    cum = (-dt * A).reshape(B, S // L, L, H).cumsum(2).reshape(B, S, H)
+    nc = S // L
+    dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    dst = torch.randn((B, nc, H, hd, ds), generator=gen, device="cuda")
+    ddec = torch.randn((B, S, H), generator=gen, device="cuda")
+    args = (x, b, c, dt, cum, dy, dst, ddec, L)
+    got = SB.ssd_chunk_bwd_cuda(*args)
+    again = SB.ssd_chunk_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"ssd_chunk bwd {name} {dtype}: two runs differ")
+    want = SB.ssd_chunk_bwd_plain(*args)
+    errs = [grad_compare(torch, f"ssd_chunk bwd {name} {dtype} d{part}",
+                         g, w, tol)
+            for part, g, w in zip(("x", "b", "c", "dt", "cum"), got, want)]
+    err, row_err = (max(e) for e in zip(*errs))
+    ms = timer(lambda: SB.ssd_chunk_bwd_cuda(*args))
+    plain_ms = timer(lambda: SB.ssd_chunk_bwd_plain(*args), iters=3)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, b, c, dt,
+                                                            cum)]
+    per_head = [t[:, :, None].expand(B, S, H, ds) for t in ins[1:3]]
+    outs = SSD.ssd_chunk_plain(ins[0], *per_head, ins[3], ins[4], L)
+    autograd_ms = timer(lambda: torch.autograd.grad(
+        outs, ins, (dy, dst, ddec), retain_graph=True), iters=3)
+    del outs, per_head, ins
+    elt = x.element_size()
+    nbytes = ((x.numel() + 2 * B * S * ds) * elt      # x, b, c
+              + 3 * B * S * H * 4                      # dt, cum, ddec
+              + 2 * B * S * H * hd * 4                 # dy, dx
+              + dst.numel() * 4                        # dS_c
+              + 2 * B * S * ds * 4 + 2 * B * S * H * 4)  # db, dc, ddt, dcum
+    tri = L * (L + 1) // 2                  # (t, s) pairs with s <= t
+    # c·bᵀ once a chunk; per head dM, Mᵀ·dy, b·dS_cᵀ, G·b, Gᵀ·c, (x·w)·dS_c
+    fmas = B * nc * (tri * ds + H * (2 * tri * hd + 2 * tri * ds
+                                     + 2 * L * hd * ds))
+    bound_ms, bound_by = bound(nbytes, 2 * fmas, dtype)
+    fp32_peak_ms, _ = bound(nbytes, 2 * fmas, torch.float32)
+    return {"case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": {"x": [B, S, H, hd], "bc": [B, S, ds], "chunk": L},
+            "tol": tol, "row_tol": ROW_TOLS[str(dtype)],
+            "tol_of": "tol: the largest entry of each gradient; row_tol: "
+            "each row's norm plus 1 % of the rms row norm",
+            "max_abs_err": err, "max_row_rel_err": row_err,
+            "bitwise_repeat": True, "ms": ms, "plain_ms": plain_ms,
+            "autograd_plain_ms": autograd_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "bound_at_fp32_peak_ms": fp32_peak_ms,
+            "mbytes": nbytes / 1e6, "gflop": 2 * fmas / 1e9}
+
+
+# the SSD chunk backward's cases: mamba2-1.3b's training microbatch, its
+# per-rank heads on (1, 2, 2), one chunk shorter than L, and the reference's
+# reduced config (fp32 only)
+SSD_BWD_CASES = (("mamba2-1.3b training microbatch", 2, 2048, 64, 64, 128, 64),
+                 ("per rank on (1, 2, 2)", 2, 2048, 16, 64, 128, 64),
+                 ("one short chunk", 2, 40, 64, 64, 128, 40))
+SSD_BWD_REDUCED = ("reduced config", 8, 16, 8, 16, 16, 8)
 
 
 def backward_kernel_phase(torch, cases):
@@ -6767,7 +6852,7 @@ def backward_kernel_phase(torch, cases):
     4096 x 4 k rows)."""
     timer = Timer(torch)
     tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    for kernel in ("flash_attention_bwd", "rmsnorm_bwd"):
+    for kernel in ("flash_attention_bwd", "rmsnorm_bwd", "ssd_chunk_bwd"):
         cases[kernel] = []
 
     def add(kernel, case):
@@ -6796,6 +6881,29 @@ def backward_kernel_phase(torch, cases):
     add("rmsnorm_bwd", rmsnorm_bwd_case(
         torch, "qwen-30b-a3b q/k pair", bf16, timer, tol, (4096 * 32, 128),
         (128,), pair_k=(4096 * 4, 128)))
+    # the training rows of deepseek-v3-671b (ln rows of 7168, the q latent
+    # of 1536, the kv latent's 512 of 576 columns, a strided view) and of
+    # mamba2-1.3b (ln rows of 2048; its grouped norm is the 64-head case)
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "deepseek-v3-671b ln rows", bf16, timer, tol, (4096, 7168),
+        (7168,)))
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "deepseek-v3-671b q latent", bf16, timer, tol, (4096, 1536),
+        (1536,)))
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "deepseek-v3-671b kv latent, 512 of 576 columns", bf16,
+        timer, tol, (4096, 512), (512,), row_stride=576))
+    add("rmsnorm_bwd", rmsnorm_bwd_case(
+        torch, "mamba2-1.3b ln rows", bf16, timer, tol, (4096, 2048),
+        (2048,)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in SSD_BWD_CASES:
+            add("ssd_chunk_bwd", ssd_chunk_bwd_case(torch, shape[0], dtype,
+                                                    timer, tols[dtype],
+                                                    *shape[1:]))
+    add("ssd_chunk_bwd", ssd_chunk_bwd_case(
+        torch, SSD_BWD_REDUCED[0], torch.float32, timer,
+        tols[torch.float32], *SSD_BWD_REDUCED[1:]))
     torch.cuda.synchronize()
 
 
@@ -6824,37 +6932,28 @@ def train_layers(torch, cfg, layers):
     return layers
 
 
-def training_phase(torch):
-    """The main path of training: qwen3-8b at full width, depth cut to
-    ``TRAIN_LAYERS`` (12 of 36; ``train_layers`` checks it fits), bf16 weights from a seeded generator, the
-    synthetic corpus's batch of 4 x 2048 (``repro_torch.data``), microbatch
-    2, remat, AdamW at lr 3e-4, six steps on that one fixed batch through
-    ``training.Trainer``. The loss must fall by more than 0.3. Prints ms per
-    step and tokens/s (steps 2-6), the peak memory, the kernel launches
-    per step of flash and RMSNorm forward and backward (three a flash
-    backward call, two an RMSNorm backward call), and the device's
-    busy ms per step from ``torch.profiler`` (one more step, profiled).
-    Returns the launch counts of the six steps."""
-    from repro_torch.configs import get_config
+def synthetic_batch(vocab):
+    """The synthetic corpus's first batch of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` (``repro_torch.data``): (tokens, labels)."""
     from repro_torch.data import SyntheticCorpus, TokenBatcher
-    from repro_torch.kernels import flash_attention_bwd as FAB
+    data = TokenBatcher(SyntheticCorpus(vocab), TRAIN_BATCH, TRAIN_SEQ)
+    try:
+        return next(data)
+    finally:
+        data.close()
+
+
+def train_six_steps(torch, model, toks, labels, label, want, rec):
+    """``TRAIN_STEPS`` ``Trainer`` steps of ``model`` on one fixed batch
+    (microbatch ``TRAIN_MICRO``, remat, AdamW at lr ``TRAIN_LR``), the
+    launch counts reset just before and read just after: the loss must
+    fall by more than 0.3 and the launches per step equal ``want``. Then
+    one more step under ``torch.profiler`` for the device's busy ms and
+    the ops' own device ms. Returns (``rec`` with the numbers added, the
+    launch counts of the six steps, the ops' device ms)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rmsnorm_bwd as RB
-    from repro_torch.models import Model
     from repro_torch.training import Trainer
     from repro_torch.training.optimizer import AdamWConfig
-    t_phase = time.monotonic()
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = get_config("qwen3-8b")
-    cfg = replace_layers(cfg, train_layers(torch, cfg, TRAIN_LAYERS))
-    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
-    model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(p.numel() for p in model.params.parameters())
-    data = TokenBatcher(SyntheticCorpus(cfg.vocab_size), TRAIN_BATCH,
-                        TRAIN_SEQ)
-    toks, labels = next(data)
-    data.close()
     tr = Trainer(model, AdamWConfig(lr=TRAIN_LR), microbatch=TRAIN_MICRO,
                  remat=True)
     opt = tr.init_opt_state()
@@ -6869,41 +6968,69 @@ def training_phase(torch):
         walls.append(time.monotonic() - t0)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"training qwen3-8b ({cfg.num_layers} layers, {n_params / 1e9:.2f}e9 "
-          f"params, bf16): losses {losses}")
-    check(all(map(math.isfinite, losses)), f"training losses {losses}")
+    print(f"training {label}: losses {losses}")
+    check(all(map(math.isfinite, losses)), f"{label} losses {losses}")
     check(losses[-1] < losses[0] - 0.3,
-          f"training loss fell {losses[0] - losses[-1]:.3f} (want > 0.3)")
+          f"{label} loss fell {losses[0] - losses[-1]:.3f} (want > 0.3)")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
-    L = cfg.num_layers
-    # per microbatch: flash forward twice a layer (remat), backward once;
-    # RMSNorm forward ln1, ln2 and the q/k pair twice a layer and the final
-    # norm once, backward the same once; each backward call is
-    # LAUNCHES_PER_CALL launches
-    want = {"flash_attention": 2 * L * TRAIN_MICRO,
-            "flash_attention_bwd": L * TRAIN_MICRO * FAB.LAUNCHES_PER_CALL,
-            "rmsnorm": (6 * L + 1) * TRAIN_MICRO,
-            "rmsnorm_bwd": (3 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
-    check(per_step == want, f"training launches per step {per_step}, want "
+    check(per_step == want, f"{label} launches per step {per_step}, want "
           f"{want}")
     with profiled(torch) as prof:
         opt, _ = tr.step(opt, toks, labels)
     busy_ms = sum(us for _, us, _ in device_kernels(prof)) / 1e3
+    by_op = ops_device_ms(prof)
+    top = dict(list(by_op.items())[:12])
     ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    rec = {"model": "qwen3-8b", "layers": L, "params": n_params,
-           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICRO,
-           "remat": True, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
-           "losses": losses, "ms_per_step": ms,
-           "tokens_per_s": tokens / (ms / 1e3),
-           "step_walls_ms": [w * 1e3 for w in walls],
-           "max_memory_allocated_gb": peak / 1e9,
-           "launches_per_step": per_step,
-           "device_busy_ms_per_step": busy_ms,
-           "busy_share": busy_ms / ms,
-           "phase_s": time.monotonic() - t_phase}
+    rec.update({"batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICRO,
+                "remat": True, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+                "losses": losses, "ms_per_step": ms,
+                "tokens_per_s": tokens / (ms / 1e3),
+                "step_walls_ms": [w * 1e3 for w in walls],
+                "max_memory_allocated_gb": peak / 1e9,
+                "launches_per_step": per_step,
+                "device_busy_ms_per_step": busy_ms,
+                "busy_share": busy_ms / ms, "top_ops_device_ms": top})
+    print(f"training {label}: {ms:.2f} ms a step, {tokens / (ms / 1e3):.0f} "
+          f"tokens/s, busy {busy_ms:.2f} ms, peak {peak / 1e9:.2f} GB; the "
+          f"ops' own device ms {top}; card: {card_line()}")
+    del tr, opt
+    return rec, launches, by_op
+
+
+def training_phase(torch):
+    """The main path of training: qwen3-8b at full width, depth cut to
+    ``TRAIN_LAYERS`` (12 of 36; ``train_layers`` checks it fits), bf16
+    weights from a seeded generator, the synthetic corpus's batch of 4 x
+    2048, six steps (``train_six_steps``). Per microbatch flash runs
+    forward twice a layer (remat) and backward once (three launches a
+    call); RMSNorm ln1, ln2 and the q/k pair forward twice a layer and the
+    final norm once, backward the same once (two launches a call). Returns
+    the launch counts of the six steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-8b")
+    cfg = replace_layers(cfg, train_layers(torch, cfg, TRAIN_LAYERS))
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.params.parameters())
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * TRAIN_MICRO,
+            "flash_attention_bwd": L * TRAIN_MICRO * FAB.LAUNCHES_PER_CALL,
+            "rmsnorm": (6 * L + 1) * TRAIN_MICRO,
+            "rmsnorm_bwd": (3 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
+    rec, launches, _ = train_six_steps(
+        torch, model, *synthetic_batch(cfg.vocab_size),
+        f"qwen3-8b ({L} layers, {n_params / 1e9:.2f}e9 params, bf16)", want,
+        {"model": "qwen3-8b", "layers": L, "params": n_params})
+    rec["phase_s"] = time.monotonic() - t_phase
     print(json.dumps({"training": rec}))
-    del model, tr, opt
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -6963,26 +7090,19 @@ def moe_training_phase(torch):
     32 over 4 heads of 128 with q/k norms, 128 experts of 768, top-8,
     capacity factor 1.25, vocab 151936), depth cut to ``MOE_TRAIN_LAYERS``
     (4 of 48; ``train_layers`` checks it fits), every earlier model freed;
-    bf16 weights from a seeded generator, the synthetic corpus's batch of
-    4 x 2048, microbatch 2, remat, AdamW at lr 3e-4, six steps on that one
-    batch through ``training.Trainer``, the aux loss in the loss. The loss
-    must fall by more than 0.3, and the aux loss (one forward per
-    microbatch, before the steps and after) be finite and positive. The
-    launches per step follow the qwen3-8b phase's formula (q/k norms,
-    remat). Prints ms per step and tokens/s (steps 2-6), the peak memory,
-    the device's busy ms of a seventh step (``torch.profiler``) with the
-    share of it in the expert ``bmm``s (forward, recompute and backward:
-    the device time of ``aten::bmm``'s kernels) and the ops that took the
-    most of it, and the share of routed assignments that capacity drops before
-    the steps and after. Returns the launch counts of the six steps."""
+    bf16 weights from a seeded generator, six steps (``train_six_steps``),
+    the aux loss in the loss. The aux loss (one forward per microbatch,
+    before the steps and after) must be finite and positive. The launches
+    per step follow the qwen3-8b phase's formula (q/k norms, remat).
+    Prints, besides, the share of the profiled step's busy time in the
+    expert ``bmm``s (forward, recompute and backward: the device time of
+    ``aten::bmm``'s kernels) and the share of routed assignments that
+    capacity drops before the steps and after. Returns the launch counts of
+    the six steps."""
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticCorpus, TokenBatcher
     from repro_torch.kernels import flash_attention_bwd as FAB
-    from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm_bwd as RB
     from repro_torch.models import Model
-    from repro_torch.training import Trainer
-    from repro_torch.training.optimizer import AdamWConfig
     t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6991,85 +7111,166 @@ def moe_training_phase(torch):
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.params.parameters())
-    data = TokenBatcher(SyntheticCorpus(cfg.vocab_size), TRAIN_BATCH,
-                        TRAIN_SEQ)
-    toks, labels = next(data)
-    data.close()
-    tr = Trainer(model, AdamWConfig(lr=TRAIN_LR), microbatch=TRAIN_MICRO,
-                 remat=True)
-    opt = tr.init_opt_state()
+    toks, labels = synthetic_batch(cfg.vocab_size)
     auxes0, dropped0 = moe_probe(torch, model, toks, labels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.monotonic()
-        opt, loss = tr.step(opt, toks, labels)
-        losses.append(float(loss))
-        walls.append(time.monotonic() - t0)
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    mo = cfg.moe
-    print(f"training qwen-30b-a3b ({cfg.num_layers} layers, {mo.num_experts} "
-          f"experts of {mo.d_ff_expert}, top-{mo.top_k}, capacity factor "
-          f"{mo.capacity_factor}, {n_params / 1e9:.2f}e9 params, bf16): "
-          f"losses {losses}")
-    check(all(map(math.isfinite, losses)), f"MoE training losses {losses}")
-    check(losses[-1] < losses[0] - 0.3,
-          f"MoE training loss fell {losses[0] - losses[-1]:.3f} (want > 0.3)")
-    per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
-    L = cfg.num_layers
+    mo, L = cfg.moe, cfg.num_layers
     want = {"flash_attention": 2 * L * TRAIN_MICRO,
             "flash_attention_bwd": L * TRAIN_MICRO * FAB.LAUNCHES_PER_CALL,
             "rmsnorm": (6 * L + 1) * TRAIN_MICRO,
             "rmsnorm_bwd": (3 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
-    check(per_step == want, f"MoE training launches per step {per_step}, "
-          f"want {want}")
-    with profiled(torch) as prof:
-        opt, _ = tr.step(opt, toks, labels)
-    busy_ms = sum(us for _, us, _ in device_kernels(prof)) / 1e3
-    by_op = ops_device_ms(prof)
-    bmm_ms = by_op.get("aten::bmm", 0.0)
-    top = dict(list(by_op.items())[:12])
+    rec, launches, by_op = train_six_steps(
+        torch, model, toks, labels,
+        f"qwen-30b-a3b ({L} layers, {mo.num_experts} experts of "
+        f"{mo.d_ff_expert}, top-{mo.top_k}, capacity factor "
+        f"{mo.capacity_factor}, {n_params / 1e9:.2f}e9 params, bf16)", want,
+        {"model": "qwen-30b-a3b", "layers": L, "params": n_params,
+         "experts": mo.num_experts, "top_k": mo.top_k,
+         "capacity_factor": mo.capacity_factor})
     auxes, dropped = moe_probe(torch, model, toks, labels)
     check(all(math.isfinite(a) and a > 0 for a in auxes0 + auxes),
           f"MoE aux loss per microbatch {auxes0} before the steps, {auxes} "
           "after: want finite and positive")
-    ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    rec = {"model": "qwen-30b-a3b", "layers": L, "params": n_params,
-           "experts": mo.num_experts, "top_k": mo.top_k,
-           "capacity_factor": mo.capacity_factor,
-           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICRO,
-           "remat": True, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
-           "losses": losses, "ms_per_step": ms,
-           "tokens_per_s": tokens / (ms / 1e3),
-           "step_walls_ms": [w * 1e3 for w in walls],
-           "max_memory_allocated_gb": peak / 1e9,
-           "launches_per_step": per_step,
-           "device_busy_ms_per_step": busy_ms,
-           "busy_share": busy_ms / ms,
-           "expert_bmm_ms": bmm_ms,
-           "expert_bmm_share_of_busy": bmm_ms / busy_ms,
-           "top_ops_device_ms": top,
-           "aux_loss_per_microbatch": {"before": auxes0, "after": auxes},
-           "dropped_share": {"before": dropped0, "after": dropped},
-           "phase_s": time.monotonic() - t_phase}
-    print(f"training qwen-30b-a3b: {ms:.2f} ms a step, "
-          f"{tokens / (ms / 1e3):.0f} tokens/s, busy {busy_ms:.2f} ms, "
-          f"expert bmm {bmm_ms:.2f} ms of it, peak {peak / 1e9:.2f} GB, aux "
-          f"{auxes0} before the steps and {auxes} after, routed assignments "
-          f"dropped {dropped0:.4f} before and {dropped:.4f} after; the ops' "
-          f"own device ms {top}; card: {card_line()}")
+    bmm_ms = by_op.get("aten::bmm", 0.0)
+    busy_ms = rec["device_busy_ms_per_step"]
+    rec.update({"expert_bmm_ms": bmm_ms,
+                "expert_bmm_share_of_busy": bmm_ms / busy_ms,
+                "aux_loss_per_microbatch": {"before": auxes0,
+                                            "after": auxes},
+                "dropped_share": {"before": dropped0, "after": dropped},
+                "phase_s": time.monotonic() - t_phase})
+    print(f"training qwen-30b-a3b: expert bmm {bmm_ms:.2f} ms of the busy "
+          f"{busy_ms:.2f}, aux {auxes0} before the steps and {auxes} after, "
+          f"routed assignments dropped {dropped0:.4f} before and "
+          f"{dropped:.4f} after")
     print(json.dumps({"training_moe": rec}))
-    del model, tr, opt
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mamba2_training_phase(torch):
+    """mamba2-1.3b training at full width and full depth (48 SSD layers,
+    d_model 2048, 64 heads of 64, d_state 128, chunk 64, the embedding tied
+    to the head; ``train_layers`` checks it fits), bf16 weights from a
+    seeded generator, every earlier model freed: six steps
+    (``train_six_steps``). Per microbatch each layer runs the SSD chunk's
+    forward kernel twice (remat) and its backward once (``ssd_chunk_bwd``'s
+    LAUNCHES_PER_CALL launches), ln1 and the grouped norm forward twice and
+    backward once, and the final norm once each way. Returns the launch
+    counts of the six steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    from repro_torch.kernels import ssd_chunk_bwd as SB
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-1.3b")
+    L = train_layers(torch, cfg, cfg.num_layers)
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.params.parameters())
+    want = {"ssd_chunk": 2 * L * TRAIN_MICRO,
+            "ssd_chunk_bwd": L * TRAIN_MICRO * SB.LAUNCHES_PER_CALL,
+            "rmsnorm": (4 * L + 1) * TRAIN_MICRO,
+            "rmsnorm_bwd": (2 * L + 1) * TRAIN_MICRO * RB.LAUNCHES_PER_CALL}
+    rec, launches, _ = train_six_steps(
+        torch, model, *synthetic_batch(cfg.vocab_size),
+        f"mamba2-1.3b ({L} layers, {n_params / 1e9:.2f}e9 params, bf16)",
+        want, {"model": "mamba2-1.3b", "layers": L, "params": n_params})
+    rec["phase_s"] = time.monotonic() - t_phase
+    print(json.dumps({"training_mamba2": rec}))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deepseek_train_layers(torch, cfg):
+    """The depth of deepseek-v3-671b's training phase: the most of its 3
+    dense prefix layers whose training state fits the card beside the MTP
+    head (``num_params`` counts it). Reckoned per parameter 14 bytes
+    (bf16 weight, fp32 gradient sum, fp32 m and v) and the largest leaf's
+    bf16 gradient; the two heads' saved exp of the logits and one head's
+    backward (2 + 3 copies of [B/micro x S, V] fp32); MLA's plain attention
+    of one layer (remat: one at a time) in its backward: the three tensors
+    ``attend`` saves per key chunk (the masked scores, their exp and its
+    fp32 copy) over the whole [B/micro, H, S, S] in fp32, and three more of
+    one chunk of 1024 keys in flight; and 4 GB of other activations."""
+    free, total = torch.cuda.mem_get_info()
+    rows = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    logits = 5 * 4 * rows * cfg.vocab_size
+    scores = 4 * (TRAIN_BATCH // TRAIN_MICRO) * cfg.num_heads * TRAIN_SEQ \
+        * (3 * TRAIN_SEQ + 3 * min(TRAIN_SEQ, 1024))
+    table = 2 * cfg.vocab_size * cfg.d_model
+    fit = 0
+    for n in range(1, len(cfg.prefix_layers) + 1):
+        need = 14 * deepseek_cut(n, n).num_params() + table + logits \
+            + scores + 4e9
+        print(f"deepseek training at {n} dense layers and the MTP head: "
+              f"{need / 1e9:.1f} GB reckoned against {free / 1e9:.1f} GB free "
+              f"of {total / 1e9:.1f} GB")
+        if need <= free:
+            fit = n
+    check(fit >= 1, "deepseek-v3-671b: one dense layer and the MTP head do "
+          "not fit this card's training memory")
+    return fit
+
+
+def deepseek_training_phase(torch):
+    """deepseek-v3-671b training at full width (d_model 7168, 128 MLA heads,
+    q/kv latents 1536/512, vocab 129280) with its MTP head, the depth cut to
+    the dense prefix layers that fit (``deepseek_train_layers``; the 256
+    experts of 2048 of a MoE layer, ~11.3e9 params, take ~180 GB of training
+    state), bf16 weights from a seeded generator, every earlier model freed:
+    six steps (``train_six_steps``), both heads' fp32 logits in the loss.
+    MLA's attention is plain PyTorch (the reference's is jnp); per
+    microbatch each of the layers and the MTP block runs ln1, ln2 and the q
+    and kv latent norms forward twice (remat) and backward once, the MTP
+    head's norm and the final norm (twice: both heads) once each way.
+    Returns the launch counts of the six steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm_bwd as RB
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = deepseek_train_layers(torch, get_config("deepseek-v3-671b"))
+    cfg = deepseek_cut(n, n)
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.params.parameters())
+    blocks = n + 1                           # the layers and the MTP block
+    want = {"rmsnorm": (8 * blocks + 3) * TRAIN_MICRO,
+            "rmsnorm_bwd": (4 * blocks + 3) * TRAIN_MICRO
+            * RB.LAUNCHES_PER_CALL}
+    rec, launches, _ = train_six_steps(
+        torch, model, *synthetic_batch(cfg.vocab_size),
+        f"deepseek-v3-671b ({n} dense layers of 61 and the MTP head, "
+        f"{n_params / 1e9:.2f}e9 params, bf16)", want,
+        {"model": "deepseek-v3-671b", "layers": n, "mtp": True,
+         "params": n_params})
+    rec["phase_s"] = time.monotonic() - t_phase
+    print(json.dumps({"training_deepseek": rec}))
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
 TRAIN_CHECK_ARCHS = ("qwen3-8b", "qwen-30b-a3b")   # reduced, fp32
+# the card-against-CPU check's archs: each one's backward kernels, and its
+# gradients' tolerance (of each leaf's largest entry). Reduced mamba2-1.3b's
+# fp32 gradients lie up to 5.1e-4 of a leaf's largest entry from the fp64
+# truth on the CPU itself (``tools/ssd_fp32_drift.py``), so card and CPU
+# are held within 2e-3 of each other; the others within 1e-4
+TRAIN_CROSS_ARCHS = {"qwen3-8b": (("flash_attention_bwd", "rmsnorm_bwd"),
+                                  1e-4),
+                     "qwen-30b-a3b": (("flash_attention_bwd", "rmsnorm_bwd"),
+                                      1e-4),
+                     "deepseek-v3-671b": (("rmsnorm_bwd",), 1e-4),
+                     "mamba2-1.3b": (("ssd_chunk_bwd", "rmsnorm_bwd"), 2e-3)}
 
 
 def train_state(torch, arch, seed=0):
@@ -7127,16 +7328,20 @@ def train_close(torch, what, got, want, tol, rel=False, skip=None):
 
 
 def train_cross_device(torch):
-    """Card against CPU in fp32 (TF32 off) on reduced qwen3-8b and reduced
+    """Card against CPU in fp32 (TF32 off) on reduced qwen3-8b, reduced
     qwen-30b-a3b (4 experts, top-2, capacity factor 1.25; the aux loss in
-    the loss): the loss (1e-5) and the gradients (1e-4 of each leaf's
-    largest entry) of one ``loss_fn`` call, then three Trainer steps with
+    the loss), reduced deepseek-v3-671b (MLA, a dense and two MoE layers
+    with shared experts, the MTP head) and reduced mamba2-1.3b (SSD, the
+    tied table): the loss (1e-5) and the gradients (of each leaf's largest
+    entry: 1e-4, mamba2-1.3b 2e-3, ``TRAIN_CROSS_ARCHS``) of one
+    ``loss_fn`` call, then three Trainer steps with
     microbatch 2 and remat: the losses (1e-4) and the params (5e-4,
-    outside the entries whose gradient on the CPU is below 1e-7)."""
+    outside the entries whose gradient on the CPU is below 1e-7). The card
+    runs each arch's backward kernels, the CPU none."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    for arch in TRAIN_CHECK_ARCHS:
+    for arch, (kernels, grad_tol) in TRAIN_CROSS_ARCHS.items():
         t0 = time.monotonic()
         cfg = get_config(arch).reduced()
         state = train_state(torch, arch)
@@ -7150,15 +7355,15 @@ def train_cross_device(torch):
         (lg, gg, sg, pg), (lc, gc_, sc, pc) = runs["cuda"], runs["cpu"]
         what = f"train {arch} card vs CPU"
         check(abs(lg - lc) <= 1e-5, f"{what} loss {lg} vs {lc}")
-        train_close(torch, f"{what} grad", gg, gc_, 1e-4, rel=True)
+        train_close(torch, f"{what} grad", gg, gc_, grad_tol, rel=True)
         check(max(abs(a - b) for a, b in zip(sg, sc)) <= 1e-4,
               f"{what} step losses {sg} vs {sc}")
         train_close(torch, f"{what} params", pg, pc, 5e-4,
                     skip={k: abs(g) < 1e-7 for k, g in gc_.items()})
-        check(runs["cuda_launches"].get("flash_attention_bwd", 0) > 0
-              and runs["cuda_launches"].get("rmsnorm_bwd", 0) > 0
-              and not runs["cpu_launches"].get("flash_attention_bwd", 0),
-              f"{what} launches {runs['cuda_launches']}")
+        check(all(runs["cuda_launches"].get(k, 0) > 0 for k in kernels)
+              and not any(runs["cpu_launches"].values()),
+              f"{what} launches {runs['cuda_launches']}, on the CPU "
+              f"{runs['cpu_launches']}")
         print(f"training card vs CPU (reduced {arch}, fp32): loss {lg:.7f} "
               f"vs {lc:.7f}, step losses {sg} vs {sc}; "
               f"{time.monotonic() - t0:.1f} s")
@@ -7292,7 +7497,8 @@ def summary(cases, by_path):
             ("ssd_chunk", "cuda", CSRC + "ssd_chunk.cu", SSD_TPU),
             ("flash_attention_bwd", "cuda", CSRC + "flash_attention_bwd.cu",
              FLASH_TPU),
-            ("rmsnorm_bwd", "cuda", CSRC + "rmsnorm_bwd.cu", RMS_TPU)):
+            ("rmsnorm_bwd", "cuda", CSRC + "rmsnorm_bwd.cu", RMS_TPU),
+            ("ssd_chunk_bwd", "cuda", CSRC + "ssd_chunk_bwd.cu", SSD_TPU)):
         top = cases[name][0]
         out.append({"name": name, "route": route, "source": source,
                     "replaces": replaces,
@@ -7357,6 +7563,8 @@ def main():
         internvl2_phase(torch)
     by_path["training"] = training_phase(torch)
     by_path["training_moe"] = moe_training_phase(torch)
+    by_path["training_mamba2"] = mamba2_training_phase(torch)
+    by_path["training_deepseek"] = deepseek_training_phase(torch)
     simulator_line()
     train_layout_phase(torch)
     by_path["layout_sp2_tp2_rank0"], by_path["layout_prefix_spec_rank0"], \

@@ -177,15 +177,19 @@ class ModelConfig:
         conv, the two block-diagonal gates over 16 channel blocks and Λ)
         with the MLP, or the SSD mixer (z/x/bc/dt projections, dt_bias,
         A_log, D, the two convolutions, the grouped norm and wo); the
-        encoder's layers (attention, MLP, two norms) and its final norm.
-        The multi-token prediction head is not served and not counted."""
+        encoder's layers (attention, MLP, two norms) and its final norm;
+        the multi-token prediction head (``proj`` [2d, d], an ``attn``
+        layer's parameters, a norm), which only training reads."""
         d, dh = self.d_model, self.head_dim
         nd = 2 * d if self.norm == "layernorm" else d
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + nd
         mlp = self._mlp_params()
-        kinds = self.layer_kinds + ("enc",) * self.encoder_layers
+        kinds = self.layer_kinds + ("enc",) * self.encoder_layers \
+            + ("attn",) * min(self.mtp_depth, 1)
         if self.encoder_layers:
             n += nd
+        if self.mtp_depth:
+            n += 2 * d * d + nd
         for kind in kinds:
             if kind in ("attn", "local", "moe", "dec", "enc"):
                 attn = self._attn_params()

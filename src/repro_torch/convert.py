@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.models.attention import attn_layout
 from repro_torch.models.layers import shard_of, vocab_shard
-from repro_torch.models.mla import mla_layout
+from repro_torch.models.mla import mla_layout, mla_unlayout
 from repro_torch.models.moe import expert_axes, expert_grid, expert_shard
 from repro_torch.models.recurrent import (GROUP_LEAVES, rglru_layout,
                                           rglru_unlayout)
@@ -92,8 +92,9 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
     * ``embed.table`` [G, v_loc, d] -> [G*v_loc, d];
     * ``lm_head.w`` [G, d, v_loc] -> [d, G*v_loc] (a tied tree has none:
       the port's tied head reads the table);
-    * ``mtp.*``, DeepSeek-V3's multi-token prediction head, is skipped:
-      serving does not read it;
+    * ``mtp.*``, DeepSeek-V3's multi-token prediction head (``proj``,
+      the ``block``'s leaves as an attention block's, ``norm``), keeps its
+      names: training reads it, serving does not;
     * ``final_norm.*`` keeps its name.
     Any other leaf, a missing one, or a stack of another depth raises. The
     SSD mixer's ``wbc`` must be the trivial layout's single group, [d,
@@ -101,8 +102,6 @@ def from_jax_params(tree, cfg) -> Dict[str, np.ndarray]:
     reps, pat = cfg.pattern_repeats, len(cfg.layer_pattern)
     out = {}
     for name, a in _flatten(tree):
-        if name.startswith("mtp."):
-            continue
         if name.startswith("encoder."):
             if a.shape[0] != cfg.encoder_layers:
                 raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
@@ -323,16 +322,14 @@ def unshard_tensor(name: str, parts, cfg, lay) -> torch.Tensor:
     order, or every model rank's (``G`` of them) in model-rank order,
     which a model-group leaf (``is_model_group_leaf``) needs, or every
     rank's of the world, which an expert stack that spans dp rows needs.
+    An MLA leaf takes the parts of the grid's tp ranks (``mla_unlayout``).
     The pad slots of the head plan go; of a kv head that KV replication
     repeats, the first copy is taken (every copy is the same head).
     Bitwise: ``shard_tensor`` of the result gives each part back."""
     p = name.split(".")
     tp, G = max(lay.tp, 1), max(lay.G, 1)
     if cfg.mla is not None and p[-2] == "attn":
-        raise NotImplementedError(
-            f"{name} of {cfg.name} on {lay.describe()}: putting an MLA "
-            "layer's shards back together (a reshard of an MLA layout) is "
-            "ROADMAP Queue 1 item 2")
+        return mla_unlayout(p[-1], parts, cfg, lay)
     if is_expert_leaf(name, cfg):
         return _unshard_experts(name, parts, cfg, lay)
     if is_model_group_leaf(name, cfg):

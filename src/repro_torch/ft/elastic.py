@@ -12,9 +12,9 @@ changes (wk/wv between the base and the shift config) is thereby derived
 from the gathered weights themselves. The reference re-draws such a leaf
 from ``init_params(key(0))`` instead: the two agree for key-0 weights and
 differ for weights of any other source (ROADMAP Queue 3). An expert stack
-whose EP group spans dp rows is gathered over the whole world. MLA
-weights do not reshard yet: it raises before any collective (ROADMAP
-Queue 1 item 2)."""
+whose EP group spans dp rows is gathered over the whole world. An MLA
+layer's per-head leaves are gathered over the TP group too: their heads
+follow the grid's tp in both configs (``models.mla.mla_unlayout``)."""
 from __future__ import annotations
 
 import torch
@@ -65,11 +65,6 @@ def reshard_params(old_model, new_model):
                          f"ranks -> {new.describe()} on {new.world}: the "
                          "config and the world size must be the same")
     cfg = old_model.cfg
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"reshard_params of {cfg.name} ({old.describe()} -> "
-            f"{new.describe()}): moving MLA weights is ROADMAP Queue 1 "
-            "item 2")
     members = _tp_members(old, old_model.shard.rank)
     order = sorted(range(len(members)),
                    key=lambda m: old.tp_rank(members[m]))

@@ -7,6 +7,8 @@
 * ``ssd_scan``: the SSD intra-chunk step, CUDA C++ (``csrc/ssd_chunk.cu``).
 * ``rmsnorm``: CUDA C++ (``csrc/rmsnorm.cu``; row-wise, grouped with one
   scale row per head, or a layer's q and k norms in one launch).
+* the backward kernels of training: ``flash_attention_bwd``,
+  ``rmsnorm_bwd`` and ``ssd_chunk_bwd``, CUDA C++ (``csrc/*_bwd.cu``).
 
 The CUDA sources are built by ``build.py`` with nvcc for sm_90a and loaded
 with ctypes. ``ops`` dispatches by the device of the tensors.

@@ -6,14 +6,14 @@ kernel's plain PyTorch version, a CUDA tensor to the hand-written kernel,
 which raises if it cannot build or launch. There is no backend switch and
 no fallback: a run on the card either went through the kernels or failed.
 
-Training differentiates through flash attention and RMSNorm: while
-autograd records (an input requires grad) ``flash_attention``,
-``rmsnorm`` and ``rmsnorm_pair`` run as ``torch.autograd.Function``s
-(``FlashAttention``, ``RMSNorm``, ``RMSNormPair``) whose forward is the
-kernel (or the plain version on the CPU) and whose backward is the
-backward kernel (or its plain version), dispatched by device as the
-forward is. The serving path runs under ``no_grad`` and calls the forward
-kernels directly.
+Training differentiates through flash attention, RMSNorm and the SSD
+chunk: while autograd records (an input requires grad) ``flash_attention``,
+``rmsnorm``, ``rmsnorm_pair`` and ``ssd_chunk`` run as
+``torch.autograd.Function``s (``FlashAttention``, ``RMSNorm``,
+``RMSNormPair``, ``SSDChunk``) whose forward is the kernel (or the plain
+version on the CPU) and whose backward is the backward kernel (or its
+plain version), dispatched by device as the forward is. The serving path
+runs under ``no_grad`` and calls the forward kernels directly.
 """
 from __future__ import annotations
 
@@ -27,13 +27,14 @@ from . import paged_decode_attention as PDA
 from . import paged_ragged_attention as PRA
 from . import rmsnorm as RMS
 from . import rmsnorm_bwd as RMSB
+from . import ssd_chunk_bwd as SSDB
 from . import ssd_scan as SSD
 
 # every kernel's module, by the name its launch counter is reported under
 KERNELS = {"paged_ragged_attention": PRA, "flash_attention": FA,
            "decode_attention": DA, "paged_decode_attention": PDA,
            "rmsnorm": RMS, "ssd_chunk": SSD, "flash_attention_bwd": FAB,
-           "rmsnorm_bwd": RMSB}
+           "rmsnorm_bwd": RMSB, "ssd_chunk_bwd": SSDB}
 
 
 def launch_counts() -> dict:
@@ -199,11 +200,52 @@ def rmsnorm_pair(q, q_scale, k, k_scale, eps=1e-6):
     return fn(q, q_scale, k, k_scale, eps)
 
 
+class SSDChunk(torch.autograd.Function):
+    """The SSD intra-chunk step with its gradient. b and c are the one
+    group every head shares, [B, S, ds]; the forward kernel reads them
+    with a head stride of 0, and the backward returns their gradients in
+    that shape, summed over the heads. The forward saves its inputs, not
+    the [L, L] products: the backward forms them again."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, cum, chunk):
+        fn = SSD.ssd_chunk_cuda if _on_cuda(x) else SSD.ssd_chunk_plain
+        ctx.save_for_backward(x, b, c, dt, cum)
+        ctx.chunk = chunk
+        return fn(x, *_per_head(x, b, c), dt, cum, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dst, ddec):
+        x, b, c, dt, cum = ctx.saved_tensors
+        fn = (SSDB.ssd_chunk_bwd_cuda if _on_cuda(x)
+              else SSDB.ssd_chunk_bwd_plain)
+        dx, db, dc, ddt, dcum = fn(x, b, c, dt, cum, dy, dst, ddec, ctx.chunk)
+        return (dx.to(x.dtype), db.to(b.dtype), dc.to(c.dtype), ddt, dcum,
+                None)
+
+
+def _per_head(x, b, c):
+    """b and c of one group [B, S, ds] seen as [B, S, H, ds] with a head
+    stride of 0 (no copy)."""
+    B, S, H, _ = x.shape
+    return (b[:, :, None].expand(B, S, H, b.shape[-1]),
+            c[:, :, None].expand(B, S, H, c.shape[-1]))
+
+
 def ssd_chunk(x, b, c, dt, cum, chunk):
-    """The SSD intra-chunk step: x [B, S, H, hd] and b/c [B, S, H, ds] read
-    in place (b and c may share one group across heads with a head stride
-    of 0), dt/cum [B, S, H] fp32 with ``cum`` the within-chunk cumulative
-    log decay, S a multiple of ``chunk``. Returns fp32 ``(y_intra [B, S, H,
-    hd], state contribution [B, S/chunk, H, hd, ds], exp(cum) [B, S, H])``."""
+    """The SSD intra-chunk step: x [B, S, H, hd] and b/c read in place,
+    either one group [B, S, ds] that every head shares or [B, S, H, ds]
+    (a head stride of 0 shares one group), dt/cum [B, S, H] fp32 with
+    ``cum`` the within-chunk cumulative log decay, S a multiple of
+    ``chunk``. Returns fp32 ``(y_intra [B, S, H, hd], state contribution
+    [B, S/chunk, H, hd, ds], exp(cum) [B, S, H])``. While autograd records
+    (one group only), ``SSDChunk`` carries the gradient."""
+    if recording(x, b, c, dt, cum):
+        if b.dim() != 3:
+            raise ValueError("the differentiable SSD chunk takes b and c as "
+                             f"one group [B, S, ds], got {tuple(b.shape)}")
+        return SSDChunk.apply(x, b, c, dt, cum, chunk)
+    if b.dim() == 3:
+        b, c = _per_head(x, b, c)
     fn = SSD.ssd_chunk_cuda if _on_cuda(x) else SSD.ssd_chunk_plain
     return fn(x, b, c, dt, cum, chunk)

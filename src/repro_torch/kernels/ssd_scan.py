@@ -42,17 +42,19 @@ SMEM_LIMIT = 232448      # bytes of shared memory a block can use on Hopper
 
 def ssd_chunk_plain(x, b, c, dt, cum, chunk):
     """Plain PyTorch version: the TPU kernel's arithmetic per chunk and
-    head, vectorised over rows, chunks and heads. The upper triangle is
-    ``exp(-1e30) = 0``, as in the TPU kernel."""
+    head, vectorised over rows, chunks and heads, in fp32 (fp64 for fp64
+    inputs, which the backward's tests differentiate). The upper triangle
+    is ``exp(-1e30) = 0``, as in the TPU kernel."""
     B, S, H, hd = x.shape
     ds = b.shape[-1]
     L = chunk
     nc = S // L
-    xf = x.float().reshape(B, nc, L, H, hd)
-    bf = b.float().reshape(B, nc, L, H, ds)
-    cf = c.float().reshape(B, nc, L, H, ds)
-    dtf = dt.float().reshape(B, nc, L, H)
-    cumf = cum.float().reshape(B, nc, L, H)
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(f).reshape(B, nc, L, H, hd)
+    bf = b.to(f).reshape(B, nc, L, H, ds)
+    cf = c.to(f).reshape(B, nc, L, H, ds)
+    dtf = dt.to(f).reshape(B, nc, L, H)
+    cumf = cum.to(f).reshape(B, nc, L, H)
     cb = torch.einsum("bctHn,bcsHn->bcHts", cf, bf)
     decay = (cumf[:, :, :, None, :] - cumf[:, :, None, :, :]) \
         .permute(0, 1, 4, 2, 3)

@@ -9,6 +9,14 @@ On the card (the default device)::
 and on the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --device cpu --steps 4
+
+``--arch`` takes every config that trains (``transformer.check_trainable``):
+the dense GQA stacks, the MoE stacks, deepseek-v3-671b (MLA, MoE and the
+MTP head) and mamba2-1.3b (SSD, the tied table).
 
 It trains the config's reduced size in fp32, as the reference's does
 (its ``--reduced`` is always on). A checkpoint (global

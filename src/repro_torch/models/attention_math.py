@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.parallel.collectives import pmax_if, psum_if
+from repro_torch.parallel.collectives import (pmax_if, pmax_sg, psum_if,
+                                              recording)
 
 NEG_INF = -1e30
 
@@ -102,10 +103,15 @@ def attend_partial(q, k, v, q_pos, kv_pos, kv_len=None, *, window: int = 0,
 def merge_partials(acc, l, m, group):
     """The LSE merge of ``attend_partial`` results over ``group`` (one
     max, two sums), normalised: [B, Hkv, g, Sq, Dv] in fp32. Without a
-    group, the local result normalised."""
+    group, the local result normalised. Differentiable while autograd
+    records: the sums are ``psum``s (transposed to ``psum``), the max
+    carries no gradient."""
     if group is None:
         return acc / l.clamp(min=1e-30)[..., None]
-    m_glob = pmax_if(m.clone(), group)       # stabiliser; cancels out
+    # the stabiliser cancels out; while autograd records it is the
+    # reference's ``pmax_sg`` (no gradient), else one in-place max
+    m_glob = (pmax_sg(m, group) if recording(m)
+              else pmax_if(m.clone(), group))
     corr = torch.exp(m - m_glob)
     l_glob = psum_if(l * corr, group)
     acc_glob = psum_if(acc * corr[..., None], group)

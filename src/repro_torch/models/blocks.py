@@ -212,9 +212,16 @@ def block_train(p, x, pos, cfg):
     chunk's global positions. Returns (x, aux): an ``attn`` layer's FFN is
     the dense MLP and its aux 0.0; a ``moe`` layer's is ``moe_apply`` with
     ``train=True`` (the routed and the shared experts) and its aux the
-    load-balance loss. GQA attention alone trains
-    (``transformer.check_trainable``)."""
-    x = x + A.attn_train(p.attn, p.ln1(x), pos, cfg)
+    load-balance loss; a config with ``mla`` attends through MLA
+    (``mla_train``), else through GQA attention; an ``ssd`` layer is the
+    mixer alone (``ssd_train``; no ln2, no FFN) and its aux 0.0.
+    ``transformer.check_trainable`` names the kinds that do not train."""
+    if p.kind == "ssd":
+        return x + S.ssd_train(p.mix, p.ln1(x), cfg), 0.0
+    if cfg.mla is not None:
+        x = x + M.mla_train(p.attn, p.ln1(x), cfg)
+    else:
+        x = x + A.attn_train(p.attn, p.ln1(x), pos, cfg)
     if p.kind == "moe":
         f, aux = MOE.moe_apply(p.ffn, p.ln2(x), train=True)
         return x + f, aux

@@ -28,6 +28,9 @@ Pallas kernel). The latent and q norms are RMSNorm, the kernel on the
 card. Masked scores are the finite ``NEG_INF``, so a rank whose chunk
 holds no live position adds exactly zero to the merge.
 
+Training (``mla_train``) runs the same attention with no cache: the base
+config gathers the latent over SP, the shift branch merges partials.
+
 The cache writes are in place (a CUDA graph keeps the cache's address):
 the reference writes every row of a prefill chunk at the positions of the
 step's first row (``offsets[0]``, hence the engine's uniform offset rule
@@ -101,6 +104,31 @@ def mla_layout(name: str, t, cfg, lay: Layout, rank: int):
     w = t.reshape(r, h, c)
     w = torch.cat([w, w.new_zeros((r, hp - h, c))], dim=1)
     return shard_of(w.reshape(r, hp * c), 1, n, k)
+
+
+def mla_unlayout(name: str, parts, cfg, lay: Layout):
+    """The inverse of ``mla_layout``: the trivial layout's leaf ``name``
+    from ``parts``, one per index over ``mla_tp_axes`` (the grid's tp) in
+    that order, or one per model rank in model-rank order (``g = j*sp +
+    i``: the first of each tp index is taken; the sp ranks of one tp index
+    hold the same part). A per-head leaf's parts are put side by side and
+    its pad heads dropped; a whole leaf is the first part. Bitwise:
+    ``mla_layout`` of the result gives each part back."""
+    n = _tp_deg(lay)
+    if len(parts) != n:
+        if len(parts) != max(lay.G, 1):
+            raise ValueError(f"{name}: {len(parts)} shards, want one per tp "
+                             f"rank of the grid ({n}) or per model rank "
+                             f"({lay.G})")
+        parts = [parts[j * lay.grid[0]] for j in range(n)]
+    if name not in _PER_HEAD:
+        return parts[0]
+    h, c = cfg.num_heads, _head_width(name, cfg)
+    if name == "wo":
+        w = torch.cat(list(parts), 0).reshape(-1, c * cfg.d_model)
+        return w[:h].reshape(h * c, cfg.d_model)
+    w = torch.cat(list(parts), 1)
+    return w.reshape(w.shape[0], -1, c)[:, :h].reshape(w.shape[0], h * c)
 
 
 class MLA(nn.Module):
@@ -255,6 +283,35 @@ def mla_prefill(p: MLA, x, cache, offsets, cfg):
         k, v = _kv_from_latent(p, cache, cfg)
         acc, l, m = attend_partial(q, k, v, pos, _local_kv_pos(p, cache),
                                    kv_len=offsets + S_loc)
+        out = merge_partials(acc, l, m, p.csp_group).permute(0, 3, 1, 2, 4) \
+            .reshape(B, S_loc, -1, cfg.mla.v_head_dim)
+    return _finish(p, out, x)
+
+
+def mla_train(p: MLA, x, cfg):
+    """Training's forward of one layer (the reference's ``mla_prefill``
+    with no cache, at zero offsets): nothing is written. x: [B, S_loc, d],
+    this sp rank's columns. With sp > 1 the latent of the rank's columns is
+    all-gathered over SP (differentiable: its backward is the
+    reduce-scatter) and the rank's queries attend the whole sequence's;
+    otherwise the rank attends its own columns and the partial results are
+    merged over the cache's sequence axes (``merge_partials``: a ``psum``
+    transposed to a ``psum``, a stabiliser with no gradient), as the
+    reference's shift branch does. Returns [B, S_loc, d]."""
+    sh = p.shard
+    B, S_loc, _ = x.shape
+    ar = torch.arange(S_loc, device=x.device)
+    pos = (sh.sp_rank * S_loc + ar)[None].expand(B, S_loc)
+    lat = _latent(p, x, cfg, pos)
+    q = _queries(p, x, cfg, pos)
+    if sh.lay.sp > 1:
+        lat_full = all_gather_axis(lat, sh.sp_group, 1)
+        k, v = _kv_from_latent(p, lat_full, cfg)
+        kv_pos = torch.arange(lat_full.shape[1], device=x.device)
+        out = attend(q, k, v, pos, kv_pos)
+    else:
+        k, v = _kv_from_latent(p, lat, cfg)
+        acc, l, m = attend_partial(q, k, v, pos, pos[0])
         out = merge_partials(acc, l, m, p.csp_group).permute(0, 3, 1, 2, 4) \
             .reshape(B, S_loc, -1, cfg.mla.v_head_dim)
     return _finish(p, out, x)

@@ -171,10 +171,11 @@ class Model:
         """The training loss (counterpart of ``loss_fn``): a function of
         the global batch ``(tokens, labels)`` [B, S] (the same on every
         rank) that returns the mean nll, a 0-d fp32 tensor equal on every
-        rank, with the MoE layers' aux loss added as the reference adds it.
-        Differentiable in the parameters inside ``trainable()``; its
-        gradients are this rank's, the reference's per-device ones. GQA
-        stacks with dense or MoE FFNs train
+        rank, with the MoE layers' aux loss and DeepSeek-V3's MTP term
+        added as the reference adds them. Differentiable in the parameters
+        inside ``trainable()``; its gradients are this rank's, the
+        reference's per-device ones. GQA and MLA stacks with dense or MoE
+        FFNs (and the MTP head) and SSD stacks train
         (``transformer.check_trainable`` raises for the rest)."""
         T.check_trainable(self.cfg)
 

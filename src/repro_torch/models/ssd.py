@@ -22,7 +22,9 @@ chunk's state contribution; exp of the cumulative decay) is the SSD chunk
 kernel (``kernels.ops.ssd_chunk``); the inter-chunk recurrence stays a loop
 over chunks in fp32 here. Decode is plain PyTorch, as the reference's is
 plain jnp. The recurrent state lives in the dense cache and is updated in
-place.
+place. Training (``ssd_train``) starts from a zero state and writes nothing
+in place; its intra-chunk step is differentiable (``ops.SSDChunk``, whose
+backward is the chunk's backward kernel on the card).
 """
 from __future__ import annotations
 
@@ -208,12 +210,13 @@ def _project_exchange(p: SSD, x, cfg):
     return z, xin, bc[:, :, 0], dt[..., 0]
 
 
-def _ssd_scan(xin, b, c, dt, A, h, chunk):
+def _ssd_chunks(xin, b, c, dt, A, h, chunk):
     """Chunked SSD. xin: [B, S, H, hd]; b, c: [B, S, ds] (one group); dt:
     [B, S, H] fp32 (post-softplus); A: [H] (> 0); h: [B, H, hd, ds] fp32,
-    the state before the segment, overwritten with the state after it.
-    Returns y [B, S, H, hd] in fp32. S is a multiple of ``chunk``, or below
-    it (one chunk of length S)."""
+    the state before the segment. Returns (y [B, S, H, hd] in fp32, the
+    state after the segment); nothing is written in place, so autograd
+    can record it. S is a multiple of ``chunk``, or below it (one chunk of
+    length S)."""
     B, S, H, hd = xin.shape
     ds = b.shape[-1]
     assert S % chunk == 0 or S < chunk, (S, chunk)
@@ -222,24 +225,29 @@ def _ssd_scan(xin, b, c, dt, A, h, chunk):
     nc = S // chunk
     la = -dt * A                                       # log decay per step
     cum = la.reshape(B, nc, chunk, H).cumsum(2).reshape(B, S, H)
-    # b and c are shared by every head: a head stride of 0, no copy
-    y_in, st, dec = K.ssd_chunk(xin, b[:, :, None].expand(B, S, H, ds),
-                                c[:, :, None].expand(B, S, H, ds), dt, cum,
-                                chunk)
-    cf = c.float().reshape(B, nc, chunk, ds)
+    # b and c are the one group every head shares
+    y_in, st, dec = K.ssd_chunk(xin, b, c, dt, cum, chunk)
+    # the state before each chunk, the recurrence's elementwise steps in
+    # chunk order; then every chunk's cross-chunk term at once:
+    # y_t += (c_t . h) exp(cum_t)
     dec = dec.reshape(B, nc, chunk, H)
-    y_in = y_in.reshape(B, nc, chunk, H, hd)
-    hc = h
-    ys = []
-    for i in range(nc):
-        # cross-chunk: y_t += (c_t . h) exp(cum_t); then the state update
-        y_cr = torch.einsum("btd,bhpd->bthp", cf[:, i], hc) \
-            * dec[:, i, :, :, None]
-        ys.append(y_in[:, i] + y_cr)
-        hc = hc * dec[:, i, -1][:, :, None, None] + st[:, i]
+    last = dec[:, :, -1][..., None, None].unbind(1)
+    hs, hc = [], h
+    for i, st_i in enumerate(st.unbind(1)):
+        hs.append(hc)
+        hc = hc * last[i] + st_i
+    y_cr = torch.einsum("bctd,bchpd->bcthp", c.float().reshape(
+        B, nc, chunk, ds), torch.stack(hs, 1)) * dec[..., None]
+    return (y_in.reshape(B, nc, chunk, H, hd) + y_cr).reshape(B, S, H, hd), hc
+
+
+def _ssd_scan(xin, b, c, dt, A, h, chunk):
+    """``_ssd_chunks`` for serving: h, the state before the segment, is
+    overwritten with the state after it. Returns y [B, S, H, hd] in
+    fp32."""
+    y, hc = _ssd_chunks(xin, b, c, dt, A, h, chunk)
     h.copy_(hc)
-    return ys[0].reshape(B, S, H, hd) if nc == 1 \
-        else torch.stack(ys, 1).reshape(B, S, H, hd)
+    return y
 
 
 def _gate_norm(p: SSD, y, xin, z, dtype):
@@ -283,6 +291,31 @@ def ssd_prefill(p: SSD, x, state: SSDState, cfg):
     state.conv_x.copy_(conv_state[..., :H * hd])
     state.conv_bc.copy_(conv_state[..., H * hd:])
     return out
+
+
+def ssd_train(p: SSD, x, cfg):
+    """Training's forward of one mixer (the reference's ``ssd_prefill``
+    with no state): ``ssd_prefill``'s arithmetic from a zero state, the
+    conv with no tail, nothing written in place. The intra-chunk step is
+    ``ops.SSDChunk`` (the chunk kernel and its backward kernel on the
+    card); the inter-chunk recurrence stays plain PyTorch, as in the
+    reference. x: [B, S_loc, d] -> out [B, S_loc, d]."""
+    s = cfg.ssm
+    ds = s.d_state
+    z, xin, bc, dt = _project_exchange(p, x, cfg)
+    B, S, H, hd = xin.shape
+    xc = torch.cat([xin.reshape(B, S, H * hd), bc], dim=-1)
+    cw = torch.cat([p.conv_x, p.conv_bc], dim=-1)
+    xc, _ = causal_depthwise_conv(xc, cw, xc.new_zeros(
+        (B, s.d_conv - 1, xc.shape[-1])))
+    xc = F.silu(xc)
+    xin = xc[..., :H * hd].reshape(B, S, H, hd)
+    b_, c_ = xc[..., H * hd:H * hd + ds], xc[..., H * hd + ds:]
+    A = torch.exp(p.A_log)
+    dtv = F.softplus(dt.float() + p.dt_bias)
+    h0 = torch.zeros((B, H, hd, ds), dtype=torch.float32, device=x.device)
+    y, _ = _ssd_chunks(xin, b_, c_, dtv, A, h0, s.chunk)
+    return _gather_out(p, _gate_norm(p, y, xin, z, x.dtype))
 
 
 def ssd_decode(p: SSD, x, state: SSDState, cfg):

@@ -22,9 +22,9 @@ from repro_torch.parallel.collectives import all_gather_if, psum_if
 from . import blocks as BK
 from .attention import cache_init
 from .mla import mla_cache_shape
-from .layers import (Embedding, LMHead, distributed_argmax,
-                     distributed_xent, embed_apply, lmhead_apply, make_norm,
-                     tied_lmhead_apply)
+from .layers import (Embedding, LMHead, dense_init, distributed_argmax,
+                     distributed_xent, embed_apply, empty_param,
+                     lmhead_apply, make_norm, tied_lmhead_apply)
 from .recurrent import RGLRUState, rglru_state_shapes
 from .ssd import SSDState, ssd_state_shapes
 
@@ -43,8 +43,10 @@ class Transformer(nn.Module):
     ``layers.{i}.{ln1,attn,lnx,cross,ln2,ffn}.*`` for a decoder layer,
     with the reference's leaf names; an encoder-decoder config also has
     ``encoder.{e}.{ln1,attn,ln2,ffn}.*`` and ``enc_norm.*``. A LayerNorm
-    has ``scale`` and ``bias``, a plain GELU MLP no ``wg``. Each holds this
-    rank's shard (``shard``; the whole tensors on the trivial layout)."""
+    has ``scale`` and ``bias``, a plain GELU MLP no ``wg``. A config with
+    ``mtp_depth`` also has ``mtp.{proj,block,norm}.*`` (``MTP``), which
+    serving never reads. Each holds this rank's shard (``shard``; the
+    whole tensors on the trivial layout)."""
 
     def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard = None):
         super().__init__()
@@ -63,6 +65,28 @@ class Transformer(nn.Module):
                 BK.EncBlock(cfg, lay, dtype, device, shard)
                 for _ in range(cfg.encoder_layers))
             self.enc_norm = make_norm(cfg, dtype, device)
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, lay, dtype, device, shard)
+
+
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token prediction head (the reference's
+    ``params["mtp"]``): ``proj`` [2d, d] (replicated, ``P(None, None)``),
+    ``block``, an ``attn`` block of the config (MLA with the dense MLP for
+    deepseek) and ``norm``. Training alone reads it (``loss_body``)."""
+
+    def __init__(self, cfg, lay: Layout, dtype, device, shard: Shard):
+        super().__init__()
+        self.proj = empty_param((2 * cfg.d_model, cfg.d_model), dtype,
+                                device)
+        self.block = BK.Block(cfg, lay, dtype, device, shard)
+        self.norm = make_norm(cfg, dtype, device)
+
+    def reset_parameters(self, generator):
+        self.proj.copy_(dense_init(tuple(self.proj.shape), generator,
+                                   torch.float32).to(self.proj.dtype))
+        self.block.reset_parameters(generator)
+        self.norm.reset_parameters()
 
 
 def _logits(params: Transformer, x):
@@ -78,7 +102,9 @@ def _logits(params: Transformer, x):
 def init_params(params: Transformer, generator: torch.Generator):
     """Random init in place, on the generator's device, with the
     reference's scales (1/sqrt(fan_in) for matrices, 0.02 for the embedding
-    and biases, ones for norm scales). The numbers differ from JAX's."""
+    and biases, ones for norm scales). The numbers differ from JAX's. The
+    MTP head is drawn last, so that a seed's serving weights do not depend
+    on it."""
     params.embed.reset_parameters(generator)
     params.final_norm.reset_parameters()
     if hasattr(params, "lm_head"):
@@ -89,6 +115,8 @@ def init_params(params: Transformer, generator: torch.Generator):
         for layer in params.encoder:
             layer.reset_parameters(generator)
         params.enc_norm.reset_parameters()
+    if hasattr(params, "mtp"):
+        params.mtp.reset_parameters(generator)
 
 
 @dataclass
@@ -409,14 +437,11 @@ def greedy_body(logits, shard: Shard):
 def check_trainable(cfg):
     """Raise ``NotImplementedError`` for a config whose training is not
     ported, naming the sub-item of ROADMAP Queue 1 item 4 that ports it:
-    GQA attention stacks train, with the dense FFN or MoE layers (no MLA,
-    no MTP head, no frontend, no encoder)."""
+    GQA or MLA attention stacks train, with the dense FFN or MoE layers and
+    DeepSeek-V3's MTP head, and so do SSD stacks (no RG-LRU, no local or
+    soft-capped attention, no frontend, no encoder)."""
     kinds = set(cfg.layer_kinds)
-    if cfg.mla is not None or cfg.mtp_depth:
-        why, item = "MLA and the mtp head", "4.2"
-    elif "ssd" in kinds:
-        why, item = "mamba2's SSD with its chunk backward kernel", "4.3"
-    elif kinds & {"rglru", "local"} or cfg.logits_soft_cap:
+    if kinds & {"rglru", "local"} or cfg.logits_soft_cap:
         why, item = "the RG-LRU and local or soft-capped attention", "4.4"
     elif cfg.encoder_layers or cfg.frontend != "none" \
             or kinds & {"enc", "dec"}:
@@ -428,26 +453,49 @@ def check_trainable(cfg):
         f"{item}; item 4 lists the training slices left)")
 
 
+def _train_layer(remat, fn, *args):
+    """``fn(*args)``, recomputed in the backward with ``remat``
+    (``torch.utils.checkpoint`` without reentrancy)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _xent_sum(params: Transformer, x, labels, group):
+    """The final norm, the head and the cross-entropy over the TP vocab
+    shards of ``x`` [B, S_loc, d] against ``labels`` (< 0 not counted):
+    (the nll sum, the count), each summed over ``group``."""
+    nll = distributed_xent(_logits(params, x), labels, params.shard)
+    valid = (labels >= 0).float()
+    return psum_if((nll * valid).sum(), group), psum_if(valid.sum(), group)
+
+
 def loss_body(params: Transformer, tokens, labels, cfg, remat: bool = True):
     """Training loss (the reference's ``loss_body``): the mean next-token
-    nll over the global batch plus the MoE layers' aux loss. tokens/labels:
-    [B_loc, S_loc], this rank's rows and columns (labels < 0 are not
-    counted). Embedding, every layer (``blocks.block_train``; with
-    ``remat`` each layer is recomputed in the backward,
-    ``torch.utils.checkpoint`` without reentrancy, as the reference's
-    ``jax.checkpoint`` per superblock; a MoE layer's recompute routes as
-    its forward did, the sort being stable), the final norm, the LM head
-    and the cross-entropy over the TP vocab shards; the loss sum and the
-    token count are summed over (dp, sp). The layers' aux losses are summed
-    in layer order (the reference's prefix, body and suffix), then summed
-    over (dp, sp) and divided by dp·sp; a stack without MoE layers adds
-    none. Returns the loss, a 0-d fp32 tensor, the same on every rank (a
-    MoE stack's: on the ranks of one tp index, once the tp ranks' copies of
-    a router have drifted apart, as the reference's devices' do); its
-    gradients are the reference's per-device gradients (``psum``
-    transposes to ``psum``: ROADMAP Queue 3). Its callers,
-    ``Model.loss_fn`` and the ``Trainer``, refuse a config that does not
-    train (``check_trainable``)."""
+    nll over the global batch, DeepSeek-V3's MTP term and the MoE layers'
+    aux loss. tokens/labels: [B_loc, S_loc], this rank's rows and columns
+    (labels < 0 are not counted). Embedding, every layer
+    (``blocks.block_train``; with ``remat`` each layer is recomputed in the
+    backward, ``torch.utils.checkpoint`` without reentrancy, as the
+    reference's ``jax.checkpoint`` per superblock; a MoE layer's recompute
+    routes as its forward did, the sort being stable), the final norm, the
+    LM head (the tied table when there is none) and the cross-entropy over
+    the TP vocab shards; the loss sum and the token count are summed over
+    (dp, sp). A config with an MTP head adds 0.3 times its mean nll: the
+    head's ``proj`` of ``[norm(x), embed(max(labels, 0))]`` (x the last
+    layer's output before the final norm), its ``attn`` block, the final
+    norm and the head, against the labels shifted one to the left within
+    the rank's segment with -1 appended (so each sp rank's last column is
+    not counted, as the reference's local shift does), its sum and count
+    summed over (dp, sp). The layers' aux losses are summed in layer order
+    (the reference's prefix, body and suffix), then summed over (dp, sp)
+    and divided by dp·sp; a stack without MoE layers adds none. Returns the
+    loss, a 0-d fp32 tensor, the same on every rank (a MoE stack's: on the
+    ranks of one tp index, once the tp ranks' copies of a router have
+    drifted apart, as the reference's devices' do); its gradients are the
+    reference's per-device gradients (``psum`` transposes to ``psum``:
+    ROADMAP Queue 3). Its callers, ``Model.loss_fn`` and the ``Trainer``,
+    refuse a config that does not train (``check_trainable``)."""
     sh = params.shard
     B, S_loc = tokens.shape
     x = embed_apply(params.embed, tokens)
@@ -456,18 +504,19 @@ def loss_body(params: Transformer, tokens, labels, cfg, remat: bool = True):
                              S_loc * sh.lay.sp)
     aux = 0.0
     for layer in params.layers:
-        if remat:
-            x, a = checkpoint(BK.block_train, layer, x, pos, cfg,
-                              use_reentrant=False)
-        else:
-            x, a = BK.block_train(layer, x, pos, cfg)
+        x, a = _train_layer(remat, BK.block_train, layer, x, pos, cfg)
         aux = aux + a
-    nll = distributed_xent(_logits(params, x), labels, sh)
-    valid = (labels >= 0).float()
     group = sh.axes_group(("data", "sp") if sh.lay.sp > 1 else ("data",))
-    loss_sum = psum_if((nll * valid).sum(), group)
-    count = psum_if(valid.sum(), group)
+    loss_sum, count = _xent_sum(params, x, labels, group)
     loss = loss_sum / count.clamp(min=1.0)
+    if cfg.mtp_depth and hasattr(params, "mtp"):
+        mp = params.mtp
+        emb_next = embed_apply(params.embed, labels.clamp(min=0))
+        hin = torch.cat([mp.norm(x), emb_next], dim=-1) @ mp.proj
+        hm, _ = _train_layer(remat, BK.block_train, mp.block, hin, pos, cfg)
+        lab2 = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], 1)
+        l2, c2 = _xent_sum(params, hm, lab2, group)
+        loss = loss + 0.3 * l2 / c2.clamp(min=1.0)
     if isinstance(aux, torch.Tensor):
         loss = loss + psum_if(aux, group) / (sh.lay.dp * sh.lay.sp)
     return loss

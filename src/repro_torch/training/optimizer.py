@@ -46,6 +46,15 @@ class AdamWConfig:
 # ---------------------------------------------------------------------------
 _TP_DIMS = {"wq": (1,), "wk": (1,), "wv": (1,), "wi": (1,), "wg": (1,),
             "wo": (0,), "bq": (0,), "bk": (0,), "bv": (0,)}
+# MLA (``mla_specs``): the up projections' columns and wo's rows over
+# ``mla_tp_axes``; wq_a, wkv_a and the two norms whole
+_MLA_DIMS = {"wq_b": (1,), "wk_b": (1,), "wv_b": (1,), "wo": (0,)}
+# the SSD mixer (``ssd_specs``): the projections' columns (wbc's too) and
+# wo's rows over tp, the per-head leaves over the model group
+# (``head_spec_entry``), conv_bc whole
+_SSD_DIMS = {"wz": (1,), "wx": (1,), "wbc": (1,), "wdt": (1,), "wo": (0,),
+             "dt_bias": (0,), "A_log": (0,), "D": (0,), "norm": (0,),
+             "conv_x": (1,)}
 
 
 def tp_dims(name: str, cfg, lay) -> tuple:
@@ -55,8 +64,11 @@ def tp_dims(name: str, cfg, lay) -> tuple:
     the shared experts' column-sharded q/k/v, ``wi``, ``wg`` (and biases)
     and row-sharded ``wo``; of a MoE layer's expert stack [E_loc, ., .]
     the experts' dim over the EP axes and the FF dim over the TP axes
-    outside them, where those are not empty (``P(ep, None, tpr)``); none
-    for the router and the norms' scales."""
+    outside them, where those are not empty (``P(ep, None, tpr)``); an MLA
+    layer's up projections and O over ``mla_tp_axes`` (the MTP head's
+    block as a layer's); an SSD mixer's projections over tp and its
+    per-head leaves over the model group; none for the router, the MTP
+    head's proj, conv_bc and the norms' scales."""
     if is_expert_leaf(name, cfg):
         ep_axes = expert_axes(cfg, lay)
         ff = 1 if name.endswith(".wo") else 2
@@ -66,8 +78,12 @@ def tp_dims(name: str, cfg, lay) -> tuple:
     if name in ("embed.table", "lm_head.w"):
         return (0,)
     parts = name.split(".")
+    if parts[-2] == "attn" and cfg.mla is not None:
+        return _MLA_DIMS.get(parts[-1], ())
     if parts[-2] in ("attn", "ffn", "shared"):
         return _TP_DIMS.get(parts[-1], ())
+    if parts[-2] == "mix" and cfg.layer_kinds[int(parts[1])] == "ssd":
+        return _SSD_DIMS.get(parts[-1], ())
     return ()
 
 

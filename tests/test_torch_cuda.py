@@ -1874,6 +1874,83 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     assert (FAB.launches, RB.launches) == before
 
 
+SSD_BWD_SHAPES = [(2, 2048, 64, 64, 128, 64), (2, 2048, 16, 64, 128, 64),
+                  (2, 40, 64, 64, 128, 40), (8, 16, 8, 16, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,ds,L", SSD_BWD_SHAPES,
+                         ids=["microbatch", "per-rank", "short", "reduced"])
+def test_cuda_ssd_chunk_bwd_matches_plain(cuda, dtype, B, S, H, hd, ds, L):
+    """The SSD chunk backward (``csrc/ssd_chunk_bwd.cu``) against its plain
+    version on the forward's inputs as the model hands them over (x, b, c
+    views of one conv output): mamba2-1.3b's training microbatch, its
+    per-rank heads on (1, 2, 2), one chunk shorter than L, the reduced
+    config; each gradient by ``_grad_close`` (2e-2 bf16, 1e-4 fp32), two
+    runs bitwise equal, two launches a call."""
+    from repro_torch.kernels import ssd_chunk_bwd as SB
+    if dtype == torch.bfloat16 and hd < 64:
+        pytest.skip("the reduced config trains in fp32")
+    gen = torch.Generator(device="cuda").manual_seed(S + H)
+    xc = torch.randn((B, S, H * hd + 2 * ds), generator=gen,
+                     device="cuda").to(dtype)
+    x = xc[..., :H * hd].reshape(B, S, H, hd)
+    b, c = xc[..., H * hd:H * hd + ds], xc[..., H * hd + ds:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = torch.exp(torch.randn((H,), generator=gen, device="cuda") * 0.5)
+    cum = (-dt * A).reshape(B, S // L, L, H).cumsum(2).reshape(B, S, H)
+    dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    dst = torch.randn((B, S // L, H, hd, ds), generator=gen, device="cuda")
+    ddec = torch.randn((B, S, H), generator=gen, device="cuda")
+    args = (x, b, c, dt, cum, dy, dst, ddec, L)
+    before = SB.launches
+    got = SB.ssd_chunk_bwd_cuda(*args)
+    again = SB.ssd_chunk_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert SB.launches == before + 2 * SB.LAUNCHES_PER_CALL
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, SB.ssd_chunk_bwd_plain(*args)):
+        _grad_close(g, w, tol)
+
+
+def test_ssd_chunk_bwd_wrapper_refuses_what_the_kernel_does_not_take():
+    """The SSD chunk backward's wrapper refuses, naming the limit, a chunk
+    over 64 positions, a head or state dim that is not a multiple of 4, a
+    head dim over 64 or a state dim over 128 (the CTA's register tiles),
+    per-head b and c, a dS_c of the wrong shape and CPU tensors, before any
+    launch (so this runs without a card too)."""
+    from repro_torch.kernels import ssd_chunk_bwd as SB
+
+    def args(B=1, S=8, H=2, hd=8, ds=8, L=8, bdim=3, nc=None):
+        x = torch.zeros((B, S, H, hd))
+        b = torch.zeros((B, S, ds) if bdim == 3 else (B, S, H, ds))
+        f = torch.zeros((B, S, H))
+        dst = torch.zeros((B, nc or S // L, H, hd, ds))
+        return (x, b, b, f, f, x, dst, f, L)
+    before = SB.launches
+    for kw, match in (({"S": 128, "L": 128}, "chunk 128"),
+                      ({"hd": 6}, "multiples of 4"),
+                      ({"ds": 6}, "multiples of 4"),
+                      ({"ds": 132}, "ds <= 128"),
+                      ({"hd": 68}, "hd <= 64"),
+                      ({"bdim": 4}, r"b, c \[B,S,ds\]"),
+                      ({"nc": 2}, "dst must be float32"),
+                      ({}, "must lie on")):
+        with pytest.raises(ValueError, match=match):
+            SB.ssd_chunk_bwd_cuda(*args(**kw))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        a = list(args())
+        a[0] = a[0].double()
+        SB.ssd_chunk_bwd_cuda(*a)
+    # mamba2-1.3b's shapes pass the shape checks (then meet the CPU check)
+    with pytest.raises(ValueError, match="must lie on"):
+        SB.ssd_chunk_bwd_cuda(*args(B=1, S=64, H=2, hd=64, ds=128, L=64))
+    assert SB.launches == before
+
+
 def test_backward_designs_by_type_and_shape():
     """The flash backward's kernels are chosen by type and shape alone
     (``design``): bf16 at D 64 and 128 with any group up to 64 takes the

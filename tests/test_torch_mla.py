@@ -18,7 +18,7 @@ reference in fp32.
   (the reference's) holds the later row back a step.
 * The converter: the prefix, the stacked body (each kind of the pattern
   its own ``s{k}``) and the suffix land on the layers of
-  ``cfg.layer_kinds`` in order; ``mtp`` is skipped; an unknown leaf, a
+  ``cfg.layer_kinds`` in order; ``mtp.*`` keeps its names; an unknown leaf, a
   missing one or a stack of another depth raises.
 
 Six test functions, as ``tests/test_torch_pod_ep.py`` explains.
@@ -169,13 +169,16 @@ def test_dense_engine_matches_reference(refs, arch, kw, stagger):
 def test_converter_maps_stacks_and_refuses_unknown_leaves(refs):
     """deepseek: prefix.0 -> layers.0, body.s0[r] -> layers.1 + r;
     Maverick: body.s0 (attn) -> layers.0, body.s1 (moe) -> layers.1; a
-    suffix layer goes after the body. ``mtp`` is skipped. An unknown leaf,
+    suffix layer goes after the body. ``mtp.*`` keeps its names (the MTP
+    head trains; serving does not read it). An unknown leaf,
     a missing one or a stack of another depth raises."""
     tree = refs["deepseek-v3-671b"]["tree"]
     cfg = get_config("deepseek-v3-671b").reduced()
     assert cfg.layer_kinds == ("attn", "moe", "moe") and "mtp" in tree
     st = from_jax_params(tree, cfg)
-    assert not any(k.startswith("mtp") for k in st)
+    np.testing.assert_array_equal(st["mtp.proj"], tree["mtp"]["proj"])
+    np.testing.assert_array_equal(st["mtp.block.attn.wkv_a"],
+                                  tree["mtp"]["block"]["attn"]["wkv_a"])
     np.testing.assert_array_equal(st["layers.0.attn.wq_a"],
                                   tree["prefix"]["0"]["attn"]["wq_a"])
     np.testing.assert_array_equal(st["layers.0.ffn.wi"],

@@ -327,7 +327,15 @@ def test_reference_checkpoint_resumes(reference):
                                   "recurrentgemma-9b", "whisper-small",
                                   "internvl2-2b"])
 def test_other_stacks_raise_naming_the_roadmap(arch):
+    """The stacks whose training is not ported raise, naming ROADMAP Queue
+    1 item 4; mamba2-1.3b (item 4.3) and deepseek-v3-671b (item 4.2) train
+    now (``tests/test_torch_train_ssd*.py``, ``test_torch_train_mla*.py``)
+    and build their loss and Trainer."""
     m = Model(get_config(arch).reduced(), device="cpu", dtype=torch.float32)
+    if arch in ("mamba2-1.3b", "deepseek-v3-671b"):
+        assert callable(m.loss_fn())
+        Trainer(m)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         m.loss_fn()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

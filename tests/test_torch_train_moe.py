@@ -20,9 +20,9 @@ Per arch (one case each):
   the uncompressed ones (one rank: the reference's trivial layout has no
   axes to compress over).
 
-And ``check_trainable`` admits the three and still refuses
-deepseek-v3-671b (MLA and the mtp head, the next sub-item) and the SSD,
-RG-LRU, encoder and frontend configs; and ZeRO-1 cuts every leaf of the
+And ``check_trainable`` admits the three (and, since items 4.2 and 4.3,
+deepseek-v3-671b and mamba2-1.3b) and still refuses the RG-LRU, encoder
+and frontend configs; and ZeRO-1 cuts every leaf of the
 three on dp rows at the reference's dim (the expert stacks that a
 pod-scale EP group spreads over ``"data"`` not at all), against the
 reference's ``_zero1_dim`` on its meshes.
@@ -147,8 +147,7 @@ def test_check_trainable_admits_moe_and_refuses_the_rest():
         cfg = get_config(arch).reduced()
         T.check_trainable(cfg)
         Trainer(Model(cfg, device="cpu", dtype=torch.float32))
-    refused = {"deepseek-v3-671b": "item 4.2", "mamba2-1.3b": "item 4.3",
-               "recurrentgemma-9b": "item 4.4", "whisper-small": "item 4.5",
+    refused = {"recurrentgemma-9b": "item 4.4", "whisper-small": "item 4.5",
                "internvl2-2b": "item 4.5"}
     for arch, item in refused.items():
         m = Model(get_config(arch).reduced(), device="cpu",
@@ -157,11 +156,13 @@ def test_check_trainable_admits_moe_and_refuses_the_rest():
             m.loss_fn()
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             Trainer(m)
-    # MoE without MLA but with an mtp head is still refused
+    # MLA with the mtp head (item 4.2) and the SSD (item 4.3) train now, and
+    # so does a MoE stack of GQA attention with an mtp head
+    for arch in ("deepseek-v3-671b", "mamba2-1.3b"):
+        T.check_trainable(get_config(arch).reduced())
     cfg = dataclasses.replace(get_config("qwen-30b-a3b").reduced(),
                               mtp_depth=1)
-    with pytest.raises(NotImplementedError, match="mtp head"):
-        T.check_trainable(cfg)
+    T.check_trainable(cfg)
 
 
 def _ref_leaf(name, cfg):
